@@ -1,0 +1,223 @@
+"""KV-cache decode engine (counterpart of paddle_tpu/models/decode.py).
+
+``CachedDecoder`` stacks the model's weights per kind ([L, out, in], the
+torch.nn.Linear layout), prefills a prompt in one causal forward that
+writes every layer's K/V into [L, B, max_len, Hkv, D] caches, and then
+decodes one token per step against the caches. The caches are updated in
+place. A prompt whose length is a multiple of 128 prefills through the
+flash-attention forward kernel (kernels/flash_attention.py), as the JAX
+engine switches to its Pallas kernel there; other lengths use the plain
+causal softmax. Only greedy decoding and unquantized weights are ported.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from ..framework.device import resolve_device, torch_dtype
+from ..kernels.flash_attention import _flash_bhsd
+from ..nn.layer.norm import rms_norm as _rms
+
+__all__ = ["CachedDecoder"]
+
+NEG_INF = -1e30
+_MATS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+class CachedDecoder:
+    """Serving engine over a LlamaForCausalLM, on ``device`` (default
+    ``cuda``; raises without a card unless ``device="cpu"``)."""
+
+    def __init__(self, model, max_len=None, weight_quant=None, device=None):
+        if weight_quant is not None:
+            raise NotImplementedError(
+                f"weight_quant={weight_quant!r} is not ported yet")
+        cfg = model.config
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = torch_dtype(cfg.dtype)
+        self.max_len = int(max_len or cfg.max_position_embeddings)
+        self.nh = cfg.num_attention_heads
+        self.nkv = cfg.num_key_value_heads
+        self.hd = cfg.head_dim
+        self.eps = cfg.rms_norm_eps
+        self.n_layers = cfg.num_hidden_layers
+        self.scale = 1.0 / math.sqrt(self.hd)
+        llama = model.llama
+        layers = list(llama.layers)
+        with torch.no_grad():
+            def stack(get):
+                return torch.stack([get(l).detach() for l in layers]).to(
+                    self.device)
+
+            self.w = {
+                "wq": stack(lambda l: l.self_attn.q_proj.weight),
+                "wk": stack(lambda l: l.self_attn.k_proj.weight),
+                "wv": stack(lambda l: l.self_attn.v_proj.weight),
+                "wo": stack(lambda l: l.self_attn.o_proj.weight),
+                "wg": stack(lambda l: l.mlp.gate_proj.weight),
+                "wu": stack(lambda l: l.mlp.up_proj.weight),
+                "wd": stack(lambda l: l.mlp.down_proj.weight),
+                "ln1": stack(lambda l: l.input_layernorm.weight),
+                "ln2": stack(lambda l: l.post_attention_layernorm.weight),
+            }
+            self.embed = llama.embed_tokens.weight.detach().to(self.device)
+            self.norm_w = llama.norm.weight.detach().to(self.device)
+            # the head multiplies in float32 ([V, H]); a tied model reuses
+            # the embedding (the JAX engine's embed.T)
+            head = self.embed if model.lm_head is None \
+                else model.lm_head.weight.detach().to(self.device)
+            self.head = head.float()
+            if llama.rope_cos.shape[0] < self.max_len:
+                raise ValueError(f"max_len {self.max_len} exceeds the "
+                                 f"model's rope tables "
+                                 f"({llama.rope_cos.shape[0]})")
+            self.cos = llama.rope_cos[:self.max_len].to(self.device)
+            self.sin = llama.rope_sin[:self.max_len].to(self.device)
+
+    # -- building blocks ---------------------------------------------------
+    def _head_logits(self, x):
+        return F.linear(x.float(), self.head)
+
+    @staticmethod
+    def _rope_at(x, cos, sin):
+        # x [..., Hn, D]; cos/sin broadcastable [..., 1, D]; rotate-half
+        c, s = cos.to(x.dtype), sin.to(x.dtype)
+        x1, x2 = x.chunk(2, dim=-1)
+        return x * c + torch.cat([-x2, x1], dim=-1) * s
+
+    def _mlp(self, x, l):
+        w = self.w
+        h2 = _rms(x, w["ln2"][l], self.eps)
+        g = F.linear(h2, w["wg"][l])
+        u = F.linear(h2, w["wu"][l])
+        return x + F.linear(F.silu(g) * u, w["wd"][l])
+
+    def _qkv(self, x, l, cos, sin):
+        """Normed projections of x [..., H] with RoPE applied: q [..., nh,
+        hd], k and v [..., nkv, hd]. cos/sin broadcast against them."""
+        w = self.w
+        h1 = _rms(x, w["ln1"][l], self.eps)
+        lead = x.shape[:-1]
+        q = F.linear(h1, w["wq"][l]).reshape(*lead, self.nh, self.hd)
+        k = F.linear(h1, w["wk"][l]).reshape(*lead, self.nkv, self.hd)
+        v = F.linear(h1, w["wv"][l]).reshape(*lead, self.nkv, self.hd)
+        return self._rope_at(q, cos, sin), self._rope_at(k, cos, sin), v
+
+    # -- one decode step ---------------------------------------------------
+    @torch.no_grad()
+    def _step(self, tokens, pos, kcache, vcache):
+        """tokens [B] int; pos int (the position being written); caches
+        [L, B, T, Hkv, D], written in place. Returns logits [B, V] f32."""
+        x = self.embed[tokens]                           # [B, H]
+        B = x.shape[0]
+        cos = self.cos[pos][None, None, :]
+        sin = self.sin[pos][None, None, :]
+        nrep = self.nh // self.nkv
+        for l in range(self.n_layers):
+            q, k, v = self._qkv(x, l, cos, sin)
+            kcache[l, :, pos] = k
+            vcache[l, :, pos] = v
+            # grouped attention against the unrepeated cache; positions
+            # past pos would be masked to -1e30 and weigh exactly 0
+            qg = q.reshape(B, self.nkv, nrep, self.hd).float()
+            att = torch.einsum("bgnd,btgd->bgnt", qg,
+                               kcache[l, :, :pos + 1].float()) * self.scale
+            p = torch.softmax(att, dim=-1)
+            o = torch.einsum("bgnt,btgd->bgnd", p,
+                             vcache[l, :, :pos + 1].float()).to(x.dtype)
+            x = x + F.linear(o.reshape(B, self.nh * self.hd),
+                             self.w["wo"][l])
+            x = self._mlp(x, l)
+        return self._head_logits(_rms(x, self.norm_w, self.eps))
+
+    # -- prefill -----------------------------------------------------------
+    @torch.no_grad()
+    def _prefill(self, ids, kcache, vcache):
+        """ids [B, S0] -> last-token logits [B, V] f32; fills the caches'
+        first S0 positions in place. S0 % 128 == 0 runs the flash kernel."""
+        B, S0 = ids.shape
+        x = self.embed[ids]                              # [B, S0, H]
+        cos = self.cos[:S0][None, :, None, :]
+        sin = self.sin[:S0][None, :, None, :]
+        nrep = self.nh // self.nkv
+        use_flash = S0 % 128 == 0
+        causal = torch.ones(S0, S0, dtype=torch.bool,
+                            device=self.device).tril()
+        for l in range(self.n_layers):
+            q, k, v = self._qkv(x, l, cos, sin)
+            kcache[l, :, :S0] = k
+            vcache[l, :, :S0] = v
+            if use_flash:
+                keys = k.repeat_interleave(nrep, dim=2) if nrep > 1 else k
+                vals = v.repeat_interleave(nrep, dim=2) if nrep > 1 else v
+
+                def fold(a):
+                    return a.transpose(1, 2).reshape(B * self.nh, S0,
+                                                     self.hd)
+
+                o, _ = _flash_bhsd(fold(q), fold(keys), fold(vals), True,
+                                   self.scale)
+                o = o.reshape(B, self.nh, S0, self.hd).transpose(1, 2)
+            else:
+                qg = q.reshape(B, S0, self.nkv, nrep, self.hd).float()
+                att = torch.einsum("bqgnd,bkgd->bgnqk", qg,
+                                   k.float()) * self.scale
+                att = att.masked_fill(~causal, NEG_INF)
+                p = torch.softmax(att, dim=-1)
+                o = torch.einsum("bgnqk,bkgd->bqgnd", p, v.float())
+            o = o.to(x.dtype).reshape(B, S0, self.nh * self.hd)
+            x = x + F.linear(o, self.w["wo"][l])
+            x = self._mlp(x, l)
+        return self._head_logits(_rms(x[:, -1], self.norm_w, self.eps))
+
+    # -- public ------------------------------------------------------------
+    def new_caches(self, batch):
+        shape = (self.n_layers, batch, self.max_len, self.nkv, self.hd)
+        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 pad_token_id=0):
+        """Greedy continuation with the token contract of
+        models.generation.generate: returns an int64 CPU tensor
+        [B, S0 + max_new_tokens], pad after each row's first eos.
+        Sampling (do_sample=True) raises."""
+        if do_sample:
+            raise NotImplementedError(
+                "sampling is not ported yet; the port generates greedily")
+        ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                         else input_ids)
+        b, s0 = ids.shape
+        total = s0 + max_new_tokens
+        if total > self.max_len:
+            raise ValueError(f"{total} tokens exceed max_len {self.max_len}")
+        buf = np.full((b, total), pad_token_id, np.int64)
+        buf[:, :s0] = ids
+        if max_new_tokens <= 0:
+            return torch.from_numpy(buf)
+        kc, vc = self.new_caches(b)
+        logits = self._prefill(torch.as_tensor(ids, device=self.device),
+                               kc, vc)
+        tok = torch.argmax(logits, dim=-1)
+        toks = [tok]
+        for t in range(s0, total - 1):
+            tok = torch.argmax(self._step(tok, t, kc, vc), dim=-1)
+            toks.append(tok)
+            if eos_token_id is not None:
+                gen = torch.stack(toks, dim=1)
+                if bool((gen == eos_token_id).any(dim=1).all()):
+                    break
+        gen = torch.stack(toks, dim=1).cpu().numpy()
+        buf[:, s0:s0 + gen.shape[1]] = gen
+        if eos_token_id is not None:
+            for row in buf:
+                hits = np.where(row[s0:] == eos_token_id)[0]
+                if len(hits):
+                    row[s0 + hits[0] + 1:] = pad_token_id
+        return torch.from_numpy(buf)

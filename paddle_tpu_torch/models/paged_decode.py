@@ -1,0 +1,313 @@
+"""Paged KV cache and continuous batching (counterpart of
+paddle_tpu/models/paged_decode.py).
+
+K/V live in pools [L, num_blocks, block_size, Hkv, D]; block 0 is the
+trash block that inactive slots and padding write into. Every slot owns a
+row of a block table [max_slots, blocks_per_seq] of pool-block ids, handed
+out by a host-side ``BlockAllocator``; token t of slot s lives at
+pool[table[s, t // bs], t % bs]. One decode step runs every slot at its
+own position, and a greedy chunk fuses several steps with per-slot
+``live`` and ``budgets`` gating, so a slot whose budget is spent stops
+advancing and writes into the trash block.
+
+The JAX engine threads the pools through its executables functionally
+(donated buffers); this port updates the pools IN PLACE: ``_pool_write``,
+``_paged_step``, ``_paged_chunk`` and ``_prefill_paged`` write into the
+pool tensors they are given and return only what they compute.
+
+Decode attention on a CUDA tensor runs the hand-written ragged paged
+attention kernel (kernels/ragged_paged_attention.py) straight off the
+pool through the tables; ``ragged_kernel=False`` selects the dense-gather
+``_attend`` that the JAX package keeps as its numerical oracle. Options
+the port has not reached yet (kv_quant, attn_shards > 1, prefix_cache,
+kv_offload, prefill_chunk, headroom_guard, weight_quant) raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+from torch.nn import functional as F
+
+from ..kernels.ragged_paged_attention import ragged_paged_attention
+from ..nn.layer.norm import rms_norm as _rms
+from .decode import NEG_INF, CachedDecoder
+
+__all__ = ["PagedDecoder", "BlockAllocator"]
+
+
+class BlockAllocator:
+    """Host-side free list over pool blocks. Block 0 is reserved as the
+    trash block; sequences get blocks 1..num_blocks-1. Freeing a block
+    that is not in use raises instead of corrupting the free list."""
+
+    def __init__(self, num_blocks):
+        self.num_blocks = int(num_blocks)
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+        self._used = set()
+        self.peak_in_use = 0
+
+    @property
+    def free_count(self):
+        return len(self._free)
+
+    @property
+    def in_use(self):
+        return len(self._used)
+
+    def alloc(self, n):
+        if n > len(self._free):
+            raise MemoryError(
+                f"KV pool exhausted: need {n} blocks, {len(self._free)} "
+                f"free (raise num_blocks or lower max_slots)")
+        out = [self._free.pop() for _ in range(n)]
+        self._used.update(out)
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        return out
+
+    def free(self, blocks):
+        for b in blocks:
+            b = int(b)
+            if not 0 < b < self.num_blocks:
+                raise ValueError(f"bad block id {b}")
+            if b not in self._used:
+                raise ValueError(f"double free of block {b}")
+            self._used.remove(b)
+            self._free.append(b)
+
+
+@dataclass
+class _Slot:
+    req_id: object = None
+    blocks: list = field(default_factory=list)
+    emitted: list = field(default_factory=list)   # generated tokens
+    budget: int = 0            # max_new_tokens remaining
+    done: bool = False
+
+
+_UNPORTED = ("kv_quant", "prefix_cache", "prefix_cache_blocks",
+             "shard_block_budget", "prefill_chunk", "kv_offload",
+             "hbm_budget_gib", "headroom_guard")
+
+
+class PagedDecoder(CachedDecoder):
+    """Serving engine with a paged KV cache and continuous batching, on
+    ``device`` (default ``cuda``; raises without a card unless
+    ``device="cpu"``). Weight preparation is CachedDecoder's."""
+
+    def __init__(self, model, max_len=None, weight_quant=None,
+                 block_size=64, num_blocks=None, max_slots=8,
+                 headroom_guard=None, ragged_kernel=None, kv_quant=None,
+                 prefix_cache=None, prefix_cache_blocks=None,
+                 attn_shards=None, shard_block_budget=None,
+                 prefill_chunk=None, kv_offload=None,
+                 hbm_budget_gib=None, device=None):
+        opts = dict(kv_quant=kv_quant, prefix_cache=prefix_cache,
+                    prefix_cache_blocks=prefix_cache_blocks,
+                    shard_block_budget=shard_block_budget,
+                    prefill_chunk=prefill_chunk, kv_offload=kv_offload,
+                    hbm_budget_gib=hbm_budget_gib,
+                    headroom_guard=headroom_guard)
+        for name in _UNPORTED:
+            if opts[name] not in (None, False):
+                raise NotImplementedError(
+                    f"PagedDecoder option {name}={opts[name]!r} is not "
+                    f"ported to the PyTorch package yet")
+        if attn_shards not in (None, 1):
+            raise NotImplementedError(
+                f"attn_shards={attn_shards!r} is not ported yet (the "
+                f"sharded ragged kernel belongs to a later slice)")
+        if block_size == "auto":
+            raise NotImplementedError(
+                "block_size='auto' needs the autotune cache, which is not "
+                "ported yet; pass an integer block size")
+        super().__init__(model, max_len=max_len, weight_quant=weight_quant,
+                         device=device)
+        # the ragged kernel is the decode attention on the card; the CPU
+        # defaults to the dense-gather oracle, as the JAX engine does off
+        # the TPU
+        if ragged_kernel is None:
+            ragged_kernel = self.device.type == "cuda"
+        self.use_ragged_kernel = bool(ragged_kernel)
+        # max_len is a capacity: round DOWN to a block multiple
+        if self.max_len % block_size:
+            if self.max_len < block_size:
+                raise ValueError(f"block_size {block_size} exceeds "
+                                 f"max_len {self.max_len}")
+            self.max_len -= self.max_len % block_size
+        self.block_size = int(block_size)
+        self.blocks_per_seq = self.max_len // self.block_size
+        self.max_slots = int(max_slots)
+        self.num_blocks = int(num_blocks or
+                              (self.max_slots * self.blocks_per_seq) // 2
+                              + 1)
+        self.allocator = BlockAllocator(self.num_blocks)
+        self._slots = [_Slot(done=True) for _ in range(self.max_slots)]
+        self.rejected_requests = {}
+        self.serve_stats = {}
+
+    # -- pools -------------------------------------------------------------
+    def new_pools(self):
+        shape = (self.n_layers, self.num_blocks, self.block_size, self.nkv,
+                 self.hd)
+        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    # -- core step ---------------------------------------------------------
+    def _attend(self, q, kw, vw, pos):
+        """q [S, nh, hd]; kw/vw gathered windows [S, W, nkv, hd]; pos [S]
+        (index of the token just written). Grouped attention against the
+        unrepeated window, masked to arange(W) <= pos per slot."""
+        S, W = kw.shape[0], kw.shape[1]
+        nrep = self.nh // self.nkv
+        qg = q.reshape(S, self.nkv, nrep, self.hd).float()
+        att = torch.einsum("bgnd,bwgd->bgnw", qg, kw.float()) * self.scale
+        mask = (torch.arange(W, device=q.device)[None, :]
+                <= pos.long()[:, None])                     # [S, W]
+        att = att.masked_fill(~mask[:, None, None, :], NEG_INF)
+        p = torch.softmax(att, dim=-1)
+        o = torch.einsum("bgnw,bwgd->bgnd", p, vw.float()).to(q.dtype)
+        return o.reshape(S, self.nh * self.hd)
+
+    def _pool_write(self, kc, vc, k, v, widx):
+        """Write one K/V token row per query row into one layer's pools
+        (kc/vc [NB, bs, nkv, hd]) at flat pool-token index widx, in
+        place."""
+        kc.view(-1, self.nkv, self.hd)[widx] = k.to(kc.dtype)
+        vc.view(-1, self.nkv, self.hd)[widx] = v.to(vc.dtype)
+
+    def _pool_attend(self, q, kc, vc, tables, seqlens):
+        """Attention for q [S, nh, hd] against one layer's pools. Ragged
+        path: the kernel walks each slot's table up to seqlens. Dense
+        path: gather the block-granular window and run the reference
+        math."""
+        S = q.shape[0]
+        if self.use_ragged_kernel:
+            o = ragged_paged_attention(q, kc, vc, tables, seqlens,
+                                       scale=self.scale)
+            return o.reshape(S, self.nh * self.hd)
+        tabs = tables.long()
+        kw = kc[tabs].reshape(S, -1, self.nkv, self.hd)   # [S, W, Hkv, D]
+        vw = vc[tabs].reshape(S, -1, self.nkv, self.hd)
+        return self._attend(q, kw, vw, seqlens)
+
+    @torch.no_grad()
+    def _paged_step(self, tokens, seqlens, tables, kpool, vpool,
+                    active=None):
+        """One decode step for every slot. tokens [S] int; seqlens [S]
+        int32 = tokens already in the pages (the new token is written at
+        position seqlens); tables [S, MB] int32 block ids; pools [L, NB,
+        bs, Hkv, D], written in place; active [S] bool (optional) marks
+        slots that really advance: the others write into the trash
+        block. Returns logits [S, V] float32."""
+        S = tokens.shape[0]
+        bs = self.block_size
+        pos = seqlens.long()
+        x = self.embed[tokens.long()]                       # [S, H]
+        cos = self.cos[pos][:, None, :]
+        sin = self.sin[pos][:, None, :]
+        blk = tables.long().gather(1, (pos // bs)[:, None])[:, 0]
+        if active is not None:
+            blk = torch.where(active, blk, 0)
+        widx = blk * bs + pos % bs                          # [S]
+        for l in range(self.n_layers):
+            q, k, v = self._qkv(x, l, cos, sin)
+            kc, vc = kpool[l], vpool[l]
+            self._pool_write(kc, vc, k, v, widx)
+            o = self._pool_attend(q, kc, vc, tables, seqlens)
+            x = x + F.linear(o, self.w["wo"][l])
+            x = self._mlp(x, l)
+        return self._head_logits(_rms(x, self.norm_w, self.eps))
+
+    @torch.no_grad()
+    def _paged_chunk(self, tok0, seqlens0, tables, live, budgets, kpool,
+                     vpool, n):
+        """n fused greedy steps with argmax feedback. live [S] bool masks
+        slots that advance; budgets [S] int32 is each slot's remaining
+        token budget: at step i only slots with i < budget stay active,
+        so a chunk sized by the largest budget cannot run a smaller
+        budget's slot past its allocation (its writes go to the trash
+        block and its length freezes). Returns [S, n] tokens (device)."""
+        tok, lens = tok0, seqlens0
+        out = []
+        for i in range(n):
+            act = live & (i < budgets)
+            logits = self._paged_step(tok, lens, tables, kpool, vpool,
+                                      active=act)
+            nxt = torch.argmax(logits, dim=-1).to(tok.dtype)
+            tok = torch.where(act, nxt, tok)
+            lens = torch.where(act, lens + 1, lens)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    @staticmethod
+    def _encode_first_token(logits):
+        """argmax and the finiteness probe as ONE int: ``tok`` when every
+        logit is finite, ``-(tok+1)`` otherwise (decoded by
+        `decode_first_token`)."""
+        tok = torch.argmax(logits).to(torch.int32)
+        ok = torch.isfinite(logits).all()
+        return torch.where(ok, tok, -tok - 1)
+
+    @staticmethod
+    def decode_first_token(enc):
+        """(first_token, logits_nonfinite) from `_encode_first_token`."""
+        v = int(enc)
+        return (-v - 1, True) if v < 0 else (v, False)
+
+    @torch.no_grad()
+    def _prefill_paged(self, ids, true_len, table, kpool, vpool):
+        """ids [S0pad] int (a prompt padded to its bucket); true_len int;
+        table [MB] int32. Writes K/V for positions < true_len into the
+        slot's blocks and the padding into the trash block (in place);
+        returns the ENCODED first token (argmax of the logits at
+        true_len - 1)."""
+        S0 = ids.shape[0]
+        bs = self.block_size
+        nrep = self.nh // self.nkv
+        dev = ids.device
+        x = self.embed[ids.long()]                          # [S0, H]
+        cos = self.cos[:S0][:, None, :]
+        sin = self.sin[:S0][:, None, :]
+        pos = torch.arange(S0, device=dev)
+        valid = pos < true_len
+        blk = torch.where(valid, table.long()[pos // bs], 0)
+        widx = blk * bs + pos % bs                          # [S0]
+        causal = pos[None, :] <= pos[:, None]               # [S0, S0]
+        for l in range(self.n_layers):
+            q, k, v = self._qkv(x, l, cos, sin)
+            self._pool_write(kpool[l], vpool[l], k, v, widx)
+            # in-prompt causal attention: the prompt is contiguous here
+            qg = q.reshape(S0, self.nkv, nrep, self.hd).float()
+            att = torch.einsum("qgnd,kgd->gnqk", qg, k.float()) * self.scale
+            att = att.masked_fill(~causal, NEG_INF)
+            p = torch.softmax(att, dim=-1)
+            o = torch.einsum("gnqk,kgd->qgnd", p, v.float()).to(x.dtype)
+            x = x + F.linear(o.reshape(S0, self.nh * self.hd),
+                             self.w["wo"][l])
+            x = self._mlp(x, l)
+        last = x[max(int(true_len) - 1, 0)]
+        logits = self._head_logits(_rms(last[None], self.norm_w,
+                                        self.eps))[0]
+        return self._encode_first_token(logits)
+
+    # -- continuous batching ----------------------------------------------
+    def serve(self, requests, max_new_tokens=32, eos_token_id=None,
+              chunk=8, pad_token_id=0, admission_timeout_s=None,
+              reject_oversized=False, spec_decode=None, feed=None,
+              feed_active=None, pipeline=False):
+        """Continuous-batching serve loop (serving.batcher.serve_loop).
+        requests: (req_id, prompt) pairs, (req_id, prompt, max_new)
+        triples or (req_id, prompt, max_new, arrival_s) quads. Returns
+        {req_id: [generated tokens]}, post-eos positions padded. The
+        port runs the serial loop (the JAX engine's pipeline=False);
+        spec_decode, feed and the pipelined lookahead raise."""
+        from ..serving.batcher import serve_loop
+        return serve_loop(
+            self, requests, max_new_tokens=max_new_tokens,
+            eos_token_id=eos_token_id, chunk=chunk,
+            pad_token_id=pad_token_id,
+            admission_timeout_s=admission_timeout_s,
+            reject_oversized=reject_oversized, spec_decode=spec_decode,
+            feed=feed, feed_active=feed_active, pipeline=pipeline)

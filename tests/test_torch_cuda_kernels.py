@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
+skips without a card. This file imports neither JAX nor the JAX package,
+so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
+
+Tolerances: float32 1e-4 (summation order only); bf16 2e-2 (both sides
+compute in float32 from the same bf16 inputs and round the output to
+bf16).
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels.flash_attention import (
+    _flash_bhsd, flash_attention_fwd_plain)
+from paddle_tpu_torch.kernels.ragged_paged_attention import (
+    ragged_paged_attention, ragged_paged_attention_plain)
+
+TOLS = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided when the test runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _ragged_inputs(dev, seed, nh, nkv, hd, bs, mb, lens):
+    rng = np.random.default_rng(seed)
+    S = len(lens)
+    nb = S * mb + 1
+    kp = torch.from_numpy(rng.standard_normal((nb, bs, nkv, hd))
+                          .astype(np.float32)).to(dev)
+    vp = torch.from_numpy(rng.standard_normal((nb, bs, nkv, hd))
+                          .astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((S, nh, hd))
+                         .astype(np.float32)).to(dev)
+    tables = torch.from_numpy((rng.permutation(nb - 1)[:S * mb] + 1)
+                              .reshape(S, mb).astype(np.int32)).to(dev)
+    return q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32,
+                                           device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv,hd", [(32, 32, 128), (32, 8, 128),
+                                       (8, 1, 64), (16, 4, 256)])
+def test_ragged_kernel_matches_plain(cuda_device, nh, nkv, hd):
+    bs, mb = 16, 8
+    lens = [0, bs - 1, bs, 77, mb * bs - 1]
+    q, kp, vp, tables, seq = _ragged_inputs(cuda_device, nh + hd, nh, nkv,
+                                            hd, bs, mb, lens)
+    before = ragged_paged_attention.launches
+    for dt, tol in TOLS:
+        args = (q.to(dt), kp.to(dt), vp.to(dt), tables, seq)
+        out = ragged_paged_attention(*args, scale=hd ** -0.5)
+        ref = ragged_paged_attention_plain(*args, hd ** -0.5)
+        torch.cuda.synchronize()
+        assert out.dtype == dt
+        assert (out.float() - ref.float()).abs().max().item() < tol
+    assert ragged_paged_attention.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_never_reads_past_seq_lens(cuda_device):
+    bs, mb, nh, nkv, hd = 16, 4, 8, 2, 128
+    lens = [3, 17, 40, 0]
+    q, kp, vp, tables, seq = _ragged_inputs(cuda_device, 5, nh, nkv, hd,
+                                            bs, mb, lens)
+    clean = ragged_paged_attention(q, kp, vp, tables, seq)
+    pos = torch.arange(mb * bs, device=cuda_device)
+    dead = pos[None, :] > seq.long()[:, None]
+    rows = tables.long().repeat_interleave(bs, dim=1)
+    lanes = (pos % bs)[None, :].expand(len(lens), -1)
+    kp[rows[dead], lanes[dead]] = float("nan")
+    vp[rows[dead], lanes[dead]] = float("nan")
+    kp[0] = float("nan")
+    live_blk = torch.arange(mb, device=cuda_device)[None, :] <= \
+        (seq.long() // bs)[:, None]
+    garbage = torch.where(live_blk, tables, 1 << 30)
+    out = ragged_paged_attention(q, kp, vp, garbage, seq)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, clean)
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, kp, vp, tables, seq = _ragged_inputs(cuda_device, 1, 4, 4, 32, 16,
+                                            2, [3])
+    with pytest.raises(ValueError):
+        ragged_paged_attention(q, kp, vp, tables, seq)     # hd 32
+    q, kp, vp, tables, seq = _ragged_inputs(cuda_device, 1, 4, 4, 64, 16,
+                                            2, [3])
+    with pytest.raises(TypeError):
+        ragged_paged_attention(q, kp, vp, tables.long(), seq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda_device, d, causal):
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 200, d))
+                                .astype(np.float32)).to(cuda_device)
+               for _ in range(3))
+    before = _flash_bhsd.launches
+    for dt, tol in TOLS:
+        o, lse = _flash_bhsd(q.to(dt), k.to(dt), v.to(dt), causal,
+                             d ** -0.5)
+        ro, rlse = flash_attention_fwd_plain(q.to(dt), k.to(dt), v.to(dt),
+                                             causal, d ** -0.5)
+        torch.cuda.synchronize()
+        assert o.dtype == dt and lse.dtype == torch.float32
+        assert (o.float() - ro.float()).abs().max().item() < tol
+        assert (lse - rlse).abs().max().item() < tol
+    assert _flash_bhsd.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_forward_only(cuda_device):
+    q = torch.randn(2, 128, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        _flash_bhsd(q, q.detach(), q.detach(), True)
+    with torch.no_grad():
+        _flash_bhsd(q, q, q, True)
+    with pytest.raises(ValueError):
+        _flash_bhsd(*(torch.randn(2, 128, 48, device=cuda_device),) * 3,
+                    True)

@@ -1,0 +1,122 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, its entry points refuse to fall back to the CPU silently, and the
+options it has not ported raise instead of being ignored."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu_torch.models.decode import CachedDecoder
+from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                           llama_tiny)
+from paddle_tpu_torch.models.paged_decode import PagedDecoder
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "paddle_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_sources():
+    files = sorted(PORT.rglob("*.py"))
+    smoke = ROOT / "chip_smoke.py"
+    if smoke.exists():
+        files.append(smoke)
+    return files
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    files = _port_sources()
+    assert len(files) > 10
+    bad = []
+    for f in files:
+        roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
+        bad += [f"{f.relative_to(ROOT)}: {r}" for r in roots
+                if r in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, importlib, pkgutil, paddle_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(llama_tiny())
+    model = LlamaForCausalLM(llama_tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CachedDecoder(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedDecoder(model, max_len=64, block_size=16)
+    dec = PagedDecoder(model, max_len=64, block_size=16, device="cpu")
+    assert dec.device.type == "cpu" and not dec.use_ragged_kernel
+
+
+@pytest.mark.parametrize("opt", [
+    {"kv_quant": "int8"}, {"attn_shards": 2}, {"prefix_cache": True},
+    {"kv_offload": True}, {"prefill_chunk": 32}, {"headroom_guard": object()},
+    {"weight_quant": "int8_blockwise"}, {"block_size": "auto"}])
+def test_unported_decoder_options_raise(opt):
+    model = LlamaForCausalLM(llama_tiny(), device="cpu")
+    kw = dict(max_len=64, block_size=16, device="cpu")
+    kw.update(opt)
+    with pytest.raises(NotImplementedError):
+        PagedDecoder(model, **kw)
+
+
+@pytest.mark.parametrize("opt", [
+    {"spec_decode": 2}, {"feed": list}, {"feed_active": bool},
+    {"pipeline": None}, {"pipeline": True}])
+def test_unported_serve_options_raise(opt):
+    model = LlamaForCausalLM(llama_tiny(), device="cpu")
+    dec = PagedDecoder(model, max_len=64, block_size=16, device="cpu")
+    with pytest.raises(NotImplementedError):
+        dec.serve([("a", [1, 2, 3])], max_new_tokens=2, **opt)
+
+
+@pytest.mark.parametrize("field", ["tensor_parallel", "sequence_parallel",
+                                   "pipeline_parallel", "context_parallel",
+                                   "recompute", "num_experts"])
+def test_unported_model_options_raise(field):
+    cfg = llama_tiny(**{field: 4 if field == "num_experts" else True})
+    with pytest.raises(NotImplementedError):
+        LlamaForCausalLM(cfg, device="cpu")
+
+
+def test_config_mirrors_the_jax_widths():
+    from paddle_tpu_torch.models.llama import llama_2_7b
+    cfg = llama_2_7b(dtype="bfloat16")
+    assert (cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size,
+            cfg.num_hidden_layers, cfg.num_attention_heads,
+            cfg.num_key_value_heads, cfg.head_dim) == \
+        (32000, 4096, 11008, 32, 32, 32, 128)
+    assert isinstance(cfg, LlamaConfig)
