@@ -11,9 +11,13 @@
 // online softmax in float32, and lse = m + log(l) per row. Masked scores
 // use -1e30 as the TPU kernel does.
 //
-// What bounds it on the H100: operations. At S = 1024..2048 and D = 64..256
-// the kernel does 4*S*S*D flops (half that causal) on 4*S*D elements, far
-// above the card's 295 flops/byte balance point.
+// What bounds it on the H100: the work is 4*S*S*D flops (about half that
+// causal) on 4*S*D bf16 elements read or written, so S/2 flops per byte
+// (about S/4 causal) against the card's 295 flops/byte balance point. Full
+// attention is bound by operations from S = 590, causal from S = 1180; the
+// generate prefill's causal S = 1024 (about 255 flops/byte) is just bound
+// by bytes. This kernel computes on the CUDA cores in float32, so in
+// practice its own arithmetic, far below the tensor-core peak, bounds it.
 //
 // Design: one thread block per (bh, 64-row q tile), 8 warps; each warp owns
 // 8 q rows. The q tile is loaded once into shared memory (pre-scaled,
