@@ -6,11 +6,12 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. the card's name and power limit, as nvidia-smi gives them;
-2. the build of every CUDA kernel of the serving path (one nvcc per
-   source, all started together), then each kernel against its plain
-   PyTorch version on the card at the serving shapes, with its time, the
-   plain version's time, one PyTorch library call's time (a yardstick the
-   port never calls) and the least time the card could take;
+2. the build of every CUDA kernel of the serving and training paths (one
+   nvcc per source, all started together), then each kernel of the
+   serving path against its plain PyTorch version on the card at the
+   serving shapes, with its time, the plain version's time, one PyTorch
+   library call's time (a yardstick the port never calls) and the least
+   time the card could take;
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
    seeded torch.Generator) on 16 requests: every request gets its budget
    and the ragged kernel ran once per layer per decode step;
@@ -19,13 +20,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    two of them must equal greedy generation through the full forward;
 5. CachedDecoder.generate at full width, batch 4, 1024-token prompts: the
    prefill runs the flash-attention kernel once per layer;
-6. one line naming each kernel with its launches on the main path (the
-   serve of phase 3 and the generate of phase 5), error and times;
-7. the card's name and power limit again, and the result line.
+6. the training path's kernels checked and timed the same way at the
+   training shapes (after the serving phases, so that those see the card
+   as the serving slice left it), then train: bench.py's one-chip
+   training configuration (hidden 4096, FFN
+   11008, 32 heads, vocab 32000, 4 layers, bf16, batch 6 x 2048, AdamW at
+   lr 1e-4 with bf16 moments) through TrainStep, 2 warm-up and 10 timed
+   steps: tokens/s, seconds per step, MFU, every step's loss and the peak
+   memory. Every loss must be finite, the last below the first, and the
+   flash forward and backward kernels must each have run once per layer
+   per step;
+7. train_parity: 3 steps of a narrow float32 Llama (2 layers, S 256) with
+   the flash kernels and again with the plain attention: losses and the
+   first step's gradients must agree;
+8. one line naming each kernel with its launches on the main path (the
+   serve of phase 3 for the ragged kernel, the generate of phase 5 for the
+   flash forward, the train of phase 6 for the flash backward), error and
+   times;
+9. the card's name and power limit again, and the result line.
 
-With --profile, a short full-width serve also runs under torch.profiler
-and one more line gives the device time by kernel and the device's idle
-share.
+With --profile, a short full-width serve and two train steps also run
+under torch.profiler, and one more line for each gives the device time by
+kernel and the device's idle share.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
@@ -34,6 +50,12 @@ differ in summation order only (about 1e-6), so the rounded outputs
 differ by at most one bf16 ulp, which is at most 2^-7 of the value. The
 float32 lse gets atol 1e-4. A ragged case with a planted last token shows
 that a kernel which dropped the inclusive end of the window would fail.
+The backward's dq, dk and dv get the same 2^-7 |ref| and an atol of 1e-3
+of each gradient's largest magnitude: there the float32 sums run over S
+terms whose difference dp - delta cancels, so an element far below the
+largest carries a summation-order error of about 1e-6 of the largest
+(not of itself); a dropped 32-key tile would move a gradient by about
+1e-2 of its largest element.
 """
 from __future__ import annotations
 
@@ -53,6 +75,7 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 BF16_RTOL = 2.0 ** -7           # one bf16 ulp, relative to the value
 BF16_ATOL = 1e-4
 LSE_ATOL = 1e-4                 # float32 lse, summation order only
+GRAD_ATOL = 1e-3                # of the gradient's largest magnitude
 # the library yardstick may round p to bf16 before p.v; it is held to
 # 2e-2 of the output's largest magnitude (at least 1)
 LIB_TOL = 2e-2
@@ -91,11 +114,11 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def bf16_err(out, ref):
+def bf16_err(out, ref, atol=BF16_ATOL):
     """(max abs error, largest ratio of an element's error to its
-    tolerance BF16_RTOL * |ref| + BF16_ATOL)."""
+    tolerance BF16_RTOL * |ref| + atol)."""
     d = (out.float() - ref.float()).abs()
-    lim = BF16_RTOL * ref.float().abs() + BF16_ATOL
+    lim = BF16_RTOL * ref.float().abs() + atol
     return d.max().item(), (d / lim).max().item()
 
 
@@ -275,6 +298,75 @@ def flash_case(torch, name, bh, s, d, causal, seed):
     return rec
 
 
+def flash_bwd_case(torch, name, bh, s, d, causal, seed):
+    """The backward kernels (dq, dk/dv) against their plain version on the
+    forward kernel's o and lse, as training gives them. The plain version
+    needs several [BH, S, S] float32 tensors, so it runs in chunks of BH."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _flash_bhsd, _flash_bhsd_bwd, flash_attention_bwd_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = _flash_bhsd(q, k, v, causal, scale)
+    chunk = max(1, (1 << 28) // (s * s))
+
+    def plain():
+        parts = [flash_attention_bwd_plain(
+            q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], o[i:i + chunk],
+            lse[i:i + chunk], do[i:i + chunk], causal, scale)
+            for i in range(0, bh, chunk)]
+        return [torch.cat(t) for t in zip(*parts)]
+
+    got = _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale)
+    ref = plain()
+    torch.cuda.synchronize()
+    errs, ratios, atols = {}, {}, {}
+    for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+        atols[gname] = GRAD_ATOL * r.float().abs().max().item()
+        errs[gname], ratios[gname] = bf16_err(g, r, atols[gname])
+    ratio = max(ratios.values())
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{name}: backward kernel vs plain errors {errs}, "
+          f"{ratios} x tolerance")
+    kernel_ms = cuda_ms(torch, lambda: _flash_bhsd_bwd(
+        q, k, v, o, lse, do, causal, scale), 10)
+    plain_ms = cuda_ms(torch, plain, 2, warmup=1)
+    # yardstick: the backward of SDPA's own forward on the same inputs
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+    o4 = sdpa(q4, k4, v4, is_causal=causal, scale=scale)
+    do4 = do[None]
+    lib = torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+    for gname, g, r in zip(("dq", "dk", "dv"), lib, ref):
+        lib_check(f"{name} {gname}", g[0], r)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True), 10)
+    del o4, lib
+    pairs = s * (s + 1) // 2 if causal else s * s
+    # five S x S x D products (q k^T, dO v^T, p^T dO, ds k, ds^T q)
+    flops = 10 * bh * d * pairs
+    # q, k, v, o, dO read, dq, dk, dv written (bf16); lse and delta float32
+    bytes_moved = 8 * bh * s * d * 2 + 2 * bh * s * 4
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    rec = {"phase": "kernel_check", "kernel": "flash_attention_bwd",
+           "case": name, "dtype": "bfloat16", "bh": bh, "s": s, "d": d,
+           "causal": causal, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_grad": errs, "err_over_tolerance": ratio,
+           "rtol": BF16_RTOL, "atol_by_grad": atols,
+           "plain_chunk_bh": chunk, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "backward of scaled_dot_product_attention",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": bytes_moved, "flops": flops}
+    emit(rec)
+    del q, k, v, do, o, lse, got, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phases 3-5: the serving path ----------------------------------------------
 
 def make_requests(np, seed, n=16):
@@ -354,7 +446,6 @@ def profile_phase(torch, model, reqs):
     torch.profiler for the device time of each kernel. The device's idle
     share is 1 - (kernel time under the profiler) / (plain wall time):
     the profiler slows the host, not the kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.models.paged_decode import PagedDecoder
     dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
@@ -371,8 +462,25 @@ def profile_phase(torch, model, reqs):
                              ProfilerActivity.CUDA]) as prof:
         dec.serve(short, chunk=8)
         torch.cuda.synchronize()
-    # kernels only: an operator's row repeats the device time of the
-    # kernels it launched
+    rows, busy_s = device_kernel_rows(prof)
+    rec = {"phase": "profile", "requests": 8, "budget": 16, "wall_s": wall,
+           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+           "decode_steps": st["decode_steps"],
+           "device_busy_s": busy_s if rows else "not measured",
+           "device_idle_share": 1 - busy_s / wall if rows
+           else "not measured",
+           "top_device_kernels": top_kernels(rows, busy_s, 12)}
+    emit(rec)
+    del dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def device_kernel_rows(prof):
+    """[(device us, kernel name, calls)] of a torch.profiler run, largest
+    first, and the device's busy seconds. Kernels only: an operator's row
+    repeats the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
     rows = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -383,21 +491,12 @@ def profile_phase(torch, model, reqs):
         if dev_us > 0:
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
-    rec = {"phase": "profile", "requests": 8, "budget": 16, "wall_s": wall,
-           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-           "decode_steps": st["decode_steps"],
-           "device_busy_s": busy_s if rows else "not measured",
-           "device_idle_share": 1 - busy_s / wall if rows
-           else "not measured",
-           "top_device_kernels": [
-               {"name": k[:90], "device_ms": us / 1e3, "calls": c,
-                "share_of_device": us / 1e6 / busy_s}
-               for us, k, c in rows[:12]]}
-    emit(rec)
-    del dec
-    torch.cuda.empty_cache()
-    return rec
+    return rows, sum(r[0] for r in rows) / 1e6
+
+
+def top_kernels(rows, busy_s, n):
+    return [{"name": k[:90], "device_ms": us / 1e3, "calls": c,
+             "share_of_device": us / 1e6 / busy_s} for us, k, c in rows[:n]]
 
 
 def parity_phase(torch, np, reqs, seed):
@@ -460,6 +559,199 @@ def generate_phase(torch, np, model, layers, seed):
     return rec
 
 
+# -- phases 6-7: the training path ---------------------------------------------
+
+TRAIN_LAYERS = 4                 # bench.py's one-chip configuration
+TRAIN_BATCH, TRAIN_SEQ = 6, 2048
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+
+
+def train_config():
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=4096,
+                       intermediate_size=11008,
+                       num_hidden_layers=TRAIN_LAYERS,
+                       num_attention_heads=32, num_key_value_heads=32,
+                       max_position_embeddings=2048, dtype="bfloat16",
+                       recompute=False)
+
+
+def make_train_step(torch, cfg, seed, lr=1e-4, moment_dtype="bfloat16"):
+    from paddle_tpu_torch import (AdamW, LlamaPretrainingCriterion,
+                                  TrainStep)
+    model = build_model(torch, cfg, seed)
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                moment_dtype=moment_dtype)
+    return model, TrainStep(model, lambda lo, la: crit(lo, la), opt)
+
+
+def train_batch(torch, np, seed, vocab, batch, seq):
+    rng = np.random.default_rng(seed)
+    ids = torch.as_tensor(rng.integers(0, vocab, (batch, seq)),
+                          device="cuda")
+    labels = torch.as_tensor(rng.integers(0, vocab, (batch, seq)),
+                             device="cuda")
+    return ids, labels
+
+
+def train_phase(torch, np, seed):
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    from paddle_tpu_torch.observability import model_flops_per_token
+    cfg = train_config()
+    model, step = make_train_step(torch, cfg, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                              TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _flash_bhsd.launches = 0
+    _flash_bhsd_bwd.launches = 0
+    losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        losses.append(step((ids,), (labels,)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = _flash_bhsd.launches, _flash_bhsd_bwd.launches
+    losses = [x.item() for x in losses]
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    layers = cfg.num_hidden_layers
+    check(fwd == layers * steps and bwd == layers * steps,
+          f"flash launches fwd {fwd}, bwd {bwd} != {layers} layers x "
+          f"{steps} steps")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tps = tokens * TRAIN_TIMED / wall
+    flops_tok = model_flops_per_token(cfg, TRAIN_SEQ, n_params)
+    rec = {"phase": "train", "model": "bench.py one-chip Llama, random "
+                                      "weights",
+           "dtype": cfg.dtype, "layers": cfg.num_hidden_layers,
+           "hidden": cfg.hidden_size, "ffn": cfg.intermediate_size,
+           "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+           "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "optimizer": "AdamW lr 1e-4, bf16 moments",
+           "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_TIMED,
+           "wall_s": wall, "s_per_step": wall / TRAIN_TIMED,
+           "tokens_per_s": tps, "model_flops_per_token": flops_tok,
+           "mfu": flops_tok * tps / BF16_FLOPS, "losses": losses,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "flash_fwd_launches": fwd, "flash_bwd_launches": bwd}
+    emit(rec)
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_profile_phase(torch, np, seed, steps=2):
+    """--profile only: `steps` train steps at the train phase's shapes, run
+    once plainly for their wall time and once under torch.profiler for the
+    device time by kernel, grouped into the flash kernels, matrix products
+    (cuBLAS/CUTLASS GEMMs) and the rest (element-wise, reductions,
+    AdamW)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = train_config()
+    model, step = make_train_step(torch, cfg, seed)
+    ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                              TRAIN_BATCH, TRAIN_SEQ)
+    step((ids,), (labels,))                               # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step((ids,), (labels,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step((ids,), (labels,))
+        torch.cuda.synchronize()
+    rows, busy_s = device_kernel_rows(prof)
+    groups = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    for us, name, _ in rows:
+        if "flash_fwd" in name:
+            groups["flash_fwd"] += us / 1e6
+        elif "flash_bwd" in name:
+            groups["flash_bwd"] += us / 1e6
+        elif any(t in name.lower() for t in ("gemm", "nvjet", "cutlass",
+                                             "xmma")):
+            groups["gemm"] += us / 1e6
+        else:
+            groups["other"] += us / 1e6
+    rec = {"phase": "train_profile", "steps": steps, "wall_s": wall,
+           "s_per_step": wall / steps,
+           "device_busy_s": busy_s if rows else "not measured",
+           "device_idle_share": 1 - busy_s / wall if rows
+           else "not measured",
+           "device_s_per_step_by_group": {
+               k: v / steps for k, v in groups.items()},
+           "top_device_kernels": top_kernels(rows, busy_s, 15)}
+    emit(rec)
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+PARITY_STEPS = 3
+PARITY_LOSS_RTOL = 1e-5          # float32, summation order only
+PARITY_GRAD_ATOL = 1e-4          # of each gradient's largest magnitude
+
+
+def train_parity_phase(torch, np, seed):
+    """The flash kernels inside whole training steps against the plain
+    attention (use_flash_attention=False, a config of the JAX package), in
+    float32 on the card with TF32 off."""
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ids, labels = train_batch(torch, np, seed + 4, 1024, 2, 256)
+    runs = {}
+    for flash in (True, False):
+        cfg = LlamaConfig(vocab_size=1024, hidden_size=512,
+                          intermediate_size=1024, num_hidden_layers=2,
+                          num_attention_heads=4, num_key_value_heads=4,
+                          max_position_embeddings=256, dtype="float32",
+                          use_flash_attention=flash)
+        model, step = make_train_step(torch, cfg, seed + 5,
+                                      moment_dtype=None)
+        _flash_bhsd.launches = 0
+        _flash_bhsd_bwd.launches = 0
+        losses, grads = [], None
+        for i in range(PARITY_STEPS):
+            losses.append(step((ids,), (labels,)).item())
+            if i == 0:
+                grads = {k: p.grad.clone()
+                         for k, p in model.named_parameters()}
+        runs[flash] = (losses, grads, _flash_bhsd.launches,
+                       _flash_bhsd_bwd.launches)
+        del model, step
+    (fl, fg, ff, fb), (pl_, pg, pf, pb) = runs[True], runs[False]
+    check(ff == fb == 2 * PARITY_STEPS and pf == pb == 0,
+          f"flash launches: kernels run {ff}/{fb}, plain run {pf}/{pb}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fl, pl_))
+    grad_rel = max(((fg[k] - pg[k]).abs().max()
+                    / pg[k].abs().max()).item() for k in pg)
+    check(loss_rel <= PARITY_LOSS_RTOL and grad_rel <= PARITY_GRAD_ATOL,
+          f"flash vs plain training: loss rel {loss_rel}, step-1 grad "
+          f"{grad_rel} of the largest element")
+    rec = {"phase": "train_parity", "dtype": "float32", "layers": 2,
+           "hidden": 512, "heads": 4, "seq": 256, "batch": 2,
+           "steps": PARITY_STEPS, "losses_flash": fl, "losses_plain": pl_,
+           "max_loss_rel_diff": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
+           "max_grad_diff_over_max": grad_rel,
+           "grad_atol_of_max": PARITY_GRAD_ATOL,
+           "flash_fwd_launches": ff, "flash_bwd_launches": fb}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -467,8 +759,9 @@ def main():
                          "is the only thing a time limit may cut)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a short full-width serve with "
-                         "torch.profiler (device time by kernel)")
+                    help="also profile a short full-width serve and two "
+                         "train steps with torch.profiler (device time by "
+                         "kernel)")
     args = ap.parse_args()
 
     import torch
@@ -493,11 +786,13 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
+    sources = ("ragged_paged_attention", "flash_attention_fwd",
+               "flash_attention_bwd")
     t0 = time.perf_counter()
-    _build.build("ragged_paged_attention", "flash_attention_fwd")
+    _build.build(*sources)
     build_s = time.perf_counter() - t0
     ptxas = {}
-    for name in ("ragged_paged_attention", "flash_attention_fwd"):
+    for name in sources:
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
         ptxas[name] = lines[:24]
@@ -529,6 +824,29 @@ def main():
     torch.cuda.empty_cache()
     parity_phase(torch, np, reqs, args.seed)
 
+    # the training path's kernel checks run after the serving phases, so
+    # that those see the card as the serving slice left it
+    # the shape the train phase gives the forward (batch 6 x 32 heads)
+    flash_case(torch, "train_bh192_s2048_d128_causal", 192, 2048, 128, True,
+               8)
+    for s in (1024, 2048):
+        for d in (64, 128):
+            for causal in (True, False):
+                flash_bwd_case(
+                    torch, f"bh64_s{s}_d{d}_{'causal' if causal else 'full'}",
+                    64, s, d, causal, 3 * s + d + causal)
+    for causal in (True, False):                # no tile divides 1000
+        flash_bwd_case(torch, f"bh64_s1000_d128_"
+                              f"{'causal' if causal else 'full'}",
+                       64, 1000, 128, causal, 31 + causal)
+    # the shape the train phase gives the backward
+    bwd_main = flash_bwd_case(torch, "train_bh192_s2048_d128_causal", 192,
+                              2048, 128, True, 9)
+    train = train_phase(torch, np, args.seed)
+    if args.profile:
+        train_profile_phase(torch, np, args.seed)
+    train_parity_phase(torch, np, args.seed)
+
     kernels = []
     for name, route_src, replaces, rec, launches in (
             ("ragged_paged_attention",
@@ -538,7 +856,11 @@ def main():
             ("flash_attention_fwd",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:135",
-             flash_main, gen["flash_launches"])):
+             flash_main, gen["flash_launches"]),
+            ("flash_attention_bwd",
+             "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+             "paddle_tpu/kernels/pallas/flash_attention.py:480",
+             bwd_main, train["flash_bwd_launches"])):
         check(launches > 0, f"{name} never ran on the main path")
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": launches,

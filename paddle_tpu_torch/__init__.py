@@ -5,15 +5,20 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. The first slice is greedy serving: LlamaForCausalLM,
-CachedDecoder and PagedDecoder with the continuous-batching serve loop.
+plain PyTorch version. Two slices are ported: greedy serving
+(LlamaForCausalLM, CachedDecoder and PagedDecoder with the
+continuous-batching serve loop) and the pretraining step (TrainStep over
+LlamaForCausalLM, LlamaPretrainingCriterion and AdamW).
 """
 from .framework.device import resolve_device, seed
+from .jit import TrainStep
 from .models.decode import CachedDecoder
-from .models.llama import (LlamaConfig, LlamaForCausalLM, llama_2_7b,
-                           llama_tiny)
+from .models.llama import (LlamaConfig, LlamaForCausalLM,
+                           LlamaPretrainingCriterion, llama_2_7b, llama_tiny)
 from .models.paged_decode import BlockAllocator, PagedDecoder
+from .optimizer import Adam, AdamW
 
 __all__ = ["resolve_device", "seed", "LlamaConfig", "LlamaForCausalLM",
-           "llama_tiny", "llama_2_7b", "CachedDecoder", "PagedDecoder",
-           "BlockAllocator"]
+           "LlamaPretrainingCriterion", "llama_tiny", "llama_2_7b",
+           "CachedDecoder", "PagedDecoder", "BlockAllocator", "TrainStep",
+           "Adam", "AdamW"]

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "seed", "torch_dtype"]
+__all__ = ["resolve_device", "check_device", "seed", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -26,6 +26,20 @@ def resolve_device(device=None):
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def check_device(device):
+    """Raise unless ``device`` is the CPU or a CUDA card that is present:
+    code that receives tensors (an optimizer, a train step) runs where
+    they lie, and only those two places have the port's kernels or their
+    plain versions."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type == "cuda":
+        return resolve_device(dev)
+    raise RuntimeError(f"the port runs on a CUDA card, or on the CPU when "
+                       f"asked (device='cpu'); got a tensor on {dev}")
 
 
 def seed(seed_val, device="cpu"):

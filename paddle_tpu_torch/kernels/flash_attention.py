@@ -1,12 +1,12 @@
-"""Flash attention forward on [BH, S, D]: the CUDA kernel and its plain
-PyTorch version.
+"""Flash attention on [BH, S, D]: the CUDA kernels and their plain
+PyTorch versions.
 
-Counterpart of paddle_tpu/kernels/pallas/flash_attention.py's forward
-(`_mha_fwd` and `_mha_fwd_stream`, reached through `_flash_bhsd`). The
-kernel is ``csrc/flash_attention_fwd.cu``; its note says what bounds it
-and how it is laid out. The backward kernels belong to the training slice
-of the port and are not here: on a CUDA tensor that needs a gradient the
-wrapper raises.
+Counterpart of paddle_tpu/kernels/pallas/flash_attention.py: the forward
+(`_mha_fwd` and `_mha_fwd_stream`) is ``csrc/flash_attention_fwd.cu`` and
+the two-pass backward (`_mha_bwd` and `_mha_bwd_stream`) is
+``csrc/flash_attention_bwd.cu``; each source's note says what bounds it
+and how it is laid out. These wrappers compute values only; the autograd
+Function that ties them together is in nn/functional/flash_attention.py.
 """
 from __future__ import annotations
 
@@ -17,13 +17,16 @@ import torch
 
 from . import _build
 
-__all__ = ["_flash_bhsd", "flash_attention_fwd_plain", "HEAD_DIMS"]
+__all__ = ["_flash_bhsd", "_flash_bhsd_bwd", "flash_attention_fwd_plain",
+           "flash_attention_bwd_plain", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+_BWD_SIG = {"flash_attention_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
 def flash_attention_fwd_plain(q, k, v, causal, scale):
@@ -40,6 +43,31 @@ def flash_attention_fwd_plain(q, k, v, causal, scale):
     return torch.matmul(p, v.float()).to(q.dtype), lse
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale):
+    """The backward kernels' function in plain PyTorch, with the TPU
+    kernels' math: p recomputed from the saved float32 lse with q
+    pre-scaled and -1e30 above the diagonal, delta = rowsum(dO * O) in
+    float32, ds = p (dp - delta) scale, and dk = ds^T (q scale) / scale.
+    Returns (dq, dk, dv), each in its input's dtype."""
+    qs = q.float() * scale
+    kf, vf, dof = k.float(), v.float(), do.float()
+    st = torch.matmul(qs, kf.transpose(-1, -2))
+    if causal:
+        s = q.shape[1]
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        st = st.masked_fill(~keep, NEG_INF)
+    p = torch.exp(st - lse[..., None])
+    del st
+    delta = (dof * o.float()).sum(-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    del dp
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qs) / scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q, k, v):
     if not (q.shape == k.shape == v.shape) or q.dim() != 3:
         raise ValueError(f"q, k, v must share one [BH, S, D] shape, got "
@@ -52,10 +80,13 @@ def _check(q, k, v):
         raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k, v must be on one device")
+    # the outputs carry no autograd graph, so a caller that needs gradients
+    # would lose them silently (autograd.Function.forward runs with grad
+    # mode off, so flash_attention passes)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
-            "the CUDA flash-attention kernel is forward only; its backward "
-            "comes with the training slice of the port")
+            "the flash-attention kernel wrappers compute values only; call "
+            "nn.functional.flash_attention for gradients")
 
 
 def _flash_bhsd(q, k, v, causal, scale=None):
@@ -87,3 +118,51 @@ def _flash_bhsd(q, k, v, causal, scale=None):
 
 
 _flash_bhsd.launches = 0
+
+
+def _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale=None):
+    """Attention backward on [BH, S, D] from the forward's o and float32
+    lse -> (dq, dk, dv), each in its input's dtype. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernels (or raises)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no flash-attention kernel for {q.device}")
+    _check(q, k, v)
+    bh, s, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or \
+            o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and dO must match q {tuple(q.shape)} "
+                         f"{q.dtype}, got {tuple(o.shape)} {o.dtype} and "
+                         f"{tuple(do.shape)} {do.dtype}")
+    if tuple(lse.shape) != (bh, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [{bh}, {s}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if not all(t.device == q.device for t in (o, lse, do)):
+        raise ValueError("the backward's inputs must be on one device")
+    # autograd hands dO over in any layout; the kernels read rows
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), \
+        do.contiguous()
+    lse = lse.contiguous()
+    # delta = rowsum(dO * O) in float32, outside the kernels, as _mha_bwd
+    # computes it in jnp before its pallas_calls
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load("flash_attention_bwd", _BWD_SIG)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, s, q.shape[-1], float(scale),
+            int(bool(causal)), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{rc}")
+    _flash_bhsd_bwd.launches += 1
+    return dq, dk, dv
+
+
+_flash_bhsd_bwd.launches = 0

@@ -1,12 +1,14 @@
-"""Llama for causal LM, forward only (counterpart of
+"""Llama for causal LM and its pretraining criterion (counterpart of
 paddle_tpu/models/llama.py).
 
 The modules and parameter names mirror the JAX package, so a JAX state
 dict converts one to one (convert.params_from_jax). Two layouts differ:
 torch.nn.Linear keeps its weight as [out, in] where paddle keeps [in,
-out], and the converter owns that transpose. Tensor and pipeline
-parallelism, MoE, context (ring) parallelism, sequence parallelism and
-recompute are not ported; a config that asks for them raises.
+out], and the converter owns that transpose. The model trains under
+``.train()``; ``recompute=True`` checkpoints each decoder layer. Tensor
+and pipeline parallelism, MoE, context (ring) parallelism, sequence
+parallelism and selective recompute policies are not ported; a config
+that asks for them raises.
 """
 from __future__ import annotations
 
@@ -16,14 +18,16 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..framework.device import resolve_device, seed, torch_dtype
 from ..nn.functional.flash_attention import (flash_attention,
                                              scaled_dot_product_attention)
+from ..nn.functional.loss import cross_entropy
 from ..nn.layer.norm import RMSNorm
 
-__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
-           "llama_2_7b"]
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion", "llama_tiny", "llama_2_7b"]
 
 
 class LlamaConfig:
@@ -38,7 +42,8 @@ class LlamaConfig:
                  rope_theta=10000.0, tie_word_embeddings=False,
                  use_flash_attention=True, tensor_parallel=False,
                  sequence_parallel=False, recompute=False,
-                 dtype="float32", pipeline_parallel=False, head_dim=None,
+                 recompute_policy=None, dtype="float32",
+                 pipeline_parallel=False, head_dim=None,
                  context_parallel=False, num_experts=0):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -54,6 +59,7 @@ class LlamaConfig:
         self.tensor_parallel = tensor_parallel
         self.sequence_parallel = sequence_parallel
         self.recompute = recompute
+        self.recompute_policy = recompute_policy
         self.dtype = dtype
         self.pipeline_parallel = pipeline_parallel
         self._head_dim = head_dim
@@ -67,11 +73,16 @@ class LlamaConfig:
 
 def _check_supported(cfg):
     for name in ("tensor_parallel", "sequence_parallel", "pipeline_parallel",
-                 "context_parallel", "recompute", "num_experts"):
+                 "context_parallel", "num_experts"):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"LlamaConfig.{name} is not ported to the PyTorch package "
-                f"yet (it serves the single-device forward)")
+                f"yet (it runs on a single device)")
+    if cfg.recompute and cfg.recompute_policy is not None:
+        raise NotImplementedError(
+            f"LlamaConfig.recompute_policy={cfg.recompute_policy!r} is not "
+            f"ported to the PyTorch package yet; recompute=True with "
+            f"recompute_policy=None checkpoints whole decoder layers")
 
 
 # -- rotary embedding ---------------------------------------------------------
@@ -180,8 +191,15 @@ class LlamaModel(nn.Module):
         S = input_ids.shape[1]
         x = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos[:S], self.rope_sin[:S]
+        # full recompute of each layer in training, as the JAX model's
+        # recompute with policy None: the backward reruns the layer's
+        # forward instead of keeping its activations
+        recompute = self.config.recompute and self.training
         for layer in self.layers:
-            x = layer(x, cos, sin)
+            if recompute:
+                x = checkpoint(layer, x, cos, sin, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin)
         return self.norm(x)
 
 
@@ -203,6 +221,11 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = _linear(config.hidden_size, config.vocab_size,
                                    dev, dtype)
         self.init_weights(seed(0, dev) if generator is None else generator)
+        # parameters carry their qualified names, as paddle parameters
+        # carry a name (torch's Tensor.name is taken): the optimizer keys
+        # its state and apply_decay_param_fun by it
+        for name, p in self.named_parameters():
+            p.param_name = name
 
     @property
     def device(self):
@@ -225,6 +248,23 @@ class LlamaForCausalLM(nn.Module):
     def generate(self, input_ids, **kwargs):
         from .generation import generate
         return generate(self, input_ids, **kwargs)
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Next-token cross-entropy over logits [B, S, V] and pre-shifted
+    labels [B, S] (the caller shifts, as the reference's data pipeline
+    does): logits are cast to float32 first, labels of -100 are ignored,
+    and the mean is over the valid labels."""
+
+    def __init__(self, config=None):
+        super().__init__()
+        if config is not None and config.tensor_parallel:
+            raise NotImplementedError(
+                "the tensor-parallel criterion (ParallelCrossEntropy) is "
+                "not ported to the PyTorch package yet")
+
+    def forward(self, logits, labels):
+        return cross_entropy(logits.float(), labels.unsqueeze(-1))
 
 
 def llama_tiny(**overrides):

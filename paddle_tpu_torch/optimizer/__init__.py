@@ -1,0 +1,5 @@
+"""Optimizers of the PyTorch port (counterpart of paddle_tpu/optimizer)."""
+from .optimizer import Optimizer
+from .optimizers import Adam, AdamW
+
+__all__ = ["Optimizer", "Adam", "AdamW"]

@@ -8,14 +8,22 @@ so it also runs where JAX is not installed:
 
 Tolerances: float32 1e-4 (summation order only); bf16 2e-2 (both sides
 compute in float32 from the same bf16 inputs and round the output to
-bf16).
+bf16). The backward's gradients are held element by element to
+|out - ref| <= rtol |ref| + atol * max|ref|: rtol 0 and atol 1e-4 in
+float32; rtol 2^-7 (one bf16 ulp) and atol 1e-3 in bf16, where the float32
+sums both sides round differ in summation order over S terms whose
+cancellation (dp - delta) leaves small elements with a larger relative
+error.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.kernels.flash_attention import (
-    _flash_bhsd, flash_attention_fwd_plain)
+    _flash_bhsd, _flash_bhsd_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd_plain)
+from paddle_tpu_torch.nn.functional.flash_attention import (
+    flash_attention, scaled_dot_product_attention)
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
 
@@ -123,11 +131,98 @@ def test_flash_kernel_matches_plain(cuda_device, d, causal):
 
 @pytest.mark.cuda
 def test_flash_kernel_is_forward_only(cuda_device):
+    """The forward wrapper computes values only: given a tensor that needs
+    a gradient under grad mode it raises and points at flash_attention,
+    whose autograd Function carries the gradient; it rejects a head dim it
+    has no kernel for."""
     q = torch.randn(2, 128, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(RuntimeError, match="flash_attention for gradients"):
         _flash_bhsd(q, q.detach(), q.detach(), True)
     with torch.no_grad():
-        _flash_bhsd(q, q, q, True)
+        o, lse = _flash_bhsd(q, q, q, True)
+    assert o.grad_fn is None and lse.grad_fn is None
     with pytest.raises(ValueError):
         _flash_bhsd(*(torch.randn(2, 128, 48, device=cuda_device),) * 3,
                     True)
+
+
+BWD_TOLS = ((torch.float32, 0.0, 1e-4), (torch.bfloat16, 2.0 ** -7, 1e-3))
+
+
+def _bwd_close(out, ref, rtol, atol):
+    d = (out.float() - ref.float()).abs()
+    lim = rtol * ref.float().abs() + atol * ref.float().abs().max()
+    return bool((d <= lim).all()), d.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [200, 256])
+def test_flash_bwd_kernel_matches_plain(cuda_device, d, causal, s):
+    rng = np.random.default_rng(d + s + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((3, s, d))
+                                    .astype(np.float32)).to(cuda_device)
+                   for _ in range(4))
+    scale = d ** -0.5
+    before = _flash_bhsd_bwd.launches
+    for dt, rtol, atol in BWD_TOLS:
+        qt, kt, vt, dot = (x.to(dt) for x in (q, k, v, do))
+        o, lse = flash_attention_fwd_plain(qt, kt, vt, causal, scale)
+        got = _flash_bhsd_bwd(qt, kt, vt, o, lse, dot, causal, scale)
+        ref = flash_attention_bwd_plain(qt, kt, vt, o, lse, dot, causal,
+                                        scale)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == dt
+            ok, err = _bwd_close(g, r, rtol, atol)
+            assert ok, f"{name} {dt}: max abs err {err}"
+    assert _flash_bhsd_bwd.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_bwd_takes_a_strided_do(cuda_device):
+    """autograd hands dO over non-contiguous: the wrapper makes it
+    contiguous, the kernel never sees the strides."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 130, 64))
+                                .astype(np.float32)).to(cuda_device)
+               for _ in range(3))
+    do_t = torch.from_numpy(rng.standard_normal((64, 130, 4))
+                            .astype(np.float32)).to(cuda_device)
+    do = do_t.permute(2, 1, 0)
+    assert not do.is_contiguous()
+    o, lse = _flash_bhsd(q, k, v, True)
+    got = _flash_bhsd_bwd(q, k, v, o, lse, do, True)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do.contiguous(), True,
+                                    64 ** -0.5)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _bwd_close(g, r, 0.0, 1e-4)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_autograd_matches_plain_autograd(cuda_device,
+                                                         causal):
+    """[B, S, H, D] through the autograd Function (both flash kernels)
+    against autograd through the plain attention, float32, GQA-repeated
+    heads included."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    b, s, h, hkv, d = 2, 192, 8, 2, 64
+    qn = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    kn, vn = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    gn = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    grads = []
+    for fn in (flash_attention, scaled_dot_product_attention):
+        q, k, v = (torch.from_numpy(a).to(cuda_device).requires_grad_()
+                   for a in (qn, kn, vn))
+        out = fn(q, k.repeat_interleave(h // hkv, dim=2),
+                 v.repeat_interleave(h // hkv, dim=2), causal=causal)
+        out.backward(torch.from_numpy(gn).to(cuda_device))
+        grads.append((out.detach(), q.grad, k.grad, v.grad))
+    torch.cuda.synchronize()
+    for got, ref in zip(*grads):
+        assert _bwd_close(got, ref, 0.0, 1e-4)[0]

@@ -10,10 +10,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.decode import CachedDecoder
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                           LlamaPretrainingCriterion,
                                            llama_tiny)
 from paddle_tpu_torch.models.paged_decode import PagedDecoder
+from paddle_tpu_torch.nn.functional.loss import cross_entropy
+from paddle_tpu_torch.optimizer import Adam, AdamW
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "paddle_tpu_torch"
@@ -107,9 +111,52 @@ def test_unported_serve_options_raise(opt):
                                    "pipeline_parallel", "context_parallel",
                                    "recompute", "num_experts"])
 def test_unported_model_options_raise(field):
-    cfg = llama_tiny(**{field: 4 if field == "num_experts" else True})
+    kw = {field: 4 if field == "num_experts" else True}
+    if field == "recompute":
+        # whole-layer recompute (policy None) is ported; a selective
+        # policy is not
+        kw["recompute_policy"] = "dots"
     with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(cfg, device="cpu")
+        LlamaForCausalLM(llama_tiny(**kw), device="cpu")
+
+
+def test_training_needs_a_card_or_cpu_tensors(no_card):
+    """The optimizer and the train step run where their tensors lie: CPU
+    tensors take the plain path, anything else needs a card."""
+    model = LlamaForCausalLM(llama_tiny(), device="cpu").to("meta")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        AdamW(parameters=model.parameters())
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        TrainStep(model, lambda lo, la: lo.sum(), object())
+    cpu = LlamaForCausalLM(llama_tiny(), device="cpu")
+    step = TrainStep(cpu, LlamaPretrainingCriterion(),
+                     AdamW(parameters=cpu.parameters()))
+    ids = [[1, 2, 3, 4]]
+    loss = step((ids,), (ids,))            # lists go to the model's device
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+def test_unported_training_options_raise():
+    model = LlamaForCausalLM(llama_tiny(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        AdamW(parameters=model.parameters(), grad_clip=object())
+    with pytest.raises(NotImplementedError):
+        AdamW(learning_rate=lambda: 1e-3, parameters=model.parameters())
+    with pytest.raises(NotImplementedError):      # an L2Decay-style object
+        Adam(parameters=model.parameters(), weight_decay=object())
+    with pytest.raises(NotImplementedError):
+        Adam(parameters=[{"params": model.parameters(),
+                          "weight_decay": object()}])
+    opt = AdamW(parameters=model.parameters())
+    with pytest.raises(NotImplementedError):
+        TrainStep(model, lambda lo, la: lo.sum(), opt, grad_sync=object())
+    with pytest.raises(NotImplementedError):
+        TrainStep(model, lambda lo, la: lo.sum(), opt, plan=object())
+    logits = torch.zeros(2, 5)
+    with pytest.raises(NotImplementedError):
+        cross_entropy(logits, torch.softmax(logits, -1), soft_label=True)
+    with pytest.raises(NotImplementedError):
+        LlamaPretrainingCriterion(llama_tiny(tensor_parallel=True))
 
 
 def test_config_mirrors_the_jax_widths():
