@@ -8,10 +8,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. the card's name and power limit, as nvidia-smi gives them;
 2. the build of every CUDA kernel of the serving and training paths (one
    nvcc per source, all started together), then each kernel of the
-   serving path against its plain PyTorch version on the card at the
+   serving paths against its plain PyTorch version on the card at the
    serving shapes, with its time, the plain version's time, one PyTorch
    library call's time (a yardstick the port never calls) and the least
-   time the card could take;
+   time the card could take: ragged and flash attention, then
+   quant_matmul (the decode projections at 8 slots, the head, a
+   1024-row prefill product, fp8 codes), ragged attention over the int8
+   pool and the split-context partials;
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
    seeded torch.Generator) on 16 requests: every request gets its budget
    and the ragged kernel ran once per layer per decode step;
@@ -20,6 +23,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    two of them must equal greedy generation through the full forward;
 5. CachedDecoder.generate at full width, batch 4, 1024-token prompts: the
    prefill runs the flash-attention kernel once per layer;
+5b. serve_quant: phase 3's requests with int8_blockwise weights and an
+   int8 KV pool (quant_matmul 7 per layer plus the head, per decode step
+   and per prefill; the quantized ragged kernel once per layer per step);
+   serve_long: 4 prompts of 3000-4000 tokens at max_len 4096 in 4 shards
+   (the partials kernel once per layer per step); then, in float32 at 4
+   layers, the quantized ragged serve against the quantized dense one and
+   2 and 4 shards against the unsharded serve, token for token;
 6. the training path's kernels checked and timed the same way at the
    training shapes (after the serving phases, so that those see the card
    as the serving slice left it), then train: bench.py's one-chip
@@ -35,13 +45,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    first step's gradients must agree;
 8. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the generate of phase 5 for the
-   flash forward, the train of phase 6 for the flash backward), error and
-   times;
+   flash forward, the train of phase 6 for the flash backward, serve_quant
+   for quant_matmul and the quantized ragged kernel, serve_long for the
+   partials), error and times;
 9. the card's name and power limit again, and the result line.
 
-With --profile, a short full-width serve and two train steps also run
-under torch.profiler, and one more line for each gives the device time by
-kernel and the device's idle share.
+With --profile, short full-width serves (plain, serve_quant's and
+serve_long's engines) and two train steps also run under torch.profiler,
+and one more line for each gives the device time by kernel and the
+device's idle share.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
@@ -367,6 +379,290 @@ def flash_bwd_case(torch, name, bh, s, d, causal, seed):
     return rec
 
 
+# -- phase 2b: the quantized and long-context serving kernels -------------------
+
+QMM_ATOL = 1e-5                  # of the output's largest magnitude
+
+
+def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
+    """quant_matmul at a serve shape: x [m, k] @ dequant(codes [n, k],
+    scales [n, k / 128]).T. Kernel and plain version both accumulate in
+    float32 (the plain version dequantizes and multiplies on cuBLAS in
+    float32) and round to x's dtype: one bf16 ulp of the value, plus 1e-5
+    of the largest output for the summation order over k (sums of k
+    products of about unit size reach sqrt(k) ~ 100 while the order moves
+    them by about sqrt(k) * 6e-8 * 50 = 3e-4; a dropped or wrongly scaled
+    K-block moves an output by percents)."""
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        blockwise_weight_bytes, dequantize_weight_blockwise, quant_matmul,
+        quant_matmul_plain, quantize_weight_blockwise)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w = torch.randn(n, k, generator=gen, device=dev, dtype=torch.bfloat16)
+    codes, scales = quantize_weight_blockwise(w, qdtype=qdtype)
+    del w
+    x = torch.randn(m, k, generator=gen, device=dev, dtype=x_dtype)
+    out = quant_matmul(x, codes, scales)
+    ref = quant_matmul_plain(x, codes, scales)
+    torch.cuda.synchronize()
+    atol = QMM_ATOL * ref.float().abs().max().item()
+    err, ratio = bf16_err(out, ref, atol)
+    if x_dtype == torch.float32:      # no bf16 rounding of the output
+        d = (out - ref).abs()
+        ratio = (d / (1e-6 * ref.abs() + atol)).max().item()
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
+    kernel_ms = cuda_ms(torch, lambda: quant_matmul(x, codes, scales), 20)
+    plain_ms = cuda_ms(torch, lambda: quant_matmul_plain(x, codes, scales),
+                       3, warmup=1)
+    wlib = dequantize_weight_blockwise(codes, scales).to(torch.bfloat16)
+    xlib = x.to(torch.bfloat16)
+    linear = torch.nn.functional.linear
+    lib_check(name, linear(xlib, wlib), ref)
+    library_ms = cuda_ms(torch, lambda: linear(xlib, wlib), 20)
+    del wlib
+    xsize = x.element_size()
+    wbytes = blockwise_weight_bytes(k, n)[0]
+    bytes_moved = wbytes + m * k * xsize + m * n * xsize
+    flops = 2 * m * k * n
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    rec = {"phase": "kernel_check", "kernel": "quant_matmul", "case": name,
+           "codes": qdtype, "x_dtype": str(x_dtype).split(".")[-1],
+           "m": m, "k": k, "n": n, "block_k": k // scales.shape[1],
+           "max_abs_err": err, "err_over_tolerance": ratio,
+           "rtol": BF16_RTOL if x_dtype == torch.bfloat16 else 1e-6,
+           "atol": atol, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library": "F.linear on the dequantized bf16 weight (bf16 x)",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": bytes_moved, "flops": flops,
+           "weight_bytes": wbytes, "weight_bytes_bf16": 2 * k * n}
+    emit(rec)
+    del x, codes, scales, out, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ragged_quant_case(torch, np, name, nh, nkv, seed, poison=False,
+                      plant=False):
+    """The quantized ragged kernel at the serve's shapes (8 slots, hd 128,
+    bs 64, 32 blocks), pools quantized from bf16 draws with
+    kv_quantize_rows, against its plain version; tolerance as the ragged
+    case. poison: code 127 and NaN scales at every position past each
+    seq_len (inside the live block too) and garbage table entries past
+    it; the output must equal the clean run's, bit for bit."""
+    from paddle_tpu_torch.kernels.ragged_paged_attention import (
+        kv_dequantize_rows, kv_quantize_rows, ragged_paged_attention_quant,
+        ragged_paged_attention_quant_plain)
+    dev = torch.device("cuda")
+    S, hd, bs, mb = 8, 128, 64, 32
+    W = mb * bs
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(127, W, S).astype(np.int32)
+    if plant:
+        lens = np.array([0, 1, 63, 64, 65, 127, 1000, W - 1], np.int32)
+    nb = S * mb + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kc, ks = kv_quantize_rows(torch.randn(nb, bs, nkv, hd, generator=gen,
+                                          device=dev, dtype=torch.bfloat16))
+    vc, vs = kv_quantize_rows(torch.randn(nb, bs, nkv, hd, generator=gen,
+                                          device=dev, dtype=torch.bfloat16))
+    q = torch.randn(S, nh, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    tables = torch.as_tensor((rng.permutation(nb - 1)[:S * mb] + 1)
+                             .reshape(S, mb).astype(np.int32), device=dev)
+    seq = torch.as_tensor(lens, device=dev)
+    scale = hd ** -0.5
+    if plant:
+        # the token at seq_len: a key along its group's queries and a large
+        # value, stored through the codec
+        sl = torch.arange(S, device=dev)
+        pos = seq.long()
+        blk = tables.long()[sl, pos // bs]
+        qg = q.float().reshape(S, nkv, nh // nkv, hd).mean(2)
+        pk, pks = kv_quantize_rows(4 * qg)
+        pv, pvs = kv_quantize_rows(torch.full_like(qg, 4.0))
+        kc[blk, pos % bs], ks[blk, pos % bs] = pk, pks
+        vc[blk, pos % bs], vs[blk, pos % bs] = pv, pvs
+    def args():                    # tables is rebound by the poison
+        return q, kc, ks, vc, vs, tables, seq
+
+    clean = None
+    if poison:
+        clean = ragged_paged_attention_quant(*args(), scale)
+        pos = torch.arange(W, device=dev)
+        dead = pos[None, :] > seq.long()[:, None]
+        rows = tables.long().repeat_interleave(bs, dim=1)
+        lanes = (pos % bs)[None, :].expand(S, -1)
+        for codes, scales in ((kc, ks), (vc, vs)):
+            codes[rows[dead], lanes[dead]] = 127
+            scales[rows[dead], lanes[dead]] = float("nan")
+            codes[0] = 127
+            scales[0] = float("nan")
+        live_blk = torch.arange(mb, device=dev)[None, :] <= \
+            (seq.long() // bs)[:, None]
+        tables = torch.where(live_blk, tables, 1 << 30)
+    out = ragged_paged_attention_quant(*args(), scale)
+    ref = ragged_paged_attention_quant_plain(*args(), scale)
+    torch.cuda.synchronize()
+    err, ratio = bf16_err(out, ref)
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
+    if plant:
+        drop = ragged_paged_attention_quant_plain(
+            q, kc, ks, vc, vs, tables, (seq - 1).clamp(min=0), scale)
+        moved = min(bf16_err(drop[i], ref[i])[1] for i in range(1, S))
+        check(moved > 10.0, f"{name}: dropping the last token moves the "
+                            f"output by only {moved} x tolerance")
+    if poison:
+        check(bool(torch.isfinite(out).all()), f"{name}: NaN reached out")
+        perr = (out.float() - clean.float()).abs().max().item()
+        check(perr == 0.0, f"{name}: poisoned run differs from clean "
+                           f"by {perr}")
+    kernel_ms = cuda_ms(torch, lambda: ragged_paged_attention_quant(
+        *args(), scale), 50)
+    plain_ms = cuda_ms(torch, lambda: ragged_paged_attention_quant_plain(
+        *args(), scale), 5, warmup=1)
+    # yardstick: SDPA on each slot's dequantized window, pre-gathered (not
+    # timed) to a contiguous bf16 [S, nh, W, hd] with a per-slot key mask
+    safe = torch.where(tables < nb, tables, 0).long()
+    kw = kv_dequantize_rows(kc[safe], ks[safe]).reshape(S, W, nkv, hd)
+    vw = kv_dequantize_rows(vc[safe], vs[safe]).reshape(S, W, nkv, hd)
+    kw, vw = (t.nan_to_num().to(torch.bfloat16)
+              .repeat_interleave(nh // nkv, dim=2).transpose(1, 2)
+              .contiguous() for t in (kw, vw))
+    mask = (torch.arange(W, device=dev)[None, :]
+            <= seq.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_check(name, sdpa(q4, kw, vw, attn_mask=mask, scale=scale)[:, :, 0],
+              ref)
+    library_ms = cuda_ms(torch, lambda: sdpa(q4, kw, vw, attn_mask=mask,
+                                             scale=scale), 20)
+    # per token: K and V codes of every kv head plus one float32 scale
+    # each; then q in, o out, the live table entries and seq_lens
+    tokens = int((np.minimum(lens, W - 1).astype(np.int64) + 1).sum())
+    bytes_moved = (2 * (nkv * hd + 4) * tokens + 2 * q.numel() * 2
+                   + 4 * int((lens // bs + 1).sum()) + 4 * S)
+    flops = 4 * nh * hd * tokens
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    rec = {"phase": "kernel_check", "kernel": "ragged_paged_attention_quant",
+           "case": name, "dtype": "bfloat16 q, int8 pool", "slots": S,
+           "nh": nh, "nkv": nkv, "hd": hd, "block_size": bs,
+           "seq_lens": [int(x) for x in lens], "max_abs_err": err,
+           "err_over_tolerance": ratio, "rtol": BF16_RTOL,
+           "atol": BF16_ATOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library": "scaled_dot_product_attention on a pre-gathered, "
+                      "dequantized bf16 window",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": bytes_moved, "flops": flops}
+    emit(rec)
+    return rec
+
+
+def partials_case(torch, np, name, seed, shards=4):
+    """The split-context partials kernel: 4 slots, 32 x 32 heads, hd 128,
+    bs 64, 64 blocks (4096 positions), 4 shards of 16 blocks; one slot of
+    100 tokens (three empty trailing shards), one at full span. Per-shard
+    o and lse against the plain partials (float32 o atol 1e-4: order of
+    the float32 sums over up to 1024 positions; lse atol 1e-4), the merged
+    result against the plain sharded version and the unsharded ragged
+    kernel (one bf16 ulp, as the ragged case)."""
+    from paddle_tpu_torch.kernels.ragged_paged_attention import (
+        merge_partials, ragged_paged_attention,
+        ragged_paged_attention_partials,
+        ragged_paged_attention_partials_plain)
+    dev = torch.device("cuda")
+    S, nh, nkv, hd, bs, mb = 4, 32, 32, 128, 64, 64
+    W = mb * bs
+    rng = np.random.default_rng(seed)
+    lens = np.array([100, W - 1, *rng.integers(1100, W - 1, S - 2)],
+                    np.int32)
+    nb = S * mb + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kp = torch.randn(nb, bs, nkv, hd, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    vp = torch.randn(nb, bs, nkv, hd, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    q = torch.randn(S, nh, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    tables = torch.as_tensor((rng.permutation(nb - 1)[:S * mb] + 1)
+                             .reshape(S, mb).astype(np.int32), device=dev)
+    seq = torch.as_tensor(lens, device=dev)
+    scale = hd ** -0.5
+    o, lse = ragged_paged_attention_partials(q, kp, vp, tables, seq, shards,
+                                             scale)
+    ro, rlse = ragged_paged_attention_partials_plain(q, kp, vp, tables, seq,
+                                                     shards, scale)
+    merged = merge_partials(o, lse, q.dtype)
+    ref = merge_partials(ro, rlse, q.dtype)
+    whole = ragged_paged_attention(q, kp, vp, tables, seq, scale)
+    torch.cuda.synchronize()
+    live = rlse > -1e29
+    check(bool(torch.equal(live, lse > -1e29)),
+          f"{name}: empty shards disagree")
+    check(int((~live).sum()) >= 3 * nh, f"{name}: no empty shard")
+    o_err = (o - ro).abs().max().item()
+    lse_err = (lse - rlse)[live].abs().max().item()
+    err, ratio = bf16_err(merged, ref)
+    werr, wratio = bf16_err(merged, whole)
+    check(o_err <= 1e-4 and lse_err <= LSE_ATOL and ratio <= 1.0
+          and wratio <= 1.0 and bool((o[~live] == 0).all()),
+          f"{name}: o err {o_err}, lse err {lse_err}, merged vs plain "
+          f"{ratio} x tolerance, vs unsharded kernel {wratio}")
+    kernel_ms = cuda_ms(torch, lambda: ragged_paged_attention_partials(
+        q, kp, vp, tables, seq, shards, scale), 50)
+    sharded_ms = cuda_ms(torch, lambda: merge_partials(
+        *ragged_paged_attention_partials(q, kp, vp, tables, seq, shards,
+                                         scale), q.dtype), 50)
+    ragged_ms = cuda_ms(torch, lambda: ragged_paged_attention(
+        q, kp, vp, tables, seq, scale), 50)
+    plain_ms = cuda_ms(torch, lambda: ragged_paged_attention_partials_plain(
+        q, kp, vp, tables, seq, shards, scale), 3, warmup=1)
+    kw = kp[tables.long()].reshape(S, W, nkv, hd).transpose(1, 2) \
+        .contiguous()
+    vw = vp[tables.long()].reshape(S, W, nkv, hd).transpose(1, 2) \
+        .contiguous()
+    mask = (torch.arange(W, device=dev)[None, :]
+            <= seq.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_check(name, sdpa(q4, kw, vw, attn_mask=mask, scale=scale)[:, :, 0],
+              ref)
+    library_ms = cuda_ms(torch, lambda: sdpa(q4, kw, vw, attn_mask=mask,
+                                             scale=scale), 20)
+    # K and V of every live token, q, the float32 partials (o and lse of
+    # every shard) written once, the live table entries and seq_lens
+    tokens = int((lens.astype(np.int64) + 1).sum())
+    bytes_moved = (2 * nkv * hd * 2 * tokens + q.numel() * 2
+                   + o.numel() * 4 + lse.numel() * 4
+                   + 4 * int((lens // bs + 1).sum()) + 4 * S)
+    flops = 4 * nh * hd * tokens
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    rec = {"phase": "kernel_check", "kernel": "ragged_paged_attention_partials",
+           "case": name, "dtype": "bfloat16", "slots": S, "nh": nh,
+           "nkv": nkv, "hd": hd, "block_size": bs, "blocks_per_seq": mb,
+           "shards": shards, "seq_lens": [int(x) for x in lens],
+           "max_abs_err": max(o_err, err), "o_max_abs_err": o_err,
+           "o_atol": 1e-4, "lse_max_abs_err": lse_err,
+           "lse_atol": LSE_ATOL, "merged_err_over_tolerance": ratio,
+           "merged_vs_unsharded_kernel_err_over_tolerance": wratio,
+           "kernel_ms": kernel_ms, "sharded_with_merge_ms": sharded_ms,
+           "unsharded_ragged_kernel_ms": ragged_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library": "scaled_dot_product_attention on a pre-gathered "
+                      "window", "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": bytes_moved, "flops": flops}
+    emit(rec)
+    del kp, vp, kw, vw, o, ro
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phases 3-5: the serving path ----------------------------------------------
 
 def make_requests(np, seed, n=16):
@@ -440,16 +736,182 @@ def serve_phase(torch, np, model, reqs, layers):
     return rec
 
 
-def profile_phase(torch, model, reqs):
+def serve_record(torch, phase, dec, reqs, layers, wall, extra):
+    """The serve figures every serving phase prints."""
+    st = dec.serve_stats
+    decode_tokens = sum(b for _, _, b in reqs) - len(reqs)
+    ttft = sorted(st["first_token_s"].values())
+    rec = {"phase": phase, "model": "llama_2_7b widths, random weights",
+           "dtype": "bfloat16", "layers": layers, "layers_cut": layers != 32,
+           "requests": len(reqs),
+           "prompt_lens": [len(p) for _, p, _ in reqs],
+           "budgets": [b for _, _, b in reqs], "chunk": 8,
+           "max_len": dec.max_len, "max_slots": dec.max_slots,
+           "block_size": dec.block_size, "num_blocks": dec.num_blocks,
+           "wall_s": wall, "prefill_s": st["prefill_s"],
+           "decode_s": st["decode_s"], "decode_steps": st["decode_steps"],
+           "chunks": st["chunks"], "decode_tokens": decode_tokens,
+           "decode_tokens_per_s": decode_tokens / st["decode_s"],
+           "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
+           "peak_blocks": dec.allocator.peak_in_use,
+           "weight_bytes": dec.weight_stream_bytes["quant"],
+           "weight_bytes_bf16": dec.weight_stream_bytes["bf16eq"],
+           "pool_bytes": dec.pool_bytes(),
+           "pool_bytes_bf16": 2 * dec.n_layers * dec.num_blocks
+           * dec.block_size * dec.nkv * dec.hd * 2,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    rec.update(extra)
+    return rec
+
+
+def check_served(dec, out, reqs, vocab):
+    for rid, prompt, budget in reqs:
+        toks = out[rid]
+        check(len(toks) == budget, f"{rid}: {len(toks)} tokens, budget "
+                                   f"{budget}")
+        check(all(0 <= t < vocab for t in toks),
+              f"{rid}: token out of the vocabulary")
+    check(dec.allocator.in_use == 0, "blocks leaked after serve")
+
+
+def serve_quant_phase(torch, np, model, reqs, layers):
+    """The quantized serving deployment: block-scaled int8 weights and an
+    int8 paged KV pool, at phase 3's widths and requests. Every
+    projection and the head go through quant_matmul: 7 per layer plus the
+    head, once per decode step and once per prefill (the prefill's head
+    multiplies the last token only); decode attention through the
+    quantized ragged kernel, once per layer per decode step."""
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
+    from paddle_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_quant)
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
+                       num_blocks=257, weight_quant="int8_blockwise",
+                       kv_quant="int8")
+    check(dec.use_ragged_kernel, "ragged kernel is off on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    quant_matmul.launches = 0
+    ragged_paged_attention_quant.launches = 0
+    ragged_paged_attention.launches = 0
+    t0 = time.perf_counter()
+    out = dec.serve(reqs, chunk=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    qmm, rq = quant_matmul.launches, ragged_paged_attention_quant.launches
+    check_served(dec, out, reqs, model.config.vocab_size)
+    steps = dec.serve_stats["decode_steps"]
+    per_pass = 7 * layers + 1
+    check(rq == layers * steps and ragged_paged_attention.launches == 0,
+          f"quantized ragged launches {rq} != layers {layers} x decode "
+          f"steps {steps} (unquantized: {ragged_paged_attention.launches})")
+    check(qmm == per_pass * (steps + len(reqs)),
+          f"quant_matmul launches {qmm} != (7 x {layers} + 1) x (decode "
+          f"steps {steps} + prefills {len(reqs)})")
+    rec = serve_record(torch, "serve_quant", dec, reqs, layers, wall, {
+        "weight_quant": "int8_blockwise", "kv_quant": "int8",
+        "requests_cut": False, "quant_matmul_launches": qmm,
+        "quant_matmul_launches_rule": "(7 x layers + 1) x (decode steps + "
+                                      "prefills)",
+        "ragged_quant_launches": rq})
+    emit(rec)
+    del dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def make_long_requests(np, seed, n=4):
+    rng = np.random.default_rng(seed + 7)
+    return [(f"long{i}", [int(t) for t in rng.integers(
+        0, 32000, int(rng.integers(3000, 4001)))], 32) for i in range(n)]
+
+
+def serve_long_phase(torch, np, model, reqs, layers):
+    """The long-context deployment: 4 prompts of 3000-4000 tokens at
+    max_len 4096, decode attention as 4-shard split-context partials (one
+    launch per layer per decode step, all shards in it)."""
+    from paddle_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_partials)
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    dec = PagedDecoder(model, max_len=4096, block_size=64, max_slots=4,
+                       num_blocks=257, attn_shards=4)
+    check(dec.use_ragged_kernel, "ragged kernel is off on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ragged_paged_attention_partials.launches = 0
+    ragged_paged_attention.launches = 0
+    t0 = time.perf_counter()
+    out = dec.serve(reqs, chunk=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pl = ragged_paged_attention_partials.launches
+    check_served(dec, out, reqs, model.config.vocab_size)
+    steps = dec.serve_stats["decode_steps"]
+    check(pl == layers * steps and ragged_paged_attention.launches == 0
+          and dec.sharded_attn_calls == steps,
+          f"partials launches {pl} != layers {layers} x decode steps "
+          f"{steps} (unsharded {ragged_paged_attention.launches}, sharded "
+          f"steps {dec.sharded_attn_calls})")
+    rec = serve_record(torch, "serve_long", dec, reqs, layers, wall, {
+        "attn_shards": dec.attn_shards, "partials_launches": pl,
+        "partials_launches_rule": "layers x decode steps (one launch "
+                                  "holds every shard)"})
+    emit(rec)
+    del dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def quant_shard_parity_phase(torch, np, reqs, seed):
+    """Float32, 4 layers (phase 4's model): the quantized ragged serve
+    against the quantized dense serve, and attn_shards 2 and 4 against
+    the unsharded ragged serve; every stream must be identical."""
+    from paddle_tpu_torch.models.llama import llama_2_7b
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama_2_7b(num_hidden_layers=4, dtype="float32")
+    model = build_model(torch, cfg, seed + 1)
+    runs = {}
+    for key, kw in (("quant_ragged", dict(kv_quant="int8")),
+                    ("quant_dense", dict(kv_quant="int8",
+                                         ragged_kernel=False)),
+                    ("ragged", {}), ("shards2", dict(attn_shards=2)),
+                    ("shards4", dict(attn_shards=4))):
+        dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
+                           num_blocks=257, **kw)
+        runs[key] = dec.serve(reqs, chunk=8)
+        del dec
+    same = {}
+    for a, b in (("quant_ragged", "quant_dense"), ("shards2", "ragged"),
+                 ("shards4", "ragged")):
+        same[f"{a}_vs_{b}"] = sum(runs[a][rid] == runs[b][rid]
+                                  for rid, _, _ in reqs)
+    agree = sum(runs["quant_ragged"][rid] == runs["ragged"][rid]
+                for rid, _, _ in reqs)
+    check(all(v == len(reqs) for v in same.values()),
+          f"parity: identical streams {same} of {len(reqs)}")
+    rec = {"phase": "quant_shards_parity", "dtype": "float32", "layers": 4,
+           "requests": len(reqs), "identical_streams": same,
+           "int8_kv_vs_float32_kv_identical_streams": agree}
+    emit(rec)
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_phase(torch, model, reqs, phase="profile", **engine_kw):
     """--profile only: a short serve at full width (8 requests, budgets
     cut to 16), run once plainly for its wall time and once under
     torch.profiler for the device time of each kernel. The device's idle
     share is 1 - (kernel time under the profiler) / (plain wall time):
-    the profiler slows the host, not the kernels."""
+    the profiler slows the host, not the kernels. engine_kw replaces the
+    engine's configuration (serve_quant's, serve_long's)."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.models.paged_decode import PagedDecoder
-    dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
-                       num_blocks=257)
+    kw = dict(max_len=2048, block_size=64, max_slots=8, num_blocks=257)
+    kw.update(engine_kw)
+    dec = PagedDecoder(model, **kw)
     short = [(rid, p, 16) for rid, p, _ in reqs[:8]]
     dec.serve(short[:1], chunk=8)                        # warm up
     torch.cuda.synchronize()
@@ -463,7 +925,8 @@ def profile_phase(torch, model, reqs):
         dec.serve(short, chunk=8)
         torch.cuda.synchronize()
     rows, busy_s = device_kernel_rows(prof)
-    rec = {"phase": "profile", "requests": 8, "budget": 16, "wall_s": wall,
+    rec = {"phase": phase, "engine": kw, "requests": len(short),
+           "budget": 16, "wall_s": wall,
            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
            "decode_steps": st["decode_steps"],
            "device_busy_s": busy_s if rows else "not measured",
@@ -759,9 +1222,9 @@ def main():
                          "is the only thing a time limit may cut)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a short full-width serve and two "
-                         "train steps with torch.profiler (device time by "
-                         "kernel)")
+                    help="also profile short full-width serves (plain, "
+                         "quantized, long-context) and two train steps "
+                         "with torch.profiler (device time by kernel)")
     args = ap.parse_args()
 
     import torch
@@ -787,7 +1250,9 @@ def main():
           "python": sys.version.split()[0]})
 
     sources = ("ragged_paged_attention", "flash_attention_fwd",
-               "flash_attention_bwd")
+               "flash_attention_bwd", "quant_matmul",
+               "ragged_paged_attention_quant",
+               "ragged_paged_attention_partials")
     t0 = time.perf_counter()
     _build.build(*sources)
     build_s = time.perf_counter() - t0
@@ -810,6 +1275,32 @@ def main():
     # the shape CachedDecoder's prefill gives the kernel in phase 5
     flash_main = flash_case(torch, "generate_prefill_bh128_s1024_d128_causal",
                             128, 1024, 128, True, 7)
+    # the quantized and long-context serving kernels at serve_quant's and
+    # serve_long's shapes: the decode projections (M = 8 slots), the head
+    # (float32 x), one prefill product (M = 1024) and fp8 codes
+    qmm_main = None
+    for name, m, k, n, qd, xd in (
+            ("decode_qkvo_m8_k4096_n4096", 8, 4096, 4096, "int8",
+             torch.bfloat16),
+            ("decode_gate_up_m8_k4096_n11008", 8, 4096, 11008, "int8",
+             torch.bfloat16),
+            ("decode_down_m8_k11008_n4096", 8, 11008, 4096, "int8",
+             torch.bfloat16),
+            ("decode_head_m8_k4096_n32000_f32", 8, 4096, 32000, "int8",
+             torch.float32),
+            ("prefill_gate_up_m1024_k4096_n11008", 1024, 4096, 11008,
+             "int8", torch.bfloat16),
+            ("fp8_decode_gate_up_m8_k4096_n11008", 8, 4096, 11008, "fp8",
+             torch.bfloat16)):
+        rec = qmm_case(torch, name, m, k, n, qd, xd, m + k + n)
+        if name.startswith("decode_gate_up"):
+            qmm_main = rec
+    rquant_main = ragged_quant_case(torch, np, "quant_mha_32x32", 32, 32, 21)
+    ragged_quant_case(torch, np, "quant_gqa_32x8", 32, 8, 22)
+    ragged_quant_case(torch, np, "quant_nan_poison", 32, 32, 23, poison=True)
+    ragged_quant_case(torch, np, "quant_last_token_gqa_32x8", 32, 8, 24,
+                      plant=True)
+    partials_main = partials_case(torch, np, "shards4_s4_32x32_mb64", 25)
 
     layers = args.layers
     reqs = make_requests(np, args.seed)
@@ -820,9 +1311,18 @@ def main():
     gen = generate_phase(torch, np, model, layers, args.seed)
     if args.profile:
         profile_phase(torch, model, reqs)
+    serve_quant = serve_quant_phase(torch, np, model, reqs, layers)
+    long_reqs = make_long_requests(np, args.seed)
+    serve_long = serve_long_phase(torch, np, model, long_reqs, layers)
+    if args.profile:
+        profile_phase(torch, model, reqs, "profile_serve_quant",
+                      weight_quant="int8_blockwise", kv_quant="int8")
+        profile_phase(torch, model, long_reqs, "profile_serve_long",
+                      max_len=4096, max_slots=4, attn_shards=4)
     del model
     torch.cuda.empty_cache()
     parity_phase(torch, np, reqs, args.seed)
+    quant_shard_parity_phase(torch, np, reqs, args.seed)
 
     # the training path's kernel checks run after the serving phases, so
     # that those see the card as the serving slice left it
@@ -860,7 +1360,18 @@ def main():
             ("flash_attention_bwd",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480",
-             bwd_main, train["flash_bwd_launches"])):
+             bwd_main, train["flash_bwd_launches"]),
+            ("quant_matmul", "paddle_tpu_torch/csrc/quant_matmul.cu",
+             "paddle_tpu/kernels/pallas/quant_matmul.py:177",
+             qmm_main, serve_quant["quant_matmul_launches"]),
+            ("ragged_paged_attention_quant",
+             "paddle_tpu_torch/csrc/ragged_paged_attention_quant.cu",
+             "paddle_tpu/kernels/pallas/ragged_paged_attention.py:506",
+             rquant_main, serve_quant["ragged_quant_launches"]),
+            ("ragged_paged_attention_partials",
+             "paddle_tpu_torch/csrc/ragged_paged_attention_partials.cu",
+             "paddle_tpu/kernels/pallas/ragged_paged_attention.py:310",
+             partials_main, serve_long["partials_launches"])):
         check(launches > 0, f"{name} never ran on the main path")
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": launches,

@@ -5,10 +5,12 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. Two slices are ported: greedy serving
+plain PyTorch version. Three slices are ported: greedy serving
 (LlamaForCausalLM, CachedDecoder and PagedDecoder with the
-continuous-batching serve loop) and the pretraining step (TrainStep over
-LlamaForCausalLM, LlamaPretrainingCriterion and AdamW).
+continuous-batching serve loop), the pretraining step (TrainStep over
+LlamaForCausalLM, LlamaPretrainingCriterion and AdamW), and quantized and
+long-context serving (the decoders' weight_quant, kv_quant and
+attn_shards options).
 """
 from .framework.device import resolve_device, seed
 from .jit import TrainStep

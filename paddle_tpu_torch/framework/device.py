@@ -42,9 +42,10 @@ def check_device(device):
                        f"asked (device='cpu'); got a tensor on {dev}")
 
 
-def seed(seed_val, device="cpu"):
-    """A torch.Generator on ``device`` seeded with ``seed_val`` (the
-    port passes generators explicitly instead of a global key)."""
+def seed(seed_val, device=None):
+    """A torch.Generator on ``device`` (default ``cuda``; raises without a
+    card unless ``device="cpu"``) seeded with ``seed_val`` (the port
+    passes generators explicitly instead of a global key)."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed_val))
     return gen

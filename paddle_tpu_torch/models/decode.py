@@ -7,7 +7,18 @@ decodes one token per step against the caches. The caches are updated in
 place. A prompt whose length is a multiple of 128 prefills through the
 flash-attention forward kernel (kernels/flash_attention.py), as the JAX
 engine switches to its Pallas kernel there; other lengths use the plain
-causal softmax. Only greedy decoding and unquantized weights are ported.
+causal softmax. Only greedy decoding is ported.
+
+``weight_quant`` stores the projections and the head quantized, as the JAX
+engine does, and drops the dense copies:
+- ``"int8"``: int8 codes with one scale per output channel; each product
+  dequantizes the layer's weight in the model dtype and multiplies (no
+  kernel, as in the JAX engine);
+- ``"int8_blockwise"``: int8 codes with one float32 scale per (output
+  column, block of up to 128 inputs), multiplied by the quant_matmul
+  kernel (kernels/quant_matmul.py), which dequantizes in registers.
+Every product against a stacked weight goes through ``_layer_mm`` and the
+head through ``_head_logits``.
 """
 from __future__ import annotations
 
@@ -19,6 +30,8 @@ from torch.nn import functional as F
 
 from ..framework.device import resolve_device, torch_dtype
 from ..kernels.flash_attention import _flash_bhsd
+from ..kernels.quant_matmul import (blockwise_weight_bytes, quant_matmul,
+                                    quantize_weight_blockwise)
 from ..nn.layer.norm import rms_norm as _rms
 
 __all__ = ["CachedDecoder"]
@@ -32,10 +45,10 @@ class CachedDecoder:
     ``cuda``; raises without a card unless ``device="cpu"``)."""
 
     def __init__(self, model, max_len=None, weight_quant=None, device=None):
-        if weight_quant is not None:
-            raise NotImplementedError(
-                f"weight_quant={weight_quant!r} is not ported yet")
+        if weight_quant not in (None, "int8", "int8_blockwise"):
+            raise ValueError(f"unknown weight_quant {weight_quant!r}")
         cfg = model.config
+        self.weight_quant = weight_quant
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
@@ -71,6 +84,7 @@ class CachedDecoder:
             head = self.embed if model.lm_head is None \
                 else model.lm_head.weight.detach().to(self.device)
             self.head = head.float()
+            self._quantize_weights()
             if llama.rope_cos.shape[0] < self.max_len:
                 raise ValueError(f"max_len {self.max_len} exceeds the "
                                  f"model's rope tables "
@@ -78,8 +92,83 @@ class CachedDecoder:
             self.cos = llama.rope_cos[:self.max_len].to(self.device)
             self.sin = llama.rope_sin[:self.max_len].to(self.device)
 
+    def _quantize_weights(self):
+        """Quantize the projections and the head for ``weight_quant`` (the
+        JAX engine's codecs, on the [out, in] layout), drop the dense
+        copies, and price one full weight read in this storage format
+        against bf16: ``weight_stream_bytes``."""
+        quant_b = bf16eq_b = 0
+        self.wq8, self.wscale = {}, {}
+        if self.weight_quant == "int8":
+            for k in _MATS:
+                a = self.w[k].float()                    # [L, out, in]
+                s = (a.abs().amax(dim=-1, keepdim=True) / 127.0
+                     ).clamp_min(1e-12)
+                self.wq8[k] = torch.round(a / s).to(torch.int8)
+                self.wscale[k] = s
+                quant_b += a.numel() + s.numel() * 4
+                bf16eq_b += a.numel() * 2
+                del a
+            hs = (self.head.abs().amax(dim=-1, keepdim=True) / 127.0
+                  ).clamp_min(1e-12)                     # per vocab row
+            self.head_q8 = torch.round(self.head / hs).to(torch.int8)
+            self.head_scale = hs
+            quant_b += self.head.numel() + hs.numel() * 4
+            bf16eq_b += self.head.numel() * 2
+        elif self.weight_quant == "int8_blockwise":
+            for k in _MATS:
+                # one layer at a time: the codec's float32 temporaries stay
+                # the size of one weight
+                pairs = [quantize_weight_blockwise(w) for w in self.w[k]]
+                self.wq8[k] = torch.stack([q for q, _ in pairs])
+                self.wscale[k] = torch.stack([s for _, s in pairs])
+                nl, nout, kin = self.w[k].shape
+                qb, bb = blockwise_weight_bytes(kin, nout)
+                quant_b += nl * qb
+                bf16eq_b += nl * bb
+                del pairs
+            self.head_q8, self.head_scale = \
+                quantize_weight_blockwise(self.head)
+            qb, bb = blockwise_weight_bytes(self.head.shape[1],
+                                            self.head.shape[0])
+            quant_b += qb
+            bf16eq_b += bb
+        else:
+            # the head is priced in the model dtype, as the JAX engine
+            # stores it (this engine keeps a float32 copy to multiply)
+            itemsize = torch.finfo(self.dtype).bits // 8
+            for k in _MATS:
+                quant_b += self.w[k].numel() * itemsize
+                bf16eq_b += self.w[k].numel() * 2
+            quant_b += self.head.numel() * itemsize
+            bf16eq_b += self.head.numel() * 2
+        if self.weight_quant is not None:
+            # the dense stacks and the float32 head are dead weight now
+            self.w = {k: self.w[k] for k in ("ln1", "ln2")}
+            self.head = None
+        self.weight_stream_bytes = {"quant": int(quant_b),
+                                    "bf16eq": int(bf16eq_b)}
+
     # -- building blocks ---------------------------------------------------
+    def _layer_mm(self, x, name, l):
+        """x [..., in] times layer l's weight ``name`` -> [..., out], in
+        the engine's weight storage: dense, per-channel int8 (dequantized
+        in the model dtype, then a plain product) or block-scaled int8
+        (the quant_matmul kernel)."""
+        if self.weight_quant == "int8_blockwise":
+            return quant_matmul(x, self.wq8[name][l], self.wscale[name][l])
+        if self.weight_quant == "int8":
+            return F.linear(x, self.wq8[name][l].to(x.dtype)
+                            * self.wscale[name][l].to(x.dtype))
+        return F.linear(x, self.w[name][l])
+
     def _head_logits(self, x):
+        """float32 logits of the normed hidden state x [..., H]."""
+        if self.weight_quant == "int8_blockwise":
+            return quant_matmul(x.float(), self.head_q8, self.head_scale)
+        if self.weight_quant == "int8":
+            return F.linear(x.float(), self.head_q8.float()
+                            * self.head_scale)
         return F.linear(x.float(), self.head)
 
     @staticmethod
@@ -90,21 +179,19 @@ class CachedDecoder:
         return x * c + torch.cat([-x2, x1], dim=-1) * s
 
     def _mlp(self, x, l):
-        w = self.w
-        h2 = _rms(x, w["ln2"][l], self.eps)
-        g = F.linear(h2, w["wg"][l])
-        u = F.linear(h2, w["wu"][l])
-        return x + F.linear(F.silu(g) * u, w["wd"][l])
+        h2 = _rms(x, self.w["ln2"][l], self.eps)
+        g = self._layer_mm(h2, "wg", l)
+        u = self._layer_mm(h2, "wu", l)
+        return x + self._layer_mm(F.silu(g) * u, "wd", l)
 
     def _qkv(self, x, l, cos, sin):
         """Normed projections of x [..., H] with RoPE applied: q [..., nh,
         hd], k and v [..., nkv, hd]. cos/sin broadcast against them."""
-        w = self.w
-        h1 = _rms(x, w["ln1"][l], self.eps)
+        h1 = _rms(x, self.w["ln1"][l], self.eps)
         lead = x.shape[:-1]
-        q = F.linear(h1, w["wq"][l]).reshape(*lead, self.nh, self.hd)
-        k = F.linear(h1, w["wk"][l]).reshape(*lead, self.nkv, self.hd)
-        v = F.linear(h1, w["wv"][l]).reshape(*lead, self.nkv, self.hd)
+        q = self._layer_mm(h1, "wq", l).reshape(*lead, self.nh, self.hd)
+        k = self._layer_mm(h1, "wk", l).reshape(*lead, self.nkv, self.hd)
+        v = self._layer_mm(h1, "wv", l).reshape(*lead, self.nkv, self.hd)
         return self._rope_at(q, cos, sin), self._rope_at(k, cos, sin), v
 
     # -- one decode step ---------------------------------------------------
@@ -129,8 +216,8 @@ class CachedDecoder:
             p = torch.softmax(att, dim=-1)
             o = torch.einsum("bgnt,btgd->bgnd", p,
                              vcache[l, :, :pos + 1].float()).to(x.dtype)
-            x = x + F.linear(o.reshape(B, self.nh * self.hd),
-                             self.w["wo"][l])
+            x = x + self._layer_mm(o.reshape(B, self.nh * self.hd), "wo",
+                                   l)
             x = self._mlp(x, l)
         return self._head_logits(_rms(x, self.norm_w, self.eps))
 
@@ -170,7 +257,7 @@ class CachedDecoder:
                 p = torch.softmax(att, dim=-1)
                 o = torch.einsum("bgnqk,bkgd->bqgnd", p, v.float())
             o = o.to(x.dtype).reshape(B, S0, self.nh * self.hd)
-            x = x + F.linear(o, self.w["wo"][l])
+            x = x + self._layer_mm(o, "wo", l)
             x = self._mlp(x, l)
         return self._head_logits(_rms(x[:, -1], self.norm_w, self.eps))
 

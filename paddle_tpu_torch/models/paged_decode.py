@@ -18,23 +18,46 @@ pool tensors they are given and return only what they compute.
 Decode attention on a CUDA tensor runs the hand-written ragged paged
 attention kernel (kernels/ragged_paged_attention.py) straight off the
 pool through the tables; ``ragged_kernel=False`` selects the dense-gather
-``_attend`` that the JAX package keeps as its numerical oracle. Options
-the port has not reached yet (kv_quant, attn_shards > 1, prefix_cache,
-kv_offload, prefill_chunk, headroom_guard, weight_quant) raise
-NotImplementedError.
+``_attend`` that the JAX package keeps as its numerical oracle. Two
+options change the ragged path:
+- ``kv_quant="int8"``: each pool is a ``QuantizedPool`` of int8 codes
+  [L, NB, bs, Hkv, D] and one float32 scale per token row [L, NB, bs],
+  quantized at write time (``kv_quantize_rows``) and read by the quantized
+  kernel, which dequantizes after the load; the dense path dequantizes the
+  gathered window and stays the oracle;
+- ``attn_shards`` (or ``shard_block_budget``, which derives it): decode
+  attention as per-shard partials over contiguous sub-tables, merged by
+  the lse rescale (split-context attention; one launch for all shards).
+``weight_quant`` is CachedDecoder's. Options the port has not reached yet
+(prefix_cache, kv_offload, prefill_chunk, hbm_budget_gib, headroom_guard,
+block_size="auto") raise NotImplementedError.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import torch
-from torch.nn import functional as F
 
-from ..kernels.ragged_paged_attention import ragged_paged_attention
+from ..kernels.ragged_paged_attention import (
+    kv_dequantize_rows, kv_quantize_rows, ragged_paged_attention,
+    ragged_paged_attention_quant, ragged_paged_attention_sharded)
 from ..nn.layer.norm import rms_norm as _rms
 from .decode import NEG_INF, CachedDecoder
 
-__all__ = ["PagedDecoder", "BlockAllocator"]
+__all__ = ["PagedDecoder", "BlockAllocator", "QuantizedPool"]
+
+
+@dataclass(frozen=True)
+class QuantizedPool:
+    """One side (K or V) of an int8 paged pool: codes int8 [..., NB, bs,
+    Hkv, D] and row scales float32 [..., NB, bs]. Indexing selects along
+    the leading (layer) dims of both, so ``pool[l]`` is layer l's pool
+    whether the pool is quantized or a plain tensor."""
+    codes: torch.Tensor
+    scales: torch.Tensor
+
+    def __getitem__(self, i):
+        return QuantizedPool(self.codes[i], self.scales[i])
 
 
 class BlockAllocator:
@@ -86,9 +109,8 @@ class _Slot:
     done: bool = False
 
 
-_UNPORTED = ("kv_quant", "prefix_cache", "prefix_cache_blocks",
-             "shard_block_budget", "prefill_chunk", "kv_offload",
-             "hbm_budget_gib", "headroom_guard")
+_UNPORTED = ("prefix_cache", "prefix_cache_blocks", "prefill_chunk",
+             "kv_offload", "hbm_budget_gib", "headroom_guard")
 
 
 class PagedDecoder(CachedDecoder):
@@ -103,9 +125,8 @@ class PagedDecoder(CachedDecoder):
                  attn_shards=None, shard_block_budget=None,
                  prefill_chunk=None, kv_offload=None,
                  hbm_budget_gib=None, device=None):
-        opts = dict(kv_quant=kv_quant, prefix_cache=prefix_cache,
+        opts = dict(prefix_cache=prefix_cache,
                     prefix_cache_blocks=prefix_cache_blocks,
-                    shard_block_budget=shard_block_budget,
                     prefill_chunk=prefill_chunk, kv_offload=kv_offload,
                     hbm_budget_gib=hbm_budget_gib,
                     headroom_guard=headroom_guard)
@@ -114,10 +135,9 @@ class PagedDecoder(CachedDecoder):
                 raise NotImplementedError(
                     f"PagedDecoder option {name}={opts[name]!r} is not "
                     f"ported to the PyTorch package yet")
-        if attn_shards not in (None, 1):
-            raise NotImplementedError(
-                f"attn_shards={attn_shards!r} is not ported yet (the "
-                f"sharded ragged kernel belongs to a later slice)")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', got "
+                             f"{kv_quant!r}")
         if block_size == "auto":
             raise NotImplementedError(
                 "block_size='auto' needs the autotune cache, which is not "
@@ -139,6 +159,29 @@ class PagedDecoder(CachedDecoder):
         self.block_size = int(block_size)
         self.blocks_per_seq = self.max_len // self.block_size
         self.max_slots = int(max_slots)
+        self.kv_quant = kv_quant
+        # split-context decode attention: shard count fixed at
+        # construction, derived from a per-shard block budget when not
+        # given (the JAX engine's rule)
+        if attn_shards is None:
+            if shard_block_budget and \
+                    self.blocks_per_seq > int(shard_block_budget):
+                attn_shards = -(-self.blocks_per_seq
+                                // int(shard_block_budget))
+            else:
+                attn_shards = 1
+        self.attn_shards = max(1, int(attn_shards))
+        if self.attn_shards > self.blocks_per_seq:
+            raise ValueError(
+                f"attn_shards {self.attn_shards} exceeds blocks_per_seq "
+                f"{self.blocks_per_seq}")
+        if self.attn_shards > 1 and self.kv_quant:
+            raise ValueError(
+                "attn_shards > 1 is not supported with kv_quant: the "
+                "partials kernel has no int8 variant yet; serve long "
+                "contexts unquantized or raise shard_block_budget")
+        # decode steps whose attention ran as sharded partials
+        self.sharded_attn_calls = 0
         self.num_blocks = int(num_blocks or
                               (self.max_slots * self.blocks_per_seq) // 2
                               + 1)
@@ -149,10 +192,33 @@ class PagedDecoder(CachedDecoder):
 
     # -- pools -------------------------------------------------------------
     def new_pools(self):
+        """(kpool, vpool) for every layer: tensors [L, NB, bs, Hkv, D] in
+        the model dtype, or with kv_quant QuantizedPools whose scales start
+        at 1 (zero codes dequantize to a zero pool)."""
         shape = (self.n_layers, self.num_blocks, self.block_size, self.nkv,
                  self.hd)
+        if self.kv_quant:
+            return tuple(QuantizedPool(
+                torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.ones(shape[:3], dtype=torch.float32,
+                           device=self.device)) for _ in range(2))
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    def kv_token_bytes(self):
+        """Bytes one pool token row of K (or V) costs: the values at the
+        pool's itemsize, plus the float32 scale when quantized."""
+        if self.kv_quant:
+            return self.nkv * self.hd + 4
+        return self.nkv * self.hd * (torch.finfo(self.dtype).bits // 8)
+
+    def pool_bytes(self):
+        return (2 * self.n_layers * self.num_blocks * self.block_size
+                * self.kv_token_bytes())
+
+    def bytes_per_block(self):
+        """K+V bytes one pool block holds across all layers."""
+        return 2 * self.n_layers * self.block_size * self.kv_token_bytes()
 
     # -- core step ---------------------------------------------------------
     def _attend(self, q, kw, vw, pos):
@@ -172,25 +238,45 @@ class PagedDecoder(CachedDecoder):
 
     def _pool_write(self, kc, vc, k, v, widx):
         """Write one K/V token row per query row into one layer's pools
-        (kc/vc [NB, bs, nkv, hd]) at flat pool-token index widx, in
-        place."""
-        kc.view(-1, self.nkv, self.hd)[widx] = k.to(kc.dtype)
-        vc.view(-1, self.nkv, self.hd)[widx] = v.to(vc.dtype)
+        (kc/vc [NB, bs, nkv, hd], or QuantizedPools) at flat pool-token
+        index widx, in place. A quantized pool quantizes each row as it
+        is written: a token touches its own codes and one scale."""
+        for pool, x in ((kc, k), (vc, v)):
+            if isinstance(pool, QuantizedPool):
+                codes, scales = kv_quantize_rows(x)
+                pool.codes.view(-1, self.nkv, self.hd)[widx] = codes
+                pool.scales.view(-1)[widx] = scales
+            else:
+                pool.view(-1, self.nkv, self.hd)[widx] = x.to(pool.dtype)
 
     def _pool_attend(self, q, kc, vc, tables, seqlens):
         """Attention for q [S, nh, hd] against one layer's pools. Ragged
-        path: the kernel walks each slot's table up to seqlens. Dense
-        path: gather the block-granular window and run the reference
-        math."""
+        path: a kernel walks each slot's table up to seqlens (the
+        quantized kernel for an int8 pool, the sharded partials with
+        attn_shards > 1). Dense path: gather the block-granular window,
+        dequantized for an int8 pool, and run the reference math."""
         S = q.shape[0]
         if self.use_ragged_kernel:
-            o = ragged_paged_attention(q, kc, vc, tables, seqlens,
-                                       scale=self.scale)
+            if self.kv_quant:
+                o = ragged_paged_attention_quant(
+                    q, kc.codes, kc.scales, vc.codes, vc.scales, tables,
+                    seqlens, scale=self.scale)
+            elif self.attn_shards > 1:
+                o = ragged_paged_attention_sharded(
+                    q, kc, vc, tables, seqlens, self.attn_shards,
+                    scale=self.scale)
+            else:
+                o = ragged_paged_attention(q, kc, vc, tables, seqlens,
+                                           scale=self.scale)
             return o.reshape(S, self.nh * self.hd)
         tabs = tables.long()
-        kw = kc[tabs].reshape(S, -1, self.nkv, self.hd)   # [S, W, Hkv, D]
-        vw = vc[tabs].reshape(S, -1, self.nkv, self.hd)
-        return self._attend(q, kw, vw, seqlens)
+        if self.kv_quant:
+            kw = kv_dequantize_rows(kc.codes[tabs], kc.scales[tabs])
+            vw = kv_dequantize_rows(vc.codes[tabs], vc.scales[tabs])
+        else:
+            kw, vw = kc[tabs], vc[tabs]
+        return self._attend(q, kw.reshape(S, -1, self.nkv, self.hd),
+                            vw.reshape(S, -1, self.nkv, self.hd), seqlens)
 
     @torch.no_grad()
     def _paged_step(self, tokens, seqlens, tables, kpool, vpool,
@@ -216,8 +302,10 @@ class PagedDecoder(CachedDecoder):
             kc, vc = kpool[l], vpool[l]
             self._pool_write(kc, vc, k, v, widx)
             o = self._pool_attend(q, kc, vc, tables, seqlens)
-            x = x + F.linear(o, self.w["wo"][l])
+            x = x + self._layer_mm(o, "wo", l)
             x = self._mlp(x, l)
+        if self.use_ragged_kernel and self.attn_shards > 1:
+            self.sharded_attn_calls += 1
         return self._head_logits(_rms(x, self.norm_w, self.eps))
 
     @torch.no_grad()
@@ -278,14 +366,15 @@ class PagedDecoder(CachedDecoder):
         for l in range(self.n_layers):
             q, k, v = self._qkv(x, l, cos, sin)
             self._pool_write(kpool[l], vpool[l], k, v, widx)
-            # in-prompt causal attention: the prompt is contiguous here
+            # in-prompt causal attention: the prompt is contiguous here,
+            # and read at full precision even when the pool is quantized
             qg = q.reshape(S0, self.nkv, nrep, self.hd).float()
             att = torch.einsum("qgnd,kgd->gnqk", qg, k.float()) * self.scale
             att = att.masked_fill(~causal, NEG_INF)
             p = torch.softmax(att, dim=-1)
             o = torch.einsum("gnqk,kgd->qgnd", p, v.float()).to(x.dtype)
-            x = x + F.linear(o.reshape(S0, self.nh * self.hd),
-                             self.w["wo"][l])
+            x = x + self._layer_mm(o.reshape(S0, self.nh * self.hd), "wo",
+                                   l)
             x = self._mlp(x, l)
         last = x[max(int(true_len) - 1, 0)]
         logits = self._head_logits(_rms(last[None], self.norm_w,

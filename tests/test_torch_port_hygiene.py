@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from paddle_tpu_torch import seed
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.decode import CachedDecoder
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
@@ -85,10 +86,20 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card):
     assert dec.device.type == "cpu" and not dec.use_ragged_kernel
 
 
+def test_seed_needs_a_card_or_an_explicit_cpu(no_card):
+    """The exported generator factory follows the entry points' rule: no
+    device means the card."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        seed(0)
+    gen = seed(3, device="cpu")
+    assert gen.device.type == "cpu" and gen.initial_seed() == 3
+
+
 @pytest.mark.parametrize("opt", [
-    {"kv_quant": "int8"}, {"attn_shards": 2}, {"prefix_cache": True},
-    {"kv_offload": True}, {"prefill_chunk": 32}, {"headroom_guard": object()},
-    {"weight_quant": "int8_blockwise"}, {"block_size": "auto"}])
+    {"prefix_cache_blocks": 4}, {"hbm_budget_gib": 1.0},
+    {"prefix_cache": True}, {"kv_offload": True}, {"prefill_chunk": 32},
+    {"headroom_guard": object()}, {"prefix_cache": "radix"},
+    {"block_size": "auto"}])
 def test_unported_decoder_options_raise(opt):
     model = LlamaForCausalLM(llama_tiny(), device="cpu")
     kw = dict(max_len=64, block_size=16, device="cpu")
