@@ -43,17 +43,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. train_parity: 3 steps of a narrow float32 Llama (2 layers, S 256) with
    the flash kernels and again with the plain attention: losses and the
    first step's gradients must agree;
-8. one line naming each kernel with its launches on the main path (the
+8. the MoE training path's kernels (the grouped forward, also as the
+   input gradient against w^T read in place, the grouped weight gradient
+   and the grouped int8/fp8 forward) at its shapes: 16,384 routes of a
+   seeded, skewed routing with one empty expert, the up (768 -> 3072)
+   and down (3072 -> 768) products, float32 and bf16, and a case with
+   NaN in every row that is not a route's; each against its plain
+   version, with its time, the plain time, per-expert torch.matmul as the
+   library yardstick and the bound (TF32 peak for float32 inputs, bf16
+   peak for bf16);
+9. train_moe: the GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths
+   (hidden 768, 6 layers, 8 experts top-2, 12 heads, vocab 50257;
+   318,151,297 parameters), float32, grouped dispatch, AdamW at lr 1e-4,
+   the benchmark's fixed batch of 8 x 1024 ids, 2 warm-up and 10 timed
+   steps: tokens/s, seconds per step, MFU over activated flops, every
+   loss, peak memory and routes per step. Losses finite and falling, the
+   grouped forward kernel 4 x layers and the dw kernel 2 x layers times a
+   step, no route dropped. train_moe_quant: the same with
+   expert_quant="int8" (5 timed steps; the quantized kernel 2 x layers
+   times a step);
+10. moe_parity: 3 float32 steps of a 2-layer full-width GPT-MoE, grouped
+   against capacity dispatch with capacity_factor E / top_k (nothing
+   drops): losses and the first step's gradients must agree;
+11. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the generate of phase 5 for the
    flash forward, the train of phase 6 for the flash backward, serve_quant
    for quant_matmul and the quantized ragged kernel, serve_long for the
-   partials), error and times;
-9. the card's name and power limit again, and the result line.
+   partials, train_moe for the grouped forward and dw kernels,
+   train_moe_quant for the quantized grouped kernel), error and times;
+12. the card's name and power limit again, and the result line.
 
 With --profile, short full-width serves (plain, serve_quant's and
-serve_long's engines) and two train steps also run under torch.profiler,
-and one more line for each gives the device time by kernel and the
-device's idle share.
+serve_long's engines), two train steps and two train_moe steps also run
+under torch.profiler, and one more line for each gives the device time by
+kernel and the device's idle share.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
@@ -1215,6 +1238,472 @@ def train_parity_phase(torch, np, seed):
     return rec
 
 
+# -- phases 8-10: the MoE training path ----------------------------------------
+
+TF32_FLOPS = 494.7e12            # H100 SXM dense TF32 tensor-core peak
+MOE_E, MOE_H, MOE_F = 8, 768, 3072
+MOE_TOKENS, MOE_TOPK, MOE_BM = 8192, 2, 128
+MOE_EMPTY = 5                    # the expert the check's routing never picks
+# float32 rule: |out - ref| <= 1e-6 |ref| + 1e-5 max|ref|. Kernel and plain
+# version multiply the same float32 values and differ in summation order
+# only: over K <= 3072 products (or a group's <= 8192 rows for dw) of about
+# unit size the sums reach ~100 while the order moves them by about
+# sqrt(K) x 6e-8 x 50 = 2e-4 = 2e-6 of the largest; a dropped K step or
+# row tile moves an output by percents. bf16 outputs: one bf16 ulp
+# (2^-7 |ref|) plus the same atol.
+GMM_RTOL_F32, GMM_ATOL_OF_MAX = 1e-6, 1e-5
+
+
+def moe_routing(torch, np, seed):
+    """16,384 routes (8192 tokens x top-2) over 8 experts, skewed, expert
+    5 never picked: the grouped metadata on the card, and the counts on
+    the host (for the per-expert library yardstick only)."""
+    from paddle_tpu_torch.kernels.grouped_matmul import grouped_metadata
+    rng = np.random.default_rng(seed)
+    p = np.array([0.26, 0.2, 0.15, 0.12, 0.1, 0.0, 0.1, 0.07])
+    ids = rng.choice(MOE_E, MOE_TOKENS * MOE_TOPK, p=p).astype(np.int32)
+    md = grouped_metadata(torch.as_tensor(ids, device="cuda"), MOE_E,
+                          MOE_BM)
+    return md, np.bincount(ids, minlength=MOE_E)
+
+
+def gmm_err(torch, out, ref, rows, bf16):
+    """(max abs error on the routed rows, worst ratio to the rule)."""
+    o, r = out.float()[rows], ref.float()[rows]
+    atol = GMM_ATOL_OF_MAX * r.abs().max().item()
+    rtol = BF16_RTOL if bf16 else GMM_RTOL_F32
+    d = (o - r).abs()
+    return d.max().item(), (d / (rtol * r.abs() + atol)).max().item()
+
+
+def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
+    """One grouped kernel at the MoE path's shapes against its plain
+    version: kind "fwd" (x [Tp, k] . w [E, k, n] + b), "dx" (dy [Tp, k] .
+    w[e]^T with w [E, n, k], read in place), "dw" (x [Tp, k], dy [Tp, n]
+    -> [E, k, n]) or "int8"/"fp8" (x . dequant(codes [E, n, k])^T)."""
+    from paddle_tpu_torch.kernels.grouped_matmul import (
+        _ref_dw, _ref_fwd, grouped_matmul_dw, grouped_matmul_fwd)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        blockwise_weight_bytes, dequantize_weight_blockwise,
+        quant_grouped_matmul, quant_grouped_matmul_plain,
+        quantize_weight_blockwise)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    off, cnt = md["offsets"], md["counts"]
+    tp = md["row_src"].shape[0]
+    rows = md["dest"].long()
+    x = torch.randn(tp, k, generator=gen, device=dev, dtype=dtype)
+    routes = int(counts.sum())
+    live = [e for e in range(MOE_E) if counts[e]]
+    starts = np.concatenate([[0], np.cumsum(-(-counts // MOE_BM))[:-1]]) \
+        * MOE_BM
+    isz = x.element_size()
+    if kind in ("fwd", "dx"):
+        wshape = (MOE_E, k, n) if kind == "fwd" else (MOE_E, n, k)
+        w = torch.randn(*wshape, generator=gen, device=dev, dtype=dtype) \
+            * k ** -0.5
+        b = torch.randn(MOE_E, n, generator=gen, device=dev, dtype=dtype) \
+            if kind == "fwd" else None
+        tr = kind == "dx"
+
+        def kernel():
+            return grouped_matmul_fwd(x, w, b, off, cnt, MOE_BM,
+                                      transpose_w=tr)
+
+        def plain():
+            return _ref_fwd(x, w, b, off, cnt, MOE_BM, dtype,
+                            transpose_w=tr)
+
+        def library():
+            out = torch.empty(tp, n, device=dev, dtype=dtype)
+            for e in live:
+                s, c = int(starts[e]), int(counts[e])
+                we = w[e].t() if tr else w[e]
+                out[s:s + c] = x[s:s + c] @ we if b is None else \
+                    torch.addmm(b[e], x[s:s + c], we)
+            return out
+        wbytes = len(live) * k * n * isz + (len(live) * n * isz if b
+                                             is not None else 0)
+        bytes_moved = routes * k * isz + wbytes + routes * n * isz
+    elif kind == "dw":
+        dy = torch.randn(tp, n, generator=gen, device=dev, dtype=dtype)
+
+        def kernel():
+            return grouped_matmul_dw(x, dy, off, cnt, MOE_BM, MOE_E)
+
+        def plain():
+            return _ref_dw(x, dy, off, cnt, MOE_BM, MOE_E)
+
+        def library():
+            out = torch.zeros(MOE_E, k, n, device=dev, dtype=torch.float32)
+            for e in live:
+                s, c = int(starts[e]), int(counts[e])
+                out[e] = (x[s:s + c].t() @ dy[s:s + c]).float()
+            return out
+        rows = slice(None)
+        bytes_moved = routes * (k + n) * isz + MOE_E * k * n * 4
+    else:
+        w = torch.randn(MOE_E, n, k, generator=gen, device=dev) * k ** -0.5
+        codes, scales = quantize_weight_blockwise(w, qdtype=kind)
+        wdq = dequantize_weight_blockwise(codes, scales).to(dtype)
+        del w
+
+        def kernel():
+            return quant_grouped_matmul(x, codes, scales, group_offsets=off,
+                                        group_counts=cnt, bm=MOE_BM)
+
+        def plain():
+            return quant_grouped_matmul_plain(x, codes, scales, off, cnt,
+                                              MOE_BM)
+
+        def library():
+            out = torch.empty(tp, n, device=dev, dtype=dtype)
+            for e in live:
+                s, c = int(starts[e]), int(counts[e])
+                out[s:s + c] = x[s:s + c] @ wdq[e].t()
+            return out
+        bytes_moved = routes * k * isz + len(live) * \
+            blockwise_weight_bytes(k, n)[0] + routes * n * isz
+    out = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    err, ratio = gmm_err(torch, out, ref, rows, bf16)
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
+    lib = library()
+    lib_check(name, lib[rows], ref[rows])
+    del out, ref, lib
+    kernel_ms = cuda_ms(torch, kernel, 10)
+    plain_ms = cuda_ms(torch, plain, 3, warmup=1)
+    library_ms = cuda_ms(torch, library, 10)
+    flops = 2 * routes * k * n
+    peak = BF16_FLOPS if bf16 else TF32_FLOPS
+    bound_ms, bound_by = bound(bytes_moved, flops, peak)
+    rec = {"phase": "kernel_check", "kernel": {
+               "fwd": "grouped_matmul_fwd", "dx": "grouped_matmul_fwd",
+               "dw": "grouped_matmul_dw"}.get(kind, "quant_grouped_matmul"),
+           "case": name, "kind": kind, "dtype": str(dtype).split(".")[-1],
+           "routes": routes, "rows": tp, "k": k, "n": n, "bm": MOE_BM,
+           "max_abs_err": err, "err_over_tolerance": ratio,
+           "rtol": BF16_RTOL if bf16 else GMM_RTOL_F32,
+           "atol_of_max": GMM_ATOL_OF_MAX, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch.matmul per expert over its rows"
+                      + (" (weights dequantized beforehand)"
+                         if kind in ("int8", "fp8") else ""),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_peak": "bf16 989 TFLOP/s" if bf16
+           else "TF32 494.7 TFLOP/s", "bytes": bytes_moved, "flops": flops,
+           "tflops_per_s": flops / kernel_ms / 1e9}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def grouped_poison_case(torch, np, seed, md):
+    """Every row that is not a route's (padding in a group's last tile,
+    the dead tiles past the groups) NaN in x and dy: the routed rows of
+    the forward, the input gradient and the quantized forward, and all
+    of dw, must equal the clean run's bit for bit."""
+    from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
+                                                         grouped_matmul_fwd)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quant_grouped_matmul, quantize_weight_blockwise)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    off, cnt = md["offsets"], md["counts"]
+    tp = md["row_src"].shape[0]
+    rows = md["dest"].long()
+    k, n = MOE_H, MOE_F
+    x = torch.randn(tp, k, generator=gen, device=dev)
+    dy = torch.randn(tp, n, generator=gen, device=dev)
+    w = torch.randn(MOE_E, k, n, generator=gen, device=dev)
+    b = torch.randn(MOE_E, n, generator=gen, device=dev)
+    codes, scales = quantize_weight_blockwise(w.transpose(1, 2))
+
+    def run():
+        return (grouped_matmul_fwd(x, w, b, off, cnt, MOE_BM)[rows],
+                grouped_matmul_fwd(dy, w, None, off, cnt, MOE_BM,
+                                   transpose_w=True)[rows],
+                grouped_matmul_dw(x, dy, off, cnt, MOE_BM, MOE_E),
+                quant_grouped_matmul(x, codes, scales, group_offsets=off,
+                                     group_counts=cnt, bm=MOE_BM)[rows])
+    clean = run()
+    dead = ~md["row_valid"]
+    x[dead] = float("nan")
+    dy[dead] = float("nan")
+    poisoned = run()
+    torch.cuda.synchronize()
+    names = ("fwd", "dx", "dw", "int8")
+    for nm, c, p in zip(names, clean, poisoned):
+        check(torch.isfinite(p).all().item() and torch.equal(c, p),
+              f"grouped nan_poison: {nm} read a padding or dead row")
+    rec = {"phase": "kernel_check", "kernel": "grouped (all three)",
+           "case": "nan_poison_dead_rows", "rows": tp,
+           "poisoned_rows": int(dead.sum().item()),
+           "identical_to_clean": list(names)}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_model(torch, seed, **overrides):
+    from paddle_tpu_torch.models.gpt_moe import MoEGPT, gpt_moe_config
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return MoEGPT(gpt_moe_config(**overrides), device="cuda", generator=gen)
+
+
+def moe_routes_kept(torch, model, ids):
+    """Run the model once without gradients, catching every MoE layer's
+    routing: (routes placed in the grouped buffer, routes the gates
+    produced, second routes the GShard gates zeroed at random). A placed
+    route is one grouped_metadata gives a buffer row: with no capacity
+    there is none to drop, and this counts that it is so."""
+    from paddle_tpu_torch.kernels.grouped_matmul import grouped_metadata
+    caught = []
+
+    def hook(mod, inp, out):
+        caught.append((mod.num_expert, out))
+    hooks = [blk.moe.gate.register_forward_hook(hook)
+             for blk in model.blocks]
+    with torch.no_grad():
+        model(ids)
+    for h in hooks:
+        h.remove()
+    placed = produced = zeroed = 0
+    for e, (val, idx) in caught:
+        md = grouped_metadata(idx.reshape(-1), e, MOE_BM)
+        placed += int(md["row_valid"].sum().item())
+        produced += idx.numel()
+        zeroed += int((val[:, 1] == 0).sum().item())
+    return placed, produced, zeroed
+
+
+def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
+                    **overrides):
+    """The GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths (hidden
+    768, 6 layers, 8 experts top-2, 12 heads, vocab 50257; float32,
+    grouped dispatch) through TrainStep with AdamW at lr 1e-4, on the
+    benchmark's fixed batch of 8 x 1024 random ids from the seed."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
+                                                         grouped_matmul_fwd)
+    from paddle_tpu_torch.kernels.quant_matmul import quant_grouped_matmul
+    from paddle_tpu_torch.models.gpt_moe import moe_flops_per_token, \
+        moe_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = moe_model(torch, seed, dispatch_mode="grouped", **overrides)
+    cfg = model.config
+    step = TrainStep(model, moe_loss,
+                     AdamW(learning_rate=1e-4,
+                           parameters=model.parameters()))
+    batch, seq = 8, 1024
+    ids, labels = train_batch(torch, np, seed, cfg.vocab_size, batch, seq)
+    n_params, n_active, flops_tok = moe_flops_per_token(model, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grouped_matmul_fwd.launches = 0
+    grouped_matmul_dw.launches = 0
+    quant_grouped_matmul.launches = 0
+    losses = [step((ids,), (labels,)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(step((ids,), (labels,)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, dw = grouped_matmul_fwd.launches, grouped_matmul_dw.launches
+    qfwd = quant_grouped_matmul.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    steps = warmup + timed
+    layers = cfg.num_layers
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    if cfg.expert_quant:
+        want = (2 * layers * steps, 2 * layers * steps, 2 * layers * steps)
+    else:
+        want = (4 * layers * steps, 2 * layers * steps, 0)
+    check((fwd, dw, qfwd) == want,
+          f"grouped launches fwd {fwd}, dw {dw}, quantized {qfwd} != "
+          f"{want} over {layers} layers x {steps} steps")
+    placed, produced, zeroed = moe_routes_kept(torch, model, ids)
+    check(placed == produced == layers * batch * seq * cfg.top_k,
+          f"routes placed {placed} of {produced}: a route was dropped")
+    tokens = batch * seq
+    tps = tokens * timed / wall
+    rec = {"phase": phase,
+           "model": "benchmarks/gpt_moe_ep.py GPT-MoE at its chip widths, "
+                    "random weights",
+           "dtype": cfg.dtype, "dispatch": cfg.dispatch_mode,
+           "expert_quant": cfg.expert_quant, "layers": layers,
+           "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+           "experts": cfg.num_experts, "top_k": cfg.top_k,
+           "d_hidden": cfg.d_hidden, "vocab": cfg.vocab_size,
+           "params": n_params, "activated_params": n_active,
+           "batch": batch, "seq": seq, "optimizer": "AdamW lr 1e-4",
+           "warmup_steps": warmup, "timed_steps": timed,
+           "wall_s": wall, "s_per_step": wall / timed, "tokens_per_s": tps,
+           "model_flops_per_token": flops_tok,
+           "mfu": flops_tok * tps / BF16_FLOPS, "losses": losses,
+           "peak_device_bytes": peak,
+           "routes_per_step": layers * tokens * cfg.top_k,
+           "routes_dropped": produced - placed,
+           "second_routes_zeroed_by_gshard_random_routing": zeroed,
+           "grouped_fwd_launches": fwd, "grouped_dw_launches": dw,
+           "quant_grouped_launches": qfwd}
+    emit(rec)
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_moe_profile_phase(torch, np, seed, steps=2):
+    """--profile only: train_moe's steps once plainly for their wall time
+    and once under torch.profiler, the device time grouped by kernel
+    family and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.models.gpt_moe import moe_loss
+    model = moe_model(torch, seed, dispatch_mode="grouped")
+    step = TrainStep(model, moe_loss,
+                     AdamW(learning_rate=1e-4,
+                           parameters=model.parameters()))
+    ids, labels = train_batch(torch, np, seed, model.config.vocab_size, 8,
+                              1024)
+    step((ids,), (labels,))                               # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step((ids,), (labels,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step((ids,), (labels,))
+        torch.cuda.synchronize()
+    rows, busy_s = device_kernel_rows(prof)
+    groups = {"grouped_fwd": 0.0, "grouped_dw": 0.0, "flash_fwd": 0.0,
+              "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    for us, name, _ in rows:
+        key = next((g for g in ("grouped_fwd", "grouped_dw", "flash_fwd",
+                                "flash_bwd") if g in name), None)
+        if key is None:
+            key = "gemm" if any(t in name.lower() for t in (
+                "gemm", "nvjet", "cutlass", "xmma")) else "other"
+        groups[key] += us / 1e6
+    rec = {"phase": "train_moe_profile", "steps": steps, "wall_s": wall,
+           "s_per_step": wall / steps,
+           "device_busy_s": busy_s if rows else "not measured",
+           "device_idle_share": 1 - busy_s / wall if rows
+           else "not measured",
+           "device_s_per_step_by_group": {
+               k: v / steps for k, v in groups.items()},
+           "top_device_kernels": top_kernels(rows, busy_s, 15)}
+    emit(rec)
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_parity_phase(torch, np, seed):
+    """Grouped against capacity dispatch inside whole training steps: 2
+    layers at full width, float32 (TF32 off), random routing off and
+    capacity_factor E / top_k, so that no route drops and both compute one
+    function. The key projection's bias gradient is 0 in exact arithmetic
+    (softmax removes a per-row constant): both runs give float noise
+    there, held below 1e-5 of the layer's key-weight gradient (a bias
+    gradient that was wrong would be of the weight gradient's order)."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.kernels.grouped_matmul import grouped_matmul_fwd
+    from paddle_tpu_torch.models.gpt_moe import moe_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for mode in ("grouped", "capacity"):
+        model = moe_model(torch, seed + 7, num_layers=2, dispatch_mode=mode,
+                          random_routing=False,
+                          capacity_factor=MOE_E / MOE_TOPK)
+        ids, labels = train_batch(torch, np, seed + 6,
+                                  model.config.vocab_size, 8, 1024)
+        step = TrainStep(model, moe_loss,
+                         AdamW(learning_rate=1e-4,
+                               parameters=model.parameters()))
+        grouped_matmul_fwd.launches = 0
+        losses, grads = [], None
+        for i in range(PARITY_STEPS):
+            losses.append(step((ids,), (labels,)).item())
+            if i == 0:
+                grads = {k: p.grad.clone()
+                         for k, p in model.named_parameters()}
+        runs[mode] = (losses, grads, grouped_matmul_fwd.launches)
+        del model, step
+        torch.cuda.empty_cache()
+    (gl, gg, gf), (cl, cg, cf) = runs["grouped"], runs["capacity"]
+    check(gf == 4 * 2 * PARITY_STEPS and cf == 0,
+          f"grouped launches: grouped run {gf}, capacity run {cf}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    grad_rel, bias_rel = 0.0, 0.0
+    for k, ref in cg.items():
+        if k.endswith("k_proj.bias"):
+            top = cg[k[:-4] + "weight"].abs().max()
+            bias_rel = max(bias_rel, (gg[k].abs().max() / top).item(),
+                           (ref.abs().max() / top).item())
+            continue
+        grad_rel = max(grad_rel, ((gg[k] - ref).abs().max()
+                                  / ref.abs().max()).item())
+    check(loss_rel <= PARITY_LOSS_RTOL and grad_rel <= PARITY_GRAD_ATOL
+          and bias_rel <= 1e-5,
+          f"grouped vs capacity training: loss rel {loss_rel}, step-1 grad "
+          f"{grad_rel} of the largest element, k_proj.bias {bias_rel}")
+    rec = {"phase": "moe_parity", "dtype": "float32", "layers": 2,
+           "hidden": MOE_H, "experts": MOE_E, "batch": 8, "seq": 1024,
+           "capacity_factor": MOE_E / MOE_TOPK, "steps": PARITY_STEPS,
+           "losses_grouped": gl, "losses_capacity": cl,
+           "max_loss_rel_diff": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
+           "max_grad_diff_over_max": grad_rel,
+           "grad_atol_of_max": PARITY_GRAD_ATOL,
+           "k_proj_bias_grad_over_weight_grad": bias_rel,
+           "grouped_fwd_launches": gf}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_kernel_checks(torch, np, seed):
+    """Phase 8: the three MoE kernels at train_moe's shapes. Returns the
+    records the kernels line takes (the up projection's forward, its
+    weight gradient, the int8 up projection)."""
+    md, counts = moe_routing(torch, np, seed)
+    h, f = MOE_H, MOE_F
+    f32, bf16 = torch.float32, torch.bfloat16
+    recs = {}
+    for name, kind, k, n, dt in (
+            ("up_fwd_f32", "fwd", h, f, f32),
+            ("down_fwd_f32", "fwd", f, h, f32),
+            ("up_dx_f32", "dx", f, h, f32),
+            ("down_dx_f32", "dx", h, f, f32),
+            ("up_dw_f32", "dw", h, f, f32),
+            ("down_dw_f32", "dw", f, h, f32),
+            ("up_fwd_bf16", "fwd", h, f, bf16),
+            ("up_dw_bf16", "dw", h, f, bf16),
+            ("up_int8_f32", "int8", h, f, f32),
+            ("down_int8_f32", "int8", f, h, f32),
+            ("up_fp8_f32", "fp8", h, f, f32),
+            ("up_int8_bf16", "int8", h, f, bf16)):
+        recs[name] = grouped_case(torch, np, name, kind, k, n, dt,
+                                  seed + len(recs), md, counts)
+    grouped_poison_case(torch, np, seed + 99, md)
+    return recs["up_fwd_f32"], recs["up_dw_f32"], recs["up_int8_f32"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1252,7 +1741,8 @@ def main():
     sources = ("ragged_paged_attention", "flash_attention_fwd",
                "flash_attention_bwd", "quant_matmul",
                "ragged_paged_attention_quant",
-               "ragged_paged_attention_partials")
+               "ragged_paged_attention_partials", "grouped_matmul",
+               "quant_grouped_matmul")
     t0 = time.perf_counter()
     _build.build(*sources)
     build_s = time.perf_counter() - t0
@@ -1347,6 +1837,18 @@ def main():
         train_profile_phase(torch, np, args.seed)
     train_parity_phase(torch, np, args.seed)
 
+    # the MoE training path: its kernels at train_moe's shapes, then the
+    # full-width GPT-MoE, its int8-expert lane and the dispatch parity
+    gmm_main, dw_main, qgmm_main = moe_kernel_checks(torch, np,
+                                                      args.seed + 40)
+    train_moe = train_moe_phase(torch, np, args.seed + 41)
+    if args.profile:
+        train_moe_profile_phase(torch, np, args.seed + 41)
+    train_moe_quant = train_moe_phase(torch, np, args.seed + 41,
+                                      phase="train_moe_quant", timed=5,
+                                      expert_quant="int8")
+    moe_parity_phase(torch, np, args.seed)
+
     kernels = []
     for name, route_src, replaces, rec, launches in (
             ("ragged_paged_attention",
@@ -1371,7 +1873,17 @@ def main():
             ("ragged_paged_attention_partials",
              "paddle_tpu_torch/csrc/ragged_paged_attention_partials.cu",
              "paddle_tpu/kernels/pallas/ragged_paged_attention.py:310",
-             partials_main, serve_long["partials_launches"])):
+             partials_main, serve_long["partials_launches"]),
+            ("grouped_matmul_fwd", "paddle_tpu_torch/csrc/grouped_matmul.cu",
+             "paddle_tpu/kernels/pallas/grouped_matmul.py:226",
+             gmm_main, train_moe["grouped_fwd_launches"]),
+            ("grouped_matmul_dw", "paddle_tpu_torch/csrc/grouped_matmul.cu",
+             "paddle_tpu/kernels/pallas/grouped_matmul.py:287",
+             dw_main, train_moe["grouped_dw_launches"]),
+            ("quant_grouped_matmul",
+             "paddle_tpu_torch/csrc/quant_grouped_matmul.cu",
+             "paddle_tpu/kernels/pallas/quant_matmul.py:263",
+             qgmm_main, train_moe_quant["quant_grouped_launches"])):
         check(launches > 0, f"{name} never ran on the main path")
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": launches,

@@ -12,6 +12,12 @@ are therefore transposed here, and nowhere else.
 optimizer accumulators (Adam's moments are laid out as their parameter,
 so a Linear's moments are transposed too), so that a run can go on in the
 port from a JAX run's state.
+
+``moe_params_from_jax`` does it for the GPT-MoE of models/gpt_moe.py (or
+one of its MoELayers): the attention projections, the gate's Linear, the
+dense lane's fc1/fc2 and the head are transposed; the expert stacks keep
+the JAX package's [E, K, N] layout, and biases, the embedding and the
+LayerNorms convert as they are.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import torch
 
 from .framework.device import torch_dtype
 
-__all__ = ["params_from_jax", "optimizer_state_from_jax"]
+__all__ = ["params_from_jax", "optimizer_state_from_jax",
+           "moe_params_from_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -47,14 +54,18 @@ def _check_shape(name, a, cfg):
         "lm_head.weight": (h, cfg.vocab_size),
         "embed_tokens.weight": (cfg.vocab_size, h),
     }
+    _check_suffixes(name, a, expect)
+
+
+def _check_suffixes(name, a, expect):
     for suffix, shape in expect.items():
         if name.endswith(suffix) and a.shape != shape:
             raise ValueError(f"{name}: JAX shape {a.shape}, config expects "
                              f"{shape}")
 
 
-def _to_torch(name, a, dtype):
-    if _is_linear(name):
+def _to_torch(name, a, dtype, is_linear=_is_linear):
+    if is_linear(name):
         a = a.T
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
@@ -87,4 +98,44 @@ def optimizer_state_from_jax(named_accums_numpy, cfg, step):
                             else "float32")
         out[f"{pname}__{acc}"] = _to_torch(pname, a, dtype)
     out["@step"] = int(step)
+    return out
+
+
+_MOE_LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                        "out_proj.weight", "gate.gate.weight", "fc1.weight",
+                        "fc2.weight")
+
+
+def _moe_is_linear(name):
+    return name == "head.weight" or name.endswith(_MOE_LINEAR_SUFFIXES)
+
+
+def _moe_check_shape(name, a, cfg):
+    """Raise unless the JAX array ``a`` of parameter ``name`` has the
+    shape the GPTMoEConfig ``cfg`` gives it."""
+    h, e, f, v = (cfg.hidden_size, cfg.num_experts, cfg.d_hidden,
+                  cfg.vocab_size)
+    expect = {
+        "q_proj.weight": (h, h), "k_proj.weight": (h, h),
+        "v_proj.weight": (h, h), "out_proj.weight": (h, h),
+        "gate.gate.weight": (h, e), "gate.gate.bias": (e,),
+        "experts.w1": (e, h, f), "experts.b1": (e, 1, f),
+        "experts.w2": (e, f, h), "experts.b2": (e, 1, h),
+        "fc1.weight": (h, 4 * h), "fc2.weight": (4 * h, h),
+        "emb.weight": (v, h), "head.weight": (h, v), "head.bias": (v,),
+    }
+    _check_suffixes(name, a, expect)
+
+
+def moe_params_from_jax(state_dict_numpy, cfg):
+    """{name: numpy array} of the JAX GPT-MoE (or of one MoELayer of its
+    widths) -> {name: torch tensor} for the port's ``load_state_dict``, in
+    the config's dtype: every Linear weight transposed once, everything
+    else as it is."""
+    dtype = torch_dtype(cfg.dtype)
+    out = {}
+    for name, arr in state_dict_numpy.items():
+        a = np.asarray(arr)
+        _moe_check_shape(name, a, cfg)
+        out[name] = _to_torch(name, a, dtype, _moe_is_linear)
     return out

@@ -24,8 +24,12 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_fwd_plain)
 from paddle_tpu_torch.nn.functional.flash_attention import (
     flash_attention, scaled_dot_product_attention)
+from paddle_tpu_torch.kernels.grouped_matmul import (
+    _ref_dw, _ref_fwd, grouped_matmul, grouped_matmul_dw,
+    grouped_matmul_fwd, grouped_metadata)
 from paddle_tpu_torch.kernels.quant_matmul import (
-    quant_matmul, quant_matmul_plain, quantize_weight_blockwise)
+    quant_grouped_matmul, quant_grouped_matmul_plain, quant_matmul,
+    quant_matmul_plain, quantize_weight_blockwise)
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
     kv_quantize_rows, merge_partials, ragged_paged_attention,
     ragged_paged_attention_partials, ragged_paged_attention_partials_plain,
@@ -376,3 +380,133 @@ def test_partials_kernel_matches_plain(cuda_device, shards, nh, nkv, hd):
         whole = ragged_paged_attention(*args)
         assert (merged.float() - whole.float()).abs().max().item() < tol
     assert ragged_paged_attention_partials.launches == before + 2
+
+
+# -- the grouped (MoE expert) kernels -------------------------------------------
+#
+# Held element by element against the plain versions on the rows a route
+# points at (padding rows are unspecified): float32 to 1e-6 |ref| + 1e-5 of
+# the largest output (summation order over K, or over a group's rows for
+# dw), bf16 to one bf16 ulp (2^-7 |ref|) plus the same.
+
+
+def _grouped_inputs(dev, seed, t, k, n, e, bm, dtype, empty=None):
+    rng = np.random.default_rng(seed)
+    p = rng.dirichlet(np.full(e, 0.5))          # skewed routing
+    if empty is not None:
+        p[empty] = 0
+        p /= p.sum()
+    ids = torch.from_numpy(rng.choice(e, t, p=p).astype(np.int32)).to(dev)
+    md = grouped_metadata(ids, e, bm)
+    tp = md["row_src"].shape[0]
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(dtype)
+
+    return md, rnd(tp, k), rnd(e, k, n), rnd(e, n), rnd(tp, n)
+
+
+def _grouped_close(out, ref, rows, bf16):
+    o, r = out.float()[rows], ref.float()[rows]
+    lim = 1e-5 * r.abs().max() + (2.0 ** -7 if bf16 else 1e-6) * r.abs()
+    assert ((o - r).abs() <= lim).all(), (o - r).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,k,n,e,bm", [(300, 64, 96, 4, 8),
+                                        (1000, 130, 36, 8, 128),
+                                        (2048, 256, 512, 8, 128)])
+def test_grouped_kernels_match_plain(cuda_device, dtype, t, k, n, e, bm):
+    """Forward with and without bias, the transposed forward (dx) and dw,
+    on a skewed routing with one empty expert."""
+    md, x, w, b, dy = _grouped_inputs(cuda_device, t + k, t, k, n, e, bm,
+                                      dtype, empty=1)
+    off, cnt = md["offsets"], md["counts"]
+    rows = md["dest"].long()
+    bf16 = dtype == torch.bfloat16
+    f0, d0 = grouped_matmul_fwd.launches, grouped_matmul_dw.launches
+    for bias in (b, None):
+        out = grouped_matmul_fwd(x, w, bias, off, cnt, bm)
+        ref = _ref_fwd(x, w, bias, off, cnt, bm, dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype
+        _grouped_close(out, ref, rows, bf16)
+    dx = grouped_matmul_fwd(dy, w, None, off, cnt, bm, transpose_w=True)
+    ref = _ref_fwd(dy, w, None, off, cnt, bm, dtype, transpose_w=True)
+    _grouped_close(dx, ref, rows, bf16)
+    dw = grouped_matmul_dw(x, dy, off, cnt, bm, e)
+    ref = _ref_dw(x, dy, off, cnt, bm, e)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.float32 and (dw[1] == 0).all()
+    _grouped_close(dw, ref, slice(None), False)
+    assert grouped_matmul_fwd.launches == f0 + 3
+    assert grouped_matmul_dw.launches == d0 + 1
+
+
+@pytest.mark.cuda
+def test_grouped_kernels_never_read_dead_rows(cuda_device):
+    """NaN in every row that is not a route's (padding inside a group's
+    last tile, whole tiles past the groups): the routed outputs equal the
+    clean run's, and dw stays finite and equal."""
+    md, x, w, b, dy = _grouped_inputs(cuda_device, 5, 700, 96, 160, 8, 128,
+                                      torch.float32, empty=3)
+    off, cnt = md["offsets"], md["counts"]
+    valid = md["row_valid"]
+    rows = md["dest"].long()
+    clean = grouped_matmul_fwd(x, w, b, off, cnt, 128)
+    dw_clean = grouped_matmul_dw(x, dy, off, cnt, 128, 8)
+    x[~valid] = float("nan")
+    dy[~valid] = float("nan")
+    out = grouped_matmul_fwd(x, w, b, off, cnt, 128)
+    dw = grouped_matmul_dw(x, dy, off, cnt, 128, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(out[rows], clean[rows])
+    assert torch.isfinite(dw).all() and torch.equal(dw, dw_clean)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_autograd_runs_the_kernels(cuda_device):
+    md, x, w, b, _ = _grouped_inputs(cuda_device, 6, 500, 64, 128, 4, 128,
+                                     torch.float32)
+    ts = [t.clone().requires_grad_() for t in (x, w, b)]
+    f0, d0 = grouped_matmul_fwd.launches, grouped_matmul_dw.launches
+    out = grouped_matmul(*ts, group_offsets=md["offsets"],
+                         group_counts=md["counts"], bm=128)
+    out[md["dest"].long()].square().sum().backward()
+    assert grouped_matmul_fwd.launches == f0 + 2      # forward and dx
+    assert grouped_matmul_dw.launches == d0 + 1
+    cpu = [t.detach().cpu().requires_grad_() for t in (x, w, b)]
+    md_cpu = {k: v.cpu() for k, v in md.items()}
+    ref = grouped_matmul(*cpu, group_offsets=md_cpu["offsets"],
+                         group_counts=md_cpu["counts"], bm=128)
+    ref[md_cpu["dest"].long()].square().sum().backward()
+    valid = md_cpu["row_valid"]
+    for t, c in zip(ts, cpu):
+        g, r = t.grad.cpu(), c.grad
+        if g.shape[0] == valid.shape[0]:
+            g, r = g[valid], r[valid]
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,block_k", [(256, 96, None), (192, 520, 64),
+                                         (130, 40, 65)])
+def test_quant_grouped_kernel_matches_plain(cuda_device, qdtype, dtype, k,
+                                            n, block_k):
+    md, x, w, _, _ = _grouped_inputs(cuda_device, k + n, 900, k, n, 8, 128,
+                                     dtype, empty=0)
+    codes, scales = quantize_weight_blockwise(w.float().transpose(1, 2),
+                                              block_k, qdtype)
+    before = quant_grouped_matmul.launches
+    out = quant_grouped_matmul(x, codes, scales, group_offsets=md["offsets"],
+                               group_counts=md["counts"], bm=128)
+    ref = quant_grouped_matmul_plain(x, codes, scales, md["offsets"],
+                                     md["counts"], 128)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert quant_grouped_matmul.launches == before + 1
+    _grouped_close(out, ref, md["dest"].long(), dtype == torch.bfloat16)

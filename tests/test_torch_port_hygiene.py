@@ -178,3 +178,62 @@ def test_config_mirrors_the_jax_widths():
             cfg.num_key_value_heads, cfg.head_dim) == \
         (32000, 4096, 11008, 32, 32, 32, 128)
     assert isinstance(cfg, LlamaConfig)
+
+
+def test_moe_entry_points_need_a_card_or_an_explicit_cpu(no_card):
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ExpertMLP, GShardGate, MoELayer)
+    from paddle_tpu_torch.models.gpt_moe import MoEGPT, gpt_moe_tiny
+    from paddle_tpu_torch.nn.layer.transformer import MultiHeadAttention
+    for build in (lambda **kw: MoELayer(d_model=16, num_expert=4, **kw),
+                  lambda **kw: GShardGate(16, 4, **kw),
+                  lambda **kw: ExpertMLP(4, 16, 32, **kw),
+                  lambda **kw: MultiHeadAttention(16, 2, **kw),
+                  lambda **kw: MoEGPT(gpt_moe_tiny(vocab_size=32), **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        build(device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{"dropout": 0.1}, {"need_weights": True},
+                                {"weight_attr": object()},
+                                {"bias_attr": False}])
+def test_unported_attention_options_raise(kw):
+    from paddle_tpu_torch.nn.layer.transformer import MultiHeadAttention
+    with pytest.raises(NotImplementedError):
+        MultiHeadAttention(16, 2, device="cpu", **kw)
+
+
+def test_unported_attention_call_options_raise():
+    from paddle_tpu_torch.nn.layer.transformer import MultiHeadAttention
+    mha = MultiHeadAttention(16, 2, device="cpu")
+    x = torch.zeros(1, 4, 16)
+    with pytest.raises(NotImplementedError):
+        mha(x, attn_mask=torch.ones(4, 4, dtype=torch.bool))
+    with pytest.raises(NotImplementedError):
+        mha(x, cache=object())
+    with pytest.raises(NotImplementedError):
+        mha(x, torch.zeros(1, 6, 16), torch.zeros(1, 6, 16))
+    assert mha(x).shape == (1, 4, 16)
+
+
+def test_grouped_kernels_refuse_other_devices():
+    """The kernel wrappers take the plain version only for CPU tensors;
+    any other device raises instead of falling back."""
+    from paddle_tpu_torch.kernels.grouped_matmul import (
+        grouped_matmul_dw, grouped_matmul_fwd, grouped_metadata)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quant_grouped_matmul, quantize_weight_blockwise)
+    md = grouped_metadata(torch.tensor([0, 1, 1], dtype=torch.int32), 2, 8)
+    md = {k: v.to("meta") for k, v in md.items()}
+    x = torch.zeros(md["row_src"].shape[0], 8, device="meta")
+    w = torch.zeros(2, 8, 4, device="meta")
+    with pytest.raises(RuntimeError, match="no grouped_matmul kernel"):
+        grouped_matmul_fwd(x, w, None, md["offsets"], md["counts"], 8)
+    with pytest.raises(RuntimeError, match="no grouped_matmul kernel"):
+        grouped_matmul_dw(x, x, md["offsets"], md["counts"], 8, 2)
+    codes, scales = quantize_weight_blockwise(torch.zeros(2, 4, 8))
+    with pytest.raises(RuntimeError, match="no quant_grouped_matmul kernel"):
+        quant_grouped_matmul(x, codes.to("meta"), scales.to("meta"),
+                             group_offsets=md["offsets"],
+                             group_counts=md["counts"], bm=8)
