@@ -65,18 +65,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
 10. moe_parity: 3 float32 steps of a 2-layer full-width GPT-MoE, grouped
    against capacity dispatch with capacity_factor E / top_k (nothing
    drops): losses and the first step's gradients must agree;
-11. one line naming each kernel with its launches on the main path (the
+11. the packed and masked attention kernels (varlen forward, dq + dk/dv;
+   FlashMask forward, dq + dk/dv) against their plain versions in bf16:
+   the packed batch of phase 12 (timed with the plain versions, SDPA with
+   the boolean mask and, where torch has it, its varlen call), D 64 and
+   256, a total of 1000, empty documents, unequal packs with an empty k
+   document (keyless rows 0 with zero gradients), random start rows, and
+   NaN in one document's K and V (every other document's outputs and
+   gradients unchanged); each with its live, visited and dense pair counts
+   and the bound over live pairs (backward 2.5 x the forward's flops);
+12. varlen_attn: flash_attn_unpadded on bench.py's one-chip batch packed
+   (6 x 2048 = 12,288 tokens, 16 documents of rng.integers(64, 2049) from
+   the seed, the last of a row cut to fit), [12288, 32, 128] bf16 leaves,
+   causal, forward and backward through autograd, 2 warm-up and 10 timed
+   passes: ms per pass, tokens/s, TFLOP/s over live pairs, peak memory,
+   and one launch of each kernel per pass; flashmask_attn: the same with
+   flash_attention_with_sparse_mask on [6, 2048, 32, 128] and the
+   documents as [6, 1, 2048] start rows;
+13. packed_parity: the two paths in float32 at 4 heads on the same
+   documents (outputs and gradients), and FlashMask with start rows S
+   against the dense flash kernels;
+14. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the generate of phase 5 for the
    flash forward, the train of phase 6 for the flash backward, serve_quant
    for quant_matmul and the quantized ragged kernel, serve_long for the
    partials, train_moe for the grouped forward and dw kernels,
-   train_moe_quant for the quantized grouped kernel), error and times;
-12. the card's name and power limit again, and the result line.
+   train_moe_quant for the quantized grouped kernel, varlen_attn and
+   flashmask_attn for the packed kernels), error and times;
+15. the card's name and power limit again, and the result line.
 
 With --profile, short full-width serves (plain, serve_quant's and
-serve_long's engines), two train steps and two train_moe steps also run
-under torch.profiler, and one more line for each gives the device time by
-kernel and the device's idle share.
+serve_long's engines), two train steps, two train_moe steps and three
+passes of each packed-attention path also run under torch.profiler, and
+one more line for each gives the device time by kernel and the device's
+idle share.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
@@ -1704,6 +1726,705 @@ def moe_kernel_checks(torch, np, seed):
     return recs["up_fwd_f32"], recs["up_dw_f32"], recs["up_int8_f32"]
 
 
+# -- phases 11-13: packed and masked attention ---------------------------------
+
+PACK_ROWS, PACK_SEQ = 6, 2048      # bench.py's one-chip training batch
+PACK_HEADS, PACK_D = 32, 128       # the Llama-2-7B attention widths
+PACK_WARMUP, PACK_TIMED = 2, 10
+PACK_PARITY_HEADS = 4
+PACK_PARITY_ATOL = 1e-5            # float32 outputs, of the largest
+
+
+def pack_documents(np, seed, rows=PACK_ROWS, seq=PACK_SEQ):
+    """Document lengths filling `rows` rows of `seq` tokens each, as a
+    packed training batch is built: rng.integers(64, seq + 1) each, the
+    last of a row cut to fit (seed 0: 16 documents)."""
+    rng = np.random.default_rng(seed)
+    lens = []
+    for _ in range(rows):
+        left = seq
+        while left > 0:
+            n = min(int(rng.integers(64, seq + 1)), left)
+            lens.append(n)
+            left -= n
+    return lens
+
+
+def doc_start_rows(np, lens, rows, seq):
+    """The same documents as FlashMask start rows [rows, seq]: column c of
+    a document ending at row e of its batch row gets start e, so (causal)
+    row r sees c iff c <= r < e."""
+    out = np.empty((rows, seq), np.int32)
+    r, off = 0, 0
+    for n in lens:
+        out[r, off:off + n] = off + n
+        off += n
+        if off == seq:
+            r, off = r + 1, 0
+    return out
+
+
+def live_pairs(np, lq, lk, causal):
+    """(q, k) pairs per head the segment mask keeps: documents pair up by
+    index; causal compares positions inside a document."""
+    lq, lk = np.asarray(lq, np.int64), np.asarray(lk, np.int64)
+    if not causal:
+        return int((lq * lk).sum())
+    m = np.minimum(lq, lk)
+    return int((m * (m + 1) // 2 + (lq - m) * lk).sum())
+
+
+def varlen_library():
+    """torch's own varlen attention call, where this torch has one (a
+    yardstick only: the port never calls it)."""
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError:
+        return None
+    return varlen_attn
+
+
+def _varlen_library_call(fn, q, k, v, cu, mx, causal, scale):
+    import inspect
+    params = inspect.signature(fn).parameters
+    kw = {"scale": scale}
+    if "is_causal" in params:
+        kw["is_causal"] = causal
+    else:
+        kw["window_size"] = (-1, 0) if causal else (-1, -1)
+    return fn(q, k, v, cu, cu, mx, mx, **kw)
+
+
+def _grad_errs(got, ref):
+    errs, ratios = {}, {}
+    for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+        atol = GRAD_ATOL * r.float().abs().max().item()
+        errs[gname], ratios[gname] = bf16_err(g, r, atol)
+    return errs, ratios
+
+
+def _sdpa_library(torch, name, q4, k4, v4, mask, scale, do4, ref_o, ref_g):
+    """SDPA with a boolean mask on [B, H, S, D] copies (made outside the
+    timing): forward and backward times, held to LIB_TOL of the plain
+    versions' outputs and gradients."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x.detach().requires_grad_() for x in (q4, k4, v4))
+    out = sdpa(q4, k4, v4, attn_mask=mask, scale=scale)
+    lib_check(name, out, ref_o)
+    grads = torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+    for gname, g, r in zip(("dq", "dk", "dv"), grads, ref_g):
+        lib_check(f"{name} {gname}", g, r)
+    fwd_ms = cuda_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask,
+                                         scale=scale), 10)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (q4, k4, v4), do4, retain_graph=True), 10)
+    return fwd_ms, bwd_ms
+
+
+def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
+                timed=False):
+    """Both varlen kernels (the forward; dq and dk/dv) on one packing in
+    bf16 against their plain versions, the backward on the kernel
+    forward's o and lse as training gives them. poison: the index of a
+    document whose K and V become NaN: every other document's outputs and
+    gradients must equal the clean run's. timed: also the plain versions'
+    times and the library yardsticks. Returns (forward record, backward
+    record)."""
+    from paddle_tpu_torch.kernels.flash_varlen import (
+        BQ, dkv_block, flash_varlen_bwd, flash_varlen_bwd_plain,
+        flash_varlen_fwd, flash_varlen_fwd_plain, segments_from_cu,
+        varlen_tile_ranges)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bf = torch.bfloat16
+    tq, tk = int(sum(lq)), int(sum(lk))
+    q, do = (torch.randn(tq, h, d, generator=gen, device=dev, dtype=bf)
+             for _ in range(2))
+    k, v = (torch.randn(tk, h, d, generator=gen, device=dev, dtype=bf)
+            for _ in range(2))
+    cu_q = torch.as_tensor(np.cumsum([0] + list(lq)), dtype=torch.int32,
+                           device=dev)
+    cu_k = torch.as_tensor(np.cumsum([0] + list(lk)), dtype=torch.int32,
+                           device=dev)
+    sq, pq = segments_from_cu(cu_q, tq)
+    sk, pk = segments_from_cu(cu_k, tk)
+    scale = d ** -0.5
+    seg = (sq, pq, sk, pk, causal, scale)
+    o, lse = flash_varlen_fwd(q, k, v, *seg)
+    ro, rlse = flash_varlen_fwd_plain(q, k, v, *seg)
+    got = flash_varlen_bwd(q, k, v, o, lse, do, *seg)
+    ref = flash_varlen_bwd_plain(q, k, v, o, lse, do, *seg)
+    torch.cuda.synchronize()
+    err, ratio = bf16_err(o, ro)
+    lse_err = (lse - rlse).abs().max().item()
+    check(ratio <= 1.0 and lse_err <= LSE_ATOL,
+          f"{name}: varlen forward vs plain o err {err} ({ratio} x "
+          f"tolerance), lse err {lse_err}")
+    errs, ratios = _grad_errs(got, ref)
+    gratio = max(ratios.values())
+    check(math.isfinite(gratio) and gratio <= 1.0,
+          f"{name}: varlen backward vs plain errors {errs}, {ratios} x "
+          f"tolerance")
+    cq, ck = np.cumsum([0] + list(lq)), np.cumsum([0] + list(lk))
+    keyless = [i for i in range(len(lq)) if lq[i] and not lk[i]]
+    for i in keyless:          # rows whose k document is empty: 0, dq 0
+        rows = slice(int(cq[i]), int(cq[i + 1]))
+        check(not o[rows].any() and not got[0][rows].any(),
+              f"{name}: keyless rows of document {i} are not 0")
+    if poison is not None:
+        kq = torch.ones(tq, dtype=torch.bool, device=dev)
+        kk = torch.ones(tk, dtype=torch.bool, device=dev)
+        kq[int(cq[poison]):int(cq[poison + 1])] = False
+        kk[int(ck[poison]):int(ck[poison + 1])] = False
+        kp, vp = k.clone(), v.clone()
+        kp[~kk] = float("nan")
+        vp[~kk] = float("nan")
+        po, plse = flash_varlen_fwd(q, kp, vp, *seg)
+        pg = flash_varlen_bwd(q, kp, vp, po, plse, do, *seg)
+        torch.cuda.synchronize()
+        for what, a, b, keep in (("o", po, o, kq), ("dq", pg[0], got[0], kq),
+                                 ("dk", pg[1], got[1], kk),
+                                 ("dv", pg[2], got[2], kk)):
+            check(bool(torch.isfinite(a[keep]).all())
+                  and torch.equal(a[keep], b[keep]),
+                  f"{name}: NaN in document {poison} reached another "
+                  f"document's {what}")
+    kernel_ms = cuda_ms(torch, lambda: flash_varlen_fwd(q, k, v, *seg), 10)
+    kernel_bwd_ms = cuda_ms(torch, lambda: flash_varlen_bwd(
+        q, k, v, o, lse, do, *seg), 10)
+    plain_ms = plain_bwd_ms = library_ms = library_bwd_ms = None
+    varlen_lib = {}
+    if timed:
+        plain_ms = cuda_ms(torch, lambda: flash_varlen_fwd_plain(
+            q, k, v, *seg), 2, warmup=1)
+        plain_bwd_ms = cuda_ms(torch, lambda: flash_varlen_bwd_plain(
+            q, k, v, o, lse, do, *seg), 2, warmup=1)
+        # yardstick: SDPA over the whole pack with the block-diagonal
+        # (causal) boolean mask, built outside the timing
+        mask = sq[:, None] == sk[None, :]
+        if causal:
+            mask &= pq[:, None] >= pk[None, :]
+        q4, k4, v4, do4 = (x.transpose(0, 1)[None].contiguous()
+                           for x in (q, k, v, do))
+        library_ms, library_bwd_ms = _sdpa_library(
+            torch, name, q4, k4, v4, mask[None, None], scale, do4,
+            ro.transpose(0, 1)[None],
+            [g.transpose(0, 1)[None] for g in ref])
+        del mask, q4, k4, v4, do4
+        fn = varlen_library()
+        if fn is None:
+            varlen_lib = {"available": False}
+        elif lq == lk:
+            try:
+                lo = _varlen_library_call(fn, q, k, v, cu_q,
+                                          max(lq), causal, scale)
+                lo = lo[0] if isinstance(lo, tuple) else lo
+                varlen_lib = {
+                    "available": True,
+                    "max_abs_err_vs_plain":
+                        (lo.float() - ro.float()).abs().max().item(),
+                    "ms": cuda_ms(torch, lambda: _varlen_library_call(
+                        fn, q, k, v, cu_q, max(lq), causal, scale),
+                        10)}
+            except Exception as e:       # a yardstick, not part of the path
+                varlen_lib = {"available": True,
+                              "error": f"{type(e).__name__}: {e}"[:300]}
+    pairs = live_pairs(np, lq, lk, causal)
+    rq = varlen_tile_ranges(sq, pq, sk, pk, BQ, causal, True)
+    rk = varlen_tile_ranges(sk, pk, sq, pq, dkv_block(d), causal, False)
+    rq_rows = torch.clamp(tq - torch.arange(rq.shape[0], device=dev) * BQ,
+                          max=BQ)
+    rk_rows = torch.clamp(tk - torch.arange(rk.shape[0], device=dev)
+                          * dkv_block(d), max=dkv_block(d))
+    visited_fwd = int((rq_rows * (rq[:, 1] - rq[:, 0]).clamp(min=0)).sum())
+    visited_dkv = int((rk_rows * (rk[:, 1] - rk[:, 0]).clamp(min=0)).sum())
+    isz = 2
+    common = {"phase": "kernel_check", "case": name, "dtype": "bfloat16",
+              "heads": h, "d": d, "causal": causal, "total_q": tq,
+              "total_k": tk, "docs_q": list(lq), "docs_k": list(lk),
+              "live_pairs_per_head": pairs,
+              "dense_pairs_per_head": tq * tk,
+              "visited_pairs_per_head_fwd_dq": visited_fwd,
+              "visited_pairs_per_head_dkv": visited_dkv,
+              "keyless_docs": keyless, "nan_poisoned_doc": poison}
+    flops = 4 * h * d * pairs
+    seg_bytes = 8 * (tq + tk)
+    fbytes = (2 * tq + 2 * tk) * h * d * isz + 4 * h * tq + seg_bytes
+    bound_ms, bound_by = bound(fbytes, flops, BF16_FLOPS)
+    fwd = dict(common, kernel="flash_varlen_fwd", max_abs_err=err,
+               err_over_tolerance=ratio, rtol=BF16_RTOL, atol=BF16_ATOL,
+               lse_max_abs_err=lse_err, lse_atol=LSE_ATOL,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               library="scaled_dot_product_attention, block-diagonal "
+                       "boolean mask over the pack",
+               library_varlen_attn=varlen_lib, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=fbytes, flops=flops,
+               tflops=flops / kernel_ms / 1e9)
+    emit(fwd)
+    flops = 10 * h * d * pairs            # 2.5 x the forward
+    bbytes = (3 * tq + 2 * tk + tq + 2 * tk) * h * d * isz \
+        + 8 * h * tq + seg_bytes
+    bound_ms, bound_by = bound(bbytes, flops, BF16_FLOPS)
+    bwd = dict(common, kernel="flash_varlen_bwd",
+               max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+               err_over_tolerance=gratio, rtol=BF16_RTOL,
+               grad_atol_of_max=GRAD_ATOL, kernel_ms=kernel_bwd_ms,
+               plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
+               library="backward of that SDPA call", bound_ms=bound_ms,
+               bound_by=bound_by, bytes=bbytes, flops=flops,
+               tflops=flops / kernel_bwd_ms / 1e9)
+    emit(bwd)
+    return fwd, bwd
+
+
+def sparse_mask_pairs(torch, start, causal):
+    """(q, k) pairs FlashMask keeps, summed over the B*H heads: column c
+    is seen by rows [c if causal else 0, min(start[c], S))."""
+    s = start.shape[-1]
+    lo = torch.arange(s, device=start.device) if causal else 0
+    return int((start.long().clamp(max=s) - lo).clamp(min=0).sum())
+
+
+def sparse_mask_visited(torch, start, causal):
+    """Pairs the forward's tile loop visits, summed over heads: 64 rows
+    times 32 columns for each key tile at or below the diagonal whose
+    largest start is past the q tile's first row."""
+    from paddle_tpu_torch.kernels.flash_sparse_mask import TILE, tile_max
+    s = start.shape[-1]
+    tm = tile_max(start)                                    # [BH, n32]
+    q0 = torch.arange(0, s, 64, device=start.device)
+    rows = (s - q0).clamp(max=64)
+    k0 = torch.arange(tm.shape[1], device=start.device) * TILE
+    live = q0[None, :, None] < tm[:, None, :]
+    if causal:
+        live &= k0[None, None, :] < (q0 + 64).clamp(max=s)[None, :, None]
+    return int((live.long() * rows[None, :, None]).sum() * TILE)
+
+
+def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
+                     poison=None, timed=False):
+    """Both FlashMask kernels on [b, s, h, d] bf16 with start rows `start`
+    (int32 on the card, [b, 1, s] shared by the heads or [b*h, s]) against
+    their plain versions (chunked over b*h). poison: (batch row, first,
+    end) columns whose K and V become NaN: every other row's outputs and
+    gradients must equal the clean run's. Returns (forward record,
+    backward record)."""
+    from paddle_tpu_torch.kernels.flash_sparse_mask import (
+        flash_sparse_mask_bwd, flash_sparse_mask_bwd_plain,
+        flash_sparse_mask_fwd, flash_sparse_mask_fwd_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    shared = start.dim() == 3
+    st = start.expand(b, h, s).reshape(b * h, s).contiguous() if shared \
+        else start
+    scale = d ** -0.5
+    o, lse = flash_sparse_mask_fwd(q, k, v, st, causal, scale)
+    ro, rlse = flash_sparse_mask_fwd_plain(q, k, v, st, causal, scale)
+    got = flash_sparse_mask_bwd(q, k, v, o, lse, do, st, causal, scale)
+    ref = flash_sparse_mask_bwd_plain(q, k, v, o, lse, do, st, causal,
+                                      scale)
+    torch.cuda.synchronize()
+    err, ratio = bf16_err(o, ro)
+    lse_err = (lse - rlse).abs().max().item()
+    check(ratio <= 1.0 and lse_err <= LSE_ATOL,
+          f"{name}: FlashMask forward vs plain o err {err} ({ratio} x "
+          f"tolerance), lse err {lse_err}")
+    errs, ratios = _grad_errs(got, ref)
+    gratio = max(ratios.values())
+    check(math.isfinite(gratio) and gratio <= 1.0,
+          f"{name}: FlashMask backward vs plain errors {errs}, {ratios} x "
+          f"tolerance")
+    if poison is not None:
+        row, a, e = poison
+        keep = torch.ones(b, s, dtype=torch.bool, device=dev)
+        keep[row, a:e] = False
+        kp, vp = k.clone(), v.clone()
+        kp[~keep] = float("nan")
+        vp[~keep] = float("nan")
+        po, plse = flash_sparse_mask_fwd(q, kp, vp, st, causal, scale)
+        pg = flash_sparse_mask_bwd(q, kp, vp, po, plse, do, st, causal,
+                                   scale)
+        torch.cuda.synchronize()
+        for what, x, y in (("o", po, o), ("dq", pg[0], got[0]),
+                           ("dk", pg[1], got[1]), ("dv", pg[2], got[2])):
+            check(bool(torch.isfinite(x[keep]).all())
+                  and torch.equal(x[keep], y[keep]),
+                  f"{name}: NaN in columns {a}:{e} of row {row} reached "
+                  f"another document's {what}")
+    kernel_ms = cuda_ms(torch, lambda: flash_sparse_mask_fwd(
+        q, k, v, st, causal, scale), 10)
+    kernel_bwd_ms = cuda_ms(torch, lambda: flash_sparse_mask_bwd(
+        q, k, v, o, lse, do, st, causal, scale), 10)
+    plain_ms = plain_bwd_ms = library_ms = library_bwd_ms = None
+    if timed:
+        plain_ms = cuda_ms(torch, lambda: flash_sparse_mask_fwd_plain(
+            q, k, v, st, causal, scale), 2, warmup=1)
+        plain_bwd_ms = cuda_ms(torch, lambda: flash_sparse_mask_bwd_plain(
+            q, k, v, o, lse, do, st, causal, scale), 2, warmup=1)
+        # yardstick: SDPA with the [b, 1, s, s] boolean mask (start rows
+        # shared by the heads), built outside the timing
+        rows = torch.arange(s, device=dev)[:, None]
+        mask = rows < start.reshape(b, 1, 1, s)
+        if causal:
+            mask &= rows >= torch.arange(s, device=dev)[None, :]
+        q4, k4, v4, do4 = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        library_ms, library_bwd_ms = _sdpa_library(
+            torch, name, q4, k4, v4, mask, scale, do4, ro.transpose(1, 2),
+            [g.transpose(1, 2) for g in ref])
+        del mask, q4, k4, v4, do4
+    pairs = sparse_mask_pairs(torch, st, causal)
+    common = {"phase": "kernel_check", "case": name, "dtype": "bfloat16",
+              "b": b, "s": s, "heads": h, "d": d, "causal": causal,
+              "start_shared_by_heads": shared,
+              "live_pairs": pairs, "dense_pairs": b * h * s * s,
+              "visited_pairs_fwd_dq": sparse_mask_visited(torch, st,
+                                                          causal),
+              "nan_poisoned_columns": poison}
+    isz = 2
+    flops = 4 * d * pairs
+    fbytes = 4 * b * s * h * d * isz + 8 * b * h * s
+    bound_ms, bound_by = bound(fbytes, flops, BF16_FLOPS)
+    fwd = dict(common, kernel="flash_sparse_mask_fwd", max_abs_err=err,
+               err_over_tolerance=ratio, rtol=BF16_RTOL, atol=BF16_ATOL,
+               lse_max_abs_err=lse_err, lse_atol=LSE_ATOL,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               library="scaled_dot_product_attention, [b, 1, s, s] "
+                       "boolean mask", bound_ms=bound_ms, bound_by=bound_by,
+               bytes=fbytes, flops=flops, tflops=flops / kernel_ms / 1e9)
+    emit(fwd)
+    flops = 10 * d * pairs
+    bbytes = 8 * b * s * h * d * isz + 12 * b * h * s
+    bound_ms, bound_by = bound(bbytes, flops, BF16_FLOPS)
+    bwd = dict(common, kernel="flash_sparse_mask_bwd",
+               max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+               err_over_tolerance=gratio, rtol=BF16_RTOL,
+               grad_atol_of_max=GRAD_ATOL, kernel_ms=kernel_bwd_ms,
+               plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
+               library="backward of that SDPA call", bound_ms=bound_ms,
+               bound_by=bound_by, bytes=bbytes, flops=flops,
+               tflops=flops / kernel_bwd_ms / 1e9)
+    emit(bwd)
+    return fwd, bwd
+
+
+def packed_kernel_checks(torch, np, lens, seed):
+    """Phase 11: the varlen and FlashMask kernels against their plain
+    versions: the main packed shape (timed with its plain versions and
+    yardsticks), D 64 and 256, a total of 1000, empty documents, unequal
+    packs with an empty k document, random start rows, and NaN isolation.
+    Returns the main cases' four records."""
+    dev = torch.device("cuda")
+    small = pack_documents(np, seed, rows=2)               # 4096 tokens
+    vf, vb = varlen_case(torch, np, "main_pack_32x128_causal", lens, lens,
+                         PACK_HEADS, PACK_D, True, seed, timed=True)
+    for d in (64, 256):
+        varlen_case(torch, np, f"pack4096_h8_d{d}_causal", small, small, 8,
+                    d, True, seed + d)
+    varlen_case(torch, np, "total1000_h8_d128_causal",
+                (1, 63, 64, 65, 300, 7, 500), (1, 63, 64, 65, 300, 7, 500),
+                8, 128, True, seed + 1)
+    varlen_case(torch, np, "empty_docs_h8_d128_causal",
+                (700, 0, 333, 290, 0), (700, 0, 333, 290, 0), 8, 128, True,
+                seed + 2)
+    varlen_case(torch, np, "unequal_keyless_h8_d128_full",
+                (300, 200, 250, 250), (280, 0, 300, 120), 8, 128, False,
+                seed + 3)
+    varlen_case(torch, np, "nan_doc2_h8_d128_causal", small, small, 8, 128,
+                True, seed + 4, poison=2)
+    start = torch.as_tensor(doc_start_rows(np, lens, PACK_ROWS, PACK_SEQ),
+                            device=dev)[:, None, :]            # [6, 1, S]
+    mf, mb = sparse_mask_case(torch, np, "main_docs_6x2048x32x128_causal",
+                              PACK_ROWS, PACK_SEQ, PACK_HEADS, PACK_D, True,
+                              start, seed, timed=True)
+    rng = np.random.default_rng(seed + 5)
+    for causal in (True, False):       # as tests/test_varlen_flash.py
+        rs = torch.as_tensor(rng.integers(1, 2049, (2 * 8, 2048))
+                             .astype(np.int32), device=dev)
+        sparse_mask_case(torch, np, f"random_start_2x2048x8x128_"
+                                    f"{'causal' if causal else 'full'}",
+                         2, 2048, 8, 128, causal, rs, seed + 6 + causal)
+    docs1000 = (1, 63, 64, 65, 300, 7, 500)
+    st1000 = torch.as_tensor(doc_start_rows(np, docs1000 * 2, 2, 1000),
+                             device=dev)[:, None, :]
+    for d in (64, 256):
+        sparse_mask_case(torch, np, f"docs_2x1000x4_d{d}_causal", 2, 1000,
+                         4, d, True, st1000, seed + d)
+    sparse_mask_case(torch, np, "nan_doc0_6x2048x8x128_causal", PACK_ROWS,
+                     PACK_SEQ, 8, 128, True, start, seed + 9,
+                     poison=(0, 0, lens[0]))
+    return vf, vb, mf, mb
+
+
+def _leaves(torch, gen, shape, dtype):
+    return [torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+            .requires_grad_() for _ in range(3)]
+
+
+def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
+                 extra):
+    """The timed loop of a packed-attention path phase: PACK_WARMUP +
+    PACK_TIMED forward and backward passes through autograd (gradients
+    reset to None first, as a training step's zero_grad), one launch of
+    each kernel per pass."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_fn.launches = 0
+    bwd_fn.launches = 0
+
+    def one():
+        for t in leaves:
+            t.grad = None
+        return run()
+
+    for _ in range(PACK_WARMUP):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PACK_TIMED):
+        out = one()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    passes = PACK_WARMUP + PACK_TIMED
+    fl, bl = fwd_fn.launches, bwd_fn.launches
+    check(fl == passes and bl == passes,
+          f"{phase}: forward launches {fl}, backward {bl} != one each per "
+          f"pass x {passes}")
+    check(bool(torch.isfinite(out).all())
+          and all(bool(torch.isfinite(t.grad).all()) for t in leaves),
+          f"{phase}: non-finite output or gradient")
+    flops = 14 * PACK_HEADS * PACK_D * pairs       # forward 4, backward 10
+    rec = dict({"phase": phase, "dtype": "bfloat16", "heads": PACK_HEADS,
+                "d": PACK_D, "tokens": tokens, "causal": True,
+                "warmup_passes": PACK_WARMUP, "timed_passes": PACK_TIMED,
+                "wall_s": wall, "ms_per_fwd_bwd": wall / PACK_TIMED * 1e3,
+                "tokens_per_s": tokens * PACK_TIMED / wall,
+                "live_pairs_per_head": pairs,
+                "dense_causal_pairs_per_head": tokens * (tokens + 1) // 2,
+                "tflops_live": flops * PACK_TIMED / wall / 1e12,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                "fwd_launches": fl, "bwd_launches": bl}, **extra)
+    emit(rec)
+    return rec
+
+
+def packed_profile_phase(torch, phase, run, leaves, passes=3):
+    """--profile only: `passes` forward+backward passes of a packed path,
+    run once plainly for their wall time and once under torch.profiler for
+    the device time of the forward, dq and dk/dv kernels and the rest
+    (segments, ranges, delta, gradient buffers), and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def one():
+        for t in leaves:
+            t.grad = None
+        run()
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        one()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(passes):
+            one()
+        torch.cuda.synchronize()
+    rows, busy_s = device_kernel_rows(prof)
+    groups = {"forward": 0.0, "dq": 0.0, "dkv": 0.0, "other": 0.0}
+    calls = {"forward": 0, "dq": 0, "dkv": 0}
+    for us, name, n in rows:
+        key = ("forward" if "masked_fwd" in name else
+               "dq" if "masked_dq" in name else
+               "dkv" if "masked_dkv" in name else "other")
+        groups[key] += us / 1e3
+        if key in calls:
+            calls[key] += n
+    # the profiler may keep fewer launches than ran; then only the
+    # per-launch times stand, and the busy and idle shares are not known
+    whole = rows and all(n == passes for n in calls.values())
+    rec = {"phase": phase, "passes": passes, "wall_s": wall,
+           "ms_per_pass": wall / passes * 1e3,
+           "kernel_launches_kept": calls,
+           "device_ms_per_launch": {k: groups[k] / n if n else None
+                                    for k, n in calls.items()},
+           "device_busy_s": busy_s if whole else "not measured",
+           "device_idle_share": 1 - busy_s / wall if whole
+           else "not measured",
+           "device_ms_per_pass_by_group": {
+               k: v / passes for k, v in groups.items()} if whole
+           else "not measured",
+           "top_device_kernels": top_kernels(rows, busy_s, 8)
+           if rows else []}
+    emit(rec)
+    return rec
+
+
+def varlen_attn_phase(torch, np, lens, seed, profile=False):
+    """Phase 12: flash_attn_unpadded on the packed batch ([12288, 32, 128]
+    bf16 leaves, causal, one pack), forward and backward through
+    autograd."""
+    from paddle_tpu_torch.kernels.flash_varlen import (flash_varlen_bwd,
+                                                       flash_varlen_fwd)
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = sum(lens)
+    shape = (tokens, PACK_HEADS, PACK_D)
+    q, k, v = _leaves(torch, gen, shape, torch.bfloat16)
+    g = torch.randn(*shape, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    cu = torch.as_tensor(np.cumsum([0] + list(lens)), dtype=torch.int32,
+                         device="cuda")
+    mx = max(lens)
+
+    def run():
+        out = flash_attn_unpadded(q, k, v, cu, cu, mx, mx,
+                                  PACK_D ** -0.5, causal=True)
+        out.backward(g)
+        return out
+
+    rec = _packed_path(torch, "varlen_attn", run, flash_varlen_fwd,
+                       flash_varlen_bwd, (q, k, v), tokens,
+                       live_pairs(np, lens, lens, True),
+                       {"entry": "nn.functional.flash_attn_unpadded",
+                        "documents": list(lens)})
+    if profile:
+        packed_profile_phase(torch, "profile_varlen_attn", run, (q, k, v))
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flashmask_attn_phase(torch, np, lens, seed, profile=False):
+    """Phase 12b: flash_attention_with_sparse_mask on [6, 2048, 32, 128]
+    bf16 leaves, causal, the same documents as [6, 1, 2048] start rows."""
+    from paddle_tpu_torch.kernels.flash_sparse_mask import (
+        flash_sparse_mask_bwd, flash_sparse_mask_fwd)
+    from paddle_tpu_torch.nn.functional import (
+        flash_attention_with_sparse_mask)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (PACK_ROWS, PACK_SEQ, PACK_HEADS, PACK_D)
+    q, k, v = _leaves(torch, gen, shape, torch.bfloat16)
+    g = torch.randn(*shape, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    start = torch.as_tensor(doc_start_rows(np, lens, PACK_ROWS, PACK_SEQ),
+                            device="cuda")[:, None, :]
+
+    def run():
+        out = flash_attention_with_sparse_mask(q, k, v, start,
+                                               is_causal=True)
+        out.backward(g)
+        return out
+
+    rec = _packed_path(torch, "flashmask_attn", run, flash_sparse_mask_fwd,
+                       flash_sparse_mask_bwd, (q, k, v), sum(lens),
+                       live_pairs(np, lens, lens, True),
+                       {"entry": "nn.functional."
+                                 "flash_attention_with_sparse_mask",
+                        "start_rows": "[6, 1, 2048], documents"})
+    if profile:
+        packed_profile_phase(torch, "profile_flashmask_attn", run,
+                             (q, k, v))
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def packed_parity_phase(torch, np, lens, seed):
+    """Phase 13: the varlen and FlashMask paths on the same documents
+    through independent kernels, float32 at 4 heads (TF32 off): outputs
+    and q, k, v gradients element by element after reshaping [12288, 4,
+    128] <-> [6, 2048, 4, 128]. Then FlashMask with start rows S (masks
+    nothing) and causal against the dense flash_attention kernels."""
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    from paddle_tpu_torch.kernels.flash_sparse_mask import (
+        flash_sparse_mask_bwd, flash_sparse_mask_fwd)
+    from paddle_tpu_torch.kernels.flash_varlen import (flash_varlen_bwd,
+                                                       flash_varlen_fwd)
+    from paddle_tpu_torch.nn.functional import (
+        flash_attention, flash_attention_with_sparse_mask,
+        flash_attn_unpadded)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    h, d, tokens = PACK_PARITY_HEADS, PACK_D, sum(lens)
+    base = [torch.randn(tokens, h, d, generator=gen, device="cuda")
+            for _ in range(4)]
+    cu = torch.as_tensor(np.cumsum([0] + list(lens)), dtype=torch.int32,
+                         device="cuda")
+    bshape = (PACK_ROWS, PACK_SEQ, h, d)
+    for fn in (flash_varlen_fwd, flash_varlen_bwd, flash_sparse_mask_fwd,
+               flash_sparse_mask_bwd, _flash_bhsd, _flash_bhsd_bwd):
+        fn.launches = 0
+
+    def grads_of(run, shape):
+        leaves = [x.reshape(shape).clone().requires_grad_()
+                  for x in base[:3]]
+        out = run(*leaves)
+        out.backward(base[3].reshape(shape))
+        return [out.detach().reshape(tokens, h, d)] + \
+            [t.grad.reshape(tokens, h, d) for t in leaves]
+
+    def worst(a, b):
+        return max(((x - y).abs().max() / y.abs().max()).item()
+                   for x, y in zip(a, b))
+
+    mx = max(lens)
+    varlen = grads_of(lambda q, k, v: flash_attn_unpadded(
+        q, k, v, cu, cu, mx, mx, d ** -0.5, causal=True), (tokens, h, d))
+    start = torch.as_tensor(doc_start_rows(np, lens, PACK_ROWS, PACK_SEQ),
+                            device="cuda")[:, None, :]
+    mask = grads_of(lambda q, k, v: flash_attention_with_sparse_mask(
+        q, k, v, start, is_causal=True), bshape)
+    full = torch.full((PACK_SEQ,), PACK_SEQ, dtype=torch.int32,
+                      device="cuda")
+    nomask = grads_of(lambda q, k, v: flash_attention_with_sparse_mask(
+        q, k, v, full, is_causal=True), bshape)
+    dense = grads_of(lambda q, k, v: flash_attention(q, k, v, causal=True),
+                     bshape)
+    torch.cuda.synchronize()
+    docs_out = (varlen[0] - mask[0]).abs().max().item() \
+        / mask[0].abs().max().item()
+    docs_grad = worst(varlen[1:], mask[1:])
+    dense_out = (nomask[0] - dense[0]).abs().max().item() \
+        / dense[0].abs().max().item()
+    dense_grad = worst(nomask[1:], dense[1:])
+    launches = {fn.__name__: fn.launches for fn in (
+        flash_varlen_fwd, flash_varlen_bwd, flash_sparse_mask_fwd,
+        flash_sparse_mask_bwd, _flash_bhsd, _flash_bhsd_bwd)}
+    check(list(launches.values()) == [1, 1, 2, 2, 1, 1],
+          f"packed_parity launches {launches}")
+    check(docs_out <= PACK_PARITY_ATOL and docs_grad <= PARITY_GRAD_ATOL,
+          f"varlen vs FlashMask on the same documents: output {docs_out}, "
+          f"gradients {docs_grad} of the largest")
+    check(dense_out <= PACK_PARITY_ATOL and dense_grad <= PARITY_GRAD_ATOL,
+          f"FlashMask (no start row) vs dense flash: output {dense_out}, "
+          f"gradients {dense_grad} of the largest")
+    rec = {"phase": "packed_parity", "dtype": "float32", "heads": h, "d": d,
+           "tokens": tokens, "documents": list(lens),
+           "varlen_vs_flashmask_out_over_max": docs_out,
+           "varlen_vs_flashmask_grad_over_max": docs_grad,
+           "flashmask_nomask_vs_dense_out_over_max": dense_out,
+           "flashmask_nomask_vs_dense_grad_over_max": dense_grad,
+           "out_atol_of_max": PACK_PARITY_ATOL,
+           "grad_atol_of_max": PARITY_GRAD_ATOL, "launches": launches}
+    emit(rec)
+    del base, varlen, mask, nomask, dense
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1712,8 +2433,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
-                         "quantized, long-context) and two train steps "
-                         "with torch.profiler (device time by kernel)")
+                         "quantized, long-context), train steps and the "
+                         "packed-attention passes with torch.profiler "
+                         "(device time by kernel)")
     args = ap.parse_args()
 
     import torch
@@ -1742,7 +2464,7 @@ def main():
                "flash_attention_bwd", "quant_matmul",
                "ragged_paged_attention_quant",
                "ragged_paged_attention_partials", "grouped_matmul",
-               "quant_grouped_matmul")
+               "quant_grouped_matmul", "flash_varlen", "flash_sparse_mask")
     t0 = time.perf_counter()
     _build.build(*sources)
     build_s = time.perf_counter() - t0
@@ -1849,6 +2571,17 @@ def main():
                                       expert_quant="int8")
     moe_parity_phase(torch, np, args.seed)
 
+    # packed and masked attention: the kernels at the packed batch's
+    # shapes, then the two entry points on it, then their parity
+    lens = pack_documents(np, args.seed)
+    varlen_main, varlen_bwd_main, mask_main, mask_bwd_main = \
+        packed_kernel_checks(torch, np, lens, args.seed + 50)
+    varlen = varlen_attn_phase(torch, np, lens, args.seed + 51,
+                               args.profile)
+    flashmask = flashmask_attn_phase(torch, np, lens, args.seed + 51,
+                                     args.profile)
+    packed_parity_phase(torch, np, lens, args.seed + 52)
+
     kernels = []
     for name, route_src, replaces, rec, launches in (
             ("ragged_paged_attention",
@@ -1883,7 +2616,21 @@ def main():
             ("quant_grouped_matmul",
              "paddle_tpu_torch/csrc/quant_grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:263",
-             qgmm_main, train_moe_quant["quant_grouped_launches"])):
+             qgmm_main, train_moe_quant["quant_grouped_launches"]),
+            ("flash_varlen_fwd", "paddle_tpu_torch/csrc/flash_varlen.cu",
+             "paddle_tpu/kernels/pallas/flash_varlen.py:222",
+             varlen_main, varlen["fwd_launches"]),
+            ("flash_varlen_bwd", "paddle_tpu_torch/csrc/flash_varlen.cu",
+             "paddle_tpu/kernels/pallas/flash_varlen.py:284, :313",
+             varlen_bwd_main, varlen["bwd_launches"]),
+            ("flash_sparse_mask_fwd",
+             "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
+             "paddle_tpu/kernels/pallas/flash_sparse_mask.py:185",
+             mask_main, flashmask["fwd_launches"]),
+            ("flash_sparse_mask_bwd",
+             "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
+             "paddle_tpu/kernels/pallas/flash_sparse_mask.py:225, :245",
+             mask_bwd_main, flashmask["bwd_launches"])):
         check(launches > 0, f"{name} never ran on the main path")
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": launches,

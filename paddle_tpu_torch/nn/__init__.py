@@ -1,1 +1,4 @@
 """Layers and functionals."""
+from . import functional
+
+__all__ = ["functional"]

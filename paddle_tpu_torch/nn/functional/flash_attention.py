@@ -3,8 +3,10 @@
 Counterpart of paddle_tpu/nn/functional/flash_attention.py. On a CUDA
 tensor ``flash_attention`` runs the port's flash-attention kernels
 (kernels/flash_attention.py): the forward, and under autograd the
-two-pass backward, from the forward's saved o and lse. On a CPU tensor
-both run their plain versions.
+two-pass backward, from the forward's saved o and lse.
+``flash_attn_unpadded`` does the same for packed documents through the
+varlen kernels (kernels/flash_varlen.py). On a CPU tensor every one runs
+its plain versions.
 """
 from __future__ import annotations
 
@@ -14,8 +16,11 @@ import torch
 
 from ...kernels.flash_attention import (_flash_bhsd, _flash_bhsd_bwd,
                                         flash_attention_fwd_plain)
+from ...kernels.flash_varlen import (flash_varlen_bwd, flash_varlen_fwd,
+                                     segments_from_cu)
 
-__all__ = ["flash_attention", "scaled_dot_product_attention"]
+__all__ = ["flash_attention", "scaled_dot_product_attention",
+           "flash_attn_unpadded"]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -68,3 +73,65 @@ def scaled_dot_product_attention(query, key, value, causal=False,
     model's ``use_flash_attention=False`` path); autograd differentiates
     it op by op."""
     return _bshd(_plain_core, query, key, value, causal, scale)
+
+
+class _FlashVarlen(torch.autograd.Function):
+    """Packed attention on [total, H, D] with the varlen backward. The
+    forward saves q, k, v, o and the float32 lse, as the JAX op's custom
+    VJP does, so the backward never recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, pos_q, seg_k, pos_k, causal, scale):
+        o, lse = flash_varlen_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k,
+                                  causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, pos_q, seg_k, pos_k)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seg_q, pos_q, seg_k, pos_k = ctx.saved_tensors
+        dq, dk, dv = flash_varlen_bwd(q, k, v, o, lse, do, seg_q, pos_q,
+                                      seg_k, pos_k, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _no_dropout(dropout, training, name):
+    if dropout > 0.0 and training:
+        raise NotImplementedError(
+            f"{name}: dropout > 0 in training is not ported (the port's "
+            f"attention kernels have no dropout); pass dropout=0.0 or "
+            f"training=False")
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Packed (varlen) attention: query [total_q, H, D], key/value
+    [total_k, H, D], documents bounded by cu_seqlens_q / cu_seqlens_k
+    ([B+1] cumulative lengths, on any device). A token attends only to
+    keys of its own document (and, when causal, at or before its position
+    inside the document), so unequal q and k packs work; a token whose
+    document has no keys gets zeros. Returns [total_q, H, D] in query's
+    dtype, differentiable through the varlen backward.
+
+    As in the JAX package, max_seqlen_*, return_softmax, fixed_seed_offset
+    and rng_name are accepted and unused. dropout > 0 with training=True
+    raises NotImplementedError (the JAX package applies it to the output
+    after the kernel)."""
+    _no_dropout(dropout, training, "flash_attn_unpadded")
+    if scale is None:
+        scale = 1.0 / math.sqrt(query.shape[-1])
+    tq, tk = query.shape[0], key.shape[0]
+    dev = query.device
+    seg_q, pos_q = segments_from_cu(torch.as_tensor(cu_seqlens_q,
+                                                    device=dev), tq)
+    if cu_seqlens_k is cu_seqlens_q and tk == tq:
+        seg_k, pos_k = seg_q, pos_q
+    else:
+        seg_k, pos_k = segments_from_cu(torch.as_tensor(cu_seqlens_k,
+                                                        device=dev), tk)
+    return _FlashVarlen.apply(query, key, value, seg_q, pos_q, seg_k, pos_k,
+                              bool(causal), float(scale))

@@ -24,6 +24,15 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_fwd_plain)
 from paddle_tpu_torch.nn.functional.flash_attention import (
     flash_attention, scaled_dot_product_attention)
+from paddle_tpu_torch.kernels.flash_sparse_mask import (
+    flash_sparse_mask_bwd, flash_sparse_mask_bwd_plain, flash_sparse_mask_fwd,
+    flash_sparse_mask_fwd_plain)
+from paddle_tpu_torch.kernels.flash_varlen import (
+    flash_varlen_bwd, flash_varlen_bwd_plain, flash_varlen_fwd,
+    flash_varlen_fwd_plain, segments_from_cu)
+from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
+                                            flash_attn_unpadded,
+                                            flash_attn_varlen_qkvpacked)
 from paddle_tpu_torch.kernels.grouped_matmul import (
     _ref_dw, _ref_fwd, grouped_matmul, grouped_matmul_dw,
     grouped_matmul_fwd, grouped_metadata)
@@ -510,3 +519,262 @@ def test_quant_grouped_kernel_matches_plain(cuda_device, qdtype, dtype, k,
     assert out.dtype == dtype
     assert quant_grouped_matmul.launches == before + 1
     _grouped_close(out, ref, md["dest"].long(), dtype == torch.bfloat16)
+
+
+# -- packed (varlen) and FlashMask attention ------------------------------------
+#
+# Outputs and lse held as the dense flash kernels' (TOLS), gradients as the
+# dense backward's (BWD_TOLS): both sides compute in float32 from the same
+# inputs and differ in summation order only.
+
+VARLEN_PACKS = {
+    # documents no tile divides, total 1000
+    "total_1000": ((1, 63, 64, 65, 300, 7, 500), None, True),
+    # an empty document in the middle and one at the end
+    "empty_docs": ((200, 0, 150, 90, 0), None, True),
+    # unequal packs, not causal, with an empty k document: keyless q rows
+    "unequal_keyless": ((120, 77, 200, 64), (90, 0, 130, 300), False),
+}
+
+
+def _varlen_inputs(dev, seed, lq, lk, h, d):
+    rng = np.random.default_rng(seed)
+    cu_q = torch.tensor(np.cumsum([0] + list(lq)), dtype=torch.int32,
+                        device=dev)
+    cu_k = torch.tensor(np.cumsum([0] + list(lk)), dtype=torch.int32,
+                        device=dev)
+    tq, tk = int(sum(lq)), int(sum(lk))
+
+    def rnd(n):
+        return torch.from_numpy(rng.standard_normal((n, h, d))
+                                .astype(np.float32)).to(dev)
+
+    return rnd(tq), rnd(tk), rnd(tk), rnd(tq), cu_q, cu_k
+
+
+def _check_fwd(o, lse, ro, rlse, tol):
+    assert o.dtype == ro.dtype and lse.dtype == torch.float32
+    assert (o.float() - ro.float()).abs().max().item() < tol
+    assert (lse - rlse).abs().max().item() < tol
+
+
+def _check_bwd(got, ref, dt, rtol, atol):
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dt
+        ok, err = _bwd_close(g, r, rtol, atol)
+        assert ok, f"{name} {dt}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("pack", sorted(VARLEN_PACKS))
+def test_varlen_kernels_match_plain(cuda_device, d, pack):
+    lq, lk, causal = VARLEN_PACKS[pack]
+    lk = lq if lk is None else lk
+    q, k, v, do, cu_q, cu_k = _varlen_inputs(cuda_device, d, lq, lk, 3, d)
+    sq, pq = segments_from_cu(cu_q, q.shape[0])
+    sk, pk = segments_from_cu(cu_k, k.shape[0])
+    scale = d ** -0.5
+    f0, b0 = flash_varlen_fwd.launches, flash_varlen_bwd.launches
+    for (dt, tol), (_, rtol, atol) in zip(TOLS, BWD_TOLS):
+        qt, kt, vt, dot = (x.to(dt) for x in (q, k, v, do))
+        o, lse = flash_varlen_fwd(qt, kt, vt, sq, pq, sk, pk, causal, scale)
+        ro, rlse = flash_varlen_fwd_plain(qt, kt, vt, sq, pq, sk, pk, causal,
+                                          scale)
+        got = flash_varlen_bwd(qt, kt, vt, ro, rlse, dot, sq, pq, sk, pk,
+                               causal, scale)
+        ref = flash_varlen_bwd_plain(qt, kt, vt, ro, rlse, dot, sq, pq, sk,
+                                     pk, causal, scale)
+        torch.cuda.synchronize()
+        _check_fwd(o, lse, ro, rlse, tol)
+        _check_bwd(got, ref, dt, rtol, atol)
+        if pack == "unequal_keyless":
+            rows = slice(int(lq[0]), int(lq[0] + lq[1]))   # keyless rows
+            assert not o[rows].any() and not got[0][rows].any()
+    assert flash_varlen_fwd.launches == f0 + 2
+    assert flash_varlen_bwd.launches == b0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_varlen_nan_in_one_document_stays_there(cuda_device, causal):
+    """NaN in one document's K and V (documents share tiles with it):
+    every other document's outputs and gradients are finite and equal to
+    an unpoisoned run's."""
+    lens = (70, 45, 130, 33, 240)
+    q, k, v, g, cu, _ = _varlen_inputs(cuda_device, 3, lens, lens, 4, 128)
+    runs = []
+    for poison in (False, True):
+        kk, vv = k.clone(), v.clone()
+        if poison:
+            kk[115:245] = float("nan")                # the third document
+            vv[115:245] = float("nan")
+        ts = [t.clone().requires_grad_() for t in (q, kk, vv)]
+        out = flash_attn_unpadded(*ts, cu, cu, 240, 240, 128 ** -0.5,
+                                  causal=causal)
+        out.backward(g)
+        runs.append([out.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    keep = torch.ones(q.shape[0], dtype=torch.bool, device=cuda_device)
+    keep[115:245] = False
+    for clean, poisoned in zip(*runs):
+        assert torch.isfinite(poisoned[keep]).all()
+        assert torch.equal(poisoned[keep], clean[keep])
+
+
+@pytest.mark.cuda
+def test_varlen_bwd_takes_a_strided_do(cuda_device):
+    q, k, v, _, cu, _ = _varlen_inputs(cuda_device, 4, (50, 150, 100),
+                                       (50, 150, 100), 4, 64)
+    sq, pq = segments_from_cu(cu, 300)
+    do = torch.randn(64, 4, 300, device=cuda_device).permute(2, 1, 0)
+    assert not do.is_contiguous()
+    o, lse = flash_varlen_fwd(q, k, v, sq, pq, sq, pq, True, 0.125)
+    got = flash_varlen_bwd(q, k, v, o, lse, do, sq, pq, sq, pq, True, 0.125)
+    ref = flash_varlen_bwd_plain(q, k, v, o, lse, do.contiguous(), sq, pq,
+                                 sq, pq, True, 0.125)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _bwd_close(g, r, 0.0, 1e-4)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_varlen_autograd_matches_plain_autograd(cuda_device, causal):
+    """flash_attn_unpadded (both varlen kernels) against torch.autograd
+    through the plain forward, float32, q, k and v read in place from a
+    packed [total, 3, H, D] tensor."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lens = (37, 200, 1, 150)
+    rng = np.random.default_rng(22)
+    qkv_n = rng.standard_normal((388, 3, 4, 64)).astype(np.float32)
+    g = torch.from_numpy(rng.standard_normal((388, 4, 64))
+                         .astype(np.float32)).to(cuda_device)
+    cu = torch.tensor(np.cumsum((0,) + lens), dtype=torch.int32,
+                      device=cuda_device)
+    qkv = torch.from_numpy(qkv_n).to(cuda_device).requires_grad_()
+    before = flash_varlen_bwd.launches
+    out = flash_attn_varlen_qkvpacked(qkv, cu, cu, 200, 200, causal=causal)
+    out.backward(g)
+    assert flash_varlen_bwd.launches == before + 1
+    ref_in = torch.from_numpy(qkv_n).to(cuda_device).requires_grad_()
+    seg, pos = segments_from_cu(cu, 388)
+    ref, _ = flash_varlen_fwd_plain(ref_in[:, 0], ref_in[:, 1],
+                                    ref_in[:, 2], seg, pos, seg, pos,
+                                    causal, 64 ** -0.5)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    assert _bwd_close(out.detach(), ref.detach(), 0.0, 1e-4)[0]
+    assert _bwd_close(qkv.grad, ref_in.grad, 0.0, 1e-4)[0]
+
+
+@pytest.mark.cuda
+def test_varlen_kernels_reject_what_they_do_not_take(cuda_device):
+    q = torch.randn(100, 2, 96, device=cuda_device)
+    seg, pos = segments_from_cu(torch.tensor([0, 100], device=cuda_device),
+                                100)
+    with pytest.raises(ValueError):
+        flash_varlen_fwd(q, q, q, seg, pos, seg, pos, True, 0.1)   # D 96
+    q = torch.randn(100, 2, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attn_unpadded"):
+        flash_varlen_fwd(q, q.detach(), q.detach(), seg, pos, seg, pos,
+                         True, 0.1)
+
+
+def _doc_start(dev, lens, b, h):
+    ends = np.cumsum(lens)
+    row = torch.from_numpy(np.repeat(ends, lens).astype(np.int32)).to(dev)
+    return row.expand(b * h, -1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["random", "documents"])
+def test_sparse_mask_kernels_match_plain(cuda_device, d, causal, kind):
+    """S 200 (no tile divides it); random start rows as the JAX test draws
+    them (some rows see no column) or documents as start rows."""
+    b, s, h = 2, 200, 3
+    rng = np.random.default_rng(d + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                    .astype(np.float32)).to(cuda_device)
+                   for _ in range(4))
+    if kind == "random":
+        start = torch.from_numpy(rng.integers(1, s + 1, (b * h, s))
+                                 .astype(np.int32)).to(cuda_device)
+    else:
+        start = _doc_start(cuda_device, (33, 100, 67), b, h)
+    scale = d ** -0.5
+    f0, b0 = flash_sparse_mask_fwd.launches, flash_sparse_mask_bwd.launches
+    for (dt, tol), (_, rtol, atol) in zip(TOLS, BWD_TOLS):
+        qt, kt, vt, dot = (x.to(dt) for x in (q, k, v, do))
+        o, lse = flash_sparse_mask_fwd(qt, kt, vt, start, causal, scale)
+        ro, rlse = flash_sparse_mask_fwd_plain(qt, kt, vt, start, causal,
+                                               scale)
+        got = flash_sparse_mask_bwd(qt, kt, vt, ro, rlse, dot, start, causal,
+                                    scale)
+        ref = flash_sparse_mask_bwd_plain(qt, kt, vt, ro, rlse, dot, start,
+                                          causal, scale)
+        torch.cuda.synchronize()
+        _check_fwd(o, lse, ro, rlse, tol)
+        _check_bwd(got, ref, dt, rtol, atol)
+    assert flash_sparse_mask_fwd.launches == f0 + 2
+    assert flash_sparse_mask_bwd.launches == b0 + 2
+
+
+@pytest.mark.cuda
+def test_sparse_mask_nan_in_one_document_stays_there(cuda_device):
+    b, s, h, d = 2, 256, 2, 64
+    rng = np.random.default_rng(31)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                   .astype(np.float32)).to(cuda_device)
+                  for _ in range(4))
+    start = _doc_start(cuda_device, (50, 90, 116), 1, 1)[0]     # [S]
+    runs = []
+    for poison in (False, True):
+        kk, vv = k.clone(), v.clone()
+        if poison:
+            kk[:, 50:140] = float("nan")
+            vv[:, 50:140] = float("nan")
+        ts = [t.clone().requires_grad_() for t in (q, kk, vv)]
+        out = flash_attention_with_sparse_mask(ts[0], ts[1], ts[2], start,
+                                               is_causal=True)
+        out.backward(g)
+        runs.append([out.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    keep = torch.ones(s, dtype=torch.bool, device=cuda_device)
+    keep[50:140] = False
+    for clean, poisoned in zip(*runs):
+        assert torch.isfinite(poisoned[:, keep]).all()
+        assert torch.equal(poisoned[:, keep], clean[:, keep])
+
+
+@pytest.mark.cuda
+def test_sparse_mask_autograd_matches_plain_autograd(cuda_device):
+    """flash_attention_with_sparse_mask (both kernels) against autograd
+    through the plain forward, float32, [B, 1, S] start rows, strided
+    [B, S, H, D] views of a wider tensor."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, d = 2, 160, 4, 64
+    rng = np.random.default_rng(23)
+    wide = rng.standard_normal((b, s, 2 * h, d)).astype(np.float32)
+    g = torch.from_numpy(rng.standard_normal((b, s, h, d))
+                         .astype(np.float32)).to(cuda_device)
+    start = torch.from_numpy(rng.integers(1, s + 1, (b, 1, s))
+                             .astype(np.int32)).to(cuda_device)
+    grads = []
+    for kernel in (True, False):
+        x = torch.from_numpy(wide).to(cuda_device).requires_grad_()
+        q, k, v = x[:, :, :h], x[:, :, h:], x[:, :, h:] * 0.5
+        if kernel:
+            out = flash_attention_with_sparse_mask(q, k, v, start,
+                                                   is_causal=True)
+        else:
+            st = start.expand(b, h, s).reshape(b * h, s)
+            out, _ = flash_sparse_mask_fwd_plain(q, k, v, st, True,
+                                                 d ** -0.5)
+        out.backward(g)
+        grads.append((out.detach(), x.grad))
+    torch.cuda.synchronize()
+    for got, ref in zip(*grads):
+        assert _bwd_close(got, ref, 0.0, 1e-4)[0]
