@@ -85,20 +85,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
 13. packed_parity: the two paths in float32 at 4 heads on the same
    documents (outputs and gradients), and FlashMask with start rows S
    against the dense flash kernels;
-14. one line naming each kernel with its launches on the main path (the
+14. the row-wise kernels (RMSNorm forward and backward, RoPE, the causal
+   softmax forward and backward) against their plain versions, element by
+   element to 2^-7 |ref| in bf16 (0 in float32) plus 1e-5 of the largest:
+   at phase 15's shapes (timed with the plain versions and torch's
+   rms_norm, softmax and _softmax_backward_data as yardsticks), h 5120,
+   8192 and 12288, one row, bf16 and float32 x and w, dw the same bits over
+   two runs, RoPE at B > 1 with S-row tables whose halves differ, a
+   one-row table and D 256, the softmax at S 8192 and with NaN above the
+   diagonal of x and of g (p and dx finite and unchanged);
+15. rowwise_attn: the three incubate entry points at Llama-2-7B width on
+   bench.py's batch, bf16: x [6, 2048, 4096] with a residual through
+   fused_rms_norm, q/k/v projections to [6, 2048, 32, 128],
+   fused_rotary_position_embedding (rotate-half), the [6, 32, 2048, 2048]
+   scores through softmax_mask_fuse_upper_triangle, p v and a scalar loss,
+   forward and backward, 2 warm-up and 10 timed passes: ms per pass,
+   tokens/s, peak memory, and each kernel's launches (RMSNorm 1 + 1, RoPE
+   4, softmax 1 + 1 a pass); rowwise_parity: the same pass in float32
+   through the kernels and through their plain versions (loss, gradients
+   of x, the residual, the norm weight and the projections);
+16. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the generate of phase 5 for the
    flash forward, the train of phase 6 for the flash backward, serve_quant
    for quant_matmul and the quantized ragged kernel, serve_long for the
    partials, train_moe for the grouped forward and dw kernels,
    train_moe_quant for the quantized grouped kernel, varlen_attn and
-   flashmask_attn for the packed kernels), error and times;
-15. the card's name and power limit again, and the result line.
+   flashmask_attn for the packed kernels, rowwise_attn for the row-wise
+   ones), error and times;
+17. the card's name and power limit again, and the result line.
 
 With --profile, short full-width serves (plain, serve_quant's and
 serve_long's engines), two train steps, two train_moe steps and three
-passes of each packed-attention path also run under torch.profiler, and
-one more line for each gives the device time by kernel and the device's
-idle share.
+passes of each packed-attention path and of rowwise_attn also run under
+torch.profiler, and one more line for each gives the device time by
+kernel and the device's idle share.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
@@ -2425,6 +2445,566 @@ def packed_parity_phase(torch, np, lens, seed):
     return rec
 
 
+# -- the row-wise slice: RMSNorm, RoPE, the causal softmax ----------------------
+
+ROW_BATCH, ROW_SEQ = 6, 2048         # bench.py's one-chip training batch
+ROW_HIDDEN, ROW_HEADS, ROW_D = 4096, 32, 128      # Llama-2-7B widths
+ROW_EPS = 1e-5
+ROW_WARMUP, ROW_TIMED = 2, 10
+ROW_ATOL = 1e-5                 # of the largest magnitude: summation order
+ROW_PARITY_ATOL = 1e-3          # of each gradient's largest magnitude
+F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+
+
+def _row_check(name, what, out, ref):
+    """Check a row-wise kernel's output against its plain version element
+    by element, to 2^-7 |ref| (one bf16 ulp; 0 in float32) + ROW_ATOL of
+    the largest |ref| (both sides compute in float32 and round once).
+    Returns (max abs error, largest ratio of an error to its
+    tolerance)."""
+    check(out.dtype == ref.dtype, f"{name}: {what} dtype {out.dtype} != "
+                                  f"{ref.dtype}")
+    d = (out.float() - ref.float()).abs()
+    rtol = BF16_RTOL if str(ref.dtype) == "torch.bfloat16" else 0.0
+    lim = rtol * ref.float().abs() + ROW_ATOL * ref.float().abs().max() \
+        + 1e-30
+    err, ratio = d.max().item(), (d / lim).max().item()
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{name}: {what} vs plain err {err} ({ratio} x tolerance)")
+    return err, ratio
+
+
+def rms_case(torch, name, n, h, dtype, wdtype, seed, timed=False):
+    """Both RMSNorm kernels on x [n, h] against their plain versions (the
+    backward from the plain forward's rstd), dw the same bits over two
+    runs; timed: with the plain versions and torch's rms_norm (forward and
+    its autograd backward) as the yardstick. Returns (forward record,
+    backward record)."""
+    from paddle_tpu_torch.kernels.rms_norm import (
+        rms_norm_bwd, rms_norm_bwd_plain, rms_norm_fwd, rms_norm_fwd_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(n, h, generator=gen, device=dev).to(dtype)
+    g = torch.randn(n, h, generator=gen, device=dev).to(dtype)
+    w = (1 + 0.3 * torch.randn(h, generator=gen, device=dev)).to(wdtype)
+    out, rstd = rms_norm_fwd(x, w, ROW_EPS)
+    ref, rref = rms_norm_fwd_plain(x, w, ROW_EPS)
+    dx, dw = rms_norm_bwd(x, w, rref, g)
+    dx2, dw2 = rms_norm_bwd(x, w, rref, g)
+    rdx, rdw = rms_norm_bwd_plain(x, w, rref, g)
+    torch.cuda.synchronize()
+    err, ratio = _row_check(name, "out", out, ref)
+    _row_check(name, "rstd", rstd, rref)
+    dx_err, dx_ratio = _row_check(name, "dx", dx, rdx)
+    dw_err, dw_ratio = _row_check(name, "dw", dw, rdw)
+    check(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+          f"{name}: the backward is not the same bits on a second run")
+    kernel_ms = cuda_ms(torch, lambda: rms_norm_fwd(x, w, ROW_EPS), 10)
+    kernel_bwd_ms = cuda_ms(torch, lambda: rms_norm_bwd(x, w, rstd, g), 10)
+    plain_ms = plain_bwd_ms = library_ms = library_bwd_ms = None
+    if timed:
+        plain_ms = cuda_ms(torch, lambda: rms_norm_fwd_plain(
+            x, w, ROW_EPS), 3, warmup=1)
+        plain_bwd_ms = cuda_ms(torch, lambda: rms_norm_bwd_plain(
+            x, w, rstd, g), 3, warmup=1)
+        xl = x.detach().clone().requires_grad_()
+        wl = w.detach().to(dtype).requires_grad_()
+        yl = torch.nn.functional.rms_norm(xl, (h,), wl, ROW_EPS)
+        lib_check(f"{name} torch rms_norm", yl, ref)
+        lib_check(f"{name} torch rms_norm backward",
+                  torch.autograd.grad(yl, xl, g, retain_graph=True)[0], rdx)
+        library_ms = cuda_ms(torch, lambda: torch.nn.functional.rms_norm(
+            xl.detach(), (h,), wl.detach(), ROW_EPS), 10)
+        library_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            yl, (xl, wl), g, retain_graph=True), 10)
+        del xl, wl, yl
+    xs, ws = x.element_size(), w.element_size()
+    common = {"phase": "kernel_check", "case": name, "n": n, "h": h,
+              "dtype": str(dtype).split(".")[-1],
+              "w_dtype": str(wdtype).split(".")[-1],
+              "dw_same_bits_twice": True}
+    fbytes = 2 * n * h * xs + h * ws + 4 * n
+    flops = 4 * n * h
+    bound_ms, bound_by = bound(fbytes, flops, F32_FLOPS)
+    fwd = dict(common, kernel="rms_norm_fwd", max_abs_err=err,
+               err_over_tolerance=ratio, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="torch.nn.functional.rms_norm (w in x's dtype)",
+               bound_ms=bound_ms, bound_by=bound_by, bytes=fbytes,
+               flops=flops, gbps=fbytes / kernel_ms / 1e6)
+    emit(fwd)
+    bbytes = 3 * n * h * xs + 2 * h * ws + 4 * n
+    flops = 10 * n * h
+    bound_ms, bound_by = bound(bbytes, flops, F32_FLOPS)
+    bwd = dict(common, kernel="rms_norm_bwd", max_abs_err=max(dx_err, dw_err),
+               err_over_tolerance=max(dx_ratio, dw_ratio),
+               max_abs_err_by_grad={"dx": dx_err, "dw": dw_err},
+               kernel_ms=kernel_bwd_ms, plain_ms=plain_bwd_ms,
+               library_ms=library_bwd_ms,
+               library="autograd backward of that rms_norm (dx, dw)",
+               bound_ms=bound_ms, bound_by=bound_by, bytes=bbytes,
+               flops=flops, gbps=bbytes / kernel_bwd_ms / 1e6)
+    emit(bwd)
+    del x, g, out, ref, dx, dx2, rdx
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def rope_case(torch, name, b, s, h, d, dtype, rows, seed, timed=False):
+    """The RoPE kernel on x [b, s, h, d], both directions, against its plain
+    version, with random float32 tables of `rows` rows (s, or 1) whose
+    halves differ, so a wrong table row or half shows. The kernel rounds as
+    the plain version does; whether the bits agree is recorded. Returns the
+    record (times of the forward direction; the backward's beside it)."""
+    from paddle_tpu_torch.kernels.fused_elementwise import rope, rope_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    cos, sin = (torch.randn(rows, d, generator=gen, device=dev)
+                for _ in range(2))
+    errs, same = {}, {}
+    for backward in (False, True):
+        got = rope(x, cos, sin, backward)
+        ref = rope_plain(x, cos, sin, backward)
+        torch.cuda.synchronize()
+        key = "backward" if backward else "forward"
+        errs[key] = _row_check(name, key, got, ref)
+        same[key] = torch.equal(got, ref)
+    kernel_ms = cuda_ms(torch, lambda: rope(x, cos, sin), 10)
+    kernel_bwd_ms = cuda_ms(torch, lambda: rope(x, cos, sin, True), 10)
+    plain_ms = None
+    if timed:
+        plain_ms = cuda_ms(torch, lambda: rope_plain(x, cos, sin), 3,
+                           warmup=1)
+    nbytes = 2 * x.numel() * x.element_size() + 2 * rows * d * 4
+    flops = 3 * x.numel()
+    bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+    rec = {"phase": "kernel_check", "case": name, "kernel": "rope",
+           "b": b, "s": s, "heads": h, "d": d, "table_rows": rows,
+           "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": max(e[0] for e in errs.values()),
+           "err_over_tolerance": max(e[1] for e in errs.values()),
+           "same_bits_as_plain": same, "kernel_ms": kernel_ms,
+           "kernel_bwd_ms": kernel_bwd_ms, "plain_ms": plain_ms,
+           "library_ms": None, "library": "none (no single torch call)",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops, "gbps": nbytes / kernel_ms / 1e6}
+    emit(rec)
+    del x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def softmax_case(torch, name, n, s, dtype, seed, poison=False, timed=False):
+    """Both causal softmax kernels on [n, s, s] against their plain versions
+    (the backward from the plain forward's p); poison: NaN above the
+    diagonal of x and of g must leave p and dx finite and the same bits.
+    timed: with the plain versions, torch.softmax over the whole
+    (unmasked) row as the nearest single call for the forward, and
+    torch._softmax_backward_data (p (g - sum p g)) for the backward.
+    Returns (forward record, backward record)."""
+    from paddle_tpu_torch.kernels.fused_elementwise import (
+        causal_softmax_bwd, causal_softmax_bwd_plain, causal_softmax_fwd,
+        causal_softmax_fwd_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = (4 * torch.randn(n, s, s, generator=gen, device=dev)).to(dtype)
+    g = torch.randn(n, s, s, generator=gen, device=dev).to(dtype)
+    p = causal_softmax_fwd(x)
+    rp = causal_softmax_fwd_plain(x)
+    torch.cuda.synchronize()
+    err, ratio = _row_check(name, "p", p, rp)
+    dx = causal_softmax_bwd(rp, g)
+    rdx = causal_softmax_bwd_plain(rp, g)
+    torch.cuda.synchronize()
+    bwd_err, bwd_ratio = _row_check(name, "dx", dx, rdx)
+    del rdx
+    upper = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
+    check(not p[:, upper].any() and not dx[:, upper].any(),
+          f"{name}: a column above the diagonal is not 0")
+    if poison:
+        xp = x.clone()
+        xp[:, upper] = float("nan")
+        pp = causal_softmax_fwd(xp)
+        del xp
+        gp = g.clone()
+        gp[:, upper] = float("nan")
+        dxp = causal_softmax_bwd(rp, gp)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(pp).all()) and torch.equal(pp, p),
+              f"{name}: NaN above the diagonal of x reached p")
+        check(bool(torch.isfinite(dxp).all()) and torch.equal(dxp, dx),
+              f"{name}: NaN above the diagonal of g reached dx")
+        del pp, gp, dxp
+    del rp
+    torch.cuda.empty_cache()
+    kernel_ms = cuda_ms(torch, lambda: causal_softmax_fwd(x), 10)
+    kernel_bwd_ms = cuda_ms(torch, lambda: causal_softmax_bwd(p, g), 10)
+    plain_ms = plain_bwd_ms = library_ms = library_bwd_ms = None
+    if timed:
+        plain_ms = cuda_ms(torch, lambda: causal_softmax_fwd_plain(x), 2,
+                           warmup=1)
+        plain_bwd_ms = cuda_ms(torch, lambda: causal_softmax_bwd_plain(
+            p, g), 2, warmup=1)
+        torch.cuda.empty_cache()
+        lib_check(f"{name} torch._softmax_backward_data",
+                  torch._softmax_backward_data(g, p, -1, dtype), dx)
+        library_ms = cuda_ms(torch, lambda: torch.softmax(x, -1), 10)
+        library_bwd_ms = cuda_ms(torch, lambda: torch._softmax_backward_data(
+            g, p, -1, dtype), 10)
+    isz = x.element_size()
+    live = n * s * (s + 1) // 2
+    common = {"phase": "kernel_check", "case": name, "n": n, "s": s,
+              "dtype": str(dtype).split(".")[-1], "live_elements": live,
+              "nan_poisoned_masked_half": poison}
+    fbytes = live * isz + n * s * s * isz
+    flops = 5 * live
+    bound_ms, bound_by = bound(fbytes, flops, F32_FLOPS)
+    fwd = dict(common, kernel="masked_softmax_fwd", max_abs_err=err,
+               err_over_tolerance=ratio, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="torch.softmax over the whole row (no mask): the "
+                       "nearest single call",
+               bound_ms=bound_ms, bound_by=bound_by, bytes=fbytes,
+               flops=flops, gbps=fbytes / kernel_ms / 1e6)
+    emit(fwd)
+    bbytes = 2 * live * isz + n * s * s * isz
+    flops = 4 * live
+    bound_ms, bound_by = bound(bbytes, flops, F32_FLOPS)
+    bwd = dict(common, kernel="masked_softmax_bwd", max_abs_err=bwd_err,
+               err_over_tolerance=bwd_ratio, kernel_ms=kernel_bwd_ms,
+               plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
+               library="torch._softmax_backward_data(g, p)",
+               bound_ms=bound_ms, bound_by=bound_by, bytes=bbytes,
+               flops=flops, gbps=bbytes / kernel_bwd_ms / 1e6)
+    emit(bwd)
+    del x, g, p, dx
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def rowwise_kernel_checks(torch, seed):
+    """Phase 14: the five row-wise kernels against their plain versions at
+    rowwise_attn's shapes (timed with the plain versions and the library
+    yardsticks), and the edge cases: h 5120, 8192 and 12288 (32 columns a
+    thread), one row of 128, bf16 and float32 x and w, RoPE at B > 1 with
+    S-row tables, a one-row table and D 256, the softmax at S 8192 and with
+    NaN above the diagonal of x and g. Returns the main records."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    n = ROW_BATCH * ROW_SEQ
+    rms_f, rms_b = rms_case(torch, "main_12288x4096_bf16_wf32", n,
+                            ROW_HIDDEN, bf16, f32, seed, timed=True)
+    for name, rows, h, dt, wdt in (
+            ("h5120_bf16", 4096, 5120, bf16, bf16),
+            ("h8192_f32", 4096, 8192, f32, f32),
+            ("h8192_bf16_wf32", 4096, 8192, bf16, f32),
+            ("h12288_f32_wbf16", 1024, 12288, f32, bf16),
+            ("one_row_h128_f32", 1, 128, f32, f32)):
+        rms_case(torch, name, rows, h, dt, wdt, seed + h + rows)
+    rope_main = rope_case(torch, "main_6x2048x32x128_bf16_srow", ROW_BATCH,
+                          ROW_SEQ, ROW_HEADS, ROW_D, bf16, ROW_SEQ, seed,
+                          timed=True)
+    for name, b, s, h, d, dt, rows in (
+            ("b3_s256_h4_d128_f32_srow", 3, 256, 4, 128, f32, 256),
+            ("b2_s512_h8_d256_bf16_srow", 2, 512, 8, 256, bf16, 512),
+            ("b2_s512_h8_d128_f32_onerow", 2, 512, 8, 128, f32, 1)):
+        rope_case(torch, name, b, s, h, d, dt, rows, seed + b * s + d)
+    sm_f, sm_b = softmax_case(torch, "main_192x2048x2048_bf16",
+                              ROW_BATCH * ROW_HEADS, ROW_SEQ, bf16, seed,
+                              timed=True)
+    for name, n_, s, dt, poison in (
+            ("n8_s2048_f32", 8, 2048, f32, False),
+            ("n1_s8192_f32", 1, 8192, f32, False),
+            ("n2_s8192_bf16", 2, 8192, bf16, False),
+            ("nan_masked_n8_s1024_bf16", 8, 1024, bf16, True),
+            ("nan_masked_n4_s2048_f32", 4, 2048, f32, True),
+            ("n64_s128_bf16", 64, 128, bf16, False)):
+        softmax_case(torch, name, n_, s, dt, seed + n_ + s, poison)
+    return rms_f, rms_b, rope_main, sm_f, sm_b
+
+
+def _row_leaves(torch, seed, dtype):
+    """x, residual [6, 2048, 4096], the norm weight (float32, ones plus
+    noise) and the q, k, v projections [4096, 4096] (paddle's [in, out]),
+    all leaves needing gradients, from a seeded generator."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (ROW_BATCH, ROW_SEQ, ROW_HIDDEN)
+    x, r = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    w = 1 + 0.1 * torch.randn(ROW_HIDDEN, generator=gen, device="cuda")
+    proj = [(torch.randn(ROW_HIDDEN, ROW_HIDDEN, generator=gen,
+                         device="cuda") * ROW_HIDDEN ** -0.5).to(dtype)
+            for _ in range(3)]
+    return [t.requires_grad_() for t in (x, r, w, *proj)]
+
+
+def _row_tables(torch):
+    import numpy as np
+    from paddle_tpu_torch.models.llama import _rope_tables
+    cos, sin = _rope_tables(ROW_D, ROW_SEQ, 10000.0)
+    return (torch.from_numpy(np.ascontiguousarray(cos)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(sin)).cuda())
+
+
+def _row_pass(torch, leaves, tables, gout, rms, rope2, softmax):
+    """One forward and backward pass of the slice: x + residual -> RMSNorm
+    -> q, k, v projections -> RoPE on q and k -> causal scores q k^T /
+    sqrt(D) -> masked softmax -> p v -> sum(out * gout). rms, rope2 and
+    softmax are the three row-wise steps (the entry points, or the plain
+    versions). Returns the loss."""
+    x, r, w, wq, wk, wv = leaves
+    normed = rms(x, r, w)
+    shape = (ROW_BATCH, ROW_SEQ, ROW_HEADS, ROW_D)
+    q, k, v = (torch.matmul(normed, m).reshape(shape) for m in (wq, wk, wv))
+    q, k = rope2(q, k, *tables)
+    scores = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)) \
+        * ROW_D ** -0.5
+    out = torch.matmul(softmax(scores), v.transpose(1, 2))
+    loss = (out.float() * gout).sum()
+    loss.backward()
+    return loss.detach()
+
+
+def _entry_steps():
+    """The three row-wise steps through the port's public entry points."""
+    from paddle_tpu_torch.incubate import softmax_mask_fuse_upper_triangle
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_rms_norm, fused_rotary_position_embedding)
+
+    def rms(x, r, w):
+        return fused_rms_norm(x, w, None, ROW_EPS, residual=r)[0]
+
+    def rope2(q, k, cos, sin):
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, None, sin=sin, cos=cos, use_neox_rotary_style=False)
+        return q, k
+
+    return rms, rope2, softmax_mask_fuse_upper_triangle
+
+
+def _plain_steps(torch):
+    """The same steps through the kernels' plain versions (forward and
+    backward), as autograd Functions: the pass the kernels are held to."""
+    from paddle_tpu_torch.kernels import fused_elementwise as fe
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    class Rms(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            out, rstd = rn.rms_norm_fwd_plain(x, w, ROW_EPS)
+            ctx.save_for_backward(x, w, rstd)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return rn.rms_norm_bwd_plain(*ctx.saved_tensors, g)
+
+    class Rope(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, cos, sin):
+            ctx.save_for_backward(cos, sin)
+            return fe.rope_plain(x, cos, sin)
+
+        @staticmethod
+        def backward(ctx, g):
+            return fe.rope_plain(g, *ctx.saved_tensors, True), None, None
+
+    class Softmax(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            p = fe.causal_softmax_fwd_plain(x)
+            ctx.save_for_backward(p)
+            return p
+
+        @staticmethod
+        def backward(ctx, g):
+            return fe.causal_softmax_bwd_plain(*ctx.saved_tensors, g)
+
+    def rms(x, r, w):
+        s = x + r
+        return Rms.apply(s.reshape(-1, s.shape[-1]), w).reshape(s.shape)
+
+    def rope2(q, k, cos, sin):
+        return Rope.apply(q, cos, sin), Rope.apply(k, cos, sin)
+
+    def softmax(sc):
+        return Softmax.apply(sc.reshape(-1, ROW_SEQ, ROW_SEQ)) \
+            .reshape(sc.shape)
+
+    return rms, rope2, softmax
+
+
+def _row_kernels():
+    from paddle_tpu_torch.kernels.fused_elementwise import (
+        causal_softmax_bwd, causal_softmax_fwd, rope)
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm_bwd, rms_norm_fwd
+    return {"rms_norm_fwd": rms_norm_fwd, "rms_norm_bwd": rms_norm_bwd,
+            "rope": rope, "masked_softmax_fwd": causal_softmax_fwd,
+            "masked_softmax_bwd": causal_softmax_bwd}
+
+
+# launches of each kernel in one forward and backward pass: RMSNorm once
+# each way, RoPE on q and k each way, the softmax once each way
+ROW_LAUNCHES_PER_PASS = {"rms_norm_fwd": 1, "rms_norm_bwd": 1, "rope": 4,
+                         "masked_softmax_fwd": 1, "masked_softmax_bwd": 1}
+
+
+def rowwise_attn_phase(torch, seed, profile=False):
+    """Phase 15: the three entry points at Llama-2-7B width on bench.py's
+    batch, bf16: fused_rms_norm with a residual, q/k/v projections,
+    fused_rotary_position_embedding (rotate-half, S-row tables),
+    softmax_mask_fuse_upper_triangle on [6, 32, 2048, 2048] scores, p v,
+    a scalar loss and the backward; ROW_WARMUP + ROW_TIMED passes with the
+    gradients reset to None first. Every kernel launches its
+    ROW_LAUNCHES_PER_PASS each pass."""
+    leaves = _row_leaves(torch, seed, torch.bfloat16)
+    tables = _row_tables(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    gout = torch.randn(ROW_BATCH, ROW_HEADS, ROW_SEQ, ROW_D, generator=gen,
+                       device="cuda")
+    steps = _entry_steps()
+    kernels = _row_kernels()
+
+    def one():
+        for t in leaves:
+            t.grad = None
+        return _row_pass(torch, leaves, tables, gout, *steps)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    losses = [one() for _ in range(ROW_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ROW_TIMED):
+        losses.append(one())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    passes = ROW_WARMUP + ROW_TIMED
+    check(launches == {k: v * passes
+                       for k, v in ROW_LAUNCHES_PER_PASS.items()},
+          f"rowwise_attn: launches {launches} over {passes} passes, want "
+          f"{ROW_LAUNCHES_PER_PASS} a pass")
+    check(all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+          and all(math.isfinite(float(v)) for v in losses),
+          "rowwise_attn: non-finite loss or gradient")
+    tokens = ROW_BATCH * ROW_SEQ
+    rec = {"phase": "rowwise_attn", "dtype": "bfloat16",
+           "entries": ["incubate.nn.functional.fused_rms_norm",
+                       "incubate.nn.functional."
+                       "fused_rotary_position_embedding",
+                       "incubate.softmax_mask_fuse_upper_triangle"],
+           "batch": ROW_BATCH, "seq": ROW_SEQ, "hidden": ROW_HIDDEN,
+           "heads": ROW_HEADS, "d": ROW_D, "tokens": tokens,
+           "warmup_passes": ROW_WARMUP, "timed_passes": ROW_TIMED,
+           "wall_s": wall, "ms_per_fwd_bwd": wall / ROW_TIMED * 1e3,
+           "tokens_per_s": tokens * ROW_TIMED / wall,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1])}
+    emit(rec)
+    if profile:
+        rowwise_profile_phase(torch, one)
+    del leaves, gout
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rowwise_profile_phase(torch, one, passes=3):
+    """--profile only: `passes` rowwise_attn passes, once plainly for
+    their wall time and once under torch.profiler: device time of the
+    row-wise kernels, the GEMMs (cuBLAS's kernels on the H100 are named
+    nvjet_*) and the rest, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        one()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(passes):
+            one()
+        torch.cuda.synchronize()
+    rows, busy_s = device_kernel_rows(prof)
+    groups = {"rms_norm": 0.0, "rope": 0.0, "causal_softmax": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for us, name, _ in rows:
+        key = ("rms_norm" if "rms_" in name or "dw_reduce" in name else
+               "rope" if "rope_kernel" in name else
+               "causal_softmax" if "causal_softmax" in name else
+               "gemm" if "gemm" in name.lower() or "nvjet" in name
+               or "cutlass" in name else "other")
+        groups[key] += us / 1e3
+    rec = {"phase": "profile_rowwise_attn", "passes": passes,
+           "wall_s": wall, "ms_per_pass": wall / passes * 1e3,
+           "device_busy_s": busy_s if rows else "not measured",
+           "device_idle_share": 1 - busy_s / wall if rows
+           else "not measured",
+           "device_ms_per_pass_by_group": {
+               k: v / passes for k, v in groups.items()} if rows
+           else "not measured",
+           "top_device_kernels": top_kernels(rows, busy_s, 10)
+           if rows else []}
+    emit(rec)
+    return rec
+
+
+def rowwise_parity_phase(torch, seed):
+    """Phase 16: the rowwise_attn pass at full width in float32 (TF32 off)
+    through the entry points (kernels) and through the plain versions:
+    the losses agree to PARITY_LOSS_RTOL and the gradients of x, the
+    residual, the norm weight and the three projections to
+    ROW_PARITY_ATOL of each gradient's largest."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tables = _row_tables(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    gout = torch.randn(ROW_BATCH, ROW_HEADS, ROW_SEQ, ROW_D, generator=gen,
+                       device="cuda")
+    kernels = _row_kernels()
+    runs = {}
+    for kind in ("kernels", "plain"):
+        for fn in kernels.values():
+            fn.launches = 0
+        leaves = _row_leaves(torch, seed, torch.float32)
+        steps = _entry_steps() if kind == "kernels" else _plain_steps(torch)
+        loss = _row_pass(torch, leaves, tables, gout, *steps)
+        torch.cuda.synchronize()
+        runs[kind] = (float(loss), [t.grad for t in leaves],
+                      {k: fn.launches for k, fn in kernels.items()})
+        del leaves
+        torch.cuda.empty_cache()
+    (kl, kg, klaunch), (pl, pg, plaunch) = runs["kernels"], runs["plain"]
+    check(klaunch == ROW_LAUNCHES_PER_PASS and not any(plaunch.values()),
+          f"rowwise_parity launches: kernels {klaunch}, plain {plaunch}")
+    names = ("x", "residual", "norm_weight", "wq", "wk", "wv")
+    errs = {n: ((a - b).abs().max() / b.abs().max()).item()
+            for n, a, b in zip(names, kg, pg)}
+    loss_rel = abs(kl - pl) / abs(pl)
+    check(loss_rel <= PARITY_LOSS_RTOL, f"rowwise_parity: loss {kl} vs "
+                                        f"plain {pl}")
+    check(all(e <= ROW_PARITY_ATOL for e in errs.values()),
+          f"rowwise_parity: gradients {errs} of the largest")
+    rec = {"phase": "rowwise_parity", "dtype": "float32",
+           "loss_kernels": kl, "loss_plain": pl, "loss_rel_err": loss_rel,
+           "loss_rtol": PARITY_LOSS_RTOL, "grad_err_over_max": errs,
+           "grad_atol_of_max": ROW_PARITY_ATOL, "launches": klaunch}
+    emit(rec)
+    del kg, pg, gout
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2464,7 +3044,8 @@ def main():
                "flash_attention_bwd", "quant_matmul",
                "ragged_paged_attention_quant",
                "ragged_paged_attention_partials", "grouped_matmul",
-               "quant_grouped_matmul", "flash_varlen", "flash_sparse_mask")
+               "quant_grouped_matmul", "flash_varlen", "flash_sparse_mask",
+               "rms_norm", "fused_elementwise")
     t0 = time.perf_counter()
     _build.build(*sources)
     build_s = time.perf_counter() - t0
@@ -2582,6 +3163,13 @@ def main():
                                      args.profile)
     packed_parity_phase(torch, np, lens, args.seed + 52)
 
+    # the row-wise slice: its kernels at rowwise_attn's shapes and the edge
+    # cases, then the three entry points at full width, then their parity
+    rms_main, rms_bwd_main, rope_main, sm_main, sm_bwd_main = \
+        rowwise_kernel_checks(torch, args.seed + 60)
+    rowwise = rowwise_attn_phase(torch, args.seed + 61, args.profile)
+    rowwise_parity_phase(torch, args.seed + 61)
+
     kernels = []
     for name, route_src, replaces, rec, launches in (
             ("ragged_paged_attention",
@@ -2630,7 +3218,24 @@ def main():
             ("flash_sparse_mask_bwd",
              "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
              "paddle_tpu/kernels/pallas/flash_sparse_mask.py:225, :245",
-             mask_bwd_main, flashmask["bwd_launches"])):
+             mask_bwd_main, flashmask["bwd_launches"]),
+            ("rms_norm_fwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+             "paddle_tpu/kernels/pallas/rms_norm.py:59",
+             rms_main, rowwise["launches"]["rms_norm_fwd"]),
+            ("rms_norm_bwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+             "paddle_tpu/kernels/pallas/rms_norm.py:84",
+             rms_bwd_main, rowwise["launches"]["rms_norm_bwd"]),
+            ("rope", "paddle_tpu_torch/csrc/fused_elementwise.cu",
+             "paddle_tpu/kernels/pallas/fused_elementwise.py:71",
+             rope_main, rowwise["launches"]["rope"]),
+            ("masked_softmax_fwd",
+             "paddle_tpu_torch/csrc/fused_elementwise.cu",
+             "paddle_tpu/kernels/pallas/fused_elementwise.py:154",
+             sm_main, rowwise["launches"]["masked_softmax_fwd"]),
+            ("masked_softmax_bwd",
+             "paddle_tpu_torch/csrc/fused_elementwise.cu",
+             "paddle_tpu/kernels/pallas/fused_elementwise.py:168",
+             sm_bwd_main, rowwise["launches"]["masked_softmax_bwd"])):
         check(launches > 0, f"{name} never ran on the main path")
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": launches,

@@ -5,7 +5,7 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. Five slices are ported: greedy serving
+plain PyTorch version. Six slices are ported: greedy serving
 (LlamaForCausalLM, CachedDecoder and PagedDecoder with the
 continuous-batching serve loop), the pretraining step (TrainStep over
 LlamaForCausalLM, LlamaPretrainingCriterion and AdamW), quantized and
@@ -15,7 +15,10 @@ GPT-MoE of benchmarks/gpt_moe_ep.py through MoELayer's capacity and
 dropless grouped dispatch, models/gpt_moe.py), and packed and masked
 attention, forward and backward (``nn.functional.flash_attn_unpadded``,
 ``flash_attn_varlen_qkvpacked``, ``flash_attn_qkvpacked`` and
-``flash_attention_with_sparse_mask``).
+``flash_attention_with_sparse_mask``), and the row-wise incubate
+functionals, forward and backward (``incubate.nn.functional.
+fused_rms_norm``, ``fused_rotary_position_embedding`` and
+``incubate.softmax_mask_fuse_upper_triangle``).
 """
 from . import nn
 from .framework.device import resolve_device, seed

@@ -39,6 +39,14 @@ from paddle_tpu_torch.kernels.grouped_matmul import (
 from paddle_tpu_torch.kernels.quant_matmul import (
     quant_grouped_matmul, quant_grouped_matmul_plain, quant_matmul,
     quant_matmul_plain, quantize_weight_blockwise)
+from paddle_tpu_torch.kernels.fused_elementwise import (
+    causal_softmax_bwd, causal_softmax_bwd_plain, causal_softmax_fwd,
+    causal_softmax_fwd_plain, rope, rope_plain)
+from paddle_tpu_torch.kernels.rms_norm import (
+    rms_norm_bwd, rms_norm_bwd_plain, rms_norm_fwd, rms_norm_fwd_plain)
+from paddle_tpu_torch.incubate import softmax_mask_fuse_upper_triangle
+from paddle_tpu_torch.incubate.nn.functional import (
+    fused_rms_norm, fused_rotary_position_embedding)
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
     kv_quantize_rows, merge_partials, ragged_paged_attention,
     ragged_paged_attention_partials, ragged_paged_attention_partials_plain,
@@ -778,3 +786,194 @@ def test_sparse_mask_autograd_matches_plain_autograd(cuda_device):
     torch.cuda.synchronize()
     for got, ref in zip(*grads):
         assert _bwd_close(got, ref, 0.0, 1e-4)[0]
+
+
+# -- the row-wise kernels: RMSNorm, RoPE, causal softmax ----------------------------
+# float32: within 1e-5 of the largest magnitude (summation order, and
+# rsqrtf within 2 ulp); bf16: one bf16 ulp (2^-7 of the value) plus 1e-5 of
+# the largest, since both sides compute in float32 and round once.
+ROW_TOLS = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+
+
+def _rows_close(got, ref, what):
+    assert got.dtype == ref.dtype, (what, got.dtype, ref.dtype)
+    rtol, atol = ROW_TOLS[ref.dtype]
+    ok, err = _bwd_close(got, ref, rtol, atol)
+    assert ok, f"{what} {ref.dtype}: max abs err {err}"
+
+
+def _randn(dev, rng, shape, dtype=torch.float32):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h", [(1, 128), (37, 4096), (300, 5120),
+                                 (64, 8192), (16, 12288)])
+@pytest.mark.parametrize("dt,wdt", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)])
+def test_rms_norm_kernels_match_plain(cuda_device, n, h, dt, wdt):
+    rng = np.random.default_rng(n + h)
+    x = _randn(cuda_device, rng, (n, h), dt)
+    w = (1 + 0.3 * _randn(cuda_device, rng, (h,))).to(wdt)
+    g = _randn(cuda_device, rng, (n, h), dt)
+    f0, b0 = rms_norm_fwd.launches, rms_norm_bwd.launches
+    out, rstd = rms_norm_fwd(x, w, 1e-5)
+    ref, rref = rms_norm_fwd_plain(x, w, 1e-5)
+    dx, dw = rms_norm_bwd(x, w, rref, g)
+    rdx, rdw = rms_norm_bwd_plain(x, w, rref, g)
+    torch.cuda.synchronize()
+    _rows_close(out, ref, "out")
+    _rows_close(rstd, rref, "rstd")
+    _rows_close(dx, rdx, "dx")
+    _rows_close(dw, rdw, "dw")
+    assert (rms_norm_fwd.launches, rms_norm_bwd.launches) == (f0 + 1, b0 + 1)
+
+
+@pytest.mark.cuda
+def test_rms_norm_dw_is_the_same_bits_every_run(cuda_device):
+    rng = np.random.default_rng(3)
+    x = _randn(cuda_device, rng, (12288, 4096), torch.bfloat16)
+    g = _randn(cuda_device, rng, (12288, 4096), torch.bfloat16)
+    w = _randn(cuda_device, rng, (4096,))
+    _, rstd = rms_norm_fwd(x, w, 1e-5)
+    runs = [rms_norm_bwd(x, w, rstd, g) for _ in range(3)]
+    torch.cuda.synchronize()
+    for dx, dw in runs[1:]:
+        assert torch.equal(dx, runs[0][0]) and torch.equal(dw, runs[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(1, 128, 2, 128), (3, 256, 4, 128),
+                                     (2, 64, 3, 256)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", ["s", "one"])
+def test_rope_kernel_matches_plain(cuda_device, b, s, h, d, dt, rows):
+    """Random tables (the halves differ) of S rows at B > 1 catch a wrong
+    table row or half; the kernel rounds each product and sum as the plain
+    version does, so the bits agree."""
+    rng = np.random.default_rng(b * s + d)
+    x = _randn(cuda_device, rng, (b, s, h, d), dt)
+    t = s if rows == "s" else 1
+    cos, sin = (_randn(cuda_device, rng, (t, d)) for _ in range(2))
+    before = rope.launches
+    for backward in (False, True):
+        got = rope(x, cos, sin, backward)
+        ref = rope_plain(x, cos, sin, backward)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (backward,
+                                       (got.float() - ref.float()).abs()
+                                       .max().item())
+    assert rope.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(5, 128), (3, 2048), (1, 8192)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_causal_softmax_kernels_match_plain(cuda_device, n, s, dt):
+    rng = np.random.default_rng(n + s)
+    x = 4 * _randn(cuda_device, rng, (n, s, s), dt)
+    g = _randn(cuda_device, rng, (n, s, s), dt)
+    f0, b0 = causal_softmax_fwd.launches, causal_softmax_bwd.launches
+    p = causal_softmax_fwd(x)
+    rp = causal_softmax_fwd_plain(x)
+    dx = causal_softmax_bwd(rp, g)
+    rdx = causal_softmax_bwd_plain(rp, g)
+    torch.cuda.synchronize()
+    _rows_close(p, rp, "p")
+    _rows_close(dx, rdx, "dx")
+    upper = torch.ones(s, s, dtype=torch.bool, device=cuda_device).triu(1)
+    assert not p[:, upper].any() and not dx[:, upper].any()
+    assert (causal_softmax_fwd.launches,
+            causal_softmax_bwd.launches) == (f0 + 1, b0 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_causal_softmax_never_reads_the_masked_half(cuda_device, dt):
+    """NaN above the diagonal of x and of g: p and dx are finite and the
+    same bits as on clean inputs."""
+    n, s = 4, 1024
+    rng = np.random.default_rng(17)
+    x = _randn(cuda_device, rng, (n, s, s), dt)
+    g = _randn(cuda_device, rng, (n, s, s), dt)
+    upper = torch.ones(s, s, dtype=torch.bool, device=cuda_device).triu(1)
+    xp, gp = x.clone(), g.clone()
+    xp[:, upper] = float("nan")
+    gp[:, upper] = float("nan")
+    p, pp = causal_softmax_fwd(x), causal_softmax_fwd(xp)
+    dx, dxp = causal_softmax_bwd(p, g), causal_softmax_bwd(p, gp)
+    torch.cuda.synchronize()
+    assert torch.isfinite(pp).all() and torch.equal(p, pp)
+    assert torch.isfinite(dxp).all() and torch.equal(dx, dxp)
+
+
+@pytest.mark.cuda
+def test_row_wise_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros(4, 96, device=cuda_device)
+    with pytest.raises(ValueError):
+        rms_norm_fwd(x, torch.ones(96, device=cuda_device), 1e-5)
+    with pytest.raises(ValueError):
+        rms_norm_fwd(torch.zeros(2, 32768, device=cuda_device),
+                     torch.ones(32768, device=cuda_device), 1e-5)
+    with pytest.raises(TypeError):
+        rms_norm_fwd(torch.zeros(4, 128, device=cuda_device).half(),
+                     torch.ones(128, device=cuda_device), 1e-5)
+    with pytest.raises(ValueError):
+        rope(torch.zeros(1, 4, 2, 64, device=cuda_device),
+             torch.zeros(4, 64, device=cuda_device),
+             torch.zeros(4, 64, device=cuda_device))
+    with pytest.raises(ValueError):
+        rope(torch.zeros(2, 4, 2, 128, device=cuda_device),
+             torch.zeros(8, 128, device=cuda_device),
+             torch.zeros(8, 128, device=cuda_device))
+    with pytest.raises(ValueError):
+        causal_softmax_fwd(torch.zeros(1, 96, 96, device=cuda_device))
+    with pytest.raises(TypeError):
+        causal_softmax_fwd(torch.zeros(1, 128, 128, device=cuda_device,
+                                       dtype=torch.half))
+
+
+@pytest.mark.cuda
+def test_row_wise_entry_points_match_plain_autograd(cuda_device):
+    """The three entry points on the card (kernels forward and backward)
+    against autograd through the plain versions, float32. The scores are
+    scaled by 1/sqrt(D), as attention scales them: unscaled, a row's
+    softmax saturates (p exactly 1 at its maximum) and the true gradient
+    falls below float32's resolution of g - sum(p g), so both sides return
+    rounding noise."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, heads, d = 2, 256, 2, 128
+    rng = np.random.default_rng(29)
+    x0 = _randn(cuda_device, rng, (b, s, heads * d))
+    r0 = _randn(cuda_device, rng, (b, s, heads * d))
+    w0 = 1 + 0.2 * _randn(cuda_device, rng, (heads * d,))
+    cos, sin = (_randn(cuda_device, rng, (s, d)) for _ in range(2))
+    gout = _randn(cuda_device, rng, (b, heads, s, s))
+    results = []
+    for kernel in (True, False):
+        x, r, w = (t.clone().requires_grad_() for t in (x0, r0, w0))
+        if kernel:
+            y, _ = fused_rms_norm(x, w, None, 1e-5, residual=r)
+            q = y.reshape(b, s, heads, d)
+            q, k, _ = fused_rotary_position_embedding(
+                q, q * 0.5, None, sin=sin, cos=cos,
+                use_neox_rotary_style=False)
+            sc = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
+            p = softmax_mask_fuse_upper_triangle(sc * d ** -0.5)
+        else:
+            y = rms_norm_fwd_plain((x + r).reshape(-1, heads * d), w,
+                                   1e-5)[0].reshape(x.shape)
+            q = y.reshape(b, s, heads, d)
+            q, k = rope_plain(q, cos, sin), rope_plain(q * 0.5, cos, sin)
+            sc = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
+            p = causal_softmax_fwd_plain(sc.reshape(-1, s, s) * d ** -0.5) \
+                .reshape(sc.shape)
+        (p * gout).sum().backward()
+        results.append([p.detach(), x.grad, r.grad, w.grad])
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("p", "dx", "dresidual", "dw"), *results):
+        ok, err = _bwd_close(got, ref, 0.0, 1e-4)
+        assert ok, f"{name}: max abs err {err}"

@@ -41,12 +41,17 @@ def _grads(seed):
 
 
 def _make(dtype):
+    """The same starting values on both sides, in buffers of their own: on
+    the CPU, JAX may adopt a 64-byte aligned numpy array without a copy,
+    and its step runs asynchronously, so a torch parameter sharing that
+    array (torch.from_numpy) would be updated in place under JAX's
+    still-pending first step, which then starts from torch's result."""
     vals = _values(0)
-    jp = {n: JaxParameter(jnp.asarray(v, _JNP[dtype]), name=n)
+    jp = {n: JaxParameter(jnp.array(v, _JNP[dtype], copy=True), name=n)
           for n, v in vals.items()}
     tp = {}
     for n, v in vals.items():
-        p = torch.nn.Parameter(torch.from_numpy(v).to(_TORCH[dtype]))
+        p = torch.nn.Parameter(torch.tensor(v, dtype=_TORCH[dtype]))
         p.param_name = n
         tp[n] = p
     return jp, tp
@@ -55,8 +60,8 @@ def _make(dtype):
 def _run(jopt, topt, jp, tp, dtype, steps=3, first=1):
     for i in range(first, first + steps):
         for n, g in _grads(i).items():
-            jp[n].grad = JaxTensor(jnp.asarray(g, _JNP[dtype]))
-            tp[n].grad = torch.from_numpy(g).to(_TORCH[dtype])
+            jp[n].grad = JaxTensor(jnp.array(g, _JNP[dtype], copy=True))
+            tp[n].grad = torch.tensor(g, dtype=_TORCH[dtype])
         jopt.step()
         topt.step()
 

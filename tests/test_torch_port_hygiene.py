@@ -237,3 +237,49 @@ def test_grouped_kernels_refuse_other_devices():
         quant_grouped_matmul(x, codes.to("meta"), scales.to("meta"),
                              group_offsets=md["offsets"],
                              group_counts=md["counts"], bm=8)
+
+
+@pytest.mark.parametrize("call", [
+    "fused_dropout_add", "fused_bias_dropout_residual_layer_norm",
+    "rms_norm_axis", "layer_norm_axis"])
+def test_unported_incubate_options_raise(call):
+    """Dropout that would draw random numbers (training with p > 0) and a
+    begin_norm_axis other than the last axis raise instead of being
+    ignored."""
+    import paddle_tpu_torch.incubate.nn.functional as F
+    x = torch.zeros(2, 4, 128)
+    w = torch.ones(128)
+    with pytest.raises(NotImplementedError):
+        if call == "fused_dropout_add":
+            F.fused_dropout_add(x, x, p=0.1, training=True)
+        elif call == "fused_bias_dropout_residual_layer_norm":
+            F.fused_bias_dropout_residual_layer_norm(x, x, dropout_rate=0.1)
+        elif call == "rms_norm_axis":
+            F.fused_rms_norm(x, w, begin_norm_axis=1)
+        else:
+            F.fused_layer_norm(x, w, None, begin_norm_axis=0)
+
+
+def test_row_wise_entry_points_run_where_their_inputs_lie():
+    """The incubate entry points take their inputs' device: CPU tensors run
+    the plain versions, tensors elsewhere reach a kernel wrapper, which
+    raises for a device with no kernel."""
+    import paddle_tpu_torch.incubate as inc
+    import paddle_tpu_torch.incubate.nn.functional as F
+    x = torch.zeros(2, 128, 2, 128)
+    assert F.fused_rms_norm(x, torch.ones(128)).device.type == "cpu"
+    assert F.fused_rotary_position_embedding(
+        x, use_neox_rotary_style=False)[0].device.type == "cpu"
+    assert inc.softmax_mask_fuse_upper_triangle(
+        torch.zeros(1, 128, 128)).device.type == "cpu"
+    meta = x.to("meta")
+    with pytest.raises(RuntimeError, match="no RMSNorm kernel"):
+        F.fused_rms_norm(meta, torch.ones(128, device="meta"))
+    with pytest.raises(RuntimeError, match="no RoPE kernel"):
+        F.fused_rotary_position_embedding(
+            meta, sin=torch.zeros(128, 128, device="meta"),
+            cos=torch.zeros(128, 128, device="meta"),
+            use_neox_rotary_style=False)
+    with pytest.raises(RuntimeError, match="no causal softmax kernel"):
+        inc.softmax_mask_fuse_upper_triangle(
+            torch.zeros(1, 128, 128, device="meta"))
