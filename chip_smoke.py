@@ -12,9 +12,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    serving shapes, with its time, the plain version's time, one PyTorch
    library call's time (a yardstick the port never calls) and the least
    time the card could take: ragged and flash attention, then
-   quant_matmul (the decode projections at 8 slots, the head, a
-   1024-row prefill product, fp8 codes), ragged attention over the int8
-   pool and the split-context partials;
+   quant_matmul (the decode projections at 8 slots, the head, fp8 codes:
+   the GEMV; the 1024-row prefill gate_up and down products, int8 and fp8,
+   and a 777-row one whose last m-tile is partial: the tensor-core
+   kernel; float32 gate_up at 1024 rows: the CUDA-core tile; each case
+   names its route and rate), ragged attention over the
+   int8 pool and the split-context partials;
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
    seeded torch.Generator) on 16 requests: every request gets its budget
    and the ragged kernel ran once per layer per decode step;
@@ -25,7 +28,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    prefill runs the flash-attention kernel once per layer;
 5b. serve_quant: phase 3's requests with int8_blockwise weights and an
    int8 KV pool (quant_matmul 7 per layer plus the head, per decode step
-   and per prefill; the quantized ragged kernel once per layer per step);
+   and per prefill, every prefill projection on the tensor-core route;
+   the quantized ragged kernel once per layer per step);
    serve_long: 4 prompts of 3000-4000 tokens at max_len 4096 in 4 shards
    (the partials kernel once per layer per step); then, in float32 at 4
    layers, the quantized ragged serve against the quantized dense one and
@@ -107,11 +111,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 16. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the generate of phase 5 for the
    flash forward, the train of phase 6 for the flash backward, serve_quant
-   for quant_matmul and the quantized ragged kernel, serve_long for the
-   partials, train_moe for the grouped forward and dw kernels,
-   train_moe_quant for the quantized grouped kernel, varlen_attn and
-   flashmask_attn for the packed kernels, rowwise_attn for the row-wise
-   ones), error and times;
+   for quant_matmul's GEMV and tensor-core product and the quantized
+   ragged kernel, serve_long for the partials, train_moe for the grouped
+   forward and dw kernels, train_moe_quant for the quantized grouped
+   kernel, varlen_attn and flashmask_attn for the packed kernels,
+   rowwise_attn for the row-wise ones), error and times;
 17. the card's name and power limit again, and the result line.
 
 With --profile, short full-width serves (plain, serve_quant's and
@@ -457,7 +461,8 @@ def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
     of the largest output for the summation order over k (sums of k
     products of about unit size reach sqrt(k) ~ 100 while the order moves
     them by about sqrt(k) * 6e-8 * 50 = 3e-4; a dropped or wrongly scaled
-    K-block moves an output by percents)."""
+    K-block moves an output by percents). The record names the kernel
+    the wrapper routed the case to (rows, tiled or wgmma) and its rate."""
     from paddle_tpu_torch.kernels.quant_matmul import (
         blockwise_weight_bytes, dequantize_weight_blockwise, quant_matmul,
         quant_matmul_plain, quantize_weight_blockwise)
@@ -468,7 +473,12 @@ def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
     codes, scales = quantize_weight_blockwise(w, qdtype=qdtype)
     del w
     x = torch.randn(m, k, generator=gen, device=dev, dtype=x_dtype)
+    before = dict(quant_matmul.route_launches)
     out = quant_matmul(x, codes, scales)
+    route = [r for r, c in quant_matmul.route_launches.items()
+             if c != before[r]]
+    check(len(route) == 1, f"{name}: routes {route} for one call")
+    route = route[0]
     ref = quant_matmul_plain(x, codes, scales)
     torch.cuda.synchronize()
     atol = QMM_ATOL * ref.float().abs().max().item()
@@ -491,16 +501,21 @@ def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
     wbytes = blockwise_weight_bytes(k, n)[0]
     bytes_moved = wbytes + m * k * xsize + m * n * xsize
     flops = 2 * m * k * n
-    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    # the card's peak for float32 operands is its TF32 one
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS
+                               if x_dtype == torch.bfloat16 else TF32_FLOPS)
     rec = {"phase": "kernel_check", "kernel": "quant_matmul", "case": name,
-           "codes": qdtype, "x_dtype": str(x_dtype).split(".")[-1],
+           "route": route, "codes": qdtype,
+           "x_dtype": str(x_dtype).split(".")[-1],
            "m": m, "k": k, "n": n, "block_k": k // scales.shape[1],
            "max_abs_err": err, "err_over_tolerance": ratio,
            "rtol": BF16_RTOL if x_dtype == torch.bfloat16 else 1e-6,
-           "atol": atol, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "atol": atol, "kernel_ms": kernel_ms,
+           "tflops": flops / kernel_ms * 1e-9, "plain_ms": plain_ms,
            "library_ms": library_ms,
            "library": "F.linear on the dequantized bf16 weight (bf16 x)",
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / kernel_ms,
            "bytes": bytes_moved, "flops": flops,
            "weight_bytes": wbytes, "weight_bytes_bf16": 2 * k * n}
     emit(rec)
@@ -845,7 +860,11 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     projection and the head go through quant_matmul: 7 per layer plus the
     head, once per decode step and once per prefill (the prefill's head
     multiplies the last token only); decode attention through the
-    quantized ragged kernel, once per layer per decode step."""
+    quantized ragged kernel, once per layer per decode step. Each prompt's
+    prefill bucket has at least 128 rows (block_size 64 doubled up to the
+    prompt, prompts 128-1024 tokens), so its 7 projections a layer take
+    the tensor-core route (bf16 x, M > 32); its head (one row, float32)
+    and every decode step (8 slots) take the GEMV."""
     from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
     from paddle_tpu_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_quant)
@@ -857,6 +876,8 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     quant_matmul.launches = 0
+    for r in quant_matmul.route_launches:
+        quant_matmul.route_launches[r] = 0
     ragged_paged_attention_quant.launches = 0
     ragged_paged_attention.launches = 0
     t0 = time.perf_counter()
@@ -864,6 +885,7 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     qmm, rq = quant_matmul.launches, ragged_paged_attention_quant.launches
+    routes = dict(quant_matmul.route_launches)
     check_served(dec, out, reqs, model.config.vocab_size)
     steps = dec.serve_stats["decode_steps"]
     per_pass = 7 * layers + 1
@@ -873,11 +895,19 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     check(qmm == per_pass * (steps + len(reqs)),
           f"quant_matmul launches {qmm} != (7 x {layers} + 1) x (decode "
           f"steps {steps} + prefills {len(reqs)})")
+    check(routes["wgmma"] == 7 * layers * len(reqs)
+          and routes["tiled"] == 0,
+          f"quant_matmul routes {routes}: want wgmma = 7 x {layers} layers "
+          f"x {len(reqs)} prefills (every prefill projection: _prefill_paged"
+          f" runs _qkv's 3, wo and _mlp's 3 a layer on a bucket of >= 128 "
+          f"bf16 rows) and no tiled launch")
     rec = serve_record(torch, "serve_quant", dec, reqs, layers, wall, {
         "weight_quant": "int8_blockwise", "kv_quant": "int8",
         "requests_cut": False, "quant_matmul_launches": qmm,
         "quant_matmul_launches_rule": "(7 x layers + 1) x (decode steps + "
                                       "prefills)",
+        "quant_matmul_route_launches": routes,
+        "wgmma_launches_rule": "7 x layers x prefills",
         "ragged_quant_launches": rq})
     emit(rec)
     del dec
@@ -3070,8 +3100,10 @@ def main():
                             128, 1024, 128, True, 7)
     # the quantized and long-context serving kernels at serve_quant's and
     # serve_long's shapes: the decode projections (M = 8 slots), the head
-    # (float32 x), one prefill product (M = 1024) and fp8 codes
-    qmm_main = None
+    # (float32 x) and fp8 codes on the GEMV; the prefill products (M 1024
+    # gate_up and down, fp8 gate_up, a partial last m-tile at M 777) on
+    # the tensor cores; float32 gate_up at M 1024 on the CUDA-core tile
+    qmm_main = qmm_prefill = None
     for name, m, k, n, qd, xd in (
             ("decode_qkvo_m8_k4096_n4096", 8, 4096, 4096, "int8",
              torch.bfloat16),
@@ -3083,11 +3115,27 @@ def main():
              torch.float32),
             ("prefill_gate_up_m1024_k4096_n11008", 1024, 4096, 11008,
              "int8", torch.bfloat16),
+            ("prefill_down_m1024_k11008_n4096", 1024, 11008, 4096, "int8",
+             torch.bfloat16),
+            ("fp8_prefill_gate_up_m1024_k4096_n11008", 1024, 4096, 11008,
+             "fp8", torch.bfloat16),
+            # a partial m-tile at full width: the masked edge
+            ("prefill_ragged_m777_k4096_n11008", 777, 4096, 11008, "int8",
+             torch.bfloat16),
+            # float32 x past the GEMV: the CUDA-core tile (the float32
+            # engines' prefill)
+            ("prefill_gate_up_m1024_k4096_n11008_f32", 1024, 4096, 11008,
+             "int8", torch.float32),
             ("fp8_decode_gate_up_m8_k4096_n11008", 8, 4096, 11008, "fp8",
              torch.bfloat16)):
         rec = qmm_case(torch, name, m, k, n, qd, xd, m + k + n)
         if name.startswith("decode_gate_up"):
             qmm_main = rec
+        if name == "prefill_gate_up_m1024_k4096_n11008":
+            qmm_prefill = rec
+        check(rec["route"] == ("rows" if m <= 32 else "wgmma"
+                               if xd == torch.bfloat16 else "tiled"),
+              f"{name}: routed to {rec['route']}")
     rquant_main = ragged_quant_case(torch, np, "quant_mha_32x32", 32, 32, 21)
     ragged_quant_case(torch, np, "quant_gqa_32x8", 32, 8, 22)
     ragged_quant_case(torch, np, "quant_nan_poison", 32, 32, 23, poison=True)
@@ -3186,7 +3234,11 @@ def main():
              bwd_main, train["flash_bwd_launches"]),
             ("quant_matmul", "paddle_tpu_torch/csrc/quant_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:177",
-             qmm_main, serve_quant["quant_matmul_launches"]),
+             qmm_main, serve_quant["quant_matmul_route_launches"]["rows"]),
+            ("quant_matmul_wgmma", "paddle_tpu_torch/csrc/quant_matmul.cu",
+             "paddle_tpu/kernels/pallas/quant_matmul.py:177",
+             qmm_prefill,
+             serve_quant["quant_matmul_route_launches"]["wgmma"]),
             ("ragged_paged_attention_quant",
              "paddle_tpu_torch/csrc/ragged_paged_attention_quant.cu",
              "paddle_tpu/kernels/pallas/ragged_paged_attention.py:506",

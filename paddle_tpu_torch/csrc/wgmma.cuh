@@ -1,0 +1,132 @@
+// Hopper tensor-core primitives: warpgroup matrix multiply (`wgmma`) from
+// shared memory, its descriptors, and 16-byte `cp.async` copies.
+//
+// What every primitive here assumes:
+// - One warpgroup (128 consecutive threads, the first of them a multiple of
+//   128) issues each wgmma together: fence, mma, commit and wait are
+//   `.sync.aligned` and must be reached by all 128 threads.
+// - Operand tiles are bf16, K-major (the contraction dim is contiguous), 64
+//   values of K per row, so a row is 128 bytes, with the 128-byte swizzle:
+//   16-byte chunk c of row r sits at byte r * 128 + ((c ^ (r & 7)) * 16)
+//   (`sw128`). A tile's base is 1024-byte aligned (8 rows of 128 bytes,
+//   one whole swizzle pattern), so the descriptor's base offset is 0.
+// - The descriptor (`desc_sw128`) names that layout: the start address over
+//   16, SBO 1024 bytes (the next 8-row group), LBO 1 (unused by a swizzled
+//   K-major operand) and layout type 1 (128-byte swizzle). The k16 step j of
+//   a 64-wide tile starts 32 * j bytes in: add 2 * j to the descriptor.
+// - `mma_m64n128k16` computes D[64, 128] (+)= A[64, 16] . B[128, 16]^T with
+//   both A and B K-major in shared memory (the `SS` form, no transpose
+//   flags), float32 accumulators in registers. Thread t of the warpgroup
+//   holds d[i] at row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2) and
+//   column 8 * (i / 4) + 2 * (t % 4) + i % 2. `scale_d` 0 writes D = A.B^T,
+//   1 adds to it.
+// - Between a thread's own reads or writes of d and a wgmma on d, call
+//   `fence()`; after `wait<N>()` and before d is read, `fence_operand(d)`
+//   keeps the compiler from moving the read above the wait.
+// - Shared memory written by ordinary stores or by cp.async and then read by
+//   wgmma (the async proxy) needs `fence_proxy_async()` by the writing
+//   threads before the barrier that publishes it.
+// - `cp_async16` copies 16 bytes from global to shared memory, both 16-byte
+//   aligned; with `valid` false it reads nothing and writes 16 zero bytes.
+#pragma once
+
+#include <stdint.h>
+#include <cuda_runtime.h>
+
+namespace ptt {
+namespace wg {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c (0..7) of row r in a 128B-swizzled tile
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;      // start address, 16-byte units
+  d |= uint64_t(1) << 16;                    // LBO (unused here)
+  d |= uint64_t(1024 >> 4) << 32;            // SBO: the next 8 rows
+  d |= uint64_t(1) << 62;                    // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operand(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace wg
+}  // namespace ptt

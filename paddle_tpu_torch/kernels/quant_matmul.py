@@ -13,8 +13,12 @@ K. The port keeps torch.nn.Linear's [N, K] layout: ``codes`` [.., N, K]
 and ``scales`` [.., N, K // block_k], blocks along the last dim, which
 keeps each output column's K codes contiguous for the kernel. They equal
 the JAX codec's codes and scales transposed, bit for bit (both round half
-to even). The kernel is ``csrc/quant_matmul.cu``; its note says what
-bounds it and how it is laid out.
+to even). The kernels are in ``csrc/quant_matmul.cu``; its note says what
+bounds them and how they are laid out. `qmm_route` picks one of its three
+kernels for a call: the decode GEMV ("rows"), the tensor-core product
+("wgmma", bf16 x) or the CUDA-core tiled product ("tiled");
+``quant_matmul.route_launches`` counts the launches of each and
+``quant_matmul.launches`` their total.
 
 The grouped form (`quant_grouped_matmul`, the Pallas kernel `_gq_kernel`)
 runs the MoE expert products over grouped_matmul's expert-sorted layout
@@ -43,7 +47,8 @@ __all__ = ["QK_BLOCK", "INT8_MAX", "FP8_MAX", "quantize_weight_blockwise",
            "blockwise_weight_bytes", "quant_matmul", "quant_matmul_plain",
            "quant_grouped_matmul", "quant_grouped_matmul_plain",
            "quantized_grouped_linear", "configure_matmul_quant",
-           "get_matmul_quant"]
+           "get_matmul_quant", "qmm_route", "QMM_ROUTES", "ROWS_MAX_M",
+           "WGMMA_BLOCK_K"]
 
 # one scale row per 128 contraction rows, as in the JAX package
 QK_BLOCK = 128
@@ -56,7 +61,12 @@ _X_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _Q_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _SIG = {"quant_matmul_fwd":
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+# the kernels of csrc/quant_matmul.cu, in the order of its route codes
+QMM_ROUTES = ("rows", "tiled", "wgmma")
+_ROUTE_CODE = {r: i for i, r in enumerate(QMM_ROUTES)}
+ROWS_MAX_M = 32          # the GEMV takes up to this many rows of x
+WGMMA_BLOCK_K = 64       # the tensor-core kernel's blocks: multiples of this
 _GQ_SIG = {"quant_grouped_matmul_fwd":
            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
 
@@ -172,11 +182,25 @@ def _check(x, codes, scales):
             raise ValueError("codes and scales must be contiguous")
 
 
+def qmm_route(m, x_dtype, block_k, x_ptr, codes_ptr):
+    """The kernel a CUDA quant_matmul launches for m rows of x: "rows"
+    (the GEMV) up to ROWS_MAX_M rows; above, "wgmma" (tensor cores) for
+    bf16 x with blocks of whole 64-deep stages (the codec's default block
+    is 128) and 16-byte aligned x and codes, else "tiled" (CUDA cores; in
+    practice float32 x, which TF32 would round)."""
+    if m <= ROWS_MAX_M:
+        return "rows"
+    if (x_dtype == torch.bfloat16 and block_k % WGMMA_BLOCK_K == 0
+            and x_ptr % 16 == 0 and codes_ptr % 16 == 0):
+        return "wgmma"
+    return "tiled"
+
+
 def quant_matmul(x, codes, scales):
     """x [.., K] @ dequant(codes [N, K], scales [N, KB]).T -> [.., N] in
     x's dtype (float32 or bfloat16); the block is K // KB, any divisor of
     K. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises)."""
+    kernel `qmm_route` picks (or raises)."""
     if x.device.type == "cpu":
         _check(x, codes, scales)
         return quant_matmul_plain(x, codes, scales)
@@ -190,20 +214,26 @@ def quant_matmul(x, codes, scales):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
+    bk = k // scales.shape[1]
+    route = qmm_route(m, x.dtype, bk, x2.data_ptr(), codes.data_ptr())
     lib = _build.load("quant_matmul", _SIG)
     with torch.cuda.device(x.device):
         rc = lib.quant_matmul_fwd(
             x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), m, n, k, scales.shape[1], k // scales.shape[1],
+            out.data_ptr(), m, n, k, scales.shape[1], bk,
             _X_CODE[x.dtype], _Q_CODE[codes.dtype],
+            _ROUTE_CODE[route],
             torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"quant_matmul launch failed: CUDA error {rc}")
+        raise RuntimeError(f"quant_matmul launch failed ({route} kernel): "
+                           f"CUDA error {rc}")
     quant_matmul.launches += 1
+    quant_matmul.route_launches[route] += 1
     return out.reshape(*lead, n)
 
 
 quant_matmul.launches = 0
+quant_matmul.route_launches = dict.fromkeys(QMM_ROUTES, 0)
 
 
 # -- the grouped (MoE expert) form ---------------------------------------------

@@ -15,6 +15,8 @@ sums both sides round differ in summation order over S terms whose
 cancellation (dp - delta) leaves small elements with a larger relative
 error.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,7 @@ from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
 from paddle_tpu_torch.kernels.grouped_matmul import (
     _ref_dw, _ref_fwd, grouped_matmul, grouped_matmul_dw,
     grouped_matmul_fwd, grouped_metadata)
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels.quant_matmul import (
     quant_grouped_matmul, quant_grouped_matmul_plain, quant_matmul,
     quant_matmul_plain, quantize_weight_blockwise)
@@ -273,8 +276,9 @@ def _qmm_close(out, ref):
 @pytest.mark.parametrize("qdtype", ["int8", "fp8"])
 def test_quant_matmul_kernel_matches_plain(cuda_device, m, n, k, block_k,
                                            qdtype):
-    """Both kernels (rows for M <= 32, tiles above), blocks below 128 and
-    not a multiple of 8, K not a multiple of 8 (the element-wise path),
+    """All three kernels (rows for M <= 32; above, wgmma for bf16 x with
+    blocks of whole 64-deep stages, tiles otherwise), blocks below 128 and not
+    a multiple of 8, K not a multiple of 8 (the element-wise path),
     float32 and bfloat16 x."""
     rng = np.random.default_rng(m * 1000 + n + k)
     w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
@@ -313,6 +317,146 @@ def test_quant_matmul_takes_leading_dims_and_offset_views(cuda_device):
     assert _qmm_close(out, quant_matmul_plain(xo, codes, scales))[0]
     with pytest.raises(TypeError):
         quant_matmul(x.double(), codes, scales)
+
+
+# -- the tensor-core primitives and the wgmma product ----------------------------
+
+_SELFTEST_SIG = {"wgmma_selftest": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bk", [(64, 64), (256, 128)])
+def test_wgmma_one_tile_matches_matmul(cuda_device, k, bk):
+    """csrc/wgmma.cuh on one 64 x 128 tile: one m64n128k16 wgmma over K 64
+    from cp.async'd, 128B-swizzled tiles, then K 256 in two K-blocks with
+    distinct per-row scales on the accumulator, against torch.matmul in
+    float32. A is int8-valued (as the codes), B normal bf16 (as x); the
+    products are exact, so only the float32 summation order differs: 1e-5
+    of the largest output. A wrong descriptor, swizzle or fragment layout
+    moves outputs by their own size."""
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.integers(-127, 128, (64, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((128, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    kb = k // bk
+    scales = torch.from_numpy(rng.uniform(0.5, 2.0, (64, kb)).astype(
+        np.float32)).to(cuda_device)
+    if kb == 1:
+        scales.fill_(1.0)
+    out = torch.empty(64, 128, device=cuda_device)
+    lib = _build.load("wgmma_selftest", _SELFTEST_SIG)
+    rc = lib.wgmma_selftest(a.data_ptr(), b.data_ptr(), scales.data_ptr(),
+                            out.data_ptr(), k, bk,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"CUDA error {rc}"
+    ref = torch.zeros(64, 128, device=cuda_device)
+    for j in range(kb):
+        blk = slice(j * bk, (j + 1) * bk)
+        ref += scales[:, j:j + 1] * torch.matmul(a[:, blk].float(),
+                                                 b[:, blk].float().t())
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), f"max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [33, 64, 100, 257, 1024])
+@pytest.mark.parametrize("n,k,block_k", [(72, 256, None), (4100, 4096, 128),
+                                         (4096, 11008, 128), (96, 192, 64),
+                                         (40, 320, 64)])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quant_matmul_wgmma_matches_plain(cuda_device, m, n, k, block_k,
+                                          qdtype):
+    """The tensor-core route (bf16 x, M > 32): partial m- and n-tiles, N
+    not a multiple of 8 (4100: element stores at the edge), blocks of one
+    64-deep stage (several K-blocks, a scale each) and the serve shapes (K
+    4096 and 11008 at bk 128), int8 and fp8 codes, held to the plain
+    version by _qmm_close."""
+    rng = np.random.default_rng(m * 7 + n + k)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    codes, scales = quantize_weight_blockwise(w.to(cuda_device), block_k,
+                                              qdtype)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    before = quant_matmul.route_launches["wgmma"]
+    out = quant_matmul(x, codes, scales)
+    ref = quant_matmul_plain(x, codes, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.route_launches["wgmma"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    ok, err = _qmm_close(out, ref)
+    assert ok, f"max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,block_k", [(40, 160, 16), (40, 192, 96)])
+def test_quant_matmul_blocks_short_of_a_stage_take_the_tiled_route(
+        cuda_device, n, k, block_k):
+    """bf16 x past the GEMV with blocks that are not whole 64-deep stages:
+    the CUDA-core tile, held to the plain version by _qmm_close."""
+    rng = np.random.default_rng(n + k)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    codes, scales = quantize_weight_blockwise(w.to(cuda_device), block_k)
+    x = torch.from_numpy(rng.standard_normal((100, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    before = quant_matmul.route_launches["tiled"]
+    out = quant_matmul(x, codes, scales)
+    ref = quant_matmul_plain(x, codes, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.route_launches["tiled"] == before + 1
+    ok, err = _qmm_close(out, ref)
+    assert ok, f"max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quant_matmul_wgmma_takes_every_code_exactly(cuda_device, qdtype):
+    """Every int8 code and every finite e4m3 code (subnormals included)
+    through the kernel's conversion to bf16: with unit scales and one-hot
+    rows of x, out[m, n] is codes[n, m] itself, bit for bit."""
+    k = n = 256
+    idx = torch.arange(n)[:, None] + torch.arange(k)[None, :]
+    if qdtype == "int8":
+        codes = (idx % 255 - 127).to(torch.int8)
+    else:
+        every = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+            torch.float8_e4m3fn)
+        every = every[torch.isfinite(every.float())]
+        codes = every[idx % every.numel()]
+    codes = codes.contiguous().to(cuda_device)
+    scales = torch.ones(n, k // 128, device=cuda_device)
+    x = torch.eye(k, device=cuda_device, dtype=torch.bfloat16)
+    before = quant_matmul.route_launches["wgmma"]
+    out = quant_matmul(x, codes, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.route_launches["wgmma"] == before + 1
+    assert torch.equal(out.float(), codes.float().t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [100, 257])
+def test_quant_matmul_wgmma_never_reads_rows_past_m(cuda_device, m):
+    """x is a view of M rows of a wider buffer whose further rows are NaN,
+    and M leaves the last 128-row tile partial: the output is the same
+    bits as from a clean copy of x."""
+    rng = np.random.default_rng(m)
+    k, n = 384, 136
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    codes, scales = quantize_weight_blockwise(w.to(cuda_device))
+    buf = torch.full((256 * ((m + 255) // 256), k), float("nan"),
+                     device=cuda_device, dtype=torch.bfloat16)
+    x = buf[:m]
+    x.copy_(torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16))
+    before = quant_matmul.route_launches["wgmma"]
+    out = quant_matmul(x, codes, scales)
+    clean = quant_matmul(x.clone(), codes, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.route_launches["wgmma"] == before + 2
+    assert torch.isfinite(out).all()
+    assert torch.equal(out.view(torch.int16), clean.view(torch.int16))
 
 
 # -- int8 KV pool and split-context attention -----------------------------------

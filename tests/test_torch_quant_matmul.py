@@ -9,8 +9,14 @@ quant_matmul is held against JAX's Pallas kernel (``impl="kernel"``,
 interpret mode on the CPU) within 1e-5 of the output's largest magnitude,
 in float32: the two sum K products in different orders.
 
-The CUDA kernel is held against the plain version on the card by
-tests/test_torch_cuda_kernels.py.
+The CUDA kernels are held against the plain version on the card by
+tests/test_torch_cuda_kernels.py. Here, on the CPU, the tensor-core
+kernel's arithmetic is checked by an emulation: every code is exact in
+bf16, the products of bf16 codes and bf16 x are summed per K-block (in
+float64 here, float32 on the card) and the float32 scale is applied to
+each block's partial; that emulation is held against JAX's kernel within
+the same 1e-5 of the largest output. The wrapper's choice of kernel
+(`qmm_route`) is checked over dtype, M, block and alignment.
 """
 import numpy as np
 import pytest
@@ -20,9 +26,10 @@ import jax.numpy as jnp
 from paddle_tpu.kernels.pallas import quant_matmul as jqm
 
 from paddle_tpu_torch.kernels.quant_matmul import (
-    FP8_MAX, INT8_MAX, QK_BLOCK, blockwise_weight_bytes,
-    dequantize_weight_blockwise, quant_error_bound, quant_matmul,
-    quant_matmul_plain, quantize_weight_blockwise)
+    FP8_MAX, INT8_MAX, QK_BLOCK, QMM_ROUTES, ROWS_MAX_M,
+    blockwise_weight_bytes, dequantize_weight_blockwise, qmm_route,
+    quant_error_bound, quant_matmul, quant_matmul_plain,
+    quantize_weight_blockwise)
 
 REL_TOL = 1e-5
 
@@ -132,3 +139,102 @@ def test_plain_keeps_bf16_and_checks_inputs():
         quant_matmul(x[:, :32], codes, scales)
     with pytest.raises(TypeError):
         quant_matmul(x, codes.float(), scales)
+
+
+# -- the tensor-core kernel's arithmetic ----------------------------------------
+
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_every_code_is_exact_in_bf16(qdtype):
+    """All 255 int8 codes (-127..127) and every finite e4m3 value survive
+    code -> bfloat16 -> float32 unchanged, so the tensor cores can take
+    the codes themselves."""
+    if qdtype == "int8":
+        codes = torch.arange(-127, 128, dtype=torch.int8)
+        assert codes.numel() == 255
+    else:
+        codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+            torch.float8_e4m3fn)
+        codes = codes[torch.isfinite(codes.float())]
+        assert codes.numel() == 254         # 0x7f and 0xff are NaN
+        assert codes.float().abs().max() == FP8_MAX
+    exact = codes.float()
+    np.testing.assert_array_equal(
+        codes.to(torch.bfloat16).float().numpy(), exact.numpy())
+
+
+def _wgmma_emulation(x, codes, scales):
+    """The tensor-core kernel's arithmetic: bf16 codes times bf16 x summed
+    per K-block (float64 here), the block's float32 scale applied to its
+    partial, the blocks summed."""
+    k = codes.shape[-1]
+    kb = scales.shape[-1]
+    bk = k // kb
+    xb = x.to(torch.bfloat16).double()
+    cb = codes.to(torch.bfloat16).double()
+    out = torch.zeros(x.shape[0], codes.shape[0], dtype=torch.float64)
+    for j in range(kb):
+        blk = slice(j * bk, (j + 1) * bk)
+        out += scales[:, j].double() * (xb[:, blk] @ cb[:, blk].t())
+    return out
+
+
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+@pytest.mark.parametrize("k", [256, 384])
+@pytest.mark.parametrize("block_k", [128, 64])
+@pytest.mark.parametrize("m", [40, 100])
+def test_wgmma_arithmetic_matches_jax_kernel(qdtype, k, block_k, m):
+    """The emulation against JAX's Pallas kernel in interpret mode on the
+    same bf16-valued x, within 1e-5 of the largest output (the two sum in
+    different orders); folding the scale into a bf16 weight instead
+    misses by more than ten times that."""
+    n = 48
+    rng = np.random.default_rng(k + block_k + m)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(torch.bfloat16).float().numpy()
+    jc, js = jqm.quantize_weight_blockwise(jnp.asarray(w), block_k=block_k,
+                                           qdtype=qdtype)
+    ref = np.asarray(jqm.quant_matmul(jnp.asarray(x), jc, js,
+                                      impl="kernel"))
+    tc, ts = quantize_weight_blockwise(torch.from_numpy(w.T.copy()),
+                                       block_k, qdtype)
+    out = _wgmma_emulation(torch.from_numpy(x), tc, ts).numpy()
+    top = np.abs(ref).max()
+    np.testing.assert_allclose(out, ref, atol=REL_TOL * top, rtol=0)
+    folded = dequantize_weight_blockwise(tc, ts).to(torch.bfloat16).double()
+    miss = np.abs((torch.from_numpy(x).double() @ folded.t()).numpy()
+                  - ref).max()
+    assert miss > 10 * REL_TOL * top
+
+
+@pytest.mark.parametrize("m,dtype,block_k,x_ptr,codes_ptr,route", [
+    (1, torch.bfloat16, 128, 0, 0, "rows"),
+    (ROWS_MAX_M, torch.bfloat16, 128, 0, 0, "rows"),
+    (ROWS_MAX_M, torch.float32, 128, 4, 1, "rows"),
+    (ROWS_MAX_M + 1, torch.bfloat16, 128, 0, 0, "wgmma"),
+    (1024, torch.bfloat16, 64, 256, 4096, "wgmma"),
+    (1024, torch.bfloat16, 256, 16, 32, "wgmma"),
+    (1024, torch.bfloat16, 16, 0, 0, "tiled"),
+    (1024, torch.bfloat16, 96, 16, 32, "tiled"),
+    (1024, torch.float32, 128, 0, 0, "tiled"),
+    (1024, torch.bfloat16, 105, 0, 0, "tiled"),
+    (1024, torch.bfloat16, 8, 0, 0, "tiled"),
+    (1024, torch.bfloat16, 128, 8, 0, "tiled"),
+    (1024, torch.bfloat16, 128, 0, 4, "tiled"),
+])
+def test_route_choice(m, dtype, block_k, x_ptr, codes_ptr, route):
+    """rows up to ROWS_MAX_M rows; above, wgmma only for bf16 x, blocks of
+    whole 64-deep stages and 16-byte aligned x and codes; tiled
+    otherwise."""
+    assert route in QMM_ROUTES
+    assert qmm_route(m, dtype, block_k, x_ptr, codes_ptr) == route
+
+
+def test_cpu_call_counts_no_route():
+    """A CPU tensor takes the plain version: no kernel, no route."""
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.standard_normal((16, 64)).astype(np.float32))
+    codes, scales = quantize_weight_blockwise(w)
+    before = dict(quant_matmul.route_launches)
+    quant_matmul(torch.ones(64, 64, dtype=torch.bfloat16), codes, scales)
+    assert quant_matmul.route_launches == before
