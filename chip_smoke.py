@@ -36,17 +36,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    2 and 4 shards against the unsharded serve, token for token;
 6. the training path's kernels checked and timed the same way at the
    training shapes (after the serving phases, so that those see the card
-   as the serving slice left it), then train: bench.py's one-chip
+   as the serving slice left it): the flash backward on its tensor-core
+   pair (bf16 at D 64 and 128, S 1000 tails and the train shape) and on
+   its CUDA-core pair (float32, and bf16 at D 256), each case naming its
+   route and rate; then train: bench.py's one-chip
    training configuration (hidden 4096, FFN
    11008, 32 heads, vocab 32000, 4 layers, bf16, batch 6 x 2048, AdamW at
    lr 1e-4 with bf16 moments) through TrainStep, 2 warm-up and 10 timed
    steps: tokens/s, seconds per step, MFU, every step's loss and the peak
    memory. Every loss must be finite, the last below the first, and the
    flash forward and backward kernels must each have run once per layer
-   per step;
+   per step, every backward on the tensor-core pair;
 7. train_parity: 3 steps of a narrow float32 Llama (2 layers, S 256) with
    the flash kernels and again with the plain attention: losses and the
-   first step's gradients must agree;
+   first step's gradients must agree, every backward on the CUDA-core
+   pair;
 8. the MoE training path's kernels (the grouped forward, also as the
    input gradient against w^T read in place, the grouped weight gradient
    and the grouped int8/fp8 forward) at its shapes: 16,384 routes of a
@@ -110,7 +114,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    of x, the residual, the norm weight and the projections);
 16. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the generate of phase 5 for the
-   flash forward, the train of phase 6 for the flash backward, serve_quant
+   flash forward, the train of phase 6 for the flash backward's
+   tensor-core pair and train_parity for its CUDA-core pair, serve_quant
    for quant_matmul's GEMV and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
    forward and dw kernels, train_moe_quant for the quantized grouped
@@ -136,7 +141,8 @@ of each gradient's largest magnitude: there the float32 sums run over S
 terms whose difference dp - delta cancels, so an element far below the
 largest carries a summation-order error of about 1e-6 of the largest
 (not of itself); a dropped 32-key tile would move a gradient by about
-1e-2 of its largest element.
+1e-2 of its largest element. Float32 gradients (the CUDA-core pair) get
+rtol 0 and 1e-4 of the largest.
 """
 from __future__ import annotations
 
@@ -157,6 +163,8 @@ BF16_RTOL = 2.0 ** -7           # one bf16 ulp, relative to the value
 BF16_ATOL = 1e-4
 LSE_ATOL = 1e-4                 # float32 lse, summation order only
 GRAD_ATOL = 1e-3                # of the gradient's largest magnitude
+# float32 gradients: summation order only, as the card tests' float32 rule
+GRAD_ATOL_F32 = 1e-4
 # the library yardstick may round p to bf16 before p.v; it is held to
 # 2e-2 of the output's largest magnitude (at least 1)
 LIB_TOL = 2e-2
@@ -379,17 +387,24 @@ def flash_case(torch, name, bh, s, d, causal, seed):
     return rec
 
 
-def flash_bwd_case(torch, name, bh, s, d, causal, seed):
+def flash_bwd_case(torch, name, bh, s, d, causal, seed,
+                   dtype="bfloat16"):
     """The backward kernels (dq, dk/dv) against their plain version on the
-    forward kernel's o and lse, as training gives them. The plain version
-    needs several [BH, S, S] float32 tensors, so it runs in chunks of BH."""
+    forward kernel's o and lse, as training gives them, on the pair
+    flash_bwd_route picks: the tensor cores for bf16 at D 64 and 128, the
+    CUDA cores for float32 and D 256. bf16 gradients are held to
+    BF16_RTOL |ref| + GRAD_ATOL max|ref|, float32 ones to GRAD_ATOL_F32
+    max|ref|. The plain version needs several [BH, S, S] float32 tensors,
+    so it runs in chunks of BH."""
     from paddle_tpu_torch.kernels.flash_attention import (
-        _flash_bhsd, _flash_bhsd_bwd, flash_attention_bwd_plain)
+        _flash_bhsd, _flash_bhsd_bwd, flash_attention_bwd_plain,
+        flash_bwd_route)
     dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     q, k, v, do = (torch.randn(bh, s, d, generator=gen, device=dev,
-                               dtype=torch.bfloat16) for _ in range(4))
+                               dtype=dt) for _ in range(4))
     scale = d ** -0.5
     o, lse = _flash_bhsd(q, k, v, causal, scale)
     chunk = max(1, (1 << 28) // (s * s))
@@ -401,13 +416,22 @@ def flash_bwd_case(torch, name, bh, s, d, causal, seed):
             for i in range(0, bh, chunk)]
         return [torch.cat(t) for t in zip(*parts)]
 
+    route = flash_bwd_route(dt, d, [t.data_ptr() for t in (q, k, v, do)])
+    routed = _flash_bhsd_bwd.route_launches[route]
     got = _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale)
+    check(_flash_bhsd_bwd.route_launches[route] == routed + 1,
+          f"{name}: the backward did not take its {route} pair")
     ref = plain()
     torch.cuda.synchronize()
+    rtol = BF16_RTOL if dt == torch.bfloat16 else 0.0
+    of_max = GRAD_ATOL if dt == torch.bfloat16 else GRAD_ATOL_F32
     errs, ratios, atols = {}, {}, {}
     for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-        atols[gname] = GRAD_ATOL * r.float().abs().max().item()
-        errs[gname], ratios[gname] = bf16_err(g, r, atols[gname])
+        atols[gname] = of_max * r.float().abs().max().item()
+        d_ = (g.float() - r.float()).abs()
+        errs[gname] = d_.max().item()
+        ratios[gname] = (d_ / (rtol * r.float().abs() + atols[gname])) \
+            .max().item()
     ratio = max(ratios.values())
     check(math.isfinite(ratio) and ratio <= 1.0,
           f"{name}: backward kernel vs plain errors {errs}, "
@@ -429,15 +453,20 @@ def flash_bwd_case(torch, name, bh, s, d, causal, seed):
     pairs = s * (s + 1) // 2 if causal else s * s
     # five S x S x D products (q k^T, dO v^T, p^T dO, ds k, ds^T q)
     flops = 10 * bh * d * pairs
-    # q, k, v, o, dO read, dq, dk, dv written (bf16); lse and delta float32
-    bytes_moved = 8 * bh * s * d * 2 + 2 * bh * s * 4
-    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    # q, k, v, o, dO read, dq, dk, dv written; lse and delta float32
+    bytes_moved = 8 * bh * s * d * q.element_size() + 2 * bh * s * 4
+    # float32 inputs: full float32 (TF32 would round them), off the
+    # tensor cores
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS
+                               if dt == torch.bfloat16 else F32_FLOPS)
     rec = {"phase": "kernel_check", "kernel": "flash_attention_bwd",
-           "case": name, "dtype": "bfloat16", "bh": bh, "s": s, "d": d,
-           "causal": causal, "max_abs_err": max(errs.values()),
+           "case": name, "dtype": dtype, "route": route, "bh": bh, "s": s,
+           "d": d, "causal": causal, "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "err_over_tolerance": ratio,
-           "rtol": BF16_RTOL, "atol_by_grad": atols,
+           "rtol": rtol, "atol_by_grad": atols,
            "plain_chunk_bh": chunk, "kernel_ms": kernel_ms,
+           "tflops": flops / kernel_ms / 1e9,
+           "bound_share": bound_ms / kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library": "backward of scaled_dot_product_attention",
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1166,6 +1195,8 @@ def train_phase(torch, np, seed):
     torch.cuda.reset_peak_memory_stats()
     _flash_bhsd.launches = 0
     _flash_bhsd_bwd.launches = 0
+    _flash_bhsd_bwd.route_launches = dict.fromkeys(
+        _flash_bhsd_bwd.route_launches, 0)
     losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1174,6 +1205,7 @@ def train_phase(torch, np, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = _flash_bhsd.launches, _flash_bhsd_bwd.launches
+    routes = dict(_flash_bhsd_bwd.route_launches)
     losses = [x.item() for x in losses]
     steps = TRAIN_WARMUP + TRAIN_TIMED
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -1182,6 +1214,8 @@ def train_phase(torch, np, seed):
     check(fwd == layers * steps and bwd == layers * steps,
           f"flash launches fwd {fwd}, bwd {bwd} != {layers} layers x "
           f"{steps} steps")
+    check(routes["wgmma"] == layers * steps,
+          f"every train backward runs on the tensor cores: {routes}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     tps = tokens * TRAIN_TIMED / wall
     flops_tok = model_flops_per_token(cfg, TRAIN_SEQ, n_params)
@@ -1198,7 +1232,8 @@ def train_phase(torch, np, seed):
            "tokens_per_s": tps, "model_flops_per_token": flops_tok,
            "mfu": flops_tok * tps / BF16_FLOPS, "losses": losses,
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           "flash_fwd_launches": fwd, "flash_bwd_launches": bwd}
+           "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+           "flash_bwd_route_launches": routes}
     emit(rec)
     del model, step
     torch.cuda.empty_cache()
@@ -1280,6 +1315,8 @@ def train_parity_phase(torch, np, seed):
                                       moment_dtype=None)
         _flash_bhsd.launches = 0
         _flash_bhsd_bwd.launches = 0
+        _flash_bhsd_bwd.route_launches = dict.fromkeys(
+            _flash_bhsd_bwd.route_launches, 0)
         losses, grads = [], None
         for i in range(PARITY_STEPS):
             losses.append(step((ids,), (labels,)).item())
@@ -1287,11 +1324,14 @@ def train_parity_phase(torch, np, seed):
                 grads = {k: p.grad.clone()
                          for k, p in model.named_parameters()}
         runs[flash] = (losses, grads, _flash_bhsd.launches,
-                       _flash_bhsd_bwd.launches)
+                       _flash_bhsd_bwd.launches,
+                       dict(_flash_bhsd_bwd.route_launches))
         del model, step
-    (fl, fg, ff, fb), (pl_, pg, pf, pb) = runs[True], runs[False]
+    (fl, fg, ff, fb, routes), (pl_, pg, pf, pb, _) = runs[True], runs[False]
     check(ff == fb == 2 * PARITY_STEPS and pf == pb == 0,
           f"flash launches: kernels run {ff}/{fb}, plain run {pf}/{pb}")
+    check(routes["cuda_core"] == fb,
+          f"float32 backwards run on the CUDA cores: {routes}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fl, pl_))
     grad_rel = max(((fg[k] - pg[k]).abs().max()
                     / pg[k].abs().max()).item() for k in pg)
@@ -1304,7 +1344,8 @@ def train_parity_phase(torch, np, seed):
            "max_loss_rel_diff": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
            "max_grad_diff_over_max": grad_rel,
            "grad_atol_of_max": PARITY_GRAD_ATOL,
-           "flash_fwd_launches": ff, "flash_bwd_launches": fb}
+           "flash_fwd_launches": ff, "flash_bwd_launches": fb,
+           "flash_bwd_route_launches": routes}
     emit(rec)
     torch.cuda.empty_cache()
     return rec
@@ -3170,23 +3211,36 @@ def main():
     # the shape the train phase gives the forward (batch 6 x 32 heads)
     flash_case(torch, "train_bh192_s2048_d128_causal", 192, 2048, 128, True,
                8)
+    # bf16 at D 64 and 128 on the tensor-core pair
+    wgmma_cases = []
     for s in (1024, 2048):
         for d in (64, 128):
             for causal in (True, False):
-                flash_bwd_case(
+                wgmma_cases.append(flash_bwd_case(
                     torch, f"bh64_s{s}_d{d}_{'causal' if causal else 'full'}",
-                    64, s, d, causal, 3 * s + d + causal)
+                    64, s, d, causal, 3 * s + d + causal))
     for causal in (True, False):                # no tile divides 1000
-        flash_bwd_case(torch, f"bh64_s1000_d128_"
-                              f"{'causal' if causal else 'full'}",
-                       64, 1000, 128, causal, 31 + causal)
+        wgmma_cases.append(flash_bwd_case(
+            torch, f"bh64_s1000_d128_{'causal' if causal else 'full'}",
+            64, 1000, 128, causal, 31 + causal))
     # the shape the train phase gives the backward
     bwd_main = flash_bwd_case(torch, "train_bh192_s2048_d128_causal", 192,
                               2048, 128, True, 9)
+    for rec in wgmma_cases + [bwd_main]:
+        check(rec["route"] == "wgmma", f"{rec['case']}: routed to "
+                                       f"{rec['route']}")
+    # the CUDA-core pair: float32 (train_parity's dtype) and bf16 at D 256
+    bwd_f32 = flash_bwd_case(torch, "bh64_s1024_d128_causal_f32", 64, 1024,
+                             128, True, 41, dtype="float32")
+    bwd_d256 = flash_bwd_case(torch, "bh16_s1024_d256_causal", 16, 1024,
+                              256, True, 42)
+    for rec in (bwd_f32, bwd_d256):
+        check(rec["route"] == "cuda_core", f"{rec['case']}: routed to "
+                                           f"{rec['route']}")
     train = train_phase(torch, np, args.seed)
     if args.profile:
         train_profile_phase(torch, np, args.seed)
-    train_parity_phase(torch, np, args.seed)
+    train_parity = train_parity_phase(torch, np, args.seed)
 
     # the MoE training path: its kernels at train_moe's shapes, then the
     # full-width GPT-MoE, its int8-expert lane and the dispatch parity
@@ -3231,7 +3285,11 @@ def main():
             ("flash_attention_bwd",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480",
-             bwd_main, train["flash_bwd_launches"]),
+             bwd_f32, train_parity["flash_bwd_route_launches"]["cuda_core"]),
+            ("flash_attention_bwd_wgmma",
+             "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+             "paddle_tpu/kernels/pallas/flash_attention.py:480, :497",
+             bwd_main, train["flash_bwd_route_launches"]["wgmma"]),
             ("quant_matmul", "paddle_tpu_torch/csrc/quant_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:177",
              qmm_main, serve_quant["quant_matmul_route_launches"]["rows"]),

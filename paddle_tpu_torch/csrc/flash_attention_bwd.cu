@@ -24,20 +24,60 @@
 // flops (about half that causal) on 8*S*D elements read or written, so
 // about S*5/8 flops per byte in bf16 (S*5/16 causal) against the card's
 // 295 flops/byte balance point: bound by operations from S ~ 500 full and
-// S ~ 950 causal. This kernel computes on the CUDA cores in float32 and
-// recomputes the scores and dO v^T in both kernels (seven S x S x D
-// products in all, against five), so in practice its own arithmetic, far
-// below the tensor-core peak, bounds it. The tensor cores (wgmma), TMA
-// loads and bf16 tiles in shared memory are the next steps.
+// S ~ 950 causal. At the train shape (BH 192, S 2048, D 128, causal,
+// bf16) that is 0.52 ms of tensor-core work against 0.24 ms of traffic.
 //
-// Design, dq kernel: one block per (bh, 64-row q tile), 8 warps of 8 rows.
+// Two pairs of kernels; the caller names the pair (`route`), C refuses a
+// pair that cannot take the inputs and never picks one itself.
+//
+// The tensor-core pair (`flash_bwd_dq_wgmma`, `flash_bwd_dkv_wgmma`; bf16,
+// D 64 or 128). One warpgroup a block, wgmma.cuh's primitives:
+// - Every tile sits in shared memory once, as D-panels of 64 bf16 with
+//   the 128-byte swizzle, copied by cp.async (rows past S zero-filled,
+//   never read). The same bytes are a K-major operand over D for the
+//   scores and dP and, through an MN-major descriptor, the transposed B
+//   of dQ += dS K, dV += P^T dO and dK += dS^T Q: nothing is transposed
+//   through shared memory.
+// - dq: a block owns 64 q rows (Q, dO resident) and streams K, V tiles of
+//   64 keys through a 2-stage ring up to the causal diagonal (the longest
+//   rows launch first). Per tile: S = Q K^T and dP = dO V^T (SS, N 64),
+//   then dQ += dS K (RS, N = D). 96 KB of shared memory at D 128.
+// - dk/dv: a block owns 64 keys (K, V resident) and streams Q, dO tiles
+//   of 64 rows with their lse and delta from the diagonal on. It computes
+//   S^T = K Q^T and dP^T = V dO^T, so p^T and ds^T come out in the
+//   accumulator layout that is also the RS form's A layout.
+// - Arithmetic: bf16 q, k, v and dO make every product exact; sums are
+//   float32. p = exp2(S * scale * log2e - lse * log2e), 0 by an explicit
+//   test above the diagonal and past S (only on the diagonal tile and the
+//   tail tile); ds = p (dP - delta) scale; dk = ds^T q with q unscaled.
+//   P and dS enter their products as two bf16 operands, hi = bf16(x) and
+//   lo = bf16(x - hi), into one float32 accumulator: rounded once to bf16
+//   (as FlashAttention does) they miss the backward's tolerance, one bf16
+//   ulp of the output plus 1e-3 of its largest element, at S 256 already
+//   (tests/test_torch_flash_attention_bwd.py). That costs three extra
+//   products: ten S x S x D product-units where the function has five.
+// - Two kernels and no atomics, so every run gives the same bits.
+//   Left for later: one kernel with a float32 atomic dQ (FlashAttention-2's
+//   shape), TMA, warp specialisation, 2-warpgroup blocks, and overlapping
+//   a tile's products with the previous tile's exp and hi/lo split (each
+//   tile waits for its own products now).
+//
+// The CUDA-core pair (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`) keeps
+// float32 inputs, where TF32 would round the operands that the float32
+// parity runs compare bit-closely with plain attention, and D 256, where
+// dK and dV would need 256 accumulator registers a thread. It computes on
+// the CUDA cores in float32 and recomputes the scores and dO v^T in both
+// kernels (seven S x S x D products), far below the tensor-core peak.
+//
+// CUDA-core dq kernel: one block per (bh, 64-row q tile), 8 warps of 8
+// rows.
 // The q tile (pre-scaled) and the dO tile stay in shared memory in float32;
 // K and V stream in 32-row tiles with padded rows. A lane owns one key
 // column for the scores and dO v^T, so a row's lse and delta are
 // per-warp registers; for dq += ds k a lane owns D/32 output columns and
 // takes ds by shuffle.
 //
-// Design, dk/dv kernel: one block per (bh, k tile), 8 warps of R key rows
+// CUDA-core dk/dv kernel: one block per (bh, k tile), 8 warps of R key rows
 // (R = 8, or 4 at D = 256 so that the two [R, D/32] float32 accumulators
 // of a lane stay in registers without spilling). The k tile stays in
 // shared memory; q and dO stream in 32-row tiles with padded rows. A lane
@@ -53,6 +93,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -336,6 +377,335 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- bf16, D 64 and 128: the tensor-core pair ---------------------------------
+
+namespace wg = ptt::wg;
+
+constexpr int kRows = 64;  // rows of every tile: wgmma's M, one warpgroup
+constexpr uint32_t kPanelBytes = kRows * 128;  // one D-panel of a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tiles live in shared memory as D-panels (wgmma.cuh, `load_panels`): a
+// [64, HD] bf16 tile is HD / 64 panels of 8 KB, 128B-swizzled. One copy
+// serves as a K-major operand over D (the scores and dP) and, through an
+// MN-major descriptor, as the transposed B over its rows (dQ, dK, dV).
+template <int HD>
+constexpr uint32_t kTileBytes = kPanelBytes * (HD / 64);
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// acc = A . B^T over HD, both [64, HD] K-major D-panel tiles (A at sa, B
+// at sb)
+template <int HD>
+__device__ __forceinline__ void ss_over_d(float (&acc)[32], uint32_t sa,
+                                          uint32_t sb) {
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) {
+    const uint32_t off = (j / 4) * kPanelBytes + 32 * (j % 4);
+    wg::mma_m64n64k16(acc, wg::desc_sw128(sa + off), wg::desc_sw128(sb + off),
+                      j > 0);
+  }
+}
+
+// acc += A . B over B's rows: A's k16 slice j as hi and lo fragments, B a
+// [64, HD] D-panel tile at sb read MN-major (N = HD)
+template <int HD>
+__device__ __forceinline__ void rs_hilo(float (&acc)[HD / 2],
+                                        const uint32_t (&hi)[4],
+                                        const uint32_t (&lo)[4], uint32_t sb,
+                                        int j) {
+  const uint64_t db = wg::desc_sw128_mn(sb + 2048 * j, kPanelBytes);
+  if constexpr (HD == 128) {
+    wg::mma_m64n128k16_rs_tb(acc, hi, db, 1);
+    wg::mma_m64n128k16_rs_tb(acc, lo, db, 1);
+  } else {
+    wg::mma_m64n64k16_rs_tb(acc, hi, db, 1);
+    wg::mma_m64n64k16_rs_tb(acc, lo, db, 1);
+  }
+}
+
+// the hi/lo fragments of the four k16 slices of a [64, 64] accumulator
+__device__ __forceinline__ void split_all(const float (&x)[32],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+  wg::frag_a_hilo<0>(x, hi[0], lo[0]);
+  wg::frag_a_hilo<1>(x, hi[1], lo[1]);
+  wg::frag_a_hilo<2>(x, hi[2], lo[2]);
+  wg::frag_a_hilo<3>(x, hi[3], lo[3]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wg::fence_operand(hi[j]);
+    wg::fence_operand(lo[j]);
+  }
+}
+
+// bf16 rows of a [64, HD] float32 accumulator, rows < S only
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&acc)[HD / 2],
+                                           int row0, int S) {
+  const int lane = threadIdx.x & 31;
+  const int r = row0 + (threadIdx.x >> 5) * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int row = r + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * HD + col) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+template <int HD>
+constexpr size_t dq_wgmma_smem() {
+  // Q, dO, and two stages of K, V
+  return 6 * (size_t)kTileBytes<HD>;
+}
+
+// dq: one block per (bh, 64-row q tile), one warpgroup. Q and dO stay in
+// shared memory; K and V tiles of 64 keys stream through a 2-stage
+// cp.async ring. Per key tile: S = Q K^T and dP = dO V^T (SS), p and ds
+// in registers, dQ += dS K (RS, K read MN-major) with dS as hi + lo.
+template <int HD>
+__global__ void __launch_bounds__(128)
+    flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int S, float scale,
+                       int causal) {
+  constexpr uint32_t kT = kTileBytes<HD>;
+  extern __shared__ __align__(1024) uint8_t dq_smem[];
+  const uint32_t sQ = wg::smem_addr(dq_smem);
+  if (sQ & 1023) __trap();  // the swizzle needs it
+  const uint32_t sDO = sQ + kT, sKV = sQ + 2 * kT;  // stage s: K, V at +2kT s
+  const int t = threadIdx.x, lane = t & 31;
+  // causal: the longest rows first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int bh = blockIdx.x, q0 = qt * kRows;
+  const size_t base = (size_t)bh * S * HD;
+  const int r_lo = q0 + (t >> 5) * 16 + lane / 4, r_hi = r_lo + 8;
+  const float sl2 = scale * kLog2e;
+  const float lse0 = r_lo < S ? lse[(size_t)bh * S + r_lo] * kLog2e : 0.f;
+  const float lse1 = r_hi < S ? lse[(size_t)bh * S + r_hi] * kLog2e : 0.f;
+  const float dl0 = r_lo < S ? delta[(size_t)bh * S + r_lo] : 0.f;
+  const float dl1 = r_hi < S ? delta[(size_t)bh * S + r_hi] : 0.f;
+
+  const int n_kt = causal ? qt + 1 : (S + kRows - 1) / kRows;
+  wg::load_panels<HD>(sQ, q + base, q0, S);
+  wg::load_panels<HD>(sDO, dout + base, q0, S);
+  for (int p = 0; p < 2; ++p) {
+    if (p < n_kt) {
+      wg::load_panels<HD>(sKV + 2 * kT * p, k + base, p * kRows, S);
+      wg::load_panels<HD>(sKV + 2 * kT * p + kT, v + base, p * kRows, S);
+    }
+    wg::cp_async_commit();
+  }
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    wg::cp_async_wait<1>();  // this tile's copies (the next may fly)
+    wg::fence_proxy_async();
+    __syncthreads();
+    const uint32_t sK = sKV + 2 * kT * (it & 1), sV = sK + kT;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    wg::fence();
+    ss_over_d<HD>(sc, sQ, sK);
+    ss_over_d<HD>(dp, sDO, sV);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(sc);
+    wg::fence_operand(dp);
+
+    const int k0 = it * kRows;
+    const bool edge = (causal && it == qt) || k0 + kRows > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi_row = (i & 2) != 0;
+      const int row = hi_row ? r_hi : r_lo;
+      const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      float p = exp2f(fmaf(sc[i], sl2, -(hi_row ? lse1 : lse0)));
+      if (edge && !(col < S && (!causal || col <= row))) p = 0.f;
+      dp[i] = p * (dp[i] - (hi_row ? dl1 : dl0)) * scale;
+    }
+    uint32_t dh[4][4], dl[4][4];
+    split_all(dp, dh, dl);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) rs_hilo<HD>(acc, dh[j], dl[j], sK, j);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < n_kt) {
+      wg::load_panels<HD>(sK, k + base, (it + 2) * kRows, S);
+      wg::load_panels<HD>(sV, v + base, (it + 2) * kRows, S);
+    }
+    wg::cp_async_commit();
+  }
+  wg::cp_async_wait<0>();
+  store_rows<HD>(dq + base, acc, q0, S);
+}
+
+template <int HD>
+constexpr size_t dkv_wgmma_smem() {
+  // K, V, two stages of Q, dO, and two stages of lse, delta
+  return 6 * (size_t)kTileBytes<HD> + 4 * sizeof(float) * kRows;
+}
+
+// dk/dv: one block per (bh, 64-key tile), one warpgroup. K and V stay in
+// shared memory; Q and dO tiles of 64 rows stream through a 2-stage ring
+// with their lse and delta. Per q tile: S^T = K Q^T and dP^T = V dO^T
+// (SS), so p^T and ds^T land in the accumulator layout that is also the
+// RS form's A layout; then dV += P^T dO and dK += dS^T Q (RS, dO and Q
+// read MN-major), P^T and dS^T as hi + lo.
+template <int HD>
+__global__ void __launch_bounds__(128)
+    flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int S, float scale,
+                        int causal) {
+  constexpr uint32_t kT = kTileBytes<HD>;  // K, V, Q and dO tiles
+  extern __shared__ __align__(1024) uint8_t dkv_smem[];
+  const uint32_t sK = wg::smem_addr(dkv_smem);
+  if (sK & 1023) __trap();
+  const uint32_t sV = sK + kT, sQO = sK + 2 * kT;  // stage s: Q, dO at +2kT s
+  float* lse_s = reinterpret_cast<float*>(dkv_smem + 6 * kT);
+  float* del_s = lse_s + 2 * kRows;  // stage s at + kRows s
+  const int t = threadIdx.x, lane = t & 31;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kRows;
+  const size_t base = (size_t)bh * S * HD;
+  const float* lse_b = lse + (size_t)bh * S;
+  const float* del_b = delta + (size_t)bh * S;
+  const int c_lo = k0 + (t >> 5) * 16 + lane / 4, c_hi = c_lo + 8;
+  const float sl2 = scale * kLog2e;
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int t_lo = causal ? blockIdx.y : 0;  // rows below k0 see no key here
+  auto load_q = [&](int it, int stage) {
+    const int r0 = it * kRows;
+    wg::load_panels<HD>(sQO + 2 * kT * stage, q + base, r0, S);
+    wg::load_panels<HD>(sQO + 2 * kT * stage + kT, dout + base, r0, S);
+    // threads 0-63 copy the tile's lse, 64-127 its delta
+    const int r = r0 + (t & 63);
+    const bool ok = r < S;
+    const float* src = t < 64 ? lse_b : del_b;
+    cp_async4(wg::smem_addr((t < 64 ? lse_s : del_s) + kRows * stage +
+                            (t & 63)),
+              ok ? src + r : src, ok);
+  };
+  wg::load_panels<HD>(sK, k + base, k0, S);
+  wg::load_panels<HD>(sV, v + base, k0, S);
+  for (int p = 0; p < 2; ++p) {
+    if (t_lo + p < n_qt) load_q(t_lo + p, p);
+    wg::cp_async_commit();
+  }
+
+  float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  for (int it = t_lo; it < n_qt; ++it) {
+    const int stage = (it - t_lo) & 1;
+    wg::cp_async_wait<1>();
+    wg::fence_proxy_async();
+    __syncthreads();
+    const uint32_t sQ = sQO + 2 * kT * stage, sDO = sQ + kT;
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wg::fence();
+    ss_over_d<HD>(st, sK, sQ);
+    ss_over_d<HD>(dpt, sV, sDO);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(st);
+    wg::fence_operand(dpt);
+
+    const int qs0 = it * kRows;
+    const bool edge = (causal && it == t_lo) || qs0 + kRows > S ||
+                      k0 + kRows > S;
+    const float* lse_t = lse_s + kRows * stage;
+    const float* del_t = del_s + kRows * stage;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = (i & 2) ? c_hi : c_lo;
+      const int qi = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      float p = exp2f(fmaf(st[i], sl2, -lse_t[qi] * kLog2e));
+      if (edge && !(qs0 + qi < S && key < S && (!causal || key <= qs0 + qi)))
+        p = 0.f;
+      dpt[i] = p * (dpt[i] - del_t[qi]) * scale;
+      st[i] = p;
+    }
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+    split_all(st, ph, pl);
+    split_all(dpt, dh, dl);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      rs_hilo<HD>(acc_v, ph[j], pl[j], sDO, j);
+      rs_hilo<HD>(acc_k, dh[j], dl[j], sQ, j);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc_k);
+    wg::fence_operand(acc_v);
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < n_qt) load_q(it + 2, stage);
+    wg::cp_async_commit();
+  }
+  wg::cp_async_wait<0>();
+  // ds carries one factor of scale and q none: dk = ds^T q as it stands
+  store_rows<HD>(dk + base, acc_k, k0, S);
+  store_rows<HD>(dv + base, acc_v, k0, S);
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, void* dk, void* dv, int BH, int S, float scale,
+                 int causal, cudaStream_t st) {
+  constexpr size_t dq_bytes = dq_wgmma_smem<HD>();
+  constexpr size_t dkv_bytes = dkv_wgmma_smem<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dq_bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dkv_bytes);
+  if (e != cudaSuccess) return (int)e;
+  using bf = __nv_bfloat16;
+  const dim3 grid_q(BH, (S + kRows - 1) / kRows);
+  flash_bwd_dq_wgmma<HD><<<grid_q, 128, dq_bytes, st>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
+      (bf*)dq, S, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid_k(BH, (S + kRows - 1) / kRows);
+  flash_bwd_dkv_wgmma<HD><<<grid_k, 128, dkv_bytes, st>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
+      (bf*)dk, (bf*)dv, S, scale, causal);
+  return 0;
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
@@ -385,29 +755,52 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// route codes (kernels/flash_attention.py keeps the same table)
+constexpr int kRouteCudaCore = 0;
+constexpr int kRouteWgmma = 1;
+
 // q, k, v, dout, dq, dk, dv [BH, S, hd] contiguous, one dtype (0 =
-// float32, 1 = bfloat16); lse and delta [BH, S] float32. Launches the dq
+// float32, 1 = bfloat16); lse and delta [BH, S] float32. route: 0 = the
+// CUDA-core pair (any dtype, hd 64, 128 or 256), 1 = the tensor-core pair
+// (bf16, hd 64 or 128, 16-byte aligned q, k, v and dout). Launches the dq
 // kernel, then the dk/dv kernel, on `stream`. Returns the CUDA error code
-// of the launches (0 on success).
+// of the launches (0 on success); cudaErrorInvalidValue for inputs the
+// chosen route does not take.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
                                    void* dq, void* dk, void* dv, int BH,
                                    int S, int hd, float scale, int causal,
-                                   int dtype, void* stream) {
+                                   int dtype, int route, void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
   int rc;
-  if (dtype == ptt::kFloat32)
+  if (route == kRouteWgmma) {
+    if (dtype != ptt::kBFloat16 || (uintptr_t)q % 16 || (uintptr_t)k % 16 ||
+        (uintptr_t)v % 16 || (uintptr_t)dout % 16 ||
+        (S + kRows - 1) / kRows > 65535)
+      return (int)cudaErrorInvalidValue;
+    if (hd == 64)
+      rc = launch_wgmma<64>(q, k, v, dout, l, dl, dq, dk, dv, BH, S, scale,
+                            causal, st);
+    else if (hd == 128)
+      rc = launch_wgmma<128>(q, k, v, dout, l, dl, dq, dk, dv, BH, S, scale,
+                             causal, st);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else if (route != kRouteCudaCore) {
+    return (int)cudaErrorInvalidValue;
+  } else if (dtype == ptt::kFloat32) {
     rc = dispatch_hd<float>(hd, q, k, v, dout, l, dl, dq, dk, dv, BH, S,
                             scale, causal, st);
-  else if (dtype == ptt::kBFloat16)
+  } else if (dtype == ptt::kBFloat16) {
     rc = dispatch_hd<__nv_bfloat16>(hd, q, k, v, dout, l, dl, dq, dk, dv, BH,
                                     S, scale, causal, st);
-  else
+  } else {
     rc = (int)cudaErrorInvalidValue;
+  }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

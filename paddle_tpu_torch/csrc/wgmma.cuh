@@ -20,6 +20,30 @@
 //   holds d[i] at row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2) and
 //   column 8 * (i / 4) + 2 * (t % 4) + i % 2. `scale_d` 0 writes D = A.B^T,
 //   1 adds to it.
+// - `mma_m64n64k16` is the same SS product at N 64 (32 accumulators a
+//   thread, the same fragment rule).
+// - The same 128B-swizzled tile also serves as an MN-major operand (the
+//   N dim contiguous): a [rows, D] tile stored as D-panels of 64 values
+//   (each panel rows x 128 bytes, the panels one after another) read as
+//   B[N = D, K = rows]. `desc_sw128_mn` names it: LBO is the byte step
+//   between 64-wide D-panels (rows * 128) and SBO 1024 bytes, the step
+//   between 8-row groups along the contraction; the k16 step j starts 16
+//   rows in, 2048 * j bytes (a multiple of 1024, so the base offset stays
+//   0). A [64, 64] tile has one panel and N 64 never reads the LBO.
+// - `mma_m64n{64,128}k16_rs_tb` is the RS form with B transposed: A
+//   [64, 16] comes from registers, B through an MN-major descriptor
+//   (`tnspB` = 1). Thread t's four A registers hold, as bf16 pairs with
+//   the lower column in the low half, rows 16 * (t / 32) + (t % 32) / 4
+//   (registers 0 and 2) and 8 more (1 and 3), columns 2 * (t % 4) + {0, 1}
+//   (registers 0 and 1) and 8 more (2 and 3): exactly where k16 slice j of
+//   a float32 accumulator D[64, N] keeps d[8j .. 8j + 7], so
+//   `frag_a_hilo<j>` turns an accumulator into the A operand of the next
+//   product without shared memory. It splits each float32 x into hi =
+//   bf16(x) and lo = bf16(x - hi), so that two RS products, hi then lo,
+//   into one float32 accumulator carry x to about 2^-16 of itself.
+// - The A registers are read while the wgmma runs: write them, then
+//   `fence_operand(a)` and `fence()` before the wgmma, and leave them
+//   unchanged until a `wait` that covers it.
 // - Between a thread's own reads or writes of d and a wgmma on d, call
 //   `fence()`; after `wait<N>()` and before d is read, `fence_operand(d)`
 //   keeps the compiler from moving the read above the wait.
@@ -28,9 +52,11 @@
 //   threads before the barrier that publishes it.
 // - `cp_async16` copies 16 bytes from global to shared memory, both 16-byte
 //   aligned; with `valid` false it reads nothing and writes 16 zero bytes.
+//   `load_panels` copies a 64-row tile into D-panels with it.
 #pragma once
 
 #include <stdint.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ptt {
@@ -53,6 +79,16 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return d;
 }
 
+// the same tile read MN-major; panel_bytes = rows * 128, the D-panel step
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr,
+                                                  uint32_t panel_bytes) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;             // start, 16-byte units
+  d |= uint64_t((panel_bytes >> 4) & 0x3FFFu) << 16;  // LBO: next D-panel
+  d |= uint64_t(1024 >> 4) << 32;  // SBO: next 8 rows of the contraction
+  d |= uint64_t(1) << 62;          // 128-byte swizzle
+  return d;
+}
+
 __device__ __forceinline__ void fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -70,6 +106,11 @@ template <int R>
 __device__ __forceinline__ void fence_operand(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -112,11 +153,137 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_m64n64k16_rs_tb(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_m64n128k16_rs_tb(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// k16 slice J of a float32 accumulator as the A operand of an RS wgmma, in
+// two parts: hi = bf16(x), lo = bf16(x - hi), round to nearest each
+template <int J, int R>
+__device__ __forceinline__ void frag_a_hilo(const float (&d)[R],
+                                            uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  static_assert(8 * J + 8 <= R, "the slice lies in the accumulator");
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = d[8 * J + 2 * i], x1 = d[8 * J + 2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const __nv_bfloat162 l =
+        __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// Rows [r0, r0 + 64) of a row-major [S, D] bf16 matrix into a 64-row
+// tile of D-panels at shared address dst (D / 64 panels of 64 x 128
+// bytes, 128B-swizzled), by the 128 threads of a warpgroup; rows at or
+// past S are zero-filled without a read. src and every row 16-byte
+// aligned (D a multiple of 64).
+template <int D>
+__device__ __forceinline__ void load_panels(uint32_t dst,
+                                            const __nv_bfloat16* src, int r0,
+                                            int S) {
+  constexpr int C = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x % 128; i < 64 * C; i += 128) {
+    const int r = i / C, c = i % C;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + (c / 8) * 64 * 128 + sw128(r, c % 8),
+               ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -8,8 +8,16 @@
 // on a block's first step, and the block's float32 scale is applied to the
 // partial on the accumulator. The tile is written straight from the
 // accumulator fragment, so a wrong descriptor, swizzle or fragment layout
-// shows here on one tile rather than inside a whole GEMM. Not on any
-// model's path.
+// shows here on one tile rather than inside a whole GEMM.
+//
+// A second tile chains the products the way the flash backward's dk/dv
+// kernel does: X = K Q^T [64 keys, 64 q] by SS m64n64k16 wgmmas over D
+// (64 or 128, k16 steps across the D-panels), then 0.1 X turned into hi
+// and lo bf16 A fragments in registers (`frag_a_hilo`), then C [64 keys,
+// D] = (0.1 X) dO by RS wgmmas with B transposed: dO [64 q, D] read
+// MN-major from the same kind of swizzled D-panels (`desc_sw128_mn`),
+// hi then lo into one accumulator. A wrong MN-major descriptor, transpose
+// flag or fragment rule shows here. Neither tile is on any model's path.
 
 #include <stdint.h>
 #include <cuda_bf16.h>
@@ -88,6 +96,79 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(128)
+    wgmma_chain_tile(const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ dout,
+                     float* __restrict__ out) {
+  constexpr uint32_t kPanel = 64 * 128;
+  constexpr uint32_t kTile = kPanel * (D / 64);
+  extern __shared__ __align__(1024) uint8_t chain_smem[];
+  const uint32_t sk = wg::smem_addr(chain_smem);
+  if (sk & 1023) __trap();
+  const uint32_t sq = sk + kTile, sd = sq + kTile;
+  wg::load_panels<D>(sk, k, 0, 64);
+  wg::load_panels<D>(sq, q, 0, 64);
+  wg::load_panels<D>(sd, dout, 0, 64);
+  wg::cp_async_commit();
+  wg::cp_async_wait<0>();
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  float x[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = 0.f;
+  wg::fence();
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    const uint32_t off = (j / 4) * kPanel + 32 * (j % 4);
+    wg::mma_m64n64k16(x, wg::desc_sw128(sk + off), wg::desc_sw128(sq + off),
+                      j > 0);
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_operand(x);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] *= 0.1f;
+
+  float c[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) c[i] = 0.f;
+  uint32_t hi[4][4], lo[4][4];
+  wg::frag_a_hilo<0>(x, hi[0], lo[0]);
+  wg::frag_a_hilo<1>(x, hi[1], lo[1]);
+  wg::frag_a_hilo<2>(x, hi[2], lo[2]);
+  wg::frag_a_hilo<3>(x, hi[3], lo[3]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wg::fence_operand(hi[j]);
+    wg::fence_operand(lo[j]);
+  }
+  wg::fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t db = wg::desc_sw128_mn(sd + 2048 * j, kPanel);
+    if constexpr (D == 128) {
+      wg::mma_m64n128k16_rs_tb(c, hi[j], db, 1);
+      wg::mma_m64n128k16_rs_tb(c, lo[j], db, 1);
+    } else {
+      wg::mma_m64n64k16_rs_tb(c, hi[j], db, 1);
+      wg::mma_m64n64k16_rs_tb(c, lo[j], db, 1);
+    }
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_operand(c);
+  const int t = threadIdx.x, r0 = (t >> 5) * 16 + (t & 31) / 4;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    const int row = r0 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+    out[row * D + col] = c[i];
+  }
+}
+
 }  // namespace
 
 // a [64, K] and b [128, K] bf16, scales [64, K / bk] float32, out [64, 128]
@@ -102,5 +183,28 @@ extern "C" int wgmma_selftest(const void* a, const void* b,
   wgmma_tile<<<1, 128, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (const float*)scales,
       (float*)out, K, bk);
+  return (int)cudaGetLastError();
+}
+
+// k [64, D], q [64, D] and dout [64, D] bf16, out [64, D] float32, all
+// contiguous with 16-byte aligned bases; D 64 or 128. out = (0.1 k q^T)
+// dout through the chained tile above. Returns the CUDA error code of the
+// launch.
+extern "C" int wgmma_chain_selftest(const void* k, const void* q,
+                                    const void* dout, void* out, int D,
+                                    void* stream) {
+  if ((D != 64 && D != 128) || (uintptr_t)k % 16 || (uintptr_t)q % 16 ||
+      (uintptr_t)dout % 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 3 * 64 * 128 * (D / 64);  // 48 KB at D 128
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 128)
+    wgmma_chain_tile<128><<<1, 128, smem, st>>>(
+        (const __nv_bfloat16*)k, (const __nv_bfloat16*)q,
+        (const __nv_bfloat16*)dout, (float*)out);
+  else
+    wgmma_chain_tile<64><<<1, 128, smem, st>>>(
+        (const __nv_bfloat16*)k, (const __nv_bfloat16*)q,
+        (const __nv_bfloat16*)dout, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,13 @@ Counterpart of paddle_tpu/kernels/pallas/flash_attention.py: the forward
 (`_mha_fwd` and `_mha_fwd_stream`) is ``csrc/flash_attention_fwd.cu`` and
 the two-pass backward (`_mha_bwd` and `_mha_bwd_stream`) is
 ``csrc/flash_attention_bwd.cu``; each source's note says what bounds it
-and how it is laid out. These wrappers compute values only; the autograd
-Function that ties them together is in nn/functional/flash_attention.py.
+and how it is laid out. The backward has two pairs of kernels:
+`flash_bwd_route` picks the tensor-core pair ("wgmma": bf16, D 64 or 128)
+or the CUDA-core pair ("cuda_core": float32, D 256) for a call, and
+``_flash_bhsd_bwd.route_launches`` counts the launches of each beside
+their total ``_flash_bhsd_bwd.launches``. These wrappers compute values
+only; the autograd Function that ties them together is in
+nn/functional/flash_attention.py.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import torch
 from . import _build
 
 __all__ = ["_flash_bhsd", "_flash_bhsd_bwd", "flash_attention_fwd_plain",
-           "flash_attention_bwd_plain", "HEAD_DIMS"]
+           "flash_attention_bwd_plain", "flash_bwd_route", "FLASH_BWD_ROUTES",
+           "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -26,7 +32,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 _BWD_SIG = {"flash_attention_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+# the backward's kernel pairs, in the order of csrc/flash_attention_bwd.cu's
+# route codes
+FLASH_BWD_ROUTES = ("cuda_core", "wgmma")
+_BWD_ROUTE_CODE = {r: i for i, r in enumerate(FLASH_BWD_ROUTES)}
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_fwd_plain(q, k, v, causal, scale):
@@ -120,10 +131,24 @@ def _flash_bhsd(q, k, v, causal, scale=None):
 _flash_bhsd.launches = 0
 
 
+def flash_bwd_route(dtype, d, ptrs):
+    """The kernel pair a CUDA backward launches: "wgmma" (tensor cores,
+    P and dS as bf16 hi + lo pairs) for bf16 with D 64 or 128 and q, k, v
+    and dO (``ptrs``) 16-byte aligned, else "cuda_core" (float32
+    arithmetic; in practice float32 inputs, which TF32 would round, and D
+    256, whose dK and dV would take 256 accumulator registers a
+    thread)."""
+    if (dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "cuda_core"
+
+
 def _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale=None):
     """Attention backward on [BH, S, D] from the forward's o and float32
     lse -> (dq, dk, dv), each in its input's dtype. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernels (or raises)."""
+    plain version; a CUDA tensor launches the kernel pair
+    `flash_bwd_route` picks (or raises)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -150,19 +175,23 @@ def _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale=None):
     # computes it in jnp before its pallas_calls
     delta = (do.float() * o.float()).sum(-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    route = flash_bwd_route(q.dtype, q.shape[-1], [t.data_ptr() for t in
+                                                  (q, k, v, do)])
     lib = _build.load("flash_attention_bwd", _BWD_SIG)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), bh, s, q.shape[-1], float(scale),
-            int(bool(causal)), _DTYPE_CODE[q.dtype],
+            int(bool(causal)), _DTYPE_CODE[q.dtype], _BWD_ROUTE_CODE[route],
             torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention_bwd launch failed ({route} "
+                           f"pair): CUDA error {rc}")
     _flash_bhsd_bwd.launches += 1
+    _flash_bhsd_bwd.route_launches[route] += 1
     return dq, dk, dv
 
 
 _flash_bhsd_bwd.launches = 0
+_flash_bhsd_bwd.route_launches = dict.fromkeys(FLASH_BWD_ROUTES, 0)

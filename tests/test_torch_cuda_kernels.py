@@ -198,7 +198,12 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, d, causal, s):
     for dt, rtol, atol in BWD_TOLS:
         qt, kt, vt, dot = (x.to(dt) for x in (q, k, v, do))
         o, lse = flash_attention_fwd_plain(qt, kt, vt, causal, scale)
+        # bf16 at D 64 and 128 takes the tensor cores, the rest the CUDA
+        # cores
+        route = "wgmma" if dt == torch.bfloat16 and d < 256 else "cuda_core"
+        routed = _flash_bhsd_bwd.route_launches[route]
         got = _flash_bhsd_bwd(qt, kt, vt, o, lse, dot, causal, scale)
+        assert _flash_bhsd_bwd.route_launches[route] == routed + 1
         ref = flash_attention_bwd_plain(qt, kt, vt, o, lse, dot, causal,
                                         scale)
         torch.cuda.synchronize()
@@ -255,6 +260,129 @@ def test_flash_attention_autograd_matches_plain_autograd(cuda_device,
     torch.cuda.synchronize()
     for got, ref in zip(*grads):
         assert _bwd_close(got, ref, 0.0, 1e-4)[0]
+
+
+def _bwd_inputs(dev, seed, shape, dt):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev, dt) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 200, 1000, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_wgmma_matches_plain(cuda_device, d, s, causal):
+    """The tensor-core pair (bf16, P and dS as hi + lo) against the plain
+    version on the forward's own o and lse: one 64-tile, tails that no
+    64-tile divides (200, 1000) and the train length, held by _bwd_close
+    at BWD_TOLS's bf16 rule."""
+    q, k, v, do = _bwd_inputs(cuda_device, 5 * s + d + causal, (3, s, d),
+                              torch.bfloat16)
+    scale = d ** -0.5
+    o, lse = _flash_bhsd(q, k, v, causal, scale)
+    before = _flash_bhsd_bwd.route_launches["wgmma"]
+    got = _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert _flash_bhsd_bwd.route_launches["wgmma"] == before + 1
+    _, rtol, atol = BWD_TOLS[1]
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        ok, err = _bwd_close(g, r, rtol, atol)
+        assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_wgmma_keeps_heads_apart(cuda_device, d, causal):
+    """NaN in every input of head 1 (q, k, v, dO, o and lse) at S 200,
+    where the last tile of a head ends 56 rows short of 64: heads 0 and
+    2 get bit for bit the gradients of a clean run. A tile that read past
+    S into the next head's rows would carry the NaN over."""
+    q, k, v, do = _bwd_inputs(cuda_device, d + causal, (3, 200, d),
+                              torch.bfloat16)
+    o, lse = _flash_bhsd(q, k, v, causal)
+    clean = _flash_bhsd_bwd(q, k, v, o, lse, do, causal)
+    for t in (q, k, v, do, o, lse):
+        t[1] = float("nan")
+    dirty = _flash_bhsd_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for c, g in zip(clean, dirty):
+        assert torch.isnan(g[1]).any()
+        assert torch.equal(g[0], c[0]) and torch.equal(g[2], c[2])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_wgmma_takes_a_strided_do(cuda_device):
+    """test_flash_bwd_takes_a_strided_do in bf16, on the tensor cores: the
+    wrapper makes the permuted dO contiguous before the route is chosen."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 130, 64))
+                                .astype(np.float32)).to(cuda_device,
+                                                        torch.bfloat16)
+               for _ in range(3))
+    do_t = torch.from_numpy(rng.standard_normal((64, 130, 4))
+                            .astype(np.float32)).to(cuda_device,
+                                                    torch.bfloat16)
+    do = do_t.permute(2, 1, 0)
+    assert not do.is_contiguous()
+    o, lse = _flash_bhsd(q, k, v, True)
+    before = _flash_bhsd_bwd.route_launches["wgmma"]
+    got = _flash_bhsd_bwd(q, k, v, o, lse, do, True)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do.contiguous(), True,
+                                    64 ** -0.5)
+    torch.cuda.synchronize()
+    assert _flash_bhsd_bwd.route_launches["wgmma"] == before + 1
+    for g, r in zip(got, ref):
+        assert _bwd_close(g, r, *BWD_TOLS[1][1:])[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_autograd_bf16_takes_the_wgmma_route(cuda_device,
+                                                             causal):
+    """[B, S, H, D] bf16 through the autograd Function, GQA-repeated heads
+    included: the backward runs on the tensor cores once, and the leaves'
+    gradients equal the plain backward on the forward's own o and lse
+    (heads folded as the Function folds them, the repeated heads' kv
+    gradients summed), by BWD_TOLS's bf16 rule."""
+    rng = np.random.default_rng(22)
+    b, s, h, hkv, d = 2, 192, 8, 2, 64
+    qn = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    kn, vn = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    gn = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               .requires_grad_() for a in (qn, kn, vn))
+    g = torch.from_numpy(gn).to(cuda_device, torch.bfloat16)
+    before = _flash_bhsd_bwd.route_launches["wgmma"]
+    out = flash_attention(q, k.repeat_interleave(h // hkv, dim=2),
+                          v.repeat_interleave(h // hkv, dim=2),
+                          causal=causal)
+    out.backward(g)
+    assert _flash_bhsd_bwd.route_launches["wgmma"] == before + 1
+
+    def fold(x):
+        return x.detach().repeat_interleave(h // x.shape[2], dim=2) \
+            .transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+    fq, fk, fv, fg = (fold(x) for x in (q, k, v, g))
+    with torch.no_grad():
+        o, lse = _flash_bhsd(fq, fk, fv, causal)
+        rq, rk, rv = flash_attention_bwd_plain(fq, fk, fv, o, lse, fg,
+                                               causal, d ** -0.5)
+
+    def unfold(x, heads):
+        x = x.float().reshape(b, h, s, d).transpose(1, 2)
+        return x.reshape(b, s, heads, h // heads, d).sum(3)
+
+    torch.cuda.synchronize()
+    for got, ref in ((q.grad, unfold(rq, h)), (k.grad, unfold(rk, hkv)),
+                     (v.grad, unfold(rv, hkv))):
+        ok, err = _bwd_close(got, ref, *BWD_TOLS[1][1:])
+        assert ok, f"max abs err {err}"
 
 
 # -- block-scaled weight matmul -------------------------------------------------
@@ -321,8 +449,12 @@ def test_quant_matmul_takes_leading_dims_and_offset_views(cuda_device):
 
 # -- the tensor-core primitives and the wgmma product ----------------------------
 
+# both entries of csrc/wgmma_selftest.cu: the library is loaded once, with
+# every signature
 _SELFTEST_SIG = {"wgmma_selftest": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p]}
+                 + [ctypes.c_void_p],
+                 "wgmma_chain_selftest": [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] + [ctypes.c_void_p]}
 
 
 @pytest.mark.cuda
@@ -358,6 +490,33 @@ def test_wgmma_one_tile_matches_matmul(cuda_device, k, bk):
                                                  b[:, blk].float().t())
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), f"max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_chained_tile_matches_matmul(cuda_device, d):
+    """csrc/wgmma.cuh's SS m64n64k16, MN-major descriptor, RS form with B
+    transposed and accumulator-to-A-fragment rule on one tile chained as
+    the flash backward's dk/dv kernel chains them: X = K Q^T by SS wgmmas
+    over D, 0.1 X split into hi + lo bf16 fragments in registers, then (0.1
+    X) dO with dO read MN-major, hi then lo into one accumulator. Against
+    float64 matmuls of the same bf16 values within 1e-5 of the largest
+    output: the hi + lo pair carries 0.1 X to about 2^-17 of itself,
+    while a wrong descriptor, transpose or fragment rule moves outputs by
+    their own size."""
+    rng = np.random.default_rng(d + 1)
+    k, q, do = (torch.from_numpy(rng.standard_normal((64, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(3))
+    out = torch.empty(64, d, device=cuda_device)
+    lib = _build.load("wgmma_selftest", _SELFTEST_SIG)
+    rc = lib.wgmma_chain_selftest(k.data_ptr(), q.data_ptr(), do.data_ptr(),
+                                  out.data_ptr(), d,
+                                  torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"CUDA error {rc}"
+    ref = (0.1 * (k.double() @ q.double().t())) @ do.double()
+    torch.cuda.synchronize()
+    err = (out.double() - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), f"max abs err {err}"
 
 
