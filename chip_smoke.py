@@ -7,11 +7,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. the card's name and power limit, as nvidia-smi gives them;
 2. the build of every CUDA kernel of the serving and training paths (one
-   nvcc per source, all started together), then each kernel of the
-   serving paths against its plain PyTorch version on the card at the
+   nvcc per source, all started together) with ptxas's registers and
+   spills and the HGMMA count (cuobjdump) of each flash tensor-core
+   kernel, which must not be 0; then each kernel of the serving paths
+   against its plain PyTorch version on the card at the
    serving shapes, with its time, the plain version's time, one PyTorch
    library call's time (a yardstick the port never calls) and the least
-   time the card could take: ragged and flash attention, then
+   time the card could take: ragged attention; the flash forward on its
+   tensor-core kernel (bf16 at D 64 and 128, S 1000 tails, generate's
+   prefill shape) and on its CUDA-core kernel (float32, and bf16 at D
+   256), each case naming its route, rate and share of its bound; then
    quant_matmul (the decode projections at 8 slots, the head, fp8 codes:
    the GEMV; the 1024-row prefill gate_up and down products, int8 and fp8,
    and a 777-row one whose last m-tile is partial: the tensor-core
@@ -25,7 +30,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the dense-gather oracle: the token streams must be identical, and
    two of them must equal greedy generation through the full forward;
 5. CachedDecoder.generate at full width, batch 4, 1024-token prompts: the
-   prefill runs the flash-attention kernel once per layer;
+   prefill runs the flash-attention forward once per layer, every launch
+   on the tensor-core kernel;
 5b. serve_quant: phase 3's requests with int8_blockwise weights and an
    int8 KV pool (quant_matmul 7 per layer plus the head, per decode step
    and per prefill, every prefill projection on the tensor-core route;
@@ -36,7 +42,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    2 and 4 shards against the unsharded serve, token for token;
 6. the training path's kernels checked and timed the same way at the
    training shapes (after the serving phases, so that those see the card
-   as the serving slice left it): the flash backward on its tensor-core
+   as the serving slice left it): the flash forward at the train shape on
+   its tensor-core kernel, the flash backward on its tensor-core
    pair (bf16 at D 64 and 128, S 1000 tails and the train shape) and on
    its CUDA-core pair (float32, and bf16 at D 256), each case naming its
    route and rate; then train: bench.py's one-chip
@@ -46,11 +53,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    steps: tokens/s, seconds per step, MFU, every step's loss and the peak
    memory. Every loss must be finite, the last below the first, and the
    flash forward and backward kernels must each have run once per layer
-   per step, every backward on the tensor-core pair;
+   per step, every one on the tensor cores;
 7. train_parity: 3 steps of a narrow float32 Llama (2 layers, S 256) with
    the flash kernels and again with the plain attention: losses and the
-   first step's gradients must agree, every backward on the CUDA-core
-   pair;
+   first step's gradients must agree, every forward and backward on the
+   CUDA cores;
 8. the MoE training path's kernels (the grouped forward, also as the
    input gradient against w^T read in place, the grouped weight gradient
    and the grouped int8/fp8 forward) at its shapes: 16,384 routes of a
@@ -113,9 +120,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    through the kernels and through their plain versions (loss, gradients
    of x, the residual, the norm weight and the projections);
 16. one line naming each kernel with its launches on the main path (the
-   serve of phase 3 for the ragged kernel, the generate of phase 5 for the
-   flash forward, the train of phase 6 for the flash backward's
-   tensor-core pair and train_parity for its CUDA-core pair, serve_quant
+   serve of phase 3 for the ragged kernel, the train of phase 6 and the
+   generate of phase 5 for the flash forward's tensor-core kernel,
+   train_parity for its CUDA-core kernel, the train of phase 6 for the
+   flash backward's tensor-core pair and train_parity for its CUDA-core
+   pair, serve_quant
    for quant_matmul's GEMV and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
    forward and dw kernels, train_moe_quant for the quantized grouped
@@ -133,9 +142,11 @@ Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
 the same bf16 inputs and round the output to bf16; their float32 values
 differ in summation order only (about 1e-6), so the rounded outputs
-differ by at most one bf16 ulp, which is at most 2^-7 of the value. The
-float32 lse gets atol 1e-4. A ragged case with a planted last token shows
-that a kernel which dropped the inclusive end of the window would fail.
+differ by at most one bf16 ulp, which is at most 2^-7 of the value (the
+tensor-core forward carries p into p.v as a bf16 hi + lo pair to stay
+there). The float32 lse gets atol 1e-4, and so do float32 outputs. A
+ragged case with a planted last token shows that a kernel which dropped
+the inclusive end of the window would fail.
 The backward's dq, dk and dv get the same 2^-7 |ref| and an atol of 1e-3
 of each gradient's largest magnitude: there the float32 sums run over S
 terms whose difference dp - delta cancels, so an element far below the
@@ -150,6 +161,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -162,6 +174,7 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 BF16_RTOL = 2.0 ** -7           # one bf16 ulp, relative to the value
 BF16_ATOL = 1e-4
 LSE_ATOL = 1e-4                 # float32 lse, summation order only
+FWD_ATOL_F32 = 1e-4             # float32 o and lse: summation order only
 GRAD_ATOL = 1e-3                # of the gradient's largest magnitude
 # float32 gradients: summation order only, as the card tests' float32 rule
 GRAD_ATOL_F32 = 1e-4
@@ -203,11 +216,11 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def bf16_err(out, ref, atol=BF16_ATOL):
+def bf16_err(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL):
     """(max abs error, largest ratio of an element's error to its
-    tolerance BF16_RTOL * |ref| + atol)."""
+    tolerance rtol * |ref| + atol)."""
     d = (out.float() - ref.float()).abs()
-    lim = BF16_RTOL * ref.float().abs() + atol
+    lim = rtol * ref.float().abs() + atol
     return d.max().item(), (d / lim).max().item()
 
 
@@ -223,6 +236,45 @@ def bound(bytes_moved, flops, peak_flops):
     t_ops = flops / peak_flops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+# the tensor-core kernels of each flash source, whose SASS must hold HGMMA
+WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma",),
+                 "flash_attention_bwd": ("flash_bwd_dq_wgmma",
+                                         "flash_bwd_dkv_wgmma")}
+
+
+def hgmma_counts(so, kernels):
+    """HGMMA instructions (wgmma in SASS) in each instance of the named
+    kernels of a built library, as cuobjdump --dump-sass lists them:
+    {"kernel<HD>": count}."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(so)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {so}: "
+                               f"{out.stderr[-500:]}")
+    counts, key = {}, None
+    for line in out.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = next((k for k in kernels if k + "I" in fn.group(1)),
+                        None)
+            hd = re.search(r"ILi(\d+)E", fn.group(1))
+            key = f"{name}<{hd.group(1)}>" if name and hd else None
+            if key:
+                counts[key] = 0
+        elif key and "HGMMA" in line:
+            counts[key] += 1
+    return counts
+
+
+def zero_flash_counts(*wrappers):
+    """Set each flash wrapper's launch count and its counts by route to 0,
+    just before a driven path."""
+    for w in wrappers:
+        w.launches = 0
+        w.route_launches = dict.fromkeys(w.route_launches, 0)
 
 
 # -- phase 2: kernels against their plain versions -----------------------------
@@ -344,21 +396,35 @@ def ragged_case(torch, np, name, nh, nkv, seed, poison=False, plant=False):
     return rec
 
 
-def flash_case(torch, name, bh, s, d, causal, seed):
+def flash_case(torch, name, bh, s, d, causal, seed, dtype="bfloat16"):
+    """The forward kernel against its plain version on the kernel
+    flash_fwd_route picks: the tensor cores for bf16 at D 64 and 128, the
+    CUDA cores for float32 and D 256. bf16 o is held to BF16_RTOL |ref| +
+    BF16_ATOL and lse to LSE_ATOL; float32 o and lse to 1e-4 (the card
+    tests' float32 rule)."""
     from paddle_tpu_torch.kernels.flash_attention import (
-        _flash_bhsd, flash_attention_fwd_plain)
+        _flash_bhsd, flash_attention_fwd_plain, flash_fwd_route)
     dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev,
-                           dtype=torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev, dtype=dt)
+               for _ in range(3))
     scale = d ** -0.5
+    route = flash_fwd_route(dt, d, [t.data_ptr() for t in (q, k, v)])
+    routed = _flash_bhsd.route_launches[route]
     o, lse = _flash_bhsd(q, k, v, causal, scale)
+    check(_flash_bhsd.route_launches[route] == routed + 1,
+          f"{name}: the forward did not take its {route} kernel")
     ro, rlse = flash_attention_fwd_plain(q, k, v, causal, scale)
     torch.cuda.synchronize()
-    err, ratio = bf16_err(o, ro)
+    if dt == torch.bfloat16:
+        rtol, atol, lse_atol = BF16_RTOL, BF16_ATOL, LSE_ATOL
+    else:
+        rtol, atol, lse_atol = 0.0, FWD_ATOL_F32, FWD_ATOL_F32
+    err, ratio = bf16_err(o, ro, atol, rtol)
     lse_err = (lse - rlse).abs().max().item()
-    check(ratio <= 1.0 and lse_err <= LSE_ATOL,
+    check(ratio <= 1.0 and lse_err <= lse_atol,
           f"{name}: kernel vs plain o err {err} ({ratio} x tolerance), "
           f"lse err {lse_err}")
     kernel_ms = cuda_ms(torch, lambda: _flash_bhsd(q, k, v, causal, scale),
@@ -372,14 +438,19 @@ def flash_case(torch, name, bh, s, d, causal, seed):
                                              scale=scale), 10)
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * bh * d * pairs
-    bytes_moved = 4 * bh * s * d * 2 + bh * s * 4
-    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    bytes_moved = 4 * bh * s * d * q.element_size() + bh * s * 4
+    # float32 inputs: full float32 (TF32 would round them), off the
+    # tensor cores
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS
+                               if dt == torch.bfloat16 else F32_FLOPS)
     rec = {"phase": "kernel_check", "kernel": "flash_attention_fwd",
-           "case": name, "dtype": "bfloat16", "bh": bh, "s": s, "d": d,
-           "causal": causal, "max_abs_err": err,
-           "err_over_tolerance": ratio, "rtol": BF16_RTOL,
-           "atol": BF16_ATOL, "lse_max_abs_err": lse_err,
-           "lse_atol": LSE_ATOL, "kernel_ms": kernel_ms,
+           "case": name, "dtype": dtype, "route": route, "bh": bh, "s": s,
+           "d": d, "causal": causal, "max_abs_err": err,
+           "err_over_tolerance": ratio, "rtol": rtol,
+           "atol": atol, "lse_max_abs_err": lse_err,
+           "lse_atol": lse_atol, "kernel_ms": kernel_ms,
+           "tflops": flops / kernel_ms / 1e9,
+           "bound_share": bound_ms / kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library": "scaled_dot_product_attention", "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": bytes_moved, "flops": flops}
@@ -803,7 +874,7 @@ def serve_phase(torch, np, model, reqs, layers):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ragged_paged_attention.launches = 0
-    _flash_bhsd.launches = 0
+    zero_flash_counts(_flash_bhsd)
     t0 = time.perf_counter()
     out = dec.serve(reqs, chunk=8)
     torch.cuda.synchronize()
@@ -1125,21 +1196,25 @@ def generate_phase(torch, np, model, layers, seed):
     dec = CachedDecoder(model, max_len=S0 + N)
     ids = np.random.default_rng(seed + 2).integers(0, 32000, (B, S0))
     torch.cuda.synchronize()
-    _flash_bhsd.launches = 0
+    zero_flash_counts(_flash_bhsd)
     t0 = time.perf_counter()
     out = dec.generate(torch.as_tensor(ids), max_new_tokens=N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _flash_bhsd.launches
+    routes = dict(_flash_bhsd.route_launches)
     check(tuple(out.shape) == (B, S0 + N), f"generate shape {out.shape}")
     check(bool((out[:, :S0] == torch.as_tensor(ids)).all()),
           "generate changed the prompt")
     check(bool(((out >= 0) & (out < 32000)).all()), "token out of vocab")
     check(launches == layers * 1,
           f"flash launches {launches} != {layers} layers x 1 prefill")
+    check(routes["wgmma"] == launches,
+          f"every prefill forward runs on the tensor cores: {routes}")
     rec = {"phase": "generate", "dtype": "bfloat16", "layers": layers,
            "batch": B, "prompt_len": S0, "new_tokens": N, "wall_s": wall,
-           "tokens_per_s": B * N / wall, "flash_launches": launches}
+           "tokens_per_s": B * N / wall, "flash_launches": launches,
+           "flash_route_launches": routes}
     emit(rec)
     del dec
     torch.cuda.empty_cache()
@@ -1193,10 +1268,7 @@ def train_phase(torch, np, seed):
                               TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _flash_bhsd.launches = 0
-    _flash_bhsd_bwd.launches = 0
-    _flash_bhsd_bwd.route_launches = dict.fromkeys(
-        _flash_bhsd_bwd.route_launches, 0)
+    zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
     losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1205,6 +1277,7 @@ def train_phase(torch, np, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = _flash_bhsd.launches, _flash_bhsd_bwd.launches
+    fwd_routes = dict(_flash_bhsd.route_launches)
     routes = dict(_flash_bhsd_bwd.route_launches)
     losses = [x.item() for x in losses]
     steps = TRAIN_WARMUP + TRAIN_TIMED
@@ -1214,6 +1287,8 @@ def train_phase(torch, np, seed):
     check(fwd == layers * steps and bwd == layers * steps,
           f"flash launches fwd {fwd}, bwd {bwd} != {layers} layers x "
           f"{steps} steps")
+    check(fwd_routes["wgmma"] == layers * steps,
+          f"every train forward runs on the tensor cores: {fwd_routes}")
     check(routes["wgmma"] == layers * steps,
           f"every train backward runs on the tensor cores: {routes}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1233,6 +1308,7 @@ def train_phase(torch, np, seed):
            "mfu": flops_tok * tps / BF16_FLOPS, "losses": losses,
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+           "flash_fwd_route_launches": fwd_routes,
            "flash_bwd_route_launches": routes}
     emit(rec)
     del model, step
@@ -1313,10 +1389,7 @@ def train_parity_phase(torch, np, seed):
                           use_flash_attention=flash)
         model, step = make_train_step(torch, cfg, seed + 5,
                                       moment_dtype=None)
-        _flash_bhsd.launches = 0
-        _flash_bhsd_bwd.launches = 0
-        _flash_bhsd_bwd.route_launches = dict.fromkeys(
-            _flash_bhsd_bwd.route_launches, 0)
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
         losses, grads = [], None
         for i in range(PARITY_STEPS):
             losses.append(step((ids,), (labels,)).item())
@@ -1325,11 +1398,15 @@ def train_parity_phase(torch, np, seed):
                          for k, p in model.named_parameters()}
         runs[flash] = (losses, grads, _flash_bhsd.launches,
                        _flash_bhsd_bwd.launches,
+                       dict(_flash_bhsd.route_launches),
                        dict(_flash_bhsd_bwd.route_launches))
         del model, step
-    (fl, fg, ff, fb, routes), (pl_, pg, pf, pb, _) = runs[True], runs[False]
+    (fl, fg, ff, fb, fwd_routes, routes), (pl_, pg, pf, pb, _, _) = \
+        runs[True], runs[False]
     check(ff == fb == 2 * PARITY_STEPS and pf == pb == 0,
           f"flash launches: kernels run {ff}/{fb}, plain run {pf}/{pb}")
+    check(fwd_routes["cuda_core"] == ff,
+          f"float32 forwards run on the CUDA cores: {fwd_routes}")
     check(routes["cuda_core"] == fb,
           f"float32 backwards run on the CUDA cores: {routes}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fl, pl_))
@@ -1345,6 +1422,7 @@ def train_parity_phase(torch, np, seed):
            "max_grad_diff_over_max": grad_rel,
            "grad_atol_of_max": PARITY_GRAD_ATOL,
            "flash_fwd_launches": ff, "flash_bwd_launches": fb,
+           "flash_fwd_route_launches": fwd_routes,
            "flash_bwd_route_launches": routes}
     emit(rec)
     torch.cuda.empty_cache()
@@ -2456,8 +2534,9 @@ def packed_parity_phase(torch, np, lens, seed):
                          device="cuda")
     bshape = (PACK_ROWS, PACK_SEQ, h, d)
     for fn in (flash_varlen_fwd, flash_varlen_bwd, flash_sparse_mask_fwd,
-               flash_sparse_mask_bwd, _flash_bhsd, _flash_bhsd_bwd):
+               flash_sparse_mask_bwd):
         fn.launches = 0
+    zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
 
     def grads_of(run, shape):
         leaves = [x.reshape(shape).clone().requires_grad_()
@@ -3118,27 +3197,54 @@ def main():
                "quant_grouped_matmul", "flash_varlen", "flash_sparse_mask",
                "rms_norm", "fused_elementwise")
     t0 = time.perf_counter()
-    _build.build(*sources)
+    libs = _build.build(*sources)
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name in sources:
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
         ptxas[name] = lines[:24]
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    hgmma = {}
+    for name, kernels in WGMMA_KERNELS.items():
+        hgmma.update(hgmma_counts(libs[name], kernels))
+    # three kernels, each at D 64 and 128
+    check(len(hgmma) == 6 and all(hgmma.values()),
+          f"a flash kernel meant for the tensor cores has no HGMMA: {hgmma}")
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "hgmma": hgmma})
 
     ragged_main = ragged_case(torch, np, "mha_32x32", 32, 32, 11)
     ragged_case(torch, np, "gqa_32x8", 32, 8, 12)
     ragged_case(torch, np, "nan_poison", 32, 32, 13, poison=True)
     ragged_case(torch, np, "last_token_gqa_32x8", 32, 8, 14, plant=True)
+    # the forward: bf16 at D 64 and 128 on the tensor-core kernel, with
+    # tails that no 64-tile divides (S 1000)
+    fwd_wgmma = []
     for s in (1024, 2048):
         for d in (64, 128):
             for causal in (True, False):
-                flash_case(torch, f"bh64_s{s}_d{d}_{'causal' if causal else 'full'}",
-                           64, s, d, causal, s + d + causal)
+                fwd_wgmma.append(flash_case(
+                    torch, f"bh64_s{s}_d{d}_{'causal' if causal else 'full'}",
+                    64, s, d, causal, s + d + causal))
+    for causal in (True, False):
+        fwd_wgmma.append(flash_case(
+            torch, f"bh64_s1000_d128_{'causal' if causal else 'full'}", 64,
+            1000, 128, causal, 33 + causal))
     # the shape CachedDecoder's prefill gives the kernel in phase 5
-    flash_main = flash_case(torch, "generate_prefill_bh128_s1024_d128_causal",
-                            128, 1024, 128, True, 7)
+    fwd_wgmma.append(flash_case(
+        torch, "generate_prefill_bh128_s1024_d128_causal", 128, 1024, 128,
+        True, 7))
+    # the CUDA-core kernel: float32 (train_parity's dtype) and bf16 at D 256
+    fwd_f32 = flash_case(torch, "bh64_s1024_d128_causal_f32", 64, 1024, 128,
+                         True, 43, dtype="float32")
+    fwd_d256 = flash_case(torch, "bh16_s1024_d256_causal", 16, 1024, 256,
+                          True, 44)
+    for rec in fwd_wgmma:
+        check(rec["route"] == "wgmma", f"{rec['case']}: routed to "
+                                       f"{rec['route']}")
+    for rec in (fwd_f32, fwd_d256):
+        check(rec["route"] == "cuda_core", f"{rec['case']}: routed to "
+                                           f"{rec['route']}")
     # the quantized and long-context serving kernels at serve_quant's and
     # serve_long's shapes: the decode projections (M = 8 slots), the head
     # (float32 x) and fp8 codes on the GEMV; the prefill products (M 1024
@@ -3209,8 +3315,10 @@ def main():
     # the training path's kernel checks run after the serving phases, so
     # that those see the card as the serving slice left it
     # the shape the train phase gives the forward (batch 6 x 32 heads)
-    flash_case(torch, "train_bh192_s2048_d128_causal", 192, 2048, 128, True,
-               8)
+    fwd_main = flash_case(torch, "train_bh192_s2048_d128_causal", 192, 2048,
+                          128, True, 8)
+    check(fwd_main["route"] == "wgmma", f"the train-shape forward routed to "
+                                        f"{fwd_main['route']}")
     # bf16 at D 64 and 128 on the tensor-core pair
     wgmma_cases = []
     for s in (1024, 2048):
@@ -3281,7 +3389,12 @@ def main():
             ("flash_attention_fwd",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:135",
-             flash_main, gen["flash_launches"]),
+             fwd_f32, train_parity["flash_fwd_route_launches"]["cuda_core"]),
+            ("flash_attention_fwd_wgmma",
+             "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+             "paddle_tpu/kernels/pallas/flash_attention.py:135, :220",
+             fwd_main, train["flash_fwd_route_launches"]["wgmma"]
+             + gen["flash_route_launches"]["wgmma"]),
             ("flash_attention_bwd",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480",

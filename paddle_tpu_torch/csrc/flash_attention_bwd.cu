@@ -31,12 +31,12 @@
 // pair that cannot take the inputs and never picks one itself.
 //
 // The tensor-core pair (`flash_bwd_dq_wgmma`, `flash_bwd_dkv_wgmma`; bf16,
-// D 64 or 128). One warpgroup a block, wgmma.cuh's primitives:
-// - Every tile sits in shared memory once, as D-panels of 64 bf16 with
-//   the 128-byte swizzle, copied by cp.async (rows past S zero-filled,
-//   never read). The same bytes are a K-major operand over D for the
-//   scores and dP and, through an MN-major descriptor, the transposed B
-//   of dQ += dS K, dV += P^T dO and dK += dS^T Q: nothing is transposed
+// D 64 or 128). One warpgroup a block, wgmma.cuh's primitives and the
+// 64-row tile helpers of flash_wgmma.cuh, which the forward shares:
+// - Every tile sits in shared memory once, as D-panels (flash_wgmma.cuh
+//   says how), copied by cp.async (rows past S zero-filled, never read):
+//   a K-major operand for the scores and dP, the transposed B of
+//   dQ += dS K, dV += P^T dO and dK += dS^T Q. Nothing is transposed
 //   through shared memory.
 // - dq: a block owns 64 q rows (Q, dO resident) and streams K, V tiles of
 //   64 keys through a 2-stage ring up to the causal diagonal (the longest
@@ -93,6 +93,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -381,84 +382,13 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace wg = ptt::wg;
 
-constexpr int kRows = 64;  // rows of every tile: wgmma's M, one warpgroup
-constexpr uint32_t kPanelBytes = kRows * 128;  // one D-panel of a tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Tiles live in shared memory as D-panels (wgmma.cuh, `load_panels`): a
-// [64, HD] bf16 tile is HD / 64 panels of 8 KB, 128B-swizzled. One copy
-// serves as a K-major operand over D (the scores and dP) and, through an
-// MN-major descriptor, as the transposed B over its rows (dQ, dK, dV).
-template <int HD>
-constexpr uint32_t kTileBytes = kPanelBytes * (HD / 64);
+using namespace ptt::flash;  // the 64-row tile helpers
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
-}
-
-// acc = A . B^T over HD, both [64, HD] K-major D-panel tiles (A at sa, B
-// at sb)
-template <int HD>
-__device__ __forceinline__ void ss_over_d(float (&acc)[32], uint32_t sa,
-                                          uint32_t sb) {
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    const uint32_t off = (j / 4) * kPanelBytes + 32 * (j % 4);
-    wg::mma_m64n64k16(acc, wg::desc_sw128(sa + off), wg::desc_sw128(sb + off),
-                      j > 0);
-  }
-}
-
-// acc += A . B over B's rows: A's k16 slice j as hi and lo fragments, B a
-// [64, HD] D-panel tile at sb read MN-major (N = HD)
-template <int HD>
-__device__ __forceinline__ void rs_hilo(float (&acc)[HD / 2],
-                                        const uint32_t (&hi)[4],
-                                        const uint32_t (&lo)[4], uint32_t sb,
-                                        int j) {
-  const uint64_t db = wg::desc_sw128_mn(sb + 2048 * j, kPanelBytes);
-  if constexpr (HD == 128) {
-    wg::mma_m64n128k16_rs_tb(acc, hi, db, 1);
-    wg::mma_m64n128k16_rs_tb(acc, lo, db, 1);
-  } else {
-    wg::mma_m64n64k16_rs_tb(acc, hi, db, 1);
-    wg::mma_m64n64k16_rs_tb(acc, lo, db, 1);
-  }
-}
-
-// the hi/lo fragments of the four k16 slices of a [64, 64] accumulator
-__device__ __forceinline__ void split_all(const float (&x)[32],
-                                          uint32_t (&hi)[4][4],
-                                          uint32_t (&lo)[4][4]) {
-  wg::frag_a_hilo<0>(x, hi[0], lo[0]);
-  wg::frag_a_hilo<1>(x, hi[1], lo[1]);
-  wg::frag_a_hilo<2>(x, hi[2], lo[2]);
-  wg::frag_a_hilo<3>(x, hi[3], lo[3]);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wg::fence_operand(hi[j]);
-    wg::fence_operand(lo[j]);
-  }
-}
-
-// bf16 rows of a [64, HD] float32 accumulator, rows < S only
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
-                                           const float (&acc)[HD / 2],
-                                           int row0, int S) {
-  const int lane = threadIdx.x & 31;
-  const int r = row0 + (threadIdx.x >> 5) * 16 + lane / 4;
-#pragma unroll
-  for (int i = 0; i < HD / 2; i += 2) {
-    const int row = r + 8 * ((i >> 1) & 1);
-    const int col = 8 * (i >> 2) + 2 * (lane & 3);
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * HD + col) =
-          __floats2bfloat162_rn(acc[i], acc[i + 1]);
-  }
 }
 
 template <int HD>

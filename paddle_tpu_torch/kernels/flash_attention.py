@@ -5,12 +5,13 @@ Counterpart of paddle_tpu/kernels/pallas/flash_attention.py: the forward
 (`_mha_fwd` and `_mha_fwd_stream`) is ``csrc/flash_attention_fwd.cu`` and
 the two-pass backward (`_mha_bwd` and `_mha_bwd_stream`) is
 ``csrc/flash_attention_bwd.cu``; each source's note says what bounds it
-and how it is laid out. The backward has two pairs of kernels:
-`flash_bwd_route` picks the tensor-core pair ("wgmma": bf16, D 64 or 128)
-or the CUDA-core pair ("cuda_core": float32, D 256) for a call, and
-``_flash_bhsd_bwd.route_launches`` counts the launches of each beside
-their total ``_flash_bhsd_bwd.launches``. These wrappers compute values
-only; the autograd Function that ties them together is in
+and how it is laid out. Each has a tensor-core kernel ("wgmma": bf16, D 64
+or 128, 16-byte aligned operands) and a CUDA-core one ("cuda_core":
+float32, D 256). `flash_fwd_route` and `flash_bwd_route` pick one by the
+same rule, so the forward and backward of one call take the same kind;
+``route_launches`` on each wrapper counts the launches of each route
+beside their total ``launches``. These wrappers compute values only; the
+autograd Function that ties them together is in
 nn/functional/flash_attention.py.
 """
 from __future__ import annotations
@@ -23,20 +24,20 @@ import torch
 from . import _build
 
 __all__ = ["_flash_bhsd", "_flash_bhsd_bwd", "flash_attention_fwd_plain",
-           "flash_attention_bwd_plain", "flash_bwd_route", "FLASH_BWD_ROUTES",
-           "HEAD_DIMS"]
+           "flash_attention_bwd_plain", "flash_fwd_route", "flash_bwd_route",
+           "FLASH_ROUTES", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 _BWD_SIG = {"flash_attention_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
-# the backward's kernel pairs, in the order of csrc/flash_attention_bwd.cu's
-# route codes
-FLASH_BWD_ROUTES = ("cuda_core", "wgmma")
-_BWD_ROUTE_CODE = {r: i for i, r in enumerate(FLASH_BWD_ROUTES)}
+# the kernels of each direction, in the order of the route codes of
+# csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu
+FLASH_ROUTES = ("cuda_core", "wgmma")
+_ROUTE_CODE = {r: i for i, r in enumerate(FLASH_ROUTES)}
 WGMMA_HEAD_DIMS = (64, 128)
 
 
@@ -100,10 +101,28 @@ def _check(q, k, v):
             "nn.functional.flash_attention for gradients")
 
 
+def flash_fwd_route(dtype, d, ptrs):
+    """The kernel a CUDA forward launches, and the kernel pair a CUDA
+    backward launches (``flash_bwd_route`` is this function, so the two
+    directions of one call take the same kind): "wgmma" (tensor cores, P
+    and dS as bf16 hi + lo pairs) for bf16 at D 64 or 128 with every
+    operand in ``ptrs`` (q, k, v and, backward, dO) 16-byte aligned, else
+    "cuda_core" (float32 arithmetic; in practice float32 inputs, which
+    TF32 would round, and D 256, whose float32 accumulators would take
+    128 or more registers a thread)."""
+    if (dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "cuda_core"
+
+
+flash_bwd_route = flash_fwd_route
+
+
 def _flash_bhsd(q, k, v, causal, scale=None):
     """Attention forward on [BH, S, D] -> (o [BH, S, D] in q's dtype,
     lse float32 [BH, S]). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (or raises)."""
+    tensor launches the kernel `flash_fwd_route` picks (or raises)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -115,33 +134,24 @@ def _flash_bhsd(q, k, v, causal, scale=None):
     bh, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    route = flash_fwd_route(q.dtype, d, [t.data_ptr() for t in (q, k, v)])
     lib = _build.load("flash_attention_fwd", _SIG)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, s, d, float(scale), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[q.dtype], _ROUTE_CODE[route],
+            torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention_fwd launch failed ({route} "
+                           f"kernel): CUDA error {rc}")
     _flash_bhsd.launches += 1
+    _flash_bhsd.route_launches[route] += 1
     return o, lse
 
 
 _flash_bhsd.launches = 0
-
-
-def flash_bwd_route(dtype, d, ptrs):
-    """The kernel pair a CUDA backward launches: "wgmma" (tensor cores,
-    P and dS as bf16 hi + lo pairs) for bf16 with D 64 or 128 and q, k, v
-    and dO (``ptrs``) 16-byte aligned, else "cuda_core" (float32
-    arithmetic; in practice float32 inputs, which TF32 would round, and D
-    256, whose dK and dV would take 256 accumulator registers a
-    thread)."""
-    if (dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
-            and all(p % 16 == 0 for p in ptrs)):
-        return "wgmma"
-    return "cuda_core"
+_flash_bhsd.route_launches = dict.fromkeys(FLASH_ROUTES, 0)
 
 
 def _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale=None):
@@ -183,7 +193,7 @@ def _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), bh, s, q.shape[-1], float(scale),
-            int(bool(causal)), _DTYPE_CODE[q.dtype], _BWD_ROUTE_CODE[route],
+            int(bool(causal)), _DTYPE_CODE[q.dtype], _ROUTE_CODE[route],
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention_bwd launch failed ({route} "
@@ -194,4 +204,4 @@ def _flash_bhsd_bwd(q, k, v, o, lse, do, causal, scale=None):
 
 
 _flash_bhsd_bwd.launches = 0
-_flash_bhsd_bwd.route_launches = dict.fromkeys(FLASH_BWD_ROUTES, 0)
+_flash_bhsd_bwd.route_launches = dict.fromkeys(FLASH_ROUTES, 0)

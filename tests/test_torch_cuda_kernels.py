@@ -344,7 +344,8 @@ def test_flash_bwd_wgmma_takes_a_strided_do(cuda_device):
 def test_flash_attention_autograd_bf16_takes_the_wgmma_route(cuda_device,
                                                              causal):
     """[B, S, H, D] bf16 through the autograd Function, GQA-repeated heads
-    included: the backward runs on the tensor cores once, and the leaves'
+    included: the forward and the backward run on the tensor cores once
+    each, and the leaves'
     gradients equal the plain backward on the forward's own o and lse
     (heads folded as the Function folds them, the repeated heads' kv
     gradients summed), by BWD_TOLS's bf16 rule."""
@@ -358,9 +359,11 @@ def test_flash_attention_autograd_bf16_takes_the_wgmma_route(cuda_device,
                .requires_grad_() for a in (qn, kn, vn))
     g = torch.from_numpy(gn).to(cuda_device, torch.bfloat16)
     before = _flash_bhsd_bwd.route_launches["wgmma"]
+    fwd_before = _flash_bhsd.route_launches["wgmma"]
     out = flash_attention(q, k.repeat_interleave(h // hkv, dim=2),
                           v.repeat_interleave(h // hkv, dim=2),
                           causal=causal)
+    assert _flash_bhsd.route_launches["wgmma"] == fwd_before + 1
     out.backward(g)
     assert _flash_bhsd_bwd.route_launches["wgmma"] == before + 1
 
@@ -383,6 +386,89 @@ def test_flash_attention_autograd_bf16_takes_the_wgmma_route(cuda_device,
                      (v.grad, unfold(rv, hkv))):
         ok, err = _bwd_close(got, ref, *BWD_TOLS[1][1:])
         assert ok, f"max abs err {err}"
+
+
+# chip_smoke.py's rule for a bf16 forward: o to one bf16 ulp of the value
+# plus 1e-4, the float32 lse to 1e-4 (summation order only)
+FWD_RTOL, FWD_ATOL, LSE_ATOL = 2.0 ** -7, 1e-4, 1e-4
+
+
+def _fwd_errs(o, lse, ro, rlse):
+    """(largest ratio of an element's o error to FWD_RTOL |ref| + FWD_ATOL,
+    largest lse error)."""
+    d = (o.float() - ro.float()).abs()
+    lim = FWD_RTOL * ro.float().abs() + FWD_ATOL
+    return (d / lim).max().item(), (lse - rlse).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 200, 1000, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_wgmma_matches_plain(cuda_device, d, s, causal):
+    """The tensor-core forward (bf16, P as hi + lo) against the plain
+    version: one 64-tile, tails that no 64-tile divides (200, 1000) and
+    the train length, at chip_smoke.py's bf16 rule."""
+    q, k, v = _bwd_inputs(cuda_device, 7 * s + d + causal, (3, s, d),
+                          torch.bfloat16)[:3]
+    scale = d ** -0.5
+    before = _flash_bhsd.route_launches["wgmma"]
+    o, lse = _flash_bhsd(q, k, v, causal, scale)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert _flash_bhsd.route_launches["wgmma"] == before + 1
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ratio, lse_err = _fwd_errs(o, lse, ro, rlse)
+    assert ratio <= 1.0, f"o: {ratio} x the bf16 rule"
+    assert lse_err <= LSE_ATOL, f"lse: max abs err {lse_err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,d", [(torch.bfloat16, 256), (torch.float32, 64),
+                                  (torch.float32, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_cuda_core_route(cuda_device, dt, d, causal):
+    """bf16 at D 256 and float32 keep the CUDA-core kernel, held to the
+    bf16 rule and to float32's 1e-4 on o and lse."""
+    q, k, v = _bwd_inputs(cuda_device, d + causal, (3, 200, d), dt)[:3]
+    before = _flash_bhsd.route_launches["cuda_core"]
+    o, lse = _flash_bhsd(q, k, v, causal)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _flash_bhsd.route_launches["cuda_core"] == before + 1
+    if dt == torch.bfloat16:
+        ratio, lse_err = _fwd_errs(o, lse, ro, rlse)
+        assert ratio <= 1.0, f"o: {ratio} x the bf16 rule"
+    else:
+        assert (o - ro).abs().max().item() <= 1e-4
+        lse_err = (lse - rlse).abs().max().item()
+    assert lse_err <= LSE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_wgmma_keeps_heads_apart(cuda_device, d, causal):
+    """At S 200, where a head's last tile ends 56 rows short of 64: each
+    head of a [3, 200, D] call gets bit for bit what that head alone gets,
+    and NaN in every input of head 1 leaves heads 0 and 2 bit for bit. A
+    tile that read or wrote rows past S would cross into the next
+    head."""
+    q, k, v = _bwd_inputs(cuda_device, 3 * d + causal, (3, 200, d),
+                          torch.bfloat16)[:3]
+    before = _flash_bhsd.route_launches["wgmma"]
+    o, lse = _flash_bhsd(q, k, v, causal)
+    for h in range(3):
+        oh, lh = _flash_bhsd(q[h:h + 1], k[h:h + 1], v[h:h + 1], causal)
+        assert torch.equal(oh[0], o[h]) and torch.equal(lh[0], lse[h])
+    for t in (q, k, v):
+        t[1] = float("nan")
+    o2, lse2 = _flash_bhsd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert _flash_bhsd.route_launches["wgmma"] == before + 5
+    assert torch.isnan(o2[1]).any() and torch.isnan(lse2[1]).any()
+    for h in (0, 2):
+        assert torch.equal(o2[h], o[h]) and torch.equal(lse2[h], lse[h])
 
 
 # -- block-scaled weight matmul -------------------------------------------------

@@ -17,6 +17,13 @@ run of the whole suite, 34 of the 8192 elements of the S 128, D 16 causal
 case were off by up to 6.3e-5, against 2e-5 then; alone the case is off
 by 6e-7, and no state left behind by another test was found that explains
 it. The bound there is 144 ulps of max|v|, about 7e-5.
+
+The card's tensor-core forward (the "wgmma" route) multiplies bf16
+operands into float32 sums, runs the online softmax over 64-key tiles in
+the exp2 domain and carries p into p.v as a bf16 hi + lo pair; a
+test-local emulation of that arithmetic is held here to the JAX forward by
+chip_smoke.py's bf16 rule, and so is the single bf16 rounding of p it
+avoids, which misses.
 """
 import numpy as np
 import pytest
@@ -30,7 +37,7 @@ from paddle_tpu.kernels.pallas.flash_attention import _flash_bhsd as jax_o
 from paddle_tpu.kernels.pallas.flash_attention import _mha_fwd as jax_fwd
 
 from paddle_tpu_torch.kernels.flash_attention import (
-    _flash_bhsd, flash_attention_fwd_plain)
+    _flash_bhsd, flash_attention_fwd_plain, flash_bwd_route, flash_fwd_route)
 from paddle_tpu_torch.nn.functional.flash_attention import flash_attention
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -114,3 +121,105 @@ def test_causal_mask_value_is_finite():
     assert torch.isfinite(lse).all()
     torch.testing.assert_close(lse[0, 0], (q[0, 0] * 0.25) @ k[0, 0])
 
+
+
+def test_the_cpu_wrapper_is_the_plain_version():
+    """A CPU tensor takes the plain version and launches nothing: neither
+    the total nor any route counts."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(6, (3, 40, 16)))
+    before = _flash_bhsd.launches
+    routed = dict(_flash_bhsd.route_launches)
+    o, lse = _flash_bhsd(q, k, v, True, 0.25)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, True, 0.25)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    assert _flash_bhsd.launches == before
+    assert _flash_bhsd.route_launches == routed
+
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _wgmma_fwd_emulation(q, k, v, causal, scale, split=True):
+    """The tensor-core forward's arithmetic on float32 tensors that hold
+    bf16 values: products of bf16 operands are exact in float32 and sum in
+    float32; x = (q k^T) * (scale log2e); the online softmax runs over
+    64-key tiles in the exp2 domain from m = -1e30, masked columns stay
+    out of the max and get p = 0; l sums the float32 p; p enters p.v as
+    hi = bf16(p) plus lo = bf16(p - hi) (or, with split False, rounded
+    once to bf16). Returns (o rounded to bf16, lse = (m + log2 l) ln 2)."""
+    bh, s, d = q.shape
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    x = torch.matmul(q, k.transpose(-1, -2)) * sl2
+    keep = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    m = torch.full((bh, s), -1e30)
+    l = torch.zeros(bh, s)
+    acc = torch.zeros(bh, s, d)
+    for k0 in range(0, s, 64):
+        xt, kt = x[..., k0:k0 + 64], keep[:, k0:k0 + 64]
+        m_new = torch.maximum(m, torch.where(kt, xt, -torch.inf).amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(kt, torch.exp2(xt - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        hi = _bf16(p)
+        parts = (hi, _bf16(p - hi)) if split else (hi,)
+        acc = acc * alpha[..., None] + sum(
+            torch.matmul(a, v[:, k0:k0 + 64]) for a in parts)
+        m = m_new
+    return _bf16(acc / l[..., None]), (m + torch.log2(l)) * LN2
+
+
+def _fwd_ratio(out, ref):
+    """The largest ratio of an element's error to chip_smoke.py's bf16
+    rule for o, 2^-7 |ref| + 1e-4."""
+    return ((out - ref).abs() / (2.0 ** -7 * ref.abs() + 1e-4)).max().item()
+
+
+@pytest.mark.parametrize("s", [256, 200])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_arithmetic_matches_jax_kernel(pinned_numerics, s, d, causal):
+    """The emulation against JAX's _mha_fwd in interpret mode, 4 heads of
+    bf16-valued q, k and v, JAX's o rounded to bf16 as the plain version
+    rounds it: o within chip_smoke.py's bf16 rule and lse within 1e-4.
+    Rounding p once to bf16 instead misses the rule for o in every
+    case."""
+    q, k, v = (_bf16(torch.from_numpy(a))
+               for a in _qkv(3 * s + d + causal, (4, s, d)))
+    scale = float(1.0 / np.sqrt(d))
+    jo, jlse = jax_fwd(*(jnp.asarray(t.numpy()) for t in (q, k, v)), causal,
+                       scale)
+    ref = _bf16(torch.from_numpy(np.array(jo)))
+    rlse = torch.from_numpy(np.array(jlse))
+    o, lse = _wgmma_fwd_emulation(q, k, v, causal, scale)
+    ratio = _fwd_ratio(o, ref)
+    assert ratio <= 1.0, f"o: {ratio} x the bf16 rule"
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    once, _ = _wgmma_fwd_emulation(q, k, v, causal, scale, split=False)
+    assert _fwd_ratio(once, ref) > 1.0
+
+
+@pytest.mark.parametrize("dtype,d,ptrs,route", [
+    (torch.bfloat16, 64, (0, 16, 32), "wgmma"),
+    (torch.bfloat16, 128, (256, 512, 768), "wgmma"),
+    (torch.bfloat16, 256, (0, 0, 0), "cuda_core"),
+    (torch.bfloat16, 128, (0, 0, 8), "cuda_core"),
+    (torch.bfloat16, 64, (2, 0, 0), "cuda_core"),
+    (torch.bfloat16, 128, (0, 4, 0), "cuda_core"),
+    (torch.float32, 64, (0, 0, 0), "cuda_core"),
+    (torch.float32, 128, (0, 0, 0), "cuda_core"),
+    (torch.float32, 256, (0, 0, 0), "cuda_core"),
+])
+def test_flash_fwd_route(dtype, d, ptrs, route):
+    """The tensor cores take bf16 at D 64 and 128 with q, k and v 16-byte
+    aligned; float32 (TF32 would round it), D 256 and a misaligned operand
+    keep the CUDA-core kernel. The backward's rule picks the same kind of
+    kernel for the same operands."""
+    assert flash_fwd_route(dtype, d, ptrs) == route
+    assert flash_bwd_route(dtype, d, ptrs) == route
