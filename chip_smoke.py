@@ -83,23 +83,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
 11. the packed and masked attention kernels (varlen forward, dq + dk/dv;
    FlashMask forward, dq + dk/dv) against their plain versions in bf16:
    the packed batch of phase 12 (timed with the plain versions, SDPA with
-   the boolean mask and, where torch has it, its varlen call), D 64 and
-   256, a total of 1000, empty documents, unequal packs with an empty k
-   document (keyless rows 0 with zero gradients), random start rows, and
-   NaN in one document's K and V (every other document's outputs and
-   gradients unchanged); each with its live, visited and dense pair counts
-   and the bound over live pairs (backward 2.5 x the forward's flops);
+   the boolean mask and, where torch has it, its varlen call, forward and
+   backward), the same documents in float32 at phase 13's 4 heads (timed
+   too), D 64 and 256 (D 256 timed too), a total of 1000, empty
+   documents, unequal packs with an empty k document (keyless rows 0 with
+   zero gradients), random start rows, and NaN in one document's K and V
+   (every other document's outputs and gradients bit for bit unchanged);
+   each forward on the tensor cores in bf16 at D 64 and 128 and on the
+   CUDA cores in float32 and at D 256, each case with its route, rate,
+   share of its bound, live, visited and dense pair counts and the bound
+   over live pairs (backward 2.5 x the forward's flops);
 12. varlen_attn: flash_attn_unpadded on bench.py's one-chip batch packed
    (6 x 2048 = 12,288 tokens, 16 documents of rng.integers(64, 2049) from
    the seed, the last of a row cut to fit), [12288, 32, 128] bf16 leaves,
    causal, forward and backward through autograd, 2 warm-up and 10 timed
    passes: ms per pass, tokens/s, TFLOP/s over live pairs, peak memory,
-   and one launch of each kernel per pass; flashmask_attn: the same with
+   and one launch of each kernel per pass, every forward on the tensor
+   cores; flashmask_attn: the same with
    flash_attention_with_sparse_mask on [6, 2048, 32, 128] and the
    documents as [6, 1, 2048] start rows;
 13. packed_parity: the two paths in float32 at 4 heads on the same
    documents (outputs and gradients), and FlashMask with start rows S
-   against the dense flash kernels;
+   against the dense flash kernels, every masked forward on the CUDA
+   cores;
 14. the row-wise kernels (RMSNorm forward and backward, RoPE, the causal
    softmax forward and backward) against their plain versions, element by
    element to 2^-7 |ref| in bf16 (0 in float32) plus 1e-5 of the largest:
@@ -128,7 +134,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    for quant_matmul's GEMV and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
    forward and dw kernels, train_moe_quant for the quantized grouped
-   kernel, varlen_attn and flashmask_attn for the packed kernels,
+   kernel, varlen_attn and flashmask_attn for the packed kernels (their
+   forwards on the tensor cores), packed_parity for the packed forwards on
+   the CUDA cores,
    rowwise_attn for the row-wise ones), error and times;
 17. the card's name and power limit again, and the result line.
 
@@ -238,16 +246,21 @@ def bound(bytes_moved, flops, peak_flops):
             else "operations")
 
 
-# the tensor-core kernels of each flash source, whose SASS must hold HGMMA
-WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma",),
-                 "flash_attention_bwd": ("flash_bwd_dq_wgmma",
-                                         "flash_bwd_dkv_wgmma")}
+# the tensor-core kernels of each flash source, whose SASS must hold HGMMA,
+# and the tag that names the source's instances in the build line (the
+# masked forward is one template with a mask policy per source)
+WGMMA_KERNELS = {"flash_attention_fwd": (("flash_fwd_wgmma",), None),
+                 "flash_attention_bwd": (("flash_bwd_dq_wgmma",
+                                          "flash_bwd_dkv_wgmma"), None),
+                 "flash_varlen": (("masked_fwd_wgmma",), "SegmentMask"),
+                 "flash_sparse_mask": (("masked_fwd_wgmma",),
+                                       "StartRowMask")}
 
 
-def hgmma_counts(so, kernels):
+def hgmma_counts(so, kernels, tag=None):
     """HGMMA instructions (wgmma in SASS) in each instance of the named
     kernels of a built library, as cuobjdump --dump-sass lists them:
-    {"kernel<HD>": count}."""
+    {"kernel<HD>": count}, or {"kernel<HD, tag>": count} with a tag."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     out = subprocess.run([tool, "--dump-sass", str(so)],
@@ -261,7 +274,8 @@ def hgmma_counts(so, kernels):
             name = next((k for k in kernels if k + "I" in fn.group(1)),
                         None)
             hd = re.search(r"ILi(\d+)E", fn.group(1))
-            key = f"{name}<{hd.group(1)}>" if name and hd else None
+            key = (f"{name}<{hd.group(1)}{', ' + tag if tag else ''}>"
+                   if name and hd else None)
             if key:
                 counts[key] = 0
         elif key and "HGMMA" in line:
@@ -1964,11 +1978,39 @@ def _varlen_library_call(fn, q, k, v, cu, mx, causal, scale):
     return fn(q, k, v, cu, cu, mx, mx, **kw)
 
 
-def _grad_errs(got, ref):
+def _varlen_library_bwd(torch, fn, q, k, v, do, cu, mx, causal, scale,
+                        ref):
+    """The backward of torch's varlen call where this torch differentiates
+    it (a yardstick only): its time, and its largest gradient error
+    against the plain backward; else the error it raises."""
+    try:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = _varlen_library_call(fn, *leaves, cu, mx, causal, scale)
+        out = out[0] if isinstance(out, tuple) else out
+        grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(grads, ref))
+        ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 10)
+        return {"bwd_ms": ms, "bwd_max_abs_err_vs_plain": err}
+    except Exception as e:               # a yardstick, not part of the path
+        return {"bwd_error": f"{type(e).__name__}: {e}"[:300]}
+
+
+def _tols(torch, dt):
+    """(o rtol, o atol, lse atol, gradient atol of the largest, peak rate)
+    of a packed case: bf16 on the bf16 rules and the tensor-core peak,
+    float32 to 1e-4 (summation order only) and the float32 peak."""
+    if dt == torch.bfloat16:
+        return BF16_RTOL, BF16_ATOL, LSE_ATOL, GRAD_ATOL, BF16_FLOPS
+    return 0.0, FWD_ATOL_F32, FWD_ATOL_F32, GRAD_ATOL_F32, F32_FLOPS
+
+
+def _grad_errs(got, ref, rtol=BF16_RTOL, of_max=GRAD_ATOL):
     errs, ratios = {}, {}
     for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-        atol = GRAD_ATOL * r.float().abs().max().item()
-        errs[gname], ratios[gname] = bf16_err(g, r, atol)
+        atol = of_max * r.float().abs().max().item()
+        errs[gname], ratios[gname] = bf16_err(g, r, atol, rtol)
     return errs, ratios
 
 
@@ -1991,14 +2033,14 @@ def _sdpa_library(torch, name, q4, k4, v4, mask, scale, do4, ref_o, ref_g):
 
 
 def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
-                timed=False):
+                timed=False, dtype="bfloat16"):
     """Both varlen kernels (the forward; dq and dk/dv) on one packing in
-    bf16 against their plain versions, the backward on the kernel
-    forward's o and lse as training gives them. poison: the index of a
-    document whose K and V become NaN: every other document's outputs and
-    gradients must equal the clean run's. timed: also the plain versions'
-    times and the library yardsticks. Returns (forward record, backward
-    record)."""
+    `dtype` against their plain versions, the backward on the kernel
+    forward's o and lse as training gives them (tolerances: `_tols`).
+    poison: the index of a document whose K and V become NaN: every other
+    document's outputs and gradients must equal the clean run's. timed:
+    also the plain versions' times and the library yardsticks. Returns
+    (forward record, backward record)."""
     from paddle_tpu_torch.kernels.flash_varlen import (
         BQ, dkv_block, flash_varlen_bwd, flash_varlen_bwd_plain,
         flash_varlen_fwd, flash_varlen_fwd_plain, segments_from_cu,
@@ -2006,7 +2048,9 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    bf = torch.bfloat16
+    bf = getattr(torch, dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
+    rtol, atol, lse_atol, of_max, peak = _tols(torch, bf)
     tq, tk = int(sum(lq)), int(sum(lk))
     q, do = (torch.randn(tq, h, d, generator=gen, device=dev, dtype=bf)
              for _ in range(2))
@@ -2020,17 +2064,20 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
     sk, pk = segments_from_cu(cu_k, tk)
     scale = d ** -0.5
     seg = (sq, pq, sk, pk, causal, scale)
+    routed = dict(flash_varlen_fwd.route_launches)
     o, lse = flash_varlen_fwd(q, k, v, *seg)
+    route = next(r for r, n in flash_varlen_fwd.route_launches.items()
+                 if n > routed[r])
     ro, rlse = flash_varlen_fwd_plain(q, k, v, *seg)
     got = flash_varlen_bwd(q, k, v, o, lse, do, *seg)
     ref = flash_varlen_bwd_plain(q, k, v, o, lse, do, *seg)
     torch.cuda.synchronize()
-    err, ratio = bf16_err(o, ro)
+    err, ratio = bf16_err(o, ro, atol, rtol)
     lse_err = (lse - rlse).abs().max().item()
-    check(ratio <= 1.0 and lse_err <= LSE_ATOL,
+    check(ratio <= 1.0 and lse_err <= lse_atol,
           f"{name}: varlen forward vs plain o err {err} ({ratio} x "
           f"tolerance), lse err {lse_err}")
-    errs, ratios = _grad_errs(got, ref)
+    errs, ratios = _grad_errs(got, ref, rtol, of_max)
     gratio = max(ratios.values())
     check(math.isfinite(gratio) and gratio <= 1.0,
           f"{name}: varlen backward vs plain errors {errs}, {ratios} x "
@@ -2099,6 +2146,10 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
             except Exception as e:       # a yardstick, not part of the path
                 varlen_lib = {"available": True,
                               "error": f"{type(e).__name__}: {e}"[:300]}
+            if "ms" in varlen_lib:
+                varlen_lib.update(_varlen_library_bwd(
+                    torch, fn, q, k, v, do, cu_q, max(lq), causal, scale,
+                    ref))
     pairs = live_pairs(np, lq, lk, causal)
     rq = varlen_tile_ranges(sq, pq, sk, pk, BQ, causal, True)
     rk = varlen_tile_ranges(sk, pk, sq, pq, dkv_block(d), causal, False)
@@ -2108,44 +2159,97 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
                           * dkv_block(d), max=dkv_block(d))
     visited_fwd = int((rq_rows * (rq[:, 1] - rq[:, 0]).clamp(min=0)).sum())
     visited_dkv = int((rk_rows * (rk[:, 1] - rk[:, 0]).clamp(min=0)).sum())
-    isz = 2
-    common = {"phase": "kernel_check", "case": name, "dtype": "bfloat16",
+    isz = q.element_size()
+    common = {"phase": "kernel_check", "case": name, "dtype": dtype,
               "heads": h, "d": d, "causal": causal, "total_q": tq,
               "total_k": tk, "docs_q": list(lq), "docs_k": list(lk),
               "live_pairs_per_head": pairs,
               "dense_pairs_per_head": tq * tk,
               "visited_pairs_per_head_fwd_dq": visited_fwd,
               "visited_pairs_per_head_dkv": visited_dkv,
+              "fwd_wgmma_tiles_per_head": dict(zip(
+                  ("wholly_live", "partial"),
+                  varlen_fwd_tiles(np, sq, pq, sk, pk, causal, rq))),
               "keyless_docs": keyless, "nan_poisoned_doc": poison}
     flops = 4 * h * d * pairs
     seg_bytes = 8 * (tq + tk)
     fbytes = (2 * tq + 2 * tk) * h * d * isz + 4 * h * tq + seg_bytes
-    bound_ms, bound_by = bound(fbytes, flops, BF16_FLOPS)
-    fwd = dict(common, kernel="flash_varlen_fwd", max_abs_err=err,
-               err_over_tolerance=ratio, rtol=BF16_RTOL, atol=BF16_ATOL,
-               lse_max_abs_err=lse_err, lse_atol=LSE_ATOL,
+    bound_ms, bound_by = bound(fbytes, flops, peak)
+    fwd = dict(common, kernel="flash_varlen_fwd", route=route,
+               max_abs_err=err,
+               err_over_tolerance=ratio, rtol=rtol, atol=atol,
+               lse_max_abs_err=lse_err, lse_atol=lse_atol,
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms,
                library="scaled_dot_product_attention, block-diagonal "
                        "boolean mask over the pack",
                library_varlen_attn=varlen_lib, bound_ms=bound_ms,
-               bound_by=bound_by, bytes=fbytes, flops=flops,
-               tflops=flops / kernel_ms / 1e9)
+               bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+               bytes=fbytes, flops=flops, tflops=flops / kernel_ms / 1e9)
     emit(fwd)
     flops = 10 * h * d * pairs            # 2.5 x the forward
     bbytes = (3 * tq + 2 * tk + tq + 2 * tk) * h * d * isz \
         + 8 * h * tq + seg_bytes
-    bound_ms, bound_by = bound(bbytes, flops, BF16_FLOPS)
-    bwd = dict(common, kernel="flash_varlen_bwd",
+    bound_ms, bound_by = bound(bbytes, flops, peak)
+    bwd = dict(common, kernel="flash_varlen_bwd", route="cuda_core",
                max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
-               err_over_tolerance=gratio, rtol=BF16_RTOL,
-               grad_atol_of_max=GRAD_ATOL, kernel_ms=kernel_bwd_ms,
+               err_over_tolerance=gratio, rtol=rtol,
+               grad_atol_of_max=of_max, kernel_ms=kernel_bwd_ms,
                plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
                library="backward of that SDPA call", bound_ms=bound_ms,
-               bound_by=bound_by, bytes=bbytes, flops=flops,
+               bound_by=bound_by, bound_share=bound_ms / kernel_bwd_ms,
+               bytes=bbytes, flops=flops,
                tflops=flops / kernel_bwd_ms / 1e9)
     emit(bwd)
     return fwd, bwd
+
+
+def varlen_fwd_tiles(np, sq, pq, sk, pk, causal, rq):
+    """The 64-key tiles the tensor-core forward visits for one head:
+    (wholly live, others). A tile is wholly live when its 64 keys lie in
+    the q tile's range and each is live for the tile's first and last rows
+    (csrc/flash_masked.cuh); the others take the pair test and the NaN
+    guard."""
+    sq, pq, sk, pk = (x.cpu().numpy() for x in (sq, pq, sk, pk))
+    full = part = 0
+    for t, (lo, hi) in enumerate(rq.cpu().tolist()):
+        rows = [t * 64, min(t * 64 + 64, len(sq)) - 1]
+        for k0 in range(lo, hi, 64):
+            cols = slice(k0, k0 + 64)
+            ok = k0 + 64 <= hi and all(
+                ((sq[r] == sk[cols])
+                 & (pq[r] >= pk[cols] if causal else True)).all()
+                for r in rows)
+            full += ok
+            part += not ok
+    return full, part
+
+
+def sparse_mask_fwd_tiles(torch, start, causal):
+    """The same count for FlashMask, summed over the B*H heads: the
+    64-key tiles up to the diagonal (causal) that the tile maxima do not
+    skip, wholly live when each column's start is past the q tile's last
+    row (and, causal, the tile lies below the diagonal)."""
+    from paddle_tpu_torch.kernels.flash_sparse_mask import tile_max
+    bh, s = start.shape
+    n = -(-s // 64)
+    st = torch.zeros(bh, n * 64, dtype=torch.int32, device=start.device)
+    st[:, :s] = start
+    st = st.reshape(bh, 1, n, 64)
+    q0 = torch.arange(n, device=start.device) * 64
+    q1 = (q0 + 64).clamp(max=s)
+    col = torch.arange(n * 64, device=start.device).reshape(1, 1, n, 64)
+    ok = (q1 - 1).reshape(1, n, 1, 1) < st
+    if causal:
+        ok &= q0.reshape(1, n, 1, 1) >= col
+    hi = (q1 if causal else torch.full_like(q1, s)).reshape(1, n, 1)
+    k0 = q0.reshape(1, 1, n)
+    full = ok.all(-1) & (k0 + 64 <= hi)
+    tm = tile_max(start)
+    tm = torch.cat([tm, tm.new_zeros(bh, 2 * n - tm.shape[1])], 1)
+    dead = q0.reshape(1, n, 1) >= tm.reshape(bh, 1, n, 2).amax(-1)
+    visited = (k0 < hi) & ~dead
+    return int((visited & full).sum()), int((visited & ~full).sum())
 
 
 def sparse_mask_pairs(torch, start, causal):
@@ -2173,10 +2277,11 @@ def sparse_mask_visited(torch, start, causal):
 
 
 def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
-                     poison=None, timed=False):
-    """Both FlashMask kernels on [b, s, h, d] bf16 with start rows `start`
-    (int32 on the card, [b, 1, s] shared by the heads or [b*h, s]) against
-    their plain versions (chunked over b*h). poison: (batch row, first,
+                     poison=None, timed=False, dtype="bfloat16"):
+    """Both FlashMask kernels on [b, s, h, d] `dtype` with start rows
+    `start` (int32 on the card, [b, 1, s] shared by the heads or [b*h, s])
+    against their plain versions (chunked over b*h; tolerances: `_tols`).
+    poison: (batch row, first,
     end) columns whose K and V become NaN: every other row's outputs and
     gradients must equal the clean run's. Returns (forward record,
     backward record)."""
@@ -2186,24 +2291,30 @@ def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    dt = getattr(torch, dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
+    rtol, atol, lse_atol, of_max, peak = _tols(torch, dt)
     q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
-                               dtype=torch.bfloat16) for _ in range(4))
+                               dtype=dt) for _ in range(4))
     shared = start.dim() == 3
     st = start.expand(b, h, s).reshape(b * h, s).contiguous() if shared \
         else start
     scale = d ** -0.5
+    routed = dict(flash_sparse_mask_fwd.route_launches)
     o, lse = flash_sparse_mask_fwd(q, k, v, st, causal, scale)
+    route = next(r for r, n in flash_sparse_mask_fwd.route_launches.items()
+                 if n > routed[r])
     ro, rlse = flash_sparse_mask_fwd_plain(q, k, v, st, causal, scale)
     got = flash_sparse_mask_bwd(q, k, v, o, lse, do, st, causal, scale)
     ref = flash_sparse_mask_bwd_plain(q, k, v, o, lse, do, st, causal,
                                       scale)
     torch.cuda.synchronize()
-    err, ratio = bf16_err(o, ro)
+    err, ratio = bf16_err(o, ro, atol, rtol)
     lse_err = (lse - rlse).abs().max().item()
-    check(ratio <= 1.0 and lse_err <= LSE_ATOL,
+    check(ratio <= 1.0 and lse_err <= lse_atol,
           f"{name}: FlashMask forward vs plain o err {err} ({ratio} x "
           f"tolerance), lse err {lse_err}")
-    errs, ratios = _grad_errs(got, ref)
+    errs, ratios = _grad_errs(got, ref, rtol, of_max)
     gratio = max(ratios.values())
     check(math.isfinite(gratio) and gratio <= 1.0,
           f"{name}: FlashMask backward vs plain errors {errs}, {ratios} x "
@@ -2248,36 +2359,42 @@ def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
             [g.transpose(1, 2) for g in ref])
         del mask, q4, k4, v4, do4
     pairs = sparse_mask_pairs(torch, st, causal)
-    common = {"phase": "kernel_check", "case": name, "dtype": "bfloat16",
+    common = {"phase": "kernel_check", "case": name, "dtype": dtype,
               "b": b, "s": s, "heads": h, "d": d, "causal": causal,
               "start_shared_by_heads": shared,
               "live_pairs": pairs, "dense_pairs": b * h * s * s,
               "visited_pairs_fwd_dq": sparse_mask_visited(torch, st,
                                                           causal),
+              "fwd_wgmma_tiles": dict(zip(
+                  ("wholly_live", "partial"),
+                  sparse_mask_fwd_tiles(torch, st, causal))),
               "nan_poisoned_columns": poison}
-    isz = 2
+    isz = q.element_size()
     flops = 4 * d * pairs
     fbytes = 4 * b * s * h * d * isz + 8 * b * h * s
-    bound_ms, bound_by = bound(fbytes, flops, BF16_FLOPS)
-    fwd = dict(common, kernel="flash_sparse_mask_fwd", max_abs_err=err,
-               err_over_tolerance=ratio, rtol=BF16_RTOL, atol=BF16_ATOL,
-               lse_max_abs_err=lse_err, lse_atol=LSE_ATOL,
+    bound_ms, bound_by = bound(fbytes, flops, peak)
+    fwd = dict(common, kernel="flash_sparse_mask_fwd", route=route,
+               max_abs_err=err,
+               err_over_tolerance=ratio, rtol=rtol, atol=atol,
+               lse_max_abs_err=lse_err, lse_atol=lse_atol,
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms,
                library="scaled_dot_product_attention, [b, 1, s, s] "
                        "boolean mask", bound_ms=bound_ms, bound_by=bound_by,
-               bytes=fbytes, flops=flops, tflops=flops / kernel_ms / 1e9)
+               bound_share=bound_ms / kernel_ms, bytes=fbytes, flops=flops,
+               tflops=flops / kernel_ms / 1e9)
     emit(fwd)
     flops = 10 * d * pairs
     bbytes = 8 * b * s * h * d * isz + 12 * b * h * s
-    bound_ms, bound_by = bound(bbytes, flops, BF16_FLOPS)
-    bwd = dict(common, kernel="flash_sparse_mask_bwd",
+    bound_ms, bound_by = bound(bbytes, flops, peak)
+    bwd = dict(common, kernel="flash_sparse_mask_bwd", route="cuda_core",
                max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
-               err_over_tolerance=gratio, rtol=BF16_RTOL,
-               grad_atol_of_max=GRAD_ATOL, kernel_ms=kernel_bwd_ms,
+               err_over_tolerance=gratio, rtol=rtol,
+               grad_atol_of_max=of_max, kernel_ms=kernel_bwd_ms,
                plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
                library="backward of that SDPA call", bound_ms=bound_ms,
-               bound_by=bound_by, bytes=bbytes, flops=flops,
+               bound_by=bound_by, bound_share=bound_ms / kernel_bwd_ms,
+               bytes=bbytes, flops=flops,
                tflops=flops / kernel_bwd_ms / 1e9)
     emit(bwd)
     return fwd, bwd
@@ -2286,49 +2403,172 @@ def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
 def packed_kernel_checks(torch, np, lens, seed):
     """Phase 11: the varlen and FlashMask kernels against their plain
     versions: the main packed shape (timed with its plain versions and
-    yardsticks), D 64 and 256, a total of 1000, empty documents, unequal
-    packs with an empty k document, random start rows, and NaN isolation.
-    Returns the main cases' four records."""
+    yardsticks), float32 at packed_parity's shapes (timed: the CUDA-core
+    forward's rows), D 64 and 256 (D 256 timed too), a total of 1000,
+    empty documents, unequal packs with an empty k document, random start
+    rows, and NaN isolation. Every bf16 forward at D 64 and 128 must have
+    taken the tensor-core route, float32 and D 256 the CUDA cores. Returns
+    the records of the main cases (forward, backward, both policies) and
+    of the float32 forwards."""
     dev = torch.device("cuda")
     small = pack_documents(np, seed, rows=2)               # 4096 tokens
+    fwds = []
     vf, vb = varlen_case(torch, np, "main_pack_32x128_causal", lens, lens,
                          PACK_HEADS, PACK_D, True, seed, timed=True)
+    fwds.append(vf)
     for d in (64, 256):
-        varlen_case(torch, np, f"pack4096_h8_d{d}_causal", small, small, 8,
-                    d, True, seed + d)
-    varlen_case(torch, np, "total1000_h8_d128_causal",
-                (1, 63, 64, 65, 300, 7, 500), (1, 63, 64, 65, 300, 7, 500),
-                8, 128, True, seed + 1)
-    varlen_case(torch, np, "empty_docs_h8_d128_causal",
-                (700, 0, 333, 290, 0), (700, 0, 333, 290, 0), 8, 128, True,
-                seed + 2)
-    varlen_case(torch, np, "unequal_keyless_h8_d128_full",
-                (300, 200, 250, 250), (280, 0, 300, 120), 8, 128, False,
-                seed + 3)
-    varlen_case(torch, np, "nan_doc2_h8_d128_causal", small, small, 8, 128,
-                True, seed + 4, poison=2)
+        fwds.append(varlen_case(torch, np, f"pack4096_h8_d{d}_causal",
+                                small, small, 8, d, True, seed + d,
+                                timed=d == 256)[0])
+    for args in (("total1000_h8_d128_causal",
+                  (1, 63, 64, 65, 300, 7, 500), (1, 63, 64, 65, 300, 7, 500),
+                  8, 128, True, seed + 1),
+                 ("empty_docs_h8_d128_causal", (700, 0, 333, 290, 0),
+                  (700, 0, 333, 290, 0), 8, 128, True, seed + 2),
+                 ("unequal_keyless_h8_d128_full", (300, 200, 250, 250),
+                  (280, 0, 300, 120), 8, 128, False, seed + 3)):
+        fwds.append(varlen_case(torch, np, *args)[0])
+    fwds.append(varlen_case(torch, np, "nan_doc2_h8_d128_causal", small,
+                            small, 8, 128, True, seed + 4, poison=2)[0])
+    # packed_parity's inputs: float32, 4 heads, on the CUDA cores
+    vf32 = varlen_case(torch, np, "parity_pack_4x128_causal_f32", lens, lens,
+                       PACK_PARITY_HEADS, PACK_D, True, seed + 10,
+                       timed=True, dtype="float32")[0]
+    fwds.append(vf32)
     start = torch.as_tensor(doc_start_rows(np, lens, PACK_ROWS, PACK_SEQ),
                             device=dev)[:, None, :]            # [6, 1, S]
     mf, mb = sparse_mask_case(torch, np, "main_docs_6x2048x32x128_causal",
                               PACK_ROWS, PACK_SEQ, PACK_HEADS, PACK_D, True,
                               start, seed, timed=True)
+    fwds.append(mf)
+    mf32 = sparse_mask_case(torch, np, "parity_docs_6x2048x4x128_causal_f32",
+                            PACK_ROWS, PACK_SEQ, PACK_PARITY_HEADS, PACK_D,
+                            True, start, seed + 11, timed=True,
+                            dtype="float32")[0]
+    fwds.append(mf32)
     rng = np.random.default_rng(seed + 5)
     for causal in (True, False):       # as tests/test_varlen_flash.py
         rs = torch.as_tensor(rng.integers(1, 2049, (2 * 8, 2048))
                              .astype(np.int32), device=dev)
-        sparse_mask_case(torch, np, f"random_start_2x2048x8x128_"
-                                    f"{'causal' if causal else 'full'}",
-                         2, 2048, 8, 128, causal, rs, seed + 6 + causal)
+        fwds.append(sparse_mask_case(
+            torch, np, f"random_start_2x2048x8x128_"
+                       f"{'causal' if causal else 'full'}",
+            2, 2048, 8, 128, causal, rs, seed + 6 + causal)[0])
     docs1000 = (1, 63, 64, 65, 300, 7, 500)
     st1000 = torch.as_tensor(doc_start_rows(np, docs1000 * 2, 2, 1000),
                              device=dev)[:, None, :]
     for d in (64, 256):
-        sparse_mask_case(torch, np, f"docs_2x1000x4_d{d}_causal", 2, 1000,
-                         4, d, True, st1000, seed + d)
-    sparse_mask_case(torch, np, "nan_doc0_6x2048x8x128_causal", PACK_ROWS,
-                     PACK_SEQ, 8, 128, True, start, seed + 9,
-                     poison=(0, 0, lens[0]))
-    return vf, vb, mf, mb
+        fwds.append(sparse_mask_case(torch, np, f"docs_2x1000x4_d{d}_causal",
+                                     2, 1000, 4, d, True, st1000, seed + d,
+                                     timed=d == 256)[0])
+    fwds.append(sparse_mask_case(torch, np, "nan_doc0_6x2048x8x128_causal",
+                                 PACK_ROWS, PACK_SEQ, 8, 128, True, start,
+                                 seed + 9, poison=(0, 0, lens[0]))[0])
+    for rec in fwds:
+        want = "cuda_core" if rec["d"] == 256 or rec["dtype"] == "float32" \
+            else "wgmma"
+        check(rec["route"] == want, f"{rec['case']}: the {rec['kernel']} "
+                                    f"forward routed to {rec['route']}")
+    return vf, vb, mf, mb, vf32, mf32
+
+
+NAN_GUARD_BUILDS = (1, 2, 0)      # the kernel's rule, every tile, none
+
+
+def nan_guard_cost(torch, np, lens, seed):
+    """--nan-guard-cost: the tensor-core masked forward's NaN guard, timed.
+    flash_varlen.cu and flash_sparse_mask.cu are built twice more, with the
+    scan of V on every 64-key tile (-DPTT_NAN_GUARD=2) and on none (0),
+    into a directory of their own; the main varlen and FlashMask forwards
+    (bf16, [12288, 32, 128] and [6, 2048, 32, 128], causal) run on each
+    build in turn, three rounds. On clean inputs every build gives the same
+    bits, which is checked. Prints one line: the median ms of each build,
+    the tiles each run visits, and the scan's share of the kernel's
+    time."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_sparse_mask as fsm
+    from paddle_tpu_torch.kernels import flash_varlen as fv
+    out = os.path.join(str(_build.BUILD_DIR), "nan_guard")
+    os.makedirs(out, exist_ok=True)
+    mods = {"flash_varlen": fv, "flash_sparse_mask": fsm}
+    jobs = {}
+    for src in mods:
+        for g in NAN_GUARD_BUILDS[1:]:
+            so = os.path.join(out, f"lib{src}-guard{g}.so")
+            jobs[src, g] = (so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPTT_NAN_GUARD={g}",
+                 "-I", str(_build.CSRC), "-o", so,
+                 str(_build.CSRC / f"{src}.cu")],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    libs = {(src, 1): _build.load(src, mods[src]._SIG) for src in mods}
+    for (src, g), (so, proc) in jobs.items():
+        err = proc.communicate()[1]
+        check(proc.returncode == 0, f"nvcc -DPTT_NAN_GUARD={g} {src}: "
+                                    f"{err.decode()[-2000:]}")
+        lib = ctypes.CDLL(so)
+        for name, argtypes in mods[src]._SIG.items():
+            getattr(lib, name).argtypes = list(argtypes)
+            getattr(lib, name).restype = ctypes.c_int
+        libs[src, g] = lib
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h, d, tokens = PACK_HEADS, PACK_D, sum(lens)
+    q, k, v = (torch.randn(tokens, h, d, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    cu = torch.as_tensor(np.cumsum([0] + list(lens)), dtype=torch.int32,
+                         device=dev)
+    sq, pq = fv.segments_from_cu(cu, tokens)
+    seg = (sq, pq, sq, pq, True, d ** -0.5)
+    start = torch.as_tensor(doc_start_rows(np, lens, PACK_ROWS, PACK_SEQ),
+                            device=dev)[:, None, :]
+    st = start.expand(PACK_ROWS, h, PACK_SEQ).reshape(-1, PACK_SEQ) \
+        .contiguous()
+    q4, k4, v4 = (x.reshape(PACK_ROWS, PACK_SEQ, h, d) for x in (q, k, v))
+    runs = {"flash_varlen": lambda: fv.flash_varlen_fwd(q, k, v, *seg),
+            "flash_sparse_mask": lambda: fsm.flash_sparse_mask_fwd(
+                q4, k4, v4, st, True, d ** -0.5)}
+    rq = fv.varlen_tile_ranges(sq, pq, sq, pq, fv.BQ, True, True)
+    tiles = {"flash_varlen": [h * n for n in
+                              varlen_fwd_tiles(np, sq, pq, sq, pq, True, rq)],
+             "flash_sparse_mask": list(sparse_mask_fwd_tiles(torch, st,
+                                                             True))}
+    ms = {(src, g): [] for src in mods for g in NAN_GUARD_BUILDS}
+    ref = {}
+    try:
+        for _ in range(3):
+            for src, run in runs.items():
+                for g in NAN_GUARD_BUILDS:
+                    _build._libs[src] = libs[src, g]
+                    got = run()[0]
+                    ref.setdefault(src, got)
+                    check(torch.equal(got, ref[src]),
+                          f"{src}: the build with PTT_NAN_GUARD={g} gives "
+                          f"other bits on clean inputs")
+                    ms[src, g].append(cuda_ms(torch, run, 10))
+    finally:
+        for src in mods:
+            _build._libs[src] = libs[src, 1]
+    rec = {"phase": "nan_guard_cost", "dtype": "bfloat16", "heads": h,
+           "d": d, "tokens": tokens}
+    for src in mods:
+        med = {g: statistics.median(ms[src, g]) for g in NAN_GUARD_BUILDS}
+        full, part = tiles[src]
+        rec[src] = {"ms_partial_tiles": med[1], "ms_every_tile": med[2],
+                    "ms_no_scan": med[0],
+                    "ms_runs": {str(g): ms[src, g] for g in NAN_GUARD_BUILDS},
+                    "tiles_wholly_live": full, "tiles_partial": part,
+                    # the run's extra time over the tiles scanned (all
+                    # blocks at once: wall time, not a block's time)
+                    "wall_ns_per_tile_every_tile":
+                        (med[2] - med[0]) * 1e6 / (full + part),
+                    "wall_ns_per_tile_partial":
+                        (med[1] - med[0]) * 1e6 / part,
+                    "share_of_kernel": (med[1] - med[0]) / med[1]}
+    emit(rec)
+    return rec
 
 
 def _leaves(torch, gen, shape, dtype):
@@ -2341,10 +2581,11 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
     """The timed loop of a packed-attention path phase: PACK_WARMUP +
     PACK_TIMED forward and backward passes through autograd (gradients
     reset to None first, as a training step's zero_grad), one launch of
-    each kernel per pass."""
+    each kernel per pass, every forward on the tensor cores (bf16 at D
+    128)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fwd_fn.launches = 0
+    zero_flash_counts(fwd_fn)
     bwd_fn.launches = 0
 
     def one():
@@ -2362,9 +2603,12 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
     wall = time.perf_counter() - t0
     passes = PACK_WARMUP + PACK_TIMED
     fl, bl = fwd_fn.launches, bwd_fn.launches
+    routes = dict(fwd_fn.route_launches)
     check(fl == passes and bl == passes,
           f"{phase}: forward launches {fl}, backward {bl} != one each per "
           f"pass x {passes}")
+    check(routes["wgmma"] == passes,
+          f"{phase}: forward routes {routes}, not all on the tensor cores")
     check(bool(torch.isfinite(out).all())
           and all(bool(torch.isfinite(t.grad).all()) for t in leaves),
           f"{phase}: non-finite output or gradient")
@@ -2378,7 +2622,8 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
                 "dense_causal_pairs_per_head": tokens * (tokens + 1) // 2,
                 "tflops_live": flops * PACK_TIMED / wall / 1e12,
                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
-                "fwd_launches": fl, "bwd_launches": bl}, **extra)
+                "fwd_launches": fl, "bwd_launches": bl,
+                "fwd_route_launches": routes}, **extra)
     emit(rec)
     return rec
 
@@ -2533,10 +2778,9 @@ def packed_parity_phase(torch, np, lens, seed):
     cu = torch.as_tensor(np.cumsum([0] + list(lens)), dtype=torch.int32,
                          device="cuda")
     bshape = (PACK_ROWS, PACK_SEQ, h, d)
-    for fn in (flash_varlen_fwd, flash_varlen_bwd, flash_sparse_mask_fwd,
-               flash_sparse_mask_bwd):
-        fn.launches = 0
-    zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+    flash_varlen_bwd.launches = flash_sparse_mask_bwd.launches = 0
+    zero_flash_counts(flash_varlen_fwd, flash_sparse_mask_fwd, _flash_bhsd,
+                      _flash_bhsd_bwd)
 
     def grads_of(run, shape):
         leaves = [x.reshape(shape).clone().requires_grad_()
@@ -2561,8 +2805,8 @@ def packed_parity_phase(torch, np, lens, seed):
                       device="cuda")
     nomask = grads_of(lambda q, k, v: flash_attention_with_sparse_mask(
         q, k, v, full, is_causal=True), bshape)
-    dense = grads_of(lambda q, k, v: flash_attention(q, k, v, causal=True),
-                     bshape)
+    dense = grads_of(lambda q, k, v: flash_attention(
+        q, k, v, causal=True)[0], bshape)
     torch.cuda.synchronize()
     docs_out = (varlen[0] - mask[0]).abs().max().item() \
         / mask[0].abs().max().item()
@@ -2573,8 +2817,14 @@ def packed_parity_phase(torch, np, lens, seed):
     launches = {fn.__name__: fn.launches for fn in (
         flash_varlen_fwd, flash_varlen_bwd, flash_sparse_mask_fwd,
         flash_sparse_mask_bwd, _flash_bhsd, _flash_bhsd_bwd)}
+    routes = {fn.__name__: dict(fn.route_launches)
+              for fn in (flash_varlen_fwd, flash_sparse_mask_fwd)}
     check(list(launches.values()) == [1, 1, 2, 2, 1, 1],
           f"packed_parity launches {launches}")
+    check(routes["flash_varlen_fwd"]["cuda_core"] == 1
+          and routes["flash_sparse_mask_fwd"]["cuda_core"] == 2,
+          f"packed_parity: float32 forwards not all on the CUDA cores: "
+          f"{routes}")
     check(docs_out <= PACK_PARITY_ATOL and docs_grad <= PARITY_GRAD_ATOL,
           f"varlen vs FlashMask on the same documents: output {docs_out}, "
           f"gradients {docs_grad} of the largest")
@@ -2588,7 +2838,8 @@ def packed_parity_phase(torch, np, lens, seed):
            "flashmask_nomask_vs_dense_out_over_max": dense_out,
            "flashmask_nomask_vs_dense_grad_over_max": dense_grad,
            "out_atol_of_max": PACK_PARITY_ATOL,
-           "grad_atol_of_max": PARITY_GRAD_ATOL, "launches": launches}
+           "grad_atol_of_max": PARITY_GRAD_ATOL, "launches": launches,
+           "fwd_route_launches": routes}
     emit(rec)
     del base, varlen, mask, nomask, dense
     torch.cuda.empty_cache()
@@ -3161,6 +3412,10 @@ def main():
                     help="decoder layers of the full-width model (depth "
                          "is the only thing a time limit may cut)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nan-guard-cost", action="store_true",
+                    help="only build the kernels and time the tensor-core "
+                         "masked forward's NaN guard (extra builds with the "
+                         "scan on every tile and on none), then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -3205,13 +3460,19 @@ def main():
                  if "registers" in ln or "spill" in ln]
         ptxas[name] = lines[:24]
     hgmma = {}
-    for name, kernels in WGMMA_KERNELS.items():
-        hgmma.update(hgmma_counts(libs[name], kernels))
-    # three kernels, each at D 64 and 128
-    check(len(hgmma) == 6 and all(hgmma.values()),
+    for name, (kernels, tag) in WGMMA_KERNELS.items():
+        hgmma.update(hgmma_counts(libs[name], kernels, tag))
+    # five kernels (the masked forward under two policies), each at D 64
+    # and 128
+    check(len(hgmma) == 10 and all(hgmma.values()),
           f"a flash kernel meant for the tensor cores has no HGMMA: {hgmma}")
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
           "hgmma": hgmma})
+    if args.nan_guard_cost:
+        nan_guard_cost(torch, np, pack_documents(np, args.seed),
+                       args.seed + 50)
+        print(card, flush=True)
+        return 0
 
     ragged_main = ragged_case(torch, np, "mha_32x32", 32, 32, 11)
     ragged_case(torch, np, "gqa_32x8", 32, 8, 12)
@@ -3365,13 +3626,13 @@ def main():
     # packed and masked attention: the kernels at the packed batch's
     # shapes, then the two entry points on it, then their parity
     lens = pack_documents(np, args.seed)
-    varlen_main, varlen_bwd_main, mask_main, mask_bwd_main = \
-        packed_kernel_checks(torch, np, lens, args.seed + 50)
+    (varlen_main, varlen_bwd_main, mask_main, mask_bwd_main, varlen_f32,
+     mask_f32) = packed_kernel_checks(torch, np, lens, args.seed + 50)
     varlen = varlen_attn_phase(torch, np, lens, args.seed + 51,
                                args.profile)
     flashmask = flashmask_attn_phase(torch, np, lens, args.seed + 51,
                                      args.profile)
-    packed_parity_phase(torch, np, lens, args.seed + 52)
+    packed_parity = packed_parity_phase(torch, np, lens, args.seed + 52)
 
     # the row-wise slice: its kernels at rowwise_attn's shapes and the edge
     # cases, then the three entry points at full width, then their parity
@@ -3430,14 +3691,26 @@ def main():
              qgmm_main, train_moe_quant["quant_grouped_launches"]),
             ("flash_varlen_fwd", "paddle_tpu_torch/csrc/flash_varlen.cu",
              "paddle_tpu/kernels/pallas/flash_varlen.py:222",
-             varlen_main, varlen["fwd_launches"]),
+             varlen_f32,
+             packed_parity["fwd_route_launches"]["flash_varlen_fwd"]
+             ["cuda_core"]),
+            ("flash_varlen_fwd_wgmma",
+             "paddle_tpu_torch/csrc/flash_varlen.cu",
+             "paddle_tpu/kernels/pallas/flash_varlen.py:222",
+             varlen_main, varlen["fwd_route_launches"]["wgmma"]),
             ("flash_varlen_bwd", "paddle_tpu_torch/csrc/flash_varlen.cu",
              "paddle_tpu/kernels/pallas/flash_varlen.py:284, :313",
              varlen_bwd_main, varlen["bwd_launches"]),
             ("flash_sparse_mask_fwd",
              "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
              "paddle_tpu/kernels/pallas/flash_sparse_mask.py:185",
-             mask_main, flashmask["fwd_launches"]),
+             mask_f32,
+             packed_parity["fwd_route_launches"]["flash_sparse_mask_fwd"]
+             ["cuda_core"]),
+            ("flash_sparse_mask_fwd_wgmma",
+             "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
+             "paddle_tpu/kernels/pallas/flash_sparse_mask.py:185",
+             mask_main, flashmask["fwd_route_launches"]["wgmma"]),
             ("flash_sparse_mask_bwd",
              "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
              "paddle_tpu/kernels/pallas/flash_sparse_mask.py:225, :245",

@@ -31,6 +31,38 @@
 // clamped to 1e-30, the row's output is 0 and its lse is -1e30 +
 // log(1e-30); in the backward its p and ds are 0, so its gradients are 0.
 //
+// The forward has a second kernel on the tensor cores, `masked_fwd_wgmma`
+// (bf16 at D 64 or 128; the caller picks the route, see run_fwd): the
+// dense forward's design (csrc/flash_attention_fwd.cu `flash_fwd_wgmma`,
+// the helpers of flash_wgmma.cuh) with the policy deciding the key range
+// and the dead tiles over 64-key tiles. What it adds:
+// - strided operands: q, k, v rows come with their row stride (a multiple
+//   of 8 elements) through `load_panels_strided`, key tiles start at the
+//   range's first key (not 64-aligned for packed documents), and o is
+//   written with its row stride H * D;
+// - the 64 key columns' attributes come with each K/V stage by 4-byte
+//   cp.async, each thread keeps its two rows' attributes in registers;
+// - a tile is wholly live when every one of its 64 columns is live for the
+//   q tile's first and last rows: a column's live rows form one interval
+//   under both policies (one document's rows from the key's position on;
+//   rows [c, start) or [0, start)), so that test is exact. A wholly live
+//   tile skips the pair test; every other tile takes it, as a select: a
+//   masked score stays out of the max and its p is 0;
+// - NaN isolation. On the tensor cores p = 0 times a NaN in V is NaN, and
+//   a tile that is not wholly live may hold V rows of another document. So
+//   such a tile's V is scanned in shared memory for non-finite values; if
+//   any, those V rows are zeroed before the product and every row with a
+//   live pair on one of them ends as NaN. p = 0 times a finite V is an
+//   exact 0, so every other row gets exactly what it gets without the NaN.
+//   The scan costs one 16-byte shared load a thread per 2 KB of V and one
+//   block-wide OR, on partial tiles only (PTT_NAN_GUARD, below, moves it
+//   for timing). The guard keeps NaN, not inf: an inf in V on such a tile
+//   also turns every row with a live pair on its V row into NaN, not the
+//   +-inf of exact arithmetic;
+// - a row that sees no key keeps m = -1e30: it writes lse -1e30 +
+//   log(1e-30) (as the CUDA-core kernel), not the exp2 domain's
+//   (-1e30 + log2 1e-30) ln 2, and l is clamped to 1e-30, so o is 0.
+//
 // A masked pair contributes nothing, whatever the values: the p.v,
 // ds.k, p^T.dO and ds^T.q accumulations skip a zero p or ds (the skip is
 // uniform across the warp, since the factor comes by shuffle), and the
@@ -44,6 +76,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace ptt {
 namespace masked {
@@ -116,7 +149,23 @@ struct SegmentMask {
   __device__ int2 keys_of_q_tile(int, int t, int, int) const {
     return q_ranges[t];
   }
-  __device__ bool dead_key_tile(int, int, int) const { return false; }
+  template <int W = kTile>
+  __device__ bool dead_key_tile(int, int, int) const {
+    return false;
+  }
+  // the tensor-core forward's column attributes of keys [k0, k0 + 64)
+  // (zeros at or past kend) into shared a (seg) and b (pos), by the 128
+  // threads of a warpgroup
+  __device__ void stage_cols(uint32_t sa, uint32_t sb, int, int k0,
+                             int kend) const {
+    const int t = threadIdx.x % 128, j = t % 64, c = k0 + j;
+    const bool ok = c < kend;
+    const int* src = t < 64 ? seg_k : pos_k;
+    wg::cp_async4((t < 64 ? sa : sb) + 4 * j, ok ? src + c : src, ok);
+  }
+  __device__ int2 staged_col(const int* a, const int* b, int, int j) const {
+    return make_int2(a[j], b[j]);
+  }
   __device__ int2 rows_of_k_tile(int, int t, int, int) const {
     return k_ranges[t];
   }
@@ -145,8 +194,25 @@ struct StartRowMask {
   __device__ int2 keys_of_q_tile(int, int, int, int q1) const {
     return make_int2(0, causal ? min(q1, S) : S);
   }
+  // a tile of W keys from k0 (a multiple of kTile) is dead iff every one
+  // of its kTile-column parts is
+  template <int W = kTile>
   __device__ bool dead_key_tile(int bh, int k0, int q0) const {
-    return q0 >= __ldg(tile_max + (size_t)bh * n32 + k0 / kTile);
+    const int* tm = tile_max + (size_t)bh * n32;
+    for (int t = k0 / kTile; t < n32 && t * kTile < k0 + W; ++t)
+      if (q0 < __ldg(tm + t)) return false;
+    return true;
+  }
+  __device__ void stage_cols(uint32_t sa, uint32_t, int bh, int k0,
+                             int kend) const {
+    const int t = threadIdx.x % 128, c = k0 + t;
+    if (t < 64) {
+      const int* src = start + (size_t)bh * S;
+      wg::cp_async4(sa + 4 * t, c < kend ? src + c : src, c < kend);
+    }
+  }
+  __device__ int2 staged_col(const int* a, const int*, int k0, int j) const {
+    return make_int2(a[j], k0 + j);
   }
   __device__ int2 rows_of_k_tile(int bh, int, int k0, int k1) const {
     int mx = INT_MIN;
@@ -554,6 +620,295 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- the forward on the tensor cores ----------------------------------------
+
+// route codes of the forward (kernels/flash_attention.py keeps the table)
+constexpr int kRouteCudaCore = 0;
+constexpr int kRouteWgmma = 1;
+
+static_assert(kBQ == flash::kRows, "one q tile serves both routes");
+
+// shared memory of masked_fwd_wgmma: Q, two stages of K and V (D-panel
+// tiles), two stages of the 64 key columns' attributes a and b, and the
+// 64-bit mask of V rows that hold a non-finite value
+template <int HD>
+constexpr size_t fwd_wgmma_smem_bytes() {
+  return 5 * (size_t)flash::kTileBytes<HD> + 2 * 2 * flash::kRows * 4 + 16;
+}
+
+// the largest of a row's values over the four lanes of its quad (the
+// accumulator layout spreads a row over them), and their sum
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// where masked_fwd_wgmma scans V for non-finite values: 1 (the kernel's
+// rule) on tiles that are not wholly live; 2 on every tile and 0 on none
+// exist only to time the scan (chip_smoke.py --nan-guard-cost), and 0 lets
+// NaN cross documents
+#ifndef PTT_NAN_GUARD
+#define PTT_NAN_GUARD 1
+#endif
+
+// whether any of the eight bf16 values of a 16-byte chunk is inf or NaN
+// (all exponent bits set)
+__device__ __forceinline__ bool nonfinite_bf16x8(uint4 x) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  bool bad = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    bad |= (w[i] & 0x7F80u) == 0x7F80u ||
+           (w[i] & 0x7F800000u) == 0x7F800000u;
+  return bad;
+}
+
+// one block per (b*h, 64-row q tile), one warpgroup. Q stays in shared
+// memory; the live 64-key tiles of the policy's key range stream through a
+// 2-stage cp.async ring with their column attributes. Per tile: S = Q K^T
+// (SS), the pair test unless the tile is wholly live, the NaN guard of V
+// on those tiles, the online softmax in registers in the exp2 domain, and
+// O += P V (RS, V read MN-major) with P as hi + lo.
+template <int HD, class Mask>
+__global__ void __launch_bounds__(128)
+    masked_fwd_wgmma(const Params p, const Mask mask) {
+  using bf16 = __nv_bfloat16;
+  constexpr int R = flash::kRows;
+  constexpr uint32_t kT = flash::kTileBytes<HD>;
+  constexpr float kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  const uint32_t sQ = wg::smem_addr(wg_smem);
+  if (sQ & 1023) __trap();  // the swizzle needs it
+  const uint32_t sKV = sQ + kT;                // stage s: K, V at +2kT s
+  int* attrs = reinterpret_cast<int*>(wg_smem + 5 * kT);  // stage s at 2R s
+  uint32_t* bad_rows = reinterpret_cast<uint32_t*>(attrs + 4 * R);
+
+  const int t = threadIdx.x, lane = t & 31;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int qt = blockIdx.y, q0 = qt * R, q1 = min(q0 + R, p.Sq);
+  const int r_lo = q0 + (t >> 5) * 16 + lane / 4, r_hi = r_lo + 8;
+  const bf16* qb = head_base<bf16>(p.q, b, h);
+  const bf16* kb = head_base<bf16>(p.k, b, h);
+  const bf16* vb = head_base<bf16>(p.v, b, h);
+  const float sl2 = p.scale * flash::kLog2e;
+
+  // this thread's two rows, and the tile's first and last (the wholly
+  // live test)
+  const int2 ra_lo = r_lo < q1 ? mask.row(bh, r_lo) : Mask::dead_row();
+  const int2 ra_hi = r_hi < q1 ? mask.row(bh, r_hi) : Mask::dead_row();
+  const int2 first = mask.row(bh, q0), last = mask.row(bh, q1 - 1);
+  int2 keys = mask.keys_of_q_tile(bh, qt, q0, q1);
+  keys.x = max(keys.x, 0);
+  keys.y = min(keys.y, p.Sk);
+  // the first live tile at or after k (block-uniform)
+  auto next_tile = [&](int k) {
+    while (k < keys.y && mask.template dead_key_tile<R>(bh, k, q0)) k += R;
+    return k;
+  };
+  auto load_stage = [&](int stage, int k) {
+    if (k >= keys.y) return;
+    const uint32_t sK = sKV + 2 * kT * stage;
+    wg::load_panels_strided<HD>(sK, kb, p.k.ss, k, keys.y);
+    wg::load_panels_strided<HD>(sK + kT, vb, p.v.ss, k, keys.y);
+    const uint32_t sa = wg::smem_addr(attrs + 2 * R * stage);
+    mask.stage_cols(sa, sa + 4 * R, bh, k, keys.y);
+  };
+
+  if (t == 0) bad_rows[0] = bad_rows[1] = 0;
+  wg::load_panels_strided<HD>(sQ, qb, p.q.ss, q0, q1);
+  int cur = next_tile(keys.x);
+  load_stage(0, cur);
+  wg::cp_async_commit();
+  int nxt = cur < keys.y ? next_tile(cur + R) : keys.y;
+  load_stage(1, nxt);
+  wg::cp_async_commit();
+  int iss = nxt < keys.y ? next_tile(nxt + R) : keys.y;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  // the running max (exp2 domain) and this thread's partial sum of rows
+  // r_lo and r_hi; whether a live pair of the row met a non-finite V
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  bool nan_lo = false, nan_hi = false;
+
+  for (int it = 0; cur < keys.y; ++it) {
+    const int stage = it & 1;
+    wg::cp_async_wait<1>();  // this tile's copies (the next may fly)
+    wg::fence_proxy_async();
+    __syncthreads();
+    const uint32_t sK = sKV + 2 * kT * stage, sV = sK + kT;
+    const int* ca = attrs + 2 * R * stage;
+    const int nvalid = min(R, keys.y - cur);
+    bool ok = true;
+    if (t < R) {
+      const int2 c = mask.staged_col(ca, ca + R, cur, t);
+      ok = t < nvalid && mask.live(first, c) && mask.live(last, c);
+    }
+    const bool full = __syncthreads_and(ok);
+
+    // the NaN guard of V on a tile that is not wholly live
+    uint32_t bad_a = 0, bad_b = 0;  // V rows 0-31 and 32-63
+    if (PTT_NAN_GUARD == 2 || (PTT_NAN_GUARD == 1 && !full)) {
+      uint8_t* v_bytes = wg_smem + (sV - sQ);
+      bool mine = false;
+      for (int i = t; i < R * HD / 8; i += 128) {
+        const int row = (i % (R * 8)) / 8;  // 8 chunks a row in a panel
+        if (nonfinite_bf16x8(*reinterpret_cast<const uint4*>(v_bytes +
+                                                             16 * i))) {
+          atomicOr(bad_rows + row / 32, 1u << (row % 32));
+          mine = true;
+        }
+      }
+      if (__syncthreads_or(mine)) {
+        bad_a = bad_rows[0];
+        bad_b = bad_rows[1];
+        for (int i = t; i < R * HD / 8; i += 128) {
+          const int row = (i % (R * 8)) / 8;
+          if (((row < 32 ? bad_a : bad_b) >> (row % 32)) & 1)
+            *reinterpret_cast<uint4*>(v_bytes + 16 * i) =
+                make_uint4(0, 0, 0, 0);
+        }
+        wg::fence_proxy_async();
+        __syncthreads();
+      }
+    }
+
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wg::fence();
+    flash::ss_over_d<HD>(sc, sQ, sK);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(sc);
+
+    // the pair test: bit i of `live` for sc[i] (row r_lo or r_hi, column
+    // 8 (i / 4) + 2 (lane % 4) + i % 2 of the tile)
+    uint32_t live = 0xffffffffu;
+    if (!full) {
+      live = 0;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * g + 2 * (lane & 3) + e;
+          const int2 c = mask.staged_col(ca, ca + R, cur, j);
+          const bool in = j < nvalid;
+          const bool bad = ((j < 32 ? bad_a : bad_b) >> (j % 32)) & 1;
+          if (in && mask.live(ra_lo, c)) {
+            live |= 1u << (4 * g + e);
+            nan_lo |= bad;
+          }
+          if (in && mask.live(ra_hi, c)) {
+            live |= 1u << (4 * g + 2 + e);
+            nan_hi |= bad;
+          }
+        }
+      }
+    }
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] *= sl2;
+      if (!((live >> i) & 1)) continue;  // masked: out of the max
+      if (i & 2)
+        mx_hi = fmaxf(mx_hi, sc[i]);
+      else
+        mx_lo = fmaxf(mx_lo, sc[i]);
+    }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    const float a_lo = exp2f(m_lo - mx_lo), a_hi = exp2f(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi_row = (i & 2) != 0;
+      float pr = exp2f(sc[i] - (hi_row ? m_hi : m_lo));
+      if (!((live >> i) & 1)) pr = 0.f;  // a select, never a product
+      sc[i] = pr;
+      if (hi_row)
+        s_hi += pr;
+      else
+        s_lo += pr;
+    }
+    l_lo = l_lo * a_lo + s_lo;
+    l_hi = l_hi * a_hi + s_hi;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? a_hi : a_lo;
+    uint32_t ph[4][4], pl[4][4];
+    flash::split_all(sc, ph, pl);
+    wg::fence_operand(acc);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) flash::rs_hilo<HD>(acc, ph[j], pl[j], sV, j);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    __syncthreads();  // every warp is done with this stage and the mask
+    if (t == 0 && (bad_a | bad_b)) bad_rows[0] = bad_rows[1] = 0;
+    load_stage(stage, iss);
+    wg::cp_async_commit();
+    cur = nxt;
+    nxt = iss;
+    iss = iss < keys.y ? next_tile(iss + R) : keys.y;
+  }
+  wg::cp_async_wait<0>();
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  nan_lo = __shfl_xor_sync(0xffffffffu, (int)nan_lo, 1) | nan_lo;
+  nan_lo = __shfl_xor_sync(0xffffffffu, (int)nan_lo, 2) | nan_lo;
+  nan_hi = __shfl_xor_sync(0xffffffffu, (int)nan_hi, 1) | nan_hi;
+  nan_hi = __shfl_xor_sync(0xffffffffu, (int)nan_hi, 2) | nan_hi;
+  // a keyless row (l = 0) emits zeros
+  const float lc_lo = fmaxf(l_lo, 1e-30f), lc_hi = fmaxf(l_hi, 1e-30f);
+  const float inv_lo = nan_lo ? __int_as_float(0x7fc00000) : 1.f / lc_lo;
+  const float inv_hi = nan_hi ? __int_as_float(0x7fc00000) : 1.f / lc_hi;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? inv_hi : inv_lo;
+  bf16* ob = static_cast<bf16*>(p.o) + ((size_t)b * p.Sq * p.H + h) * HD;
+  flash::store_rows_strided<HD>(ob, acc, q0, q1, (size_t)p.H * HD);
+  if ((lane & 3) == 0) {
+    float* lb = p.lse + (size_t)bh * p.Sq;
+    if (r_lo < q1)
+      lb[r_lo] = m_lo == kNegInf ? m_lo + logf(lc_lo)
+                                 : (m_lo + log2f(lc_lo)) * kLn2;
+    if (r_hi < q1)
+      lb[r_hi] = m_hi == kNegInf ? m_hi + logf(lc_hi)
+                                 : (m_hi + log2f(lc_hi)) * kLn2;
+  }
+}
+
+// the tensor-core route takes bf16 at D 64 or 128 with q, k, v 16-byte
+// aligned and every row, head and batch stride a multiple of 8 elements
+inline bool wgmma_takes(int dtype, int hd, const Params& p) {
+  if (dtype != kBFloat16 || (hd != 64 && hd != 128)) return false;
+  const Operand* ops[3] = {&p.q, &p.k, &p.v};
+  for (const Operand* x : ops)
+    if ((uintptr_t)x->p % 16 || x->sb % 8 || x->ss % 8 || x->sh % 8)
+      return false;
+  return true;
+}
+
+template <int HD, class Mask>
+int launch_fwd_wgmma(const Params& p, const Mask& m, cudaStream_t st) {
+  constexpr size_t bytes = fwd_wgmma_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      masked_fwd_wgmma<HD, Mask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(p.B * p.H, (p.Sq + kBQ - 1) / kBQ);
+  masked_fwd_wgmma<HD, Mask><<<grid, 128, bytes, st>>>(p, m);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD, class Mask>
 int launch_fwd(const Params& p, const Mask& m, cudaStream_t st) {
   constexpr size_t bytes = fwd_smem_bytes<HD>();
@@ -626,12 +981,20 @@ int run_typed(int dtype, int hd, const Params& p, const Mask& m,
   return (int)cudaErrorInvalidValue;
 }
 
-// The forward: o and lse from q, k, v.
+// The forward: o and lse from q, k, v, on the route the caller names (0:
+// the CUDA-core kernel, any dtype, hd 64, 128 or 256; 1: the tensor-core
+// kernel, see wgmma_takes). A route that cannot take the inputs returns
+// cudaErrorInvalidValue; no route is chosen here.
 template <class Mask>
-int run_fwd(int dtype, int hd, const Params& p, const Mask& m,
+int run_fwd(int dtype, int hd, int route, const Params& p, const Mask& m,
             cudaStream_t st) {
   if (!shapes_ok(p, hd)) return (int)cudaErrorInvalidValue;
-  return run_typed<Mask, false>(dtype, hd, p, m, st);
+  if (route == kRouteCudaCore)
+    return run_typed<Mask, false>(dtype, hd, p, m, st);
+  if (route != kRouteWgmma || !wgmma_takes(dtype, hd, p))
+    return (int)cudaErrorInvalidValue;
+  return hd == 64 ? launch_fwd_wgmma<64, Mask>(p, m, st)
+                  : launch_fwd_wgmma<128, Mask>(p, m, st);
 }
 
 // The backward: the dq kernel, then the dk/dv kernel, on one stream.

@@ -23,8 +23,12 @@
 //
 // What bounds it on the H100: as flash_varlen.cu, about 4 D flops per live
 // pair and head forward and 10 D backward, so by operations at the
-// tensor-core peak for documents of some hundreds of tokens; on the CUDA
-// cores in float32 its own arithmetic bounds it.
+// tensor-core peak for documents of some hundreds of tokens. The forward
+// takes the route the caller names, as flash_varlen.cu's: the tensor-core
+// `masked_fwd_wgmma` (bf16, D 64 and 128; a 64-key tile is skipped when
+// both of its 32-column tile_max entries are at or before the q tile's
+// first row) or the CUDA-core `masked_fwd_kernel`. The backward runs on
+// the CUDA cores in float32, whose own arithmetic bounds it.
 
 #include "flash_masked.cuh"
 
@@ -54,14 +58,18 @@ Params make_params(const void* q, const void* k, const void* v, int B,
 // q, k, v [B, S, H, hd], strided ((b, s, h) strides in elements, hd
 // contiguous), one dtype (0 = float32, 1 = bfloat16); o [B, S, H, hd]
 // contiguous; lse [B*H, S] float32; start int32 [B*H, S]; tile_max int32
-// [B*H, ceil(S / 32)], the largest start of each 32 columns. Returns the
-// CUDA error code of the launch (0 on success).
+// [B*H, ceil(S / 32)], the largest start of each 32 columns. route: 0 the
+// CUDA-core kernel, 1 the tensor-core kernel (bf16, hd 64 or 128, q, k, v
+// 16-byte aligned with strides a multiple of 8). Returns the CUDA error
+// code of the launch (0 on success); cudaErrorInvalidValue for inputs the
+// route does not take.
 extern "C" int flash_sparse_mask_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* start, const void* tile_max, int B, int H, int S, int hd,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, int causal, int dtype, void* stream) {
+    long long v_sh, float scale, int causal, int dtype, int route,
+    void* stream) {
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh},
                   vs[3] = {v_sb, v_ss, v_sh};
   Params p = make_params(q, k, v, B, H, S, qs, ks, vs, scale);
@@ -71,7 +79,7 @@ extern "C" int flash_sparse_mask_fwd(
                        static_cast<const int*>(tile_max), S,
                        (S + ptt::masked::kTile - 1) / ptt::masked::kTile,
                        causal};
-  return ptt::masked::run_fwd(dtype, hd, p, m, (cudaStream_t)stream);
+  return ptt::masked::run_fwd(dtype, hd, route, p, m, (cudaStream_t)stream);
 }
 
 // The backward from the forward's lse and delta = rowsum(dO * O) (float32

@@ -24,9 +24,12 @@
 // What bounds it on the H100: about 4 D flops per live pair and head in
 // the forward (10 D in the backward's five products) on 4 (8) bf16
 // [total, H, D] tensors: at documents of some hundreds of tokens and more,
-// bound by operations at the tensor-core peak. These kernels compute on
-// the CUDA cores in float32, so their own arithmetic bounds them; wgmma,
-// TMA loads and bf16 tiles in shared memory are the next steps.
+// bound by operations at the tensor-core peak. The forward has two
+// kernels, and the caller names the route: for bf16 at D 64 and 128 with
+// 16-byte aligned rows, `masked_fwd_wgmma` on the tensor cores (64-key
+// tiles, P as bf16 hi + lo, the NaN guard of flash_masked.cuh); for
+// float32 and D 256, `masked_fwd_kernel` on the CUDA cores in float32.
+// The backward runs on the CUDA cores, whose own arithmetic bounds it.
 
 #include "flash_masked.cuh"
 
@@ -58,15 +61,18 @@ Params make_params(const void* q, const void* k, const void* v, int H,
 // elements, hd contiguous), one dtype (0 = float32, 1 = bfloat16); o
 // [tq, H, hd] contiguous; lse [H, tq] float32. seg/pos int32 [tq] and
 // [tk]; q_ranges int32 [n_q_ranges, 2], the keys [lo, hi) of each 64-row
-// q tile (n_q_ranges must be ceil(tq / 64)). Returns the CUDA error code of
-// the launch (0 on success).
+// q tile (n_q_ranges must be ceil(tq / 64)). route: 0 the CUDA-core
+// kernel, 1 the tensor-core kernel (bf16, hd 64 or 128, q, k, v 16-byte
+// aligned with strides a multiple of 8). Returns the CUDA error code of the
+// launch (0 on success); cudaErrorInvalidValue for inputs the route does
+// not take.
 extern "C" int flash_varlen_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* seg_q, const void* pos_q, const void* seg_k,
     const void* pos_k, const void* q_ranges, int n_q_ranges, int H, int tq,
     int tk, int hd, long long q_ss, long long q_sh, long long k_ss,
     long long k_sh, long long v_ss, long long v_sh, float scale,
-    int causal, int dtype, void* stream) {
+    int causal, int dtype, int route, void* stream) {
   if (tq <= 0 || n_q_ranges != (tq + ptt::masked::kBQ - 1) / ptt::masked::kBQ)
     return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, H, tq, tk, q_ss, q_sh, k_ss, k_sh, v_ss,
@@ -78,7 +84,7 @@ extern "C" int flash_varlen_fwd(
                       static_cast<const int*>(seg_k),
                       static_cast<const int*>(pos_k),
                       static_cast<const int2*>(q_ranges), nullptr, causal};
-  return ptt::masked::run_fwd(dtype, hd, p, m, (cudaStream_t)stream);
+  return ptt::masked::run_fwd(dtype, hd, route, p, m, (cudaStream_t)stream);
 }
 
 // The backward from the forward's lse and delta = rowsum(dO * O) (float32

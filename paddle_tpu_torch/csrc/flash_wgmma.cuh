@@ -1,6 +1,7 @@
-// Tile helpers of the dense flash kernels on the tensor cores, built on
+// Tile helpers of the flash kernels on the tensor cores, built on
 // wgmma.cuh's primitives. Included by flash_attention_fwd.cu (the forward,
-// `flash_fwd_wgmma`) and flash_attention_bwd.cu (the dq and dk/dv kernels).
+// `flash_fwd_wgmma`), flash_attention_bwd.cu (the dq and dk/dv kernels)
+// and flash_masked.cuh (the masked forward, `masked_fwd_wgmma`).
 //
 // What they assume, beyond wgmma.cuh's own rules:
 // - Every tile has 64 rows (`kRows`): wgmma's M, one warpgroup of 128
@@ -79,21 +80,32 @@ __device__ __forceinline__ void split_all(const float (&x)[32],
   }
 }
 
-// bf16 rows of a [64, HD] float32 accumulator, rows < S only
+// bf16 rows of a [64, HD] float32 accumulator into a matrix with a row
+// stride (in elements, even): row `row` of the output at dst + row *
+// row_stride, rows < end only
 template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
-                                           const float (&acc)[HD / 2],
-                                           int row0, int S) {
+__device__ __forceinline__ void store_rows_strided(__nv_bfloat16* dst,
+                                                   const float (&acc)[HD / 2],
+                                                   int row0, int end,
+                                                   size_t row_stride) {
   const int lane = threadIdx.x & 31;
   const int r = row0 + (threadIdx.x >> 5) * 16 + lane / 4;
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int row = r + 8 * ((i >> 1) & 1);
     const int col = 8 * (i >> 2) + 2 * (lane & 3);
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * HD + col) =
+    if (row < end)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * row_stride + col) =
           __floats2bfloat162_rn(acc[i], acc[i + 1]);
   }
+}
+
+// the same rows of a row-major [S, HD] matrix, rows < S only
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&acc)[HD / 2],
+                                           int row0, int S) {
+  store_rows_strided<HD>(dst, acc, row0, S, HD);
 }
 
 }  // namespace flash

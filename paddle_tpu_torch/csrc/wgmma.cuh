@@ -52,7 +52,10 @@
 //   threads before the barrier that publishes it.
 // - `cp_async16` copies 16 bytes from global to shared memory, both 16-byte
 //   aligned; with `valid` false it reads nothing and writes 16 zero bytes.
-//   `load_panels` copies a 64-row tile into D-panels with it.
+//   `load_panels` copies a 64-row tile into D-panels with it, and
+//   `load_panels_strided` does the same from rows with any stride that
+//   keeps them 16-byte aligned. `cp_async4` copies 4 bytes (a tile's
+//   per-row int attributes).
 #pragma once
 
 #include <stdint.h>
@@ -268,22 +271,42 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
-// Rows [r0, r0 + 64) of a row-major [S, D] bf16 matrix into a 64-row
-// tile of D-panels at shared address dst (D / 64 panels of 64 x 128
-// bytes, 128B-swizzled), by the 128 threads of a warpgroup; rows at or
-// past S are zero-filled without a read. src and every row 16-byte
-// aligned (D a multiple of 64).
+// Rows [r0, r0 + 64) of a bf16 matrix with a row stride (in elements, a
+// multiple of 8, so every row stays 16-byte aligned) into a 64-row tile
+// of D-panels at shared address dst (D / 64 panels of 64 x 128 bytes,
+// 128B-swizzled), by the 128 threads of a warpgroup; rows at or past `hi`
+// are zero-filled without a read. src 16-byte aligned (D a multiple of
+// 64). The row stride is H * D or more for operands read in place from
+// [B, S, H, D].
+template <int D>
+__device__ __forceinline__ void load_panels_strided(uint32_t dst,
+                                                    const __nv_bfloat16* src,
+                                                    long long row_stride,
+                                                    int r0, int hi) {
+  constexpr int C = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x % 128; i < 64 * C; i += 128) {
+    const int r = i / C, c = i % C;
+    const bool ok = r0 + r < hi;
+    cp_async16(dst + (c / 8) * 64 * 128 + sw128(r, c % 8),
+               ok ? src + (r0 + r) * row_stride + c * 8 : src, ok);
+  }
+}
+
+// the same tile of a row-major [S, D] matrix (row stride D)
 template <int D>
 __device__ __forceinline__ void load_panels(uint32_t dst,
                                             const __nv_bfloat16* src, int r0,
                                             int S) {
-  constexpr int C = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x % 128; i < 64 * C; i += 128) {
-    const int r = i / C, c = i % C;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + (c / 8) * 64 * 128 + sw128(r, c % 8),
-               ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok);
-  }
+  load_panels_strided<D>(dst, src, D, r0, S);
+}
+
+// 4 bytes from global to shared memory, both 4-byte aligned; with `valid`
+// false it reads nothing and writes 4 zero bytes
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -25,7 +25,7 @@ from . import _build
 
 __all__ = ["_flash_bhsd", "_flash_bhsd_bwd", "flash_attention_fwd_plain",
            "flash_attention_bwd_plain", "flash_fwd_route", "flash_bwd_route",
-           "FLASH_ROUTES", "HEAD_DIMS"]
+           "masked_fwd_route", "FLASH_ROUTES", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -117,6 +117,19 @@ def flash_fwd_route(dtype, d, ptrs):
 
 
 flash_bwd_route = flash_fwd_route
+
+
+def masked_fwd_route(dtype, d, ptrs, strides):
+    """The kernel a CUDA masked forward (kernels/flash_varlen.py and
+    flash_sparse_mask.py, one body in csrc/flash_masked.cuh) launches: the
+    dense rule of `flash_fwd_route` on q, k and v (``ptrs``), when every
+    row, head and batch stride (``strides``, in elements) is a multiple of
+    8, so that every row the tensor-core tiles copy is 16-byte aligned;
+    else "cuda_core". The masked backward has one kernel pair, on the CUDA
+    cores."""
+    if all(s % 8 == 0 for s in strides):
+        return flash_fwd_route(dtype, d, ptrs)
+    return "cuda_core"
 
 
 def _flash_bhsd(q, k, v, causal, scale=None):

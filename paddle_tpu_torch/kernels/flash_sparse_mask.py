@@ -5,10 +5,14 @@ Counterpart of paddle_tpu/kernels/pallas/flash_sparse_mask.py: the
 forward (`_fwd_kernel`), dq (`_dq_kernel`) and dk/dv (`_dkv_kernel`) are
 ``csrc/flash_sparse_mask.cu`` over the shared body
 ``csrc/flash_masked.cuh``; the source's note says what bounds them and how
-they prune. Row r sees column c iff r < start[b*h, c] (and r >= c when
-causal). q, k, v stay in the entry point's [B, S, H, D] layout (the
-kernels read it in place with strides; the TPU wrapper folds it to
-[B*H, S, D]); lse is float32 [B*H, S] as JAX's.
+they prune. The forward has a tensor-core kernel ("wgmma": bf16, D 64 or
+128, 16-byte aligned rows) and a CUDA-core one ("cuda_core": float32, D
+256), picked by `masked_fwd_route`, with ``route_launches`` beside
+``launches``; the backward runs on the CUDA cores. Row r sees column c
+iff r < start[b*h, c] (and r >= c when causal). q, k, v stay in the
+entry point's [B, S, H, D] layout (the kernels read it in place with
+strides; the TPU wrapper folds it to [B*H, S, D]); lse is float32
+[B*H, S] as JAX's.
 
 The per-tile start maxima that drive the pruning (JAX's `_prep`) are
 computed here on the device. The wrappers compute values only; the
@@ -21,21 +25,24 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import _DTYPE_CODE, HEAD_DIMS, NEG_INF
+from .flash_attention import (_DTYPE_CODE, _ROUTE_CODE, FLASH_ROUTES,
+                              HEAD_DIMS, NEG_INF, masked_fwd_route)
 
 __all__ = ["tile_max", "flash_sparse_mask_fwd", "flash_sparse_mask_bwd",
            "flash_sparse_mask_fwd_plain", "flash_sparse_mask_bwd_plain",
            "sparse_mask_supported"]
 
-# columns per key tile of the forward and dq kernels (csrc/flash_masked.cuh
-# kTile): tile_max holds one start maximum per TILE columns
+# columns per key tile of the CUDA-core forward and dq kernels
+# (csrc/flash_masked.cuh kTile): tile_max holds one start maximum per TILE
+# columns; the tensor-core forward's 64-key tile reads two of them
 TILE = 32
 
 _I64 = ctypes.c_longlong
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# one library, loaded once with both entry points' signatures
+# one library, loaded once with both entry points' signatures (the
+# forward's takes the route code before the stream)
 _SIG = {"flash_sparse_mask_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [_I64] * 9 + _TAIL,
+        + [_I64] * 9 + _TAIL[:3] + [ctypes.c_int, ctypes.c_void_p],
         "flash_sparse_mask_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
         + [_I64] * 12 + _TAIL}
 
@@ -177,7 +184,8 @@ def _check(q, k, v, start):
 def flash_sparse_mask_fwd(q, k, v, start, causal, scale):
     """FlashMask forward: q/k/v [B, S, H, D], start int32 [B*H, S] -> (o
     [B, S, H, D] in q's dtype, lse float32 [B*H, S]). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (or raises)."""
+    the plain version; a CUDA tensor launches the kernel
+    `masked_fwd_route` picks (or raises)."""
     if q.device.type == "cpu":
         return flash_sparse_mask_fwd_plain(q, k, v, start, causal, scale)
     if q.device.type != "cuda":
@@ -189,21 +197,26 @@ def flash_sparse_mask_fwd(q, k, v, start, causal, scale):
     (q, *qs), (k, *ks), (v, *vs) = map(_strides, (q, k, v))
     o = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
+    route = masked_fwd_route(q.dtype, d, [t.data_ptr() for t in (q, k, v)],
+                             (*qs, *ks, *vs))
     lib = _build.load("flash_sparse_mask", _SIG)
     with torch.cuda.device(q.device):
         rc = lib.flash_sparse_mask_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), start.data_ptr(), tmax.data_ptr(), b, h, s, d,
             *qs, *ks, *vs, float(scale), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[q.dtype], _ROUTE_CODE[route],
+            torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"flash_sparse_mask_fwd launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_sparse_mask_fwd launch failed ({route} "
+                           f"kernel): CUDA error {rc}")
     flash_sparse_mask_fwd.launches += 1
+    flash_sparse_mask_fwd.route_launches[route] += 1
     return o, lse
 
 
 flash_sparse_mask_fwd.launches = 0
+flash_sparse_mask_fwd.route_launches = dict.fromkeys(FLASH_ROUTES, 0)
 
 
 def flash_sparse_mask_bwd(q, k, v, o, lse, do, start, causal, scale):

@@ -4,10 +4,14 @@ wrappers and their plain PyTorch versions.
 Counterpart of paddle_tpu/kernels/pallas/flash_varlen.py: the forward
 (`_fwd_kernel`), dq (`_dq_kernel`) and dk/dv (`_dkv_kernel`) are
 ``csrc/flash_varlen.cu`` over the shared body ``csrc/flash_masked.cuh``;
-the source's note says what bounds them and how they prune. Tokens stay in
-the entry point's [total, H, D] layout (the kernels read it in place with
-strides; the TPU wrapper swaps it to [H, total, D]), and lse is float32
-[H, total] as JAX's.
+the source's note says what bounds them and how they prune. The forward
+has a tensor-core kernel ("wgmma": bf16, D 64 or 128, 16-byte aligned
+rows) and a CUDA-core one ("cuda_core": float32, D 256), picked by
+`masked_fwd_route`; ``route_launches`` on the forward counts each route's
+launches beside ``launches``. The backward runs on the CUDA cores. Tokens
+stay in the entry point's [total, H, D] layout (the kernels read it in
+place with strides; the TPU wrapper swaps it to [H, total, D]), and lse is
+float32 [H, total] as JAX's.
 
 The pruning ranges are computed here on the device from the segment ids,
 with no host round trip (``varlen_tile_ranges``). The wrappers compute
@@ -21,7 +25,8 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import _DTYPE_CODE, HEAD_DIMS, NEG_INF
+from .flash_attention import (_DTYPE_CODE, _ROUTE_CODE, FLASH_ROUTES,
+                              HEAD_DIMS, NEG_INF, masked_fwd_route)
 
 __all__ = ["segments_from_cu", "varlen_tile_ranges", "flash_varlen_fwd",
            "flash_varlen_bwd", "flash_varlen_fwd_plain",
@@ -44,9 +49,10 @@ KEYLESS_LSE = float(torch.tensor(NEG_INF, dtype=torch.float32)
 
 _I64 = ctypes.c_longlong
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# one library, loaded once with both entry points' signatures
+# one library, loaded once with both entry points' signatures (the
+# forward's takes the route code before the stream)
 _SIG = {"flash_varlen_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-        + [_I64] * 6 + _TAIL,
+        + [_I64] * 6 + _TAIL[:3] + [ctypes.c_int, ctypes.c_void_p],
         "flash_varlen_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int]
         + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [_I64] * 8 + _TAIL}
 
@@ -233,7 +239,7 @@ def flash_varlen_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, causal, scale):
     """Packed attention forward: q [tq, H, D], k/v [tk, H, D] with the
     segments of segments_from_cu -> (o [tq, H, D] in q's dtype, lse float32
     [H, tq]). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (or raises)."""
+    the kernel `masked_fwd_route` picks (or raises)."""
     if q.device.type == "cpu":
         return flash_varlen_fwd_plain(q, k, v, seg_q, pos_q, seg_k, pos_k,
                                       causal, scale)
@@ -249,6 +255,8 @@ def flash_varlen_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, causal, scale):
     rq = varlen_tile_ranges(seg_q, pos_q, seg_k, pos_k, BQ, causal, True)
     o = torch.empty(tq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(h, tq, dtype=torch.float32, device=q.device)
+    route = masked_fwd_route(q.dtype, d, [t.data_ptr() for t in (q, k, v)],
+                             (qs, qh, ks, kh, vs, vh))
     lib = _build.load("flash_varlen", _SIG)
     with torch.cuda.device(q.device):
         rc = lib.flash_varlen_fwd(
@@ -256,15 +264,18 @@ def flash_varlen_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, causal, scale):
             lse.data_ptr(), seg_q.data_ptr(), pos_q.data_ptr(),
             seg_k.data_ptr(), pos_k.data_ptr(), rq.data_ptr(), rq.shape[0],
             h, tq, tk, d, qs, qh, ks, kh, vs, vh, float(scale),
-            int(bool(causal)), _DTYPE_CODE[q.dtype],
+            int(bool(causal)), _DTYPE_CODE[q.dtype], _ROUTE_CODE[route],
             torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"flash_varlen_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_varlen_fwd launch failed ({route} "
+                           f"kernel): CUDA error {rc}")
     flash_varlen_fwd.launches += 1
+    flash_varlen_fwd.route_launches[route] += 1
     return o, lse
 
 
 flash_varlen_fwd.launches = 0
+flash_varlen_fwd.route_launches = dict.fromkeys(FLASH_ROUTES, 0)
 
 
 def flash_varlen_bwd(q, k, v, o, lse, do, seg_q, pos_q, seg_k, pos_k,

@@ -12,8 +12,6 @@ that asks for them raises.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 from torch import nn
@@ -117,8 +115,7 @@ class LlamaAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.head_dim
-        self.attend = flash_attention if config.use_flash_attention \
-            else scaled_dot_product_attention
+        self.use_flash = config.use_flash_attention
         h, hd = config.hidden_size, config.head_dim
         self.q_proj = _linear(h, self.num_heads * hd, device, dtype)
         self.k_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
@@ -135,8 +132,10 @@ class LlamaAttention(nn.Module):
             n_rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(n_rep, dim=2)
             v = v.repeat_interleave(n_rep, dim=2)
-        out = self.attend(q, k, v, causal=True,
-                          scale=1.0 / math.sqrt(self.head_dim))
+        if self.use_flash:
+            out, _ = flash_attention(q, k, v, causal=True)
+        else:
+            out = scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(B, S, self.num_heads * self.head_dim))
 
 
@@ -156,10 +155,11 @@ class LlamaDecoderLayer(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         eps = config.rms_norm_eps
-        self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size, epsilon=eps,
+                                       device=device, dtype=dtype)
         self.self_attn = LlamaAttention(config, device, dtype)
-        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
-                                                device, dtype)
+        self.post_attention_layernorm = RMSNorm(
+            config.hidden_size, epsilon=eps, device=device, dtype=dtype)
         self.mlp = LlamaMLP(config, device, dtype)
 
     def forward(self, x, cos, sin):
@@ -177,8 +177,8 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device,
-                            dtype)
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
+                            device=device, dtype=dtype)
         cos, sin = _rope_tables(config.head_dim,
                                 config.max_position_embeddings,
                                 config.rope_theta)

@@ -82,9 +82,8 @@ def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False,
     flash_attention does; dropout > 0 with training=True raises
     NotImplementedError."""
     _no_dropout(dropout, training, "flash_attn_qkvpacked")
-    out = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                          causal=causal)
-    return out, None
+    return flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                           causal=causal)
 
 
 def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,

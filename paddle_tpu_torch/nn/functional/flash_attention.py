@@ -59,20 +59,37 @@ def _bshd(core, query, key, value, causal, scale):
     return o.reshape(b, h, s, d).transpose(1, 2)
 
 
-def flash_attention(query, key, value, causal=False, scale=None):
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None, *, scale=None):
     """query/key/value [B, S, H, D] (equal head counts: repeat grouped
     K/V heads first; autograd then sums the repeated heads' gradients).
-    Returns [B, S, H, D] in query's dtype, differentiable through the
-    flash backward."""
-    return _bshd(_FlashAttention.apply, query, key, value, causal, scale)
+    Returns (out [B, S, H, D] in query's dtype, None), as the JAX package
+    does; out is differentiable through the flash backward.
+
+    As in the JAX package, return_softmax, fixed_seed_offset and rng_name
+    are accepted and unused. dropout > 0 with training=True raises
+    NotImplementedError (the JAX package applies it to the output after
+    the kernel). ``scale`` (default 1/sqrt(D)) is the port's own trailing
+    keyword."""
+    _no_dropout(dropout, training, "flash_attention")
+    out = _bshd(_FlashAttention.apply, query, key, value, causal, scale)
+    return out, None
 
 
-def scaled_dot_product_attention(query, key, value, causal=False,
-                                 scale=None):
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None, *, scale=None):
     """The same function in plain PyTorch on every device (the JAX
     model's ``use_flash_attention=False`` path); autograd differentiates
-    it op by op."""
-    return _bshd(_plain_core, query, key, value, causal, scale)
+    it op by op. Returns out [B, S, H, D]. attn_mask other than None and
+    dropout_p > 0 with training=True raise NotImplementedError."""
+    if attn_mask is not None:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: attn_mask is not ported (the "
+            "port's dense attention takes no mask yet); pass attn_mask=None")
+    _no_dropout(dropout_p, training, "scaled_dot_product_attention")
+    return _bshd(_plain_core, query, key, value, is_causal, scale)
 
 
 class _FlashVarlen(torch.autograd.Function):

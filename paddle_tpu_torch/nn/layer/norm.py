@@ -16,8 +16,17 @@ def rms_norm(x, weight, eps):
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, hidden_size, epsilon=1e-5, device=None, dtype=None):
+    """The reference's signature, with the port's trailing ``device`` and
+    ``dtype`` keywords. A ``weight_attr`` other than None raises
+    NotImplementedError: ParamAttr is not ported."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None, dtype=None):
         super().__init__()
+        if weight_attr is not None:
+            raise NotImplementedError(
+                "RMSNorm: weight_attr (ParamAttr) is not ported; pass "
+                "weight_attr=None")
         self.eps = epsilon
         self.weight = nn.Parameter(
             torch.ones(hidden_size, device=device, dtype=dtype))

@@ -65,6 +65,6 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(self.q_proj(query))
         k = self._heads(self.k_proj(key))
         v = self._heads(self.v_proj(value))
-        out = flash_attention(q, k, v, causal=False)
+        out, _ = flash_attention(q, k, v, causal=False)
         b, s = out.shape[0], out.shape[1]
         return self.out_proj(out.reshape(b, s, self.embed_dim))

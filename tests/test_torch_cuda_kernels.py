@@ -30,7 +30,7 @@ from paddle_tpu_torch.kernels.flash_sparse_mask import (
     flash_sparse_mask_bwd, flash_sparse_mask_bwd_plain, flash_sparse_mask_fwd,
     flash_sparse_mask_fwd_plain)
 from paddle_tpu_torch.kernels.flash_varlen import (
-    flash_varlen_bwd, flash_varlen_bwd_plain, flash_varlen_fwd,
+    KEYLESS_LSE, flash_varlen_bwd, flash_varlen_bwd_plain, flash_varlen_fwd,
     flash_varlen_fwd_plain, segments_from_cu)
 from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
                                             flash_attn_unpadded,
@@ -250,11 +250,14 @@ def test_flash_attention_autograd_matches_plain_autograd(cuda_device,
               for _ in range(2))
     gn = rng.standard_normal((b, s, h, d)).astype(np.float32)
     grads = []
-    for fn in (flash_attention, scaled_dot_product_attention):
+    for flash in (True, False):
         q, k, v = (torch.from_numpy(a).to(cuda_device).requires_grad_()
                    for a in (qn, kn, vn))
-        out = fn(q, k.repeat_interleave(h // hkv, dim=2),
-                 v.repeat_interleave(h // hkv, dim=2), causal=causal)
+        kr, vr = (x.repeat_interleave(h // hkv, dim=2) for x in (k, v))
+        if flash:
+            out, _ = flash_attention(q, kr, vr, causal=causal)
+        else:
+            out = scaled_dot_product_attention(q, kr, vr, is_causal=causal)
         out.backward(torch.from_numpy(gn).to(cuda_device))
         grads.append((out.detach(), q.grad, k.grad, v.grad))
     torch.cuda.synchronize()
@@ -360,9 +363,9 @@ def test_flash_attention_autograd_bf16_takes_the_wgmma_route(cuda_device,
     g = torch.from_numpy(gn).to(cuda_device, torch.bfloat16)
     before = _flash_bhsd_bwd.route_launches["wgmma"]
     fwd_before = _flash_bhsd.route_launches["wgmma"]
-    out = flash_attention(q, k.repeat_interleave(h // hkv, dim=2),
-                          v.repeat_interleave(h // hkv, dim=2),
-                          causal=causal)
+    out, _ = flash_attention(q, k.repeat_interleave(h // hkv, dim=2),
+                             v.repeat_interleave(h // hkv, dim=2),
+                             causal=causal)
     assert _flash_bhsd.route_launches["wgmma"] == fwd_before + 1
     out.backward(g)
     assert _flash_bhsd_bwd.route_launches["wgmma"] == before + 1
@@ -1175,6 +1178,276 @@ def test_sparse_mask_autograd_matches_plain_autograd(cuda_device):
     torch.cuda.synchronize()
     for got, ref in zip(*grads):
         assert _bwd_close(got, ref, 0.0, 1e-4)[0]
+
+
+# -- the masked forward on the tensor cores ------------------------------------
+#
+# bf16 at D 64 and 128 takes masked_fwd_wgmma (route "wgmma"), held to
+# chip_smoke.py's bf16 rule (FWD_RTOL, FWD_ATOL, LSE_ATOL); float32 and
+# D 256 keep the CUDA-core kernel. q tiles of 64 rows span documents in
+# every pack here, so every policy's pair test and NaN guard run.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pack", sorted(VARLEN_PACKS))
+def test_varlen_fwd_wgmma_matches_plain(cuda_device, d, causal, pack):
+    lq, lk, _ = VARLEN_PACKS[pack]
+    lk = lq if lk is None else lk
+    q, k, v, _, cu_q, cu_k = _varlen_inputs(cuda_device, d + causal, lq, lk,
+                                            4, d)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    sq, pq = segments_from_cu(cu_q, q.shape[0])
+    sk, pk = segments_from_cu(cu_k, k.shape[0])
+    before = flash_varlen_fwd.route_launches["wgmma"]
+    o, lse = flash_varlen_fwd(q, k, v, sq, pq, sk, pk, causal, d ** -0.5)
+    ro, rlse = flash_varlen_fwd_plain(q, k, v, sq, pq, sk, pk, causal,
+                                      d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_varlen_fwd.route_launches["wgmma"] == before + 1
+    ratio, lse_err = _fwd_errs(o, lse, ro, rlse)
+    assert ratio <= 1.0, f"o: {ratio} x the bf16 rule"
+    assert lse_err <= LSE_ATOL, f"lse: max abs err {lse_err}"
+    cq = np.cumsum([0] + list(lq))
+    for i in range(len(lq)):
+        if lq[i] and not lk[i]:                   # a keyless document
+            rows = slice(int(cq[i]), int(cq[i + 1]))
+            assert not o[rows].any()
+            assert (lse[:, rows] == KEYLESS_LSE).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind,s", [("random", 200), ("documents", 256),
+                                    ("capped", 200)])
+def test_sparse_mask_fwd_wgmma_matches_plain(cuda_device, d, causal, kind,
+                                             s):
+    """Random start rows (S 200: a tail tile), documents as start rows,
+    and start rows capped at 100, whose rows from 100 on see no column
+    without causal (keyless: o 0, lse KEYLESS_LSE)."""
+    b, h = 2, 3
+    rng = np.random.default_rng(d + causal + s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                .astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(3))
+    if kind == "documents":
+        start = _doc_start(cuda_device, (33, 100, 67, 56), b, h)
+    else:
+        st = rng.integers(1, s + 1, (b * h, s))
+        if kind == "capped":
+            st = np.minimum(st, 100)
+        start = torch.from_numpy(st.astype(np.int32)).to(cuda_device)
+    before = flash_sparse_mask_fwd.route_launches["wgmma"]
+    o, lse = flash_sparse_mask_fwd(q, k, v, start, causal, d ** -0.5)
+    ro, rlse = flash_sparse_mask_fwd_plain(q, k, v, start, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_sparse_mask_fwd.route_launches["wgmma"] == before + 1
+    ratio, lse_err = _fwd_errs(o, lse, ro, rlse)
+    assert ratio <= 1.0, f"o: {ratio} x the bf16 rule"
+    assert lse_err <= LSE_ATOL, f"lse: max abs err {lse_err}"
+    if kind == "capped" and not causal:
+        assert not o[:, 100:].any()
+        assert (lse[:, 100:] == KEYLESS_LSE).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,d", [(torch.float32, 64), (torch.float32, 128),
+                                  (torch.bfloat16, 256)])
+def test_masked_fwd_cuda_core_route(cuda_device, dt, d):
+    """float32 and D 256 keep the CUDA-core forward of both policies."""
+    lens = (100, 37, 250, 125)
+    q, k, v, _, cu, _ = _varlen_inputs(cuda_device, d, lens, lens, 2, d)
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    sq, pq = segments_from_cu(cu, q.shape[0])
+    before = flash_varlen_fwd.route_launches["cuda_core"]
+    o, lse = flash_varlen_fwd(q, k, v, sq, pq, sq, pq, True, d ** -0.5)
+    ro, rlse = flash_varlen_fwd_plain(q, k, v, sq, pq, sq, pq, True,
+                                      d ** -0.5)
+    assert flash_varlen_fwd.route_launches["cuda_core"] == before + 1
+    q4, k4, v4 = (x[:256].reshape(1, 256, 2, d) for x in (q, k, v))
+    start = _doc_start(cuda_device, (100, 37, 119), 1, 2)
+    before = flash_sparse_mask_fwd.route_launches["cuda_core"]
+    o4, lse4 = flash_sparse_mask_fwd(q4, k4, v4, start, True, d ** -0.5)
+    ro4, rlse4 = flash_sparse_mask_fwd_plain(q4, k4, v4, start, True,
+                                             d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_sparse_mask_fwd.route_launches["cuda_core"] == before + 1
+    tol = dict(TOLS)[dt]
+    _check_fwd(o, lse, ro, rlse, tol)
+    _check_fwd(o4, lse4, ro4, rlse4, tol)
+
+
+@pytest.mark.cuda
+def test_varlen_fwd_wgmma_reads_a_packed_qkv_in_place(cuda_device):
+    """flash_attn_varlen_qkvpacked in bf16: q, k and v are strided slices
+    of [total, 3, H, D] (row stride 3 H D), read in place on the tensor
+    cores. A slice misaligned by 4 elements takes the CUDA-core kernel."""
+    lens = (37, 200, 1, 150, 95)
+    rng = np.random.default_rng(24)
+    total, h, d = sum(lens), 4, 128
+    qkv = torch.from_numpy(rng.standard_normal((total, 3, h, d + 4))
+                           .astype(np.float32)).to(cuda_device,
+                                                   torch.bfloat16)
+    cu = torch.tensor(np.cumsum((0,) + lens), dtype=torch.int32,
+                      device=cuda_device)
+    seg, pos = segments_from_cu(cu, total)
+    aligned = qkv[..., :d].contiguous()
+    before = dict(flash_varlen_fwd.route_launches)
+    with torch.no_grad():
+        out = flash_attn_varlen_qkvpacked(aligned, cu, cu, 200, 200,
+                                          causal=True)
+    ref, _ = flash_varlen_fwd_plain(aligned[:, 0], aligned[:, 1],
+                                    aligned[:, 2], seg, pos, seg, pos, True,
+                                    d ** -0.5)
+    assert flash_varlen_fwd.route_launches["wgmma"] == before["wgmma"] + 1
+    shifted = qkv[..., 4:]                         # 8-byte offset rows
+    o, lse = flash_varlen_fwd(shifted[:, 0], shifted[:, 1], shifted[:, 2],
+                              seg, pos, seg, pos, True, d ** -0.5)
+    ro, rlse = flash_varlen_fwd_plain(shifted[:, 0], shifted[:, 1],
+                                      shifted[:, 2], seg, pos, seg, pos,
+                                      True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_varlen_fwd.route_launches["cuda_core"] == \
+        before["cuda_core"] + 1
+    d_ = (out.float() - ref.float()).abs()
+    assert (d_ / (FWD_RTOL * ref.float().abs() + FWD_ATOL)).max() <= 1.0
+    ratio, lse_err = _fwd_errs(o, lse, ro, rlse)
+    assert ratio <= 1.0 and lse_err <= LSE_ATOL
+
+
+@pytest.mark.cuda
+def test_masked_fwd_c_refuses_a_route_that_cannot_take_its_inputs(
+        cuda_device):
+    """The C entry point never picks a route: asked for the tensor cores
+    with float32, D 256 or a misaligned stride it returns
+    cudaErrorInvalidValue (1) and launches nothing."""
+    from paddle_tpu_torch.kernels import flash_varlen as fv
+    lib = _build.load("flash_varlen", fv._SIG)
+    seg, pos = segments_from_cu(torch.tensor([0, 100], device=cuda_device),
+                                100)
+    rq = fv.varlen_tile_ranges(seg, pos, seg, pos, fv.BQ, True, True)
+    for dt, d, stride in ((torch.float32, 128, 128), (torch.bfloat16, 256,
+                                                      256),
+                          (torch.bfloat16, 128, 132)):
+        x = torch.zeros(100, 1, stride, dtype=dt, device=cuda_device)
+        q = x[..., :d]
+        o = torch.zeros(100, 1, d, dtype=dt, device=cuda_device)
+        lse = torch.zeros(1, 100, device=cuda_device)
+        rc = lib.flash_varlen_fwd(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), seg.data_ptr(), pos.data_ptr(), seg.data_ptr(),
+            pos.data_ptr(), rq.data_ptr(), rq.shape[0], 1, 100, 100, d,
+            q.stride(0), q.stride(1), q.stride(0), q.stride(1), q.stride(0),
+            q.stride(1), 0.1, 1, 0 if dt == torch.float32 else 1, 1,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, (dt, d, stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_varlen_nan_in_one_document_stays_there_bf16(cuda_device, causal):
+    """The bf16 twin of test_varlen_nan_in_one_document_stays_there: the
+    forward runs on the tensor cores, where p = 0 times a NaN V would be
+    NaN, so the guard must keep the poisoned document's V out of the q
+    tiles it shares with others: every other document's outputs and
+    gradients finite and bit-equal to an unpoisoned run's."""
+    lens = (70, 45, 130, 33, 240)
+    q, k, v, g, cu, _ = _varlen_inputs(cuda_device, 3, lens, lens, 4, 128)
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    before = flash_varlen_fwd.route_launches["wgmma"]
+    runs = []
+    for poison in (False, True):
+        kk, vv = k.clone(), v.clone()
+        if poison:
+            kk[115:245] = float("nan")                # the third document
+            vv[115:245] = float("nan")
+        ts = [t.clone().requires_grad_() for t in (q, kk, vv)]
+        out = flash_attn_unpadded(*ts, cu, cu, 240, 240, 128 ** -0.5,
+                                  causal=causal)
+        out.backward(g)
+        runs.append([out.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    assert flash_varlen_fwd.route_launches["wgmma"] == before + 2
+    keep = torch.ones(q.shape[0], dtype=torch.bool, device=cuda_device)
+    keep[115:245] = False
+    assert torch.isnan(runs[1][0][~keep]).all()
+    for clean, poisoned in zip(*runs):
+        assert torch.isfinite(poisoned[keep]).all()
+        assert torch.equal(poisoned[keep], clean[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["nan", "inf", "inf_v"])
+def test_sparse_mask_nan_in_one_document_stays_there_bf16(cuda_device,
+                                                          what):
+    """The bf16 twin of test_sparse_mask_nan_in_one_document_stays_there,
+    with NaN and with inf in K and V, and with inf in V alone: the
+    tensor-core forward's guard. Every tile the poisoned document's rows
+    visit holds another document's rows or columns, so the guard turns all
+    of those rows into NaN, inf_v too, where a row that sees every
+    poisoned column would be inf in exact arithmetic (the guard keeps NaN,
+    not inf: csrc/flash_masked.cuh)."""
+    b, s, h, d = 2, 256, 2, 64
+    rng = np.random.default_rng(31)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                   .astype(np.float32))
+                  .to(cuda_device, torch.bfloat16) for _ in range(4))
+    start = _doc_start(cuda_device, (50, 90, 116), 1, 1)[0]     # [S]
+    before = flash_sparse_mask_fwd.route_launches["wgmma"]
+    runs = []
+    for poison in (False, True):
+        kk, vv = k.clone(), v.clone()
+        if poison:
+            if what != "inf_v":
+                kk[:, 50:140] = float(what)
+            vv[:, 50:140] = float(what[:3])
+        ts = [t.clone().requires_grad_() for t in (q, kk, vv)]
+        out = flash_attention_with_sparse_mask(ts[0], ts[1], ts[2], start,
+                                               is_causal=True)
+        out.backward(g)
+        runs.append([out.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    assert flash_sparse_mask_fwd.route_launches["wgmma"] == before + 2
+    keep = torch.ones(s, dtype=torch.bool, device=cuda_device)
+    keep[50:140] = False
+    assert torch.isnan(runs[1][0][:, ~keep]).all()
+    for clean, poisoned in zip(*runs):
+        assert torch.isfinite(poisoned[:, keep]).all()
+        assert torch.equal(poisoned[:, keep], clean[:, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_masked_bwd_reads_the_wgmma_forward(cuda_device, d):
+    """The CUDA-core backward of both policies on the tensor-core
+    forward's o and lse, against the plain backward on the same o and lse
+    (BWD_TOLS's bf16 rule)."""
+    lens = (120, 77, 200, 64, 39)
+    q, k, v, do, cu, _ = _varlen_inputs(cuda_device, 5 + d, lens, lens, 3,
+                                        d)
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    sq, pq = segments_from_cu(cu, q.shape[0])
+    before = flash_varlen_fwd.route_launches["wgmma"]
+    o, lse = flash_varlen_fwd(q, k, v, sq, pq, sq, pq, True, d ** -0.5)
+    assert flash_varlen_fwd.route_launches["wgmma"] == before + 1
+    got = flash_varlen_bwd(q, k, v, o, lse, do, sq, pq, sq, pq, True,
+                           d ** -0.5)
+    ref = flash_varlen_bwd_plain(q, k, v, o, lse, do, sq, pq, sq, pq, True,
+                                 d ** -0.5)
+    q4, k4, v4, do4 = (x[:, :2].reshape(2, 250, 2, d)
+                       for x in (q, k, v, do))
+    start = _doc_start(cuda_device, (120, 77, 53), 2, 2)
+    before = flash_sparse_mask_fwd.route_launches["wgmma"]
+    o4, lse4 = flash_sparse_mask_fwd(q4, k4, v4, start, True, d ** -0.5)
+    assert flash_sparse_mask_fwd.route_launches["wgmma"] == before + 1
+    got4 = flash_sparse_mask_bwd(q4, k4, v4, o4, lse4, do4, start, True,
+                                 d ** -0.5)
+    ref4 = flash_sparse_mask_bwd_plain(q4, k4, v4, o4, lse4, do4, start,
+                                       True, d ** -0.5)
+    torch.cuda.synchronize()
+    _check_bwd(got, ref, torch.bfloat16, *BWD_TOLS[1][1:])
+    _check_bwd(got4, ref4, torch.bfloat16, *BWD_TOLS[1][1:])
 
 
 # -- the row-wise kernels: RMSNorm, RoPE, causal softmax ----------------------------

@@ -90,7 +90,7 @@ def test_autograd_matches_jax_grad(causal):
                   .sum(), argnums=(0, 1, 2))(
         *(jnp.asarray(a, jnp.float32) for a in (q, k, v)))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
-    (flash_attention(tq, tk, tv, causal=causal) ** 2).sum().backward()
+    (flash_attention(tq, tk, tv, causal=causal)[0] ** 2).sum().backward()
     for t, g in zip((tq, tk, tv), jg):
         # the loss sums 65536 squared outputs: its gradient carries the
         # outputs' own float32 error, so the bound is the JAX test's 5e-5

@@ -9,6 +9,13 @@ float32, at B 2, S 256, H 2, D 64. o and lse are held to 1e-5 and
 gradients to 1e-4 of each one's largest magnitude: the sides differ in
 summation order only.
 
+The card's tensor-core forward (bf16 at D 64 and 128) is emulated by
+tests/test_torch_flash_varlen.py's ``_masked_wgmma_emulation`` under this
+policy (key tiles of 64 from column 0 up to the diagonal when causal,
+a tile skipped when both of its 32-column tile maxima are at or before
+the q tile's first row) and held here to ``_sm_fwd`` in interpret mode by
+the same bf16 rule, 2^-7 |ref| + 1e-4 for o and 1e-4 for the lse.
+
 Random start rows (``rng.integers(1, S + 1)``, as the JAX test draws them)
 leave some rows seeing no column: the kernels give those zeros, and so
 does the port. JAX's entry point ``flash_attention_with_sparse_mask``
@@ -36,6 +43,9 @@ from paddle_tpu_torch.kernels.flash_sparse_mask import (
     sparse_mask_supported, tile_max)
 from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
                                             flash_attn_qkvpacked)
+from test_torch_flash_varlen import (
+    KEYLESS_LSE, WG, _bf16, _fwd_ratio, _masked_wgmma_emulation,
+    _tile_is_full)
 
 B, S, H, D = 2, 256, 2, 64
 SCALE = float(1.0 / np.sqrt(D))
@@ -236,6 +246,7 @@ def test_cpu_wrappers_take_the_plain_versions():
     q, k, v, do = (_t(a) for a in _arrays(14))
     start = _t(_random_start(14).reshape(B * H, S))
     before = (flash_sparse_mask_fwd.launches, flash_sparse_mask_bwd.launches)
+    routed = dict(flash_sparse_mask_fwd.route_launches)
     o, lse = flash_sparse_mask_fwd(q, k, v, start, True, SCALE)
     ro, rlse = flash_sparse_mask_fwd_plain(q, k, v, start, True, SCALE)
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
@@ -246,5 +257,130 @@ def test_cpu_wrappers_take_the_plain_versions():
         assert torch.equal(g, r)
     assert (flash_sparse_mask_fwd.launches,
             flash_sparse_mask_bwd.launches) == before
+    assert flash_sparse_mask_fwd.route_launches == routed
     assert sparse_mask_supported(1000, 128)
     assert not sparse_mask_supported(1024, 96)
+
+
+# -- the tensor-core forward's arithmetic --------------------------------------
+
+def _sm_live(start, causal):
+    """start int32 [S] of one head -> live [S(rows), S(cols)]."""
+    s = start.shape[0]
+    rows = torch.arange(s)[:, None]
+    live = rows < start[None, :]
+    if causal:
+        live &= rows >= torch.arange(s)[None, :]
+    return live
+
+
+def _sm_emulation(q, k, v, start, causal, scale, **kw):
+    """The emulation over the B*H heads of [B, S, H, D] q, k, v with start
+    rows [B*H, S]: key ranges [0, min(q1, S)) causal, [0, S) otherwise, a
+    64-key tile dead when both of its 32-column tile maxima are at or
+    before the q tile's first row. -> (o [B, S, H, D], lse [B*H, S],
+    wholly live tiles, other tiles)."""
+    b, s, h, d = q.shape
+    tm = tile_max(start)
+    outs = []
+    for i in range(b * h):
+        ranges = [(0, min(q0 + WG, s) if causal else s)
+                  for q0 in range(0, s, WG)]
+
+        def dead(t, k0, i=i):
+            parts = tm[i, k0 // TILE:(k0 + WG) // TILE]
+            return bool((t * WG >= parts).all())
+
+        outs.append(_masked_wgmma_emulation(
+            q[i // h, :, i % h], k[i // h, :, i % h], v[i // h, :, i % h],
+            _sm_live(start[i], causal), ranges, scale, dead=dead, **kw))
+    o = torch.stack([x[0] for x in outs]).reshape(b, h, s, d).transpose(1, 2)
+    return (o, torch.stack([x[1] for x in outs]), sum(x[2] for x in outs),
+            sum(x[3] for x in outs))
+
+
+D_W = 128
+SCALE_W = float(1.0 / np.sqrt(D_W))
+
+
+def _bf16_arrays(seed, d=D_W):
+    rng = np.random.default_rng(seed)
+    return [_bf16(torch.from_numpy(rng.standard_normal((B, S, H, d))
+                                   .astype(np.float32))) for _ in range(3)]
+
+
+@pytest.mark.parametrize("kind", START_KINDS + ("capped",))
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_arithmetic_matches_jax_kernel(kind, causal):
+    """The emulation against JAX's _sm_fwd in interpret mode: o within
+    2^-7 |ref| + 1e-4 of JAX's o rounded to bf16, lse within 1e-4, rows
+    that see no column 0 with lse KEYLESS_LSE ("capped": start rows of at
+    most 100, so without causal rows from 100 on are keyless). p rounded
+    once to bf16 misses the rule for o."""
+    q, k, v = _bf16_arrays(30 + causal)
+    start = _start("random" if kind == "capped" else kind, 30 + causal)
+    if kind == "capped":
+        start = np.minimum(start, 100)
+    start = start.reshape(B * H, S).astype(np.int32)
+    jo, jlse = _sm_fwd(*(_bh(a.numpy()) for a in (q, k, v)),
+                       jnp.asarray(start), causal, SCALE_W)
+    ref = _bf16(_t(_from_bh(jo)))
+    rlse = _t(jlse)
+    o, lse, n_full, n_part = _sm_emulation(q, k, v, _t(start), causal,
+                                           SCALE_W)
+    assert n_part > 0
+    if kind == "documents" and not causal:
+        assert n_full > 0                  # the documents' own tiles
+    ratio = _fwd_ratio(o, ref)
+    assert ratio <= 1.0, f"o: {ratio} x the bf16 rule"
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    if kind == "capped" and not causal:
+        assert not o[:, 100:].any() and (lse[:, 100:] == KEYLESS_LSE).all()
+    once = _sm_emulation(q, k, v, _t(start), causal, SCALE_W,
+                         split=False)[0]
+    assert _fwd_ratio(once, ref) > 1.0
+
+
+def test_wgmma_nan_guard_keeps_documents_apart():
+    """NaN in the second document's K and V (columns 100:137, which share
+    q and key tiles with the first and third): with the guard every other
+    row's o is bit-equal to the clean run's; without it the NaN spreads."""
+    q, k, v = _bf16_arrays(33)
+    start = _t(_start("documents", 0).reshape(B * H, S))
+    clean = _sm_emulation(q, k, v, start, True, SCALE_W)[0]
+    kp, vp = k.clone(), v.clone()
+    kp[:, 100:137] = float("nan")
+    vp[:, 100:137] = float("nan")
+    keep = torch.ones(S, dtype=torch.bool)
+    keep[100:137] = False
+    guarded = _sm_emulation(q, kp, vp, start, True, SCALE_W)[0]
+    assert torch.isfinite(guarded[:, keep]).all()
+    assert torch.equal(guarded[:, keep], clean[:, keep])
+    unguarded = _sm_emulation(q, kp, vp, start, True, SCALE_W,
+                              guard=False)[0]
+    assert torch.isnan(unguarded[:, keep]).any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", START_KINDS)
+@pytest.mark.parametrize("s", [256, 200])
+def test_wholly_live_rule_and_dead_tiles_are_exact(causal, kind, s):
+    """Brute force: the first-and-last-row rule says a 64-key tile is
+    wholly live iff every pair in it is; a tile the tile maxima call dead
+    holds no live pair."""
+    if kind == "random":
+        start = _random_start(34, s).reshape(B * H, s)
+    else:
+        doc = _doc_start([60, 37, s - 97])
+        start = np.broadcast_to(doc, (B * H, s)).copy()
+    tm = tile_max(_t(start))
+    for i in range(B * H):
+        live = _sm_live(_t(start[i]), causal)
+        for q0 in range(0, s, WG):
+            q1, hi = min(q0 + WG, s), min(q0 + WG, s) if causal else s
+            for k0 in range(0, hi, WG):
+                brute = k0 + WG <= hi and bool(live[q0:q1,
+                                                    k0:k0 + WG].all())
+                assert _tile_is_full(live, q0, q1, k0, hi) == brute
+                if bool((q0 >= tm[i, k0 // TILE:(k0 + WG) // TILE]).all()):
+                    assert not live[q0:q1, k0:k0 + WG].any()

@@ -10,6 +10,19 @@ o and lse are held to 1e-5 and gradients to 1e-4 of each one's largest
 magnitude: the sides differ in summation order only (tiled online softmax
 against one softmax per document).
 
+The card's tensor-core forward (route "wgmma": bf16 at D 64 and 128)
+multiplies bf16 operands into float32 sums over 64-key tiles of the
+document range, runs the online softmax in the exp2 domain with the pair
+test as a select, carries p into p.v as a bf16 hi + lo pair, and guards
+V against non-finite values on the tiles that are not wholly live. A
+test-local emulation of that arithmetic (``_masked_wgmma_emulation``, also
+used by tests/test_torch_flash_sparse_mask.py) is held here to the JAX
+kernel in interpret mode by chip_smoke.py's bf16 rule, 2^-7 |ref| + 1e-4
+for o (JAX's o rounded to bf16) and 1e-4 for the float32 lse: the two
+differ by the bf16 rounding of o and, in float32, by summation order. The
+arithmetic it avoids (p rounded once to bf16, the exp2-domain lse of a
+keyless row, p = 0 times a NaN V) is shown to miss.
+
 JAX's entry point ``flash_attn_unpadded`` takes its dense XLA fallback on
 the CPU, which gives a keyless row (a q document whose k document is
 empty) near-uniform attention where the kernels give zeros; the port
@@ -36,6 +49,7 @@ from paddle_tpu_torch.kernels.flash_varlen import (
     BQ, KEYLESS_LSE, dkv_block, flash_varlen_bwd, flash_varlen_bwd_plain,
     flash_varlen_fwd, flash_varlen_fwd_plain, segments_from_cu,
     varlen_supported, varlen_tile_ranges)
+from paddle_tpu_torch.kernels.flash_attention import masked_fwd_route
 from paddle_tpu_torch.nn.functional import (flash_attn_unpadded,
                                             flash_attn_varlen_qkvpacked)
 
@@ -48,6 +62,9 @@ GRAD_ATOL = 1e-4
 # whose second k document is empty (its q rows are keyless)
 PACKS = {"same_pack": ((100, 37, 250, 125), None),
          "unequal_keyless": ((100, 37, 250, 125), (60, 0, 200, 124))}
+# the tensor-core emulation's packs: 64-row q tiles span documents in
+# each; an empty document; unequal packs with a keyless document
+WGMMA_PACKS = dict(PACKS, empty_doc=((100, 0, 37, 250, 125), None))
 
 
 def _cu(lens):
@@ -280,6 +297,7 @@ def test_cpu_wrappers_take_the_plain_versions():
     sk, pk = _torch_segs(cu_k, k.shape[0])
     args = (_t(q), _t(k), _t(v))
     before = (flash_varlen_fwd.launches, flash_varlen_bwd.launches)
+    routed = dict(flash_varlen_fwd.route_launches)
     o, lse = flash_varlen_fwd(*args, sq, pq, sk, pk, True, SCALE)
     ro, rlse = flash_varlen_fwd_plain(*args, sq, pq, sk, pk, True, SCALE)
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
@@ -288,8 +306,9 @@ def test_cpu_wrappers_take_the_plain_versions():
                                  SCALE)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
-    # no kernel ran on the CPU
+    # no kernel ran on the CPU, on any route
     assert (flash_varlen_fwd.launches, flash_varlen_bwd.launches) == before
+    assert flash_varlen_fwd.route_launches == routed
 
 
 def test_the_port_takes_any_total():
@@ -303,3 +322,230 @@ def test_the_port_takes_any_total():
     # the one-token documents attend to themselves only
     np.testing.assert_allclose(out[0].numpy(), v[0], rtol=1e-6)
     np.testing.assert_allclose(out[999].numpy(), v[999], rtol=1e-6)
+
+
+# -- the tensor-core forward's arithmetic --------------------------------------
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+WG = 64                          # rows of a q tile and keys of a key tile
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tile_is_full(live, q0, q1, k0, hi):
+    """The kernel's wholly-live rule: every one of the tile's 64 columns
+    is below the range's end and live for the q tile's first and last
+    rows (a column's live rows form one interval under both policies)."""
+    if k0 + WG > hi:
+        return False
+    cols = live[[q0, q1 - 1], k0:k0 + WG]
+    return bool(cols.all())
+
+
+def _masked_wgmma_emulation(q, k, v, live, ranges, scale, dead=None,
+                            split=True, keyless_rule=True, guard=True):
+    """The tensor-core masked forward's arithmetic, one head, on float32
+    tensors that hold bf16 values: q [Sq, D], k and v [Sk, D], live [Sq,
+    Sk] bool, ranges[t] the keys [lo, hi) of q tile t, dead(t, k0) True for
+    a key tile the policy skips. Per q tile of 64 rows, key tiles of 64
+    from lo: x = (q k^T) (scale log2e); a tile that is not wholly live
+    takes the pair test as a select (masked columns stay out of the max,
+    p = 0), and (guard) its V rows that hold a non-finite value are zeroed,
+    every row with a live pair on one ending NaN; m starts at -1e30; p
+    enters p.v as hi + lo (or, split False, rounded once); o = bf16(acc /
+    max(l, 1e-30)); lse = (m + log2 l) ln 2, or (keyless_rule) -1e30 +
+    log(1e-30) for a row whose m is still -1e30. Returns (o, lse, number
+    of wholly live tiles, number of others)."""
+    sq, d = q.shape
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    o = torch.zeros(sq, d)
+    lse = torch.zeros(sq)
+    n_full = n_part = 0
+    for t, (lo, hi) in enumerate(ranges):
+        q0, q1 = t * WG, min(t * WG + WG, sq)
+        m = torch.full((q1 - q0,), -1e30)
+        l = torch.zeros(q1 - q0)
+        acc = torch.zeros(q1 - q0, d)
+        nan_row = torch.zeros(q1 - q0, dtype=torch.bool)
+        for k0 in range(lo, hi, WG):
+            if dead is not None and dead(t, k0):
+                continue
+            k1 = min(k0 + WG, hi)
+            x = torch.matmul(q[q0:q1], k[k0:k1].T) * sl2
+            vt = v[k0:k1].clone()
+            if _tile_is_full(live, q0, q1, k0, hi):
+                n_full += 1
+                lt = torch.ones(q1 - q0, k1 - k0, dtype=torch.bool)
+            else:
+                n_part += 1
+                lt = live[q0:q1, k0:k1]
+                bad = ~torch.isfinite(vt).all(1)
+                if guard and bad.any():
+                    vt[bad] = 0.0
+                    nan_row |= (lt & bad[None, :]).any(1)
+            m_new = torch.maximum(m, torch.where(lt, x, -torch.inf).amax(1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(lt, torch.exp2(x - m_new[:, None]), 0.0)
+            l = l * alpha + p.sum(1)
+            hi_p = _bf16(p)
+            parts = (hi_p, _bf16(p - hi_p)) if split else (hi_p,)
+            acc = acc * alpha[:, None] + sum(torch.matmul(a, vt)
+                                             for a in parts)
+            m = m_new
+        lc = l.clamp_min(1e-30)
+        out = acc / lc[:, None]
+        out[nan_row] = float("nan")
+        o[q0:q1] = _bf16(out)
+        lse[q0:q1] = (m + torch.log2(lc)) * LN2
+        if keyless_rule:
+            lse[q0:q1] = torch.where(m == -1e30, m + torch.log(lc),
+                                     lse[q0:q1])
+    return o, lse, n_full, n_part
+
+
+def _fwd_ratio(out, ref):
+    """The largest ratio of an element's error to chip_smoke.py's bf16
+    rule for o, 2^-7 |ref| + 1e-4."""
+    return ((out - ref).abs() / (2.0 ** -7 * ref.abs() + 1e-4)).max().item()
+
+
+def _varlen_emulation(q, k, v, sq, pq, sk, pk, causal, **kw):
+    """The emulation over the heads of [T, H, D] q, k, v -> (o [T, H, D],
+    lse [H, T], wholly live tiles, other tiles)."""
+    live = _live(sq, pq, sk, pk, causal)
+    ranges = varlen_tile_ranges(sq, pq, sk, pk, WG, causal, True).tolist()
+    outs = [_masked_wgmma_emulation(q[:, i], k[:, i], v[:, i], live, ranges,
+                                    SCALE_W, **kw)
+            for i in range(q.shape[1])]
+    return (torch.stack([x[0] for x in outs], 1),
+            torch.stack([x[1] for x in outs]),
+            sum(x[2] for x in outs), sum(x[3] for x in outs))
+
+
+D_W = 128
+SCALE_W = float(1.0 / np.sqrt(D_W))
+
+
+def _bf16_case(pack, seed):
+    """bf16-valued float32 q, k, v [T, 2, 128] of a WGMMA_PACKS pack, with
+    both sides' segments."""
+    lq, lk = WGMMA_PACKS[pack]
+    lk = lq if lk is None else lk
+    cu_q, cu_k = _cu(lq), _cu(lk)
+    rng = np.random.default_rng(seed)
+    q, k, v = (_bf16(torch.from_numpy(rng.standard_normal((n, H, D_W))
+                                      .astype(np.float32)))
+               for n in (int(cu_q[-1]), int(cu_k[-1]), int(cu_k[-1])))
+    return q, k, v, cu_q, cu_k
+
+
+@pytest.mark.parametrize("pack", sorted(WGMMA_PACKS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_arithmetic_matches_jax_kernel(pack, causal):
+    """The emulation against JAX's _varlen_fwd in interpret mode: o within
+    2^-7 |ref| + 1e-4 of JAX's o rounded to bf16, lse within 1e-4, keyless
+    rows 0 with lse KEYLESS_LSE, and both kinds of tile met. p rounded
+    once to bf16 misses the rule for o."""
+    q, k, v, cu_q, cu_k = _bf16_case(pack, 20 + causal)
+    tq, tk = q.shape[0], k.shape[0]
+    jsq, jpq = _jax_segs(cu_q, tq)
+    jsk, jpk = _jax_segs(cu_k, tk)
+    jo, jlse = _varlen_fwd(*(jnp.asarray(a.numpy()).swapaxes(0, 1)
+                             for a in (q, k, v)), jsq, jpq, jsk, jpk, causal,
+                           SCALE_W, False)
+    ref = _bf16(_t(np.asarray(jo).swapaxes(0, 1)))
+    rlse = _t(jlse)
+    segs = (*_torch_segs(cu_q, tq), *_torch_segs(cu_k, tk))
+    o, lse, n_full, n_part = _varlen_emulation(q, k, v, *segs, causal)
+    assert n_full > 0 and n_part > 0
+    ratio = _fwd_ratio(o, ref)
+    assert ratio <= 1.0, f"o: {ratio} x the bf16 rule"
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    lq, lk = WGMMA_PACKS[pack]
+    if lk is not None:
+        rows = slice(int(cu_q[1]), int(cu_q[2]))     # the keyless document
+        assert not o[rows].any() and (lse[:, rows] == KEYLESS_LSE).all()
+    once = _varlen_emulation(q, k, v, *segs, causal, split=False)[0]
+    assert _fwd_ratio(once, ref) > 1.0
+
+
+def test_wgmma_keyless_rows_need_the_natural_log_rule():
+    """In the exp2 domain a keyless row's (-1e30 + log2 1e-30) ln 2 is
+    -6.9e29, far outside 1e-4 of the kernels' -1e30 + log(1e-30)."""
+    q, k, v, cu_q, cu_k = _bf16_case("unequal_keyless", 23)
+    segs = (*_torch_segs(cu_q, q.shape[0]), *_torch_segs(cu_k, k.shape[0]))
+    _, lse, _, _ = _varlen_emulation(q, k, v, *segs, False,
+                                     keyless_rule=False)
+    rows = slice(int(cu_q[1]), int(cu_q[2]))
+    assert (lse[:, rows] - KEYLESS_LSE).abs().min().item() > 1e28
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_nan_guard_keeps_documents_apart(causal):
+    """NaN in one document's K and V: with the guard every other
+    document's o is bit-equal to the clean run's and the poisoned
+    document's rows are NaN; without it (p = 0 times NaN on the tensor
+    cores) the NaN reaches the other documents sharing its q tiles."""
+    q, k, v, cu_q, _ = _bf16_case("same_pack", 24 + causal)
+    segs = (*_torch_segs(cu_q, q.shape[0]),) * 2
+    clean = _varlen_emulation(q, k, v, *segs, causal)[0]
+    a, b = int(cu_q[2]), int(cu_q[3])             # the third document
+    kp, vp = k.clone(), v.clone()
+    kp[a:b] = float("nan")
+    vp[a:b] = float("nan")
+    keep = torch.ones(q.shape[0], dtype=torch.bool)
+    keep[a:b] = False
+    guarded = _varlen_emulation(q, kp, vp, *segs, causal)[0]
+    assert torch.isfinite(guarded[keep]).all()
+    assert torch.equal(guarded[keep], clean[keep])
+    assert torch.isnan(guarded[~keep]).all()
+    unguarded = _varlen_emulation(q, kp, vp, *segs, causal, guard=False)[0]
+    assert torch.isnan(unguarded[keep]).any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seed", range(4))
+def test_wholly_live_rule_is_exact(causal, seed):
+    """Brute force over random packs (empty documents, unequal packs,
+    totals no tile divides): the kernel's rule from the first and last
+    rows says a tile is wholly live iff every pair in it is live."""
+    rng = np.random.default_rng(40 + seed)
+    n = int(rng.integers(3, 10))
+    lq = rng.integers(0, 200, n)
+    lk = lq if seed % 2 == 0 else rng.integers(0, 200, n)
+    cu_q, cu_k = _cu(lq), _cu(lk)
+    tq, tk = int(cu_q[-1]), int(cu_k[-1])
+    sq, pq = _torch_segs(cu_q, tq)
+    sk, pk = _torch_segs(cu_k, tk)
+    live = _live(sq, pq, sk, pk, causal)
+    ranges = varlen_tile_ranges(sq, pq, sk, pk, WG, causal, True).tolist()
+    seen = set()
+    for t, (lo, hi) in enumerate(ranges):
+        q0, q1 = t * WG, min(t * WG + WG, tq)
+        for k0 in range(lo, hi, WG):
+            full = _tile_is_full(live, q0, q1, k0, hi)
+            brute = k0 + WG <= hi and bool(live[q0:q1, k0:k0 + WG].all())
+            assert full == brute
+            seen.add(full)
+    assert seen == {True, False} or tq < 2 * WG
+
+
+@pytest.mark.parametrize("dtype,d,ptrs,strides,route", [
+    (torch.bfloat16, 64, (0, 16, 32), (128, 64), "wgmma"),
+    (torch.bfloat16, 128, (0, 256, 512), (384, 128), "wgmma"),   # qkv pack
+    (torch.bfloat16, 256, (0, 0, 0), (256, 256), "cuda_core"),
+    (torch.bfloat16, 128, (0, 8, 0), (128, 128), "cuda_core"),
+    (torch.bfloat16, 128, (0, 0, 0), (396, 132), "cuda_core"),
+    (torch.bfloat16, 64, (0, 0, 0), (68, 64), "cuda_core"),
+    (torch.float32, 64, (0, 0, 0), (64, 64), "cuda_core"),
+    (torch.float32, 128, (0, 0, 0), (128, 128), "cuda_core"),
+])
+def test_masked_fwd_route(dtype, d, ptrs, strides, route):
+    """The tensor cores take bf16 at D 64 and 128 with q, k and v 16-byte
+    aligned and every stride a multiple of 8 elements (a packed [T, 3, H,
+    D] qkv's row stride 3 H D included); float32, D 256, a misaligned
+    pointer or a stride off the 8-element grid keep the CUDA cores."""
+    assert masked_fwd_route(dtype, d, ptrs, strides) == route
