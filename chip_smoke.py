@@ -87,10 +87,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    backward), the same documents in float32 at phase 13's 4 heads (timed
    too), D 64 and 256 (D 256 timed too), a total of 1000, empty
    documents, unequal packs with an empty k document (keyless rows 0 with
-   zero gradients), random start rows, and NaN in one document's K and V
-   (every other document's outputs and gradients bit for bit unchanged);
-   each forward on the tensor cores in bf16 at D 64 and 128 and on the
-   CUDA cores in float32 and at D 256, each case with its route, rate,
+   zero gradients), random start rows, and NaN in one document's q, k, v
+   and dO (every other document's outputs and gradients bit for bit
+   unchanged, the document's own all NaN); each forward and backward on
+   the tensor cores in bf16 at D 64 and 128 and on the CUDA cores in
+   float32 and at D 256, each case with its route, rate,
    share of its bound, live, visited and dense pair counts and the bound
    over live pairs (backward 2.5 x the forward's flops);
 12. varlen_attn: flash_attn_unpadded on bench.py's one-chip batch packed
@@ -98,14 +99,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the seed, the last of a row cut to fit), [12288, 32, 128] bf16 leaves,
    causal, forward and backward through autograd, 2 warm-up and 10 timed
    passes: ms per pass, tokens/s, TFLOP/s over live pairs, peak memory,
-   and one launch of each kernel per pass, every forward on the tensor
-   cores; flashmask_attn: the same with
+   and one launch of each kernel per pass, every forward and backward on
+   the tensor cores; flashmask_attn: the same with
    flash_attention_with_sparse_mask on [6, 2048, 32, 128] and the
    documents as [6, 1, 2048] start rows;
 13. packed_parity: the two paths in float32 at 4 heads on the same
    documents (outputs and gradients), and FlashMask with start rows S
-   against the dense flash kernels, every masked forward on the CUDA
-   cores;
+   against the dense flash kernels, every masked forward and backward on
+   the CUDA cores;
 14. the row-wise kernels (RMSNorm forward and backward, RoPE, the causal
    softmax forward and backward) against their plain versions, element by
    element to 2^-7 |ref| in bf16 (0 in float32) plus 1e-5 of the largest:
@@ -134,8 +135,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    for quant_matmul's GEMV and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
    forward and dw kernels, train_moe_quant for the quantized grouped
-   kernel, varlen_attn and flashmask_attn for the packed kernels (their
-   forwards on the tensor cores), packed_parity for the packed forwards on
+   kernel, varlen_attn and flashmask_attn for the packed kernels on the
+   tensor cores (both directions), packed_parity for both directions on
    the CUDA cores,
    rowwise_attn for the row-wise ones), error and times;
 17. the card's name and power limit again, and the result line.
@@ -248,13 +249,54 @@ def bound(bytes_moved, flops, peak_flops):
 
 # the tensor-core kernels of each flash source, whose SASS must hold HGMMA,
 # and the tag that names the source's instances in the build line (the
-# masked forward is one template with a mask policy per source)
+# masked forward, dq and dk/dv kernels are templates with a mask policy
+# per source)
+MASKED_WGMMA = ("masked_fwd_wgmma", "masked_dq_wgmma", "masked_dkv_wgmma")
 WGMMA_KERNELS = {"flash_attention_fwd": (("flash_fwd_wgmma",), None),
                  "flash_attention_bwd": (("flash_bwd_dq_wgmma",
                                           "flash_bwd_dkv_wgmma"), None),
-                 "flash_varlen": (("masked_fwd_wgmma",), "SegmentMask"),
-                 "flash_sparse_mask": (("masked_fwd_wgmma",),
-                                       "StartRowMask")}
+                 "flash_varlen": (MASKED_WGMMA, "SegmentMask"),
+                 "flash_sparse_mask": (MASKED_WGMMA, "StartRowMask")}
+
+
+def kernel_label(mangled):
+    """A short label of a mangled kernel name: its own name, then the
+    element type, head dim and mask policy where its template has them
+    ("masked_dq_wgmma<128, SegmentMask>")."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group()
+        i += len(n)
+        name = mangled[i:i + int(n)]
+        i += int(n)
+    rest = mangled[i:]
+    args = [t for t, key in (("float", "If"), ("bf16", "I13__nv_bfloat16"))
+            if rest.startswith(key)]
+    hd = re.search(r"Li(\d+)E", rest)
+    args += [hd.group(1)] if hd else []
+    args += [m for m in ("SegmentMask", "StartRowMask") if m in rest]
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_kernels(log):
+    """{kernel label: "N registers, S bytes spill stores, L bytes spill
+    loads"} from nvcc's -Xptxas -v output."""
+    out, fn, spill = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = kernel_label(m.group(1)), ""
+            continue
+        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)",
+                      line)
+        if m and fn:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = f"{m.group(1)} registers, {spill}"
+            fn = None
+    return out
 
 
 def hgmma_counts(so, kernels, tag=None):
@@ -2037,10 +2079,12 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
     """Both varlen kernels (the forward; dq and dk/dv) on one packing in
     `dtype` against their plain versions, the backward on the kernel
     forward's o and lse as training gives them (tolerances: `_tols`).
-    poison: the index of a document whose K and V become NaN: every other
-    document's outputs and gradients must equal the clean run's. timed:
-    also the plain versions' times and the library yardsticks. Returns
-    (forward record, backward record)."""
+    poison: the index of a document whose q, k, v and dO become NaN: every
+    other document's outputs and gradients must equal the clean run's, and
+    the poisoned document's must all be NaN. timed:
+    also the plain versions' times and the library yardsticks. Each record
+    names the route its kernels took. Returns (forward record, backward
+    record)."""
     from paddle_tpu_torch.kernels.flash_varlen import (
         BQ, dkv_block, flash_varlen_bwd, flash_varlen_bwd_plain,
         flash_varlen_fwd, flash_varlen_fwd_plain, segments_from_cu,
@@ -2069,7 +2113,10 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
     route = next(r for r, n in flash_varlen_fwd.route_launches.items()
                  if n > routed[r])
     ro, rlse = flash_varlen_fwd_plain(q, k, v, *seg)
+    routed = dict(flash_varlen_bwd.route_launches)
     got = flash_varlen_bwd(q, k, v, o, lse, do, *seg)
+    bwd_route = next(r for r, n in flash_varlen_bwd.route_launches.items()
+                     if n > routed[r])
     ref = flash_varlen_bwd_plain(q, k, v, o, lse, do, *seg)
     torch.cuda.synchronize()
     err, ratio = bf16_err(o, ro, atol, rtol)
@@ -2093,11 +2140,11 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
         kk = torch.ones(tk, dtype=torch.bool, device=dev)
         kq[int(cq[poison]):int(cq[poison + 1])] = False
         kk[int(ck[poison]):int(ck[poison + 1])] = False
-        kp, vp = k.clone(), v.clone()
-        kp[~kk] = float("nan")
-        vp[~kk] = float("nan")
-        po, plse = flash_varlen_fwd(q, kp, vp, *seg)
-        pg = flash_varlen_bwd(q, kp, vp, po, plse, do, *seg)
+        qp, kp, vp, dop = q.clone(), k.clone(), v.clone(), do.clone()
+        for x, keep in ((qp, kq), (kp, kk), (vp, kk), (dop, kq)):
+            x[~keep] = float("nan")
+        po, plse = flash_varlen_fwd(qp, kp, vp, *seg)
+        pg = flash_varlen_bwd(qp, kp, vp, po, plse, dop, *seg)
         torch.cuda.synchronize()
         for what, a, b, keep in (("o", po, o, kq), ("dq", pg[0], got[0], kq),
                                  ("dk", pg[1], got[1], kk),
@@ -2106,6 +2153,8 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
                   and torch.equal(a[keep], b[keep]),
                   f"{name}: NaN in document {poison} reached another "
                   f"document's {what}")
+            check(bool(torch.isnan(a[~keep]).all()),
+                  f"{name}: document {poison}'s {what} is not all NaN")
     kernel_ms = cuda_ms(torch, lambda: flash_varlen_fwd(q, k, v, *seg), 10)
     kernel_bwd_ms = cuda_ms(torch, lambda: flash_varlen_bwd(
         q, k, v, o, lse, do, *seg), 10)
@@ -2191,7 +2240,7 @@ def varlen_case(torch, np, name, lq, lk, h, d, causal, seed, poison=None,
     bbytes = (3 * tq + 2 * tk + tq + 2 * tk) * h * d * isz \
         + 8 * h * tq + seg_bytes
     bound_ms, bound_by = bound(bbytes, flops, peak)
-    bwd = dict(common, kernel="flash_varlen_bwd", route="cuda_core",
+    bwd = dict(common, kernel="flash_varlen_bwd", route=bwd_route,
                max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
                err_over_tolerance=gratio, rtol=rtol,
                grad_atol_of_max=of_max, kernel_ms=kernel_bwd_ms,
@@ -2282,9 +2331,10 @@ def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
     `start` (int32 on the card, [b, 1, s] shared by the heads or [b*h, s])
     against their plain versions (chunked over b*h; tolerances: `_tols`).
     poison: (batch row, first,
-    end) columns whose K and V become NaN: every other row's outputs and
-    gradients must equal the clean run's. Returns (forward record,
-    backward record)."""
+    end) rows whose q, k, v and dO become NaN: every other row's outputs and
+    gradients must equal the clean run's, and the poisoned rows' must all
+    be NaN. Each record names the route its kernels took. Returns
+    (forward record, backward record)."""
     from paddle_tpu_torch.kernels.flash_sparse_mask import (
         flash_sparse_mask_bwd, flash_sparse_mask_bwd_plain,
         flash_sparse_mask_fwd, flash_sparse_mask_fwd_plain)
@@ -2305,7 +2355,11 @@ def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
     route = next(r for r, n in flash_sparse_mask_fwd.route_launches.items()
                  if n > routed[r])
     ro, rlse = flash_sparse_mask_fwd_plain(q, k, v, st, causal, scale)
+    routed = dict(flash_sparse_mask_bwd.route_launches)
     got = flash_sparse_mask_bwd(q, k, v, o, lse, do, st, causal, scale)
+    bwd_route = next(r for r, n in
+                     flash_sparse_mask_bwd.route_launches.items()
+                     if n > routed[r])
     ref = flash_sparse_mask_bwd_plain(q, k, v, o, lse, do, st, causal,
                                       scale)
     torch.cuda.synchronize()
@@ -2323,19 +2377,21 @@ def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
         row, a, e = poison
         keep = torch.ones(b, s, dtype=torch.bool, device=dev)
         keep[row, a:e] = False
-        kp, vp = k.clone(), v.clone()
-        kp[~keep] = float("nan")
-        vp[~keep] = float("nan")
-        po, plse = flash_sparse_mask_fwd(q, kp, vp, st, causal, scale)
-        pg = flash_sparse_mask_bwd(q, kp, vp, po, plse, do, st, causal,
+        qp, kp, vp, dop = q.clone(), k.clone(), v.clone(), do.clone()
+        for x in (qp, kp, vp, dop):
+            x[~keep] = float("nan")
+        po, plse = flash_sparse_mask_fwd(qp, kp, vp, st, causal, scale)
+        pg = flash_sparse_mask_bwd(qp, kp, vp, po, plse, dop, st, causal,
                                    scale)
         torch.cuda.synchronize()
         for what, x, y in (("o", po, o), ("dq", pg[0], got[0]),
                            ("dk", pg[1], got[1]), ("dv", pg[2], got[2])):
             check(bool(torch.isfinite(x[keep]).all())
                   and torch.equal(x[keep], y[keep]),
-                  f"{name}: NaN in columns {a}:{e} of row {row} reached "
+                  f"{name}: NaN in rows {a}:{e} of batch row {row} reached "
                   f"another document's {what}")
+            check(bool(torch.isnan(x[~keep]).all()),
+                  f"{name}: rows {a}:{e}'s {what} is not all NaN")
     kernel_ms = cuda_ms(torch, lambda: flash_sparse_mask_fwd(
         q, k, v, st, causal, scale), 10)
     kernel_bwd_ms = cuda_ms(torch, lambda: flash_sparse_mask_bwd(
@@ -2387,7 +2443,7 @@ def sparse_mask_case(torch, np, name, b, s, h, d, causal, start, seed,
     flops = 10 * d * pairs
     bbytes = 8 * b * s * h * d * isz + 12 * b * h * s
     bound_ms, bound_by = bound(bbytes, flops, peak)
-    bwd = dict(common, kernel="flash_sparse_mask_bwd", route="cuda_core",
+    bwd = dict(common, kernel="flash_sparse_mask_bwd", route=bwd_route,
                max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
                err_over_tolerance=gratio, rtol=rtol,
                grad_atol_of_max=of_max, kernel_ms=kernel_bwd_ms,
@@ -2406,20 +2462,20 @@ def packed_kernel_checks(torch, np, lens, seed):
     yardsticks), float32 at packed_parity's shapes (timed: the CUDA-core
     forward's rows), D 64 and 256 (D 256 timed too), a total of 1000,
     empty documents, unequal packs with an empty k document, random start
-    rows, and NaN isolation. Every bf16 forward at D 64 and 128 must have
-    taken the tensor-core route, float32 and D 256 the CUDA cores. Returns
-    the records of the main cases (forward, backward, both policies) and
-    of the float32 forwards."""
+    rows, and NaN isolation. Every bf16 forward and backward at D 64 and
+    128 must have taken the tensor-core route, float32 and D 256 the CUDA
+    cores. Returns the records of the main cases (forward, backward, both
+    policies) and of the float32 cases (forward, backward, both
+    policies)."""
     dev = torch.device("cuda")
     small = pack_documents(np, seed, rows=2)               # 4096 tokens
-    fwds = []
+    recs = []
     vf, vb = varlen_case(torch, np, "main_pack_32x128_causal", lens, lens,
                          PACK_HEADS, PACK_D, True, seed, timed=True)
-    fwds.append(vf)
+    recs += [vf, vb]
     for d in (64, 256):
-        fwds.append(varlen_case(torch, np, f"pack4096_h8_d{d}_causal",
-                                small, small, 8, d, True, seed + d,
-                                timed=d == 256)[0])
+        recs += varlen_case(torch, np, f"pack4096_h8_d{d}_causal", small,
+                            small, 8, d, True, seed + d, timed=d == 256)
     for args in (("total1000_h8_d128_causal",
                   (1, 63, 64, 65, 300, 7, 500), (1, 63, 64, 65, 300, 7, 500),
                   8, 128, True, seed + 1),
@@ -2427,64 +2483,64 @@ def packed_kernel_checks(torch, np, lens, seed):
                   (700, 0, 333, 290, 0), 8, 128, True, seed + 2),
                  ("unequal_keyless_h8_d128_full", (300, 200, 250, 250),
                   (280, 0, 300, 120), 8, 128, False, seed + 3)):
-        fwds.append(varlen_case(torch, np, *args)[0])
-    fwds.append(varlen_case(torch, np, "nan_doc2_h8_d128_causal", small,
-                            small, 8, 128, True, seed + 4, poison=2)[0])
+        recs += varlen_case(torch, np, *args)
+    recs += varlen_case(torch, np, "nan_doc2_h8_d128_causal", small, small,
+                        8, 128, True, seed + 4, poison=2)
     # packed_parity's inputs: float32, 4 heads, on the CUDA cores
-    vf32 = varlen_case(torch, np, "parity_pack_4x128_causal_f32", lens, lens,
-                       PACK_PARITY_HEADS, PACK_D, True, seed + 10,
-                       timed=True, dtype="float32")[0]
-    fwds.append(vf32)
+    vf32, vb32 = varlen_case(torch, np, "parity_pack_4x128_causal_f32",
+                             lens, lens, PACK_PARITY_HEADS, PACK_D, True,
+                             seed + 10, timed=True, dtype="float32")
+    recs += [vf32, vb32]
     start = torch.as_tensor(doc_start_rows(np, lens, PACK_ROWS, PACK_SEQ),
                             device=dev)[:, None, :]            # [6, 1, S]
     mf, mb = sparse_mask_case(torch, np, "main_docs_6x2048x32x128_causal",
                               PACK_ROWS, PACK_SEQ, PACK_HEADS, PACK_D, True,
                               start, seed, timed=True)
-    fwds.append(mf)
-    mf32 = sparse_mask_case(torch, np, "parity_docs_6x2048x4x128_causal_f32",
-                            PACK_ROWS, PACK_SEQ, PACK_PARITY_HEADS, PACK_D,
-                            True, start, seed + 11, timed=True,
-                            dtype="float32")[0]
-    fwds.append(mf32)
+    recs += [mf, mb]
+    mf32, mb32 = sparse_mask_case(
+        torch, np, "parity_docs_6x2048x4x128_causal_f32", PACK_ROWS,
+        PACK_SEQ, PACK_PARITY_HEADS, PACK_D, True, start, seed + 11,
+        timed=True, dtype="float32")
+    recs += [mf32, mb32]
     rng = np.random.default_rng(seed + 5)
     for causal in (True, False):       # as tests/test_varlen_flash.py
         rs = torch.as_tensor(rng.integers(1, 2049, (2 * 8, 2048))
                              .astype(np.int32), device=dev)
-        fwds.append(sparse_mask_case(
+        recs += sparse_mask_case(
             torch, np, f"random_start_2x2048x8x128_"
                        f"{'causal' if causal else 'full'}",
-            2, 2048, 8, 128, causal, rs, seed + 6 + causal)[0])
+            2, 2048, 8, 128, causal, rs, seed + 6 + causal)
     docs1000 = (1, 63, 64, 65, 300, 7, 500)
     st1000 = torch.as_tensor(doc_start_rows(np, docs1000 * 2, 2, 1000),
                              device=dev)[:, None, :]
     for d in (64, 256):
-        fwds.append(sparse_mask_case(torch, np, f"docs_2x1000x4_d{d}_causal",
-                                     2, 1000, 4, d, True, st1000, seed + d,
-                                     timed=d == 256)[0])
-    fwds.append(sparse_mask_case(torch, np, "nan_doc0_6x2048x8x128_causal",
-                                 PACK_ROWS, PACK_SEQ, 8, 128, True, start,
-                                 seed + 9, poison=(0, 0, lens[0]))[0])
-    for rec in fwds:
+        recs += sparse_mask_case(torch, np, f"docs_2x1000x4_d{d}_causal", 2,
+                                 1000, 4, d, True, st1000, seed + d,
+                                 timed=d == 256)
+    recs += sparse_mask_case(torch, np, "nan_doc0_6x2048x8x128_causal",
+                             PACK_ROWS, PACK_SEQ, 8, 128, True, start,
+                             seed + 9, poison=(0, 0, lens[0]))
+    for rec in recs:
         want = "cuda_core" if rec["d"] == 256 or rec["dtype"] == "float32" \
             else "wgmma"
-        check(rec["route"] == want, f"{rec['case']}: the {rec['kernel']} "
-                                    f"forward routed to {rec['route']}")
-    return vf, vb, mf, mb, vf32, mf32
+        check(rec["route"] == want, f"{rec['case']}: {rec['kernel']} "
+                                    f"routed to {rec['route']}")
+    return vf, vb, mf, mb, vf32, vb32, mf32, mb32
 
 
 NAN_GUARD_BUILDS = (1, 2, 0)      # the kernel's rule, every tile, none
 
 
 def nan_guard_cost(torch, np, lens, seed):
-    """--nan-guard-cost: the tensor-core masked forward's NaN guard, timed.
+    """--nan-guard-cost: the tensor-core masked kernels' NaN guard, timed.
     flash_varlen.cu and flash_sparse_mask.cu are built twice more, with the
-    scan of V on every 64-key tile (-DPTT_NAN_GUARD=2) and on none (0),
-    into a directory of their own; the main varlen and FlashMask forwards
-    (bf16, [12288, 32, 128] and [6, 2048, 32, 128], causal) run on each
-    build in turn, three rounds. On clean inputs every build gives the same
-    bits, which is checked. Prints one line: the median ms of each build,
-    the tiles each run visits, and the scan's share of the kernel's
-    time."""
+    scan (V in the forward, K in dq, Q and dO in dk/dv) on every 64-row
+    tile (-DPTT_NAN_GUARD=2) and on none (0), into a directory of their
+    own; the main varlen and FlashMask forwards and backwards (bf16,
+    [12288, 32, 128] and [6, 2048, 32, 128], causal) run on each build in
+    turn, three rounds. On clean inputs every build gives the same bits,
+    which is checked. Prints one line: the median ms of each build, the
+    forward's tiles, and the scan's share of each kernel's time."""
     import ctypes
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_sparse_mask as fsm
@@ -2516,8 +2572,8 @@ def nan_guard_cost(torch, np, lens, seed):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     h, d, tokens = PACK_HEADS, PACK_D, sum(lens)
-    q, k, v = (torch.randn(tokens, h, d, generator=gen, device=dev,
-                           dtype=torch.bfloat16) for _ in range(3))
+    q, k, v, do = (torch.randn(tokens, h, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
     cu = torch.as_tensor(np.cumsum([0] + list(lens)), dtype=torch.int32,
                          device=dev)
     sq, pq = fv.segments_from_cu(cu, tokens)
@@ -2526,47 +2582,59 @@ def nan_guard_cost(torch, np, lens, seed):
                             device=dev)[:, None, :]
     st = start.expand(PACK_ROWS, h, PACK_SEQ).reshape(-1, PACK_SEQ) \
         .contiguous()
-    q4, k4, v4 = (x.reshape(PACK_ROWS, PACK_SEQ, h, d) for x in (q, k, v))
-    runs = {"flash_varlen": lambda: fv.flash_varlen_fwd(q, k, v, *seg),
-            "flash_sparse_mask": lambda: fsm.flash_sparse_mask_fwd(
-                q4, k4, v4, st, True, d ** -0.5)}
+    q4, k4, v4, do4 = (x.reshape(PACK_ROWS, PACK_SEQ, h, d)
+                       for x in (q, k, v, do))
+    o, lse = fv.flash_varlen_fwd(q, k, v, *seg)
+    o4, lse4 = fsm.flash_sparse_mask_fwd(q4, k4, v4, st, True, d ** -0.5)
+    runs = {("flash_varlen", "fwd"): lambda: fv.flash_varlen_fwd(
+                q, k, v, *seg),
+            ("flash_varlen", "bwd"): lambda: fv.flash_varlen_bwd(
+                q, k, v, o, lse, do, *seg),
+            ("flash_sparse_mask", "fwd"): lambda: fsm.flash_sparse_mask_fwd(
+                q4, k4, v4, st, True, d ** -0.5),
+            ("flash_sparse_mask", "bwd"): lambda: fsm.flash_sparse_mask_bwd(
+                q4, k4, v4, o4, lse4, do4, st, True, d ** -0.5)}
     rq = fv.varlen_tile_ranges(sq, pq, sq, pq, fv.BQ, True, True)
     tiles = {"flash_varlen": [h * n for n in
                               varlen_fwd_tiles(np, sq, pq, sq, pq, True, rq)],
              "flash_sparse_mask": list(sparse_mask_fwd_tiles(torch, st,
                                                              True))}
-    ms = {(src, g): [] for src in mods for g in NAN_GUARD_BUILDS}
+    ms = {(key, g): [] for key in runs for g in NAN_GUARD_BUILDS}
     ref = {}
     try:
         for _ in range(3):
-            for src, run in runs.items():
+            for key, run in runs.items():
                 for g in NAN_GUARD_BUILDS:
-                    _build._libs[src] = libs[src, g]
-                    got = run()[0]
-                    ref.setdefault(src, got)
-                    check(torch.equal(got, ref[src]),
-                          f"{src}: the build with PTT_NAN_GUARD={g} gives "
+                    _build._libs[key[0]] = libs[key[0], g]
+                    got = run()
+                    ref.setdefault(key, got)
+                    check(all(torch.equal(a, b)
+                              for a, b in zip(got, ref[key])),
+                          f"{key}: the build with PTT_NAN_GUARD={g} gives "
                           f"other bits on clean inputs")
-                    ms[src, g].append(cuda_ms(torch, run, 10))
+                    ms[key, g].append(cuda_ms(torch, run, 10))
     finally:
         for src in mods:
             _build._libs[src] = libs[src, 1]
     rec = {"phase": "nan_guard_cost", "dtype": "bfloat16", "heads": h,
            "d": d, "tokens": tokens}
-    for src in mods:
-        med = {g: statistics.median(ms[src, g]) for g in NAN_GUARD_BUILDS}
-        full, part = tiles[src]
-        rec[src] = {"ms_partial_tiles": med[1], "ms_every_tile": med[2],
-                    "ms_no_scan": med[0],
-                    "ms_runs": {str(g): ms[src, g] for g in NAN_GUARD_BUILDS},
-                    "tiles_wholly_live": full, "tiles_partial": part,
-                    # the run's extra time over the tiles scanned (all
-                    # blocks at once: wall time, not a block's time)
-                    "wall_ns_per_tile_every_tile":
-                        (med[2] - med[0]) * 1e6 / (full + part),
-                    "wall_ns_per_tile_partial":
-                        (med[1] - med[0]) * 1e6 / part,
-                    "share_of_kernel": (med[1] - med[0]) / med[1]}
+    for (src, way) in runs:
+        med = {g: statistics.median(ms[(src, way), g])
+               for g in NAN_GUARD_BUILDS}
+        r = {"ms_partial_tiles": med[1], "ms_every_tile": med[2],
+             "ms_no_scan": med[0],
+             "ms_runs": {str(g): ms[(src, way), g]
+                         for g in NAN_GUARD_BUILDS},
+             "share_of_kernel": (med[1] - med[0]) / med[1]}
+        if way == "fwd":
+            full, part = tiles[src]
+            # the run's extra time over the tiles scanned (all blocks at
+            # once: wall time, not a block's time)
+            r.update(tiles_wholly_live=full, tiles_partial=part,
+                     wall_ns_per_tile_every_tile=(med[2] - med[0]) * 1e6
+                     / (full + part),
+                     wall_ns_per_tile_partial=(med[1] - med[0]) * 1e6 / part)
+        rec[f"{src}_{way}"] = r
     emit(rec)
     return rec
 
@@ -2581,12 +2649,11 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
     """The timed loop of a packed-attention path phase: PACK_WARMUP +
     PACK_TIMED forward and backward passes through autograd (gradients
     reset to None first, as a training step's zero_grad), one launch of
-    each kernel per pass, every forward on the tensor cores (bf16 at D
-    128)."""
+    each kernel per pass, every forward and backward on the tensor cores
+    (bf16 at D 128)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_flash_counts(fwd_fn)
-    bwd_fn.launches = 0
+    zero_flash_counts(fwd_fn, bwd_fn)
 
     def one():
         for t in leaves:
@@ -2604,11 +2671,13 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
     passes = PACK_WARMUP + PACK_TIMED
     fl, bl = fwd_fn.launches, bwd_fn.launches
     routes = dict(fwd_fn.route_launches)
+    bwd_routes = dict(bwd_fn.route_launches)
     check(fl == passes and bl == passes,
           f"{phase}: forward launches {fl}, backward {bl} != one each per "
           f"pass x {passes}")
-    check(routes["wgmma"] == passes,
-          f"{phase}: forward routes {routes}, not all on the tensor cores")
+    check(routes["wgmma"] == passes and bwd_routes["wgmma"] == passes,
+          f"{phase}: forward routes {routes}, backward {bwd_routes}, not "
+          f"all on the tensor cores")
     check(bool(torch.isfinite(out).all())
           and all(bool(torch.isfinite(t.grad).all()) for t in leaves),
           f"{phase}: non-finite output or gradient")
@@ -2623,7 +2692,8 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
                 "tflops_live": flops * PACK_TIMED / wall / 1e12,
                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
                 "fwd_launches": fl, "bwd_launches": bl,
-                "fwd_route_launches": routes}, **extra)
+                "fwd_route_launches": routes,
+                "bwd_route_launches": bwd_routes}, **extra)
     emit(rec)
     return rec
 
@@ -2759,7 +2829,8 @@ def packed_parity_phase(torch, np, lens, seed):
     through independent kernels, float32 at 4 heads (TF32 off): outputs
     and q, k, v gradients element by element after reshaping [12288, 4,
     128] <-> [6, 2048, 4, 128]. Then FlashMask with start rows S (masks
-    nothing) and causal against the dense flash_attention kernels."""
+    nothing) and causal against the dense flash_attention kernels. Every
+    masked forward and backward runs on the CUDA cores."""
     from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
                                                           _flash_bhsd_bwd)
     from paddle_tpu_torch.kernels.flash_sparse_mask import (
@@ -2778,9 +2849,9 @@ def packed_parity_phase(torch, np, lens, seed):
     cu = torch.as_tensor(np.cumsum([0] + list(lens)), dtype=torch.int32,
                          device="cuda")
     bshape = (PACK_ROWS, PACK_SEQ, h, d)
-    flash_varlen_bwd.launches = flash_sparse_mask_bwd.launches = 0
-    zero_flash_counts(flash_varlen_fwd, flash_sparse_mask_fwd, _flash_bhsd,
-                      _flash_bhsd_bwd)
+    zero_flash_counts(flash_varlen_fwd, flash_varlen_bwd,
+                      flash_sparse_mask_fwd, flash_sparse_mask_bwd,
+                      _flash_bhsd, _flash_bhsd_bwd)
 
     def grads_of(run, shape):
         leaves = [x.reshape(shape).clone().requires_grad_()
@@ -2818,13 +2889,14 @@ def packed_parity_phase(torch, np, lens, seed):
         flash_varlen_fwd, flash_varlen_bwd, flash_sparse_mask_fwd,
         flash_sparse_mask_bwd, _flash_bhsd, _flash_bhsd_bwd)}
     routes = {fn.__name__: dict(fn.route_launches)
-              for fn in (flash_varlen_fwd, flash_sparse_mask_fwd)}
+              for fn in (flash_varlen_fwd, flash_varlen_bwd,
+                         flash_sparse_mask_fwd, flash_sparse_mask_bwd)}
     check(list(launches.values()) == [1, 1, 2, 2, 1, 1],
           f"packed_parity launches {launches}")
-    check(routes["flash_varlen_fwd"]["cuda_core"] == 1
-          and routes["flash_sparse_mask_fwd"]["cuda_core"] == 2,
-          f"packed_parity: float32 forwards not all on the CUDA cores: "
-          f"{routes}")
+    check(all(r["cuda_core"] == launches[name] and not r["wgmma"]
+              for name, r in routes.items()),
+          f"packed_parity: float32 masked kernels not all on the CUDA "
+          f"cores: {routes}")
     check(docs_out <= PACK_PARITY_ATOL and docs_grad <= PARITY_GRAD_ATOL,
           f"varlen vs FlashMask on the same documents: output {docs_out}, "
           f"gradients {docs_grad} of the largest")
@@ -2839,7 +2911,7 @@ def packed_parity_phase(torch, np, lens, seed):
            "flashmask_nomask_vs_dense_grad_over_max": dense_grad,
            "out_atol_of_max": PACK_PARITY_ATOL,
            "grad_atol_of_max": PARITY_GRAD_ATOL, "launches": launches,
-           "fwd_route_launches": routes}
+           "route_launches": routes}
     emit(rec)
     del base, varlen, mask, nomask, dense
     torch.cuda.empty_cache()
@@ -3414,8 +3486,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--nan-guard-cost", action="store_true",
                     help="only build the kernels and time the tensor-core "
-                         "masked forward's NaN guard (extra builds with the "
-                         "scan on every tile and on none), then exit")
+                         "masked kernels' NaN guard, forward and backward "
+                         "(extra builds with the scan on every tile and on "
+                         "none), then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -3454,17 +3527,14 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build(*sources)
     build_s = time.perf_counter() - t0
-    ptxas = {}
-    for name in sources:
-        lines = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        ptxas[name] = lines[:24]
+    ptxas = {name: ptxas_kernels(_build.build_log(name))
+             for name in sources}
     hgmma = {}
     for name, (kernels, tag) in WGMMA_KERNELS.items():
         hgmma.update(hgmma_counts(libs[name], kernels, tag))
-    # five kernels (the masked forward under two policies), each at D 64
-    # and 128
-    check(len(hgmma) == 10 and all(hgmma.values()),
+    # nine kernels (the masked forward, dq and dk/dv under two policies),
+    # each at D 64 and 128
+    check(len(hgmma) == 18 and all(hgmma.values()),
           f"a flash kernel meant for the tensor cores has no HGMMA: {hgmma}")
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
           "hgmma": hgmma})
@@ -3627,7 +3697,8 @@ def main():
     # shapes, then the two entry points on it, then their parity
     lens = pack_documents(np, args.seed)
     (varlen_main, varlen_bwd_main, mask_main, mask_bwd_main, varlen_f32,
-     mask_f32) = packed_kernel_checks(torch, np, lens, args.seed + 50)
+     varlen_bwd_f32, mask_f32, mask_bwd_f32) = packed_kernel_checks(
+        torch, np, lens, args.seed + 50)
     varlen = varlen_attn_phase(torch, np, lens, args.seed + 51,
                                args.profile)
     flashmask = flashmask_attn_phase(torch, np, lens, args.seed + 51,
@@ -3692,7 +3763,7 @@ def main():
             ("flash_varlen_fwd", "paddle_tpu_torch/csrc/flash_varlen.cu",
              "paddle_tpu/kernels/pallas/flash_varlen.py:222",
              varlen_f32,
-             packed_parity["fwd_route_launches"]["flash_varlen_fwd"]
+             packed_parity["route_launches"]["flash_varlen_fwd"]
              ["cuda_core"]),
             ("flash_varlen_fwd_wgmma",
              "paddle_tpu_torch/csrc/flash_varlen.cu",
@@ -3700,12 +3771,18 @@ def main():
              varlen_main, varlen["fwd_route_launches"]["wgmma"]),
             ("flash_varlen_bwd", "paddle_tpu_torch/csrc/flash_varlen.cu",
              "paddle_tpu/kernels/pallas/flash_varlen.py:284, :313",
-             varlen_bwd_main, varlen["bwd_launches"]),
+             varlen_bwd_f32,
+             packed_parity["route_launches"]["flash_varlen_bwd"]
+             ["cuda_core"]),
+            ("flash_varlen_bwd_wgmma",
+             "paddle_tpu_torch/csrc/flash_varlen.cu",
+             "paddle_tpu/kernels/pallas/flash_varlen.py:284, :313",
+             varlen_bwd_main, varlen["bwd_route_launches"]["wgmma"]),
             ("flash_sparse_mask_fwd",
              "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
              "paddle_tpu/kernels/pallas/flash_sparse_mask.py:185",
              mask_f32,
-             packed_parity["fwd_route_launches"]["flash_sparse_mask_fwd"]
+             packed_parity["route_launches"]["flash_sparse_mask_fwd"]
              ["cuda_core"]),
             ("flash_sparse_mask_fwd_wgmma",
              "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
@@ -3714,7 +3791,13 @@ def main():
             ("flash_sparse_mask_bwd",
              "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
              "paddle_tpu/kernels/pallas/flash_sparse_mask.py:225, :245",
-             mask_bwd_main, flashmask["bwd_launches"]),
+             mask_bwd_f32,
+             packed_parity["route_launches"]["flash_sparse_mask_bwd"]
+             ["cuda_core"]),
+            ("flash_sparse_mask_bwd_wgmma",
+             "paddle_tpu_torch/csrc/flash_sparse_mask.cu",
+             "paddle_tpu/kernels/pallas/flash_sparse_mask.py:225, :245",
+             mask_bwd_main, flashmask["bwd_route_launches"]["wgmma"]),
             ("rms_norm_fwd", "paddle_tpu_torch/csrc/rms_norm.cu",
              "paddle_tpu/kernels/pallas/rms_norm.py:59",
              rms_main, rowwise["launches"]["rms_norm_fwd"]),

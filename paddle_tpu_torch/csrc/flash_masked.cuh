@@ -31,11 +31,16 @@
 // clamped to 1e-30, the row's output is 0 and its lse is -1e30 +
 // log(1e-30); in the backward its p and ds are 0, so its gradients are 0.
 //
-// The forward has a second kernel on the tensor cores, `masked_fwd_wgmma`
-// (bf16 at D 64 or 128; the caller picks the route, see run_fwd): the
-// dense forward's design (csrc/flash_attention_fwd.cu `flash_fwd_wgmma`,
-// the helpers of flash_wgmma.cuh) with the policy deciding the key range
-// and the dead tiles over 64-key tiles. What it adds:
+// Each direction has a second route on the tensor cores (bf16 at D 64 or
+// 128; the caller picks the route, see run_fwd and run_bwd): the forward
+// `masked_fwd_wgmma` and the backward pair `masked_dq_wgmma` +
+// `masked_dkv_wgmma`, the dense kernels' designs (csrc/flash_attention_fwd.cu
+// `flash_fwd_wgmma`, csrc/flash_attention_bwd.cu `flash_bwd_dq_wgmma` and
+// `flash_bwd_dkv_wgmma`, the helpers of flash_wgmma.cuh) with the policy
+// deciding the key range and the dead tiles over 64-key tiles (forward,
+// dq) and the q-row range of each 64-key tile (dk/dv, whose tiles are the
+// CUDA-core pair's, so one k_ranges serves both). What they add, told for
+// the forward:
 // - strided operands: q, k, v rows come with their row stride (a multiple
 //   of 8 elements) through `load_panels_strided`, key tiles start at the
 //   range's first key (not 64-aligned for packed documents), and o is
@@ -62,14 +67,28 @@
 // - a row that sees no key keeps m = -1e30: it writes lse -1e30 +
 //   log(1e-30) (as the CUDA-core kernel), not the exp2 domain's
 //   (-1e30 + log2 1e-30) ln 2, and l is clamped to 1e-30, so o is 0.
+// The backward pair computes p = exp2(s scale log2e - lse log2e) and ds =
+// p (dp - delta) scale, both replaced by 0 where a pair is masked (a
+// keyless row's p would be inf: the select keeps its gradients 0), and
+// carries P and dS into their products as bf16 hi + lo pairs. Its NaN
+// guard (`guard_rows`, the forward's scan) covers the B operands of its
+// RS products, which hold rows of other documents on a partial tile: K in
+// dq (dQ += dS K); Q and dO in dk/dv (dK += dS^T Q, dV += P^T dO), where a
+// row non-finite in either is zeroed in both and every key with a live
+// pair on it ends NaN in dk and dv. V in dq and the resident K and V in
+// dk/dv enter only the SS products, whose masked results the select
+// replaces, so they need no guard. The dk/dv kernel at D 128 holds two
+// [64, 128] float32 accumulators, so it issues the dV products, waits,
+// and only then splits dS into the same fragment registers.
 //
-// A masked pair contributes nothing, whatever the values: the p.v,
-// ds.k, p^T.dO and ds^T.q accumulations skip a zero p or ds (the skip is
-// uniform across the warp, since the factor comes by shuffle), and the
-// scores and dO.v^T of a masked pair are replaced, not multiplied. A NaN
-// in one document's K or V therefore never reaches another document's
-// outputs or gradients, although a tile may hold rows of both. Rows
-// outside a tile's live range are never loaded: they load as 0.
+// On the CUDA cores a masked pair contributes nothing, whatever the
+// values: the p.v, ds.k, p^T.dO and ds^T.q accumulations skip a zero p or
+// ds (the skip is uniform across the warp, since the factor comes by
+// shuffle), and the scores and dO.v^T of a masked pair are replaced, not
+// multiplied. A NaN in one document's K or V therefore never reaches
+// another document's outputs or gradients, although a tile may hold rows
+// of both. Rows outside a tile's live range are never loaded: they load
+// as 0.
 #pragma once
 
 #include <limits.h>
@@ -166,6 +185,18 @@ struct SegmentMask {
   __device__ int2 staged_col(const int* a, const int* b, int, int j) const {
     return make_int2(a[j], b[j]);
   }
+  // the tensor-core dk/dv kernel's row attributes of q rows [r0, r0 + 64)
+  // (zeros at or past rend), the same way
+  __device__ void stage_rows(uint32_t sa, uint32_t sb, int, int r0,
+                             int rend) const {
+    const int t = threadIdx.x % 128, j = t % 64, r = r0 + j;
+    const bool ok = r < rend;
+    const int* src = t < 64 ? seg_q : pos_q;
+    wg::cp_async4((t < 64 ? sa : sb) + 4 * j, ok ? src + r : src, ok);
+  }
+  __device__ int2 staged_row(const int* a, const int* b, int, int j) const {
+    return make_int2(a[j], b[j]);
+  }
   __device__ int2 rows_of_k_tile(int, int t, int, int) const {
     return k_ranges[t];
   }
@@ -213,6 +244,11 @@ struct StartRowMask {
   }
   __device__ int2 staged_col(const int* a, const int*, int k0, int j) const {
     return make_int2(a[j], k0 + j);
+  }
+  // a row's attribute is its index: nothing to stage
+  __device__ void stage_rows(uint32_t, uint32_t, int, int, int) const {}
+  __device__ int2 staged_row(const int*, const int*, int r0, int j) const {
+    return make_int2(r0 + j, 0);
   }
   __device__ int2 rows_of_k_tile(int bh, int, int k0, int k1) const {
     int mx = INT_MIN;
@@ -622,7 +658,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- the forward on the tensor cores ----------------------------------------
 
-// route codes of the forward (kernels/flash_attention.py keeps the table)
+// route codes of both directions (kernels/flash_attention.py keeps the
+// table)
 constexpr int kRouteCudaCore = 0;
 constexpr int kRouteWgmma = 1;
 
@@ -648,10 +685,10 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// where masked_fwd_wgmma scans V for non-finite values: 1 (the kernel's
-// rule) on tiles that are not wholly live; 2 on every tile and 0 on none
-// exist only to time the scan (chip_smoke.py --nan-guard-cost), and 0 lets
-// NaN cross documents
+// where the tensor-core kernels scan their guarded tiles for non-finite
+// values: 1 (the kernels' rule) on tiles that are not wholly live; 2 on
+// every tile and 0 on none exist only to time the scan (chip_smoke.py
+// --nan-guard-cost), and 0 lets NaN cross documents
 #ifndef PTT_NAN_GUARD
 #define PTT_NAN_GUARD 1
 #endif
@@ -666,6 +703,89 @@ __device__ __forceinline__ bool nonfinite_bf16x8(uint4 x) {
     bad |= (w[i] & 0x7F80u) == 0x7F80u ||
            (w[i] & 0x7F800000u) == 0x7F800000u;
   return bad;
+}
+
+// The NaN guard of the tensor-core kernels, by the block's one warpgroup:
+// scan N [64, HD] bf16 D-panel tiles in shared memory (generic pointers)
+// for non-finite values, and zero row r of every one of them where any
+// holds one in row r. Returns the 64-bit mask of those rows (x: rows 0-31,
+// y: 32-63), the same in every thread. `bad_rows` (two words of shared
+// memory) must be zero on entry; the caller zeroes it again once every
+// thread has read the mask. Cost: one 16-byte shared load a thread per 2
+// KB, then a block-wide OR; the zeroing only when a row is bad.
+template <int HD, int N>
+__device__ __forceinline__ uint2 guard_rows(uint8_t* const (&tiles)[N],
+                                            uint32_t* bad_rows) {
+  constexpr int R = flash::kRows;
+  bool mine = false;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    for (int i = threadIdx.x; i < R * HD / 8; i += 128) {
+      const int row = (i % (R * 8)) / 8;  // 8 chunks a row in a panel
+      if (nonfinite_bf16x8(*reinterpret_cast<const uint4*>(tiles[n] +
+                                                           16 * i))) {
+        atomicOr(bad_rows + row / 32, 1u << (row % 32));
+        mine = true;
+      }
+    }
+  if (!__syncthreads_or(mine)) return make_uint2(0, 0);
+  const uint2 bad = make_uint2(bad_rows[0], bad_rows[1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    for (int i = threadIdx.x; i < R * HD / 8; i += 128) {
+      const int row = (i % (R * 8)) / 8;
+      if (((row < 32 ? bad.x : bad.y) >> (row % 32)) & 1)
+        *reinterpret_cast<uint4*>(tiles[n] + 16 * i) = make_uint4(0, 0, 0, 0);
+    }
+  wg::fence_proxy_async();
+  __syncthreads();
+  return bad;
+}
+
+__device__ __forceinline__ bool bad_bit(uint2 bad, int j) {
+  return ((j < 32 ? bad.x : bad.y) >> (j % 32)) & 1;
+}
+
+// The pair test of a tile that is not wholly live, in the accumulator
+// layout of a [64, 64] product: bit i of the result is element i of this
+// thread (its row lo for i % 4 < 2, hi otherwise; tile column j = 8 (i /
+// 4) + 2 (lane % 4) + i % 2). pair(j) gives bit 0 if the pair of row lo
+// and column j is live, bit 1 for row hi; columns at or past nvalid are
+// dead. A live pair on a column the guard zeroed (bit j of bad) sets
+// nan_lo or nan_hi.
+template <class Pair>
+__device__ __forceinline__ uint32_t live_bits(Pair pair, int nvalid,
+                                              uint2 bad, bool& nan_lo,
+                                              bool& nan_hi) {
+  const int lane = threadIdx.x & 31;
+  uint32_t live = 0;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * g + 2 * (lane & 3) + e;
+      const int both = j < nvalid ? pair(j) : 0;
+      const bool hit = bad_bit(bad, j);
+      if (both & 1) {
+        live |= 1u << (4 * g + e);
+        nan_lo |= hit;
+      }
+      if (both & 2) {
+        live |= 1u << (4 * g + 2 + e);
+        nan_hi |= hit;
+      }
+    }
+  }
+  return live;
+}
+
+// whether a row's flag is set in any lane of its quad (the accumulator
+// layout spreads a row over four lanes)
+__device__ __forceinline__ bool quad_any(bool x) {
+  int v = x;
+  v |= __shfl_xor_sync(0xffffffffu, v, 1);
+  v |= __shfl_xor_sync(0xffffffffu, v, 2);
+  return v != 0;
 }
 
 // one block per (b*h, 64-row q tile), one warpgroup. Q stays in shared
@@ -752,31 +872,12 @@ __global__ void __launch_bounds__(128)
     }
     const bool full = __syncthreads_and(ok);
 
-    // the NaN guard of V on a tile that is not wholly live
-    uint32_t bad_a = 0, bad_b = 0;  // V rows 0-31 and 32-63
+    // the NaN guard of V (rows 0-31 in bad.x, 32-63 in bad.y) on a tile
+    // that is not wholly live
+    uint2 bad = make_uint2(0, 0);
     if (PTT_NAN_GUARD == 2 || (PTT_NAN_GUARD == 1 && !full)) {
-      uint8_t* v_bytes = wg_smem + (sV - sQ);
-      bool mine = false;
-      for (int i = t; i < R * HD / 8; i += 128) {
-        const int row = (i % (R * 8)) / 8;  // 8 chunks a row in a panel
-        if (nonfinite_bf16x8(*reinterpret_cast<const uint4*>(v_bytes +
-                                                             16 * i))) {
-          atomicOr(bad_rows + row / 32, 1u << (row % 32));
-          mine = true;
-        }
-      }
-      if (__syncthreads_or(mine)) {
-        bad_a = bad_rows[0];
-        bad_b = bad_rows[1];
-        for (int i = t; i < R * HD / 8; i += 128) {
-          const int row = (i % (R * 8)) / 8;
-          if (((row < 32 ? bad_a : bad_b) >> (row % 32)) & 1)
-            *reinterpret_cast<uint4*>(v_bytes + 16 * i) =
-                make_uint4(0, 0, 0, 0);
-        }
-        wg::fence_proxy_async();
-        __syncthreads();
-      }
+      uint8_t* const tiles[1] = {wg_smem + (sV - sQ)};
+      bad = guard_rows<HD>(tiles, bad_rows);
     }
 
     float sc[32];
@@ -788,30 +889,15 @@ __global__ void __launch_bounds__(128)
     wg::wait<0>();
     wg::fence_operand(sc);
 
-    // the pair test: bit i of `live` for sc[i] (row r_lo or r_hi, column
-    // 8 (i / 4) + 2 (lane % 4) + i % 2 of the tile)
+    // the pair test: bit i of `live` for sc[i] (rows r_lo, r_hi)
     uint32_t live = 0xffffffffu;
-    if (!full) {
-      live = 0;
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = 8 * g + 2 * (lane & 3) + e;
-          const int2 c = mask.staged_col(ca, ca + R, cur, j);
-          const bool in = j < nvalid;
-          const bool bad = ((j < 32 ? bad_a : bad_b) >> (j % 32)) & 1;
-          if (in && mask.live(ra_lo, c)) {
-            live |= 1u << (4 * g + e);
-            nan_lo |= bad;
-          }
-          if (in && mask.live(ra_hi, c)) {
-            live |= 1u << (4 * g + 2 + e);
-            nan_hi |= bad;
-          }
-        }
-      }
-    }
+    if (!full)
+      live = live_bits(
+          [&](int j) {
+            const int2 c = mask.staged_col(ca, ca + R, cur, j);
+            return mask.live(ra_lo, c) | mask.live(ra_hi, c) << 1;
+          },
+          nvalid, bad, nan_lo, nan_hi);
     float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -853,7 +939,7 @@ __global__ void __launch_bounds__(128)
     wg::wait<0>();
     wg::fence_operand(acc);
     __syncthreads();  // every warp is done with this stage and the mask
-    if (t == 0 && (bad_a | bad_b)) bad_rows[0] = bad_rows[1] = 0;
+    if (t == 0 && (bad.x | bad.y)) bad_rows[0] = bad_rows[1] = 0;
     load_stage(stage, iss);
     wg::cp_async_commit();
     cur = nxt;
@@ -863,10 +949,8 @@ __global__ void __launch_bounds__(128)
   wg::cp_async_wait<0>();
   l_lo = quad_sum(l_lo);
   l_hi = quad_sum(l_hi);
-  nan_lo = __shfl_xor_sync(0xffffffffu, (int)nan_lo, 1) | nan_lo;
-  nan_lo = __shfl_xor_sync(0xffffffffu, (int)nan_lo, 2) | nan_lo;
-  nan_hi = __shfl_xor_sync(0xffffffffu, (int)nan_hi, 1) | nan_hi;
-  nan_hi = __shfl_xor_sync(0xffffffffu, (int)nan_hi, 2) | nan_hi;
+  nan_lo = quad_any(nan_lo);
+  nan_hi = quad_any(nan_hi);
   // a keyless row (l = 0) emits zeros
   const float lc_lo = fmaxf(l_lo, 1e-30f), lc_hi = fmaxf(l_hi, 1e-30f);
   const float inv_lo = nan_lo ? __int_as_float(0x7fc00000) : 1.f / lc_lo;
@@ -886,14 +970,347 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-// the tensor-core route takes bf16 at D 64 or 128 with q, k, v 16-byte
-// aligned and every row, head and batch stride a multiple of 8 elements
-inline bool wgmma_takes(int dtype, int hd, const Params& p) {
+// -- the backward on the tensor cores ---------------------------------------
+
+// shared memory of masked_dq_wgmma: Q, dO, two stages of K and V, two
+// stages of the 64 key columns' attributes a and b, and the bad-row mask
+template <int HD>
+constexpr size_t dq_wgmma_smem_bytes() {
+  return 6 * (size_t)flash::kTileBytes<HD> + 2 * 2 * flash::kRows * 4 + 16;
+}
+
+// dq: one block per (b*h, 64-row q tile), one warpgroup. Q and dO stay in
+// shared memory; the live 64-key tiles of the policy's key range stream
+// through a 2-stage cp.async ring with their column attributes, as in
+// masked_fwd_wgmma. Per tile: S = Q K^T and dP = dO V^T (SS), p and ds by
+// the pair test as a select unless the tile is wholly live, then dQ += dS K
+// (RS, K read MN-major) with dS as hi + lo. K is the B operand of that
+// product, so on a tile that is not wholly live its non-finite rows are
+// zeroed first and every row with a live pair on one ends NaN. V enters
+// only dP, where a masked pair's ds is replaced.
+template <int HD, class Mask>
+__global__ void __launch_bounds__(128)
+    masked_dq_wgmma(const Params p, const Mask mask) {
+  using bf16 = __nv_bfloat16;
+  constexpr int R = flash::kRows;
+  constexpr uint32_t kT = flash::kTileBytes<HD>;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  const uint32_t sQ = wg::smem_addr(wg_smem);
+  if (sQ & 1023) __trap();  // the swizzle needs it
+  const uint32_t sDO = sQ + kT, sKV = sQ + 2 * kT;  // stage s: K, V at +2kT s
+  int* attrs = reinterpret_cast<int*>(wg_smem + 6 * kT);  // stage s at 2R s
+  uint32_t* bad_rows = reinterpret_cast<uint32_t*>(attrs + 4 * R);
+
+  const int t = threadIdx.x, lane = t & 31;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int qt = blockIdx.y, q0 = qt * R, q1 = min(q0 + R, p.Sq);
+  const int r_lo = q0 + (t >> 5) * 16 + lane / 4, r_hi = r_lo + 8;
+  const bf16* qb = head_base<bf16>(p.q, b, h);
+  const bf16* kb = head_base<bf16>(p.k, b, h);
+  const bf16* vb = head_base<bf16>(p.v, b, h);
+  const bf16* db = head_base<bf16>(p.dout, b, h);
+  const float sl2 = p.scale * flash::kLog2e;
+  const float* lse_b = p.lse + (size_t)bh * p.Sq;
+  const float* del_b = p.delta + (size_t)bh * p.Sq;
+  // this thread's two rows: lse in the exp2 domain, delta, attributes;
+  // the tile's first and last rows (the wholly live test)
+  const float lse_lo = r_lo < q1 ? lse_b[r_lo] * flash::kLog2e : 0.f;
+  const float lse_hi = r_hi < q1 ? lse_b[r_hi] * flash::kLog2e : 0.f;
+  const float dl_lo = r_lo < q1 ? del_b[r_lo] : 0.f;
+  const float dl_hi = r_hi < q1 ? del_b[r_hi] : 0.f;
+  const int2 ra_lo = r_lo < q1 ? mask.row(bh, r_lo) : Mask::dead_row();
+  const int2 ra_hi = r_hi < q1 ? mask.row(bh, r_hi) : Mask::dead_row();
+  const int2 first = mask.row(bh, q0), last = mask.row(bh, q1 - 1);
+  int2 keys = mask.keys_of_q_tile(bh, qt, q0, q1);
+  keys.x = max(keys.x, 0);
+  keys.y = min(keys.y, p.Sk);
+  auto next_tile = [&](int k) {  // the first live tile at or after k
+    while (k < keys.y && mask.template dead_key_tile<R>(bh, k, q0)) k += R;
+    return k;
+  };
+  auto load_stage = [&](int stage, int k) {
+    if (k >= keys.y) return;
+    const uint32_t sK = sKV + 2 * kT * stage;
+    wg::load_panels_strided<HD>(sK, kb, p.k.ss, k, keys.y);
+    wg::load_panels_strided<HD>(sK + kT, vb, p.v.ss, k, keys.y);
+    const uint32_t sa = wg::smem_addr(attrs + 2 * R * stage);
+    mask.stage_cols(sa, sa + 4 * R, bh, k, keys.y);
+  };
+
+  if (t == 0) bad_rows[0] = bad_rows[1] = 0;
+  wg::load_panels_strided<HD>(sQ, qb, p.q.ss, q0, q1);
+  wg::load_panels_strided<HD>(sDO, db, p.dout.ss, q0, q1);
+  int cur = next_tile(keys.x);
+  load_stage(0, cur);
+  wg::cp_async_commit();
+  int nxt = cur < keys.y ? next_tile(cur + R) : keys.y;
+  load_stage(1, nxt);
+  wg::cp_async_commit();
+  int iss = nxt < keys.y ? next_tile(nxt + R) : keys.y;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  bool nan_lo = false, nan_hi = false;  // a live pair met a non-finite K
+
+  for (int it = 0; cur < keys.y; ++it) {
+    const int stage = it & 1;
+    wg::cp_async_wait<1>();  // this tile's copies (the next may fly)
+    wg::fence_proxy_async();
+    __syncthreads();
+    const uint32_t sK = sKV + 2 * kT * stage, sV = sK + kT;
+    const int* ca = attrs + 2 * R * stage;
+    const int nvalid = min(R, keys.y - cur);
+    bool ok = true;
+    if (t < R) {
+      const int2 c = mask.staged_col(ca, ca + R, cur, t);
+      ok = t < nvalid && mask.live(first, c) && mask.live(last, c);
+    }
+    const bool full = __syncthreads_and(ok);
+    uint2 bad = make_uint2(0, 0);  // K rows zeroed by the guard
+    if (PTT_NAN_GUARD == 2 || (PTT_NAN_GUARD == 1 && !full)) {
+      uint8_t* const tiles[1] = {wg_smem + (sK - sQ)};
+      bad = guard_rows<HD>(tiles, bad_rows);
+    }
+
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    wg::fence();
+    flash::ss_over_d<HD>(sc, sQ, sK);
+    flash::ss_over_d<HD>(dp, sDO, sV);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(sc);
+    wg::fence_operand(dp);
+
+    // the pair test: bit i of `live` for sc[i] (rows r_lo, r_hi)
+    uint32_t live = 0xffffffffu;
+    if (!full)
+      live = live_bits(
+          [&](int j) {
+            const int2 c = mask.staged_col(ca, ca + R, cur, j);
+            return mask.live(ra_lo, c) | mask.live(ra_hi, c) << 1;
+          },
+          nvalid, bad, nan_lo, nan_hi);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi_row = (i & 2) != 0;
+      const float pr =
+          exp2f(fmaf(sc[i], sl2, -(hi_row ? lse_hi : lse_lo)));
+      const float ds = pr * (dp[i] - (hi_row ? dl_hi : dl_lo)) * p.scale;
+      dp[i] = ((live >> i) & 1) ? ds : 0.f;  // a select, never a product
+    }
+    uint32_t dh[4][4], dl[4][4];
+    flash::split_all(dp, dh, dl);
+    wg::fence_operand(acc);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) flash::rs_hilo<HD>(acc, dh[j], dl[j], sK, j);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    __syncthreads();  // every warp is done with this stage and the mask
+    if (t == 0 && (bad.x | bad.y)) bad_rows[0] = bad_rows[1] = 0;
+    load_stage(stage, iss);
+    wg::cp_async_commit();
+    cur = nxt;
+    nxt = iss;
+    iss = iss < keys.y ? next_tile(iss + R) : keys.y;
+  }
+  wg::cp_async_wait<0>();
+  nan_lo = quad_any(nan_lo);
+  nan_hi = quad_any(nan_hi);
+  const float qnan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i)
+    if ((i & 2) ? nan_hi : nan_lo) acc[i] = qnan;
+  bf16* dqb = static_cast<bf16*>(p.dq) + ((size_t)b * p.Sq * p.H + h) * HD;
+  flash::store_rows_strided<HD>(dqb, acc, q0, q1, (size_t)p.H * HD);
+}
+
+// shared memory of masked_dkv_wgmma: K, V, two stages of Q and dO, two
+// stages of the 64 rows' lse, delta and attributes a and b, and the
+// bad-row mask
+template <int HD>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  return 6 * (size_t)flash::kTileBytes<HD> + 2 * 4 * flash::kRows * 4 + 16;
+}
+
+// dk/dv: one block per (b*h, 64-key tile at kt * 64, the tiling of the
+// policy's row ranges), one warpgroup. K, V and the 64 columns' attributes
+// stay resident; the 64-row tiles of the policy's row range (from its
+// first row, not 64-aligned for packed documents) stream through a
+// 2-stage ring with their lse, delta and row attributes. Per tile: S^T = K
+// Q^T and dP^T = V dO^T (SS), p^T and ds^T by the pair test as a select
+// unless the tile is wholly live, then dV += P^T dO and, once those
+// products have read P's fragments, dK += dS^T Q (RS, dO and Q read
+// MN-major), each as hi + lo. Q and dO are the B operands there, so on a
+// tile that is not wholly live a row that is non-finite in either is
+// zeroed in both, and every key with a live pair on it ends NaN in dk and
+// dv. K and V enter only the SS products.
+template <int HD, class Mask>
+__global__ void __launch_bounds__(128)
+    masked_dkv_wgmma(const Params p, const Mask mask) {
+  using bf16 = __nv_bfloat16;
+  constexpr int R = flash::kRows;
+  constexpr uint32_t kT = flash::kTileBytes<HD>;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  const uint32_t sK = wg::smem_addr(wg_smem);
+  if (sK & 1023) __trap();
+  const uint32_t sV = sK + kT, sQO = sK + 2 * kT;  // stage s: Q, dO at +2kT s
+  // stage s at 4R s: lse, delta, row attributes a and b (R each)
+  float* rows_s = reinterpret_cast<float*>(wg_smem + 6 * kT);
+  uint32_t* bad_rows = reinterpret_cast<uint32_t*>(rows_s + 8 * R);
+
+  const int t = threadIdx.x, lane = t & 31;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int kt = blockIdx.y, k0 = kt * R, k1 = min(k0 + R, p.Sk);
+  const int c_lo = k0 + (t >> 5) * 16 + lane / 4, c_hi = c_lo + 8;
+  const bf16* qb = head_base<bf16>(p.q, b, h);
+  const bf16* kb = head_base<bf16>(p.k, b, h);
+  const bf16* vb = head_base<bf16>(p.v, b, h);
+  const bf16* db = head_base<bf16>(p.dout, b, h);
+  const float sl2 = p.scale * flash::kLog2e;
+  const float* lse_b = p.lse + (size_t)bh * p.Sq;
+  const float* del_b = p.delta + (size_t)bh * p.Sq;
+  // this thread's two keys, and (threads 0-63) key k0 + t of the wholly
+  // live test
+  const int2 ca_lo = c_lo < k1 ? mask.col(bh, c_lo) : Mask::dead_col();
+  const int2 ca_hi = c_hi < k1 ? mask.col(bh, c_hi) : Mask::dead_col();
+  const int2 ca_t = t < R && k0 + t < k1 ? mask.col(bh, k0 + t)
+                                         : Mask::dead_col();
+  int2 rows = mask.rows_of_k_tile(bh, kt, k0, k1);
+  rows.x = max(rows.x, 0);
+  rows.y = min(rows.y, p.Sq);
+  auto load_stage = [&](int stage, int r0) {
+    if (r0 >= rows.y) return;
+    const uint32_t sQ = sQO + 2 * kT * stage;
+    wg::load_panels_strided<HD>(sQ, qb, p.q.ss, r0, rows.y);
+    wg::load_panels_strided<HD>(sQ + kT, db, p.dout.ss, r0, rows.y);
+    // threads 0-63 copy the tile's lse, 64-127 its delta
+    float* rs = rows_s + 4 * R * stage;
+    const int r = r0 + (t & 63);
+    const bool ok = r < rows.y;
+    const float* src = t < 64 ? lse_b : del_b;
+    wg::cp_async4(wg::smem_addr(rs + (t < 64 ? 0 : R) + (t & 63)),
+                  ok ? src + r : src, ok);
+    const uint32_t sa = wg::smem_addr(rs + 2 * R);
+    mask.stage_rows(sa, sa + 4 * R, bh, r0, rows.y);
+  };
+
+  if (t == 0) bad_rows[0] = bad_rows[1] = 0;
+  wg::load_panels_strided<HD>(sK, kb, p.k.ss, k0, k1);
+  wg::load_panels_strided<HD>(sV, vb, p.v.ss, k0, k1);
+  load_stage(0, rows.x);
+  wg::cp_async_commit();
+  load_stage(1, rows.x + R);
+  wg::cp_async_commit();
+
+  float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  // a live pair of key c_lo / c_hi met a row zeroed by the guard
+  bool nan_lo = false, nan_hi = false;
+
+  for (int it = 0, r0 = rows.x; r0 < rows.y; ++it, r0 += R) {
+    const int stage = it & 1;
+    wg::cp_async_wait<1>();
+    wg::fence_proxy_async();
+    __syncthreads();
+    const uint32_t sQ = sQO + 2 * kT * stage, sDO = sQ + kT;
+    const float* lse_t = rows_s + 4 * R * stage;
+    const float* del_t = lse_t + R;
+    const int* ra = reinterpret_cast<const int*>(lse_t + 2 * R);
+    const int nvalid = min(R, rows.y - r0);
+    const int2 first = mask.row(bh, r0), last = mask.row(bh, r0 + nvalid - 1);
+    const bool full = __syncthreads_and(
+        t >= R || (mask.live(first, ca_t) && mask.live(last, ca_t)));
+    uint2 bad = make_uint2(0, 0);  // Q and dO rows zeroed by the guard
+    if (PTT_NAN_GUARD == 2 || (PTT_NAN_GUARD == 1 && !full)) {
+      uint8_t* const tiles[2] = {wg_smem + (sQ - sK), wg_smem + (sDO - sK)};
+      bad = guard_rows<HD>(tiles, bad_rows);
+    }
+
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wg::fence();
+    flash::ss_over_d<HD>(st, sK, sQ);
+    flash::ss_over_d<HD>(dpt, sV, sDO);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(st);
+    wg::fence_operand(dpt);
+
+    // the pair test: bit i of `live` for st[i] (keys c_lo, c_hi; the
+    // tile's columns are q rows)
+    uint32_t live = 0xffffffffu;
+    if (!full)
+      live = live_bits(
+          [&](int j) {
+            const int2 r = mask.staged_row(ra, ra + R, r0, j);
+            return mask.live(r, ca_lo) | mask.live(r, ca_hi) << 1;
+          },
+          nvalid, bad, nan_lo, nan_hi);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qi = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const float pr = exp2f(fmaf(st[i], sl2, -lse_t[qi] * flash::kLog2e));
+      const float ds = pr * (dpt[i] - del_t[qi]) * p.scale;
+      const bool ok = (live >> i) & 1;  // a select, never a product
+      st[i] = ok ? pr : 0.f;
+      dpt[i] = ok ? ds : 0.f;
+    }
+    // dV += P^T dO, then dK += dS^T Q in the same fragment registers
+    uint32_t fh[4][4], fl[4][4];
+    flash::split_all(st, fh, fl);
+    wg::fence_operand(acc_v);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) flash::rs_hilo<HD>(acc_v, fh[j], fl[j], sDO, j);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc_v);
+    flash::split_all(dpt, fh, fl);
+    wg::fence_operand(acc_k);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) flash::rs_hilo<HD>(acc_k, fh[j], fl[j], sQ, j);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc_k);
+    __syncthreads();  // every warp is done with this stage and the mask
+    if (t == 0 && (bad.x | bad.y)) bad_rows[0] = bad_rows[1] = 0;
+    load_stage(stage, r0 + 2 * R);
+    wg::cp_async_commit();
+  }
+  wg::cp_async_wait<0>();
+  nan_lo = quad_any(nan_lo);
+  nan_hi = quad_any(nan_hi);
+  const float qnan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i)
+    if ((i & 2) ? nan_hi : nan_lo) acc_k[i] = acc_v[i] = qnan;
+  // ds carries one factor of scale and q none: dk = ds^T q as it stands
+  const size_t head = ((size_t)b * p.Sk * p.H + h) * HD;
+  flash::store_rows_strided<HD>(static_cast<bf16*>(p.dk) + head, acc_k, k0,
+                                k1, (size_t)p.H * HD);
+  flash::store_rows_strided<HD>(static_cast<bf16*>(p.dv) + head, acc_v, k0,
+                                k1, (size_t)p.H * HD);
+}
+
+// the tensor-core route takes bf16 at D 64 or 128 with q, k, v (and, in
+// the backward, dout) 16-byte aligned and every row, head and batch stride
+// a multiple of 8 elements
+inline bool wgmma_takes(int dtype, int hd, const Params& p, bool bwd) {
   if (dtype != kBFloat16 || (hd != 64 && hd != 128)) return false;
-  const Operand* ops[3] = {&p.q, &p.k, &p.v};
-  for (const Operand* x : ops)
+  const Operand* ops[4] = {&p.q, &p.k, &p.v, &p.dout};
+  for (int i = 0; i < (bwd ? 4 : 3); ++i) {
+    const Operand* x = ops[i];
     if ((uintptr_t)x->p % 16 || x->sb % 8 || x->ss % 8 || x->sh % 8)
       return false;
+  }
   return true;
 }
 
@@ -906,6 +1323,32 @@ int launch_fwd_wgmma(const Params& p, const Mask& m, cudaStream_t st) {
   if (e != cudaSuccess) return (int)e;
   dim3 grid(p.B * p.H, (p.Sq + kBQ - 1) / kBQ);
   masked_fwd_wgmma<HD, Mask><<<grid, 128, bytes, st>>>(p, m);
+  return (int)cudaGetLastError();
+}
+
+// the dk/dv kernel's 64-key tiles are those of the CUDA-core pair at D 64
+// and 128, so both routes read one k_ranges
+static_assert(kWarps * dkv_rows<128>() == flash::kRows,
+              "one k tile serves both backward routes");
+
+template <int HD, class Mask>
+int launch_bwd_wgmma(const Params& p, const Mask& m, cudaStream_t st) {
+  constexpr size_t dq_bytes = dq_wgmma_smem_bytes<HD>();
+  constexpr size_t dkv_bytes = dkv_wgmma_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      masked_dq_wgmma<HD, Mask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(masked_dkv_wgmma<HD, Mask>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dkv_bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid_q(p.B * p.H, (p.Sq + kBQ - 1) / kBQ);
+  masked_dq_wgmma<HD, Mask><<<grid_q, 128, dq_bytes, st>>>(p, m);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid_k(p.B * p.H, (p.Sk + flash::kRows - 1) / flash::kRows);
+  masked_dkv_wgmma<HD, Mask><<<grid_k, 128, dkv_bytes, st>>>(p, m);
   return (int)cudaGetLastError();
 }
 
@@ -991,18 +1434,25 @@ int run_fwd(int dtype, int hd, int route, const Params& p, const Mask& m,
   if (!shapes_ok(p, hd)) return (int)cudaErrorInvalidValue;
   if (route == kRouteCudaCore)
     return run_typed<Mask, false>(dtype, hd, p, m, st);
-  if (route != kRouteWgmma || !wgmma_takes(dtype, hd, p))
+  if (route != kRouteWgmma || !wgmma_takes(dtype, hd, p, false))
     return (int)cudaErrorInvalidValue;
   return hd == 64 ? launch_fwd_wgmma<64, Mask>(p, m, st)
                   : launch_fwd_wgmma<128, Mask>(p, m, st);
 }
 
-// The backward: the dq kernel, then the dk/dv kernel, on one stream.
+// The backward: the dq kernel, then the dk/dv kernel, on one stream, on
+// the route the caller names (0: the CUDA-core pair, any dtype, hd 64, 128
+// or 256; 1: the tensor-core pair, see wgmma_takes), as run_fwd.
 template <class Mask>
-int run_bwd(int dtype, int hd, const Params& p, const Mask& m,
+int run_bwd(int dtype, int hd, int route, const Params& p, const Mask& m,
             cudaStream_t st) {
   if (!shapes_ok(p, hd)) return (int)cudaErrorInvalidValue;
-  return run_typed<Mask, true>(dtype, hd, p, m, st);
+  if (route == kRouteCudaCore)
+    return run_typed<Mask, true>(dtype, hd, p, m, st);
+  if (route != kRouteWgmma || !wgmma_takes(dtype, hd, p, true))
+    return (int)cudaErrorInvalidValue;
+  return hd == 64 ? launch_bwd_wgmma<64, Mask>(p, m, st)
+                  : launch_bwd_wgmma<128, Mask>(p, m, st);
 }
 
 }  // namespace masked

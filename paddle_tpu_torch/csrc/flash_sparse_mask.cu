@@ -27,8 +27,11 @@
 // takes the route the caller names, as flash_varlen.cu's: the tensor-core
 // `masked_fwd_wgmma` (bf16, D 64 and 128; a 64-key tile is skipped when
 // both of its 32-column tile_max entries are at or before the q tile's
-// first row) or the CUDA-core `masked_fwd_kernel`. The backward runs on
-// the CUDA cores in float32, whose own arithmetic bounds it.
+// first row) or the CUDA-core `masked_fwd_kernel`. The backward's two
+// routes are flash_varlen.cu's: the tensor-core pair `masked_dq_wgmma` +
+// `masked_dkv_wgmma` (the dq kernel skips dead 64-key tiles as the forward
+// does; the dk/dv kernel's 64-row tiles run from the k tile's diagonal to
+// its largest start) or the CUDA-core pair.
 
 #include "flash_masked.cuh"
 
@@ -84,8 +87,11 @@ extern "C" int flash_sparse_mask_fwd(
 
 // The backward from the forward's lse and delta = rowsum(dO * O) (float32
 // [B*H, S], computed by the caller): dq, dk, dv [B, S, H, hd] contiguous
-// in the inputs' dtype; dout strided like q. Launches the dq kernel, then
-// the dk/dv kernel, on `stream`; returns the CUDA error code.
+// in the inputs' dtype; dout strided like q. route: 0 the CUDA-core pair,
+// 1 the tensor-core pair (bf16, hd 64 or 128, q, k, v and dout 16-byte
+// aligned with strides a multiple of 8). Launches the dq kernel, then the
+// dk/dv kernel, on `stream`; returns the CUDA error code
+// (cudaErrorInvalidValue for inputs the route does not take).
 extern "C" int flash_sparse_mask_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -93,7 +99,7 @@ extern "C" int flash_sparse_mask_bwd(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int route, void* stream) {
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh},
                   vs[3] = {v_sb, v_ss, v_sh};
   Params p = make_params(q, k, v, B, H, S, qs, ks, vs, scale);
@@ -107,5 +113,6 @@ extern "C" int flash_sparse_mask_bwd(
                        static_cast<const int*>(tile_max), S,
                        (S + ptt::masked::kTile - 1) / ptt::masked::kTile,
                        causal};
-  return ptt::masked::run_bwd(dtype, hd, p, m, (cudaStream_t)stream);
+  return ptt::masked::run_bwd(dtype, hd, route, p, m,
+                              (cudaStream_t)stream);
 }

@@ -29,7 +29,11 @@
 // 16-byte aligned rows, `masked_fwd_wgmma` on the tensor cores (64-key
 // tiles, P as bf16 hi + lo, the NaN guard of flash_masked.cuh); for
 // float32 and D 256, `masked_fwd_kernel` on the CUDA cores in float32.
-// The backward runs on the CUDA cores, whose own arithmetic bounds it.
+// The backward takes the route the caller names the same way: the
+// tensor-core pair `masked_dq_wgmma` + `masked_dkv_wgmma` (bf16 at D 64
+// and 128 with dO aligned too; P and dS as bf16 hi + lo, the NaN guard on
+// K in dq and on Q and dO in dk/dv) or the CUDA-core pair
+// `masked_dq_kernel` + `masked_dkv_kernel` (float32, D 256).
 
 #include "flash_masked.cuh"
 
@@ -91,8 +95,11 @@ extern "C" int flash_varlen_fwd(
 // [H, tq], computed by the caller): dq [tq, H, hd], dk and dv [tk, H, hd],
 // contiguous, in the inputs' dtype. dout is strided like q. k_ranges int32
 // [n_k_ranges, 2] holds the q rows [lo, hi) of each k tile of the dk/dv
-// kernel (64 keys, 32 at hd 256; n_k_ranges must match). Launches the dq
-// kernel, then the dk/dv kernel, on `stream`; returns the CUDA error code.
+// kernel (64 keys, 32 at hd 256; n_k_ranges must match). route: 0 the
+// CUDA-core pair, 1 the tensor-core pair (bf16, hd 64 or 128, q, k, v and
+// dout 16-byte aligned with strides a multiple of 8). Launches the dq
+// kernel, then the dk/dv kernel, on `stream`; returns the CUDA error code
+// (cudaErrorInvalidValue for inputs the route does not take).
 extern "C" int flash_varlen_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -101,7 +108,7 @@ extern "C" int flash_varlen_bwd(
     const void* k_ranges, int n_k_ranges, int H, int tq, int tk, int hd,
     long long q_ss, long long q_sh, long long k_ss, long long k_sh,
     long long v_ss, long long v_sh, long long do_ss, long long do_sh,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int route, void* stream) {
   if (tq <= 0 || tk <= 0 ||
       n_q_ranges != (tq + ptt::masked::kBQ - 1) / ptt::masked::kBQ ||
       n_k_ranges != ptt::masked::dkv_tiles(hd, tk))
@@ -120,5 +127,6 @@ extern "C" int flash_varlen_bwd(
                       static_cast<const int*>(pos_k),
                       static_cast<const int2*>(q_ranges),
                       static_cast<const int2*>(k_ranges), causal};
-  return ptt::masked::run_bwd(dtype, hd, p, m, (cudaStream_t)stream);
+  return ptt::masked::run_bwd(dtype, hd, route, p, m,
+                              (cudaStream_t)stream);
 }

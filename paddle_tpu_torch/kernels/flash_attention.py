@@ -25,7 +25,8 @@ from . import _build
 
 __all__ = ["_flash_bhsd", "_flash_bhsd_bwd", "flash_attention_fwd_plain",
            "flash_attention_bwd_plain", "flash_fwd_route", "flash_bwd_route",
-           "masked_fwd_route", "FLASH_ROUTES", "HEAD_DIMS"]
+           "masked_fwd_route", "masked_bwd_route", "FLASH_ROUTES",
+           "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -121,15 +122,18 @@ flash_bwd_route = flash_fwd_route
 
 def masked_fwd_route(dtype, d, ptrs, strides):
     """The kernel a CUDA masked forward (kernels/flash_varlen.py and
-    flash_sparse_mask.py, one body in csrc/flash_masked.cuh) launches: the
-    dense rule of `flash_fwd_route` on q, k and v (``ptrs``), when every
-    row, head and batch stride (``strides``, in elements) is a multiple of
-    8, so that every row the tensor-core tiles copy is 16-byte aligned;
-    else "cuda_core". The masked backward has one kernel pair, on the CUDA
-    cores."""
+    flash_sparse_mask.py, one body in csrc/flash_masked.cuh) launches, and
+    the kernel pair a masked backward launches (``masked_bwd_route`` is
+    this function): the dense rule of `flash_fwd_route` on q, k, v and,
+    backward, dO (``ptrs``), when every row, head and batch stride
+    (``strides``, in elements, dO's too) is a multiple of 8, so that every
+    row the tensor-core tiles copy is 16-byte aligned; else "cuda_core"."""
     if all(s % 8 == 0 for s in strides):
         return flash_fwd_route(dtype, d, ptrs)
     return "cuda_core"
+
+
+masked_bwd_route = masked_fwd_route
 
 
 def _flash_bhsd(q, k, v, causal, scale=None):

@@ -5,10 +5,11 @@ Counterpart of paddle_tpu/kernels/pallas/flash_sparse_mask.py: the
 forward (`_fwd_kernel`), dq (`_dq_kernel`) and dk/dv (`_dkv_kernel`) are
 ``csrc/flash_sparse_mask.cu`` over the shared body
 ``csrc/flash_masked.cuh``; the source's note says what bounds them and how
-they prune. The forward has a tensor-core kernel ("wgmma": bf16, D 64 or
-128, 16-byte aligned rows) and a CUDA-core one ("cuda_core": float32, D
-256), picked by `masked_fwd_route`, with ``route_launches`` beside
-``launches``; the backward runs on the CUDA cores. Row r sees column c
+they prune. The forward and the backward each have a tensor-core route
+("wgmma": bf16, D 64 or 128, 16-byte aligned rows; the backward's dO too)
+and a CUDA-core one ("cuda_core": float32, D 256), picked by
+`masked_fwd_route` and `masked_bwd_route` (one rule), with
+``route_launches`` beside ``launches``. Row r sees column c
 iff r < start[b*h, c] (and r >= c when causal). q, k, v stay in the
 entry point's [B, S, H, D] layout (the kernels read it in place with
 strides; the TPU wrapper folds it to [B*H, S, D]); lse is float32
@@ -26,7 +27,8 @@ import torch
 
 from . import _build
 from .flash_attention import (_DTYPE_CODE, _ROUTE_CODE, FLASH_ROUTES,
-                              HEAD_DIMS, NEG_INF, masked_fwd_route)
+                              HEAD_DIMS, NEG_INF, masked_bwd_route,
+                              masked_fwd_route)
 
 __all__ = ["tile_max", "flash_sparse_mask_fwd", "flash_sparse_mask_bwd",
            "flash_sparse_mask_fwd_plain", "flash_sparse_mask_bwd_plain",
@@ -38,11 +40,11 @@ __all__ = ["tile_max", "flash_sparse_mask_fwd", "flash_sparse_mask_bwd",
 TILE = 32
 
 _I64 = ctypes.c_longlong
-_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# one library, loaded once with both entry points' signatures (the
-# forward's takes the route code before the stream)
+# scale, causal, dtype, route, stream: the end of both entry points
+_TAIL = [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# one library, loaded once with both entry points' signatures
 _SIG = {"flash_sparse_mask_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [_I64] * 9 + _TAIL[:3] + [ctypes.c_int, ctypes.c_void_p],
+        + [_I64] * 9 + _TAIL,
         "flash_sparse_mask_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
         + [_I64] * 12 + _TAIL}
 
@@ -222,8 +224,9 @@ flash_sparse_mask_fwd.route_launches = dict.fromkeys(FLASH_ROUTES, 0)
 def flash_sparse_mask_bwd(q, k, v, o, lse, do, start, causal, scale):
     """FlashMask backward from the forward's o and float32 lse [B*H, S] ->
     (dq, dk, dv) [B, S, H, D], each in its input's dtype. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernels (or
-    raises)."""
+    takes the plain version; a CUDA tensor launches the kernel pair
+    `masked_bwd_route` picks (or raises): a dO that is misaligned or off
+    the 8-element stride grid takes the CUDA-core pair, not a copy."""
     if q.device.type == "cpu":
         return flash_sparse_mask_bwd_plain(q, k, v, o, lse, do, start,
                                            causal, scale)
@@ -252,6 +255,9 @@ def flash_sparse_mask_bwd(q, k, v, o, lse, do, start, causal, scale):
     dq = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
     dk = torch.empty(b, s, h, d, dtype=k.dtype, device=q.device)
     dv = torch.empty(b, s, h, d, dtype=v.dtype, device=q.device)
+    route = masked_bwd_route(q.dtype, d, [t.data_ptr() for t in
+                                          (q, k, v, do)],
+                             (*qs, *ks, *vs, *dos))
     lib = _build.load("flash_sparse_mask", _SIG)
     with torch.cuda.device(q.device):
         rc = lib.flash_sparse_mask_bwd(
@@ -259,12 +265,15 @@ def flash_sparse_mask_bwd(q, k, v, o, lse, do, start, causal, scale):
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), start.data_ptr(), tmax.data_ptr(), b, h, s, d,
             *qs, *ks, *vs, *dos, float(scale), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[q.dtype], _ROUTE_CODE[route],
+            torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"flash_sparse_mask_bwd launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_sparse_mask_bwd launch failed ({route} "
+                           f"pair): CUDA error {rc}")
     flash_sparse_mask_bwd.launches += 1
+    flash_sparse_mask_bwd.route_launches[route] += 1
     return dq, dk, dv
 
 
 flash_sparse_mask_bwd.launches = 0
+flash_sparse_mask_bwd.route_launches = dict.fromkeys(FLASH_ROUTES, 0)

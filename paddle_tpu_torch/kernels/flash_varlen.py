@@ -5,10 +5,11 @@ Counterpart of paddle_tpu/kernels/pallas/flash_varlen.py: the forward
 (`_fwd_kernel`), dq (`_dq_kernel`) and dk/dv (`_dkv_kernel`) are
 ``csrc/flash_varlen.cu`` over the shared body ``csrc/flash_masked.cuh``;
 the source's note says what bounds them and how they prune. The forward
-has a tensor-core kernel ("wgmma": bf16, D 64 or 128, 16-byte aligned
-rows) and a CUDA-core one ("cuda_core": float32, D 256), picked by
-`masked_fwd_route`; ``route_launches`` on the forward counts each route's
-launches beside ``launches``. The backward runs on the CUDA cores. Tokens
+and the backward each have a tensor-core route ("wgmma": bf16, D 64 or
+128, 16-byte aligned rows; the backward's dO too) and a CUDA-core one
+("cuda_core": float32, D 256), picked by `masked_fwd_route` and
+`masked_bwd_route` (one rule); ``route_launches`` on each wrapper counts
+each route's launches beside ``launches``. Tokens
 stay in the entry point's [total, H, D] layout (the kernels read it in
 place with strides; the TPU wrapper swaps it to [H, total, D]), and lse is
 float32 [H, total] as JAX's.
@@ -26,7 +27,8 @@ import torch
 
 from . import _build
 from .flash_attention import (_DTYPE_CODE, _ROUTE_CODE, FLASH_ROUTES,
-                              HEAD_DIMS, NEG_INF, masked_fwd_route)
+                              HEAD_DIMS, NEG_INF, masked_bwd_route,
+                              masked_fwd_route)
 
 __all__ = ["segments_from_cu", "varlen_tile_ranges", "flash_varlen_fwd",
            "flash_varlen_bwd", "flash_varlen_fwd_plain",
@@ -48,11 +50,11 @@ KEYLESS_LSE = float(torch.tensor(NEG_INF, dtype=torch.float32)
                     + torch.tensor(math.log(1e-30), dtype=torch.float32))
 
 _I64 = ctypes.c_longlong
-_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# one library, loaded once with both entry points' signatures (the
-# forward's takes the route code before the stream)
+# scale, causal, dtype, route, stream: the end of both entry points
+_TAIL = [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# one library, loaded once with both entry points' signatures
 _SIG = {"flash_varlen_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-        + [_I64] * 6 + _TAIL[:3] + [ctypes.c_int, ctypes.c_void_p],
+        + [_I64] * 6 + _TAIL,
         "flash_varlen_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int]
         + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [_I64] * 8 + _TAIL}
 
@@ -282,8 +284,9 @@ def flash_varlen_bwd(q, k, v, o, lse, do, seg_q, pos_q, seg_k, pos_k,
                      causal, scale):
     """Packed attention backward from the forward's o and float32 lse
     [H, tq] -> (dq, dk, dv), each in its input's dtype and layout. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernels (or
-    raises)."""
+    tensor takes the plain version; a CUDA tensor launches the kernel pair
+    `masked_bwd_route` picks (or raises): a dO that is misaligned or off
+    the 8-element stride grid takes the CUDA-core pair, not a copy."""
     if q.device.type == "cpu":
         return flash_varlen_bwd_plain(q, k, v, o, lse, do, seg_q, pos_q,
                                       seg_k, pos_k, causal, scale)
@@ -317,6 +320,9 @@ def flash_varlen_bwd(q, k, v, o, lse, do, seg_q, pos_q, seg_k, pos_k,
     dq = torch.empty(tq, h, d, dtype=q.dtype, device=q.device)
     dk = torch.empty(tk, h, d, dtype=k.dtype, device=q.device)
     dv = torch.empty(tk, h, d, dtype=v.dtype, device=q.device)
+    route = masked_bwd_route(q.dtype, d, [t.data_ptr() for t in
+                                          (q, k, v, do)],
+                             (qs, qh, ks, kh, vs, vh, ds_, dh))
     lib = _build.load("flash_varlen", _SIG)
     with torch.cuda.device(q.device):
         rc = lib.flash_varlen_bwd(
@@ -326,11 +332,14 @@ def flash_varlen_bwd(q, k, v, o, lse, do, seg_q, pos_q, seg_k, pos_k,
             seg_k.data_ptr(), pos_k.data_ptr(), rq.data_ptr(), rq.shape[0],
             rk.data_ptr(), rk.shape[0], h, tq, tk, d, qs, qh, ks, kh, vs, vh,
             ds_, dh, float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            _ROUTE_CODE[route], torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"flash_varlen_bwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_varlen_bwd launch failed ({route} pair): "
+                           f"CUDA error {rc}")
     flash_varlen_bwd.launches += 1
+    flash_varlen_bwd.route_launches[route] += 1
     return dq, dk, dv
 
 
 flash_varlen_bwd.launches = 0
+flash_varlen_bwd.route_launches = dict.fromkeys(FLASH_ROUTES, 0)

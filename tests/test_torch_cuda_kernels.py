@@ -1420,7 +1420,7 @@ def test_sparse_mask_nan_in_one_document_stays_there_bf16(cuda_device,
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_masked_bwd_reads_the_wgmma_forward(cuda_device, d):
-    """The CUDA-core backward of both policies on the tensor-core
+    """The tensor-core backward of both policies on the tensor-core
     forward's o and lse, against the plain backward on the same o and lse
     (BWD_TOLS's bf16 rule)."""
     lens = (120, 77, 200, 64, 39)
@@ -1431,8 +1431,10 @@ def test_masked_bwd_reads_the_wgmma_forward(cuda_device, d):
     before = flash_varlen_fwd.route_launches["wgmma"]
     o, lse = flash_varlen_fwd(q, k, v, sq, pq, sq, pq, True, d ** -0.5)
     assert flash_varlen_fwd.route_launches["wgmma"] == before + 1
+    before = flash_varlen_bwd.route_launches["wgmma"]
     got = flash_varlen_bwd(q, k, v, o, lse, do, sq, pq, sq, pq, True,
                            d ** -0.5)
+    assert flash_varlen_bwd.route_launches["wgmma"] == before + 1
     ref = flash_varlen_bwd_plain(q, k, v, o, lse, do, sq, pq, sq, pq, True,
                                  d ** -0.5)
     q4, k4, v4, do4 = (x[:, :2].reshape(2, 250, 2, d)
@@ -1441,13 +1443,331 @@ def test_masked_bwd_reads_the_wgmma_forward(cuda_device, d):
     before = flash_sparse_mask_fwd.route_launches["wgmma"]
     o4, lse4 = flash_sparse_mask_fwd(q4, k4, v4, start, True, d ** -0.5)
     assert flash_sparse_mask_fwd.route_launches["wgmma"] == before + 1
+    before = flash_sparse_mask_bwd.route_launches["wgmma"]
     got4 = flash_sparse_mask_bwd(q4, k4, v4, o4, lse4, do4, start, True,
                                  d ** -0.5)
+    assert flash_sparse_mask_bwd.route_launches["wgmma"] == before + 1
     ref4 = flash_sparse_mask_bwd_plain(q4, k4, v4, o4, lse4, do4, start,
                                        True, d ** -0.5)
     torch.cuda.synchronize()
     _check_bwd(got, ref, torch.bfloat16, *BWD_TOLS[1][1:])
     _check_bwd(got4, ref4, torch.bfloat16, *BWD_TOLS[1][1:])
+
+
+# -- the masked backward on the tensor cores -----------------------------------
+#
+# bf16 at D 64 and 128 takes masked_dq_wgmma + masked_dkv_wgmma (route
+# "wgmma"), held to BWD_TOLS's bf16 rule against the plain backward on the
+# same o and lse; float32 and D 256 keep the CUDA-core pair. The packs and
+# start rows are the forward's card tests': 64-row q tiles and 64-key k
+# tiles span documents, so the pair test and the NaN guard run in both
+# kernels.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pack", sorted(VARLEN_PACKS))
+def test_varlen_bwd_wgmma_matches_plain(cuda_device, d, causal, pack):
+    lq, lk, _ = VARLEN_PACKS[pack]
+    lk = lq if lk is None else lk
+    q, k, v, do, cu_q, cu_k = _varlen_inputs(cuda_device, 2 * d + causal,
+                                             lq, lk, 4, d)
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    sq, pq = segments_from_cu(cu_q, q.shape[0])
+    sk, pk = segments_from_cu(cu_k, k.shape[0])
+    seg = (sq, pq, sk, pk, causal, d ** -0.5)
+    o, lse = flash_varlen_fwd(q, k, v, *seg)
+    before = flash_varlen_bwd.route_launches["wgmma"]
+    got = flash_varlen_bwd(q, k, v, o, lse, do, *seg)
+    ref = flash_varlen_bwd_plain(q, k, v, o, lse, do, *seg)
+    torch.cuda.synchronize()
+    assert flash_varlen_bwd.route_launches["wgmma"] == before + 1
+    _check_bwd(got, ref, torch.bfloat16, *BWD_TOLS[1][1:])
+    cq = np.cumsum([0] + list(lq))
+    for i in range(len(lq)):
+        if lq[i] and not lk[i]:                   # keyless rows: dq 0
+            assert not got[0][int(cq[i]):int(cq[i + 1])].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind,s", [("random", 200), ("documents", 256),
+                                    ("capped", 200)])
+def test_sparse_mask_bwd_wgmma_matches_plain(cuda_device, d, causal, kind,
+                                             s):
+    """The forward's start rows: random (S 200, a tail tile), documents,
+    and capped at 100 (without causal, rows from 100 on see no column:
+    their dq is 0)."""
+    b, h = 2, 3
+    rng = np.random.default_rng(2 * d + causal + s)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                    .astype(np.float32))
+                   .to(cuda_device, torch.bfloat16) for _ in range(4))
+    if kind == "documents":
+        start = _doc_start(cuda_device, (33, 100, 67, 56), b, h)
+    else:
+        st = rng.integers(1, s + 1, (b * h, s))
+        if kind == "capped":
+            st = np.minimum(st, 100)
+        start = torch.from_numpy(st.astype(np.int32)).to(cuda_device)
+    o, lse = flash_sparse_mask_fwd(q, k, v, start, causal, d ** -0.5)
+    before = flash_sparse_mask_bwd.route_launches["wgmma"]
+    got = flash_sparse_mask_bwd(q, k, v, o, lse, do, start, causal,
+                                d ** -0.5)
+    ref = flash_sparse_mask_bwd_plain(q, k, v, o, lse, do, start, causal,
+                                      d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_sparse_mask_bwd.route_launches["wgmma"] == before + 1
+    _check_bwd(got, ref, torch.bfloat16, *BWD_TOLS[1][1:])
+    if kind == "capped" and not causal:
+        assert not got[0][:, 100:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,d", [(torch.float32, 64), (torch.float32, 128),
+                                  (torch.bfloat16, 256)])
+def test_masked_bwd_cuda_core_route(cuda_device, dt, d):
+    """float32 and D 256 keep the CUDA-core backward of both policies."""
+    lens = (100, 37, 250, 125)
+    q, k, v, do, cu, _ = _varlen_inputs(cuda_device, d + 1, lens, lens, 2,
+                                        d)
+    q, k, v, do = (x.to(dt) for x in (q, k, v, do))
+    sq, pq = segments_from_cu(cu, q.shape[0])
+    seg = (sq, pq, sq, pq, True, d ** -0.5)
+    o, lse = flash_varlen_fwd(q, k, v, *seg)
+    before = flash_varlen_bwd.route_launches["cuda_core"]
+    got = flash_varlen_bwd(q, k, v, o, lse, do, *seg)
+    ref = flash_varlen_bwd_plain(q, k, v, o, lse, do, *seg)
+    assert flash_varlen_bwd.route_launches["cuda_core"] == before + 1
+    q4, k4, v4, do4 = (x[:256].reshape(1, 256, 2, d) for x in (q, k, v, do))
+    start = _doc_start(cuda_device, (100, 37, 119), 1, 2)
+    o4, lse4 = flash_sparse_mask_fwd(q4, k4, v4, start, True, d ** -0.5)
+    before = flash_sparse_mask_bwd.route_launches["cuda_core"]
+    got4 = flash_sparse_mask_bwd(q4, k4, v4, o4, lse4, do4, start, True,
+                                 d ** -0.5)
+    ref4 = flash_sparse_mask_bwd_plain(q4, k4, v4, o4, lse4, do4, start,
+                                       True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_sparse_mask_bwd.route_launches["cuda_core"] == before + 1
+    tols = dict((t, (r, a)) for t, r, a in BWD_TOLS)[dt]
+    _check_bwd(got, ref, dt, *tols)
+    _check_bwd(got4, ref4, dt, *tols)
+
+
+def _poisoned_doc_rows(runs, doc, where):
+    """The poisoned run's rows of the poisoned document: dq and dk NaN in
+    every row, dv too unless only V was poisoned (dv = p^T dO does not read
+    V, so there it equals the clean run's)."""
+    (_, cdq, cdk, cdv), (_, pdq, pdk, pdv) = runs
+    assert torch.isnan(pdq[doc]).all() and torch.isnan(pdk[doc]).all()
+    if where == "v":
+        assert torch.equal(pdv[doc], cdv[doc])
+    else:
+        assert torch.isnan(pdv[doc]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["nan", "inf"])
+@pytest.mark.parametrize("where", ["q", "k", "v", "do"])
+def test_varlen_bwd_wgmma_keeps_documents_apart(cuda_device, what, where):
+    """NaN or inf in one document's q, k, v or dO (the third of five, whose
+    rows share q tiles and k tiles with the second and fourth), bf16 D 128
+    causal, both directions on the tensor cores: every other document's
+    output and gradients are finite and bit-equal to a clean run's, and the
+    poisoned document's gradient rows are NaN (_poisoned_doc_rows)."""
+    lens = (70, 45, 130, 33, 240)
+    q, k, v, g, cu, _ = _varlen_inputs(cuda_device, 6, lens, lens, 4, 128)
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    doc = slice(115, 245)
+    before = flash_varlen_bwd.route_launches["wgmma"]
+    runs = []
+    for poison in (False, True):
+        xs = {"q": q.clone(), "k": k.clone(), "v": v.clone(),
+              "do": g.clone()}
+        if poison:
+            xs[where][doc] = float(what)
+        ts = [xs[n].requires_grad_() for n in ("q", "k", "v")]
+        out = flash_attn_unpadded(*ts, cu, cu, 240, 240, 128 ** -0.5,
+                                  causal=True)
+        out.backward(xs["do"])
+        runs.append([out.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    assert flash_varlen_bwd.route_launches["wgmma"] == before + 2
+    keep = torch.ones(q.shape[0], dtype=torch.bool, device=cuda_device)
+    keep[doc] = False
+    for clean, poisoned in zip(*runs):
+        assert torch.isfinite(poisoned[keep]).all()
+        assert torch.equal(poisoned[keep], clean[keep])
+    _poisoned_doc_rows(runs, doc, where)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["nan", "inf"])
+@pytest.mark.parametrize("where", ["q", "k", "v", "do"])
+def test_sparse_mask_bwd_wgmma_keeps_documents_apart(cuda_device, what,
+                                                     where):
+    """The FlashMask twin: documents (50, 90, 116) as start rows, the
+    second poisoned in every batch row, bf16 D 64 causal."""
+    b, s, h, d = 2, 256, 2, 64
+    rng = np.random.default_rng(32)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                   .astype(np.float32))
+                  .to(cuda_device, torch.bfloat16) for _ in range(4))
+    start = _doc_start(cuda_device, (50, 90, 116), 1, 1)[0]     # [S]
+    before = flash_sparse_mask_bwd.route_launches["wgmma"]
+    runs = []
+    for poison in (False, True):
+        xs = {"q": q.clone(), "k": k.clone(), "v": v.clone(),
+              "do": g.clone()}
+        if poison:
+            xs[where][:, 50:140] = float(what)
+        ts = [xs[n].requires_grad_() for n in ("q", "k", "v")]
+        out = flash_attention_with_sparse_mask(*ts, start, is_causal=True)
+        out.backward(xs["do"])
+        runs.append([out.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    assert flash_sparse_mask_bwd.route_launches["wgmma"] == before + 2
+    keep = torch.ones(s, dtype=torch.bool, device=cuda_device)
+    keep[50:140] = False
+    for clean, poisoned in zip(*runs):
+        assert torch.isfinite(poisoned[:, keep]).all()
+        assert torch.equal(poisoned[:, keep], clean[:, keep])
+    _poisoned_doc_rows([[x[:, 50:140] for x in r] for r in runs],
+                       slice(None), where)
+
+
+@pytest.mark.cuda
+def test_masked_bwd_wgmma_takes_a_strided_do(cuda_device):
+    """A dO read in place with a row stride of 2 H D (a slice of a wider
+    tensor) stays on the tensor cores; one shifted by 4 elements (8-byte
+    aligned rows) takes the CUDA-core pair, uncopied. Both policies, each
+    against the plain backward on a contiguous copy."""
+    lens = (50, 150, 100)
+    q, k, v, _, cu, _ = _varlen_inputs(cuda_device, 4, lens, lens, 4, 64)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    sq, pq = segments_from_cu(cu, 300)
+    seg = (sq, pq, sq, pq, True, 0.125)
+    wide = torch.randn(300, 4, 136, device=cuda_device,
+                       dtype=torch.bfloat16)
+    o, lse = flash_varlen_fwd(q, k, v, *seg)
+    q4, k4, v4 = (x.reshape(1, 300, 4, 64) for x in (q, k, v))
+    start = _doc_start(cuda_device, lens, 1, 4)
+    o4, lse4 = flash_sparse_mask_fwd(q4, k4, v4, start, True, 0.125)
+    for do, route in ((wide[..., :64], "wgmma"), (wide[..., 4:68],
+                                                  "cuda_core")):
+        assert not do.is_contiguous()
+        before = flash_varlen_bwd.route_launches[route]
+        got = flash_varlen_bwd(q, k, v, o, lse, do, *seg)
+        ref = flash_varlen_bwd_plain(q, k, v, o, lse, do.contiguous(), *seg)
+        assert flash_varlen_bwd.route_launches[route] == before + 1
+        do4 = do.reshape(1, 300, 4, 64)
+        before = flash_sparse_mask_bwd.route_launches[route]
+        got4 = flash_sparse_mask_bwd(q4, k4, v4, o4, lse4, do4, start, True,
+                                     0.125)
+        ref4 = flash_sparse_mask_bwd_plain(q4, k4, v4, o4, lse4,
+                                           do4.contiguous(), start, True,
+                                           0.125)
+        assert flash_sparse_mask_bwd.route_launches[route] == before + 1
+        torch.cuda.synchronize()
+        _check_bwd(got, ref, torch.bfloat16, *BWD_TOLS[1][1:])
+        _check_bwd(got4, ref4, torch.bfloat16, *BWD_TOLS[1][1:])
+
+
+@pytest.mark.cuda
+def test_masked_bwd_c_refuses_a_route_that_cannot_take_its_inputs(
+        cuda_device):
+    """Asked for the tensor-core pair with float32, D 256, or a dO whose
+    row stride is off the 8-element grid, the C entries return
+    cudaErrorInvalidValue (1) and launch nothing."""
+    from paddle_tpu_torch.kernels import flash_sparse_mask as fsm
+    from paddle_tpu_torch.kernels import flash_varlen as fv
+    vlib = _build.load("flash_varlen", fv._SIG)
+    mlib = _build.load("flash_sparse_mask", fsm._SIG)
+    seg, pos = segments_from_cu(torch.tensor([0, 100], device=cuda_device),
+                                100)
+    rq = fv.varlen_tile_ranges(seg, pos, seg, pos, fv.BQ, True, True)
+    stream = torch.cuda.current_stream().cuda_stream
+    for dt, d, do_stride in ((torch.float32, 128, 128),
+                             (torch.bfloat16, 256, 256),
+                             (torch.bfloat16, 128, 132)):
+        rk = fv.varlen_tile_ranges(seg, pos, seg, pos, fv.dkv_block(d), True,
+                                   False)
+        x = torch.zeros(100, 1, d, dtype=dt, device=cuda_device)
+        do = torch.zeros(100, 1, do_stride, dtype=dt,
+                         device=cuda_device)[..., :d]
+        out = [torch.zeros_like(x) for _ in range(3)]
+        lse = torch.zeros(1, 100, device=cuda_device)
+        code = 0 if dt == torch.float32 else 1
+        rc = vlib.flash_varlen_bwd(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in out),
+            seg.data_ptr(), pos.data_ptr(), seg.data_ptr(), pos.data_ptr(),
+            rq.data_ptr(), rq.shape[0], rk.data_ptr(), rk.shape[0], 1, 100,
+            100, d, d, d, d, d, d, d, do.stride(0), do.stride(1), 0.1, 1,
+            code, 1, stream)
+        assert rc == 1, ("varlen", dt, d, do_stride)
+        start = torch.full((1, 100), 100, dtype=torch.int32,
+                           device=cuda_device)
+        tmax = fsm.tile_max(start)
+        rc = mlib.flash_sparse_mask_bwd(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in out),
+            start.data_ptr(), tmax.data_ptr(), 1, 1, 100, d,
+            100 * d, d, d, 100 * d, d, d, 100 * d, d, d,
+            100 * do_stride, do.stride(0), do.stride(1), 0.1, 1, code, 1,
+            stream)
+        assert rc == 1, ("sparse_mask", dt, d, do_stride)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_masked_autograd_bf16_takes_the_wgmma_route(cuda_device):
+    """bf16 leaves through flash_attn_unpadded and
+    flash_attention_with_sparse_mask: each direction runs once on the
+    tensor cores, and the leaves' gradients equal the plain backward on the
+    forward's own o and lse by BWD_TOLS's bf16 rule."""
+    lens = (37, 200, 1, 150)
+    q, k, v, g, cu, _ = _varlen_inputs(cuda_device, 25, lens, lens, 4, 128)
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    sq, pq = segments_from_cu(cu, q.shape[0])
+    start = _doc_start(cuda_device, (37, 200, 1, 150), 1, 1)[0]
+    fns = {
+        "varlen": (flash_varlen_fwd, flash_varlen_bwd,
+                   lambda a, b_, c: flash_attn_unpadded(
+                       a, b_, c, cu, cu, 200, 200, 128 ** -0.5, causal=True),
+                   lambda a, b_, c, o, lse, do: flash_varlen_bwd_plain(
+                       a, b_, c, o, lse, do, sq, pq, sq, pq, True,
+                       128 ** -0.5),
+                   lambda a, b_, c: flash_varlen_fwd(a, b_, c, sq, pq, sq,
+                                                     pq, True, 128 ** -0.5),
+                   lambda x: x),
+        "sparse_mask": (flash_sparse_mask_fwd, flash_sparse_mask_bwd,
+                        lambda a, b_, c: flash_attention_with_sparse_mask(
+                            a, b_, c, start, is_causal=True),
+                        lambda a, b_, c, o, lse, do:
+                            flash_sparse_mask_bwd_plain(
+                                a, b_, c, o, lse, do,
+                                start.expand(4, -1).contiguous(), True,
+                                128 ** -0.5),
+                        lambda a, b_, c: flash_sparse_mask_fwd(
+                            a, b_, c, start.expand(4, -1).contiguous(), True,
+                            128 ** -0.5),
+                        lambda x: x.reshape(1, 388, 4, 128))}
+    for name, (fwd, bwd, entry, plain_bwd, kernel_fwd, shape) in fns.items():
+        leaves = [shape(x).clone().requires_grad_() for x in (q, k, v)]
+        f0, b0 = fwd.route_launches["wgmma"], bwd.route_launches["wgmma"]
+        out = entry(*leaves)
+        out.backward(shape(g))
+        assert fwd.route_launches["wgmma"] == f0 + 1, name
+        assert bwd.route_launches["wgmma"] == b0 + 1, name
+        with torch.no_grad():
+            xs = [shape(x) for x in (q, k, v)]
+            o, lse = kernel_fwd(*xs)
+            ref = plain_bwd(*xs, o, lse, shape(g))
+        torch.cuda.synchronize()
+        _check_bwd([t.grad for t in leaves], ref, torch.bfloat16,
+                   *BWD_TOLS[1][1:])
 
 
 # -- the row-wise kernels: RMSNorm, RoPE, causal softmax ----------------------------

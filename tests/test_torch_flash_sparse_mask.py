@@ -14,7 +14,12 @@ tests/test_torch_flash_varlen.py's ``_masked_wgmma_emulation`` under this
 policy (key tiles of 64 from column 0 up to the diagonal when causal,
 a tile skipped when both of its 32-column tile maxima are at or before
 the q tile's first row) and held here to ``_sm_fwd`` in interpret mode by
-the same bf16 rule, 2^-7 |ref| + 1e-4 for o and 1e-4 for the lse.
+the same bf16 rule, 2^-7 |ref| + 1e-4 for o and 1e-4 for the lse. The
+tensor-core backward is emulated by the same file's
+``_masked_wgmma_bwd_emulation`` under this policy (the dq pass over the
+forward's key tiles; the dk/dv pass over 64-row tiles from the k tile's
+diagonal, or 0, up to its largest start) and held to ``_sm_bwd`` by
+chip_smoke.py's bf16 gradient rule, 2^-7 |ref| + 1e-3 max|ref|.
 
 Random start rows (``rng.integers(1, S + 1)``, as the JAX test draws them)
 leave some rows seeing no column: the kernels give those zeros, and so
@@ -44,8 +49,8 @@ from paddle_tpu_torch.kernels.flash_sparse_mask import (
 from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
                                             flash_attn_qkvpacked)
 from test_torch_flash_varlen import (
-    KEYLESS_LSE, WG, _bf16, _fwd_ratio, _masked_wgmma_emulation,
-    _tile_is_full)
+    KEYLESS_LSE, WG, _bf16, _bwd_ratio, _fwd_ratio,
+    _masked_wgmma_bwd_emulation, _masked_wgmma_emulation, _tile_is_full)
 
 B, S, H, D = 2, 256, 2, 64
 SCALE = float(1.0 / np.sqrt(D))
@@ -246,7 +251,8 @@ def test_cpu_wrappers_take_the_plain_versions():
     q, k, v, do = (_t(a) for a in _arrays(14))
     start = _t(_random_start(14).reshape(B * H, S))
     before = (flash_sparse_mask_fwd.launches, flash_sparse_mask_bwd.launches)
-    routed = dict(flash_sparse_mask_fwd.route_launches)
+    routed = (dict(flash_sparse_mask_fwd.route_launches),
+              dict(flash_sparse_mask_bwd.route_launches))
     o, lse = flash_sparse_mask_fwd(q, k, v, start, True, SCALE)
     ro, rlse = flash_sparse_mask_fwd_plain(q, k, v, start, True, SCALE)
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
@@ -257,7 +263,8 @@ def test_cpu_wrappers_take_the_plain_versions():
         assert torch.equal(g, r)
     assert (flash_sparse_mask_fwd.launches,
             flash_sparse_mask_bwd.launches) == before
-    assert flash_sparse_mask_fwd.route_launches == routed
+    assert (flash_sparse_mask_fwd.route_launches,
+            flash_sparse_mask_bwd.route_launches) == routed
     assert sparse_mask_supported(1000, 128)
     assert not sparse_mask_supported(1024, 96)
 
@@ -384,3 +391,148 @@ def test_wholly_live_rule_and_dead_tiles_are_exact(causal, kind, s):
                 assert _tile_is_full(live, q0, q1, k0, hi) == brute
                 if bool((q0 >= tm[i, k0 // TILE:(k0 + WG) // TILE]).all()):
                     assert not live[q0:q1, k0:k0 + WG].any()
+
+
+
+# -- the tensor-core backward's arithmetic -------------------------------------
+
+def _sm_k_ranges(tm, s, causal):
+    """The dk/dv kernel's q-row range of each 64-key tile of one head:
+    from the tile's first key (causal) or 0 to its largest start."""
+    out = []
+    for k0 in range(0, s, WG):
+        k1 = min(k0 + WG, s)
+        top = int(tm[k0 // TILE:-(-k1 // TILE)].max())
+        out.append((k0 if causal else 0, min(top, s)))
+    return out
+
+
+def _sm_bwd_emulation(q, k, v, o, lse, do, start, causal, scale, **kw):
+    """The backward emulation over the B*H heads of [B, S, H, D] q, k, v,
+    o, do with lse and start rows [B*H, S]: the forward's key ranges and
+    dead tiles for dq, _sm_k_ranges for dk/dv -> (dq, dk, dv) [B, S, H,
+    D]."""
+    b, s, h, d = q.shape
+    tm = tile_max(start)
+    outs = []
+    for i in range(b * h):
+        q_ranges = [(0, min(q0 + WG, s) if causal else s)
+                    for q0 in range(0, s, WG)]
+
+        def dead(t, k0, i=i):
+            parts = tm[i, k0 // TILE:(k0 + WG) // TILE]
+            return bool((t * WG >= parts).all())
+
+        x = [a[i // h, :, i % h] for a in (q, k, v, o)]
+        outs.append(_masked_wgmma_bwd_emulation(
+            *x, lse[i], do[i // h, :, i % h], _sm_live(start[i], causal),
+            q_ranges, _sm_k_ranges(tm[i], s, causal), scale, dead=dead,
+            **kw))
+    return [torch.stack([x[j] for x in outs]).reshape(b, h, s, d)
+            .transpose(1, 2) for j in range(3)]
+
+
+BWD_HEADS = 4          # as the dense backward's emulation test
+
+
+def _bwd_case(kind, seed, d):
+    """bf16-valued float32 q, k, v and dO [B, S, 4, d] and start rows
+    [B*4, S] of a START_KINDS kind or "capped" (random, at most 100)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_bf16(torch.from_numpy(a)) for a in rng.standard_normal(
+        (4, B, S, BWD_HEADS, d)).astype(np.float32))
+    if kind == "documents":
+        start = np.broadcast_to(_doc_start([100, 37, 119]),
+                                (B * BWD_HEADS, S))
+    else:
+        start = rng.integers(1, S + 1, (B * BWD_HEADS, S))
+        if kind == "capped":
+            start = np.minimum(start, 100)
+    return q, k, v, do, np.ascontiguousarray(start, dtype=np.int32)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", START_KINDS + ("capped",))
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_bwd_arithmetic_matches_jax_kernel(kind, causal, d):
+    """The backward emulation against JAX's _sm_bwd in interpret mode on
+    the same o (JAX's, rounded to bf16) and lse, at 4 heads: dq, dk and dv
+    within 2^-7 |ref| + 1e-3 max|ref| of JAX's gradients rounded to bf16
+    (0.48-0.71 of it at these seeds); rows that see no column ("capped"
+    without causal) get dq 0. P and dS rounded once to bf16 miss that rule
+    on at least one gradient (1.04-1.83 of it at these seeds)."""
+    q, k, v, do, start = _bwd_case(kind, 80 + causal + d, d)
+    scale = float(1.0 / np.sqrt(d))
+    js = jnp.asarray(start)
+    jq, jk, jv, jdo = (_bh(a.numpy()) for a in (q, k, v, do))
+    jo, jlse = _sm_fwd(jq, jk, jv, js, causal, scale)
+    o = _bf16(_t(np.asarray(jo)))
+    ref = [_bf16(_t(_from_bh(r, B, BWD_HEADS))) for r in
+           _sm_bwd(jq, jk, jv, jnp.asarray(o.numpy()), jlse, jdo, js,
+                   causal, scale)]
+    o = _t(_from_bh(o.numpy(), B, BWD_HEADS))
+    lse = _t(jlse)
+    got = _sm_bwd_emulation(q, k, v, o, lse, do, _t(start), causal, scale)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        ratio = _bwd_ratio(g, r)
+        assert ratio <= 1.0, f"{name}: {ratio} x the bf16 rule"
+    if kind == "capped" and not causal:
+        assert not got[0][:, 100:].any()
+    once = _sm_bwd_emulation(q, k, v, o, lse, do, _t(start), causal, scale,
+                             split=False)
+    assert max(_bwd_ratio(g, r) for g, r in zip(once, ref)) > 1.0
+
+
+@pytest.mark.parametrize("where", ["q", "k", "v", "do"])
+def test_wgmma_bwd_nan_guard_keeps_documents_apart(where):
+    """NaN in the second document's rows (100:137, sharing q and key tiles
+    with the first and third) of q, k, v or dO, causal: with the guard
+    every other row's dq, dk and dv are bit-equal to the clean run's;
+    without it q, k and dO leak (0 times NaN in a product's B operand), V
+    does not (it enters only dP, whose masked pairs are replaced)."""
+    q, k, v = _bf16_arrays(90)
+    do = _bf16_arrays(91)[0]
+    start = _t(_start("documents", 0).reshape(B * H, S))
+    o, lse = _sm_emulation(q, k, v, start, True, SCALE_W)[:2]
+    clean = _sm_bwd_emulation(q, k, v, o, lse, do, start, True, SCALE_W)
+    xs = {"q": q.clone(), "k": k.clone(), "v": v.clone(), "do": do.clone()}
+    xs[where][:, 100:137] = float("nan")
+    keep = torch.ones(S, dtype=torch.bool)
+    keep[100:137] = False
+    args = (xs["q"], xs["k"], xs["v"], o, lse, xs["do"], start, True,
+            SCALE_W)
+    guarded = _sm_bwd_emulation(*args)
+    for g, c in zip(guarded, clean):
+        assert torch.isfinite(g[:, keep]).all()
+        assert torch.equal(g[:, keep], c[:, keep])
+    unguarded = _sm_bwd_emulation(*args, guard=False)
+    leaked = any(torch.isnan(g[:, keep]).any() for g in unguarded)
+    assert leaked == (where != "v")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", START_KINDS)
+@pytest.mark.parametrize("s", [256, 200])
+def test_wholly_live_rule_is_exact_for_k_tiles(causal, kind, s):
+    """The dk/dv side, by brute force: a 64-key tile and a 64-row tile of
+    its row range are wholly live (each key below S and live for the row
+    tile's first and last rows) iff every pair in them is live; the row
+    range holds every live pair of the key tile."""
+    if kind == "random":
+        start = _random_start(35, s).reshape(B * H, s)
+    else:
+        doc = _doc_start([60, 37, s - 97])
+        start = np.broadcast_to(doc, (B * H, s)).copy()
+    tm = tile_max(_t(start))
+    for i in range(B * H):
+        live = _sm_live(_t(start[i]), causal)
+        for t, (lo, hi) in enumerate(_sm_k_ranges(tm[i], s, causal)):
+            k0 = t * WG
+            rows = torch.nonzero(live[:, k0:k0 + WG].any(1))[:, 0]
+            assert rows.numel() == 0 or (lo <= rows.min()
+                                         and rows.max() < hi)
+            for r0 in range(lo, hi, WG):
+                r1 = min(r0 + WG, hi)
+                brute = k0 + WG <= s and bool(live[r0:r1,
+                                                   k0:k0 + WG].all())
+                assert _tile_is_full(live, r0, r1, k0, s) == brute

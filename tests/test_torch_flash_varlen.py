@@ -23,6 +23,16 @@ differ by the bf16 rounding of o and, in float32, by summation order. The
 arithmetic it avoids (p rounded once to bf16, the exp2-domain lse of a
 keyless row, p = 0 times a NaN V) is shown to miss.
 
+The card's tensor-core backward (the same route rule over q, k, v and
+dO) is emulated the same way (``_masked_wgmma_bwd_emulation``): dq over
+the q tiles' 64-key tiles, dk and dv over the 64-key tiles' 64-row tiles
+of the policy's row range, p and ds by the pair test as a select unless a
+tile is wholly live, P and dS into their products as hi + lo, and the
+guard on the B operands of those products (K for dq; Q and dO for dk/dv).
+It is held to JAX's ``_varlen_bwd`` in interpret mode by chip_smoke.py's
+bf16 gradient rule, 2^-7 |ref| + 1e-3 max|ref|, against JAX's gradients
+rounded to bf16; P and dS rounded once to bf16 are shown to miss it.
+
 JAX's entry point ``flash_attn_unpadded`` takes its dense XLA fallback on
 the CPU, which gives a keyless row (a q document whose k document is
 empty) near-uniform attention where the kernels give zeros; the port
@@ -49,7 +59,8 @@ from paddle_tpu_torch.kernels.flash_varlen import (
     BQ, KEYLESS_LSE, dkv_block, flash_varlen_bwd, flash_varlen_bwd_plain,
     flash_varlen_fwd, flash_varlen_fwd_plain, segments_from_cu,
     varlen_supported, varlen_tile_ranges)
-from paddle_tpu_torch.kernels.flash_attention import masked_fwd_route
+from paddle_tpu_torch.kernels.flash_attention import (masked_bwd_route,
+                                                      masked_fwd_route)
 from paddle_tpu_torch.nn.functional import (flash_attn_unpadded,
                                             flash_attn_varlen_qkvpacked)
 
@@ -297,7 +308,8 @@ def test_cpu_wrappers_take_the_plain_versions():
     sk, pk = _torch_segs(cu_k, k.shape[0])
     args = (_t(q), _t(k), _t(v))
     before = (flash_varlen_fwd.launches, flash_varlen_bwd.launches)
-    routed = dict(flash_varlen_fwd.route_launches)
+    routed = (dict(flash_varlen_fwd.route_launches),
+              dict(flash_varlen_bwd.route_launches))
     o, lse = flash_varlen_fwd(*args, sq, pq, sk, pk, True, SCALE)
     ro, rlse = flash_varlen_fwd_plain(*args, sq, pq, sk, pk, True, SCALE)
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
@@ -308,7 +320,8 @@ def test_cpu_wrappers_take_the_plain_versions():
         assert torch.equal(g, r)
     # no kernel ran on the CPU, on any route
     assert (flash_varlen_fwd.launches, flash_varlen_bwd.launches) == before
-    assert flash_varlen_fwd.route_launches == routed
+    assert (flash_varlen_fwd.route_launches,
+            flash_varlen_bwd.route_launches) == routed
 
 
 def test_the_port_takes_any_total():
@@ -549,3 +562,244 @@ def test_masked_fwd_route(dtype, d, ptrs, strides, route):
     D] qkv's row stride 3 H D included); float32, D 256, a misaligned
     pointer or a stride off the 8-element grid keep the CUDA cores."""
     assert masked_fwd_route(dtype, d, ptrs, strides) == route
+
+
+
+# -- the tensor-core backward's arithmetic -------------------------------------
+
+def _masked_wgmma_bwd_emulation(q, k, v, o, lse, do, live, q_ranges,
+                                k_ranges, scale, dead=None, split=True,
+                                guard=True):
+    """The tensor-core masked backward's arithmetic, one head, on float32
+    tensors that hold bf16 values: q, o, do [Sq, D], k, v [Sk, D], lse
+    [Sq] float32, live [Sq, Sk] bool, q_ranges[t] the keys [lo, hi) of q
+    tile t, k_ranges[t] the q rows [lo, hi) of the 64-key tile t, dead(t,
+    k0) True for a key tile the policy skips. delta = rowsum(do o); p =
+    exp2((q k^T) (scale log2e) - lse log2e), ds = p (dp - delta) scale,
+    both replaced by 0 where a pair is masked unless the tile is wholly
+    live. The dq pass: per q tile, key tiles of 64 from lo, dq += ds k; on
+    a tile that is not wholly live (guard) K's non-finite rows are zeroed
+    first and every row with a live pair on one ends NaN. The dk/dv pass:
+    per 64-key tile, row tiles of 64 from lo, dv += p^T do and dk += ds^T
+    q; on a tile that is not wholly live a row non-finite in q or do is
+    zeroed in both and every key with a live pair on it ends NaN. P and dS
+    enter their products as hi + lo (or, split False, rounded once).
+    Returns (dq, dk, dv) rounded to bf16."""
+    sq, d = q.shape
+    sk = k.shape[0]
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    l2 = lse * torch.tensor(LOG2E, dtype=torch.float32)
+    delta = (do * o).sum(1)
+
+    def parts(x):
+        hi_ = _bf16(x)
+        return (hi_, _bf16(x - hi_)) if split else (hi_,)
+
+    def select(full, lt, x):
+        return x if full else torch.where(lt, x, 0.0)
+
+    dq = torch.zeros(sq, d)
+    nan_q = torch.zeros(sq, dtype=torch.bool)
+    for t, (lo, hi) in enumerate(q_ranges):
+        q0, q1 = t * WG, min(t * WG + WG, sq)
+        for k0 in range(lo, hi, WG):
+            if dead is not None and dead(t, k0):
+                continue
+            k1 = min(k0 + WG, hi)
+            kt = k[k0:k1].clone()
+            lt = live[q0:q1, k0:k1]
+            full = _tile_is_full(live, q0, q1, k0, hi)
+            if guard and not full:
+                bad = ~torch.isfinite(kt).all(1)
+                kt[bad] = 0.0
+                nan_q[q0:q1] |= (lt & bad[None, :]).any(1)
+            p = torch.exp2(torch.matmul(q[q0:q1], kt.T) * sl2
+                           - l2[q0:q1, None])
+            dp = torch.matmul(do[q0:q1], v[k0:k1].T)
+            ds = select(full, lt, p * (dp - delta[q0:q1, None]) * scale)
+            dq[q0:q1] += sum(torch.matmul(a, kt) for a in parts(ds))
+    dq[nan_q] = float("nan")
+
+    dk, dv = torch.zeros(sk, d), torch.zeros(sk, d)
+    nan_k = torch.zeros(sk, dtype=torch.bool)
+    for t, (lo, hi) in enumerate(k_ranges):
+        k0, k1 = t * WG, min(t * WG + WG, sk)
+        for r0 in range(lo, hi, WG):
+            r1 = min(r0 + WG, hi)
+            qt, dot = q[r0:r1].clone(), do[r0:r1].clone()
+            lt = live[r0:r1, k0:k1].T                   # [keys, rows]
+            full = _tile_is_full(live, r0, r1, k0, sk)
+            if guard and not full:
+                bad = ~(torch.isfinite(qt).all(1)
+                        & torch.isfinite(dot).all(1))
+                qt[bad] = 0.0
+                dot[bad] = 0.0
+                nan_k[k0:k1] |= (lt & bad[None, :]).any(1)
+            p = torch.exp2(torch.matmul(k[k0:k1], qt.T) * sl2
+                           - l2[None, r0:r1])
+            dpt = torch.matmul(v[k0:k1], dot.T)
+            ds = select(full, lt, p * (dpt - delta[None, r0:r1]) * scale)
+            p = select(full, lt, p)
+            dv[k0:k1] += sum(torch.matmul(a, dot) for a in parts(p))
+            dk[k0:k1] += sum(torch.matmul(a, qt) for a in parts(ds))
+    dk[nan_k] = float("nan")
+    dv[nan_k] = float("nan")
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+def _bwd_ratio(out, ref):
+    """The largest ratio of an element's error to chip_smoke.py's bf16
+    gradient rule, 2^-7 |ref| + 1e-3 max|ref|."""
+    lim = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+    return ((out - ref).abs() / lim).max().item()
+
+
+def _varlen_bwd_emulation(q, k, v, o, lse, do, sq, pq, sk, pk, causal,
+                          scale, **kw):
+    """The backward emulation over the heads of [T, H, D] q, k, v, o, do
+    and lse [H, T] -> (dq, dk, dv) [T, H, D]."""
+    live = _live(sq, pq, sk, pk, causal)
+    rq = varlen_tile_ranges(sq, pq, sk, pk, WG, causal, True).tolist()
+    rk = varlen_tile_ranges(sk, pk, sq, pq, WG, causal, False).tolist()
+    outs = [_masked_wgmma_bwd_emulation(
+        q[:, i], k[:, i], v[:, i], o[:, i], lse[i], do[:, i], live, rq, rk,
+        scale, **kw) for i in range(q.shape[1])]
+    return [torch.stack([x[j] for x in outs], 1) for j in range(3)]
+
+
+def _bf16_bwd_case(pack, seed, d):
+    """bf16-valued float32 q, k, v and dO [T, 2, d] of a WGMMA_PACKS pack,
+    JAX's forward o (rounded to bf16, as the card forward writes it) and
+    lse, JAX's gradients from _varlen_bwd (interpret mode) rounded to
+    bf16, and both sides' segments."""
+    lq, lk = WGMMA_PACKS[pack]
+    lk = lq if lk is None else lk
+    cu_q, cu_k = _cu(lq), _cu(lk)
+    tq, tk = int(cu_q[-1]), int(cu_k[-1])
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_bf16(torch.from_numpy(rng.standard_normal((n, H, d))
+                                          .astype(np.float32)))
+                   for n in (tq, tk, tk, tq))
+    return q, k, v, do, cu_q, cu_k
+
+
+def _jax_bwd(q, k, v, do, cu_q, cu_k, causal, scale):
+    tq, tk = q.shape[0], k.shape[0]
+    jsq, jpq = _jax_segs(cu_q, tq)
+    jsk, jpk = _jax_segs(cu_k, tk)
+    jq, jk, jv, jdo = (jnp.asarray(a.numpy()).swapaxes(0, 1)
+                       for a in (q, k, v, do))
+    jo, jlse = _varlen_fwd(jq, jk, jv, jsq, jpq, jsk, jpk, causal, scale,
+                           False)
+    o = _bf16(_t(np.asarray(jo)))                        # [H, T, D]
+    ref = _varlen_bwd(jq, jk, jv, jnp.asarray(o.numpy()), jlse, jdo, jsq,
+                      jpq, jsk, jpk, causal, scale, False)
+    return (o.transpose(0, 1), _t(jlse),
+            [_bf16(_t(np.asarray(r).swapaxes(0, 1))) for r in ref])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("pack", sorted(WGMMA_PACKS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_bwd_arithmetic_matches_jax_kernel(pack, causal, d):
+    """The backward emulation against JAX's _varlen_bwd in interpret mode
+    on the same o (bf16) and lse: dq, dk and dv within 2^-7 |ref| + 1e-3
+    max|ref| of JAX's gradients rounded to bf16 (0.44-0.76 of it at these
+    seeds), keyless rows' dq 0. P and dS rounded once to bf16 miss that
+    rule on at least one gradient (1.10-3.24 of it)."""
+    scale = float(1.0 / np.sqrt(d))
+    q, k, v, do, cu_q, cu_k = _bf16_bwd_case(pack, 60 + causal + d, d)
+    o, lse, ref = _jax_bwd(q, k, v, do, cu_q, cu_k, causal, scale)
+    segs = (*_torch_segs(cu_q, q.shape[0]), *_torch_segs(cu_k, k.shape[0]))
+    got = _varlen_bwd_emulation(q, k, v, o, lse, do, *segs, causal, scale)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        ratio = _bwd_ratio(g, r)
+        assert ratio <= 1.0, f"{name}: {ratio} x the bf16 rule"
+    lq, lk = WGMMA_PACKS[pack]
+    if lk is not None:
+        assert not got[0][int(cu_q[1]):int(cu_q[2])].any()
+    once = _varlen_bwd_emulation(q, k, v, o, lse, do, *segs, causal, scale,
+                                 split=False)
+    assert max(_bwd_ratio(g, r) for g, r in zip(once, ref)) > 1.0
+
+
+@pytest.mark.parametrize("where", ["q", "k", "v", "do"])
+def test_wgmma_bwd_nan_guard_keeps_documents_apart(where):
+    """NaN in the third document's q, k, v or dO (its rows share q and key
+    tiles with the second and fourth), causal: with the guard every other
+    document's dq, dk and dv are bit-equal to the clean run's. Without it
+    the NaN reaches them through the products whose B operand holds the
+    poisoned rows (0 times NaN): K in dq, Q and dO in dk/dv. V enters only
+    dP, whose masked pairs are replaced, so it leaks neither way."""
+    q, k, v, do, cu_q, _ = _bf16_bwd_case("same_pack", 70, D_W)
+    segs = (*_torch_segs(cu_q, q.shape[0]),) * 2
+    o = _varlen_emulation(q, k, v, *segs, True)[0]
+    lse = _varlen_emulation(q, k, v, *segs, True)[1]
+    clean = _varlen_bwd_emulation(q, k, v, o, lse, do, *segs, True,
+                                  SCALE_W)
+    a, b = int(cu_q[2]), int(cu_q[3])
+    xs = {"q": q.clone(), "k": k.clone(), "v": v.clone(), "do": do.clone()}
+    xs[where][a:b] = float("nan")
+    keep = torch.ones(q.shape[0], dtype=torch.bool)
+    keep[a:b] = False
+    args = (xs["q"], xs["k"], xs["v"], o, lse, xs["do"], *segs, True,
+            SCALE_W)
+    guarded = _varlen_bwd_emulation(*args)
+    for g, c in zip(guarded, clean):
+        assert torch.isfinite(g[keep]).all()
+        assert torch.equal(g[keep], c[keep])
+    unguarded = _varlen_bwd_emulation(*args, guard=False)
+    leaked = any(torch.isnan(g[keep]).any() for g in unguarded)
+    assert leaked == (where != "v")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seed", range(4))
+def test_wholly_live_rule_is_exact_for_k_tiles(causal, seed):
+    """The dk/dv side of the rule, by brute force over random packs: a
+    64-key tile and a 64-row tile of its row range are wholly live (every
+    key below the total and live for the row tile's first and last rows)
+    iff every pair in them is live."""
+    rng = np.random.default_rng(50 + seed)
+    n = int(rng.integers(3, 10))
+    lq = rng.integers(0, 200, n)
+    lk = lq if seed % 2 == 0 else rng.integers(0, 200, n)
+    cu_q, cu_k = _cu(lq), _cu(lk)
+    tq, tk = int(cu_q[-1]), int(cu_k[-1])
+    sq, pq = _torch_segs(cu_q, tq)
+    sk, pk = _torch_segs(cu_k, tk)
+    live = _live(sq, pq, sk, pk, causal)
+    ranges = varlen_tile_ranges(sk, pk, sq, pq, WG, causal, False).tolist()
+    seen = set()
+    for t, (lo, hi) in enumerate(ranges):
+        k0 = t * WG
+        for r0 in range(lo, hi, WG):
+            r1 = min(r0 + WG, hi)
+            full = _tile_is_full(live, r0, r1, k0, tk)
+            brute = k0 + WG <= tk and bool(live[r0:r1, k0:k0 + WG].all())
+            assert full == brute
+            seen.add(full)
+    if seed % 2 == 0:                   # one pack: both kinds of tile met
+        assert seen == {True, False}
+
+
+@pytest.mark.parametrize("dtype,d,ptrs,strides,route", [
+    (torch.bfloat16, 64, (0, 16, 32, 48), (128, 64, 128, 64), "wgmma"),
+    # a dO read in place from a wider tensor: row stride 2 H D
+    (torch.bfloat16, 128, (0, 256, 512, 4096), (384, 128, 512, 128),
+     "wgmma"),
+    (torch.bfloat16, 128, (0, 0, 0, 8), (128, 128, 128, 128), "cuda_core"),
+    (torch.bfloat16, 128, (0, 0, 0, 0), (128, 128, 132, 128), "cuda_core"),
+    (torch.bfloat16, 64, (0, 0, 0, 0), (64, 64, 64, 68), "cuda_core"),
+    (torch.bfloat16, 256, (0, 0, 0, 0), (256, 256, 256, 256), "cuda_core"),
+    (torch.float32, 64, (0, 0, 0, 0), (64, 64, 64, 64), "cuda_core"),
+    (torch.float32, 128, (0, 0, 0, 0), (128, 128, 128, 128), "cuda_core"),
+])
+def test_masked_bwd_route(dtype, d, ptrs, strides, route):
+    """The backward's rule is the forward's over q, k, v and dO: bf16 at
+    D 64 and 128 with all four 16-byte aligned and every stride (dO's
+    included) a multiple of 8 elements; a misaligned dO or one whose
+    stride is off the grid keeps the CUDA-core pair, as do float32 and D
+    256."""
+    assert masked_bwd_route is masked_fwd_route
+    assert masked_bwd_route(dtype, d, ptrs, strides) == route
