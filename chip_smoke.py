@@ -2,6 +2,7 @@
 """Drive the PyTorch port (paddle_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--layers N] [--seed S] [--profile]
+    python3 chip_smoke.py --nan-guard-cost | --gemv-cost
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -17,12 +18,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    tensor-core kernel (bf16 at D 64 and 128, S 1000 tails, generate's
    prefill shape) and on its CUDA-core kernel (float32, and bf16 at D
    256), each case naming its route, rate and share of its bound; then
-   quant_matmul (the decode projections at 8 slots, the head, fp8 codes:
-   the GEMV; the 1024-row prefill gate_up and down products, int8 and fp8,
-   and a 777-row one whose last m-tile is partial: the tensor-core
-   kernel; float32 gate_up at 1024 rows: the CUDA-core tile; each case
-   names its route and rate), ragged attention over the
-   int8 pool and the split-context partials;
+   quant_matmul (the decode projections at 8 slots and fp8 codes: the
+   tensor-core GEMV, timed on weight copies used in turn so that the
+   codes come from device memory, beside the CUDA-core GEMV on the same
+   inputs; the head, float32 x: the CUDA-core GEMV; the 1024-row prefill
+   gate_up and down products, int8 and fp8, and a 777-row one whose last
+   m-tile is partial: the tensor-core product; float32 gate_up at 1024
+   rows: the CUDA-core tile; each case names its route and rate), ragged
+   attention over the int8 pool and the split-context partials;
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
    seeded torch.Generator) on 16 requests: every request gets its budget
    and the ragged kernel ran once per layer per decode step;
@@ -34,8 +37,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on the tensor-core kernel;
 5b. serve_quant: phase 3's requests with int8_blockwise weights and an
    int8 KV pool (quant_matmul 7 per layer plus the head, per decode step
-   and per prefill, every prefill projection on the tensor-core route;
-   the quantized ragged kernel once per layer per step);
+   and per prefill: every prefill projection on the tensor-core product,
+   every decode projection on the tensor-core GEMV, every head on the
+   CUDA-core GEMV; the quantized ragged kernel once per layer per step);
    serve_long: 4 prompts of 3000-4000 tokens at max_len 4096 in 4 shards
    (the partials kernel once per layer per step); then, in float32 at 4
    layers, the quantized ragged serve against the quantized dense one and
@@ -132,7 +136,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    train_parity for its CUDA-core kernel, the train of phase 6 for the
    flash backward's tensor-core pair and train_parity for its CUDA-core
    pair, serve_quant
-   for quant_matmul's GEMV and tensor-core product and the quantized
+   for quant_matmul's two GEMVs and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
    forward and dw kernels, train_moe_quant for the quantized grouped
    kernel, varlen_attn and flashmask_attn for the packed kernels on the
@@ -140,6 +144,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the CUDA cores,
    rowwise_attn for the row-wise ones), error and times;
 17. the card's name and power limit again, and the result line.
+
+--nan-guard-cost and --gemv-cost only build the kernels and time one
+part of a kernel against extra builds without it (the masked kernels'
+NaN guard; the tensor-core GEMV's products and its code reads), then
+exit.
 
 With --profile, short full-width serves (plain, serve_quant's and
 serve_long's engines), two train steps, two train_moe steps and three
@@ -225,6 +234,32 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(torch, calls, reps=3):
+    """Mean device time of one call in a CUDA graph of `calls` (closures,
+    one launch each, warmed up first), the median of reps replays: the
+    kernels back to back, without the host's time between launches, which
+    is longer than a decode GEMV."""
+    for call in calls[:2]:
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / len(calls))
+    del graph
+    return statistics.median(times)
+
+
 def bf16_err(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL):
     """(max abs error, largest ratio of an element's error to its
     tolerance rtol * |ref| + atol)."""
@@ -261,8 +296,9 @@ WGMMA_KERNELS = {"flash_attention_fwd": (("flash_fwd_wgmma",), None),
 
 def kernel_label(mangled):
     """A short label of a mangled kernel name: its own name, then the
-    element type, head dim and mask policy where its template has them
-    ("masked_dq_wgmma<128, SegmentMask>")."""
+    element type, integer arguments (head dim, code type, row tiles) and
+    mask policy where its template has them ("masked_dq_wgmma<128,
+    SegmentMask>", "qmm_gemv_tc<0, 4>")."""
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -273,8 +309,7 @@ def kernel_label(mangled):
     rest = mangled[i:]
     args = [t for t, key in (("float", "If"), ("bf16", "I13__nv_bfloat16"))
             if rest.startswith(key)]
-    hd = re.search(r"Li(\d+)E", rest)
-    args += [hd.group(1)] if hd else []
+    args += re.findall(r"Li(\d+)E", rest)
     args += [m for m in ("SegmentMask", "StartRowMask") if m in rest]
     return f"{name}<{', '.join(args)}>" if args else name
 
@@ -609,6 +644,12 @@ def flash_bwd_case(torch, name, bh, s, d, causal, seed,
 QMM_ATOL = 1e-5                  # of the output's largest magnitude
 
 
+# decode cases time the weight as the serve finds it, in device memory and
+# not in the 50 MB L2: copies of codes and scales (and of F.linear's bf16
+# weight) at least this large in all, used in turn
+QMM_COLD_BYTES = 150e6
+
+
 def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
     """quant_matmul at a serve shape: x [m, k] @ dequant(codes [n, k],
     scales [n, k / 128]).T. Kernel and plain version both accumulate in
@@ -618,10 +659,20 @@ def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
     products of about unit size reach sqrt(k) ~ 100 while the order moves
     them by about sqrt(k) * 6e-8 * 50 = 3e-4; a dropped or wrongly scaled
     K-block moves an output by percents). The record names the kernel
-    the wrapper routed the case to (rows, tiled or wgmma) and its rate."""
+    the wrapper routed the case to (gemv_tc, rows, wgmma or tiled) and its
+    rate. Every case is timed by CUDA events over 20 eager calls on one
+    weight (`eager_ms`); that is its `kernel_ms` above 32 rows. A decode
+    case (m <= 32) takes less device time than the host spends on a call,
+    so its `kernel_ms` is timed in a CUDA graph on copies of the weight
+    used in turn, QMM_COLD_BYTES in all, so that every launch reads its
+    codes from device memory as the serve does and the host's time
+    between launches stays out; a bf16 one also times the CUDA-core GEMV
+    ("rows") on the same inputs and copies beside it (`rows_ms`), and
+    each kernel's launch without the wrapper by events over eager calls
+    (`eager_launch_ms`); F.linear is timed in a graph too."""
     from paddle_tpu_torch.kernels.quant_matmul import (
-        blockwise_weight_bytes, dequantize_weight_blockwise, quant_matmul,
-        quant_matmul_plain, quantize_weight_blockwise)
+        _launch, blockwise_weight_bytes, dequantize_weight_blockwise,
+        quant_matmul, quant_matmul_plain, quantize_weight_blockwise)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -644,17 +695,45 @@ def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
         ratio = (d / (1e-6 * ref.abs() + atol)).max().item()
     check(math.isfinite(ratio) and ratio <= 1.0,
           f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
-    kernel_ms = cuda_ms(torch, lambda: quant_matmul(x, codes, scales), 20)
-    plain_ms = cuda_ms(torch, lambda: quant_matmul_plain(x, codes, scales),
-                       3, warmup=1)
-    wlib = dequantize_weight_blockwise(codes, scales).to(torch.bfloat16)
+    wbytes = blockwise_weight_bytes(k, n)[0]
+    decode = m <= 32
+    copies = (max(2, math.ceil(QMM_COLD_BYTES / wbytes)) if decode else 1)
+    weights = [(codes, scales)] + [(codes.clone(), scales.clone())
+                                   for _ in range(copies - 1)]
     xlib = x.to(torch.bfloat16)
     linear = torch.nn.functional.linear
-    lib_check(name, linear(xlib, wlib), ref)
-    library_ms = cuda_ms(torch, lambda: linear(xlib, wlib), 20)
-    del wlib
+    wlib = [dequantize_weight_blockwise(codes, scales).to(torch.bfloat16)]
+    lib_check(name, linear(xlib, wlib[0]), ref)
+    eager_ms = cuda_ms(torch, lambda: quant_matmul(x, codes, scales), 20)
+    rows_ms = launch_ms = None
+    if decode:
+        # device time in a CUDA graph, each launch on the next weight copy
+        wlib += [wlib[0].clone() for _ in range(
+            max(1, math.ceil(QMM_COLD_BYTES / (2 * k * n))) - 1)]
+        n_calls = 4 * copies
+        kernel_ms = graph_ms(torch, [
+            (lambda c=c, sc=sc: quant_matmul(x, c, sc))
+            for c, sc in weights * 4])
+        if x_dtype == torch.bfloat16:
+            o = torch.empty_like(out)
+            rows_ms = graph_ms(torch, [
+                (lambda c=c, sc=sc: _launch("rows", x, c, sc, o))
+                for c, sc in weights * 4])
+            # each kernel's launch alone, eagerly on one weight: the larger
+            # of the host's and the device's time a call, without the
+            # wrapper's checks and counting
+            launch_ms = {r: cuda_ms(torch, lambda r=r: _launch(
+                r, x, codes, scales, o), 20) for r in ("gemv_tc", "rows")}
+        library_ms = graph_ms(torch, [
+            (lambda wl=wlib[i % len(wlib)]: linear(xlib, wl))
+            for i in range(n_calls)])
+    else:
+        kernel_ms = eager_ms
+        library_ms = cuda_ms(torch, lambda: linear(xlib, wlib[0]), 20)
+    plain_ms = cuda_ms(torch, lambda: quant_matmul_plain(x, codes, scales),
+                       3, warmup=1)
+    del wlib, weights
     xsize = x.element_size()
-    wbytes = blockwise_weight_bytes(k, n)[0]
     bytes_moved = wbytes + m * k * xsize + m * n * xsize
     flops = 2 * m * k * n
     # the card's peak for float32 operands is its TF32 one
@@ -668,15 +747,127 @@ def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
            "rtol": BF16_RTOL if x_dtype == torch.bfloat16 else 1e-6,
            "atol": atol, "kernel_ms": kernel_ms,
            "tflops": flops / kernel_ms * 1e-9, "plain_ms": plain_ms,
+           "rows_ms": rows_ms, "eager_ms": eager_ms,
+           "eager_launch_ms": launch_ms,
            "library_ms": library_ms,
            "library": "F.linear on the dequantized bf16 weight (bf16 x)",
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_share": bound_ms / kernel_ms,
+           "timing": ("CUDA graph, weight copies in turn" if decode
+                      else "CUDA events over eager calls"),
+           "weight_copies": copies, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
            "bytes": bytes_moved, "flops": flops,
            "weight_bytes": wbytes, "weight_bytes_bf16": 2 * k * n}
     emit(rec)
     del x, codes, scales, out, ref
     torch.cuda.empty_cache()
+    return rec
+
+
+def build_variants(out, variants):
+    """Extra builds of csrc sources for the cost modes, nvcc started for all
+    at once, into the directory `out`. variants maps a key to (source stem,
+    its module's _SIG, extra nvcc flags, edit): edit is None or (text,
+    replacement), made once in a copy of the source. Returns {key: the
+    library, bound as _build.load binds it}, ready to swap into
+    _build._libs."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    os.makedirs(out, exist_ok=True)
+    jobs = {}
+    for key, (stem, _, flags, edit) in variants.items():
+        tag = "-".join(map(str, key if isinstance(key, tuple) else (key,)))
+        src = str(_build.CSRC / f"{stem}.cu")
+        if edit is not None:
+            text = (_build.CSRC / f"{stem}.cu").read_text()
+            check(text.count(edit[0]) == 1,
+                  f"build {tag}: its text is not in {stem}.cu once")
+            src = os.path.join(out, f"{stem}-{tag}.cu")
+            with open(src, "w") as fh:
+                fh.write(text.replace(*edit))
+        so = os.path.join(out, f"lib{stem}-{tag}.so")
+        jobs[key] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
+             str(_build.CSRC), "-o", so, src],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    libs = {}
+    for key, (so, proc) in jobs.items():
+        err = proc.communicate()[1]
+        check(proc.returncode == 0, f"nvcc {key}: {err.decode()[-2000:]}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in variants[key][1].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[key] = lib
+    return libs
+
+
+# --gemv-cost: copies of csrc/quant_matmul.cu, edited as they are read,
+# that leave one part of the tensor-core GEMV out (its outputs are then
+# wrong and unchecked): {build: (text in the source, its replacement)}
+GEMV_COST_BUILDS = {
+    # the whole-stage path's products: code words neither converted nor
+    # multiplied (the ring's loads alone)
+    "no_products": ("#pragma unroll\n      for (int j = 0; j < kGSteps; ++j)"
+                    "\n        gemv_step<Q, MT>(part, w[j], xrows + 16 * j);"
+                    "\n", ""),
+    # every codes chunk zero-filled without a read of device memory (the
+    # products, x and the scales alone)
+    "no_code_reads": ("    const bool ok = ((sl.cok >> i) & 1) && ck;",
+                      "    const bool ok = false;")}
+GEMV_COST_CASES = (("qkvo_m8_k4096_n4096", 8, 4096, 4096, "int8"),
+                   ("gate_up_m8_k4096_n11008", 8, 4096, 11008, "int8"),
+                   ("down_m8_k11008_n4096", 8, 11008, 4096, "int8"),
+                   ("fp8_gate_up_m8_k4096_n11008", 8, 4096, 11008, "fp8"),
+                   ("gate_up_m32_k4096_n11008", 32, 4096, 11008, "int8"))
+
+
+def gemv_cost(torch, seed):
+    """--gemv-cost: what holds the tensor-core GEMV. quant_matmul.cu is
+    built twice more into a directory of its own, from copies without the
+    products and without the code reads (GEMV_COST_BUILDS); each decode
+    case runs on every build in turn, three rounds, timed in a CUDA graph
+    on weight copies as qmm_case times it. Prints one line: the median ms
+    of each build and the case's bound."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+    libs = {"shipped": _build.load("quant_matmul", qmm._SIG)}
+    libs.update(build_variants(
+        os.path.join(str(_build.BUILD_DIR), "gemv_cost"),
+        {build: ("quant_matmul", qmm._SIG, (), edit)
+         for build, edit in GEMV_COST_BUILDS.items()}))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rec = {"phase": "gemv_cost", "builds": list(libs)}
+    try:
+        for name, m, k, n, qd in GEMV_COST_CASES:
+            w = torch.randn(n, k, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            codes, scales = qmm.quantize_weight_blockwise(w, qdtype=qd)
+            del w
+            wbytes = qmm.blockwise_weight_bytes(k, n)[0]
+            weights = [(codes, scales)] + [
+                (codes.clone(), scales.clone()) for _ in
+                range(max(2, math.ceil(QMM_COLD_BYTES / wbytes)) - 1)]
+            x = torch.randn(m, k, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            ms = {b: [] for b in libs}
+            for _ in range(3):
+                for b, lib in libs.items():
+                    _build._libs["quant_matmul"] = lib
+                    ms[b].append(graph_ms(torch, [
+                        (lambda c=c, sc=sc: qmm.quant_matmul(x, c, sc))
+                        for c, sc in weights * 4]))
+            rec[name] = {"ms": {b: statistics.median(v)
+                                for b, v in ms.items()},
+                         "ms_runs": ms, "bound_ms": bound(
+                             wbytes + 2 * m * k + 2 * m * n, 2 * m * k * n,
+                             BF16_FLOPS)[0]}
+            del weights, codes, scales
+            torch.cuda.empty_cache()
+    finally:
+        _build._libs["quant_matmul"] = libs["shipped"]
+    emit(rec)
     return rec
 
 
@@ -1019,8 +1210,10 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     quantized ragged kernel, once per layer per decode step. Each prompt's
     prefill bucket has at least 128 rows (block_size 64 doubled up to the
     prompt, prompts 128-1024 tokens), so its 7 projections a layer take
-    the tensor-core route (bf16 x, M > 32); its head (one row, float32)
-    and every decode step (8 slots) take the GEMV."""
+    the tensor-core product (bf16 x, M > 32); every decode step's 7
+    projections a layer (8 slots, bf16) take the tensor-core GEMV; every
+    head (float32 x) takes the CUDA-core GEMV, once per decode step and
+    once per prefill."""
     from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
     from paddle_tpu_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_quant)
@@ -1052,11 +1245,14 @@ def serve_quant_phase(torch, np, model, reqs, layers):
           f"quant_matmul launches {qmm} != (7 x {layers} + 1) x (decode "
           f"steps {steps} + prefills {len(reqs)})")
     check(routes["wgmma"] == 7 * layers * len(reqs)
-          and routes["tiled"] == 0,
+          and routes["gemv_tc"] == 7 * layers * steps
+          and routes["rows"] == steps + len(reqs) and routes["tiled"] == 0,
           f"quant_matmul routes {routes}: want wgmma = 7 x {layers} layers "
           f"x {len(reqs)} prefills (every prefill projection: _prefill_paged"
           f" runs _qkv's 3, wo and _mlp's 3 a layer on a bucket of >= 128 "
-          f"bf16 rows) and no tiled launch")
+          f"bf16 rows), gemv_tc = 7 x {layers} layers x {steps} decode "
+          f"steps, rows = {steps} decode steps + {len(reqs)} prefills (the "
+          f"float32 head) and no tiled launch")
     rec = serve_record(torch, "serve_quant", dec, reqs, layers, wall, {
         "weight_quant": "int8_blockwise", "kv_quant": "int8",
         "requests_cut": False, "quant_matmul_launches": qmm,
@@ -1064,6 +1260,8 @@ def serve_quant_phase(torch, np, model, reqs, layers):
                                       "prefills)",
         "quant_matmul_route_launches": routes,
         "wgmma_launches_rule": "7 x layers x prefills",
+        "gemv_tc_launches_rule": "7 x layers x decode steps",
+        "rows_launches_rule": "decode steps + prefills",
         "ragged_quant_launches": rq})
     emit(rec)
     del dec
@@ -2541,32 +2739,15 @@ def nan_guard_cost(torch, np, lens, seed):
     turn, three rounds. On clean inputs every build gives the same bits,
     which is checked. Prints one line: the median ms of each build, the
     forward's tiles, and the scan's share of each kernel's time."""
-    import ctypes
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_sparse_mask as fsm
     from paddle_tpu_torch.kernels import flash_varlen as fv
-    out = os.path.join(str(_build.BUILD_DIR), "nan_guard")
-    os.makedirs(out, exist_ok=True)
     mods = {"flash_varlen": fv, "flash_sparse_mask": fsm}
-    jobs = {}
-    for src in mods:
-        for g in NAN_GUARD_BUILDS[1:]:
-            so = os.path.join(out, f"lib{src}-guard{g}.so")
-            jobs[src, g] = (so, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPTT_NAN_GUARD={g}",
-                 "-I", str(_build.CSRC), "-o", so,
-                 str(_build.CSRC / f"{src}.cu")],
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
     libs = {(src, 1): _build.load(src, mods[src]._SIG) for src in mods}
-    for (src, g), (so, proc) in jobs.items():
-        err = proc.communicate()[1]
-        check(proc.returncode == 0, f"nvcc -DPTT_NAN_GUARD={g} {src}: "
-                                    f"{err.decode()[-2000:]}")
-        lib = ctypes.CDLL(so)
-        for name, argtypes in mods[src]._SIG.items():
-            getattr(lib, name).argtypes = list(argtypes)
-            getattr(lib, name).restype = ctypes.c_int
-        libs[src, g] = lib
+    libs.update(build_variants(
+        os.path.join(str(_build.BUILD_DIR), "nan_guard"),
+        {(src, g): (src, mods[src]._SIG, (f"-DPTT_NAN_GUARD={g}",), None)
+         for src in mods for g in NAN_GUARD_BUILDS[1:]}))
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -3489,6 +3670,10 @@ def main():
                          "masked kernels' NaN guard, forward and backward "
                          "(extra builds with the scan on every tile and on "
                          "none), then exit")
+    ap.add_argument("--gemv-cost", action="store_true",
+                    help="only build the kernels and time the tensor-core "
+                         "GEMV without its products and without its code "
+                         "reads (extra builds), then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -3543,6 +3728,10 @@ def main():
                        args.seed + 50)
         print(card, flush=True)
         return 0
+    if args.gemv_cost:
+        gemv_cost(torch, args.seed + 70)
+        print(card, flush=True)
+        return 0
 
     ragged_main = ragged_case(torch, np, "mha_32x32", 32, 32, 11)
     ragged_case(torch, np, "gqa_32x8", 32, 8, 12)
@@ -3577,11 +3766,12 @@ def main():
         check(rec["route"] == "cuda_core", f"{rec['case']}: routed to "
                                            f"{rec['route']}")
     # the quantized and long-context serving kernels at serve_quant's and
-    # serve_long's shapes: the decode projections (M = 8 slots), the head
-    # (float32 x) and fp8 codes on the GEMV; the prefill products (M 1024
+    # serve_long's shapes: the decode projections (M = 8 slots) and fp8
+    # codes on the tensor-core GEMV, the head (float32 x) on the CUDA-core
+    # one; the prefill products (M 1024
     # gate_up and down, fp8 gate_up, a partial last m-tile at M 777) on
     # the tensor cores; float32 gate_up at M 1024 on the CUDA-core tile
-    qmm_main = qmm_prefill = None
+    qmm_main = qmm_head = qmm_prefill = None
     for name, m, k, n, qd, xd in (
             ("decode_qkvo_m8_k4096_n4096", 8, 4096, 4096, "int8",
              torch.bfloat16),
@@ -3609,10 +3799,13 @@ def main():
         rec = qmm_case(torch, name, m, k, n, qd, xd, m + k + n)
         if name.startswith("decode_gate_up"):
             qmm_main = rec
+        if name.startswith("decode_head"):
+            qmm_head = rec
         if name == "prefill_gate_up_m1024_k4096_n11008":
             qmm_prefill = rec
-        check(rec["route"] == ("rows" if m <= 32 else "wgmma"
-                               if xd == torch.bfloat16 else "tiled"),
+        bf16 = xd == torch.bfloat16
+        check(rec["route"] == (("gemv_tc" if bf16 else "rows") if m <= 32
+                               else "wgmma" if bf16 else "tiled"),
               f"{name}: routed to {rec['route']}")
     rquant_main = ragged_quant_case(torch, np, "quant_mha_32x32", 32, 32, 21)
     ragged_quant_case(torch, np, "quant_gqa_32x8", 32, 8, 22)
@@ -3737,7 +3930,11 @@ def main():
              bwd_main, train["flash_bwd_route_launches"]["wgmma"]),
             ("quant_matmul", "paddle_tpu_torch/csrc/quant_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:177",
-             qmm_main, serve_quant["quant_matmul_route_launches"]["rows"]),
+             qmm_head, serve_quant["quant_matmul_route_launches"]["rows"]),
+            ("quant_matmul_gemv_tc", "paddle_tpu_torch/csrc/quant_matmul.cu",
+             "paddle_tpu/kernels/pallas/quant_matmul.py:177",
+             qmm_main,
+             serve_quant["quant_matmul_route_launches"]["gemv_tc"]),
             ("quant_matmul_wgmma", "paddle_tpu_torch/csrc/quant_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:177",
              qmm_prefill,

@@ -17,11 +17,22 @@
 // D] = (0.1 X) dO by RS wgmmas with B transposed: dO [64 q, D] read
 // MN-major from the same kind of swizzled D-panels (`desc_sw128_mn`),
 // hi then lo into one accumulator. A wrong MN-major descriptor, transpose
-// flag or fragment rule shows here. Neither tile is on any model's path.
+// flag or fragment rule shows here.
+//
+// A third tile checks mma.cuh as the tensor-core GEMV uses it: one warp
+// computes out[n, m] = sum_kb scales[n, kb] * sum_{k in block kb} a[n, k]
+// x[m, k] for 16 rows of int8 codes a [16, K] and 8 rows of bf16 x [8, K],
+// each k16 step one m16n8k16 mma.sync whose A fragment is read straight
+// from the contiguous code rows under the k permutation (one word of each
+// of a lane's two rows, `frag_a_words`, exact conversion to bf16) and
+// whose B fragment takes x at the same physical k (`frag_b_rows`); a float32 partial a K-block with the scale
+// applied on the accumulator. A wrong fragment rule or permutation moves
+// outputs by their own size. No tile here is on any model's path.
 
 #include <stdint.h>
 #include <cuda_bf16.h>
 
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -169,6 +180,40 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+__global__ void __launch_bounds__(32)
+    mma_codes_tile(const uint8_t* __restrict__ a,
+                   const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ scales, float* __restrict__ out,
+                   int K, int bk) {
+  namespace mma = ptt::mma;
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const int KB = K / bk;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f}, part[4];
+  for (int k = 0; k < K; k += 16) {
+    if (k % bk == 0)
+      for (int i = 0; i < 4; ++i) part[i] = 0.f;
+    uint32_t fa[4], fb[2];
+    const uint8_t* words = a + k + 4 * t;  // the lane's word of row 0
+    mma::frag_a_words<mma::kCodeInt8>(
+        *reinterpret_cast<const uint32_t*>(words + g * K),
+        *reinterpret_cast<const uint32_t*>(words + (g + 8) * K), fa);
+    mma::frag_b_rows(x + k, K, fb);
+    mma::mma_m16n8k16(part, fa, fb);
+    if ((k + 16) % bk == 0) {
+      const float s0 = scales[g * KB + k / bk];
+      const float s1 = scales[(g + 8) * KB + k / bk];
+      acc[0] = fmaf(s0, part[0], acc[0]);
+      acc[1] = fmaf(s0, part[1], acc[1]);
+      acc[2] = fmaf(s1, part[2], acc[2]);
+      acc[3] = fmaf(s1, part[3], acc[3]);
+    }
+  }
+  out[g * 8 + 2 * t] = acc[0];
+  out[g * 8 + 2 * t + 1] = acc[1];
+  out[(g + 8) * 8 + 2 * t] = acc[2];
+  out[(g + 8) * 8 + 2 * t + 1] = acc[3];
+}
+
 }  // namespace
 
 // a [64, K] and b [128, K] bf16, scales [64, K / bk] float32, out [64, 128]
@@ -206,5 +251,21 @@ extern "C" int wgmma_chain_selftest(const void* k, const void* q,
     wgmma_chain_tile<64><<<1, 128, smem, st>>>(
         (const __nv_bfloat16*)k, (const __nv_bfloat16*)q,
         (const __nv_bfloat16*)dout, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// a [16, K] int8 codes, x [8, K] bf16, scales [16, K / bk] float32, out
+// [16, 8] float32, all contiguous; K and bk multiples of 16, bk dividing
+// K. out = the scaled product through the mma.sync tile above. Returns
+// the CUDA error code of the launch.
+extern "C" int mma_codes_selftest(const void* a, const void* x,
+                                  const void* scales, void* out, int K,
+                                  int bk, void* stream) {
+  if (K <= 0 || bk <= 0 || K % 16 || bk % 16 || K % bk ||
+      (uintptr_t)a % 4 || (uintptr_t)x % 8)
+    return (int)cudaErrorInvalidValue;
+  mma_codes_tile<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)a, (const __nv_bfloat16*)x, (const float*)scales,
+      (float*)out, K, bk);
   return (int)cudaGetLastError();
 }

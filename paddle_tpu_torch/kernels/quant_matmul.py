@@ -14,11 +14,12 @@ and ``scales`` [.., N, K // block_k], blocks along the last dim, which
 keeps each output column's K codes contiguous for the kernel. They equal
 the JAX codec's codes and scales transposed, bit for bit (both round half
 to even). The kernels are in ``csrc/quant_matmul.cu``; its note says what
-bounds them and how they are laid out. `qmm_route` picks one of its three
-kernels for a call: the decode GEMV ("rows"), the tensor-core product
-("wgmma", bf16 x) or the CUDA-core tiled product ("tiled");
-``quant_matmul.route_launches`` counts the launches of each and
-``quant_matmul.launches`` their total.
+bounds them and how they are laid out. `qmm_route` picks one of its four
+kernels for a call: the decode GEMV on the tensor cores ("gemv_tc", bf16
+x) or on the CUDA cores ("rows", float32 x and the rest), the prefill
+product on the tensor cores ("wgmma", bf16 x) or on the CUDA cores
+("tiled"); ``quant_matmul.route_launches`` counts the launches of each
+and ``quant_matmul.launches`` their total.
 
 The grouped form (`quant_grouped_matmul`, the Pallas kernel `_gq_kernel`)
 runs the MoE expert products over grouped_matmul's expert-sorted layout
@@ -48,7 +49,7 @@ __all__ = ["QK_BLOCK", "INT8_MAX", "FP8_MAX", "quantize_weight_blockwise",
            "quant_grouped_matmul", "quant_grouped_matmul_plain",
            "quantized_grouped_linear", "configure_matmul_quant",
            "get_matmul_quant", "qmm_route", "QMM_ROUTES", "ROWS_MAX_M",
-           "WGMMA_BLOCK_K"]
+           "WGMMA_BLOCK_K", "GEMV_TC_BLOCK_K"]
 
 # one scale row per 128 contraction rows, as in the JAX package
 QK_BLOCK = 128
@@ -63,10 +64,11 @@ _SIG = {"quant_matmul_fwd":
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 # the kernels of csrc/quant_matmul.cu, in the order of its route codes
-QMM_ROUTES = ("rows", "tiled", "wgmma")
+QMM_ROUTES = ("rows", "tiled", "wgmma", "gemv_tc")
 _ROUTE_CODE = {r: i for i, r in enumerate(QMM_ROUTES)}
-ROWS_MAX_M = 32          # the GEMV takes up to this many rows of x
-WGMMA_BLOCK_K = 64       # the tensor-core kernel's blocks: multiples of this
+ROWS_MAX_M = 32          # the GEMVs take up to this many rows of x
+WGMMA_BLOCK_K = 64       # the tensor-core product's blocks: multiples of this
+GEMV_TC_BLOCK_K = 16     # the tensor-core GEMV's blocks: multiples of this
 _GQ_SIG = {"quant_grouped_matmul_fwd":
            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
 
@@ -183,17 +185,41 @@ def _check(x, codes, scales):
 
 
 def qmm_route(m, x_dtype, block_k, x_ptr, codes_ptr):
-    """The kernel a CUDA quant_matmul launches for m rows of x: "rows"
-    (the GEMV) up to ROWS_MAX_M rows; above, "wgmma" (tensor cores) for
-    bf16 x with blocks of whole 64-deep stages (the codec's default block
-    is 128) and 16-byte aligned x and codes, else "tiled" (CUDA cores; in
-    practice float32 x, which TF32 would round)."""
+    """The kernel a CUDA quant_matmul launches for m rows of x. Up to
+    ROWS_MAX_M rows, a GEMV: "gemv_tc" (tensor cores) for bf16 x with
+    blocks of whole k16 steps and 16-byte aligned x and codes, else "rows"
+    (CUDA cores; in practice float32 x, the head, which the tensor cores
+    would round). Above, "wgmma" (tensor cores) for bf16 x with blocks of
+    whole 64-deep stages (the codec's default block is 128) and 16-byte
+    aligned x and codes, else "tiled" (CUDA cores; float32 x, which TF32
+    would round)."""
+    bf16_aligned = (x_dtype == torch.bfloat16 and x_ptr % 16 == 0
+                    and codes_ptr % 16 == 0)
     if m <= ROWS_MAX_M:
+        if bf16_aligned and block_k % GEMV_TC_BLOCK_K == 0:
+            return "gemv_tc"
         return "rows"
-    if (x_dtype == torch.bfloat16 and block_k % WGMMA_BLOCK_K == 0
-            and x_ptr % 16 == 0 and codes_ptr % 16 == 0):
+    if bf16_aligned and block_k % WGMMA_BLOCK_K == 0:
         return "wgmma"
     return "tiled"
+
+
+def _launch(route, x2, codes, scales, out):
+    """Launch the kernel of `route` on x2 [M, K] (contiguous, on the card)
+    into out [M, N]; raises if the kernel does not take the inputs. It
+    counts nothing: `quant_matmul` counts its launches."""
+    m, k = x2.shape
+    kb = scales.shape[1]
+    lib = _build.load("quant_matmul", _SIG)
+    with torch.cuda.device(x2.device):
+        rc = lib.quant_matmul_fwd(
+            x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), m, codes.shape[0], k, kb, k // kb,
+            _X_CODE[x2.dtype], _Q_CODE[codes.dtype], _ROUTE_CODE[route],
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"quant_matmul launch failed ({route} kernel): "
+                           f"CUDA error {rc}")
 
 
 def quant_matmul(x, codes, scales):
@@ -214,19 +240,9 @@ def quant_matmul(x, codes, scales):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
-    bk = k // scales.shape[1]
-    route = qmm_route(m, x.dtype, bk, x2.data_ptr(), codes.data_ptr())
-    lib = _build.load("quant_matmul", _SIG)
-    with torch.cuda.device(x.device):
-        rc = lib.quant_matmul_fwd(
-            x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), m, n, k, scales.shape[1], bk,
-            _X_CODE[x.dtype], _Q_CODE[codes.dtype],
-            _ROUTE_CODE[route],
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"quant_matmul launch failed ({route} kernel): "
-                           f"CUDA error {rc}")
+    route = qmm_route(m, x.dtype, k // scales.shape[1], x2.data_ptr(),
+                      codes.data_ptr())
+    _launch(route, x2, codes, scales, out)
     quant_matmul.launches += 1
     quant_matmul.route_launches[route] += 1
     return out.reshape(*lead, n)

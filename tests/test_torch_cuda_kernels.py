@@ -40,7 +40,7 @@ from paddle_tpu_torch.kernels.grouped_matmul import (
     grouped_matmul_fwd, grouped_metadata)
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels.quant_matmul import (
-    quant_grouped_matmul, quant_grouped_matmul_plain, quant_matmul,
+    _launch, quant_grouped_matmul, quant_grouped_matmul_plain, quant_matmul,
     quant_matmul_plain, quantize_weight_blockwise)
 from paddle_tpu_torch.kernels.fused_elementwise import (
     causal_softmax_bwd, causal_softmax_bwd_plain, causal_softmax_fwd,
@@ -493,10 +493,11 @@ def _qmm_close(out, ref):
 @pytest.mark.parametrize("qdtype", ["int8", "fp8"])
 def test_quant_matmul_kernel_matches_plain(cuda_device, m, n, k, block_k,
                                            qdtype):
-    """All three kernels (rows for M <= 32; above, wgmma for bf16 x with
-    blocks of whole 64-deep stages, tiles otherwise), blocks below 128 and not
-    a multiple of 8, K not a multiple of 8 (the element-wise path),
-    float32 and bfloat16 x."""
+    """All four kernels (for M <= 32, gemv_tc for bf16 x with blocks of
+    whole k16 steps (128, 96), rows otherwise (float32 x; blocks 105 and
+    12); above, wgmma for bf16 x with blocks of whole 64-deep stages,
+    tiles otherwise), blocks below 128 and not a multiple of 8, K not a
+    multiple of 8 (the element-wise path), float32 and bfloat16 x."""
     rng = np.random.default_rng(m * 1000 + n + k)
     w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
@@ -543,7 +544,9 @@ def test_quant_matmul_takes_leading_dims_and_offset_views(cuda_device):
 _SELFTEST_SIG = {"wgmma_selftest": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                  + [ctypes.c_void_p],
                  "wgmma_chain_selftest": [ctypes.c_void_p] * 4
-                 + [ctypes.c_int] + [ctypes.c_void_p]}
+                 + [ctypes.c_int] + [ctypes.c_void_p],
+                 "mma_codes_selftest": [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
 @pytest.mark.cuda
@@ -705,6 +708,204 @@ def test_quant_matmul_wgmma_never_reads_rows_past_m(cuda_device, m):
     assert quant_matmul.route_launches["wgmma"] == before + 2
     assert torch.isfinite(out).all()
     assert torch.equal(out.view(torch.int16), clean.view(torch.int16))
+
+
+# -- the tensor-core GEMV (gemv_tc) ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bk", [(256, 128), (96, 16)])
+def test_mma_codes_one_tile_matches_matmul(cuda_device, k, bk):
+    """csrc/mma.cuh on one m16n8 tile as the tensor-core GEMV uses it: 16
+    rows of int8 codes read as A fragments straight from their contiguous
+    rows under the k permutation, 8 rows of bf16 x as B at the same
+    physical k, one mma.sync m16n8k16 a k16 step, a float32 partial a
+    K-block with distinct per-row scales on the accumulator (two blocks of
+    128, or six of 16), against torch.matmul in float32. The products are
+    exact, so only the summation order differs: 1e-5 of the largest
+    output. A wrong fragment rule or permutation moves outputs by their
+    own size."""
+    rng = np.random.default_rng(k + bk)
+    a = torch.from_numpy(rng.integers(-127, 128, (16, k)).astype(
+        np.int8)).to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((8, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    kb = k // bk
+    scales = torch.from_numpy(rng.uniform(0.5, 2.0, (16, kb)).astype(
+        np.float32)).to(cuda_device)
+    out = torch.empty(16, 8, device=cuda_device)
+    lib = _build.load("wgmma_selftest", _SELFTEST_SIG)
+    rc = lib.mma_codes_selftest(a.data_ptr(), x.data_ptr(),
+                                scales.data_ptr(), out.data_ptr(), k, bk,
+                                torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"CUDA error {rc}"
+    ref = torch.zeros(16, 8, device=cuda_device)
+    for j in range(kb):
+        blk = slice(j * bk, (j + 1) * bk)
+        ref += scales[:, j:j + 1] * torch.matmul(a[:, blk].float(),
+                                                 x[:, blk].float().t())
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), f"max abs err {err}"
+
+
+def _gemv_inputs(dev, seed, m, n, k, block_k, qdtype="int8"):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    codes, scales = quantize_weight_blockwise(w.to(dev), block_k, qdtype)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    return x, codes, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 20, 32])
+@pytest.mark.parametrize("n,k,block_k", [(4100, 4096, 128),
+                                         (4096, 11008, 128), (200, 320, 64),
+                                         (72, 256, 16)])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quant_matmul_gemv_tc_matches_plain(cuda_device, m, n, k, block_k,
+                                            qdtype):
+    """The tensor-core GEMV (bf16 x, M <= 32): one, two and four n8 tiles
+    of x with rows past M zero, N not a multiple of 16 or of the block's
+    128 columns, the serve shapes (K 4096 and 11008 at bk 128, cut into as
+    many K-slices as fit on the card at once, at most 7), blocks of 64 and
+    of one k16 step, int8 and fp8 codes, held to the plain version by
+    _qmm_close."""
+    x, codes, scales = _gemv_inputs(cuda_device, m * 7 + n + k, m, n, k,
+                                    block_k, qdtype)
+    before = quant_matmul.route_launches["gemv_tc"]
+    out = quant_matmul(x, codes, scales)
+    ref = quant_matmul_plain(x, codes, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.route_launches["gemv_tc"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    ok, err = _qmm_close(out, ref)
+    assert ok, f"max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quant_matmul_gemv_tc_takes_every_code_exactly(cuda_device, qdtype):
+    """Every int8 code and every finite e4m3 code (subnormals included)
+    through the GEMV's conversion to bf16: with unit scales and one-hot
+    rows of x, 32 rows of the identity at a time, out[m, n] is codes[n, r0
+    + m] itself, bit for bit."""
+    k = n = 256
+    idx = torch.arange(n)[:, None] + torch.arange(k)[None, :]
+    if qdtype == "int8":
+        codes = (idx % 255 - 127).to(torch.int8)
+    else:
+        every = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+            torch.float8_e4m3fn)
+        every = every[torch.isfinite(every.float())]
+        codes = every[idx % every.numel()]
+    codes = codes.contiguous().to(cuda_device)
+    scales = torch.ones(n, k // 128, device=cuda_device)
+    eye = torch.eye(k, device=cuda_device, dtype=torch.bfloat16)
+    before = quant_matmul.route_launches["gemv_tc"]
+    for r0 in range(0, k, 32):
+        out = quant_matmul(eye[r0:r0 + 32], codes, scales)
+        torch.cuda.synchronize()
+        assert torch.equal(out.float(), codes.float().t()[r0:r0 + 32])
+    assert quant_matmul.route_launches["gemv_tc"] == before + k // 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 20])
+def test_quant_matmul_gemv_tc_never_reads_rows_past_m(cuda_device, m):
+    """x is a view of M rows of a 32-row buffer whose further rows are
+    NaN: the output is the same bits as from a clean copy of x."""
+    rng = np.random.default_rng(m)
+    k, n = 384, 136
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    codes, scales = quantize_weight_blockwise(w.to(cuda_device))
+    buf = torch.full((32, k), float("nan"), device=cuda_device,
+                     dtype=torch.bfloat16)
+    x = buf[:m]
+    x.copy_(torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16))
+    before = quant_matmul.route_launches["gemv_tc"]
+    out = quant_matmul(x, codes, scales)
+    clean = quant_matmul(x.clone(), codes, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.route_launches["gemv_tc"] == before + 2
+    assert torch.isfinite(out).all()
+    assert torch.equal(out.view(torch.int16), clean.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(11008, 4096), (4096, 11008)])
+def test_quant_matmul_gemv_tc_gives_the_same_bits_twice(cuda_device, n, k):
+    """The K-slices of a column tile are summed in a fixed order, without
+    atomics: two calls on the same inputs give the same bits (N 11008:
+    86 column tiles, few slices; N 4096: 32 tiles, up to 7 slices)."""
+    x, codes, scales = _gemv_inputs(cuda_device, n + k, 8, n, k, 128)
+    first = quant_matmul(x, codes, scales)
+    second = quant_matmul(x, codes, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_gemv_tc_takes_leading_dims(cuda_device):
+    """A [2, 3, K] x is 6 rows of the GEMV, [2, 3, N] out."""
+    x, codes, scales = _gemv_inputs(cuda_device, 5, 6, 72, 256, None)
+    x = x.reshape(2, 3, 256)
+    before = quant_matmul.route_launches["gemv_tc"]
+    out = quant_matmul(x, codes, scales)
+    ref = quant_matmul_plain(x, codes, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.route_launches["gemv_tc"] == before + 1
+    assert out.shape == (2, 3, 72)
+    ok, err = _qmm_close(out, ref)
+    assert ok, f"max abs err {err}"
+
+
+@pytest.mark.cuda
+def test_quant_matmul_route_launches_count_each_kernel(cuda_device):
+    """Each call adds one to its route's count and to the total: bf16 x
+    with blocks of k16 steps and aligned data on gemv_tc; float32 x, a
+    block of 12 and an x 2 bytes into its storage on rows; 33 bf16 rows
+    on wgmma, 33 float32 rows on tiled."""
+    x, codes, scales = _gemv_inputs(cuda_device, 6, 33, 40, 192, 96)
+    _, codes12, scales12 = _gemv_inputs(cuda_device, 7, 1, 40, 192, 12)
+    flat = torch.zeros(1 + 8 * 192, device=cuda_device, dtype=torch.bfloat16)
+    xo = flat[1:].view(8, 192)
+    xo.copy_(x[:8])
+    calls = [(x[:8], codes, scales, "gemv_tc"),
+             (x[:1], codes, scales, "gemv_tc"),
+             (x[:8].float(), codes, scales, "rows"),
+             (x[:8], codes12, scales12, "rows"),
+             (xo, codes, scales, "rows"),
+             (x, codes, scales, "tiled"),      # bk 96: not whole stages
+             (x.float(), codes, scales, "tiled")]
+    _, codes64, scales64 = _gemv_inputs(cuda_device, 8, 1, 40, 192, 64)
+    calls.append((x, codes64, scales64, "wgmma"))
+    counts = dict(quant_matmul.route_launches)
+    total = quant_matmul.launches
+    for xi, c, sc, route in calls:
+        out = quant_matmul(xi, c, sc)
+        counts[route] += 1
+        assert quant_matmul.route_launches == counts, route
+        assert _qmm_close(out, quant_matmul_plain(xi, c, sc))[0], route
+    assert quant_matmul.launches == total + len(calls)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_gemv_tc_refuses_what_it_does_not_take(cuda_device):
+    """The kernel refuses float32 x, more than 32 rows, a block of 12 and
+    an unaligned x: the launch raises, and nothing runs another kernel in
+    its place."""
+    x, codes, scales = _gemv_inputs(cuda_device, 9, 33, 40, 192, 96)
+    _, codes12, scales12 = _gemv_inputs(cuda_device, 10, 1, 40, 192, 12)
+    out = torch.empty(33, 40, device=cuda_device, dtype=torch.bfloat16)
+    flat = torch.zeros(1 + 8 * 192, device=cuda_device, dtype=torch.bfloat16)
+    xo = flat[1:].view(8, 192)
+    for xi, c, sc in ((x[:8].float(), codes, scales), (x, codes, scales),
+                      (x[:8], codes12, scales12), (xo, codes, scales)):
+        o = out[:xi.shape[0]].to(xi.dtype)
+        with pytest.raises(RuntimeError, match="gemv_tc"):
+            _launch("gemv_tc", xi, c, sc, o)
 
 
 # -- int8 KV pool and split-context attention -----------------------------------

@@ -15,8 +15,12 @@ kernel's arithmetic is checked by an emulation: every code is exact in
 bf16, the products of bf16 codes and bf16 x are summed per K-block (in
 float64 here, float32 on the card) and the float32 scale is applied to
 each block's partial; that emulation is held against JAX's kernel within
-the same 1e-5 of the largest output. The wrapper's choice of kernel
-(`qmm_route`) is checked over dtype, M, block and alignment.
+the same 1e-5 of the largest output. The tensor-core GEMV's arithmetic
+is emulated the same way with its K-slices written out (a float32
+partial a K-block, the scale on a float32 accumulator a slice, the
+slices summed in their fixed order in float32) and held to JAX's kernel
+too. The wrapper's choice of kernel (`qmm_route`) is checked over dtype,
+M, block and alignment.
 """
 import numpy as np
 import pytest
@@ -208,9 +212,19 @@ def test_wgmma_arithmetic_matches_jax_kernel(qdtype, k, block_k, m):
 
 
 @pytest.mark.parametrize("m,dtype,block_k,x_ptr,codes_ptr,route", [
-    (1, torch.bfloat16, 128, 0, 0, "rows"),
-    (ROWS_MAX_M, torch.bfloat16, 128, 0, 0, "rows"),
+    (1, torch.bfloat16, 128, 0, 0, "gemv_tc"),
+    (ROWS_MAX_M, torch.bfloat16, 128, 0, 0, "gemv_tc"),
+    (8, torch.bfloat16, 16, 256, 4096, "gemv_tc"),
+    (8, torch.bfloat16, 96, 16, 32, "gemv_tc"),
     (ROWS_MAX_M, torch.float32, 128, 4, 1, "rows"),
+    (8, torch.float32, 128, 0, 0, "rows"),
+    (1, torch.float32, 16, 0, 0, "rows"),
+    (8, torch.bfloat16, 8, 0, 0, "rows"),
+    (8, torch.bfloat16, 12, 0, 0, "rows"),
+    (8, torch.bfloat16, 105, 0, 0, "rows"),
+    (8, torch.bfloat16, 128, 8, 0, "rows"),
+    (8, torch.bfloat16, 128, 2, 0, "rows"),
+    (8, torch.bfloat16, 128, 0, 4, "rows"),
     (ROWS_MAX_M + 1, torch.bfloat16, 128, 0, 0, "wgmma"),
     (1024, torch.bfloat16, 64, 256, 4096, "wgmma"),
     (1024, torch.bfloat16, 256, 16, 32, "wgmma"),
@@ -223,11 +237,65 @@ def test_wgmma_arithmetic_matches_jax_kernel(qdtype, k, block_k, m):
     (1024, torch.bfloat16, 128, 0, 4, "tiled"),
 ])
 def test_route_choice(m, dtype, block_k, x_ptr, codes_ptr, route):
-    """rows up to ROWS_MAX_M rows; above, wgmma only for bf16 x, blocks of
-    whole 64-deep stages and 16-byte aligned x and codes; tiled
-    otherwise."""
+    """Up to ROWS_MAX_M rows, gemv_tc for bf16 x, blocks of whole k16
+    steps and 16-byte aligned x and codes, rows otherwise (float32 x: the
+    head); above, wgmma for bf16 x, blocks of whole 64-deep stages and
+    16-byte aligned x and codes, tiled otherwise."""
     assert route in QMM_ROUTES
     assert qmm_route(m, dtype, block_k, x_ptr, codes_ptr) == route
+
+
+def _gemv_tc_emulation(x, codes, scales, splits):
+    """The tensor-core GEMV's arithmetic with its order written out: exact
+    products of bf16 x and bf16 codes summed per K-block into a float32
+    partial, each slice's partials scaled onto a float32 accumulator in
+    block order (fmaf: one rounding), the slices' accumulators summed in
+    slice order in float32."""
+    k = codes.shape[-1]
+    kb = scales.shape[-1]
+    bk = k // kb
+    xb = x.to(torch.bfloat16).double()
+    cb = codes.to(torch.bfloat16).double()
+    out = torch.zeros(x.shape[0], codes.shape[0], dtype=torch.float32)
+    for r in range(splits):
+        acc = torch.zeros_like(out)
+        for j in range(r * kb // splits, (r + 1) * kb // splits):
+            blk = slice(j * bk, (j + 1) * bk)
+            part = (xb[:, blk] @ cb[:, blk].t()).float()
+            acc = (scales[:, j].double() * part.double()
+                   + acc.double()).float()
+        out = out + acc
+    return out
+
+
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+@pytest.mark.parametrize("k,block_k", [(384, 128), (256, 16)])
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_gemv_tc_arithmetic_matches_jax_kernel(qdtype, k, block_k, m):
+    """The emulation against JAX's Pallas kernel in interpret mode on the
+    same bf16-valued x, within 1e-5 of the largest output (the two sum in
+    different orders), for cuts of K the kernel takes: one slice, 2 and 3
+    (at bk 128, 1 or 2 K-blocks and one each; at bk 16, 5 to 8) and, at
+    bk 16, 7 (2 or 3 each), the most it takes."""
+    n = 48
+    rng = np.random.default_rng(k + block_k + m)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(torch.bfloat16).float().numpy()
+    jc, js = jqm.quantize_weight_blockwise(jnp.asarray(w), block_k=block_k,
+                                           qdtype=qdtype)
+    ref = np.asarray(jqm.quant_matmul(jnp.asarray(x), jc, js,
+                                      impl="kernel"))
+    tc, ts = quantize_weight_blockwise(torch.from_numpy(w.T.copy()),
+                                       block_k, qdtype)
+    top = np.abs(ref).max()
+    for splits in (1, 2, 3, 7):
+        if splits > k // block_k:
+            continue
+        out = _gemv_tc_emulation(torch.from_numpy(x), tc, ts,
+                                 splits).numpy()
+        np.testing.assert_allclose(out, ref, atol=REL_TOL * top, rtol=0,
+                                   err_msg=f"{splits} slices")
 
 
 def test_cpu_call_counts_no_route():
