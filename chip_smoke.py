@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (paddle_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--parent DIR]
     python3 chip_smoke.py --nan-guard-cost | --gemv-cost
+    python3 chip_smoke.py --ragged-cost [--parent DIR]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -14,7 +15,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against its plain PyTorch version on the card at the
    serving shapes, with its time, the plain version's time, one PyTorch
    library call's time (a yardstick the port never calls) and the least
-   time the card could take: ragged attention; the flash forward on its
+   time the card could take: ragged attention (its time also in a CUDA
+   graph over pool copies used in turn, beside SDPA's, with the cluster
+   size the kernel took and its share of the bound; with --parent DIR the
+   parent commit's two ragged kernels, built from that checkout, are timed
+   the same way in the same cases); the flash forward on its
    tensor-core kernel (bf16 at D 64 and 128, S 1000 tails, generate's
    prefill shape) and on its CUDA-core kernel (float32, and bf16 at D
    256), each case naming its route, rate and share of its bound; then
@@ -145,16 +150,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rowwise_attn for the row-wise ones), error and times;
 17. the card's name and power limit again, and the result line.
 
---nan-guard-cost and --gemv-cost only build the kernels and time one
-part of a kernel against extra builds without it (the masked kernels'
-NaN guard; the tensor-core GEMV's products and its code reads), then
-exit.
+--nan-guard-cost, --gemv-cost and --ragged-cost only build the kernels
+and time one part of a kernel against extra builds without it (the
+masked kernels' NaN guard; the tensor-core GEMV's products and its code
+reads; the ragged kernels' arithmetic and their loads, and their cluster
+size fixed at 1, 2, 4 and 8), then exit.
 
 With --profile, short full-width serves (plain, serve_quant's and
 serve_long's engines), two train steps, two train_moe steps and three
 passes of each packed-attention path and of rowwise_attn also run under
 torch.profiler, and one more line for each gives the device time by
-kernel and the device's idle share.
+kernel (for a serve also every kernel of the port's own, whatever its
+rank) and the device's idle share.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
@@ -370,9 +377,72 @@ def zero_flash_counts(*wrappers):
 
 # -- phase 2: kernels against their plain versions -----------------------------
 
-def ragged_case(torch, np, name, nh, nkv, seed, poison=False, plant=False):
+def ragged_graph_times(torch, stem, call, pools, live_bytes, variants=None,
+                       rounds=1):
+    """Device time of one ragged call in a CUDA graph (graph_ms) on copies
+    of its pools used in turn, QMM_COLD_BYTES of live rows in all, so that
+    every launch reads its rows from device memory as the serve does, under
+    the shipped library of csrc/<stem>.cu and each of `variants` ({key:
+    library}, swapped into _build._libs in turn, `rounds` times). Returns
+    ({key: [ms a round]}, the number of pool copies)."""
+    from paddle_tpu_torch.kernels import _build
+    copies = max(2, math.ceil(QMM_COLD_BYTES / live_bytes))
+    sets = [pools] + [tuple(t.clone() for t in pools)
+                      for _ in range(copies - 1)]
+    calls = [(lambda p=p: call(*p)) for p in sets * 4]
+    libs = {"shipped": _build._libs[stem], **(variants or {})}
+    ms = {k: [] for k in libs}
+    try:
+        for _ in range(rounds):
+            for k, lib in libs.items():
+                _build._libs[stem] = lib
+                ms[k].append(graph_ms(torch, calls))
+    finally:
+        _build._libs[stem] = libs["shipped"]
+    del sets, calls
+    torch.cuda.empty_cache()
+    return ms, copies
+
+
+def ragged_record(rec, ms, copies, library_graph):
+    """The graph timings of a ragged case into its record: graph_ms (the
+    shipped kernel), each variant's median and rounds, bound_share."""
+    shipped = ms.pop("shipped")
+    rec.update({"graph_ms": statistics.median(shipped),
+                "graph_ms_runs": shipped,
+                "timing": "kernel_ms: CUDA events over 50 eager calls on one "
+                          "pool; graph_ms: CUDA graph, pool copies in turn",
+                "pool_copies": copies,
+                "library_graph_ms": library_graph})
+    rec["bound_share"] = rec["bound_ms"] / rec["graph_ms"]
+    if ms:
+        rec["variant_graph_ms"] = {k: statistics.median(v)
+                                   for k, v in ms.items()}
+        rec["variant_graph_ms_runs"] = ms
+
+
+def sdpa_graph_ms(torch, q4, kw, vw, mask, scale):
+    """SDPA on pre-gathered windows in a CUDA graph, on two copies of the
+    windows used in turn (each larger than the L2)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    wins = [(kw, vw), (kw.clone(), vw.clone())]
+    ms = graph_ms(torch, [(lambda k=k, v=v: sdpa(q4, k, v, attn_mask=mask,
+                                                 scale=scale))
+                          for k, v in wins * 4])
+    del wins
+    return ms
+
+
+def ragged_case(torch, np, name, nh, nkv, seed, poison=False, plant=False,
+                variants=None, rounds=1):
+    """The ragged kernel at the serve's shapes (8 slots, hd 128, bs 64, 32
+    blocks), bf16, against its plain version; two launches must agree bit
+    for bit. Timed by events over eager calls (kernel_ms, as the first
+    design was timed) and in a CUDA graph on pool copies (graph_ms, with the
+    library's graph time and any variant libraries: see
+    ragged_graph_times)."""
     from paddle_tpu_torch.kernels.ragged_paged_attention import (
-        ragged_hbm_bytes, ragged_paged_attention,
+        decode_cluster_size, ragged_hbm_bytes, ragged_paged_attention,
         ragged_paged_attention_plain)
     dev = torch.device("cuda")
     S, hd, bs, mb = 8, 128, 64, 32
@@ -424,7 +494,9 @@ def ragged_case(torch, np, name, nh, nkv, seed, poison=False, plant=False):
         tables = torch.where(live_blk, tables, 1 << 30)
     out = ragged_paged_attention(q, kp, vp, tables, seq, scale)
     ref = ragged_paged_attention_plain(q, kp, vp, tables, seq, scale)
+    again = ragged_paged_attention(q, kp, vp, tables, seq, scale)
     torch.cuda.synchronize()
+    check(bool(torch.equal(out, again)), f"{name}: two launches differ")
     err, ratio = bf16_err(out, ref)
     check(math.isfinite(ratio) and ratio <= 1.0,
           f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
@@ -460,6 +532,8 @@ def ragged_case(torch, np, name, nh, nkv, seed, poison=False, plant=False):
               ref)
     library_ms = cuda_ms(torch, lambda: sdpa(q4, kw, vw, attn_mask=mask,
                                              scale=scale), 20)
+    library_graph = sdpa_graph_ms(torch, q4, kw, vw, mask, scale)
+    del kw, vw
     itemsize = 2
     # the bytes the function needs: K and V of each token in the window
     # (the kernel loads no other), q in, o out, the live table entries and
@@ -470,6 +544,10 @@ def ragged_case(torch, np, name, nh, nkv, seed, poison=False, plant=False):
                    + 4 * int((lens // bs + 1).sum()) + 4 * S)
     flops = 4 * nh * hd * tokens
     bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    ms, copies = ragged_graph_times(
+        torch, "ragged_paged_attention",
+        lambda k, v: ragged_paged_attention(q, k, v, tables, seq, scale),
+        (kp, vp), bytes_moved, variants, rounds)
     rec = {"phase": "kernel_check", "kernel": "ragged_paged_attention",
            "case": name, "dtype": "bfloat16", "slots": S, "nh": nh,
            "nkv": nkv, "hd": hd, "block_size": bs,
@@ -482,8 +560,12 @@ def ragged_case(torch, np, name, nh, nkv, seed, poison=False, plant=False):
            "bytes": bytes_moved, "flops": flops,
            # block-granular accounting of the JAX package's helper
            "ragged_hbm_bytes": ragged_hbm_bytes(lens, bs, nkv, hd,
-                                                itemsize)}
+                                                itemsize),
+           "cluster_size": decode_cluster_size(S, nh, nkv, hd, q.dtype)}
+    ragged_record(rec, ms, copies, library_graph)
     emit(rec)
+    del kp, vp
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -766,25 +848,29 @@ def qmm_case(torch, name, m, k, n, qdtype, x_dtype, seed):
 def build_variants(out, variants):
     """Extra builds of csrc sources for the cost modes, nvcc started for all
     at once, into the directory `out`. variants maps a key to (source stem,
-    its module's _SIG, extra nvcc flags, edit): edit is None or (text,
-    replacement), made once in a copy of the source. Returns {key: the
-    library, bound as _build.load binds it}, ready to swap into
-    _build._libs."""
+    its module's _SIG, extra nvcc flags, edit): the stem names
+    csrc/<stem>.cu, or is the path of a .cu elsewhere (a parent commit's
+    source, its headers beside it); edit is None or (text, replacement),
+    made once in a copy of the source. Returns {key: the library, bound as
+    _build.load binds it}, ready to swap into _build._libs."""
     import ctypes
     from paddle_tpu_torch.kernels import _build
     os.makedirs(out, exist_ok=True)
     jobs = {}
     for key, (stem, _, flags, edit) in variants.items():
         tag = "-".join(map(str, key if isinstance(key, tuple) else (key,)))
-        src = str(_build.CSRC / f"{stem}.cu")
+        src = (stem if stem.endswith(".cu")
+               else str(_build.CSRC / f"{stem}.cu"))
+        name = os.path.basename(src)[:-3]
         if edit is not None:
-            text = (_build.CSRC / f"{stem}.cu").read_text()
+            with open(src) as fh:
+                text = fh.read()
             check(text.count(edit[0]) == 1,
-                  f"build {tag}: its text is not in {stem}.cu once")
-            src = os.path.join(out, f"{stem}-{tag}.cu")
+                  f"build {tag}: its text is not in {name}.cu once")
+            src = os.path.join(out, f"{name}-{tag}.cu")
             with open(src, "w") as fh:
                 fh.write(text.replace(*edit))
-        so = os.path.join(out, f"lib{stem}-{tag}.so")
+        so = os.path.join(out, f"lib{name}-{tag}.so")
         jobs[key] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
              str(_build.CSRC), "-o", so, src],
@@ -871,17 +957,85 @@ def gemv_cost(torch, seed):
     return rec
 
 
+# --ragged-cost: copies of the two ragged sources built with the decode
+# body's cost switches (csrc/ragged_decode.cuh: PTT_RAGGED_COST 1 leaves
+# out the arithmetic on the staged rows, 2 the copies into the ring; their
+# outputs are wrong and unchecked) and with a fixed cluster size in place
+# of the body's rule (PTT_RAGGED_CLUSTER)
+RAGGED_COST_BUILDS = {"no_math": ("-DPTT_RAGGED_COST=1",),
+                      "no_loads": ("-DPTT_RAGGED_COST=2",),
+                      **{f"cluster{c}": (f"-DPTT_RAGGED_CLUSTER={c}",)
+                         for c in (1, 2, 4, 8)}}
+RAGGED_STEMS = ("ragged_paged_attention", "ragged_paged_attention_quant")
+
+
+def ragged_fwd_sigs():
+    """{stem: its launch entry's signature}: what a parent commit's
+    library also has."""
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    return {stem: {f"{stem}_fwd": sig[f"{stem}_fwd"]}
+            for stem, sig in zip(RAGGED_STEMS, (rpa._SIG, rpa._QSIG))}
+
+
+def parent_ragged_libs(parent):
+    """The parent commit's two ragged libraries, built from its checkout at
+    `parent` (its csrc beside them): {stem: library}."""
+    from paddle_tpu_torch.kernels import _build
+    csrc = os.path.join(parent, "paddle_tpu_torch", "csrc")
+    return build_variants(
+        os.path.join(str(_build.BUILD_DIR), "parent"),
+        {stem: (os.path.join(csrc, f"{stem}.cu"), sig, (), None)
+         for stem, sig in ragged_fwd_sigs().items()})
+
+
+def ragged_cost(torch, np, parent=None):
+    """--ragged-cost: what holds the two ragged kernels. Each source is
+    built again per RAGGED_COST_BUILDS (and from the parent's checkout with
+    --parent); the main cases (MHA and GQA, bf16 and int8 pools) run on
+    every build in turn, three rounds, timed in a CUDA graph on pool
+    copies as ragged_case times them. Prints one line: each case's median
+    ms by build, its bound and the shipped build's cluster size."""
+    from paddle_tpu_torch.kernels import _build
+    sigs = ragged_fwd_sigs()
+    libs = build_variants(
+        os.path.join(str(_build.BUILD_DIR), "ragged_cost"),
+        {(stem, b): (stem, sigs[stem], flags, None)
+         for stem in RAGGED_STEMS for b, flags in RAGGED_COST_BUILDS.items()})
+    variants = {stem: {b: libs[(stem, b)] for b in RAGGED_COST_BUILDS}
+                for stem in RAGGED_STEMS}
+    if parent:
+        for stem, lib in parent_ragged_libs(parent).items():
+            variants[stem]["parent"] = lib
+    rows, quant = variants.values()
+    recs = [ragged_case(torch, np, "mha_32x32", 32, 32, 11, variants=rows,
+                        rounds=3),
+            ragged_case(torch, np, "gqa_32x8", 32, 8, 12, variants=rows,
+                        rounds=3),
+            ragged_quant_case(torch, np, "quant_mha_32x32", 32, 32, 21,
+                              variants=quant, rounds=3),
+            ragged_quant_case(torch, np, "quant_gqa_32x8", 32, 8, 22,
+                              variants=quant, rounds=3)]
+    rec = {"phase": "ragged_cost", "builds": ["shipped", *rows]}
+    for r in recs:
+        rec[f"{r['kernel']}:{r['case']}"] = {
+            "ms": {"shipped": r["graph_ms"], **r["variant_graph_ms"]},
+            "bound_ms": r["bound_ms"], "cluster_size": r["cluster_size"]}
+    emit(rec)
+    return rec
+
+
 def ragged_quant_case(torch, np, name, nh, nkv, seed, poison=False,
-                      plant=False):
+                      plant=False, variants=None, rounds=1):
     """The quantized ragged kernel at the serve's shapes (8 slots, hd 128,
     bs 64, 32 blocks), pools quantized from bf16 draws with
     kv_quantize_rows, against its plain version; tolerance as the ragged
     case. poison: code 127 and NaN scales at every position past each
     seq_len (inside the live block too) and garbage table entries past
-    it; the output must equal the clean run's, bit for bit."""
+    it; the output must equal the clean run's, bit for bit. Two launches
+    must agree bit for bit; timed as ragged_case times."""
     from paddle_tpu_torch.kernels.ragged_paged_attention import (
-        kv_dequantize_rows, kv_quantize_rows, ragged_paged_attention_quant,
-        ragged_paged_attention_quant_plain)
+        decode_cluster_size, kv_dequantize_rows, kv_quantize_rows,
+        ragged_paged_attention_quant, ragged_paged_attention_quant_plain)
     dev = torch.device("cuda")
     S, hd, bs, mb = 8, 128, 64, 32
     W = mb * bs
@@ -933,7 +1087,9 @@ def ragged_quant_case(torch, np, name, nh, nkv, seed, poison=False,
         tables = torch.where(live_blk, tables, 1 << 30)
     out = ragged_paged_attention_quant(*args(), scale)
     ref = ragged_paged_attention_quant_plain(*args(), scale)
+    again = ragged_paged_attention_quant(*args(), scale)
     torch.cuda.synchronize()
+    check(bool(torch.equal(out, again)), f"{name}: two launches differ")
     err, ratio = bf16_err(out, ref)
     check(math.isfinite(ratio) and ratio <= 1.0,
           f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
@@ -968,6 +1124,8 @@ def ragged_quant_case(torch, np, name, nh, nkv, seed, poison=False,
               ref)
     library_ms = cuda_ms(torch, lambda: sdpa(q4, kw, vw, attn_mask=mask,
                                              scale=scale), 20)
+    library_graph = sdpa_graph_ms(torch, q4, kw, vw, mask, scale)
+    del kw, vw
     # per token: K and V codes of every kv head plus one float32 scale
     # each; then q in, o out, the live table entries and seq_lens
     tokens = int((np.minimum(lens, W - 1).astype(np.int64) + 1).sum())
@@ -975,6 +1133,11 @@ def ragged_quant_case(torch, np, name, nh, nkv, seed, poison=False,
                    + 4 * int((lens // bs + 1).sum()) + 4 * S)
     flops = 4 * nh * hd * tokens
     bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    ms, copies = ragged_graph_times(
+        torch, "ragged_paged_attention_quant",
+        lambda a, b, c, d: ragged_paged_attention_quant(
+            q, a, b, c, d, tables, seq, scale),
+        (kc, ks, vc, vs), bytes_moved, variants, rounds)
     rec = {"phase": "kernel_check", "kernel": "ragged_paged_attention_quant",
            "case": name, "dtype": "bfloat16 q, int8 pool", "slots": S,
            "nh": nh, "nkv": nkv, "hd": hd, "block_size": bs,
@@ -985,8 +1148,13 @@ def ragged_quant_case(torch, np, name, nh, nkv, seed, poison=False,
            "library": "scaled_dot_product_attention on a pre-gathered, "
                       "dequantized bf16 window",
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes": bytes_moved, "flops": flops}
+           "bytes": bytes_moved, "flops": flops,
+           "cluster_size": decode_cluster_size(S, nh, nkv, hd, q.dtype,
+                                               quant=True)}
+    ragged_record(rec, ms, copies, library_graph)
     emit(rec)
+    del kc, ks, vc, vs
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1358,6 +1526,7 @@ def profile_phase(torch, model, reqs, phase="profile", **engine_kw):
     engine's configuration (serve_quant's, serve_long's)."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    PORT_KERNEL = port_kernel_pattern()
     kw = dict(max_len=2048, block_size=64, max_slots=8, num_blocks=257)
     kw.update(engine_kw)
     dec = PagedDecoder(model, **kw)
@@ -1381,11 +1550,26 @@ def profile_phase(torch, model, reqs, phase="profile", **engine_kw):
            "device_busy_s": busy_s if rows else "not measured",
            "device_idle_share": 1 - busy_s / wall if rows
            else "not measured",
-           "top_device_kernels": top_kernels(rows, busy_s, 12)}
+           "top_device_kernels": top_kernels(rows, busy_s, 12),
+           # the port's own kernels, whatever their rank
+           "port_kernels": top_kernels(
+               [r for r in rows if PORT_KERNEL.search(r[1])], busy_s,
+               len(rows))}
     emit(rec)
     del dec
     torch.cuda.empty_cache()
     return rec
+
+
+def port_kernel_pattern():
+    """A pattern that finds the name of any of the port's CUDA kernels
+    (every __global__ function in csrc/) in a profiler's kernel name."""
+    from paddle_tpu_torch.kernels import _build
+    decl = (r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*"
+            r"\)\s*)?(\w+)\s*\(")
+    names = {n for f in _build.CSRC.glob("*.cu*")
+             for n in re.findall(decl, f.read_text())}
+    return re.compile(rf"\b({'|'.join(sorted(names))})\b")
 
 
 def device_kernel_rows(prof):
@@ -3674,6 +3858,15 @@ def main():
                     help="only build the kernels and time the tensor-core "
                          "GEMV without its products and without its code "
                          "reads (extra builds), then exit")
+    ap.add_argument("--ragged-cost", action="store_true",
+                    help="only build the kernels and time the two ragged "
+                         "kernels without their arithmetic, without their "
+                         "loads and at fixed cluster sizes (extra builds), "
+                         "then exit")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: its two ragged "
+                         "kernels are built and timed beside the shipped "
+                         "ones, the same way, in the ragged cases")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -3732,9 +3925,20 @@ def main():
         gemv_cost(torch, args.seed + 70)
         print(card, flush=True)
         return 0
+    if args.ragged_cost:
+        ragged_cost(torch, np, args.parent)
+        print(card, flush=True)
+        return 0
 
-    ragged_main = ragged_case(torch, np, "mha_32x32", 32, 32, 11)
-    ragged_case(torch, np, "gqa_32x8", 32, 8, 12)
+    # with --parent, the parent commit's two ragged kernels are timed beside
+    # the shipped ones in the main cases
+    parent = ({stem: {"parent": lib} for stem, lib in
+               parent_ragged_libs(args.parent).items()}
+              if args.parent else dict.fromkeys(RAGGED_STEMS))
+    ragged_main = ragged_case(torch, np, "mha_32x32", 32, 32, 11,
+                              variants=parent["ragged_paged_attention"])
+    ragged_case(torch, np, "gqa_32x8", 32, 8, 12,
+                variants=parent["ragged_paged_attention"])
     ragged_case(torch, np, "nan_poison", 32, 32, 13, poison=True)
     ragged_case(torch, np, "last_token_gqa_32x8", 32, 8, 14, plant=True)
     # the forward: bf16 at D 64 and 128 on the tensor-core kernel, with
@@ -3807,8 +4011,11 @@ def main():
         check(rec["route"] == (("gemv_tc" if bf16 else "rows") if m <= 32
                                else "wgmma" if bf16 else "tiled"),
               f"{name}: routed to {rec['route']}")
-    rquant_main = ragged_quant_case(torch, np, "quant_mha_32x32", 32, 32, 21)
-    ragged_quant_case(torch, np, "quant_gqa_32x8", 32, 8, 22)
+    rquant_main = ragged_quant_case(
+        torch, np, "quant_mha_32x32", 32, 32, 21,
+        variants=parent["ragged_paged_attention_quant"])
+    ragged_quant_case(torch, np, "quant_gqa_32x8", 32, 8, 22,
+                      variants=parent["ragged_paged_attention_quant"])
     ragged_quant_case(torch, np, "quant_nan_poison", 32, 32, 23, poison=True)
     ragged_quant_case(torch, np, "quant_last_token_gqa_32x8", 32, 8, 24,
                       plant=True)
@@ -4013,13 +4220,16 @@ def main():
              "paddle_tpu/kernels/pallas/fused_elementwise.py:168",
              sm_bwd_main, rowwise["launches"]["masked_softmax_bwd"])):
         check(launches > 0, f"{name} never ran on the main path")
+        # a kernel timed in a CUDA graph gives that time, and its library's
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": rec["max_abs_err"],
-                        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                        "ms": rec.get("graph_ms", rec["kernel_ms"]),
+                        "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"]})
+                        "library_ms": rec.get("library_graph_ms",
+                                              rec["library_ms"])})
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,10 @@ what bounds it and how it is laid out:
   ``csrc/ragged_paged_attention.cu``;
 - ``ragged_paged_attention_quant`` (Pallas `_qkernel`), over an int8 pool
   of codes and one float32 scale per token row (``kv_quantize_rows``):
-  ``csrc/ragged_paged_attention_quant.cu``;
+  ``csrc/ragged_paged_attention_quant.cu``. These two are instances of
+  one body, ``csrc/ragged_decode.cuh``, which splits each slot's window
+  over a thread-block cluster by a plan it makes from the device's
+  seq_lens (``decode_stage_tokens`` and ``decode_split`` mirror it);
 - ``ragged_paged_attention_partials`` (Pallas `_pkernel`), the per-shard
   online-softmax partials that ``ragged_paged_attention_sharded`` merges
   by the lse rescale: ``csrc/ragged_paged_attention_partials.cu``. All
@@ -37,7 +40,8 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_paged_attention_sharded", "merge_partials",
            "kv_quantize_rows", "kv_dequantize_rows", "kv_row_error_bound",
            "ragged_hbm_bytes", "dense_gather_hbm_bytes", "HEAD_DIMS",
-           "GROUP_SIZES"]
+           "GROUP_SIZES", "decode_stage_tokens", "decode_split",
+           "decode_cluster_size"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -45,10 +49,12 @@ GROUP_SIZES = (1, 2, 4, 8)        # query heads per kv head the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"ragged_paged_attention_fwd":
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "ragged_paged_attention_cluster": [ctypes.c_int] * 5}
 _QSIG = {"ragged_paged_attention_quant_fwd":
          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+         "ragged_paged_attention_quant_cluster": [ctypes.c_int] * 5}
 _PSIG = {"ragged_paged_attention_partials_fwd":
          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
@@ -131,6 +137,9 @@ def _check(q, kpool, vpool, tables, seq_lens, pool_dtype=None):
     for t in (kpool, vpool):
         if not t.is_contiguous():
             raise ValueError("pools must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("pools must be 16-byte aligned (the kernel "
+                             "copies whole rows in 16-byte pieces)")
 
 
 def ragged_paged_attention(q, kpool, vpool, tables, seq_lens, scale=None):
@@ -169,6 +178,50 @@ def ragged_paged_attention(q, kpool, vpool, tables, seq_lens, scale=None):
 
 
 ragged_paged_attention.launches = 0
+
+
+# -- the decode body's plan (csrc/ragged_decode.cuh), mirrored -------------
+# A block of the kernel's cluster takes a run of stages of TS tokens; TS is
+# set by the instance's layout: G lanes a key (8..32, so that a lane's q
+# columns stay within 32 registers and a vector load is at least 8 bytes),
+# 32 / G keys a warp at once, U of them a group a stage, about 2 KB of K a
+# stage.
+
+def decode_stage_tokens(hd, itemsize, nrep):
+    """TS, the tokens of one ring stage of the decode body for head dim
+    hd, a pool of ``itemsize``-byte elements (1 for int8 codes) and nrep
+    query heads per kv head (`Cfg::TS` in csrc/ragged_decode.cuh)."""
+    g = min(32, hd * itemsize // 8, max(8, nrep * hd // 32))
+    ngw = 32 // g
+    return ngw * max(1, min(4, 2048 // (ngw * hd * itemsize)))
+
+
+def decode_split(seq_len, mb, bs, splits, ts):
+    """The token runs [a, b) the kernel's cluster ranks 0..splits-1 take
+    of one slot's window (positions 0..min(seq_len, mb * bs - 1)): the
+    window's tokens in units of ts, split evenly; an empty run has a ==
+    b."""
+    n = min(int(seq_len), mb * bs - 1) + 1
+    units = -(-n // ts) if n > 0 else 0
+    runs = []
+    for c in range(splits):
+        u0, u1 = c * units // splits, (c + 1) * units // splits
+        runs.append((u0 * ts, max(u0 * ts, min(u1 * ts, n))))
+    return runs
+
+
+def decode_cluster_size(S, nh, nkv, hd, dtype, quant=False):
+    """The cluster size (1-8) the kernel takes for these shapes on the
+    current card: the largest whose S * nkv clusters all fit at once.
+    dtype is q's (float32 or bfloat16). Needs the card."""
+    name = ("ragged_paged_attention_quant" if quant
+            else "ragged_paged_attention")
+    lib = _build.load(name, _QSIG if quant else _SIG)
+    c = getattr(lib, f"{name}_cluster")(S, nh, nkv, hd, _DTYPE_CODE[dtype])
+    if c < 1:
+        raise RuntimeError(f"{name}: cluster size query failed: CUDA error "
+                           f"{-c}")
+    return c
 
 
 # -- int8 paged KV: the per-row codec and its kernel --------------------------

@@ -51,10 +51,10 @@ from paddle_tpu_torch.incubate import softmax_mask_fuse_upper_triangle
 from paddle_tpu_torch.incubate.nn.functional import (
     fused_rms_norm, fused_rotary_position_embedding)
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
-    kv_quantize_rows, merge_partials, ragged_paged_attention,
-    ragged_paged_attention_partials, ragged_paged_attention_partials_plain,
-    ragged_paged_attention_plain, ragged_paged_attention_quant,
-    ragged_paged_attention_quant_plain)
+    decode_cluster_size, kv_quantize_rows, merge_partials,
+    ragged_paged_attention, ragged_paged_attention_partials,
+    ragged_paged_attention_partials_plain, ragged_paged_attention_plain,
+    ragged_paged_attention_quant, ragged_paged_attention_quant_plain)
 
 TOLS = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
 
@@ -961,6 +961,109 @@ def test_ragged_quant_kernel_never_reads_past_seq_lens(cuda_device):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert torch.equal(out, clean)
+
+
+# -- the clustered decode body (csrc/ragged_decode.cuh), both pools -------------
+#
+# Held element by element: float32 |out - ref| <= 1e-4 (summation order
+# only: the kernel sums each split's keys online, the plain version the
+# whole window at once); bf16 q and output one bf16 ulp, 2^-7 |ref| + 1e-4
+# (both compute in float32 from the same inputs and round once).
+
+def _decode_close(out, ref):
+    d = (out.float() - ref.float()).abs()
+    rtol = 2.0 ** -7 if out.dtype == torch.bfloat16 else 0.0
+    return bool((d <= rtol * ref.float().abs() + 1e-4).all())
+
+
+def _decode_call(kind, dev, seed, nh, nkv, hd, bs, mb, lens, dt):
+    """(kernel, plain) closures of one kernel on seeded inputs: the bf16 or
+    float32 pool, or the int8 pool with q of dtype dt."""
+    if kind == "rows":
+        q, kp, vp, tables, seq = _ragged_inputs(dev, seed, nh, nkv, hd, bs,
+                                                mb, lens)
+        args = (q.to(dt), kp.to(dt), vp.to(dt), tables, seq)
+        return (lambda: ragged_paged_attention(*args, scale=hd ** -0.5),
+                lambda: ragged_paged_attention_plain(*args, hd ** -0.5))
+    q, kc, ks, vc, vs, tables, seq = _quant_inputs(dev, seed, nh, nkv, hd,
+                                                   bs, mb, lens)
+    args = (q.to(dt), kc, ks, vc, vs, tables, seq)
+    return (lambda: ragged_paged_attention_quant(*args, scale=hd ** -0.5),
+            lambda: ragged_paged_attention_quant_plain(*args, hd ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rows", "quant"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nrep", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_ragged_decode_matches_plain(cuda_device, kind, dt, nrep, hd):
+    """Every instance of the body: lengths at the edges of a page (16
+    tokens) and of a stage, one token, the whole table."""
+    bs, mb, nkv = 16, 8, 2
+    lens = [0, 1, bs - 1, bs, 77, mb * bs - 1]
+    kernel, plain = _decode_call(kind, cuda_device, hd + nrep, nkv * nrep,
+                                 nkv, hd, bs, mb, lens, dt)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    assert out.dtype == dt
+    assert _decode_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rows", "quant"])
+def test_ragged_decode_empty_splits(cuda_device, kind):
+    """Few clusters take the largest size, so one- and two-token windows
+    leave most ranks of their cluster without a token."""
+    nh = nkv = 4
+    hd, bs, mb = 128, 16, 8
+    C = decode_cluster_size(3, nh, nkv, hd, torch.bfloat16,
+                            quant=kind == "quant")
+    assert C == 8
+    kernel, plain = _decode_call(kind, cuda_device, 3, nh, nkv, hd, bs, mb,
+                                 [0, 1, 20], torch.bfloat16)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _decode_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rows", "quant"])
+@pytest.mark.parametrize("nh,nkv", [(32, 32), (32, 8)])
+def test_ragged_decode_gives_the_same_bits_twice(cuda_device, kind, nh, nkv):
+    """The serve's shapes: 8 slots, hd 128, pages of 64 (rank-order merge,
+    no atomics)."""
+    bs, mb = 64, 32
+    lens = [0, 63, 64, 300, 1000, 1500, 2000, 2047]
+    kernel, _ = _decode_call(kind, cuda_device, nh + nkv, nh, nkv, 128, bs,
+                             mb, lens, torch.bfloat16)
+    a, b = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rows", "quant"])
+def test_ragged_decode_replays_in_a_cuda_graph(cuda_device, kind):
+    """One launch a call, captured in a CUDA graph: the replay writes what
+    an eager call gives, and the wrapper counts the captured launch."""
+    nh, nkv, bs, mb = 16, 4, 16, 8
+    kernel, _ = _decode_call(kind, cuda_device, 7, nh, nkv, 128, bs, mb,
+                             [5, 40, 127], torch.bfloat16)
+    wrapper = (ragged_paged_attention if kind == "rows"
+               else ragged_paged_attention_quant)
+    eager = kernel()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel()
+    assert wrapper.launches == before + 1
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda

@@ -134,3 +134,142 @@ def test_wrapper_counts_only_kernel_launches():
     _port(*_case(9, 4, 2, 16, 8, 2, [3, 9]))
     assert ragged_paged_attention.launches == before
 
+
+
+# -- the clustered decode body's plan and arithmetic (csrc/ragged_decode.cuh)
+#
+# The kernel cuts each slot's window into `splits` runs of whole stages
+# (decode_split), deals a run's stages of ts tokens to 4 warps in turn,
+# keeps an online softmax per warp (one rescale a stage), merges the warps
+# in order and then the cluster's ranks in rank order. The emulation below
+# does the same in float32 with torch; against the JAX kernel in interpret
+# mode it is held to the float32 tolerance above (summation order only).
+
+from paddle_tpu_torch.kernels.ragged_paged_attention import (  # noqa: E402
+    GROUP_SIZES, HEAD_DIMS, decode_split, decode_stage_tokens)
+
+NEG = -1e30
+
+
+def _merge(parts):
+    """Online-softmax states (m [R], l [R], acc [R, hd]) merged in order."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for pm, pl_, pa in parts:
+        f = torch.exp(pm - m)
+        l = l + pl_ * f
+        acc = acc + pa * f[:, None]
+    return m, l, acc
+
+
+def _decode_emulation(q, kw, vw, lens, scale, splits, ts, bs, mb,
+                      ks=None, vs=None, warps=4):
+    """The kernel's arithmetic in float32. kw, vw [S, W, nkv, hd]: each
+    slot's window gathered through its table (int8 codes as float); ks, vs
+    [S, W]: the row scales of an int8 pool, else None."""
+    q = torch.as_tensor(q, dtype=torch.float32)
+    kw = torch.as_tensor(kw, dtype=torch.float32)
+    vw = torch.as_tensor(vw, dtype=torch.float32)
+    S, nh, hd = q.shape
+    nkv = kw.shape[2]
+    nrep = nh // nkv
+    out = torch.zeros(S, nh, hd)
+    for s in range(S):
+        runs = decode_split(int(lens[s]), mb, bs, splits, ts)
+        for g in range(nkv):
+            qs = q[s, g * nrep:(g + 1) * nrep] * scale
+            ranks = []
+            for a, b in runs:
+                state = [(torch.full((nrep,), NEG), torch.zeros(nrep),
+                          torch.zeros(nrep, hd)) for _ in range(warps)]
+                for i, t0 in enumerate(range(a, b, ts)):
+                    t1 = min(t0 + ts, b)
+                    sc = qs @ kw[s, t0:t1, g].T                 # [R, T]
+                    if ks is not None:
+                        sc = sc * torch.as_tensor(ks[s, t0:t1])
+                    m, l, acc = state[i % warps]
+                    m_new = torch.maximum(m, sc.amax(1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    pv = p if vs is None else p * torch.as_tensor(vs[s, t0:t1])
+                    state[i % warps] = (m_new, l * alpha + p.sum(1),
+                                        acc * alpha[:, None]
+                                        + pv @ vw[s, t0:t1, g])
+                ranks.append(_merge(state))
+            _, l, acc = _merge(ranks)
+            out[s, g * nrep:(g + 1) * nrep] = acc / l[:, None]
+    return out.numpy()
+
+
+def _windows(kp, vp, tables):
+    S, mb = tables.shape
+    bs, nkv, hd = kp.shape[1:]
+    return (kp[tables].reshape(S, mb * bs, nkv, hd),
+            vp[tables].reshape(S, mb * bs, nkv, hd))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("ts", [2, 16])
+def test_decode_emulation_matches_jax_kernel(splits, ts):
+    """Lengths at every page edge, one token (its other splits empty) and
+    the whole table; at 8 splits more ranks than live pages."""
+    nh, nkv, hd, bs, mb = 4, 2, 16, 8, 4
+    lens = [0, 1, bs - 1, bs, 2 * bs - 1, 2 * bs, 3 * bs + 2, mb * bs - 1]
+    q, kp, vp, tables, lens = _case(60 + splits, nh, nkv, hd, bs, mb, lens)
+    kw, vw = _windows(kp, vp, tables)
+    got = _decode_emulation(q, kw, vw, lens, hd ** -0.5, splits, ts, bs, mb)
+    np.testing.assert_allclose(got, _jax(q, kp, vp, tables, lens), atol=TOL,
+                               rtol=TOL)
+
+
+def test_decode_emulation_one_token_window_many_empty_ranks():
+    nh, nkv, hd, bs, mb = 8, 1, 16, 8, 4
+    q, kp, vp, tables, lens = _case(81, nh, nkv, hd, bs, mb, [0, 0])
+    kw, vw = _windows(kp, vp, tables)
+    runs = decode_split(0, mb, bs, 8, 2)
+    assert sum(b > a for a, b in runs) == 1
+    got = _decode_emulation(q, kw, vw, lens, hd ** -0.5, 8, 2, bs, mb)
+    np.testing.assert_allclose(got, _jax(q, kp, vp, tables, lens), atol=TOL,
+                               rtol=TOL)
+    # one token: the output is its V row, for every query head
+    np.testing.assert_allclose(
+        got[0], np.broadcast_to(vp[tables[0, 0], 0, 0], (nh, hd)), atol=TOL)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 8])
+@pytest.mark.parametrize("ts", [1, 4, 16])
+@pytest.mark.parametrize("bs,mb", [(8, 4), (64, 32)])
+def test_decode_split_covers_each_live_token_once(splits, ts, bs, mb):
+    """The Python mirror of the kernel's plan: the runs, in rank order,
+    tile the live window 0..min(seq_len, mb * bs - 1) exactly, start at
+    whole stages, and reach no position (so no page, no table entry) past
+    the live one; ranks beyond the window's stages get an empty run."""
+    for seq_len in [0, 1, bs - 1, bs, bs + 1, 3 * bs, mb * bs - 1,
+                    mb * bs + 5]:
+        n = min(seq_len, mb * bs - 1) + 1
+        runs = decode_split(seq_len, mb, bs, splits, ts)
+        assert len(runs) == splits
+        covered = [t for a, b in runs for t in range(a, b)]
+        assert covered == list(range(n))
+        assert all(a % ts == 0 and a <= b <= n for a, b in runs)
+        pages = {t // bs for t in covered}
+        assert max(pages) == (n - 1) // bs
+        units = -(-n // ts)
+        assert sum(b > a for a, b in runs) == min(splits, units)
+
+
+def test_decode_stage_tokens_fit_the_kernel_layout():
+    """TS of every instance the kernel builds: at most 32 tokens, whole
+    warps of 16-byte copies a stage, about 2 KB of K a stage (at least one
+    key a group), as csrc/ragged_decode.cuh's static_asserts demand."""
+    for hd in HEAD_DIMS:
+        for nrep in GROUP_SIZES:
+            for item in (4, 2, 1):
+                ts = decode_stage_tokens(hd, item, nrep)
+                g = min(32, hd * item // 8, max(8, nrep * hd // 32))
+                assert ts % (32 // g) == 0 and 1 <= ts <= 32
+                assert (ts * hd * item // 16) % 32 == 0
+                assert 1024 <= ts * hd * item <= 4096
+    assert decode_stage_tokens(128, 2, 1) == 8      # the serve's bf16 pool
+    assert decode_stage_tokens(128, 1, 1) == 16     # its int8 pool

@@ -155,3 +155,31 @@ def test_bf16_query_and_checks():
     ref = ragged_paged_attention_quant_plain(q, kc, ks, vc, vs, tables,
                                              lens, 64 ** -0.5)
     assert (out.float() - ref).abs().max() < 2e-2
+
+
+# -- the clustered decode body over the int8 pool ----------------------------
+# The float32 emulation of the kernel's plan and rank-order merge
+# (tests/test_torch_ragged_paged_attention.py), with the row scale on the
+# finished q.k dot and on p, against the JAX `_qkernel` in interpret mode.
+
+from test_torch_ragged_paged_attention import (  # noqa: E402
+    _decode_emulation)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("ts", [4, 16])
+def test_decode_emulation_matches_jax_qkernel(splits, ts):
+    """Lengths at every page edge, one token and the whole table, MHA and
+    GQA; at 8 splits more ranks than live pages."""
+    bs, mb = 8, 4
+    lens = [0, 1, bs - 1, bs, 2 * bs - 1, 2 * bs, 3 * bs + 2, mb * bs - 1]
+    for nh, nkv in ((4, 4), (4, 2)):
+        args = _case(30 + splits + nh + nkv, nh, nkv, 16, bs, mb, lens)
+        q, kc, ks, vc, vs, tables, lens_ = args
+        S = len(lens)
+        got = _decode_emulation(
+            q, kc[tables].reshape(S, mb * bs, nkv, 16),
+            vc[tables].reshape(S, mb * bs, nkv, 16), lens_, 16 ** -0.5,
+            splits, ts, bs, mb, ks=ks[tables].reshape(S, mb * bs),
+            vs=vs[tables].reshape(S, mb * bs))
+        np.testing.assert_allclose(got, _jax(*args), atol=TOL, rtol=TOL)
