@@ -18,8 +18,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    time the card could take: ragged attention (its time also in a CUDA
    graph over pool copies used in turn, beside SDPA's, with the cluster
    size the kernel took and its share of the bound; with --parent DIR the
-   parent commit's two ragged kernels, built from that checkout, are timed
-   the same way in the same cases); the flash forward on its
+   parent commit's three ragged kernels, built from that checkout, are
+   timed the same way in the same cases); the flash forward on its
    tensor-core kernel (bf16 at D 64 and 128, S 1000 tails, generate's
    prefill shape) and on its CUDA-core kernel (float32, and bf16 at D
    256), each case naming its route, rate and share of its bound; then
@@ -30,7 +30,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gate_up and down products, int8 and fp8, and a 777-row one whose last
    m-tile is partial: the tensor-core product; float32 gate_up at 1024
    rows: the CUDA-core tile; each case names its route and rate), ragged
-   attention over the int8 pool and the split-context partials;
+   attention over the int8 pool and the split-context partials (at
+   serve_long's shapes, MHA and GQA, timed as the ragged cases, and with
+   NaN past every window);
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
    seeded torch.Generator) on 16 requests: every request gets its budget
    and the ragged kernel ran once per layer per decode step;
@@ -161,7 +163,8 @@ serve_long's engines), two train steps, two train_moe steps and three
 passes of each packed-attention path and of rowwise_attn also run under
 torch.profiler, and one more line for each gives the device time by
 kernel (for a serve also every kernel of the port's own, whatever its
-rank) and the device's idle share.
+rank) and the device's idle share. With --parent too, serve_long's
+profile runs again on the parent's partials kernel.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
 2^-7 |ref| + 1e-4. Kernel and plain version both compute in float32 from
@@ -957,7 +960,7 @@ def gemv_cost(torch, seed):
     return rec
 
 
-# --ragged-cost: copies of the two ragged sources built with the decode
+# --ragged-cost: copies of the three ragged sources built with the decode
 # body's cost switches (csrc/ragged_decode.cuh: PTT_RAGGED_COST 1 leaves
 # out the arithmetic on the staged rows, 2 the copies into the ring; their
 # outputs are wrong and unchecked) and with a fixed cluster size in place
@@ -966,7 +969,8 @@ RAGGED_COST_BUILDS = {"no_math": ("-DPTT_RAGGED_COST=1",),
                       "no_loads": ("-DPTT_RAGGED_COST=2",),
                       **{f"cluster{c}": (f"-DPTT_RAGGED_CLUSTER={c}",)
                          for c in (1, 2, 4, 8)}}
-RAGGED_STEMS = ("ragged_paged_attention", "ragged_paged_attention_quant")
+RAGGED_STEMS = ("ragged_paged_attention", "ragged_paged_attention_quant",
+                "ragged_paged_attention_partials")
 
 
 def ragged_fwd_sigs():
@@ -974,12 +978,13 @@ def ragged_fwd_sigs():
     library also has."""
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     return {stem: {f"{stem}_fwd": sig[f"{stem}_fwd"]}
-            for stem, sig in zip(RAGGED_STEMS, (rpa._SIG, rpa._QSIG))}
+            for stem, sig in zip(RAGGED_STEMS,
+                                 (rpa._SIG, rpa._QSIG, rpa._PSIG))}
 
 
 def parent_ragged_libs(parent):
-    """The parent commit's two ragged libraries, built from its checkout at
-    `parent` (its csrc beside them): {stem: library}."""
+    """The parent commit's three ragged libraries, built from its checkout
+    at `parent` (its csrc beside them): {stem: library}."""
     from paddle_tpu_torch.kernels import _build
     csrc = os.path.join(parent, "paddle_tpu_torch", "csrc")
     return build_variants(
@@ -989,12 +994,13 @@ def parent_ragged_libs(parent):
 
 
 def ragged_cost(torch, np, parent=None):
-    """--ragged-cost: what holds the two ragged kernels. Each source is
+    """--ragged-cost: what holds the three ragged kernels. Each source is
     built again per RAGGED_COST_BUILDS (and from the parent's checkout with
-    --parent); the main cases (MHA and GQA, bf16 and int8 pools) run on
-    every build in turn, three rounds, timed in a CUDA graph on pool
-    copies as ragged_case times them. Prints one line: each case's median
-    ms by build, its bound and the shipped build's cluster size."""
+    --parent); the main cases (MHA and GQA, bf16 and int8 pools, and the
+    4-shard partials) run on every build in turn, three rounds, timed in a
+    CUDA graph on pool copies as ragged_case times them. Prints one line:
+    each case's median ms by build, its bound and the shipped build's
+    cluster size."""
     from paddle_tpu_torch.kernels import _build
     sigs = ragged_fwd_sigs()
     libs = build_variants(
@@ -1006,7 +1012,7 @@ def ragged_cost(torch, np, parent=None):
     if parent:
         for stem, lib in parent_ragged_libs(parent).items():
             variants[stem]["parent"] = lib
-    rows, quant = variants.values()
+    rows, quant, partials = (variants[stem] for stem in RAGGED_STEMS)
     recs = [ragged_case(torch, np, "mha_32x32", 32, 32, 11, variants=rows,
                         rounds=3),
             ragged_case(torch, np, "gqa_32x8", 32, 8, 12, variants=rows,
@@ -1014,7 +1020,11 @@ def ragged_cost(torch, np, parent=None):
             ragged_quant_case(torch, np, "quant_mha_32x32", 32, 32, 21,
                               variants=quant, rounds=3),
             ragged_quant_case(torch, np, "quant_gqa_32x8", 32, 8, 22,
-                              variants=quant, rounds=3)]
+                              variants=quant, rounds=3),
+            partials_case(torch, np, "shards4_s4_32x32_mb64", 32, 32, 25,
+                          variants=partials, rounds=3),
+            partials_case(torch, np, "shards4_s4_32x8_mb64", 32, 8, 26,
+                          variants=partials, rounds=3)]
     rec = {"phase": "ragged_cost", "builds": ["shipped", *rows]}
     for r in recs:
         rec[f"{r['kernel']}:{r['case']}"] = {
@@ -1158,20 +1168,27 @@ def ragged_quant_case(torch, np, name, nh, nkv, seed, poison=False,
     return rec
 
 
-def partials_case(torch, np, name, seed, shards=4):
-    """The split-context partials kernel: 4 slots, 32 x 32 heads, hd 128,
-    bs 64, 64 blocks (4096 positions), 4 shards of 16 blocks; one slot of
-    100 tokens (three empty trailing shards), one at full span. Per-shard
-    o and lse against the plain partials (float32 o atol 1e-4: order of
-    the float32 sums over up to 1024 positions; lse atol 1e-4), the merged
-    result against the plain sharded version and the unsharded ragged
-    kernel (one bf16 ulp, as the ragged case)."""
+def partials_case(torch, np, name, nh, nkv, seed, shards=4, poison=False,
+                  variants=None, rounds=1):
+    """The split-context partials kernel at serve_long's shapes: 4 slots,
+    hd 128, bs 64, 64 blocks (4096 positions), 4 shards of 16 blocks, bf16;
+    one slot of 100 tokens (three empty trailing shards), one at full span.
+    Per-shard o and lse against the plain partials (float32 o atol 1e-4:
+    order of the float32 sums over up to 1024 positions; lse atol 1e-4;
+    an empty shard's o exactly 0 and its lse the plain version's), the
+    merged result against the plain sharded version and the unsharded
+    ragged kernel (one bf16 ulp, as the ragged case); two launches must
+    agree bit for bit. poison: NaN at every position past each seq_len and
+    garbage table entries past the live block; the partials must equal the
+    clean run's bit for bit. Timed by events over eager calls (kernel_ms,
+    the old series) and in a CUDA graph on pool copies (graph_ms, with
+    SDPA's graph time and any variant libraries: see ragged_graph_times)."""
     from paddle_tpu_torch.kernels.ragged_paged_attention import (
-        merge_partials, ragged_paged_attention,
+        merge_partials, partials_cluster_size, ragged_paged_attention,
         ragged_paged_attention_partials,
         ragged_paged_attention_partials_plain)
     dev = torch.device("cuda")
-    S, nh, nkv, hd, bs, mb = 4, 32, 32, 128, 64, 64
+    S, hd, bs, mb = 4, 128, 64, 64
     W = mb * bs
     rng = np.random.default_rng(seed)
     lens = np.array([100, W - 1, *rng.integers(1100, W - 1, S - 2)],
@@ -1189,24 +1206,52 @@ def partials_case(torch, np, name, seed, shards=4):
                              .reshape(S, mb).astype(np.int32), device=dev)
     seq = torch.as_tensor(lens, device=dev)
     scale = hd ** -0.5
+    clean = None
+    if poison:
+        clean = ragged_paged_attention_partials(q, kp, vp, tables, seq,
+                                                shards, scale)
+        pos = torch.arange(W, device=dev)
+        dead = pos[None, :] > seq.long()[:, None]             # [S, W]
+        rows = tables.long().repeat_interleave(bs, dim=1)     # [S, W]
+        lanes = (pos % bs)[None, :].expand(S, -1)
+        kp[rows[dead], lanes[dead]] = float("nan")
+        vp[rows[dead], lanes[dead]] = float("nan")
+        kp[0] = float("nan")
+        vp[0] = float("nan")
+        live_blk = torch.arange(mb, device=dev)[None, :] <= \
+            (seq.long() // bs)[:, None]
+        tables = torch.where(live_blk, tables, 1 << 30)
     o, lse = ragged_paged_attention_partials(q, kp, vp, tables, seq, shards,
                                              scale)
+    o2, lse2 = ragged_paged_attention_partials(q, kp, vp, tables, seq,
+                                               shards, scale)
     ro, rlse = ragged_paged_attention_partials_plain(q, kp, vp, tables, seq,
                                                      shards, scale)
     merged = merge_partials(o, lse, q.dtype)
     ref = merge_partials(ro, rlse, q.dtype)
     whole = ragged_paged_attention(q, kp, vp, tables, seq, scale)
     torch.cuda.synchronize()
+    check(bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
+          f"{name}: two launches differ")
+    if poison:
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+              f"{name}: NaN reached the partials")
+        check(bool(torch.equal(o, clean[0]) and torch.equal(lse, clean[1])),
+              f"{name}: poisoned run differs from clean")
     live = rlse > -1e29
     check(bool(torch.equal(live, lse > -1e29)),
           f"{name}: empty shards disagree")
     check(int((~live).sum()) >= 3 * nh, f"{name}: no empty shard")
+    check(bool((o[~live] == 0).all()
+               and torch.equal(lse[~live], rlse[~live])),
+          f"{name}: an empty shard's o is not 0 or its lse not the plain "
+          f"version's")
     o_err = (o - ro).abs().max().item()
     lse_err = (lse - rlse)[live].abs().max().item()
     err, ratio = bf16_err(merged, ref)
     werr, wratio = bf16_err(merged, whole)
-    check(o_err <= 1e-4 and lse_err <= LSE_ATOL and ratio <= 1.0
-          and wratio <= 1.0 and bool((o[~live] == 0).all()),
+    check(o_err <= FWD_ATOL_F32 and lse_err <= LSE_ATOL and ratio <= 1.0
+          and wratio <= 1.0,
           f"{name}: o err {o_err}, lse err {lse_err}, merged vs plain "
           f"{ratio} x tolerance, vs unsharded kernel {wratio}")
     kernel_ms = cuda_ms(torch, lambda: ragged_paged_attention_partials(
@@ -1218,10 +1263,13 @@ def partials_case(torch, np, name, seed, shards=4):
         q, kp, vp, tables, seq, scale), 50)
     plain_ms = cuda_ms(torch, lambda: ragged_paged_attention_partials_plain(
         q, kp, vp, tables, seq, shards, scale), 3, warmup=1)
-    kw = kp[tables.long()].reshape(S, W, nkv, hd).transpose(1, 2) \
-        .contiguous()
-    vw = vp[tables.long()].reshape(S, W, nkv, hd).transpose(1, 2) \
-        .contiguous()
+    # yardstick: SDPA on each slot's window, pre-gathered (not timed) to
+    # a contiguous [S, nh, W, hd] with a per-slot key mask
+    safe_tabs = torch.where(tables < nb, tables, 0).long()
+    kw = kp[safe_tabs].reshape(S, W, nkv, hd).nan_to_num()
+    vw = vp[safe_tabs].reshape(S, W, nkv, hd).nan_to_num()
+    kw = kw.repeat_interleave(nh // nkv, dim=2).transpose(1, 2).contiguous()
+    vw = vw.repeat_interleave(nh // nkv, dim=2).transpose(1, 2).contiguous()
     mask = (torch.arange(W, device=dev)[None, :]
             <= seq.long()[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -1230,6 +1278,8 @@ def partials_case(torch, np, name, seed, shards=4):
               ref)
     library_ms = cuda_ms(torch, lambda: sdpa(q4, kw, vw, attn_mask=mask,
                                              scale=scale), 20)
+    library_graph = sdpa_graph_ms(torch, q4, kw, vw, mask, scale)
+    del kw, vw
     # K and V of every live token, q, the float32 partials (o and lse of
     # every shard) written once, the live table entries and seq_lens
     tokens = int((lens.astype(np.int64) + 1).sum())
@@ -1238,12 +1288,17 @@ def partials_case(torch, np, name, seed, shards=4):
                    + 4 * int((lens // bs + 1).sum()) + 4 * S)
     flops = 4 * nh * hd * tokens
     bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    ms, copies = ragged_graph_times(
+        torch, "ragged_paged_attention_partials",
+        lambda k, v: ragged_paged_attention_partials(q, k, v, tables, seq,
+                                                     shards, scale),
+        (kp, vp), bytes_moved, variants, rounds)
     rec = {"phase": "kernel_check", "kernel": "ragged_paged_attention_partials",
            "case": name, "dtype": "bfloat16", "slots": S, "nh": nh,
            "nkv": nkv, "hd": hd, "block_size": bs, "blocks_per_seq": mb,
            "shards": shards, "seq_lens": [int(x) for x in lens],
            "max_abs_err": max(o_err, err), "o_max_abs_err": o_err,
-           "o_atol": 1e-4, "lse_max_abs_err": lse_err,
+           "o_atol": FWD_ATOL_F32, "lse_max_abs_err": lse_err,
            "lse_atol": LSE_ATOL, "merged_err_over_tolerance": ratio,
            "merged_vs_unsharded_kernel_err_over_tolerance": wratio,
            "kernel_ms": kernel_ms, "sharded_with_merge_ms": sharded_ms,
@@ -1251,9 +1306,12 @@ def partials_case(torch, np, name, seed, shards=4):
            "library_ms": library_ms,
            "library": "scaled_dot_product_attention on a pre-gathered "
                       "window", "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes": bytes_moved, "flops": flops}
+           "bytes": bytes_moved, "flops": flops,
+           "cluster_size": partials_cluster_size(S, nh, nkv, hd,
+                                                 o.shape[0], q.dtype)}
+    ragged_record(rec, ms, copies, library_graph)
     emit(rec)
-    del kp, vp, kw, vw, o, ro
+    del kp, vp, o, ro, o2
     torch.cuda.empty_cache()
     return rec
 
@@ -1517,16 +1575,18 @@ def quant_shard_parity_phase(torch, np, reqs, seed):
     return rec
 
 
-def profile_phase(torch, model, reqs, phase="profile", **engine_kw):
+def profile_phase(torch, model, reqs, phase="profile", parent=None,
+                  **engine_kw):
     """--profile only: a short serve at full width (8 requests, budgets
     cut to 16), run once plainly for its wall time and once under
     torch.profiler for the device time of each kernel. The device's idle
     share is 1 - (kernel time under the profiler) / (plain wall time):
     the profiler slows the host, not the kernels. engine_kw replaces the
-    engine's configuration (serve_quant's, serve_long's)."""
+    engine's configuration (serve_quant's, serve_long's); parent, a parent
+    checkout whose libraries the caller swapped in, names its kernels."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.models.paged_decode import PagedDecoder
-    PORT_KERNEL = port_kernel_pattern()
+    PORT_KERNEL = port_kernel_pattern(parent)
     kw = dict(max_len=2048, block_size=64, max_slots=8, num_blocks=257)
     kw.update(engine_kw)
     dec = PagedDecoder(model, **kw)
@@ -1561,13 +1621,17 @@ def profile_phase(torch, model, reqs, phase="profile", **engine_kw):
     return rec
 
 
-def port_kernel_pattern():
+def port_kernel_pattern(parent=None):
     """A pattern that finds the name of any of the port's CUDA kernels
-    (every __global__ function in csrc/) in a profiler's kernel name."""
+    (every __global__ function in csrc/, and in a parent checkout's) in a
+    profiler's kernel name."""
+    from pathlib import Path
     from paddle_tpu_torch.kernels import _build
     decl = (r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*"
             r"\)\s*)?(\w+)\s*\(")
-    names = {n for f in _build.CSRC.glob("*.cu*")
+    dirs = [_build.CSRC] + ([Path(parent, "paddle_tpu_torch", "csrc")]
+                            if parent else [])
+    names = {n for d in dirs for f in d.glob("*.cu*")
              for n in re.findall(decl, f.read_text())}
     return re.compile(rf"\b({'|'.join(sorted(names))})\b")
 
@@ -1591,7 +1655,7 @@ def device_kernel_rows(prof):
 
 
 def top_kernels(rows, busy_s, n):
-    return [{"name": k[:90], "device_ms": us / 1e3, "calls": c,
+    return [{"name": k[:200], "device_ms": us / 1e3, "calls": c,
              "share_of_device": us / 1e6 / busy_s} for us, k, c in rows[:n]]
 
 
@@ -3859,14 +3923,15 @@ def main():
                          "GEMV without its products and without its code "
                          "reads (extra builds), then exit")
     ap.add_argument("--ragged-cost", action="store_true",
-                    help="only build the kernels and time the two ragged "
+                    help="only build the kernels and time the three ragged "
                          "kernels without their arithmetic, without their "
                          "loads and at fixed cluster sizes (extra builds), "
                          "then exit")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of the parent commit: its two ragged "
+                    help="a checkout of the parent commit: its three ragged "
                          "kernels are built and timed beside the shipped "
-                         "ones, the same way, in the ragged cases")
+                         "ones, the same way, in the ragged and partials "
+                         "cases")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -3930,8 +3995,8 @@ def main():
         print(card, flush=True)
         return 0
 
-    # with --parent, the parent commit's two ragged kernels are timed beside
-    # the shipped ones in the main cases
+    # with --parent, the parent commit's three ragged kernels are timed
+    # beside the shipped ones in the main cases
     parent = ({stem: {"parent": lib} for stem, lib in
                parent_ragged_libs(args.parent).items()}
               if args.parent else dict.fromkeys(RAGGED_STEMS))
@@ -4019,7 +4084,12 @@ def main():
     ragged_quant_case(torch, np, "quant_nan_poison", 32, 32, 23, poison=True)
     ragged_quant_case(torch, np, "quant_last_token_gqa_32x8", 32, 8, 24,
                       plant=True)
-    partials_main = partials_case(torch, np, "shards4_s4_32x32_mb64", 25)
+    partials_main = partials_case(
+        torch, np, "shards4_s4_32x32_mb64", 32, 32, 25,
+        variants=parent["ragged_paged_attention_partials"])
+    partials_case(torch, np, "shards4_s4_32x8_mb64", 32, 8, 26,
+                  variants=parent["ragged_paged_attention_partials"])
+    partials_case(torch, np, "shards4_nan_poison", 32, 32, 27, poison=True)
 
     layers = args.layers
     reqs = make_requests(np, args.seed)
@@ -4036,8 +4106,20 @@ def main():
     if args.profile:
         profile_phase(torch, model, reqs, "profile_serve_quant",
                       weight_quant="int8_blockwise", kv_quant="int8")
+        long_kw = dict(max_len=4096, max_slots=4, attn_shards=4)
         profile_phase(torch, model, long_reqs, "profile_serve_long",
-                      max_len=4096, max_slots=4, attn_shards=4)
+                      **long_kw)
+        if args.parent:
+            # the same serve on the parent's partials kernel
+            stem = "ragged_paged_attention_partials"
+            shipped = _build._libs[stem]
+            _build._libs[stem] = parent[stem]["parent"]
+            try:
+                profile_phase(torch, model, long_reqs,
+                              "profile_serve_long_parent_partials",
+                              parent=args.parent, **long_kw)
+            finally:
+                _build._libs[stem] = shipped
     del model
     torch.cuda.empty_cache()
     parity_phase(torch, np, reqs, args.seed)

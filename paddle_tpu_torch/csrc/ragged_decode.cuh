@@ -1,11 +1,14 @@
 // The shared body of the port's ragged decode attention: one query per
-// slot against its paged KV, over a pool of rows (float32 or bf16,
-// csrc/ragged_paged_attention.cu) or of int8 codes with one float32 scale
-// per token row (csrc/ragged_paged_attention_quant.cu). The pool is a
-// policy class, so one body serves both.
+// slot against its paged KV, over a pool of rows (float32 or bf16) or of
+// int8 codes with one float32 scale per token row, finishing with the
+// output (csrc/ragged_paged_attention.cu, csrc/ragged_paged_attention_quant.cu)
+// or with the float32 partials of each shard of the slot's block table
+// (csrc/ragged_paged_attention_partials.cu). The pool and the output are
+// policy classes, so one body serves all three.
 //
 // Replaces: paddle_tpu/kernels/pallas/ragged_paged_attention.py, `_kernel`
-// (the pallas_call at line 170) and `_qkernel` (line 506).
+// (the pallas_call at line 170), `_pkernel` (line 310) and `_qkernel`
+// (line 506).
 //
 // Computes, for every slot s and query head h (kv group g = h / NREP):
 //   o[s, h] = softmax_t(q[s, h] . K[t] * scale) . V[t],  t = 0..seq_lens[s]
@@ -13,6 +16,14 @@
 // The window is inclusive of seq_lens[s]. An int8 row is codes times the
 // row's scale: the scale goes on the finished q.k dot, and on p before
 // p.v, so it costs one multiply a token, not one an element.
+// The partials cut each table into shards of spb blocks (shard z: blocks
+// z spb .. min(z spb + spb, mb)); shard z's window is its own live tokens,
+// and it writes, in float32,
+//   o[z, s, h] = sum_t p_t V[t] / max(l, 1e-30),  lse[z, s, h] = m + ln l
+// with m the largest score, p_t = exp(x_t - m) and l = sum_t p_t. A shard
+// with no live token writes o = 0 and lse = -1e30 + ln 1e-30 (-1e30 in
+// float32), so its merge weight is 0. The unsharded kernels are one shard
+// of the whole table.
 //
 // What bounds it on the H100: device-memory bytes. A live token costs
 // 2 * hd * itemsize bytes of K/V per kv head; at MHA (the serve's NREP 1)
@@ -24,15 +35,18 @@
 // Design (the first design, one block per (slot, kv head) walking the
 // whole window 2 bytes a lane at a time, was set by the latency of that
 // walk, not by bytes):
-// - Split each window over a thread-block cluster, in one launch. The grid
-//   is (S, nkv, C), in clusters of (1, 1, C). The plan is made in the kernel
-//   from the device's seq_lens (a decode chunk runs several steps without a
-//   host sync): the window's n = seq_lens[s] + 1 tokens, in units of a
-//   stage's TS tokens, are cut into C runs of equal units; cluster rank c
-//   takes run c. A rank with no token still takes part in the merge, with
+// - Split each shard's window over a thread-block cluster, all shards in
+//   one launch. The grid is (S, nkv, shards * C), in clusters of (1, 1, C):
+//   a block's shard is blockIdx.z / C, its rank the cluster rank. The plan
+//   is made in the kernel from the device's seq_lens (a decode chunk runs
+//   several steps without a host sync): the shard's n live tokens, in
+//   units of a stage's TS tokens, are cut into C runs of equal units;
+//   cluster rank c takes run c. Shards start on block boundaries, so a
+//   shard-local position p lives in the shard's table entry p / bs. A rank
+//   (or a whole shard) with no token still takes part in the merge, with
 //   m = -1e30, l = 0 and acc = 0. The host picks C (at most 8, the
-//   portable limit) as the largest size whose S * nkv clusters all fit on
-//   the card at once (`launch`, below).
+//   portable limit) as the largest size whose S * nkv * shards clusters
+//   all fit on the card at once (`launch`, below).
 // - Stream rows through a cp.async ring in shared memory. Each of the 4
 //   warps of a block owns every 4th stage of the block's run and a private
 //   ring of 3 stages: it keeps the next 2 stages' 16-byte cp.async.cg
@@ -62,8 +76,11 @@
 //   then the cluster through distributed shared memory: each rank takes a
 //   slice of the NREP * hd outputs and reads the C partials in rank order,
 //   rescales each by exp(m_c - M), sums, and divides by
-//   sum_c l_c exp(m_c - M). A second cluster.sync keeps every block alive
-//   while another reads it. The same inputs give the same bits every time.
+//   L = sum_c l_c exp(m_c - M). A second cluster.sync keeps every block
+//   alive while another reads it. The same inputs give the same bits every
+//   time. The output policy finishes: `FinalOut<T>` casts to T,
+//   `ShardPartials` writes float32 o and lse = M ln 2 + ln L (M is in the
+//   log2 domain), or the empty shard's values when L = 0.
 //
 // PTT_RAGGED_CLUSTER (0: the rule above; else that cluster size) and
 // PTT_RAGGED_COST (1: no arithmetic on the staged rows; 2: no copies into
@@ -111,6 +128,21 @@ struct Int8KV {
   static constexpr int kItem = 1;
   static constexpr bool kScaled = true;
 };
+
+// the output policies: the finished output in q's type T, or one shard's
+// float32 partials (o normalised within the shard, and lse)
+template <typename T>
+struct FinalOut {
+  using type = T;
+  static constexpr bool kPartials = false;
+};
+struct ShardPartials {
+  using type = float;
+  static constexpr bool kPartials = true;
+};
+
+constexpr float kTinyL = 1e-30f;  // the TPU kernel's floor under l
+constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
@@ -182,29 +214,33 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <typename T, int HD, int NREP, class KV>
+template <typename T, int HD, int NREP, class KV, class Out>
 __global__ void __launch_bounds__(kThreads)
     ragged_decode(const T* __restrict__ q, const uint8_t* __restrict__ kpool,
                   const uint8_t* __restrict__ vpool,
                   const float* __restrict__ kscale,
                   const float* __restrict__ vscale,
                   const int* __restrict__ tables,
-                  const int* __restrict__ seq_lens, T* __restrict__ out,
-                  int nkv, int bs, int mb, float scale) {
+                  const int* __restrict__ seq_lens,
+                  typename Out::type* __restrict__ out,
+                  float* __restrict__ lse, int nkv, int bs, int mb, int spb,
+                  float scale) {
   using C = Cfg<KV, HD, NREP>;
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int nsplit = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int s = blockIdx.x, g = blockIdx.y;
+  const int s = blockIdx.x, g = blockIdx.y, z = blockIdx.z / nsplit;
   const int t = threadIdx.x, w = t >> 5, lane = t & 31;
   const int gam = lane / C::G, j = lane % C::G;
   const int nh = nkv * NREP;
-  const int* tab = tables + (size_t)s * mb;
+  // shard z: table entries b0 .. b0 + width, positions from b0 * bs
+  const int b0 = z * spb, width = min(spb, mb - b0);
+  const int* tab = tables + (size_t)s * mb + b0;
 
-  // the plan: the window's n tokens in units of a stage, split evenly over
-  // the cluster; this block takes units [u0, u1), tokens up to `end`
-  const int n = min(seq_lens[s], mb * bs - 1) + 1;
+  // the plan: the shard's n live tokens in units of a stage, split evenly
+  // over the cluster; this block takes units [u0, u1), tokens up to `end`
+  const int n = max(min(seq_lens[s] - b0 * bs, width * bs - 1) + 1, 0);
   const int units = n > 0 ? (n + C::TS - 1) / C::TS : 0;
   const int u0 = (int)((long long)rank * units / nsplit);
   const int u1 = (int)((long long)(rank + 1) * units / nsplit);
@@ -436,7 +472,15 @@ __global__ void __launch_bounds__(kThreads)
       ll = fmaf(cluster.map_shared_rank(bl, c)[r], f, ll);
       v = fmaf(cluster.map_shared_rank(bacc, c)[e], f, v);
     }
-    out[((size_t)s * nh + (size_t)g * NREP) * HD + e] = from_float<T>(v / ll);
+    const size_t head = ((size_t)z * gridDim.x + s) * nh + (size_t)g * NREP;
+    if constexpr (Out::kPartials) {
+      out[head * HD + e] = v / fmaxf(ll, kTinyL);
+      if (e % HD == 0)  // M is in the log2 domain; L = 0: an empty shard
+        lse[head + r] = ll > 0.f ? fmaf(mm, kLn2, logf(fmaxf(ll, kTinyL)))
+                                 : kNegInf + logf(kTinyL);
+    } else {
+      out[head * HD + e] = from_float<T>(v / ll);
+    }
   }
   cluster.sync();  // no block leaves while another reads its partial
 }
@@ -452,19 +496,22 @@ struct Args {
   const int* tables;
   const int* lens;
   void* out;
+  float* lse;  // shard partials only
   int S, nkv, bs, mb;
+  int spb, shards;  // blocks a shard (mb unsharded), and shards
   float scale;
   cudaStream_t st;
 };
 
 // The cluster size of a launch: PTT_RAGGED_CLUSTER if set, else the
-// largest (at most kMaxCluster) whose S * nkv clusters all fit on the card
-// at once, asked once per device and size. Returns the size, or minus a
-// CUDA error. With cluster_only the caller only wants the size.
-template <typename T, int HD, int NREP, class KV>
+// largest (at most kMaxCluster) whose S * nkv * shards clusters all fit on
+// the card at once (and whose grid fits the 65535 blocks of its z axis),
+// asked once per device and size. Returns the size, or minus a CUDA error.
+// With cluster_only the caller only wants the size.
+template <typename T, int HD, int NREP, class KV, class Out>
 int launch(const Args& a, bool cluster_only) {
   using C = Cfg<KV, HD, NREP>;
-  auto kernel = ragged_decode<T, HD, NREP, KV>;
+  auto kernel = ragged_decode<T, HD, NREP, KV, Out>;
   static bool smem_set[kMaxDevices] = {};
   static int fit[kMaxDevices][kMaxCluster + 1] = {};  // 1 + clusters that fit
   int dev = 0;
@@ -489,9 +536,10 @@ int launch(const Args& a, bool cluster_only) {
   cfg.numAttrs = 1;
   int size = PTT_RAGGED_CLUSTER;
   if (size <= 0) {
-    const long long clusters = (long long)a.S * a.nkv;
+    const long long clusters = (long long)a.S * a.nkv * a.shards;
     for (size = kMaxCluster; size > 1; --size) {
-      cfg.gridDim = dim3(a.S, a.nkv, size);
+      if ((long long)a.shards * size > 65535) continue;
+      cfg.gridDim = dim3(a.S, a.nkv, a.shards * size);
       attr[0].val.clusterDim.z = size;
       int n = dev < kMaxDevices ? fit[dev][size] - 1 : -1;
       if (n < 0) {
@@ -503,34 +551,36 @@ int launch(const Args& a, bool cluster_only) {
     }
   }
   if (cluster_only) return size;
-  cfg.gridDim = dim3(a.S, a.nkv, size);
+  cfg.gridDim = dim3(a.S, a.nkv, a.shards * size);
   attr[0].val.clusterDim.z = size;
   e = cudaLaunchKernelEx(&cfg, kernel, (const T*)a.q,
                          (const uint8_t*)a.kpool, (const uint8_t*)a.vpool,
-                         a.kscale, a.vscale, a.tables, a.lens, (T*)a.out,
-                         a.nkv, a.bs, a.mb, a.scale);
+                         a.kscale, a.vscale, a.tables, a.lens,
+                         (typename Out::type*)a.out, a.lse, a.nkv, a.bs,
+                         a.mb, a.spb, a.scale);
   return e == cudaSuccess ? size : -(int)e;
 }
 
-template <typename T, int HD, class KV>
+template <typename T, int HD, class KV, class Out>
 int run_nrep(int nrep, const Args& a, bool cluster_only) {
   switch (nrep) {
-    case 1: return launch<T, HD, 1, KV>(a, cluster_only);
-    case 2: return launch<T, HD, 2, KV>(a, cluster_only);
-    case 4: return launch<T, HD, 4, KV>(a, cluster_only);
-    case 8: return launch<T, HD, 8, KV>(a, cluster_only);
+    case 1: return launch<T, HD, 1, KV, Out>(a, cluster_only);
+    case 2: return launch<T, HD, 2, KV, Out>(a, cluster_only);
+    case 4: return launch<T, HD, 4, KV, Out>(a, cluster_only);
+    case 8: return launch<T, HD, 8, KV, Out>(a, cluster_only);
   }
   return -(int)cudaErrorInvalidValue;
 }
 
 // Launches (or, with cluster_only, sizes) the instance for (hd, nrep) with
-// q and out of type T. Returns the cluster size, or minus a CUDA error.
-template <typename T, class KV>
+// q of type T, finishing by the output policy Out (the output in T by
+// default). Returns the cluster size, or minus a CUDA error.
+template <typename T, class KV, class Out = FinalOut<T>>
 int run(int hd, int nrep, const Args& a, bool cluster_only) {
   switch (hd) {
-    case 64: return run_nrep<T, 64, KV>(nrep, a, cluster_only);
-    case 128: return run_nrep<T, 128, KV>(nrep, a, cluster_only);
-    case 256: return run_nrep<T, 256, KV>(nrep, a, cluster_only);
+    case 64: return run_nrep<T, 64, KV, Out>(nrep, a, cluster_only);
+    case 128: return run_nrep<T, 128, KV, Out>(nrep, a, cluster_only);
+    case 256: return run_nrep<T, 256, KV, Out>(nrep, a, cluster_only);
   }
   return -(int)cudaErrorInvalidValue;
 }

@@ -43,8 +43,8 @@ extern "C" int ragged_paged_attention_fwd(const void* q, const void* kpool,
   if (S <= 0 || nkv <= 0 || nh % nkv != 0 || bs <= 0 || mb <= 0)
     return (int)cudaErrorInvalidValue;
   const Args a{q, kpool, vpool, nullptr, nullptr, (const int*)tables,
-               (const int*)seq_lens, out, S, nkv, bs, mb, scale,
-               (cudaStream_t)stream};
+               (const int*)seq_lens, out, nullptr, S, nkv, bs, mb, mb, 1,
+               scale, (cudaStream_t)stream};
   const int r = dispatch(hd, nh / nkv, dtype, a, false);
   return r < 0 ? -r : 0;
 }
@@ -55,6 +55,6 @@ extern "C" int ragged_paged_attention_cluster(int S, int nh, int nkv, int hd,
                                               int dtype) {
   if (S <= 0 || nkv <= 0 || nh % nkv != 0) return -(int)cudaErrorInvalidValue;
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               nullptr, nullptr, S, nkv, 1, 1, 1.f, nullptr};
+               nullptr, nullptr, nullptr, S, nkv, 1, 1, 1, 1, 1.f, nullptr};
   return dispatch(hd, nh / nkv, dtype, a, true);
 }

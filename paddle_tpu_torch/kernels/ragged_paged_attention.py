@@ -12,15 +12,18 @@ what bounds it and how it is laid out:
   ``csrc/ragged_paged_attention.cu``;
 - ``ragged_paged_attention_quant`` (Pallas `_qkernel`), over an int8 pool
   of codes and one float32 scale per token row (``kv_quantize_rows``):
-  ``csrc/ragged_paged_attention_quant.cu``. These two are instances of
-  one body, ``csrc/ragged_decode.cuh``, which splits each slot's window
-  over a thread-block cluster by a plan it makes from the device's
-  seq_lens (``decode_stage_tokens`` and ``decode_split`` mirror it);
+  ``csrc/ragged_paged_attention_quant.cu``;
 - ``ragged_paged_attention_partials`` (Pallas `_pkernel`), the per-shard
   online-softmax partials that ``ragged_paged_attention_sharded`` merges
   by the lse rescale: ``csrc/ragged_paged_attention_partials.cu``. All
   shards go in one launch (split-KV); the JAX package launches once per
   shard.
+
+The three are instances of one body, ``csrc/ragged_decode.cuh``, which
+splits each shard's window (the whole table for the first two) over a
+thread-block cluster by a plan it makes from the device's seq_lens
+(``decode_stage_tokens``, ``decode_split`` and ``partials_split`` mirror
+it).
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "kv_quantize_rows", "kv_dequantize_rows", "kv_row_error_bound",
            "ragged_hbm_bytes", "dense_gather_hbm_bytes", "HEAD_DIMS",
            "GROUP_SIZES", "decode_stage_tokens", "decode_split",
-           "decode_cluster_size"]
+           "decode_cluster_size", "partials_split",
+           "partials_cluster_size"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -57,7 +61,8 @@ _QSIG = {"ragged_paged_attention_quant_fwd":
          "ragged_paged_attention_quant_cluster": [ctypes.c_int] * 5}
 _PSIG = {"ragged_paged_attention_partials_fwd":
          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+         "ragged_paged_attention_partials_cluster": [ctypes.c_int] * 6}
 
 
 def _live_windows(kpool, vpool, tables, seq_lens, dequant=None):
@@ -196,18 +201,55 @@ def decode_stage_tokens(hd, itemsize, nrep):
     return ngw * max(1, min(4, 2048 // (ngw * hd * itemsize)))
 
 
-def decode_split(seq_len, mb, bs, splits, ts):
-    """The token runs [a, b) the kernel's cluster ranks 0..splits-1 take
-    of one slot's window (positions 0..min(seq_len, mb * bs - 1)): the
-    window's tokens in units of ts, split evenly; an empty run has a ==
-    b."""
-    n = min(int(seq_len), mb * bs - 1) + 1
+def _stage_runs(n, splits, ts):
+    """n tokens in units of ts, split evenly over `splits` ranks: the runs
+    [a, b) in rank order; an empty run has a == b."""
     units = -(-n // ts) if n > 0 else 0
     runs = []
     for c in range(splits):
         u0, u1 = c * units // splits, (c + 1) * units // splits
         runs.append((u0 * ts, max(u0 * ts, min(u1 * ts, n))))
     return runs
+
+
+def decode_split(seq_len, mb, bs, splits, ts):
+    """The token runs [a, b) the kernel's cluster ranks 0..splits-1 take
+    of one slot's window (positions 0..min(seq_len, mb * bs - 1)): the
+    window's tokens in units of ts, split evenly; an empty run has a ==
+    b."""
+    return _stage_runs(max(min(int(seq_len), mb * bs - 1) + 1, 0), splits,
+                       ts)
+
+
+def partials_split(seq_len, mb, bs, num_shards, splits, ts):
+    """The partials kernel's plan for one slot: for each shard that holds
+    a block, the shard-local token runs [a, b) its cluster ranks
+    0..splits-1 take (decode_split over the shard's live tokens, which
+    start at the shard's first block: shard z holds table entries z spb ..
+    min(z spb + spb, mb), spb = ceil(mb / num_shards)). A shard with no
+    live token gives every rank an empty run."""
+    spb, shards = _shard_plan(mb, num_shards)
+    plan = []
+    for z in range(shards):
+        b0 = z * spb
+        width = min(spb, mb - b0)
+        n = max(min(int(seq_len) - b0 * bs, width * bs - 1) + 1, 0)
+        plan.append(_stage_runs(n, splits, ts))
+    return plan
+
+
+def partials_cluster_size(S, nh, nkv, hd, shards, dtype):
+    """The cluster size (1-8) the partials kernel takes for these shapes
+    and ``shards`` shards (those that hold a block) on the current card:
+    the largest whose S * nkv * shards clusters all fit at once. dtype is
+    q's (float32 or bfloat16). Needs the card."""
+    lib = _build.load("ragged_paged_attention_partials", _PSIG)
+    c = lib.ragged_paged_attention_partials_cluster(S, nh, nkv, hd, shards,
+                                                    _DTYPE_CODE[dtype])
+    if c < 1:
+        raise RuntimeError(f"ragged_paged_attention_partials: cluster size "
+                           f"query failed: CUDA error {-c}")
+    return c
 
 
 def decode_cluster_size(S, nh, nkv, hd, dtype, quant=False):

@@ -52,7 +52,8 @@ from paddle_tpu_torch.incubate.nn.functional import (
     fused_rms_norm, fused_rotary_position_embedding)
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
     decode_cluster_size, kv_quantize_rows, merge_partials,
-    ragged_paged_attention, ragged_paged_attention_partials,
+    partials_cluster_size, ragged_paged_attention,
+    ragged_paged_attention_partials,
     ragged_paged_attention_partials_plain, ragged_paged_attention_plain,
     ragged_paged_attention_quant, ragged_paged_attention_quant_plain)
 
@@ -1066,16 +1067,33 @@ def test_ragged_decode_replays_in_a_cuda_graph(cuda_device, kind):
     assert torch.equal(captured, eager)
 
 
+def _partials_close(o, lse, ro, rlse):
+    """Per-shard o and lse against the plain partials: float32 1e-4 (the
+    sums' order); an empty shard's o exactly 0 and its lse the plain
+    version's, bit for bit."""
+    live = rlse > -1e29
+    assert torch.equal(live, lse > -1e29)
+    assert (o - ro).abs().max().item() < 1e-4
+    if live.any():
+        assert (lse - rlse)[live].abs().max().item() < 1e-4
+    assert (o[~live] == 0).all()
+    assert torch.equal(lse[~live], rlse[~live])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shards", [1, 2, 3, 8])
-@pytest.mark.parametrize("nh,nkv,hd", [(32, 32, 128), (16, 4, 64)])
-def test_partials_kernel_matches_plain(cuda_device, shards, nh, nkv, hd):
-    """Per-shard o and lse against the plain partials (empty shards
-    included), and the merged result against the unsharded kernel."""
-    bs, mb = 16, 8
+@pytest.mark.parametrize("nrep", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_partials_kernel_matches_plain(cuda_device, shards, nrep, hd):
+    """Every instance of the partials (hd x nrep x dtype), 8 blocks in 1-8
+    shards (3: the last narrower): per-shard o and lse against the plain
+    partials (empty shards included), the merged result against the
+    unsharded kernel."""
+    bs, mb, nkv = 16, 8, 4
+    nh = nkv * nrep
     lens = [0, bs - 1, bs, 77, mb * bs - 1]
-    q, kp, vp, tables, seq = _ragged_inputs(cuda_device, shards + hd, nh,
-                                            nkv, hd, bs, mb, lens)
+    q, kp, vp, tables, seq = _ragged_inputs(cuda_device, shards + hd + nrep,
+                                            nh, nkv, hd, bs, mb, lens)
     before = ragged_paged_attention_partials.launches
     for dt, tol in TOLS:
         args = (q.to(dt), kp.to(dt), vp.to(dt), tables, seq)
@@ -1084,15 +1102,97 @@ def test_partials_kernel_matches_plain(cuda_device, shards, nh, nkv, hd):
                                                          hd ** -0.5)
         torch.cuda.synchronize()
         assert o.dtype == lse.dtype == torch.float32
-        assert (o - ro).abs().max().item() < 1e-4
-        live = rlse > -1e29
-        assert torch.equal(live, lse > -1e29)
-        assert (lse - rlse)[live].abs().max().item() < 1e-4
-        assert (o[~live] == 0).all()
+        assert o.shape == ro.shape and lse.shape == rlse.shape
+        _partials_close(o, lse, ro, rlse)
         merged = merge_partials(o, lse, dt)
         whole = ragged_paged_attention(*args)
+        assert _decode_close(merged, whole)
         assert (merged.float() - whole.float()).abs().max().item() < tol
     assert ragged_paged_attention_partials.launches == before + 2
+
+
+def _partials_inputs(dev, seed, nh, nkv, lens, dt=torch.bfloat16, hd=128,
+                     bs=16, mb=8):
+    q, kp, vp, tables, seq = _ragged_inputs(dev, seed, nh, nkv, hd, bs, mb,
+                                            lens)
+    return q.to(dt), kp.to(dt), vp.to(dt), tables, seq
+
+
+@pytest.mark.cuda
+def test_partials_kernel_clusters_and_empty_ranks(cuda_device):
+    """A shape whose rule takes clusters (1 slot, 4 kv heads, 2 shards: 8
+    clusters), so that short windows leave ranks, and the second shard,
+    without a token."""
+    C = partials_cluster_size(1, 4, 4, 128, 2, torch.bfloat16)
+    assert C > 1
+    for lens in ([0], [20], [64], [127]):
+        args = _partials_inputs(cuda_device, 30 + lens[0], 4, 4, lens)
+        o, lse = ragged_paged_attention_partials(*args, 2)
+        ro, rlse = ragged_paged_attention_partials_plain(*args, 2,
+                                                         128 ** -0.5)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+        _partials_close(o, lse, ro, rlse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_partials_kernel_never_reads_past_seq_lens(cuda_device, dt):
+    """NaN in every pool row past each seq_len (inside the live page too)
+    and in pages past it, garbage table entries past the live one: the
+    partials equal the clean run's bit for bit."""
+    bs, mb, nh, nkv, hd = 16, 8, 8, 2, 128
+    lens = [3, 17, 40, 0, 100]
+    q, kp, vp, tables, seq = _partials_inputs(cuda_device, 9, nh, nkv, lens,
+                                              dt, hd, bs, mb)
+    clean = ragged_paged_attention_partials(q, kp, vp, tables, seq, 3)
+    pos = torch.arange(mb * bs, device=cuda_device)
+    dead = pos[None, :] > seq.long()[:, None]
+    rows = tables.long().repeat_interleave(bs, dim=1)
+    lanes = (pos % bs)[None, :].expand(len(lens), -1)
+    kp[rows[dead], lanes[dead]] = float("nan")
+    vp[rows[dead], lanes[dead]] = float("nan")
+    kp[0] = float("nan")
+    vp[0] = float("nan")
+    live_blk = torch.arange(mb, device=cuda_device)[None, :] <= \
+        (seq.long() // bs)[:, None]
+    garbage = torch.where(live_blk, tables, 1 << 30)
+    o, lse = ragged_paged_attention_partials(q, kp, vp, garbage, seq, 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert torch.equal(o, clean[0]) and torch.equal(lse, clean[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv", [(32, 32), (32, 8)])
+def test_partials_kernel_gives_the_same_bits_twice(cuda_device, nh, nkv):
+    """serve_long's shapes: 4 slots, hd 128, pages of 64, 64 blocks in 4
+    shards (rank-order merges, no atomics)."""
+    lens = [100, 4095, 1500, 3000]
+    args = _partials_inputs(cuda_device, nh + nkv, nh, nkv, lens, hd=128,
+                            bs=64, mb=64)
+    a, b = (ragged_paged_attention_partials(*args, 4) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_partials_kernel_replays_in_a_cuda_graph(cuda_device):
+    """One launch a call, captured in a CUDA graph: the replay writes what
+    an eager call gives, and the wrapper counts the captured launch."""
+    args = _partials_inputs(cuda_device, 8, 16, 4, [5, 40, 127])
+    eager = ragged_paged_attention_partials(*args, 3)
+    torch.cuda.synchronize()
+    before = ragged_paged_attention_partials.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = ragged_paged_attention_partials(*args, 3)
+    assert ragged_paged_attention_partials.launches == before + 1
+    o.zero_()
+    lse.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, eager[0]) and torch.equal(lse, eager[1])
 
 
 # -- the grouped (MoE expert) kernels -------------------------------------------
