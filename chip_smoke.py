@@ -10,9 +10,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. the card's name and power limit, as nvidia-smi gives them;
 2. the build of every CUDA kernel of the serving and training paths (one
    nvcc per source, all started together) with ptxas's registers and
-   spills and the HGMMA count (cuobjdump) of each flash tensor-core
-   kernel, which must not be 0; then each kernel of the serving paths
-   against its plain PyTorch version on the card at the
+   spills and the HGMMA count (cuobjdump) of each tensor-core kernel
+   (flash and quantized), which must not be 0; then each kernel of the
+   serving paths against its plain PyTorch version on the card at the
    serving shapes, with its time, the plain version's time, one PyTorch
    library call's time (a yardstick the port never calls) and the least
    time the card could take: ragged attention (its time also in a CUDA
@@ -77,7 +77,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    NaN in every row that is not a route's; each against its plain
    version, with its time, the plain time, per-expert torch.matmul as the
    library yardstick and the bound (TF32 peak for float32 inputs, bf16
-   peak for bf16);
+   peak for bf16). The int8/fp8 cases name their route and must take the
+   tensor cores ("wgmma"; float32 x as three bf16 pieces, with a second
+   bound at three bf16 products, `bound_bf16x3_ms`), two launches giving
+   the same bits, but two that hold the CUDA-core kernel:
+   `up_int8_f32_bm64` (groups of 64 rows, the shapes at which
+   train_moe_quant_bm64 launches it; its kernels-line row) and
+   `up_int8_f32_bk96` (blocks of 96); with --parent DIR the parent
+   commit's quantized kernel, built from that checkout, is checked and
+   timed on the same inputs (parent, shipped, shipped, parent:
+   `parent_ms`);
 9. train_moe: the GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths
    (hidden 768, 6 layers, 8 experts top-2, 12 heads, vocab 50257;
    318,151,297 parameters), float32, grouped dispatch, AdamW at lr 1e-4,
@@ -87,10 +96,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    grouped forward kernel 4 x layers and the dw kernel 2 x layers times a
    step, no route dropped. train_moe_quant: the same with
    expert_quant="int8" (5 timed steps; the quantized kernel 2 x layers
-   times a step);
+   times a step, every launch on the tensor cores); with --parent, again
+   on the parent's quantized kernel (train_moe_quant_parent);
+   train_moe_quant_bm64: 3 steps with groups of 64 rows, every quantized
+   launch on the CUDA-core kernel (its launches on the kernels line);
 10. moe_parity: 3 float32 steps of a 2-layer full-width GPT-MoE, grouped
    against capacity dispatch with capacity_factor E / top_k (nothing
    drops): losses and the first step's gradients must agree;
+   attention_fallback: flash_attention at head dim 96 in bf16 and 128 in
+   float16, which no kernel takes, forward and backward on the counted
+   plain route against the plain version in float32 (train, generate,
+   varlen_attn and flashmask_attn each check that no attention call of
+   theirs took the plain route);
 11. the packed and masked attention kernels (varlen forward, dq + dk/dv;
    FlashMask forward, dq + dk/dv) against their plain versions in bf16:
    the packed batch of phase 12 (timed with the plain versions, SDPA with
@@ -146,7 +163,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    for quant_matmul's two GEMVs and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
    forward and dw kernels, train_moe_quant for the quantized grouped
-   kernel, varlen_attn and flashmask_attn for the packed kernels on the
+   kernel on the tensor cores and train_moe_quant_bm64 for it on the CUDA
+   cores, varlen_attn and flashmask_attn for the packed kernels on the
    tensor cores (both directions), packed_parity for both directions on
    the CUDA cores,
    rowwise_attn for the row-wise ones), error and times;
@@ -186,6 +204,7 @@ rtol 0 and 1e-4 of the largest.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -292,16 +311,18 @@ def bound(bytes_moved, flops, peak_flops):
             else "operations")
 
 
-# the tensor-core kernels of each flash source, whose SASS must hold HGMMA,
-# and the tag that names the source's instances in the build line (the
-# masked forward, dq and dk/dv kernels are templates with a mask policy
-# per source)
+# the tensor-core kernels of each source, whose SASS must hold HGMMA (the
+# masked forward, dq and dk/dv kernels are templates with a mask policy per
+# source; the quantized ones with a code type, and the grouped one an x
+# dtype too)
 MASKED_WGMMA = ("masked_fwd_wgmma", "masked_dq_wgmma", "masked_dkv_wgmma")
-WGMMA_KERNELS = {"flash_attention_fwd": (("flash_fwd_wgmma",), None),
-                 "flash_attention_bwd": (("flash_bwd_dq_wgmma",
-                                          "flash_bwd_dkv_wgmma"), None),
-                 "flash_varlen": (MASKED_WGMMA, "SegmentMask"),
-                 "flash_sparse_mask": (MASKED_WGMMA, "StartRowMask")}
+WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma",),
+                 "flash_attention_bwd": ("flash_bwd_dq_wgmma",
+                                         "flash_bwd_dkv_wgmma"),
+                 "flash_varlen": MASKED_WGMMA,
+                 "flash_sparse_mask": MASKED_WGMMA,
+                 "quant_matmul": ("qmm_wgmma",),
+                 "quant_grouped_matmul": ("quant_grouped_wgmma",)}
 
 
 def kernel_label(mangled):
@@ -344,10 +365,9 @@ def ptxas_kernels(log):
     return out
 
 
-def hgmma_counts(so, kernels, tag=None):
-    """HGMMA instructions (wgmma in SASS) in each instance of the named
-    kernels of a built library, as cuobjdump --dump-sass lists them:
-    {"kernel<HD>": count}, or {"kernel<HD, tag>": count} with a tag."""
+def hgmma_counts(so, kernels):
+    """HGMMA instructions in each instance of the named kernels of a built
+    library, keyed by `kernel_label` ("quant_grouped_wgmma<float, 0>")."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     out = subprocess.run([tool, "--dump-sass", str(so)],
@@ -358,11 +378,8 @@ def hgmma_counts(so, kernels, tag=None):
     for line in out.stdout.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            name = next((k for k in kernels if k + "I" in fn.group(1)),
-                        None)
-            hd = re.search(r"ILi(\d+)E", fn.group(1))
-            key = (f"{name}<{hd.group(1)}{', ' + tag if tag else ''}>"
-                   if name and hd else None)
+            key = (kernel_label(fn.group(1))
+                   if any(k + "I" in fn.group(1) for k in kernels) else None)
             if key:
                 counts[key] = 0
         elif key and "HGMMA" in line:
@@ -376,6 +393,31 @@ def zero_flash_counts(*wrappers):
     for w in wrappers:
         w.launches = 0
         w.route_launches = dict.fromkeys(w.route_launches, 0)
+
+
+# the attention functionals that count their calls by route ("kernel",
+# "plain": `attention_route`)
+ATTN_FUNCTIONALS = ("flash_attention", "flash_attn_unpadded",
+                    "flash_attention_with_sparse_mask")
+
+
+def zero_attention_routes():
+    from paddle_tpu_torch.nn import functional as F
+    for name in ATTN_FUNCTIONALS:
+        fn = getattr(F, name)
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+
+def attention_routes_without_plain(phase):
+    """Each functional's calls by route since `zero_attention_routes`,
+    checked to hold no "plain" one: the main path runs where a kernel
+    fits."""
+    from paddle_tpu_torch.nn import functional as F
+    counts = {name: dict(getattr(F, name).route_launches)
+              for name in ATTN_FUNCTIONALS}
+    check(all(c["plain"] == 0 for c in counts.values()),
+          f"{phase}: an attention call took the plain route: {counts}")
+    return counts
 
 
 # -- phase 2: kernels against their plain versions -----------------------------
@@ -855,7 +897,8 @@ def build_variants(out, variants):
     csrc/<stem>.cu, or is the path of a .cu elsewhere (a parent commit's
     source, its headers beside it); edit is None or (text, replacement),
     made once in a copy of the source. Returns {key: the library, bound as
-    _build.load binds it}, ready to swap into _build._libs."""
+    _build.load binds it}, ready to swap into _build._libs; each library
+    carries its path (`so_path`) and nvcc's output (`build_log`)."""
     import ctypes
     from paddle_tpu_torch.kernels import _build
     os.makedirs(out, exist_ok=True)
@@ -886,6 +929,7 @@ def build_variants(out, variants):
         for fn, argtypes in variants[key][1].items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
+        lib.so_path, lib.build_log = so, err.decode()
         libs[key] = lib
     return libs
 
@@ -1699,12 +1743,14 @@ def generate_phase(torch, np, model, layers, seed):
     ids = np.random.default_rng(seed + 2).integers(0, 32000, (B, S0))
     torch.cuda.synchronize()
     zero_flash_counts(_flash_bhsd)
+    zero_attention_routes()
     t0 = time.perf_counter()
     out = dec.generate(torch.as_tensor(ids), max_new_tokens=N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _flash_bhsd.launches
     routes = dict(_flash_bhsd.route_launches)
+    attn_routes = attention_routes_without_plain("generate")
     check(tuple(out.shape) == (B, S0 + N), f"generate shape {out.shape}")
     check(bool((out[:, :S0] == torch.as_tensor(ids)).all()),
           "generate changed the prompt")
@@ -1716,7 +1762,8 @@ def generate_phase(torch, np, model, layers, seed):
     rec = {"phase": "generate", "dtype": "bfloat16", "layers": layers,
            "batch": B, "prompt_len": S0, "new_tokens": N, "wall_s": wall,
            "tokens_per_s": B * N / wall, "flash_launches": launches,
-           "flash_route_launches": routes}
+           "flash_route_launches": routes,
+           "attention_route_launches": attn_routes}
     emit(rec)
     del dec
     torch.cuda.empty_cache()
@@ -1771,6 +1818,7 @@ def train_phase(torch, np, seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+    zero_attention_routes()
     losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1781,6 +1829,7 @@ def train_phase(torch, np, seed):
     fwd, bwd = _flash_bhsd.launches, _flash_bhsd_bwd.launches
     fwd_routes = dict(_flash_bhsd.route_launches)
     routes = dict(_flash_bhsd_bwd.route_launches)
+    attn_routes = attention_routes_without_plain("train")
     losses = [x.item() for x in losses]
     steps = TRAIN_WARMUP + TRAIN_TIMED
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -1811,7 +1860,8 @@ def train_phase(torch, np, seed):
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
            "flash_fwd_route_launches": fwd_routes,
-           "flash_bwd_route_launches": routes}
+           "flash_bwd_route_launches": routes,
+           "attention_route_launches": attn_routes}
     emit(rec)
     del model, step
     torch.cuda.empty_cache()
@@ -1947,16 +1997,16 @@ MOE_EMPTY = 5                    # the expert the check's routing never picks
 GMM_RTOL_F32, GMM_ATOL_OF_MAX = 1e-6, 1e-5
 
 
-def moe_routing(torch, np, seed):
+def moe_routing(torch, np, seed, bm=MOE_BM):
     """16,384 routes (8192 tokens x top-2) over 8 experts, skewed, expert
-    5 never picked: the grouped metadata on the card, and the counts on
-    the host (for the per-expert library yardstick only)."""
+    5 never picked: the grouped metadata on the card in groups aligned to
+    bm rows, and the counts on the host (for the per-expert library
+    yardstick only)."""
     from paddle_tpu_torch.kernels.grouped_matmul import grouped_metadata
     rng = np.random.default_rng(seed)
     p = np.array([0.26, 0.2, 0.15, 0.12, 0.1, 0.0, 0.1, 0.07])
     ids = rng.choice(MOE_E, MOE_TOKENS * MOE_TOPK, p=p).astype(np.int32)
-    md = grouped_metadata(torch.as_tensor(ids, device="cuda"), MOE_E,
-                          MOE_BM)
+    md = grouped_metadata(torch.as_tensor(ids, device="cuda"), MOE_E, bm)
     return md, np.bincount(ids, minlength=MOE_E)
 
 
@@ -1969,11 +2019,17 @@ def gmm_err(torch, out, ref, rows, bf16):
     return d.max().item(), (d / (rtol * r.abs() + atol)).max().item()
 
 
-def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
+def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
+                 block_k=None, parent=None, bm=MOE_BM):
     """One grouped kernel at the MoE path's shapes against its plain
     version: kind "fwd" (x [Tp, k] . w [E, k, n] + b), "dx" (dy [Tp, k] .
     w[e]^T with w [E, n, k], read in place), "dw" (x [Tp, k], dy [Tp, n]
-    -> [E, k, n]) or "int8"/"fp8" (x . dequant(codes [E, n, k])^T)."""
+    -> [E, k, n]) or "int8"/"fp8" (x . dequant(codes [E, n, k])^T, blocks
+    of block_k; the record names the route the wrapper took, checks two
+    launches bit for bit and, with `parent` (the parent commit's library),
+    times its kernel on the same inputs). md's groups are aligned to bm
+    rows."""
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
     from paddle_tpu_torch.kernels.grouped_matmul import (
         _ref_dw, _ref_fwd, grouped_matmul_dw, grouped_matmul_fwd)
     from paddle_tpu_torch.kernels.quant_matmul import (
@@ -1990,8 +2046,8 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
     x = torch.randn(tp, k, generator=gen, device=dev, dtype=dtype)
     routes = int(counts.sum())
     live = [e for e in range(MOE_E) if counts[e]]
-    starts = np.concatenate([[0], np.cumsum(-(-counts // MOE_BM))[:-1]]) \
-        * MOE_BM
+    starts = np.concatenate([[0], np.cumsum(-(-counts // bm))[:-1]]) \
+        * bm
     isz = x.element_size()
     if kind in ("fwd", "dx"):
         wshape = (MOE_E, k, n) if kind == "fwd" else (MOE_E, n, k)
@@ -2002,11 +2058,11 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
         tr = kind == "dx"
 
         def kernel():
-            return grouped_matmul_fwd(x, w, b, off, cnt, MOE_BM,
+            return grouped_matmul_fwd(x, w, b, off, cnt, bm,
                                       transpose_w=tr)
 
         def plain():
-            return _ref_fwd(x, w, b, off, cnt, MOE_BM, dtype,
+            return _ref_fwd(x, w, b, off, cnt, bm, dtype,
                             transpose_w=tr)
 
         def library():
@@ -2024,10 +2080,10 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
         dy = torch.randn(tp, n, generator=gen, device=dev, dtype=dtype)
 
         def kernel():
-            return grouped_matmul_dw(x, dy, off, cnt, MOE_BM, MOE_E)
+            return grouped_matmul_dw(x, dy, off, cnt, bm, MOE_E)
 
         def plain():
-            return _ref_dw(x, dy, off, cnt, MOE_BM, MOE_E)
+            return _ref_dw(x, dy, off, cnt, bm, MOE_E)
 
         def library():
             out = torch.zeros(MOE_E, k, n, device=dev, dtype=torch.float32)
@@ -2039,17 +2095,30 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
         bytes_moved = routes * (k + n) * isz + MOE_E * k * n * 4
     else:
         w = torch.randn(MOE_E, n, k, generator=gen, device=dev) * k ** -0.5
-        codes, scales = quantize_weight_blockwise(w, qdtype=kind)
+        codes, scales = quantize_weight_blockwise(w, block_k, qdtype=kind)
         wdq = dequantize_weight_blockwise(codes, scales).to(dtype)
         del w
 
         def kernel():
             return quant_grouped_matmul(x, codes, scales, group_offsets=off,
-                                        group_counts=cnt, bm=MOE_BM)
+                                        group_counts=cnt, bm=bm)
+
+        def parent_kernel():
+            # the parent's C entry: no route argument (its one kernel)
+            out = torch.empty(tp, n, device=dev, dtype=dtype)
+            kb = scales.shape[2]
+            rc = parent.quant_grouped_matmul_fwd(
+                x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), off.data_ptr(), cnt.data_ptr(), MOE_E, tp, k,
+                n, kb, k // kb, bm, qmm._X_CODE[dtype],
+                qmm._Q_CODE[codes.dtype],
+                torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"{name}: the parent's kernel failed ({rc})")
+            return out
 
         def plain():
             return quant_grouped_matmul_plain(x, codes, scales, off, cnt,
-                                              MOE_BM)
+                                              bm)
 
         def library():
             out = torch.empty(tp, n, device=dev, dtype=dtype)
@@ -2059,6 +2128,8 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
             return out
         bytes_moved = routes * k * isz + len(live) * \
             blockwise_weight_bytes(k, n)[0] + routes * n * isz
+    quant = kind in ("int8", "fp8")
+    before = dict(quant_grouped_matmul.route_launches)
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
@@ -2066,20 +2137,50 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
     err, ratio = gmm_err(torch, out, ref, rows, bf16)
     check(math.isfinite(ratio) and ratio <= 1.0,
           f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
+    extra = {}
+    if quant:
+        extra["route"] = next(r for r, c in
+                              quant_grouped_matmul.route_launches.items()
+                              if c > before[r])
+        extra["block_k"] = k // scales.shape[2]
+        check(torch.equal(kernel()[rows], out[rows]),
+              f"{name}: two launches differ")
+        if parent is not None:
+            pout = parent_kernel()
+            perr, pratio = gmm_err(torch, pout, ref, rows, bf16)
+            check(pratio <= 1.0, f"{name}: the parent's kernel is off "
+                                 f"({perr})")
+            extra["parent_max_abs_err"] = perr
+            del pout
     lib = library()
     lib_check(name, lib[rows], ref[rows])
     del out, ref, lib
     kernel_ms = cuda_ms(torch, kernel, 10)
+    if quant and parent is not None:
+        # parent, shipped, shipped, parent: the same inputs in turns
+        pm = [cuda_ms(torch, parent_kernel, 10)]
+        km = [kernel_ms, cuda_ms(torch, kernel, 10)]
+        pm.append(cuda_ms(torch, parent_kernel, 10))
+        kernel_ms = statistics.mean(km)
+        extra.update(parent_ms=statistics.mean(pm), parent_ms_runs=pm,
+                     kernel_ms_runs=km,
+                     speedup_over_parent=statistics.mean(pm) / kernel_ms)
     plain_ms = cuda_ms(torch, plain, 3, warmup=1)
     library_ms = cuda_ms(torch, library, 10)
     flops = 2 * routes * k * n
     peak = BF16_FLOPS if bf16 else TF32_FLOPS
     bound_ms, bound_by = bound(bytes_moved, flops, peak)
+    extra["bound_share"] = bound_ms / kernel_ms
+    if quant and not bf16:
+        # the tensor-core route's own work: three bf16 products a value
+        b3 = bound(bytes_moved, 3 * flops, BF16_FLOPS)[0]
+        extra.update(bound_bf16x3_ms=b3, bound_bf16x3_share=b3 / kernel_ms,
+                     bf16_tflops_per_s=3 * flops / kernel_ms / 1e9)
     rec = {"phase": "kernel_check", "kernel": {
                "fwd": "grouped_matmul_fwd", "dx": "grouped_matmul_fwd",
                "dw": "grouped_matmul_dw"}.get(kind, "quant_grouped_matmul"),
            "case": name, "kind": kind, "dtype": str(dtype).split(".")[-1],
-           "routes": routes, "rows": tp, "k": k, "n": n, "bm": MOE_BM,
+           "routes": routes, "rows": tp, "k": k, "n": n, "bm": bm,
            "max_abs_err": err, "err_over_tolerance": ratio,
            "rtol": BF16_RTOL if bf16 else GMM_RTOL_F32,
            "atol_of_max": GMM_ATOL_OF_MAX, "kernel_ms": kernel_ms,
@@ -2090,7 +2191,7 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_peak": "bf16 989 TFLOP/s" if bf16
            else "TF32 494.7 TFLOP/s", "bytes": bytes_moved, "flops": flops,
-           "tflops_per_s": flops / kernel_ms / 1e9}
+           "tflops_per_s": flops / kernel_ms / 1e9, **extra}
     emit(rec)
     torch.cuda.empty_cache()
     return rec
@@ -2178,11 +2279,16 @@ def moe_routes_kept(torch, model, ids):
 
 
 def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
+                    quant_route=None, parent_gq=None, extra=None,
                     **overrides):
     """The GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths (hidden
     768, 6 layers, 8 experts top-2, 12 heads, vocab 50257; float32,
     grouped dispatch) through TrainStep with AdamW at lr 1e-4, on the
-    benchmark's fixed batch of 8 x 1024 random ids from the seed."""
+    benchmark's fixed batch of 8 x 1024 random ids from the seed. With
+    quant_route, every quantized grouped launch must have taken it. With
+    parent_gq (a ParentGq swapped in by the caller), every one must have
+    gone to the parent's kernel, and the record counts them as
+    {"parent": n}."""
     from paddle_tpu_torch import AdamW, TrainStep
     from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
                                                          grouped_matmul_fwd)
@@ -2203,7 +2309,7 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
     torch.cuda.reset_peak_memory_stats()
     grouped_matmul_fwd.launches = 0
     grouped_matmul_dw.launches = 0
-    quant_grouped_matmul.launches = 0
+    zero_flash_counts(quant_grouped_matmul)
     losses = [step((ids,), (labels,)) for _ in range(warmup)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2213,6 +2319,12 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
     wall = time.perf_counter() - t0
     fwd, dw = grouped_matmul_fwd.launches, grouped_matmul_dw.launches
     qfwd = quant_grouped_matmul.launches
+    qroutes = dict(quant_grouped_matmul.route_launches)
+    if parent_gq is not None:
+        check(parent_gq.calls == qfwd,
+              f"{phase}: {parent_gq.calls} calls of the parent's kernel, "
+              f"{qfwd} quantized launches")
+        qroutes = {"parent": parent_gq.calls}
     peak = torch.cuda.max_memory_allocated()
     losses = [x.item() for x in losses]
     steps = warmup + timed
@@ -2226,6 +2338,10 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
     check((fwd, dw, qfwd) == want,
           f"grouped launches fwd {fwd}, dw {dw}, quantized {qfwd} != "
           f"{want} over {layers} layers x {steps} steps")
+    if quant_route is not None:
+        check(qroutes[quant_route] == qfwd,
+              f"{phase}: quantized launches by route {qroutes}, not all "
+              f"{quant_route}")
     placed, produced, zeroed = moe_routes_kept(torch, model, ids)
     check(placed == produced == layers * batch * seq * cfg.top_k,
           f"routes placed {placed} of {produced}: a route was dropped")
@@ -2250,7 +2366,8 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
            "routes_dropped": produced - placed,
            "second_routes_zeroed_by_gshard_random_routing": zeroed,
            "grouped_fwd_launches": fwd, "grouped_dw_launches": dw,
-           "quant_grouped_launches": qfwd}
+           "quant_grouped_launches": qfwd,
+           "quant_grouped_route_launches": qroutes, **(extra or {})}
     emit(rec)
     del model, step
     torch.cuda.empty_cache()
@@ -2370,31 +2487,157 @@ def moe_parity_phase(torch, np, seed):
     return rec
 
 
-def moe_kernel_checks(torch, np, seed):
-    """Phase 8: the three MoE kernels at train_moe's shapes. Returns the
-    records the kernels line takes (the up projection's forward, its
-    weight gradient, the int8 up projection)."""
+def moe_kernel_checks(torch, np, seed, parent=None):
+    """Phase 8: the three MoE kernels at train_moe's shapes. The quantized
+    cases take the tensor-core route, but two that hold the CUDA-core
+    kernel: groups of 64 rows at blocks of 128, the shapes at which
+    train_moe_quant_bm64 launches it, and blocks of 96 (not whole 64-deep
+    stages); with `parent` (the parent commit's quantized library) each
+    is timed on it too. Returns the records the kernels line takes (the
+    up projection's forward, its weight gradient, the int8 up projection
+    on the tensor cores and, in groups of 64 rows, on the CUDA cores)."""
     md, counts = moe_routing(torch, np, seed)
+    md64, counts64 = moe_routing(torch, np, seed, bm=64)
     h, f = MOE_H, MOE_F
     f32, bf16 = torch.float32, torch.bfloat16
     recs = {}
-    for name, kind, k, n, dt in (
-            ("up_fwd_f32", "fwd", h, f, f32),
-            ("down_fwd_f32", "fwd", f, h, f32),
-            ("up_dx_f32", "dx", f, h, f32),
-            ("down_dx_f32", "dx", h, f, f32),
-            ("up_dw_f32", "dw", h, f, f32),
-            ("down_dw_f32", "dw", f, h, f32),
-            ("up_fwd_bf16", "fwd", h, f, bf16),
-            ("up_dw_bf16", "dw", h, f, bf16),
-            ("up_int8_f32", "int8", h, f, f32),
-            ("down_int8_f32", "int8", f, h, f32),
-            ("up_fp8_f32", "fp8", h, f, f32),
-            ("up_int8_bf16", "int8", h, f, bf16)):
-        recs[name] = grouped_case(torch, np, name, kind, k, n, dt,
-                                  seed + len(recs), md, counts)
+    for name, kind, k, n, dt, bk, bm in (
+            ("up_fwd_f32", "fwd", h, f, f32, None, MOE_BM),
+            ("down_fwd_f32", "fwd", f, h, f32, None, MOE_BM),
+            ("up_dx_f32", "dx", f, h, f32, None, MOE_BM),
+            ("down_dx_f32", "dx", h, f, f32, None, MOE_BM),
+            ("up_dw_f32", "dw", h, f, f32, None, MOE_BM),
+            ("down_dw_f32", "dw", f, h, f32, None, MOE_BM),
+            ("up_fwd_bf16", "fwd", h, f, bf16, None, MOE_BM),
+            ("up_dw_bf16", "dw", h, f, bf16, None, MOE_BM),
+            ("up_int8_f32", "int8", h, f, f32, None, MOE_BM),
+            ("down_int8_f32", "int8", f, h, f32, None, MOE_BM),
+            ("up_fp8_f32", "fp8", h, f, f32, None, MOE_BM),
+            ("up_int8_bf16", "int8", h, f, bf16, None, MOE_BM),
+            ("up_int8_f32_bm64", "int8", h, f, f32, None, 64),
+            ("up_int8_f32_bk96", "int8", h, f, f32, 96, MOE_BM)):
+        recs[name] = grouped_case(
+            torch, np, name, kind, k, n, dt, seed + len(recs),
+            *((md, counts) if bm == MOE_BM else (md64, counts64)),
+            block_k=bk, parent=parent, bm=bm)
+        if kind in ("int8", "fp8"):
+            want = "wgmma" if (bk, bm) == (None, MOE_BM) else "cuda_core"
+            check(recs[name]["route"] == want,
+                  f"{name}: routed to {recs[name]['route']}, not {want}")
     grouped_poison_case(torch, np, seed + 99, md)
-    return recs["up_fwd_f32"], recs["up_dw_f32"], recs["up_int8_f32"]
+    return (recs["up_fwd_f32"], recs["up_dw_f32"], recs["up_int8_f32"],
+            recs["up_int8_f32_bm64"])
+
+
+# the parent commit's quantized grouped library: its C entry has no route
+# argument
+GQ_PARENT_SIG = {"quant_grouped_matmul_fwd":
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                 + [ctypes.c_void_p]}
+
+
+def parent_quant_libs(parent):
+    """csrc/quant_grouped_matmul.cu and quant_matmul.cu of the parent's
+    checkout at `parent`, built beside the shipped ones: {"gq": library,
+    "qmm": library}."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+    csrc = os.path.join(parent, "paddle_tpu_torch", "csrc")
+    return build_variants(
+        os.path.join(str(_build.BUILD_DIR), "parent_quant"),
+        {"gq": (os.path.join(csrc, "quant_grouped_matmul.cu"),
+                GQ_PARENT_SIG, (), None),
+         "qmm": (os.path.join(csrc, "quant_matmul.cu"), qmm._SIG, (),
+                 None)})
+
+
+def qmm_wgmma_unchanged(shipped_so, shipped_log, parent):
+    """qmm_wgmma's ptxas line and HGMMA count, shipped and parent (the
+    helpers it shares with the grouped kernel live in wgmma.cuh): they
+    must be equal."""
+    rec = {}
+    for who, so, log in (("shipped", shipped_so, shipped_log),
+                         ("parent", parent.so_path, parent.build_log)):
+        rec[who] = {"ptxas": {k: v for k, v in ptxas_kernels(log).items()
+                              if k.startswith("qmm_wgmma")},
+                    "hgmma": hgmma_counts(so, ("qmm_wgmma",))}
+    check(rec["shipped"] == rec["parent"]
+          and len(rec["parent"]["hgmma"]) == 2,
+          f"qmm_wgmma changed against the parent: {rec}")
+    emit({"phase": "qmm_wgmma_against_parent", **rec})
+    return rec
+
+
+class ParentGq:
+    """The parent's quantized grouped library under the shipped wrapper:
+    the route argument is dropped (the parent has one kernel), and each
+    call is counted in `calls` (the wrapper's route counts name a kernel
+    that did not run)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.calls = 0
+
+    def quant_grouped_matmul_fwd(self, *args):
+        self.calls += 1
+        return self.lib.quant_grouped_matmul_fwd(*args[:-2], args[-1])
+
+
+def attention_fallback_check(torch, seed):
+    """Head dim 96 in bf16 and 128 in float16, which no kernel takes,
+    through flash_attention on the card: one "plain" route and no kernel
+    launch, forward and backward under autograd, outputs and q, k, v
+    gradients against the plain version in float32 on the same values
+    (2^-7 |ref| + 1e-4 for outputs, 2^-7 |ref| + 1e-3 of the largest for
+    gradients: both compute in float32 from the same values and
+    cotangent, the entry rounds to its dtype)."""
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    from paddle_tpu_torch.nn.functional import (flash_attention,
+                                                scaled_dot_product_attention)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    cases = {}
+    for name, d, dt in (("d96_bf16", 96, torch.bfloat16),
+                        ("d128_float16", 128, torch.float16)):
+        shape = (2, 1024, 16, d)
+        q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
+                      .to(dt) for _ in range(4))
+        g = g.float()          # one cotangent, exact in the entry's dtype
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+        zero_attention_routes()
+        out, _ = flash_attention(*leaves, causal=True)
+        (out.float() * g).sum().backward()
+        routes = dict(flash_attention.route_launches)
+        check(routes == {"kernel": 0, "plain": 1}
+              and _flash_bhsd.launches == 0 and _flash_bhsd_bwd.launches == 0,
+              f"attention_fallback {name}: routes {routes}, kernel launches "
+              f"{_flash_bhsd.launches} + {_flash_bhsd_bwd.launches}")
+        ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+        ref = scaled_dot_product_attention(*ref_leaves, is_causal=True)
+        (ref * g).sum().backward()
+        torch.cuda.synchronize()
+        err, ratio = bf16_err(out, ref)
+        gerr = []
+        for t, r in zip(leaves, ref_leaves):
+            gerr.append(bf16_err(t.grad, r.grad,
+                                 atol=GRAD_ATOL * r.grad.abs().max().item()))
+        check(out.dtype == dt and ratio <= 1.0
+              and all(x[1] <= 1.0 for x in gerr),
+              f"attention_fallback {name}: output {err} ({ratio} x rule), "
+              f"gradients {gerr}")
+        cases[name] = {"d": d, "dtype": str(dt).split(".")[-1],
+                       "shape": list(shape), "routes": routes,
+                       "max_abs_err": err, "err_over_tolerance": ratio,
+                       "grad_max_abs_err": [x[0] for x in gerr],
+                       "grad_err_over_tolerance": [x[1] for x in gerr]}
+        del q, k, v, g, leaves, ref_leaves, out, ref
+    torch.cuda.empty_cache()
+    rec = {"phase": "attention_fallback", "entry":
+           "nn.functional.flash_attention, causal", "cases": cases}
+    emit(rec)
+    return rec
 
 
 # -- phases 11-13: packed and masked attention ---------------------------------
@@ -3083,6 +3326,7 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_flash_counts(fwd_fn, bwd_fn)
+    zero_attention_routes()
 
     def one():
         for t in leaves:
@@ -3101,6 +3345,7 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
     fl, bl = fwd_fn.launches, bwd_fn.launches
     routes = dict(fwd_fn.route_launches)
     bwd_routes = dict(bwd_fn.route_launches)
+    attn_routes = attention_routes_without_plain(phase)
     check(fl == passes and bl == passes,
           f"{phase}: forward launches {fl}, backward {bl} != one each per "
           f"pass x {passes}")
@@ -3122,7 +3367,8 @@ def _packed_path(torch, phase, run, fwd_fn, bwd_fn, leaves, tokens, pairs,
                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
                 "fwd_launches": fl, "bwd_launches": bl,
                 "fwd_route_launches": routes,
-                "bwd_route_launches": bwd_routes}, **extra)
+                "bwd_route_launches": bwd_routes,
+                "attention_route_launches": attn_routes}, **extra)
     emit(rec)
     return rec
 
@@ -3929,9 +4175,11 @@ def main():
                          "then exit")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: its three ragged "
-                         "kernels are built and timed beside the shipped "
-                         "ones, the same way, in the ragged and partials "
-                         "cases")
+                         "kernels and its quantized grouped kernel are "
+                         "built and timed beside the shipped ones, the same "
+                         "way, in the ragged, partials and quantized "
+                         "grouped cases, and train_moe_quant runs again on "
+                         "its quantized kernel")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -3973,12 +4221,13 @@ def main():
     ptxas = {name: ptxas_kernels(_build.build_log(name))
              for name in sources}
     hgmma = {}
-    for name, (kernels, tag) in WGMMA_KERNELS.items():
-        hgmma.update(hgmma_counts(libs[name], kernels, tag))
-    # nine kernels (the masked forward, dq and dk/dv under two policies),
-    # each at D 64 and 128
-    check(len(hgmma) == 18 and all(hgmma.values()),
-          f"a flash kernel meant for the tensor cores has no HGMMA: {hgmma}")
+    for name, kernels in WGMMA_KERNELS.items():
+        hgmma.update(hgmma_counts(libs[name], kernels))
+    # nine flash kernels (the masked forward, dq and dk/dv under two
+    # policies) at D 64 and 128; qmm_wgmma for 2 code types; the grouped
+    # kernel for 2 x dtypes x 2 code types
+    check(len(hgmma) == 24 and all(hgmma.values()),
+          f"a kernel meant for the tensor cores has no HGMMA: {hgmma}")
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
           "hgmma": hgmma})
     if args.nan_guard_cost:
@@ -4165,15 +4414,42 @@ def main():
 
     # the MoE training path: its kernels at train_moe's shapes, then the
     # full-width GPT-MoE, its int8-expert lane and the dispatch parity
-    gmm_main, dw_main, qgmm_main = moe_kernel_checks(torch, np,
-                                                      args.seed + 40)
+    gq_parent = None
+    if args.parent:
+        quant_parent = parent_quant_libs(args.parent)
+        gq_parent = quant_parent["gq"]
+        qmm_wgmma_unchanged(libs["quant_matmul"],
+                            _build.build_log("quant_matmul"),
+                            quant_parent["qmm"])
+    gmm_main, dw_main, qgmm_main, qgmm_cuda_core = moe_kernel_checks(
+        torch, np, args.seed + 40, parent=gq_parent)
     train_moe = train_moe_phase(torch, np, args.seed + 41)
     if args.profile:
         train_moe_profile_phase(torch, np, args.seed + 41)
     train_moe_quant = train_moe_phase(torch, np, args.seed + 41,
                                       phase="train_moe_quant", timed=5,
+                                      quant_route="wgmma",
                                       expert_quant="int8")
+    if gq_parent is not None:
+        # the same phase on the parent's quantized kernel, swapped in
+        stem = "quant_grouped_matmul"
+        shipped = _build._libs[stem]
+        parent_gq = _build._libs[stem] = ParentGq(gq_parent)
+        try:
+            train_moe_phase(torch, np, args.seed + 41,
+                            phase="train_moe_quant_parent", timed=5,
+                            parent_gq=parent_gq,
+                            extra={"parent": args.parent},
+                            expert_quant="int8")
+        finally:
+            _build._libs[stem] = shipped
+    # groups of 64 rows: every quantized launch on the CUDA-core kernel
+    train_moe_quant_bm64 = train_moe_phase(
+        torch, np, args.seed + 41, phase="train_moe_quant_bm64", warmup=1,
+        timed=2, quant_route="cuda_core", expert_quant="int8",
+        group_block=64)
     moe_parity_phase(torch, np, args.seed)
+    attention_fallback_check(torch, args.seed + 45)
 
     # packed and masked attention: the kernels at the packed batch's
     # shapes, then the two entry points on it, then their parity
@@ -4245,7 +4521,14 @@ def main():
             ("quant_grouped_matmul",
              "paddle_tpu_torch/csrc/quant_grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:263",
-             qgmm_main, train_moe_quant["quant_grouped_launches"]),
+             qgmm_cuda_core,
+             train_moe_quant_bm64["quant_grouped_route_launches"]
+             ["cuda_core"]),
+            ("quant_grouped_matmul_wgmma",
+             "paddle_tpu_torch/csrc/quant_grouped_matmul.cu",
+             "paddle_tpu/kernels/pallas/quant_matmul.py:263",
+             qgmm_main,
+             train_moe_quant["quant_grouped_route_launches"]["wgmma"]),
             ("flash_varlen_fwd", "paddle_tpu_torch/csrc/flash_varlen.cu",
              "paddle_tpu/kernels/pallas/flash_varlen.py:222",
              varlen_f32,

@@ -1,6 +1,7 @@
-// Helpers shared by the port's attention kernels: element conversion
-// between the storage types (float, bfloat16) and the float32 the kernels
-// compute in, and warp-wide reductions.
+// Helpers shared by the port's kernels: element conversion between the
+// storage types (float, bfloat16) and the float32 the kernels compute in,
+// warp-wide reductions, and the host's once-per-device raise of a kernel's
+// dynamic shared-memory limit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +44,26 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Devices that the launchers' once-per-device caches cover; past these a
+// launcher asks again each time.
+constexpr int kMaxDevices = 64;
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device
+// and kernel (`done`, the launcher's own flags), not every launch. Returns
+// 0 or the CUDA error.
+template <typename Kernel>
+int raise_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices) done[dev] = true;
+  return 0;
 }
 
 }  // namespace ptt

@@ -851,7 +851,8 @@ constexpr int kRouteRows = 0;  // route codes (kernels/quant_matmul.py)
 constexpr int kRouteTiled = 1;
 constexpr int kRouteWgmma = 2;
 constexpr int kRouteGemvTc = 3;
-constexpr int kMaxDevices = 64;
+using ptt::kMaxDevices;
+using ptt::raise_smem;
 
 template <typename TX, int Q, int MT>
 void launch_rows(const void* x, const void* c, const void* s, void* o, int M,
@@ -860,21 +861,6 @@ void launch_rows(const void* x, const void* c, const void* s, void* o, int M,
   qmm_rows<TX, Q, MT><<<grid, kRowThreads, 0, st>>>(
       (const TX*)x, (const uint8_t*)c, (const float*)s, (TX*)o, M, N, K, KB,
       bk, vec);
-}
-
-// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device
-// and kernel, not every launch.
-template <typename Kernel>
-int raise_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < kMaxDevices && done[dev]) return 0;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < kMaxDevices) done[dev] = true;
-  return 0;
 }
 
 template <int Q>

@@ -115,7 +115,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;       // ring slots a warp: 2 stages in flight
 constexpr int kStageBytes = 2048;  // about this much K (and V) a stage
 constexpr int kMaxCluster = 8;   // the portable cluster size
-constexpr int kMaxDevices = 64;
 
 // the pool policies: rows of T (float or bf16), or int8 codes with one
 // float32 scale per token row
@@ -517,13 +516,8 @@ int launch(const Args& a, bool cluster_only) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -(int)e;
-  if (C::SMEM > 48 * 1024 && !(dev < kMaxDevices && smem_set[dev])) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
-    if (e != cudaSuccess) return -(int)e;
-    if (dev < kMaxDevices) smem_set[dev] = true;
-  }
+  if (C::SMEM > 48 * 1024)
+    if (int r = raise_smem(kernel, C::SMEM, smem_set)) return -r;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = C::SMEM;

@@ -41,6 +41,10 @@
 //   product without shared memory. It splits each float32 x into hi =
 //   bf16(x) and lo = bf16(x - hi), so that two RS products, hi then lo,
 //   into one float32 accumulator carry x to about 2^-16 of itself.
+//   `split3` instead splits a float32 operand exactly into three bf16
+//   pieces (truncated hi, mid, lo), and `split3_store8` writes eight of
+//   them into three swizzled tiles: three SS products against an operand
+//   that is exact in bf16 (weight codes) give the float32 products.
 // - The A registers are read while the wgmma runs: write them, then
 //   `fence_operand(a)` and `fence()` before the wgmma, and leave them
 //   unchanged until a `wait` that covers it.
@@ -262,6 +266,51 @@ __device__ __forceinline__ void frag_a_hilo(const float (&d)[R],
     hi[i] = *reinterpret_cast<const uint32_t*>(&h);
     lo[i] = *reinterpret_cast<const uint32_t*>(&l);
   }
+}
+
+// float32 x as three bf16 pieces with hi + mid + lo == x exactly: hi is
+// the top 16 bits of x, r = x - hi (exact), mid the top 16 bits of r, and
+// lo = r - mid, which keeps at most 8 significant bits and is exact in
+// bf16 (for |x| >= 2^-100, where no piece falls below bf16's subnormal
+// step). Truncation, not rounding, so hi cannot overflow near FLT_MAX. A
+// non-finite x goes whole into hi, with a NaN's quiet bit set (a NaN whose
+// payload sits in the low 16 bits alone would truncate to inf), and mid =
+// lo = 0, so an inf times a code gives what the float32 product gives.
+// Each piece is returned in the upper half of a 32-bit word.
+__device__ __forceinline__ void split3(float x, uint32_t& h, uint32_t& m,
+                                       uint32_t& l) {
+  const uint32_t u = __float_as_uint(x);
+  const uint32_t hu = u & 0xFFFF0000u;
+  const float r = x - __uint_as_float(hu);
+  const uint32_t mu = __float_as_uint(r) & 0xFFFF0000u;
+  const uint32_t lu = __float_as_uint(r - __uint_as_float(mu));
+  const bool finite = (u & 0x7F800000u) != 0x7F800000u;
+  h = finite ? hu : (hu | ((u & 0x007FFFFFu) ? 0x00400000u : 0u));
+  m = finite ? mu : 0u;
+  l = finite ? lu : 0u;
+}
+
+// Eight consecutive float32 values (a, then b) split into three 16-byte
+// chunks of bf16 (`split3`), stored at byte offset `off` of three tiles
+// `panel` bytes apart from `base`: hi, mid, lo, the first value in the low
+// half of each word.
+__device__ __forceinline__ void split3_store8(uint8_t* base, uint32_t off,
+                                              int panel, float4 a,
+                                              float4 b) {
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t h[8], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) split3(v[i], h[i], m[i], l[i]);
+  // __byte_perm(p, q, 0x7632): the upper halves of p (low) and q (high)
+  *reinterpret_cast<uint4*>(base + off) = make_uint4(
+      __byte_perm(h[0], h[1], 0x7632), __byte_perm(h[2], h[3], 0x7632),
+      __byte_perm(h[4], h[5], 0x7632), __byte_perm(h[6], h[7], 0x7632));
+  *reinterpret_cast<uint4*>(base + panel + off) = make_uint4(
+      __byte_perm(m[0], m[1], 0x7632), __byte_perm(m[2], m[3], 0x7632),
+      __byte_perm(m[4], m[5], 0x7632), __byte_perm(m[6], m[7], 0x7632));
+  *reinterpret_cast<uint4*>(base + 2 * panel + off) = make_uint4(
+      __byte_perm(l[0], l[1], 0x7632), __byte_perm(l[2], l[3], 0x7632),
+      __byte_perm(l[4], l[5], 0x7632), __byte_perm(l[6], l[7], 0x7632));
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,

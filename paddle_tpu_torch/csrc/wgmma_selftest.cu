@@ -27,7 +27,16 @@
 // of a lane's two rows, `frag_a_words`, exact conversion to bf16) and
 // whose B fragment takes x at the same physical k (`frag_b_rows`); a float32 partial a K-block with the scale
 // applied on the accumulator. A wrong fragment rule or permutation moves
-// outputs by their own size. No tile here is on any model's path.
+// outputs by their own size.
+//
+// A fourth tile checks the float32 operand split as the grouped quantized
+// kernel uses it: the first tile's product with b float32 [128, K], each
+// 64-wide slice of b split by its threads into hi, mid and lo bf16 tiles
+// (`split3_store8`), and each k16 step three chained m64n128k16 wgmmas
+// (hi, mid, lo) into the block's partial. A wrong piece, pack order or
+// panel offset moves outputs by far more than float32 rounding; a
+// non-finite b row shows how inf and NaN pass the split. No tile here is
+// on any model's path.
 
 #include <stdint.h>
 #include <cuda_bf16.h>
@@ -214,6 +223,78 @@ __global__ void __launch_bounds__(32)
   out[(g + 8) * 8 + 2 * t + 1] = acc[3];
 }
 
+constexpr int kSplitPanel = 128 * 128;  // one bf16 [128, 64] tile of b
+
+__global__ void __launch_bounds__(128)
+    split3_tile(const __nv_bfloat16* __restrict__ a,
+                const float* __restrict__ b,
+                const float* __restrict__ scales, float* __restrict__ out,
+                int K, int bk) {
+  extern __shared__ __align__(1024) uint8_t split_smem[];
+  uint8_t* sb = split_smem;                 // hi, mid, lo tiles of b
+  uint8_t* sa = split_smem + 3 * kSplitPanel;
+  if (wg::smem_addr(sb) & 1023) __trap();
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int KB = K / bk;
+  const int r0 = warp * 16 + lane / 4;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  float s0 = 0.f, s1 = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 64) {
+    for (int q = t; q < 64 * 8; q += 128) {
+      const int r = q >> 3, c = q & 7;
+      wg::cp_async16(wg::smem_addr(sa) + wg::sw128(r, c),
+                     a + (size_t)r * K + k0 + c * 8, true);
+    }
+    for (int q = t; q < 128 * 8; q += 128) {
+      const int r = q >> 3, c = q & 7;
+      const float4* p =
+          reinterpret_cast<const float4*>(b + (size_t)r * K + k0 + c * 8);
+      wg::split3_store8(sb, wg::sw128(r, c), kSplitPanel, p[0], p[1]);
+    }
+    wg::cp_async_commit();
+    wg::cp_async_wait<0>();
+    wg::fence_proxy_async();
+    __syncthreads();
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 16 * j;
+      const int kin = k % bk;
+      if (kin == 0) {
+        s0 = scales[(size_t)r0 * KB + k / bk];
+        s1 = scales[(size_t)(r0 + 8) * KB + k / bk];
+      }
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        wg::mma_m64n128k16(
+            part, wg::desc_sw128(wg::smem_addr(sa) + 32 * j),
+            wg::desc_sw128(wg::smem_addr(sb) + p * kSplitPanel + 32 * j),
+            kin != 0 || p > 0);
+      if (kin + 16 == bk) {
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(part);
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          acc[i] = fmaf((i & 2) ? s1 : s0, part[i], acc[i]);
+        wg::fence();
+      }
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(part);
+    __syncthreads();  // the next slice overwrites the tiles
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int row = r0 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    out[row * 128 + col] = acc[i];
+  }
+}
+
 }  // namespace
 
 // a [64, K] and b [128, K] bf16, scales [64, K / bk] float32, out [64, 128]
@@ -266,6 +347,27 @@ extern "C" int mma_codes_selftest(const void* a, const void* x,
     return (int)cudaErrorInvalidValue;
   mma_codes_tile<<<1, 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)a, (const __nv_bfloat16*)x, (const float*)scales,
+      (float*)out, K, bk);
+  return (int)cudaGetLastError();
+}
+
+// a [64, K] bf16, b [128, K] float32, scales [64, K / bk] float32, out
+// [64, 128] float32, all contiguous with 16-byte aligned bases; K a
+// multiple of 64, bk of 16 dividing K. out = the scaled product with b
+// split into three bf16 pieces, through the fourth tile above. Returns the
+// CUDA error code of the launch.
+extern "C" int split3_selftest(const void* a, const void* b,
+                               const void* scales, void* out, int K, int bk,
+                               void* stream) {
+  if (K <= 0 || bk <= 0 || K % 64 || bk % 16 || K % bk ||
+      (uintptr_t)a % 16 || (uintptr_t)b % 16)
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 3 * kSplitPanel + 64 * 128;  // 56 KB
+  cudaError_t e = cudaFuncSetAttribute(
+      split3_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  split3_tile<<<1, 128, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a, (const float*)b, (const float*)scales,
       (float*)out, K, bk);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,11 @@ and ``quant_matmul.launches`` their total.
 The grouped form (`quant_grouped_matmul`, the Pallas kernel `_gq_kernel`)
 runs the MoE expert products over grouped_matmul's expert-sorted layout
 with per-expert codes [E, N, K] and scales [E, N, K // block_k]
-(``csrc/quant_grouped_matmul.cu``). `quantized_grouped_linear` is its
+(``csrc/quant_grouped_matmul.cu``). `gq_route` picks one of its two
+kernels: the tensor-core product ("wgmma"; float32 x as three exact bf16
+pieces, `split3_bf16`, bf16 x as it is) or the CUDA-core tile
+("cuda_core"); ``quant_grouped_matmul.route_launches`` counts each beside
+``quant_grouped_matmul.launches``. `quantized_grouped_linear` is its
 training front door: the forward quantizes the [E, K, N] expert stack and
 runs the quantized kernel, the backward is the straight-through estimator
 (the grouped kernels against the full-precision weight).
@@ -49,7 +53,8 @@ __all__ = ["QK_BLOCK", "INT8_MAX", "FP8_MAX", "quantize_weight_blockwise",
            "quant_grouped_matmul", "quant_grouped_matmul_plain",
            "quantized_grouped_linear", "configure_matmul_quant",
            "get_matmul_quant", "qmm_route", "QMM_ROUTES", "ROWS_MAX_M",
-           "WGMMA_BLOCK_K", "GEMV_TC_BLOCK_K"]
+           "WGMMA_BLOCK_K", "GEMV_TC_BLOCK_K", "gq_route", "GQ_ROUTES",
+           "GQ_WGMMA_BM", "split3_bf16"]
 
 # one scale row per 128 contraction rows, as in the JAX package
 QK_BLOCK = 128
@@ -70,7 +75,12 @@ ROWS_MAX_M = 32          # the GEMVs take up to this many rows of x
 WGMMA_BLOCK_K = 64       # the tensor-core product's blocks: multiples of this
 GEMV_TC_BLOCK_K = 16     # the tensor-core GEMV's blocks: multiples of this
 _GQ_SIG = {"quant_grouped_matmul_fwd":
-           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
+           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]}
+# the kernels of csrc/quant_grouped_matmul.cu, in the order of its route
+# codes
+GQ_ROUTES = ("cuda_core", "wgmma")
+_GQ_ROUTE_CODE = {r: i for i, r in enumerate(GQ_ROUTES)}
+GQ_WGMMA_BM = 128        # the tensor-core product's token tile: bm % this
 
 
 def _pick_tile(n, pref):
@@ -254,6 +264,44 @@ quant_matmul.route_launches = dict.fromkeys(QMM_ROUTES, 0)
 
 # -- the grouped (MoE expert) form ---------------------------------------------
 
+_HI16 = -(1 << 16)                     # 0xFFFF0000 as an int32
+
+
+def split3_bf16(x):
+    """float32 x -> (hi, mid, lo) bf16 with hi + mid + lo == x exactly, the
+    rule of the grouped tensor-core kernel (``split3`` in csrc/wgmma.cuh):
+    hi is the top 16 bits of x, mid the top 16 bits of r = x - hi, lo = r
+    - mid (at most 8 significant bits, exact in bf16 for |x| >= 2^-100).
+    Truncation, so hi never overflows. A non-finite x goes whole into hi,
+    a NaN with its quiet bit set, and mid = lo = 0."""
+    x = x.float().contiguous()
+    u = x.view(torch.int32)
+    hu = u & _HI16
+    r = x - hu.view(torch.float32)
+    mu = r.view(torch.int32) & _HI16
+    lu = (r - mu.view(torch.float32)).view(torch.int32) & _HI16
+    finite = torch.isfinite(x)
+    zero = torch.zeros((), dtype=torch.int32, device=x.device)
+    hu = torch.where(torch.isnan(x), hu | (1 << 22), hu)
+    mu = torch.where(finite, mu, zero)
+    lu = torch.where(finite, lu, zero)
+    return tuple((v >> 16).to(torch.int16).view(torch.bfloat16)
+                 for v in (hu, mu, lu))
+
+
+def gq_route(x_dtype, block_k, bm, ptrs):
+    """The kernel a CUDA quant_grouped_matmul launches: "wgmma" (tensor
+    cores: float32 x as three exact bf16 pieces, bf16 x as it is) for
+    float32 or bf16 x with blocks of whole 64-deep stages, groups of whole
+    128-row token tiles and every pointer in ``ptrs`` (x and the codes)
+    16-byte aligned, else "cuda_core"."""
+    if (x_dtype in (torch.float32, torch.bfloat16)
+            and block_k % WGMMA_BLOCK_K == 0 and bm % GQ_WGMMA_BM == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "cuda_core"
+
+
 def quant_grouped_matmul_plain(x, codes, scales, offsets, counts, bm):
     """The grouped kernel's function in plain PyTorch, as the JAX
     reference computes it: dequantize every expert to float32, then
@@ -272,7 +320,7 @@ def quant_grouped_matmul(x, codes, scales, *, group_offsets, group_counts,
     codec's [E, K, N] codes and [E, KB, N] scales transposed). Returns
     [Tp, N] in x's dtype; rows past a group's live tiles are unspecified.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises)."""
+    kernel `gq_route` picks (or raises)."""
     offsets = group_offsets.to(torch.int32)
     counts = group_counts.to(torch.int32)
     if codes.dim() != 3 or scales.dim() != 3:
@@ -297,19 +345,24 @@ def quant_grouped_matmul(x, codes, scales, *, group_offsets, group_counts,
     tp = x.shape[0]
     kb = scales.shape[2]
     out = torch.empty((tp, n), dtype=x.dtype, device=x.device)
+    route = gq_route(x.dtype, k // kb, int(bm),
+                     (x.data_ptr(), codes.data_ptr()))
     lib = _build.load("quant_grouped_matmul", _GQ_SIG)
     rc = lib.quant_grouped_matmul_fwd(
         x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
         offsets.data_ptr(), counts.data_ptr(), e, tp, k, n, kb, k // kb,
-        int(bm), _X_CODE[x.dtype], _Q_CODE[codes.dtype], _stream(x))
+        int(bm), _X_CODE[x.dtype], _Q_CODE[codes.dtype],
+        _GQ_ROUTE_CODE[route], _stream(x))
     if rc:
-        raise RuntimeError(f"quant_grouped_matmul launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"quant_grouped_matmul launch failed ({route} "
+                           f"kernel): CUDA error {rc}")
     quant_grouped_matmul.launches += 1
+    quant_grouped_matmul.route_launches[route] += 1
     return out
 
 
 quant_grouped_matmul.launches = 0
+quant_grouped_matmul.route_launches = dict.fromkeys(GQ_ROUTES, 0)
 
 
 class _QuantizedGroupedLinear(torch.autograd.Function):

@@ -14,8 +14,10 @@ import math
 import torch
 
 from ...kernels.flash_sparse_mask import (flash_sparse_mask_bwd,
-                                          flash_sparse_mask_fwd)
-from .flash_attention import _no_dropout, flash_attention, flash_attn_unpadded
+                                          flash_sparse_mask_fwd,
+                                          flash_sparse_mask_fwd_plain)
+from .flash_attention import (ATTENTION_ROUTES, _count_route, _no_dropout,
+                              flash_attention, flash_attn_unpadded)
 
 __all__ = ["flash_attention_with_sparse_mask", "flash_attn_qkvpacked",
            "flash_attn_varlen_qkvpacked"]
@@ -66,12 +68,22 @@ def flash_attention_with_sparse_mask(query, key, value,
     gives it. Returns [B, S, H, D] in query's dtype, differentiable through
     the FlashMask backward. attn_mask_start_row is accepted and unused, as
     in the JAX package; dropout_p > 0 with training=True raises
-    NotImplementedError."""
+    NotImplementedError. A head dim outside HEAD_DIMS or float16 takes the
+    plain version under autograd (`attention_route`)."""
     _no_dropout(dropout_p, training, "flash_attention_with_sparse_mask")
     b, s, h, d = query.shape
+    route = _count_route(flash_attention_with_sparse_mask, query.dtype, d)
     start = _start_rows(attn_mask_start_row_indices, b, s, h, query.device)
+    if route == "plain":
+        return flash_sparse_mask_fwd_plain(query, key, value, start,
+                                           bool(is_causal),
+                                           1.0 / math.sqrt(d))[0]
     return _FlashSparseMask.apply(query, key, value, start, bool(is_causal),
                                   1.0 / math.sqrt(d))
+
+
+flash_attention_with_sparse_mask.route_launches = dict.fromkeys(
+    ATTENTION_ROUTES, 0)
 
 
 def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False,

@@ -7,6 +7,13 @@ two-pass backward, from the forward's saved o and lse.
 ``flash_attn_unpadded`` does the same for packed documents through the
 varlen kernels (kernels/flash_varlen.py). On a CPU tensor every one runs
 its plain versions.
+
+`attention_route` decides, from dtype and head dim before any launch,
+whether a call takes the kernels ("kernel": float32 or bf16 at a head dim
+in HEAD_DIMS) or the plain version differentiated op by op by autograd
+("plain": any other head dim, float16), as the reference runs its XLA
+attention wherever no Pallas kernel fits. Each functional counts its
+calls by route in ``route_launches``.
 """
 from __future__ import annotations
 
@@ -14,13 +21,35 @@ import math
 
 import torch
 
-from ...kernels.flash_attention import (_flash_bhsd, _flash_bhsd_bwd,
+from ...kernels.flash_attention import (HEAD_DIMS, _flash_bhsd,
+                                        _flash_bhsd_bwd,
                                         flash_attention_fwd_plain)
 from ...kernels.flash_varlen import (flash_varlen_bwd, flash_varlen_fwd,
+                                     flash_varlen_fwd_plain,
                                      segments_from_cu)
 
 __all__ = ["flash_attention", "scaled_dot_product_attention",
-           "flash_attn_unpadded"]
+           "flash_attn_unpadded", "attention_route", "ATTENTION_ROUTES"]
+
+ATTENTION_ROUTES = ("kernel", "plain")
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def attention_route(dtype, head_dim):
+    """The route of one attention call, from its dtype and head dim alone:
+    "kernel" (the flash, varlen or FlashMask kernels and their backward;
+    their plain versions on a CPU tensor) for float32 or bf16 at a head dim
+    in HEAD_DIMS, else "plain" (the plain version under autograd, on every
+    device), the counterpart of the reference's XLA fallback."""
+    if dtype in _KERNEL_DTYPES and head_dim in HEAD_DIMS:
+        return "kernel"
+    return "plain"
+
+
+def _count_route(fn, dtype, head_dim):
+    route = attention_route(dtype, head_dim)
+    fn.route_launches[route] += 1
+    return route
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -71,10 +100,16 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     are accepted and unused. dropout > 0 with training=True raises
     NotImplementedError (the JAX package applies it to the output after
     the kernel). ``scale`` (default 1/sqrt(D)) is the port's own trailing
-    keyword."""
+    keyword. A head dim outside HEAD_DIMS or float16 takes the plain
+    version under autograd (`attention_route`)."""
     _no_dropout(dropout, training, "flash_attention")
-    out = _bshd(_FlashAttention.apply, query, key, value, causal, scale)
+    route = _count_route(flash_attention, query.dtype, query.shape[-1])
+    core = _FlashAttention.apply if route == "kernel" else _plain_core
+    out = _bshd(core, query, key, value, causal, scale)
     return out, None
+
+
+flash_attention.route_launches = dict.fromkeys(ATTENTION_ROUTES, 0)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -137,8 +172,10 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     As in the JAX package, max_seqlen_*, return_softmax, fixed_seed_offset
     and rng_name are accepted and unused. dropout > 0 with training=True
     raises NotImplementedError (the JAX package applies it to the output
-    after the kernel)."""
+    after the kernel). A head dim outside HEAD_DIMS or float16 takes the
+    plain version under autograd (`attention_route`)."""
     _no_dropout(dropout, training, "flash_attn_unpadded")
+    route = _count_route(flash_attn_unpadded, query.dtype, query.shape[-1])
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
     tq, tk = query.shape[0], key.shape[0]
@@ -150,5 +187,11 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     else:
         seg_k, pos_k = segments_from_cu(torch.as_tensor(cu_seqlens_k,
                                                         device=dev), tk)
+    if route == "plain":
+        return flash_varlen_fwd_plain(query, key, value, seg_q, pos_q, seg_k,
+                                      pos_k, bool(causal), float(scale))[0]
     return _FlashVarlen.apply(query, key, value, seg_q, pos_q, seg_k, pos_k,
                               bool(causal), float(scale))
+
+
+flash_attn_unpadded.route_launches = dict.fromkeys(ATTENTION_ROUTES, 0)

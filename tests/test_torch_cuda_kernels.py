@@ -39,6 +39,7 @@ from paddle_tpu_torch.kernels.grouped_matmul import (
     _ref_dw, _ref_fwd, grouped_matmul, grouped_matmul_dw,
     grouped_matmul_fwd, grouped_metadata)
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import quant_matmul as qmm_mod
 from paddle_tpu_torch.kernels.quant_matmul import (
     _launch, quant_grouped_matmul, quant_grouped_matmul_plain, quant_matmul,
     quant_matmul_plain, quantize_weight_blockwise)
@@ -174,6 +175,66 @@ def test_flash_kernel_is_forward_only(cuda_device):
     with pytest.raises(ValueError):
         _flash_bhsd(*(torch.randn(2, 128, 48, device=cuda_device),) * 3,
                     True)
+
+
+# the attention functionals' routing rule: what no kernel covers (head dim
+# 32 or 96, float16) runs the plain version under autograd on the card and
+# counts one "plain" route; outputs and gradients against the same call on
+# the CPU, element by element to 2^-7 |ref| + 1e-4 (outputs) and 2^-7 |ref|
+# + 1e-3 of the largest (gradients): both compute in float32 from the same
+# values and round to the input dtype, in another summation order
+FALLBACK_CASES = [(32, torch.bfloat16, "plain"), (96, torch.bfloat16,
+                                                  "plain"),
+                  (128, torch.float16, "plain"), (128, torch.bfloat16,
+                                                  "kernel")]
+
+
+def _fallback_call(which, leaves, d):
+    b, s, h = 2, 200, 2
+    if which == "flash_attention":
+        return flash_attention(*leaves, causal=True)[0]
+    if which == "flash_attn_unpadded":
+        cu = torch.tensor([0, 70, 200, 333, 400], dtype=torch.int32,
+                          device=leaves[0].device)
+        return flash_attn_unpadded(*(t.reshape(b * s, h, d) for t in leaves),
+                                   cu, cu, 133, 133, d ** -0.5, causal=True)
+    start = torch.tensor([70] * 70 + [200] * 130, dtype=torch.int32,
+                         device=leaves[0].device)
+    return flash_attention_with_sparse_mask(*leaves, start, is_causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flash_attention", "flash_attn_unpadded",
+                                   "flash_attention_with_sparse_mask"])
+@pytest.mark.parametrize("d,dtype,route", FALLBACK_CASES)
+def test_attention_functionals_route_by_dtype_and_head_dim(cuda_device,
+                                                           which, d, dtype,
+                                                           route):
+    fn = {"flash_attention": flash_attention,
+          "flash_attn_unpadded": flash_attn_unpadded,
+          "flash_attention_with_sparse_mask":
+              flash_attention_with_sparse_mask}[which]
+    rng = np.random.default_rng(d + len(which))
+    arrays = [rng.standard_normal((2, 200, 2, d)).astype(np.float32)
+              for _ in range(4)]
+    grads, outs = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [torch.from_numpy(a).to(dev, dtype).requires_grad_()
+                  for a in arrays[:3]]
+        before = dict(fn.route_launches)
+        out = _fallback_call(which, leaves, d)
+        assert fn.route_launches[route] == before[route] + 1
+        g = torch.from_numpy(arrays[3]).to(dev, dtype).reshape(out.shape)
+        (out.float() * g.float()).sum().backward()
+        outs.append(out.detach().cpu().float())
+        grads.append([t.grad.cpu().float() for t in leaves])
+    assert torch.isfinite(outs[0]).all()
+    err = (outs[0] - outs[1]).abs()
+    assert (err <= 2.0 ** -7 * outs[1].abs() + 1e-4).all(), err.max().item()
+    for got, ref in zip(*grads):
+        lim = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+        assert ((got - ref).abs() <= lim).all(), \
+            (got - ref).abs().max().item()
 
 
 BWD_TOLS = ((torch.float32, 0.0, 1e-4), (torch.bfloat16, 2.0 ** -7, 1e-3))
@@ -547,6 +608,8 @@ _SELFTEST_SIG = {"wgmma_selftest": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                  "wgmma_chain_selftest": [ctypes.c_void_p] * 4
                  + [ctypes.c_int] + [ctypes.c_void_p],
                  "mma_codes_selftest": [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                 "split3_selftest": [ctypes.c_void_p] * 4
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
@@ -1306,23 +1369,154 @@ def test_grouped_matmul_autograd_runs_the_kernels(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("qdtype", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,n,block_k", [(256, 96, None), (192, 520, 64),
-                                         (130, 40, 65)])
+@pytest.mark.parametrize("k,n,block_k,bm,route", [
+    (256, 96, None, 128, "wgmma"),
+    (192, 520, 64, 128, "wgmma"),
+    (768, 3072, 128, 128, "wgmma"),       # the MoE path's up projection
+    (3072, 768, 128, 128, "wgmma"),       # and its down projection
+    (768, 520, 64, 256, "wgmma"),
+    (384, 520, 192, 128, "wgmma"),
+    (130, 40, 65, 128, "cuda_core"),
+    (192, 96, 96, 128, "cuda_core"),      # blocks of 1.5 stages
+    (256, 96, 128, 64, "cuda_core")])     # 128-row tiles straddle groups
 def test_quant_grouped_kernel_matches_plain(cuda_device, qdtype, dtype, k,
-                                            n, block_k):
-    md, x, w, _, _ = _grouped_inputs(cuda_device, k + n, 900, k, n, 8, 128,
+                                            n, block_k, bm, route):
+    """Each route of `gq_route` against the plain version on a skewed
+    routing of 900 routes with an empty expert (a partial last tile in
+    every group): float32 x as three exact bf16 pieces on the tensor
+    cores, bf16 x as it is."""
+    md, x, w, _, _ = _grouped_inputs(cuda_device, k + n, 900, k, n, 8, bm,
                                      dtype, empty=0)
     codes, scales = quantize_weight_blockwise(w.float().transpose(1, 2),
                                               block_k, qdtype)
     before = quant_grouped_matmul.launches
+    r0 = dict(quant_grouped_matmul.route_launches)
     out = quant_grouped_matmul(x, codes, scales, group_offsets=md["offsets"],
-                               group_counts=md["counts"], bm=128)
+                               group_counts=md["counts"], bm=bm)
     ref = quant_grouped_matmul_plain(x, codes, scales, md["offsets"],
-                                     md["counts"], 128)
+                                     md["counts"], bm)
     torch.cuda.synchronize()
     assert out.dtype == dtype
     assert quant_grouped_matmul.launches == before + 1
+    assert quant_grouped_matmul.route_launches[route] == r0[route] + 1
     _grouped_close(out, ref, md["dest"].long(), dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_quant_grouped_misaligned_x_takes_the_cuda_cores(cuda_device):
+    """x 4 bytes off a 16-byte boundary: "cuda_core", right all the same;
+    the C entry refuses the tensor-core route for it (error 1)."""
+    md, x, w, _, _ = _grouped_inputs(cuda_device, 3, 500, 256, 96, 4, 128,
+                                     torch.float32)
+    codes, scales = quantize_weight_blockwise(w.transpose(1, 2))
+    flat = torch.empty(1 + x.numel(), device=cuda_device)
+    xo = flat[1:].view_as(x)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 == 4
+    kw = dict(group_offsets=md["offsets"], group_counts=md["counts"],
+              bm=128)
+    r0 = quant_grouped_matmul.route_launches["cuda_core"]
+    out = quant_grouped_matmul(xo, codes, scales, **kw)
+    assert quant_grouped_matmul.route_launches["cuda_core"] == r0 + 1
+    ref = quant_grouped_matmul_plain(xo, codes, scales, md["offsets"],
+                                     md["counts"], 128)
+    _grouped_close(out, ref, md["dest"].long(), False)
+    lib = _build.load("quant_grouped_matmul", qmm_mod._GQ_SIG)
+    e, n, k = codes.shape
+    rc = lib.quant_grouped_matmul_fwd(
+        xo.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        md["offsets"].data_ptr(), md["counts"].data_ptr(), e, x.shape[0], k,
+        n, scales.shape[2], k // scales.shape[2], 128, 0, 0, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_grouped_wgmma_dead_rows_inf_and_repeat(cuda_device, qdtype,
+                                                      dtype):
+    """On the tensor-core route: two launches give the same bits; NaN in
+    every row that is not a route's (padding in a group's last tile, the
+    tiles past the groups) leaves the routed rows bit for bit as they
+    were; an x row of +inf and a single -inf give what the plain version
+    gives (inf, -inf or NaN in the same places, the rest within the
+    rule)."""
+    md, x, w, _, _ = _grouped_inputs(cuda_device, 17, 700, 768, 520, 8, 128,
+                                     dtype, empty=3)
+    codes, scales = quantize_weight_blockwise(w.float().transpose(1, 2),
+                                              None, qdtype)
+    kw = dict(group_offsets=md["offsets"], group_counts=md["counts"],
+              bm=128)
+    rows = md["dest"].long()
+    r0 = quant_grouped_matmul.route_launches["wgmma"]
+    clean = quant_grouped_matmul(x, codes, scales, **kw)
+    again = quant_grouped_matmul(x, codes, scales, **kw)
+    assert torch.equal(clean[rows], again[rows])
+    xp = x.clone()
+    xp[~md["row_valid"]] = float("nan")
+    poisoned = quant_grouped_matmul(xp, codes, scales, **kw)
+    assert torch.isfinite(poisoned[rows]).all()
+    assert torch.equal(poisoned[rows], clean[rows])
+    xi = x.clone()
+    xi[rows[5]] = float("inf")
+    xi[rows[6], 3] = float("-inf")
+    out = quant_grouped_matmul(xi, codes, scales, **kw)[rows].float()
+    ref = quant_grouped_matmul_plain(xi, codes, scales, md["offsets"],
+                                     md["counts"], 128)[rows].float()
+    torch.cuda.synchronize()
+    assert quant_grouped_matmul.route_launches["wgmma"] == r0 + 4
+    fin = torch.isfinite(ref)
+    assert not fin[5].any() and not fin[6].all()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(out[~fin].nan_to_num(0.0), ref[~fin].nan_to_num(0.0))
+    _grouped_close(torch.where(fin, out, 0.0), torch.where(fin, ref, 0.0),
+                   slice(None), dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bk", [(64, 64), (256, 128), (768, 64)])
+def test_split3_one_tile_matches_matmul(cuda_device, k, bk):
+    """csrc/wgmma.cuh's `split3_store8` on one 64 x 128 tile: float32 b
+    split into hi, mid and lo bf16 tiles, three chained m64n128k16 wgmmas a
+    k16 step against int8-valued A, per-row scales a K-block on the
+    accumulator, against float64 matmuls of the same values. b's rows span
+    2^-40 to 2^40 of unit size; each column is held to 1e-6 |ref| + 1e-5 of
+    its largest output, the float32 rule: the products are exact, only the
+    float32 sums differ. One b row holds a +inf and one a NaN whose payload
+    sits in the low 16 bits: their columns are inf, -inf or NaN exactly
+    where float64 gives them."""
+    rng = np.random.default_rng(k + bk)
+    a = torch.from_numpy(rng.integers(-127, 128, (64, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    b = rng.standard_normal((128, k)).astype(np.float32)
+    b *= (2.0 ** rng.integers(-40, 41, (128, 1))).astype(np.float32)
+    b[7, 5] = np.inf
+    b[9, k - 1] = np.array([0x7F800001], dtype=np.uint32).view(np.float32)[0]
+    b = torch.from_numpy(b).to(cuda_device)
+    scales = torch.from_numpy(rng.uniform(0.5, 2.0, (64, k // bk)).astype(
+        np.float32)).to(cuda_device)
+    out = torch.empty(64, 128, device=cuda_device)
+    lib = _build.load("wgmma_selftest", _SELFTEST_SIG)
+    rc = lib.split3_selftest(a.data_ptr(), b.data_ptr(), scales.data_ptr(),
+                             out.data_ptr(), k, bk,
+                             torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"CUDA error {rc}"
+    ref = torch.zeros(64, 128, device=cuda_device, dtype=torch.float64)
+    for j in range(k // bk):
+        blk = slice(j * bk, (j + 1) * bk)
+        ref += scales[:, j:j + 1].double() * torch.matmul(
+            a[:, blk].double(), b[:, blk].double().t())
+    torch.cuda.synchronize()
+    out = out.double()
+    fin = torch.isfinite(ref)
+    assert not fin[:, 7].all() and torch.isnan(ref[:, 9]).all()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(out[~fin].nan_to_num(0.0), ref[~fin].nan_to_num(0.0))
+    ref_f, out_f = torch.where(fin, ref, 0.0), torch.where(fin, out, 0.0)
+    lim = 1e-6 * ref_f.abs() + 1e-5 * ref_f.abs().amax(0, keepdim=True)
+    assert ((out_f - ref_f).abs() <= lim).all(), \
+        ((out_f - ref_f).abs() / lim).max().item()
 
 
 # -- packed (varlen) and FlashMask attention ------------------------------------
