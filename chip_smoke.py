@@ -2,7 +2,7 @@
 """Drive the PyTorch port (paddle_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--parent DIR]
-    python3 chip_smoke.py --nan-guard-cost | --gemv-cost
+    python3 chip_smoke.py --nan-guard-cost | --gemv-cost | --grouped-cost
     python3 chip_smoke.py --ragged-cost [--parent DIR]
 
 Phases, each printing one JSON line; any failure exits non-zero:
@@ -35,7 +35,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    NaN past every window);
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
    seeded torch.Generator) on 16 requests: every request gets its budget
-   and the ragged kernel ran once per layer per decode step;
+   and the ragged kernel ran once per layer per decode step (each serve
+   and generate phase also records the decoders' attention calls by
+   route, `decoder_route_launches`, none of them "plain");
 4. the same requests at 4 layers in float32, with the ragged kernel and
    with the dense-gather oracle: the token streams must be identical, and
    two of them must equal greedy generation through the full forward;
@@ -69,24 +71,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the flash kernels and again with the plain attention: losses and the
    first step's gradients must agree, every forward and backward on the
    CUDA cores;
-8. the MoE training path's kernels (the grouped forward, also as the
-   input gradient against w^T read in place, the grouped weight gradient
-   and the grouped int8/fp8 forward) at its shapes: 16,384 routes of a
-   seeded, skewed routing with one empty expert, the up (768 -> 3072)
-   and down (3072 -> 768) products, float32 and bf16, and a case with
-   NaN in every row that is not a route's; each against its plain
-   version, with its time, the plain time, per-expert torch.matmul as the
-   library yardstick and the bound (TF32 peak for float32 inputs, bf16
-   peak for bf16). The int8/fp8 cases name their route and must take the
-   tensor cores ("wgmma"; float32 x as three bf16 pieces, with a second
-   bound at three bf16 products, `bound_bf16x3_ms`), two launches giving
-   the same bits, but two that hold the CUDA-core kernel:
+8. the card's L2 read rate (one reduction reading an L2-resident tensor
+   64 times), then the MoE training path's kernels (the grouped forward,
+   also as the input gradient against w^T read in place, the grouped
+   weight gradient and the grouped int8/fp8 forward) at its shapes:
+   16,384 routes of a seeded, skewed routing with one empty expert, the
+   up (768 -> 3072) and down (3072 -> 768) products, float32 and bf16, and
+   a case with NaN in every row that is not a route's; each against its
+   plain version, with its time, the plain time, per-expert torch.matmul
+   as the library yardstick and the bound (TF32 peak for float32 inputs,
+   bf16 peak for bf16). Every forward case names its route and gives the
+   same bits on two launches. The float32/bf16 forward and input-gradient
+   cases must take the tensor cores ("wgmma"; float32 x and w as three
+   bf16 pieces each, with a second bound at six bf16 products,
+   `bound_bf16x6_ms`, and a third, `bound_l2_ms`, at the L2 read rate for
+   the tiles' reads), but `up_dx_f32_bm64` and `down_dx_f32_bm64`
+   (groups of 64 rows, train_moe_quant_bm64's input gradients against
+   w^T read in place; the first is its kernels-line row), which hold the
+   CUDA-core kernel. The int8/fp8 cases must take
+   the tensor cores too ("wgmma"; float32 x as three bf16 pieces,
+   `bound_bf16x3_ms`), but two that hold the CUDA-core kernel:
    `up_int8_f32_bm64` (groups of 64 rows, the shapes at which
    train_moe_quant_bm64 launches it; its kernels-line row) and
    `up_int8_f32_bk96` (blocks of 96); with --parent DIR the parent
-   commit's quantized kernel, built from that checkout, is checked and
-   timed on the same inputs (parent, shipped, shipped, parent:
-   `parent_ms`);
+   commit's grouped and quantized kernels, built from that checkout, are
+   checked and timed on the same inputs (parent, shipped, shipped,
+   parent: `parent_ms`);
 9. train_moe: the GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths
    (hidden 768, 6 layers, 8 experts top-2, 12 heads, vocab 50257;
    318,151,297 parameters), float32, grouped dispatch, AdamW at lr 1e-4,
@@ -94,12 +104,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    steps: tokens/s, seconds per step, MFU over activated flops, every
    loss, peak memory and routes per step. Losses finite and falling, the
    grouped forward kernel 4 x layers and the dw kernel 2 x layers times a
-   step, no route dropped. train_moe_quant: the same with
-   expert_quant="int8" (5 timed steps; the quantized kernel 2 x layers
-   times a step, every launch on the tensor cores); with --parent, again
-   on the parent's quantized kernel (train_moe_quant_parent);
-   train_moe_quant_bm64: 3 steps with groups of 64 rows, every quantized
-   launch on the CUDA-core kernel (its launches on the kernels line);
+   step, every forward and input gradient on the tensor cores
+   (`grouped_route_launches`), no route dropped; with --parent, again on
+   the parent's grouped forward (train_moe_parent). train_moe_quant: the
+   same with expert_quant="int8" (5 timed steps; the quantized kernel 2 x
+   layers times a step and the input gradient as often, every launch on
+   the tensor cores); with --parent, again on the parent's quantized
+   kernel (train_moe_quant_parent); train_moe_quant_bm64: 3 steps with
+   groups of 64 rows, every quantized launch and input gradient on the
+   CUDA-core kernels (their launches on the kernels line);
 10. moe_parity: 3 float32 steps of a 2-layer full-width GPT-MoE, grouped
    against capacity dispatch with capacity_factor E / top_k (nothing
    drops): losses and the first step's gradients must agree;
@@ -162,7 +175,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pair, serve_quant
    for quant_matmul's two GEMVs and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
-   forward and dw kernels, train_moe_quant for the quantized grouped
+   forward on the tensor cores and the dw kernel, train_moe_quant_bm64
+   for the grouped forward on the CUDA cores, train_moe_quant for the
+   quantized grouped
    kernel on the tensor cores and train_moe_quant_bm64 for it on the CUDA
    cores, varlen_attn and flashmask_attn for the packed kernels on the
    tensor cores (both directions), packed_parity for both directions on
@@ -170,11 +185,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rowwise_attn for the row-wise ones), error and times;
 17. the card's name and power limit again, and the result line.
 
---nan-guard-cost, --gemv-cost and --ragged-cost only build the kernels
-and time one part of a kernel against extra builds without it (the
-masked kernels' NaN guard; the tensor-core GEMV's products and its code
-reads; the ragged kernels' arithmetic and their loads, and their cluster
-size fixed at 1, 2, 4 and 8), then exit.
+--nan-guard-cost, --gemv-cost, --grouped-cost and --ragged-cost only
+build the kernels and time one part of a kernel against extra builds
+without it (the masked kernels' NaN guard; the tensor-core GEMV's
+products and its code reads; the grouped tensor-core forward's drain,
+split, loads and products; the ragged kernels' arithmetic and their
+loads, and their cluster size fixed at 1, 2, 4 and 8), then exit.
 
 With --profile, short full-width serves (plain, serve_quant's and
 serve_long's engines), two train steps, two train_moe steps and three
@@ -314,7 +330,7 @@ def bound(bytes_moved, flops, peak_flops):
 # the tensor-core kernels of each source, whose SASS must hold HGMMA (the
 # masked forward, dq and dk/dv kernels are templates with a mask policy per
 # source; the quantized ones with a code type, and the grouped one an x
-# dtype too)
+# dtype too; the grouped float32/bf16 forward a dtype and a transpose)
 MASKED_WGMMA = ("masked_fwd_wgmma", "masked_dq_wgmma", "masked_dkv_wgmma")
 WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma",),
                  "flash_attention_bwd": ("flash_bwd_dq_wgmma",
@@ -322,14 +338,16 @@ WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma",),
                  "flash_varlen": MASKED_WGMMA,
                  "flash_sparse_mask": MASKED_WGMMA,
                  "quant_matmul": ("qmm_wgmma",),
-                 "quant_grouped_matmul": ("quant_grouped_wgmma",)}
+                 "quant_grouped_matmul": ("quant_grouped_wgmma",),
+                 "grouped_matmul": ("grouped_wgmma",)}
 
 
 def kernel_label(mangled):
     """A short label of a mangled kernel name: its own name, then the
-    element type, integer arguments (head dim, code type, row tiles) and
-    mask policy where its template has them ("masked_dq_wgmma<128,
-    SegmentMask>", "qmm_gemv_tc<0, 4>")."""
+    element type, integer arguments (head dim, code type, row tiles),
+    bool arguments and mask policy where its template has them
+    ("masked_dq_wgmma<128, SegmentMask>", "qmm_gemv_tc<0, 4>",
+    "grouped_wgmma<float, true>")."""
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -341,6 +359,8 @@ def kernel_label(mangled):
     args = [t for t, key in (("float", "If"), ("bf16", "I13__nv_bfloat16"))
             if rest.startswith(key)]
     args += re.findall(r"Li(\d+)E", rest)
+    args += ["true" if b == "1" else "false"
+             for b in re.findall(r"Lb([01])E", rest)]
     args += [m for m in ("SegmentMask", "StartRowMask") if m in rest]
     return f"{name}<{', '.join(args)}>" if args else name
 
@@ -421,6 +441,28 @@ def attention_routes_without_plain(phase):
 
 
 # -- phase 2: kernels against their plain versions -----------------------------
+
+def zero_decoder_routes():
+    """Set the decoders' attention counts by route to 0, just before a
+    driven path."""
+    from paddle_tpu_torch.models.decode import CachedDecoder
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    for cls in (CachedDecoder, PagedDecoder):
+        cls.route_launches = dict.fromkeys(cls.route_launches, 0)
+
+
+def decoder_routes_without_plain(phase):
+    """The decoders' attention calls by route since `zero_decoder_routes`
+    (CachedDecoder's prefill, PagedDecoder's decode attention), checked to
+    hold no "plain" one: at Llama-2 widths every call fits a kernel."""
+    from paddle_tpu_torch.models.decode import CachedDecoder
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    counts = {"prefill": dict(CachedDecoder.route_launches),
+              "decode": dict(PagedDecoder.route_launches)}
+    check(all(c["plain"] == 0 for c in counts.values()),
+          f"{phase}: a decoder's attention took the plain route: {counts}")
+    return counts
+
 
 def ragged_graph_times(torch, stem, call, pools, live_bytes, variants=None,
                        rounds=1):
@@ -895,14 +937,16 @@ def build_variants(out, variants):
     at once, into the directory `out`. variants maps a key to (source stem,
     its module's _SIG, extra nvcc flags, edit): the stem names
     csrc/<stem>.cu, or is the path of a .cu elsewhere (a parent commit's
-    source, its headers beside it); edit is None or (text, replacement),
-    made once in a copy of the source. Returns {key: the library, bound as
+    source, its headers beside it); edit is None, (text, replacement) or
+    a tuple of such pairs, each made once in a copy of the source. Returns {key: the library, bound as
     _build.load binds it}, ready to swap into _build._libs; each library
     carries its path (`so_path`) and nvcc's output (`build_log`)."""
     import ctypes
     from paddle_tpu_torch.kernels import _build
     os.makedirs(out, exist_ok=True)
-    jobs = {}
+    # every source is ready before any nvcc starts, so a missing edit
+    # leaves no build running
+    srcs = {}
     for key, (stem, _, flags, edit) in variants.items():
         tag = "-".join(map(str, key if isinstance(key, tuple) else (key,)))
         src = (stem if stem.endswith(".cu")
@@ -911,19 +955,23 @@ def build_variants(out, variants):
         if edit is not None:
             with open(src) as fh:
                 text = fh.read()
-            check(text.count(edit[0]) == 1,
-                  f"build {tag}: its text is not in {name}.cu once")
+            for old, new in ((edit,) if isinstance(edit[0], str) else edit):
+                check(text.count(old) == 1,
+                      f"build {tag}: its text is not in {name}.cu once")
+                text = text.replace(old, new)
             src = os.path.join(out, f"{name}-{tag}.cu")
             with open(src, "w") as fh:
-                fh.write(text.replace(*edit))
-        so = os.path.join(out, f"lib{name}-{tag}.so")
-        jobs[key] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
-             str(_build.CSRC), "-o", so, src],
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+                fh.write(text)
+        srcs[key] = (src, os.path.join(out, f"lib{name}-{tag}.so"))
+    jobs = {key: (so, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *variants[key][2], "-I",
+         str(_build.CSRC), "-o", so, src],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+        for key, (src, so) in srcs.items()}
+    errs = {key: proc.communicate()[1] for key, (_, proc) in jobs.items()}
     libs = {}
     for key, (so, proc) in jobs.items():
-        err = proc.communicate()[1]
+        err = errs[key]
         check(proc.returncode == 0, f"nvcc {key}: {err.decode()[-2000:]}")
         lib = ctypes.CDLL(so)
         for fn, argtypes in variants[key][1].items():
@@ -1000,6 +1048,112 @@ def gemv_cost(torch, seed):
             torch.cuda.empty_cache()
     finally:
         _build._libs["quant_matmul"] = libs["shipped"]
+    emit(rec)
+    return rec
+
+
+# --grouped-cost: copies of csrc/grouped_matmul.cu, edited as they are
+# read, that leave one part of the tensor-core forward out (but no_drain,
+# their outputs are wrong and unchecked): {build: (text in the source, its
+# replacement), or a tuple of such pairs}
+GROUPED_COST_BUILDS = {
+    # the products straight into the accumulator, no float32 partial: the
+    # stores for stage kt + 1 wait for stage kt - 1's products instead
+    "no_drain": (
+        ("    gw_stage<TRANS, P>(part, a, b, true);\n",
+         "    gw_stage<TRANS, P>(acc, a, b, false);\n"),
+        ("      uint8_t* nx = smem",
+         "      wg::wait<1>();\n      __syncthreads();\n"
+         "      uint8_t* nx = smem"),
+        ("    wg::wait<0>();\n    wg::fence_operand(part);\n#pragma unroll\n"
+         "    for (int i = 0; i < 64; ++i) acc[i] += part[i];\n", ""),
+        ("    if (more) __syncthreads();  // publishes stage kt + 1\n  }\n",
+         "    if (more) __syncthreads();  // publishes stage kt + 1\n  }\n"
+         "  wg::wait<0>();\n  wg::fence_operand(acc);\n")),
+    # the registers' chunks folded into one sum instead of split and
+    # stored into the panels (the loads and the products alone)
+    "no_split": (
+        "      gw_store(nx, ox, rx, bad);\n"
+        "      gw_store(nx + L::kB, ow, rw, bad);\n",
+        "      { const float* u = reinterpret_cast<const float*>(&rx);\n"
+        "        const float* v = reinterpret_cast<const float*>(&rw);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < (int)(sizeof(rx) / 4); ++i)\n"
+        "          bad += u[i] * v[i]; }\n"),
+    # no loads past the first two stages (the split and the products)
+    "no_loads": ("        gw_load(ox, kt + 2, rx);\n"
+                 "        gw_load(ow, kt + 2, rw);\n", ""),
+    # no products (the loads and the split)
+    "no_products": ("    gw_stage<TRANS, P>(part, a, b, true);\n", "")}
+GROUPED_COST_CASES = (("up_fwd_f32", 768, 3072, "float32", False),
+                      ("down_fwd_f32", 3072, 768, "float32", False),
+                      ("up_dx_f32", 3072, 768, "float32", True),
+                      ("down_dx_f32", 768, 3072, "float32", True),
+                      ("up_fwd_bf16", 768, 3072, "bfloat16", False))
+
+
+def grouped_cost(torch, np, seed):
+    """--grouped-cost: what holds the grouped tensor-core forward.
+    grouped_matmul.cu is built four times more into a directory of its
+    own (GROUPED_COST_BUILDS); each MoE case (train_moe's routing) runs on
+    every build in turns, shipped first and then the builds in order and
+    back, CUDA events over 10 launches each. The shipped and no_drain
+    builds are held to the plain version (their share of the float32
+    rule); the rest compute wrong outputs. Prints one line: each case's
+    mean ms by build and the shares."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import grouped_matmul as gmm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = {"shipped": _build.load("grouped_matmul", gmm._SIG)}
+    libs.update(build_variants(
+        os.path.join(str(_build.BUILD_DIR), "grouped_cost"),
+        {build: ("grouped_matmul", gmm._SIG, (), edit)
+         for build, edit in GROUPED_COST_BUILDS.items()}))
+    md, counts = moe_routing(torch, np, seed)
+    off, cnt = md["offsets"], md["counts"]
+    tp = md["row_src"].shape[0]
+    rows = md["dest"].long()
+    dev = torch.device("cuda")
+    rec = {"phase": "grouped_cost", "builds": list(libs),
+           "ptxas": {b: {k: v for k, v in ptxas_kernels(
+               lib.build_log if b != "shipped"
+               else _build.build_log("grouped_matmul")).items()
+               if k.startswith("grouped_wgmma")} for b, lib in libs.items()}}
+    try:
+        for name, k, n, dt, tr in GROUPED_COST_CASES:
+            dtype = getattr(torch, dt)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + k + n)
+            x = torch.randn(tp, k, generator=gen, device=dev, dtype=dtype)
+            w = torch.randn(*((MOE_E, n, k) if tr else (MOE_E, k, n)),
+                            generator=gen, device=dev, dtype=dtype) \
+                * k ** -0.5
+            ref = gmm._ref_fwd(x, w, None, off, cnt, MOE_BM, dtype,
+                               transpose_w=tr)
+            shares = {}
+            calls = {}
+            for b, lib in libs.items():
+                def call(lib=lib):
+                    _build._libs["grouped_matmul"] = lib
+                    return gmm.grouped_matmul_fwd(x, w, None, off, cnt,
+                                                  MOE_BM, transpose_w=tr)
+                calls[b] = call
+                if b in ("shipped", "no_drain"):
+                    out = call()
+                    torch.cuda.synchronize()
+                    shares[b] = gmm_err(torch, out, ref, rows,
+                                        dtype == torch.bfloat16)[1]
+                    del out
+            ms = {b: [] for b in libs}
+            for b in list(libs) + list(libs)[::-1]:
+                ms[b].append(cuda_ms(torch, calls[b], 10))
+            rec[name] = {"ms": {b: statistics.mean(v)
+                                for b, v in ms.items()},
+                         "ms_runs": ms, "rule_share": shares}
+            del x, w, ref
+            torch.cuda.empty_cache()
+    finally:
+        _build._libs["grouped_matmul"] = libs["shipped"]
     emit(rec)
     return rec
 
@@ -1392,11 +1546,16 @@ def serve_phase(torch, np, model, reqs, layers):
     torch.cuda.reset_peak_memory_stats()
     ragged_paged_attention.launches = 0
     zero_flash_counts(_flash_bhsd)
+    zero_decoder_routes()
     t0 = time.perf_counter()
     out = dec.serve(reqs, chunk=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ragged_paged_attention.launches
+    dec_routes = decoder_routes_without_plain("serve")
+    check(dec_routes["decode"]["kernel"] == launches,
+          f"serve: decode attention calls {dec_routes} against ragged "
+          f"launches {launches}")
     for rid, prompt, budget in reqs:
         toks = out[rid]
         check(len(toks) == budget, f"{rid}: {len(toks)} tokens, budget "
@@ -1425,6 +1584,7 @@ def serve_phase(torch, np, model, reqs, layers):
            "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
            "peak_blocks": dec.allocator.peak_in_use,
            "ragged_launches": launches,
+           "decoder_route_launches": dec_routes,
            "flash_launches": _flash_bhsd.launches,
            "peak_device_bytes": torch.cuda.max_memory_allocated()}
     emit(rec)
@@ -1499,11 +1659,13 @@ def serve_quant_phase(torch, np, model, reqs, layers):
         quant_matmul.route_launches[r] = 0
     ragged_paged_attention_quant.launches = 0
     ragged_paged_attention.launches = 0
+    zero_decoder_routes()
     t0 = time.perf_counter()
     out = dec.serve(reqs, chunk=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     qmm, rq = quant_matmul.launches, ragged_paged_attention_quant.launches
+    dec_routes = decoder_routes_without_plain("serve_quant")
     routes = dict(quant_matmul.route_launches)
     check_served(dec, out, reqs, model.config.vocab_size)
     steps = dec.serve_stats["decode_steps"]
@@ -1532,7 +1694,7 @@ def serve_quant_phase(torch, np, model, reqs, layers):
         "wgmma_launches_rule": "7 x layers x prefills",
         "gemv_tc_launches_rule": "7 x layers x decode steps",
         "rows_launches_rule": "decode steps + prefills",
-        "ragged_quant_launches": rq})
+        "ragged_quant_launches": rq, "decoder_route_launches": dec_routes})
     emit(rec)
     del dec
     torch.cuda.empty_cache()
@@ -1559,11 +1721,13 @@ def serve_long_phase(torch, np, model, reqs, layers):
     torch.cuda.reset_peak_memory_stats()
     ragged_paged_attention_partials.launches = 0
     ragged_paged_attention.launches = 0
+    zero_decoder_routes()
     t0 = time.perf_counter()
     out = dec.serve(reqs, chunk=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pl = ragged_paged_attention_partials.launches
+    dec_routes = decoder_routes_without_plain("serve_long")
     check_served(dec, out, reqs, model.config.vocab_size)
     steps = dec.serve_stats["decode_steps"]
     check(pl == layers * steps and ragged_paged_attention.launches == 0
@@ -1574,7 +1738,8 @@ def serve_long_phase(torch, np, model, reqs, layers):
     rec = serve_record(torch, "serve_long", dec, reqs, layers, wall, {
         "attn_shards": dec.attn_shards, "partials_launches": pl,
         "partials_launches_rule": "layers x decode steps (one launch "
-                                  "holds every shard)"})
+                                  "holds every shard)",
+        "decoder_route_launches": dec_routes})
     emit(rec)
     del dec
     torch.cuda.empty_cache()
@@ -1744,6 +1909,7 @@ def generate_phase(torch, np, model, layers, seed):
     torch.cuda.synchronize()
     zero_flash_counts(_flash_bhsd)
     zero_attention_routes()
+    zero_decoder_routes()
     t0 = time.perf_counter()
     out = dec.generate(torch.as_tensor(ids), max_new_tokens=N)
     torch.cuda.synchronize()
@@ -1751,6 +1917,10 @@ def generate_phase(torch, np, model, layers, seed):
     launches = _flash_bhsd.launches
     routes = dict(_flash_bhsd.route_launches)
     attn_routes = attention_routes_without_plain("generate")
+    dec_routes = decoder_routes_without_plain("generate")
+    check(dec_routes["prefill"]["kernel"] == launches,
+          f"generate: prefill attention calls {dec_routes} against flash "
+          f"launches {launches}")
     check(tuple(out.shape) == (B, S0 + N), f"generate shape {out.shape}")
     check(bool((out[:, :S0] == torch.as_tensor(ids)).all()),
           "generate changed the prompt")
@@ -1763,7 +1933,8 @@ def generate_phase(torch, np, model, layers, seed):
            "batch": B, "prompt_len": S0, "new_tokens": N, "wall_s": wall,
            "tokens_per_s": B * N / wall, "flash_launches": launches,
            "flash_route_launches": routes,
-           "attention_route_launches": attn_routes}
+           "attention_route_launches": attn_routes,
+           "decoder_route_launches": dec_routes}
     emit(rec)
     del dec
     torch.cuda.empty_cache()
@@ -2019,16 +2190,107 @@ def gmm_err(torch, out, ref, rows, bf16):
     return d.max().item(), (d / (rtol * r.abs() + atol)).max().item()
 
 
+# the L2 read probe: every thread reads float4s with ld.global.cg (cached
+# in L2, never in L1), 4 in flight, grid-striding over the whole buffer once
+# a pass, so that within a pass no two blocks read one address and no
+# re-read can come from an SM's L1; the sum is kept live by a store that
+# never happens
+L2_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+
+__global__ void l2_probe(const float4* __restrict__ buf, long long nvec,
+                         int passes, float* out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float s = 0.f;
+  for (int p = 0; p < passes; ++p) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    for (; i + 3 * stride < nvec; i += 4 * stride) {
+      const float4 a = __ldcg(buf + i), b = __ldcg(buf + i + stride);
+      const float4 c = __ldcg(buf + i + 2 * stride);
+      const float4 d = __ldcg(buf + i + 3 * stride);
+      s += ((a.x + a.y) + (a.z + a.w)) + ((b.x + b.y) + (b.z + b.w))
+           + ((c.x + c.y) + (c.z + c.w)) + ((d.x + d.y) + (d.z + d.w));
+    }
+    for (; i < nvec; i += stride) {
+      const float4 a = __ldcg(buf + i);
+      s += (a.x + a.y) + (a.z + a.w);
+    }
+  }
+  if (s == 1.2345678e-30f) out[0] = s;
+}
+
+extern "C" int l2_probe_read(const void* buf, long long nvec, int passes,
+                             void* out, int blocks, void* stream) {
+  l2_probe<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float4*)buf, nvec, passes, (float*)out);
+  return (int)cudaGetLastError();
+}
+"""
+L2_PROBE_SIG = {"l2_probe_read": [ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_void_p]}
+
+
+def l2_read_rate(torch):
+    """The card's L2 read rate, in bytes/s: the L2 probe (L2_PROBE_SRC,
+    built here) reads an L2-resident float32 buffer of 8, 16 or 24 MB
+    over and over, about 1 GiB a launch, 8 blocks of 256 threads an SM;
+    the best of the three sizes. The same probe over 1 GiB, which cannot
+    stay in L2, gives the device memory's rate beside it, as a check that
+    the probe tells the two apart."""
+    from paddle_tpu_torch.kernels import _build
+    out_dir = os.path.join(str(_build.BUILD_DIR), "l2_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "l2_probe.cu")
+    with open(src, "w") as fh:
+        fh.write(L2_PROBE_SRC)
+    lib = build_variants(out_dir, {"probe": (src, L2_PROBE_SIG, (),
+                                             None)})["probe"]
+    dev = torch.device("cuda")
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.zeros(1, device=dev)
+
+    def rate(mb, passes):
+        t = torch.randn(mb * 2 ** 18, device=dev)
+
+        def read():
+            rc = lib.l2_probe_read(
+                t.data_ptr(), t.numel() // 4, passes, sink.data_ptr(),
+                blocks, torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"the L2 probe failed ({rc})")
+        ms = cuda_ms(torch, read, 20)
+        del t
+        return passes * mb * 2 ** 20 / ms * 1e3
+    rates = {mb: rate(mb, 1024 // mb) for mb in (8, 16, 24)}
+    dram = rate(1024, 1)
+    best = max(rates.values())
+    emit({"phase": "l2_read_rate", "tb_per_s": best / 1e12,
+          "tb_per_s_by_mb": {mb: r / 1e12 for mb, r in rates.items()},
+          "dram_tb_per_s": dram / 1e12,
+          "method": "L2 probe: ld.global.cg float4 reads, grid-stride over "
+                    "the buffer each pass (no address read twice in a "
+                    "pass, none from L1), about 1 GiB a launch, 20 "
+                    "launches (CUDA events); dram: one pass over 1 GiB"})
+    torch.cuda.empty_cache()
+    return best
+
+
 def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
-                 block_k=None, parent=None, bm=MOE_BM):
+                 block_k=None, parent=None, bm=MOE_BM, parent_gm=None,
+                 l2_rate=None):
     """One grouped kernel at the MoE path's shapes against its plain
     version: kind "fwd" (x [Tp, k] . w [E, k, n] + b), "dx" (dy [Tp, k] .
     w[e]^T with w [E, n, k], read in place), "dw" (x [Tp, k], dy [Tp, n]
     -> [E, k, n]) or "int8"/"fp8" (x . dequant(codes [E, n, k])^T, blocks
-    of block_k; the record names the route the wrapper took, checks two
-    launches bit for bit and, with `parent` (the parent commit's library),
-    times its kernel on the same inputs). md's groups are aligned to bm
-    rows."""
+    of block_k). A forward (fwd, dx, int8, fp8) record names the route the
+    wrapper took and checks two launches bit for bit; with the parent
+    commit's library (`parent` for the quantized kernel, `parent_gm` for
+    the float32/bf16 forward) its kernel is checked and timed on the same
+    inputs, parent, shipped, shipped, parent. md's groups are aligned to
+    bm rows. A tensor-core forward also gets the bound of its own work
+    (three or six bf16 products a value) and, with `l2_rate`, the time its
+    tiles' reads from L2 take at that rate."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gmm
     from paddle_tpu_torch.kernels import quant_matmul as qmm
     from paddle_tpu_torch.kernels.grouped_matmul import (
         _ref_dw, _ref_fwd, grouped_matmul_dw, grouped_matmul_fwd)
@@ -2060,6 +2322,18 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
         def kernel():
             return grouped_matmul_fwd(x, w, b, off, cnt, bm,
                                       transpose_w=tr)
+
+        def parent_kernel():
+            # the parent's C entry: no route argument (its one kernel)
+            out = torch.empty(tp, n, device=dev, dtype=dtype)
+            rc = parent_gm.grouped_matmul_fwd(
+                x.data_ptr(), w.data_ptr(),
+                b.data_ptr() if b is not None else None, out.data_ptr(),
+                off.data_ptr(), cnt.data_ptr(), MOE_E, tp, k, n, bm,
+                int(tr), gmm._DTYPE_CODE[dtype],
+                torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"{name}: the parent's kernel failed ({rc})")
+            return out
 
         def plain():
             return _ref_fwd(x, w, b, off, cnt, bm, dtype,
@@ -2104,14 +2378,16 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
                                         group_counts=cnt, bm=bm)
 
         def parent_kernel():
-            # the parent's C entry: no route argument (its one kernel)
+            # the parent's C entry, on the route the shipped wrapper takes
             out = torch.empty(tp, n, device=dev, dtype=dtype)
             kb = scales.shape[2]
+            route = qmm.gq_route(dtype, k // kb, bm,
+                                 (x.data_ptr(), codes.data_ptr()))
             rc = parent.quant_grouped_matmul_fwd(
                 x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), off.data_ptr(), cnt.data_ptr(), MOE_E, tp, k,
                 n, kb, k // kb, bm, qmm._X_CODE[dtype],
-                qmm._Q_CODE[codes.dtype],
+                qmm._Q_CODE[codes.dtype], qmm._GQ_ROUTE_CODE[route],
                 torch.cuda.current_stream().cuda_stream)
             check(rc == 0, f"{name}: the parent's kernel failed ({rc})")
             return out
@@ -2129,7 +2405,9 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
         bytes_moved = routes * k * isz + len(live) * \
             blockwise_weight_bytes(k, n)[0] + routes * n * isz
     quant = kind in ("int8", "fp8")
-    before = dict(quant_grouped_matmul.route_launches)
+    forward = kind != "dw"
+    counted = quant_grouped_matmul if quant else grouped_matmul_fwd
+    before = dict(counted.route_launches)
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
@@ -2138,11 +2416,13 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
     check(math.isfinite(ratio) and ratio <= 1.0,
           f"{name}: kernel vs plain max abs err {err}, {ratio} x tolerance")
     extra = {}
-    if quant:
-        extra["route"] = next(r for r, c in
-                              quant_grouped_matmul.route_launches.items()
+    if not quant:
+        parent = parent_gm
+    if forward:
+        extra["route"] = next(r for r, c in counted.route_launches.items()
                               if c > before[r])
-        extra["block_k"] = k // scales.shape[2]
+        if quant:
+            extra["block_k"] = k // scales.shape[2]
         check(torch.equal(kernel()[rows], out[rows]),
               f"{name}: two launches differ")
         if parent is not None:
@@ -2156,7 +2436,7 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
     lib_check(name, lib[rows], ref[rows])
     del out, ref, lib
     kernel_ms = cuda_ms(torch, kernel, 10)
-    if quant and parent is not None:
+    if forward and parent is not None:
         # parent, shipped, shipped, parent: the same inputs in turns
         pm = [cuda_ms(torch, parent_kernel, 10)]
         km = [kernel_ms, cuda_ms(torch, kernel, 10)]
@@ -2171,11 +2451,21 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
     peak = BF16_FLOPS if bf16 else TF32_FLOPS
     bound_ms, bound_by = bound(bytes_moved, flops, peak)
     extra["bound_share"] = bound_ms / kernel_ms
-    if quant and not bf16:
-        # the tensor-core route's own work: three bf16 products a value
-        b3 = bound(bytes_moved, 3 * flops, BF16_FLOPS)[0]
-        extra.update(bound_bf16x3_ms=b3, bound_bf16x3_share=b3 / kernel_ms,
-                     bf16_tflops_per_s=3 * flops / kernel_ms / 1e9)
+    if forward and not bf16 and extra["route"] == "wgmma":
+        # the tensor-core route's own work: three (x split, codes exact)
+        # or six (x and w split) bf16 products a value
+        pieces = 3 if quant else 6
+        bp = bound(bytes_moved, pieces * flops, BF16_FLOPS)[0]
+        extra.update({f"bound_bf16x{pieces}_ms": bp,
+                      f"bound_bf16x{pieces}_share": bp / kernel_ms,
+                      "bf16_tflops_per_s": pieces * flops / kernel_ms / 1e9})
+    if forward and not quant and extra["route"] == "wgmma" and l2_rate:
+        # each 128 x 128 tile reads its x tile and its weight tile whole
+        tiles = int(sum(-(-int(c) // 128) for c in counts))
+        l2_bytes = tiles * -(-n // 128) * 2 * 128 * k * isz
+        extra.update(l2_bytes=l2_bytes, l2_tb_per_s=l2_rate / 1e12,
+                     bound_l2_ms=l2_bytes / l2_rate * 1e3,
+                     bound_l2_share=l2_bytes / l2_rate * 1e3 / kernel_ms)
     rec = {"phase": "kernel_check", "kernel": {
                "fwd": "grouped_matmul_fwd", "dx": "grouped_matmul_fwd",
                "dw": "grouped_matmul_dw"}.get(kind, "quant_grouped_matmul"),
@@ -2280,15 +2570,16 @@ def moe_routes_kept(torch, model, ids):
 
 def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
                     quant_route=None, parent_gq=None, extra=None,
-                    **overrides):
+                    grouped_route="wgmma", parent_gm=None, **overrides):
     """The GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths (hidden
     768, 6 layers, 8 experts top-2, 12 heads, vocab 50257; float32,
     grouped dispatch) through TrainStep with AdamW at lr 1e-4, on the
     benchmark's fixed batch of 8 x 1024 random ids from the seed. With
-    quant_route, every quantized grouped launch must have taken it. With
-    parent_gq (a ParentGq swapped in by the caller), every one must have
-    gone to the parent's kernel, and the record counts them as
-    {"parent": n}."""
+    quant_route, every quantized grouped launch must have taken it; every
+    grouped forward and input gradient must have taken grouped_route. With
+    parent_gq or parent_gm (a ParentGq or ParentGm swapped in by the
+    caller), every such launch must have gone to the parent's kernel, and
+    the record counts them as {"parent": n}."""
     from paddle_tpu_torch import AdamW, TrainStep
     from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
                                                          grouped_matmul_fwd)
@@ -2307,9 +2598,11 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
     n_params, n_active, flops_tok = moe_flops_per_token(model, seq)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    grouped_matmul_fwd.launches = 0
+    zero_flash_counts(grouped_matmul_fwd)
     grouped_matmul_dw.launches = 0
     zero_flash_counts(quant_grouped_matmul)
+    if parent_gm is not None:
+        parent_gm.calls = 0
     losses = [step((ids,), (labels,)) for _ in range(warmup)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2320,6 +2613,15 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
     fwd, dw = grouped_matmul_fwd.launches, grouped_matmul_dw.launches
     qfwd = quant_grouped_matmul.launches
     qroutes = dict(quant_grouped_matmul.route_launches)
+    groutes = dict(grouped_matmul_fwd.route_launches)
+    if parent_gm is not None:
+        check(parent_gm.calls == fwd,
+              f"{phase}: {parent_gm.calls} calls of the parent's grouped "
+              f"kernel, {fwd} grouped forward launches")
+        groutes = {"parent": parent_gm.calls}
+    elif groutes[grouped_route] != fwd:
+        raise AssertionError(f"{phase}: grouped forward launches by route "
+                             f"{groutes}, not all {grouped_route}")
     if parent_gq is not None:
         check(parent_gq.calls == qfwd,
               f"{phase}: {parent_gq.calls} calls of the parent's kernel, "
@@ -2366,6 +2668,7 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
            "routes_dropped": produced - placed,
            "second_routes_zeroed_by_gshard_random_routing": zeroed,
            "grouped_fwd_launches": fwd, "grouped_dw_launches": dw,
+           "grouped_route_launches": groutes,
            "quant_grouped_launches": qfwd,
            "quant_grouped_route_launches": qroutes, **(extra or {})}
     emit(rec)
@@ -2405,6 +2708,8 @@ def train_moe_profile_phase(torch, np, seed, steps=2):
     for us, name, _ in rows:
         key = next((g for g in ("grouped_fwd", "grouped_dw", "flash_fwd",
                                 "flash_bwd") if g in name), None)
+        if "grouped_wgmma" in name:    # the grouped forward's tensor cores
+            key = "grouped_fwd"
         if key is None:
             key = "gemm" if any(t in name.lower() for t in (
                 "gemm", "nvjet", "cutlass", "xmma")) else "other"
@@ -2487,15 +2792,24 @@ def moe_parity_phase(torch, np, seed):
     return rec
 
 
-def moe_kernel_checks(torch, np, seed, parent=None):
-    """Phase 8: the three MoE kernels at train_moe's shapes. The quantized
-    cases take the tensor-core route, but two that hold the CUDA-core
-    kernel: groups of 64 rows at blocks of 128, the shapes at which
-    train_moe_quant_bm64 launches it, and blocks of 96 (not whole 64-deep
-    stages); with `parent` (the parent commit's quantized library) each
-    is timed on it too. Returns the records the kernels line takes (the
-    up projection's forward, its weight gradient, the int8 up projection
-    on the tensor cores and, in groups of 64 rows, on the CUDA cores)."""
+def moe_kernel_checks(torch, np, seed, parent=None, parent_gm=None,
+                      l2_rate=None):
+    """Phase 8: the three MoE kernels at train_moe's shapes. The forward
+    and input-gradient cases take the tensor-core route ("wgmma"), but
+    `up_dx_f32_bm64` and `down_dx_f32_bm64` (groups of 64 rows, the
+    input gradients that train_moe_quant_bm64 launches, against w^T read
+    in place: `grouped_fwd<float, true>`), which hold the CUDA-core
+    kernel. The quantized cases take the tensor-core route, but
+    two that hold the CUDA-core kernel: groups of 64 rows at blocks of
+    128, the shapes at which train_moe_quant_bm64 launches it, and blocks
+    of 96 (not whole 64-deep stages). With `parent` (the parent commit's
+    quantized library) and `parent_gm` (its grouped library) each forward
+    is timed on the parent's kernel too. Returns the records the kernels
+    line takes (the up projection's forward on the tensor cores, its
+    input gradient in groups of 64 rows on the CUDA cores, its weight
+    gradient, the int8 up
+    projection on the tensor cores and, in groups of 64 rows, on the CUDA
+    cores)."""
     md, counts = moe_routing(torch, np, seed)
     md64, counts64 = moe_routing(torch, np, seed, bm=64)
     h, f = MOE_H, MOE_F
@@ -2506,6 +2820,8 @@ def moe_kernel_checks(torch, np, seed, parent=None):
             ("down_fwd_f32", "fwd", f, h, f32, None, MOE_BM),
             ("up_dx_f32", "dx", f, h, f32, None, MOE_BM),
             ("down_dx_f32", "dx", h, f, f32, None, MOE_BM),
+            ("up_dx_f32_bm64", "dx", f, h, f32, None, 64),
+            ("down_dx_f32_bm64", "dx", h, f, f32, None, 64),
             ("up_dw_f32", "dw", h, f, f32, None, MOE_BM),
             ("down_dw_f32", "dw", f, h, f32, None, MOE_BM),
             ("up_fwd_bf16", "fwd", h, f, bf16, None, MOE_BM),
@@ -2519,27 +2835,36 @@ def moe_kernel_checks(torch, np, seed, parent=None):
         recs[name] = grouped_case(
             torch, np, name, kind, k, n, dt, seed + len(recs),
             *((md, counts) if bm == MOE_BM else (md64, counts64)),
-            block_k=bk, parent=parent, bm=bm)
-        if kind in ("int8", "fp8"):
+            block_k=bk, parent=parent, bm=bm, parent_gm=parent_gm,
+            l2_rate=l2_rate)
+        if kind != "dw":
             want = "wgmma" if (bk, bm) == (None, MOE_BM) else "cuda_core"
             check(recs[name]["route"] == want,
                   f"{name}: routed to {recs[name]['route']}, not {want}")
     grouped_poison_case(torch, np, seed + 99, md)
-    return (recs["up_fwd_f32"], recs["up_dw_f32"], recs["up_int8_f32"],
-            recs["up_int8_f32_bm64"])
+    return (recs["up_fwd_f32"], recs["up_dx_f32_bm64"], recs["up_dw_f32"],
+            recs["up_int8_f32"], recs["up_int8_f32_bm64"])
 
 
-# the parent commit's quantized grouped library: its C entry has no route
-# argument
+# the parent commit's (694a369) quantized grouped library: its C entry
+# takes the route, as the shipped one does
 GQ_PARENT_SIG = {"quant_grouped_matmul_fwd":
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                  + [ctypes.c_void_p]}
 
 
+# the parent commit's (694a369) grouped library: its forward's C entry has
+# no route argument (its one forward kernel)
+GM_PARENT_SIG = {"grouped_matmul_fwd": [ctypes.c_void_p] * 6
+                 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                 "grouped_matmul_dw": [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+
+
 def parent_quant_libs(parent):
-    """csrc/quant_grouped_matmul.cu and quant_matmul.cu of the parent's
-    checkout at `parent`, built beside the shipped ones: {"gq": library,
-    "qmm": library}."""
+    """csrc/quant_grouped_matmul.cu, quant_matmul.cu and grouped_matmul.cu
+    of the parent's checkout at `parent`, built beside the shipped ones:
+    {"gq": library, "qmm": library, "gm": library}."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import quant_matmul as qmm
     csrc = os.path.join(parent, "paddle_tpu_torch", "csrc")
@@ -2548,7 +2873,9 @@ def parent_quant_libs(parent):
         {"gq": (os.path.join(csrc, "quant_grouped_matmul.cu"),
                 GQ_PARENT_SIG, (), None),
          "qmm": (os.path.join(csrc, "quant_matmul.cu"), qmm._SIG, (),
-                 None)})
+                 None),
+         "gm": (os.path.join(csrc, "grouped_matmul.cu"), GM_PARENT_SIG, (),
+                None)})
 
 
 def qmm_wgmma_unchanged(shipped_so, shipped_log, parent):
@@ -2569,10 +2896,9 @@ def qmm_wgmma_unchanged(shipped_so, shipped_log, parent):
 
 
 class ParentGq:
-    """The parent's quantized grouped library under the shipped wrapper:
-    the route argument is dropped (the parent has one kernel), and each
-    call is counted in `calls` (the wrapper's route counts name a kernel
-    that did not run)."""
+    """The parent's quantized grouped library under the shipped wrapper,
+    each call counted in `calls` (the wrapper's route counts name the
+    shipped library's kernels)."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -2580,7 +2906,25 @@ class ParentGq:
 
     def quant_grouped_matmul_fwd(self, *args):
         self.calls += 1
-        return self.lib.quant_grouped_matmul_fwd(*args[:-2], args[-1])
+        return self.lib.quant_grouped_matmul_fwd(*args)
+
+
+class ParentGm:
+    """The parent's grouped library under the shipped wrapper: the
+    forward's route argument is dropped (the parent has one forward
+    kernel) and each forward call is counted in `calls`; the weight
+    gradient (unchanged) passes through."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.calls = 0
+
+    def grouped_matmul_fwd(self, *args):
+        self.calls += 1
+        return self.lib.grouped_matmul_fwd(*args[:-2], args[-1])
+
+    def grouped_matmul_dw(self, *args):
+        return self.lib.grouped_matmul_dw(*args)
 
 
 def attention_fallback_check(torch, seed):
@@ -4168,6 +4512,11 @@ def main():
                     help="only build the kernels and time the tensor-core "
                          "GEMV without its products and without its code "
                          "reads (extra builds), then exit")
+    ap.add_argument("--grouped-cost", action="store_true",
+                    help="only build the kernels and time the grouped "
+                         "tensor-core forward without its drain, its "
+                         "split, its loads and its products (extra "
+                         "builds), then exit")
     ap.add_argument("--ragged-cost", action="store_true",
                     help="only build the kernels and time the three ragged "
                          "kernels without their arithmetic, without their "
@@ -4175,11 +4524,11 @@ def main():
                          "then exit")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: its three ragged "
-                         "kernels and its quantized grouped kernel are "
-                         "built and timed beside the shipped ones, the same "
-                         "way, in the ragged, partials and quantized "
-                         "grouped cases, and train_moe_quant runs again on "
-                         "its quantized kernel")
+                         "kernels and its grouped and quantized grouped "
+                         "kernels are built and timed beside the shipped "
+                         "ones, the same way, in the ragged, partials and "
+                         "grouped cases, and train_moe and train_moe_quant "
+                         "run again on its grouped and quantized kernels")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -4225,8 +4574,9 @@ def main():
         hgmma.update(hgmma_counts(libs[name], kernels))
     # nine flash kernels (the masked forward, dq and dk/dv under two
     # policies) at D 64 and 128; qmm_wgmma for 2 code types; the grouped
-    # kernel for 2 x dtypes x 2 code types
-    check(len(hgmma) == 24 and all(hgmma.values()),
+    # quantized kernel for 2 x dtypes x 2 code types; the grouped forward
+    # for 2 dtypes x 2 transposes
+    check(len(hgmma) == 28 and all(hgmma.values()),
           f"a kernel meant for the tensor cores has no HGMMA: {hgmma}")
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
           "hgmma": hgmma})
@@ -4241,6 +4591,10 @@ def main():
         return 0
     if args.ragged_cost:
         ragged_cost(torch, np, args.parent)
+        print(card, flush=True)
+        return 0
+    if args.grouped_cost:
+        grouped_cost(torch, np, args.seed + 40)
         print(card, flush=True)
         return 0
 
@@ -4414,16 +4768,29 @@ def main():
 
     # the MoE training path: its kernels at train_moe's shapes, then the
     # full-width GPT-MoE, its int8-expert lane and the dispatch parity
-    gq_parent = None
+    gq_parent = gm_parent = None
     if args.parent:
         quant_parent = parent_quant_libs(args.parent)
-        gq_parent = quant_parent["gq"]
+        gq_parent, gm_parent = quant_parent["gq"], quant_parent["gm"]
         qmm_wgmma_unchanged(libs["quant_matmul"],
                             _build.build_log("quant_matmul"),
                             quant_parent["qmm"])
-    gmm_main, dw_main, qgmm_main, qgmm_cuda_core = moe_kernel_checks(
-        torch, np, args.seed + 40, parent=gq_parent)
+    l2_rate = l2_read_rate(torch)
+    gmm_main, gmm_cuda_core, dw_main, qgmm_main, qgmm_cuda_core = \
+        moe_kernel_checks(torch, np, args.seed + 40, parent=gq_parent,
+                          parent_gm=gm_parent, l2_rate=l2_rate)
     train_moe = train_moe_phase(torch, np, args.seed + 41)
+    if gm_parent is not None:
+        # the same phase on the parent's grouped forward, swapped in
+        stem = "grouped_matmul"
+        shipped = _build._libs[stem]
+        parent_gm = _build._libs[stem] = ParentGm(gm_parent)
+        try:
+            train_moe_phase(torch, np, args.seed + 41,
+                            phase="train_moe_parent", parent_gm=parent_gm,
+                            extra={"parent": args.parent})
+        finally:
+            _build._libs[stem] = shipped
     if args.profile:
         train_moe_profile_phase(torch, np, args.seed + 41)
     train_moe_quant = train_moe_phase(torch, np, args.seed + 41,
@@ -4431,23 +4798,27 @@ def main():
                                       quant_route="wgmma",
                                       expert_quant="int8")
     if gq_parent is not None:
-        # the same phase on the parent's quantized kernel, swapped in
-        stem = "quant_grouped_matmul"
-        shipped = _build._libs[stem]
-        parent_gq = _build._libs[stem] = ParentGq(gq_parent)
+        # the same phase on the parent's quantized kernel and grouped
+        # forward (the input gradient), swapped in
+        shipped = {stem: _build._libs[stem] for stem in
+                   ("quant_grouped_matmul", "grouped_matmul")}
+        parent_gq = _build._libs["quant_grouped_matmul"] = \
+            ParentGq(gq_parent)
+        parent_gm = _build._libs["grouped_matmul"] = ParentGm(gm_parent)
         try:
             train_moe_phase(torch, np, args.seed + 41,
                             phase="train_moe_quant_parent", timed=5,
-                            parent_gq=parent_gq,
+                            parent_gq=parent_gq, parent_gm=parent_gm,
                             extra={"parent": args.parent},
                             expert_quant="int8")
         finally:
-            _build._libs[stem] = shipped
-    # groups of 64 rows: every quantized launch on the CUDA-core kernel
+            _build._libs.update(shipped)
+    # groups of 64 rows: every quantized launch and every input gradient on
+    # the CUDA-core kernels
     train_moe_quant_bm64 = train_moe_phase(
         torch, np, args.seed + 41, phase="train_moe_quant_bm64", warmup=1,
-        timed=2, quant_route="cuda_core", expert_quant="int8",
-        group_block=64)
+        timed=2, quant_route="cuda_core", grouped_route="cuda_core",
+        expert_quant="int8", group_block=64)
     moe_parity_phase(torch, np, args.seed)
     attention_fallback_check(torch, args.seed + 45)
 
@@ -4514,7 +4885,12 @@ def main():
              partials_main, serve_long["partials_launches"]),
             ("grouped_matmul_fwd", "paddle_tpu_torch/csrc/grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/grouped_matmul.py:226",
-             gmm_main, train_moe["grouped_fwd_launches"]),
+             gmm_cuda_core,
+             train_moe_quant_bm64["grouped_route_launches"]["cuda_core"]),
+            ("grouped_matmul_fwd_wgmma",
+             "paddle_tpu_torch/csrc/grouped_matmul.cu",
+             "paddle_tpu/kernels/pallas/grouped_matmul.py:226",
+             gmm_main, train_moe["grouped_route_launches"]["wgmma"]),
             ("grouped_matmul_dw", "paddle_tpu_torch/csrc/grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/grouped_matmul.py:287",
              dw_main, train_moe["grouped_dw_launches"]),

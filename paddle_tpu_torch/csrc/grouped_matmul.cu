@@ -19,26 +19,95 @@
 // past counts[e] is never loaded (selection, not a multiply by 0), so a
 // NaN in a padding row cannot reach dw.
 //
-// The routing never leaves the card: each block reads its group's offset
-// and count from device memory and returns at once past the live tiles,
-// as the TPU kernel's `pl.when(t < tcnt[e])` does. The grid covers the
-// worst case, (N tiles, ceil(Tp / 128) row tiles, E) for the forward and
-// (N tiles, K tiles, E) for dw.
+// The routing never leaves the card: each block reads the group offsets
+// and counts from device memory, as the TPU kernel's `pl.when(t <
+// tcnt[e])` does.
 //
 // What bounds it on the H100. The MoE layer's products (16,384 routes, K
-// and N 768 and 3072) do 2 * routes * K * N = 77 GFLOP on 0.2 GB: about
+// and N 768 and 3072) do 2 * routes * K * N = 77.3 GFLOP on 0.2 GB: about
 // 400 flops per byte, above the card's balance point, so operations bound
-// them. This kernel runs float32 on the CUDA cores (67 TFLOP/s peak), not
-// the tensor cores (495 TFLOP/s TF32, 989 bf16), so its own arithmetic
-// bounds it in practice.
+// them, and only the tensor cores come near that bound: the CUDA cores'
+// float32 peak (67 TFLOP/s) holds any design on them. A 128 x 128 tile
+// also reads its x tile N / 128 times and its weight tile once per token
+// tile, about 2.5 GB a launch from L2 at the MoE shapes: a second bound,
+// below the tensor cores' at the L2 read rate chip_smoke.py measures.
 //
-// Design, simple and right first (grouped_gemm.cuh): 128 x 128 output
-// tiles, 256 threads with 8 x 8 outputs each, the contraction in steps of
-// 8 through double-buffered shared memory, float32 accumulation, bfloat16
-// inputs converted on load. The dw block loops over its group's rows. No
-// tensor cores (wgmma), no TMA: those are the next steps.
+// The forward has two kernels; the wrapper (kernels/grouped_matmul.py,
+// `gm_route`) picks one and passes it in, and a kernel that cannot take
+// the inputs is an error, never a silent switch to another:
+// - "wgmma" (`grouped_wgmma<T, TRANS>`: float32 or bf16, bm % 128 == 0,
+//   K % 64 == 0, N % 8 == 0 unless TRANS, 16-byte aligned x and w), the
+//   product on the tensor cores. A block of two warpgroups owns a 128
+//   token x 128 column tile, 64 token rows each, A = the token tile
+//   (K-major, as x lies) and B = the weight tile: for the forward w[e]
+//   [K, N], N-contiguous, stored as two 64-column panels and read
+//   MN-major (`mma_m64n128k16_ss_tb`); for the input gradient w[e] [N,
+//   K], K-contiguous, read K-major (`mma_m64n128k16`). Since bm is a
+//   multiple of 128, a token tile never straddles two experts. The grid
+//   is (N / 128, Tp / 128), without the E axis of the CUDA-core kernel:
+//   each block finds the group that owns its token tile from the
+//   device's offsets and counts (at most E compares; `_tile_experts` is
+//   its plain mirror) and returns only in the padding tail, so no SM
+//   slot goes to a block that would return at once.
+//   Arithmetic. float32 is split exactly into three bf16 pieces, hi + mid
+//   + lo, by truncation (`split3`'s rule, wgmma.cuh), x and w both, and
+//   each k16 step issues the six piece products whose order is at least
+//   2^-16 of x w: (hi, hi), (hi, mid), (mid, hi), (mid, mid), (hi, lo),
+//   (lo, hi). Each is exact in float32 (8 x 8 significant bits); each of
+//   the three dropped ones is below 2^-22 |x w|, of the product's sign.
+//   The tensor cores' float32 adder truncates: the products of a whole
+//   K 3072 summed straight into one accumulator miss the float32 rule
+//   (1e-6 |ref| + 1e-5 max|ref|) by 2.5-2.6 times on the MoE shapes
+//   (chip_smoke.py --grouped-cost, build no_drain), so each 64-deep
+//   stage's products go into a float32 partial that starts at zero and a
+//   float32 add on the CUDA cores puts it on the accumulator (the
+//   drain): 0.17-0.27 of the rule, at no cost
+//   in time (the partial's wait replaces the wait for the previous
+//   stage's products before its buffers are rewritten). The three largest
+//   products alone would miss the rule by 2.4 times, TF32 (10 bits of
+//   each operand) by far more (tests/test_torch_grouped_matmul.py). bf16
+//   is one piece and one product a k16 step, the same body.
+//   Both operands go through registers: each thread loads its 16-byte
+//   chunks of x and w for stage kt + 2 after splitting stage kt + 1's
+//   into their swizzled panels while stage kt's products run, 64 values
+//   of K a stage, six 16 KB panels a stage, two stages (192 KB).
+//   Non-finite values: a split puts inf whole into hi with mid = lo = 0,
+//   so a cross product such as (hi, mid) of x = inf and a w exact in bf16
+//   is inf x 0 = NaN where the float32 product is inf. The kernel splits
+//   every value as if it were finite (no select, about half the split's
+//   work of `split3`) and sums the remainders x - hi, which turn NaN for
+//   an inf or a NaN; a block that split one redoes its tile with the
+//   float32 FMA loop of grouped_gemm.cuh: exact IEEE products, rare,
+//   outside the fast path (a fourth panel a piece with hi's non-finite
+//   values zeroed would cost every block a third more shared memory a
+//   stage, and a stage). Rows of a group past counts[e] are zero-filled
+//   and never read, on both paths, so a NaN in a padding row reaches no
+//   output; they are written as the bias alone. The epilogue moves the
+//   tile through shared memory and writes the live rows in x's dtype with
+//   16-byte stores. No atomics: a second launch gives the same bits.
+//   What holds it (H100 80GB HBM3 at 700 W, the MoE shapes, float32):
+//   0.82-0.94 ms against a six-product bound of 0.469 ms; without its
+//   products 0.45-0.49 ms, without its split 0.68-0.78, without its loads
+//   at most 5 % faster, and spilling (chip_smoke.py --grouped-cost). The
+//   tiles' reads from L2 (2.47 GB a launch) take 0.356 ms at the 6.94
+//   TB/s that chip_smoke.py's L2 probe reads (distinct addresses, no L1):
+//   below the six-product bound and under half the kernel's time, so the
+//   bytes alone do not hold it: the products and the split, which share
+//   the SM's issue slots and shared memory, do.
+// - "cuda_core" (`grouped_fwd<T, TRANS>`: everything else, bm 64, widths
+//   off those multiples, unaligned views), the CUDA-core tile of
+//   grouped_gemm.cuh: 128 x 128 outputs, 8 x 8 a thread, float32 FMAs,
+//   near the CUDA cores' peak. Its grid is (N tiles, ceil(Tp / 128) row
+//   tiles, E); a block past its group's live tiles returns at once.
+// The weight gradient (`grouped_dw`, grid (N tiles, K tiles, E)) is the
+// same CUDA-core tile with the block looping over its group's rows.
+// No TMA, mbarrier ring or warp specialisation yet.
 
+#include <type_traits>
+
+#include "common.cuh"
 #include "grouped_gemm.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -185,14 +254,331 @@ __global__ void __launch_bounds__(kThreads, 2)
                            acc, tx, ty);
 }
 
+// -- the tensor-core forward --------------------------------------------------
+
+namespace wg = ptt::wg;
+
+constexpr int kGN = 128;   // output columns a block: wgmma's N
+constexpr int kGM = 128;   // token rows a block, 64 a warpgroup
+constexpr int kGK = 64;    // K a stage: one 128-byte swizzled row of bf16
+constexpr int kGThreads = 256;
+constexpr int kGPanel = 128 * kGK * 2;  // one operand tile of one piece, 16 KB
+constexpr int kGChunks = 4;  // 16-byte bf16 chunks a thread writes an operand
+
+// A stage holds x's pieces (A), then w's (B), each piece a 16 KB tile on a
+// 1024-byte boundary, as the swizzle needs.
+template <typename T>
+struct GwLayout {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kPieces = kF32 ? 3 : 1;  // hi, mid, lo
+  static constexpr int kProducts = kF32 ? 6 : 1;
+  static constexpr int kB = kPieces * kGPanel;
+  static constexpr int kStage = 2 * kB;          // 96 KB, 32 KB
+  static constexpr int kSmem = 2 * kStage;       // two stages
+  static constexpr int kEpiPitch = kGN + 16 / (int)sizeof(T);
+};
+static_assert(GwLayout<float>::kSmem <= 232448, "the float32 ring fits");
+static_assert(kGM * GwLayout<float>::kEpiPitch * 4 <= GwLayout<float>::kSmem,
+              "the epilogue tile fits");
+static_assert(sizeof(Smem) <= GwLayout<__nv_bfloat16>::kSmem,
+              "the FMA redo's tiles fit");
+
+// The pieces of product q (0..5) of a k16 step, largest first: (hi, hi),
+// (hi, mid), (mid, hi), (mid, mid), (hi, lo), (lo, hi). The three left
+// out, (mid, lo), (lo, mid) and (lo, lo), are each below 2^-22 |x w|.
+__host__ __device__ constexpr int piece_a(int q) {
+  return (q == 2 || q == 3) ? 1 : (q == 5 ? 2 : 0);
+}
+__host__ __device__ constexpr int piece_b(int q) {
+  return (q == 1 || q == 3) ? 1 : (q == 4 ? 2 : 0);
+}
+
+// The chunks one thread copies of an operand each stage: chunk i (8
+// consecutive values of a row, one 16-byte bf16 chunk of every piece) for
+// i < kGChunks, present when i < rows, else zeros without a read.
+template <typename T>
+struct GwOperand {
+  const T* p;        // chunk 0 at stage 0
+  int rows;          // chunks i < rows hold data
+  long long step;    // elements between chunks i and i + 1
+  long long stage;   // elements a stage moves along the contraction
+  uint32_t off;      // byte offset of chunk 0 in a piece's tile
+  uint32_t soff;     // bytes between chunks i and i + 1 in the tile
+};
+
+// A K-major tile of 128 rows [r0, r0 + 128) of a row-major matrix with ld
+// columns along K, rows at or past r_end zero: x, and w[e] [N, K] read
+// transposed. Thread t takes chunk t % 8 of rows t / 8 + 32 i.
+template <typename T>
+__device__ __forceinline__ GwOperand<T> kmajor_operand(const T* a, int ld,
+                                                       int r0, int r_end) {
+  const int t = threadIdx.x, c = t & 7, r = t >> 3;
+  GwOperand<T> o;
+  o.p = a + (size_t)(r0 + r) * ld + c * 8;
+  o.rows = (r_end - r0 - r + 31) / 32;  // may be <= 0
+  o.step = 32LL * ld;
+  o.stage = kGK;
+  o.off = wg::sw128(r, c);
+  o.soff = 32 * 128;
+  return o;
+}
+
+// An MN-major tile of w[e] [K, N] (N contiguous): rows k of the stage,
+// columns [n0, n0 + 128) as two 64-column panels. Thread t takes chunk t
+// % 16 (columns 8 (t % 16) ..) of rows t / 16 + 16 i; N % 8 == 0, so a
+// chunk lies wholly inside N or wholly past it.
+template <typename T>
+__device__ __forceinline__ GwOperand<T> mn_operand(const T* w, int N,
+                                                   int n0) {
+  const int t = threadIdx.x, c = t & 15, r = t >> 4;
+  GwOperand<T> o;
+  o.p = w + (size_t)r * N + n0 + c * 8;
+  o.rows = n0 + c * 8 < N ? kGChunks : 0;
+  o.step = 16LL * N;
+  o.stage = (long long)kGK * N;
+  o.off = (c >> 3) * (64 * 128) + wg::sw128(r, c & 7);
+  o.soff = 16 * 128;
+  return o;
+}
+
+// A thread's chunks of one operand for a stage, in registers
+template <typename T>
+struct GwRaw;
+template <>
+struct GwRaw<float> {
+  float4 v[kGChunks][2];
+};
+template <>
+struct GwRaw<__nv_bfloat16> {
+  uint4 v[kGChunks];
+};
+
+__device__ __forceinline__ void gw_load(const GwOperand<float>& o, int kt,
+                                        GwRaw<float>& r) {
+  const float* p = o.p + kt * o.stage;
+#pragma unroll
+  for (int i = 0; i < kGChunks; ++i) {
+    if (i < o.rows) {
+      const float4* q = reinterpret_cast<const float4*>(p + i * o.step);
+      r.v[i][0] = q[0];
+      r.v[i][1] = q[1];
+    } else {
+      r.v[i][0] = r.v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void gw_load(const GwOperand<__nv_bfloat16>& o,
+                                        int kt, GwRaw<__nv_bfloat16>& r) {
+  const __nv_bfloat16* p = o.p + kt * o.stage;
+#pragma unroll
+  for (int i = 0; i < kGChunks; ++i)
+    r.v[i] = i < o.rows ? *reinterpret_cast<const uint4*>(p + i * o.step)
+                        : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The registers' chunks into a stage's piece tiles at `tile`; `nan` turns
+// NaN if any value split is not finite.
+__device__ __forceinline__ void gw_store(uint8_t* tile,
+                                         const GwOperand<float>& o,
+                                         const GwRaw<float>& r,
+                                         float& nan) {
+#pragma unroll
+  for (int i = 0; i < kGChunks; ++i)
+    wg::split_finite8(tile, o.off + i * o.soff, kGPanel, r.v[i][0],
+                      r.v[i][1], nan);
+}
+
+// bf16: one piece, stored as it is (one product: no cross terms, so a
+// non-finite value gives what the plain version gives)
+__device__ __forceinline__ void gw_store(uint8_t* tile,
+                                         const GwOperand<__nv_bfloat16>& o,
+                                         const GwRaw<__nv_bfloat16>& r,
+                                         float&) {
+#pragma unroll
+  for (int i = 0; i < kGChunks; ++i)
+    *reinterpret_cast<uint4*>(tile + o.off + i * o.soff) = r.v[i];
+}
+
+// one k16 step's product q of this warpgroup's 64 rows into d: A at `a`
+// (piece 0 of its rows), B at `b` (piece 0 of the weight tile)
+template <bool TRANS, int Q>
+__device__ __forceinline__ void gw_mma(float (&d)[64], uint32_t a,
+                                       uint32_t b, int j, int scale_d) {
+  const uint64_t da = wg::desc_sw128(a + piece_a(Q) * kGPanel + 32 * j);
+  if constexpr (TRANS) {
+    wg::mma_m64n128k16(d, da, wg::desc_sw128(b + piece_b(Q) * kGPanel +
+                                             32 * j),
+                       scale_d);
+  } else {
+    wg::mma_m64n128k16_ss_tb(
+        d, da, wg::desc_sw128_mn(b + piece_b(Q) * kGPanel + 2048 * j,
+                                 64 * 128),
+        scale_d);
+  }
+}
+
+// the stage's products (4 k16 steps x P products) into d; scale_d 0 on
+// the first when `fresh`
+template <bool TRANS, int P>
+__device__ __forceinline__ void gw_stage(float (&d)[64], uint32_t a,
+                                         uint32_t b, bool fresh) {
+#pragma unroll
+  for (int j = 0; j < kGK / 16; ++j) {
+    const int s = !(fresh && j == 0);
+    gw_mma<TRANS, 0>(d, a, b, j, s);
+    if constexpr (P == 6) {
+      gw_mma<TRANS, 1>(d, a, b, j, 1);
+      gw_mma<TRANS, 2>(d, a, b, j, 1);
+      gw_mma<TRANS, 3>(d, a, b, j, 1);
+      gw_mma<TRANS, 4>(d, a, b, j, 1);
+      gw_mma<TRANS, 5>(d, a, b, j, 1);
+    }
+  }
+}
+
+// x [Tp, K] . w[e] -> out [Tp, N] on the tensor cores; TRANS: w[e] is [N,
+// K], read transposed. One block per (N tile, token tile); the grid has no
+// expert axis.
+template <typename T, bool TRANS>
+__global__ void __launch_bounds__(kGThreads, 1)
+    grouped_wgmma(const T* __restrict__ x, const T* __restrict__ w,
+                  const T* __restrict__ bias, T* __restrict__ out,
+                  const int* __restrict__ offsets,
+                  const int* __restrict__ counts, int E, int Tp, int K,
+                  int N, int bm) {
+  using L = GwLayout<T>;
+  constexpr int P = L::kProducts;
+  extern __shared__ __align__(1024) uint8_t gw_smem[];
+  uint8_t* smem = gw_smem;
+  const uint32_t sbase = wg::smem_addr(smem);
+  if (sbase & 1023) __trap();  // the swizzle needs it
+  // the group that owns this token tile
+  const int t0 = blockIdx.y * kGM;
+  int e = -1, xend = 0, oend = 0;
+  for (int i = 0; i < E; ++i) {
+    const int o = offsets[i], live = live_rows(counts, i, bm);
+    if (t0 >= o && t0 < o + live) {
+      e = i;
+      xend = min(o + counts[i], Tp);  // rows that hold a route
+      oend = min(o + live, Tp);       // rows written
+      break;
+    }
+  }
+  if (e < 0) return;  // the padding tail past the groups
+  const int n0 = blockIdx.x * kGN;
+  const int t = threadIdx.x, lane = t & 31;
+  const int g = t >> 7, warp = (t >> 5) & 3;  // warpgroup, warp within it
+  const int KT = K / kGK;
+  const T* we = w + (size_t)e * K * N;
+  const GwOperand<T> ox = kmajor_operand(x, K, t0, xend);
+  GwOperand<T> ow;
+  if constexpr (TRANS)
+    ow = kmajor_operand(we, K, n0, N);
+  else
+    ow = mn_operand(we, N, n0);
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  float bad = 0.f;    // NaN once this thread split a non-finite value
+  GwRaw<T> rx, rw;    // x and w of the stage after next
+
+  gw_load(ox, 0, rx);
+  gw_load(ow, 0, rw);
+  gw_store(smem, ox, rx, bad);
+  gw_store(smem + L::kB, ow, rw, bad);
+  if (KT > 1) {
+    gw_load(ox, 1, rx);
+    gw_load(ow, 1, rw);
+  }
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const uint32_t st = sbase + (kt & 1) * L::kStage;
+    const uint32_t a = st + g * 64 * 128;  // this warpgroup's 64 rows
+    const uint32_t b = st + L::kB;
+    wg::fence();
+    gw_stage<TRANS, P>(part, a, b, true);
+    wg::commit();
+    const bool more = kt + 1 < KT;
+    if (more) {
+      // while the products run: stage kt + 1 into the buffers that stage
+      // kt - 1's products read (the drain after stage kt - 1 has waited
+      // for them, and the barrier after it freed them)
+      uint8_t* nx = smem + ((kt + 1) & 1) * L::kStage;
+      gw_store(nx, ox, rx, bad);
+      gw_store(nx + L::kB, ow, rw, bad);
+      wg::fence_proxy_async();
+      if (kt + 2 < KT) {
+        gw_load(ox, kt + 2, rx);
+        gw_load(ow, kt + 2, rw);
+      }
+    }
+    // the drain: this stage's partial onto the accumulator
+    wg::wait<0>();
+    wg::fence_operand(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    if (more) __syncthreads();  // publishes stage kt + 1
+  }
+  const T* be = bias != nullptr ? bias + (size_t)e * N : nullptr;
+
+  // a non-finite value anywhere in the block's operands: the tile again,
+  // in float32 FMAs (the barrier also frees the ring: every product is done)
+  if (__syncthreads_or(isnan(bad))) {
+    Smem& sm = *reinterpret_cast<Smem*>(smem);
+    float f[8][8];
+    zero_acc(f);
+    const int tx = t & 15, ty = t >> 4;
+    const RowsA<T> la(x, K, t0, xend, true);
+    if constexpr (TRANS)
+      mainloop(la, TransposedB<T>(we, K, N, n0, true), K, sm, f, tx, ty);
+    else
+      mainloop(la, DenseB<T>(we, K, N, n0, true), K, sm, f, tx, ty);
+    store_tile<T, T>(out, N, t0, oend, n0, be, f, tx, ty);
+    return;
+  }
+
+  // epilogue: the tile through shared memory as out [kGM m][kGN n]
+  constexpr int pitch = L::kEpiPitch;
+  T* ep = reinterpret_cast<T*>(smem);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int m = g * 64 + warp * 16 + lane / 4 + 8 * ((i >> 1) & 1);
+    const int n = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    const float bv =
+        (be != nullptr && n0 + n < N) ? ptt::to_float(be[n0 + n]) : 0.f;
+    ep[m * pitch + n] = ptt::from_float<T>(acc[i] + bv);
+  }
+  __syncthreads();
+  constexpr int V = 16 / (int)sizeof(T);  // values a 16-byte store
+  const bool vec_out = N % V == 0;        // every out row 16-byte aligned
+  for (int q = t; q < kGM * (kGN / V); q += kGThreads) {
+    const int r = q / (kGN / V), c = q % (kGN / V);
+    const int gm = t0 + r, gn = n0 + c * V;
+    if (gm >= oend || gn >= N) continue;
+    const T* src = ep + r * pitch + c * V;
+    T* dst = out + (size_t)gm * N + gn;
+    if (vec_out && gn + V <= N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int i = 0; i < V && gn + i < N; ++i) dst[i] = src[i];
+    }
+  }
+}
+
 bool aligned(const void* p, int bytes) {
   return ((uintptr_t)p % bytes) == 0;
 }
 
+constexpr int kRouteCudaCore = 0;  // route codes (kernels/grouped_matmul.py)
+constexpr int kRouteWgmma = 1;
+
 template <typename T>
-int launch_fwd(const void* x, const void* w, const void* b, void* out,
-               const int* offsets, const int* counts, int E, int Tp, int K,
-               int N, int bm, int trans, cudaStream_t st) {
+int launch_cuda_core(const void* x, const void* w, const void* b, void* out,
+                     const int* offsets, const int* counts, int E, int Tp,
+                     int K, int N, int bm, int trans, cudaStream_t st) {
   const int vb = sizeof(T) * 4;
   // four consecutive elements along x's rows, and along w's contiguous dim
   const int vec_a = (K % 4 == 0) && aligned(x, vb);
@@ -207,6 +593,42 @@ int launch_fwd(const void* x, const void* w, const void* b, void* out,
         (const T*)x, (const T*)w, (const T*)b, (T*)out, offsets, counts, Tp,
         K, N, bm, vec_a, vec_b);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool TRANS>
+int launch_wgmma(const void* x, const void* w, const void* b, void* out,
+                 const int* offsets, const int* counts, int E, int Tp, int K,
+                 int N, int bm, cudaStream_t st) {
+  auto kernel = grouped_wgmma<T, TRANS>;
+  constexpr int smem = GwLayout<T>::kSmem;
+  static bool smem_set[ptt::kMaxDevices] = {};
+  if (int e = ptt::raise_smem(kernel, smem, smem_set)) return e;
+  const dim3 grid((N + kGN - 1) / kGN, (Tp + kGM - 1) / kGM);
+  kernel<<<grid, kGThreads, smem, st>>>((const T*)x, (const T*)w,
+                                        (const T*)b, (T*)out, offsets,
+                                        counts, E, Tp, K, N, bm);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* w, const void* b, void* out,
+               const int* offsets, const int* counts, int E, int Tp, int K,
+               int N, int bm, int trans, int route, cudaStream_t st) {
+  if (route == kRouteWgmma) {
+    // token tiles inside one group, whole stages, whole 16-byte chunks of
+    // the weight's rows, 16-byte aligned bases
+    if (bm % kGM || K % kGK || (!trans && N % 8) || !aligned(x, 16) ||
+        !aligned(w, 16))
+      return (int)cudaErrorInvalidValue;
+    if (trans)
+      return launch_wgmma<T, true>(x, w, b, out, offsets, counts, E, Tp, K,
+                                   N, bm, st);
+    return launch_wgmma<T, false>(x, w, b, out, offsets, counts, E, Tp, K,
+                                  N, bm, st);
+  }
+  if (route != kRouteCudaCore) return (int)cudaErrorInvalidValue;
+  return launch_cuda_core<T>(x, w, b, out, offsets, counts, E, Tp, K, N, bm,
+                             trans, st);
 }
 
 template <typename T>
@@ -228,12 +650,16 @@ int launch_dw(const void* x, const void* dy, void* dw, const int* offsets,
 // x [Tp, K]; w [E, K, N], or [E, N, K] when trans (then out[r] = x[r] .
 // w[e]^T); b [E, N] or null; out [Tp, N]; x, w, b and out share the dtype
 // (0 = float32, 1 = bfloat16); offsets, counts [E] int32 on the card. All
-// contiguous. Returns the CUDA error code of the launch (0 on success).
+// contiguous. route: 0 = cuda_core (`grouped_fwd`), 1 = wgmma
+// (`grouped_wgmma`: bm % 128 == 0, K % 64 == 0, N % 8 == 0 unless trans,
+// 16-byte aligned x and w). Returns the CUDA error code of the launch (0
+// on success); cudaErrorInvalidValue for inputs the route does not take.
 extern "C" int grouped_matmul_fwd(const void* x, const void* w,
                                   const void* b, void* out,
                                   const void* offsets, const void* counts,
                                   int E, int Tp, int K, int N, int bm,
-                                  int trans, int dtype, void* stream) {
+                                  int trans, int dtype, int route,
+                                  void* stream) {
   if (E <= 0 || Tp <= 0 || K <= 0 || N <= 0 || bm <= 0 ||
       (Tp + kBM - 1) / kBM > 65535 || E > 65535)
     return (int)cudaErrorInvalidValue;
@@ -242,10 +668,10 @@ extern "C" int grouped_matmul_fwd(const void* x, const void* w,
   const int* cnt = (const int*)counts;
   if (dtype == ptt::kFloat32)
     return launch_fwd<float>(x, w, b, out, off, cnt, E, Tp, K, N, bm, trans,
-                             st);
+                             route, st);
   if (dtype == ptt::kBFloat16)
     return launch_fwd<__nv_bfloat16>(x, w, b, out, off, cnt, E, Tp, K, N,
-                                     bm, trans, st);
+                                     bm, trans, route, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,6 +30,10 @@
 //   between 8-row groups along the contraction; the k16 step j starts 16
 //   rows in, 2048 * j bytes (a multiple of 1024, so the base offset stays
 //   0). A [64, 64] tile has one panel and N 64 never reads the LBO.
+// - `mma_m64n128k16_ss_tb` is the SS form with B transposed (`tnspB` =
+//   1): A K-major as above, B [K, N 128] stored as two N-panels of 64 and
+//   read through `desc_sw128_mn`, as an N-contiguous weight [K, N] lands
+//   when its rows are copied 16 bytes at a time.
 // - `mma_m64n{64,128}k16_rs_tb` is the RS form with B transposed: A
 //   [64, 16] comes from registers, B through an MN-major descriptor
 //   (`tnspB` = 1). Thread t's four A registers hold, as bf16 pairs with
@@ -43,8 +47,11 @@
 //   into one float32 accumulator carry x to about 2^-16 of itself.
 //   `split3` instead splits a float32 operand exactly into three bf16
 //   pieces (truncated hi, mid, lo), and `split3_store8` writes eight of
-//   them into three swizzled tiles: three SS products against an operand
-//   that is exact in bf16 (weight codes) give the float32 products.
+//   them into three swizzled tiles (`split_finite8` the same for values
+//   taken as finite, flagging the rest): three SS products against an
+//   operand that is exact in bf16 (weight codes) give the float32
+//   products; with both operands split, six of the nine piece products
+//   do (csrc/grouped_matmul.cu).
 // - The A registers are read while the wgmma runs: write them, then
 //   `fence_operand(a)` and `fence()` before the wgmma, and leave them
 //   unchanged until a `wait` that covers it.
@@ -140,6 +147,46 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the SS product with B transposed: B [K 16, N 128] read MN-major through
+// `desc_sw128_mn` (tnspB = 1), A K-major as in mma_m64n128k16
+__device__ __forceinline__ void mma_m64n128k16_ss_tb(float (&d)[64],
+                                                     uint64_t da,
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -290,17 +337,15 @@ __device__ __forceinline__ void split3(float x, uint32_t& h, uint32_t& m,
   l = finite ? lu : 0u;
 }
 
-// Eight consecutive float32 values (a, then b) split into three 16-byte
-// chunks of bf16 (`split3`), stored at byte offset `off` of three tiles
-// `panel` bytes apart from `base`: hi, mid, lo, the first value in the low
-// half of each word.
-__device__ __forceinline__ void split3_store8(uint8_t* base, uint32_t off,
-                                              int panel, float4 a,
-                                              float4 b) {
-  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  uint32_t h[8], m[8], l[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) split3(v[i], h[i], m[i], l[i]);
+// hi, mid and lo of eight values (each piece in the upper half of a
+// word) stored as three 16-byte chunks of bf16 at byte offset `off` of
+// three tiles `panel` bytes apart from `base`, the first value in the low
+// half of each word
+__device__ __forceinline__ void store_pieces8(uint8_t* base, uint32_t off,
+                                              int panel,
+                                              const uint32_t (&h)[8],
+                                              const uint32_t (&m)[8],
+                                              const uint32_t (&l)[8]) {
   // __byte_perm(p, q, 0x7632): the upper halves of p (low) and q (high)
   *reinterpret_cast<uint4*>(base + off) = make_uint4(
       __byte_perm(h[0], h[1], 0x7632), __byte_perm(h[2], h[3], 0x7632),
@@ -311,6 +356,40 @@ __device__ __forceinline__ void split3_store8(uint8_t* base, uint32_t off,
   *reinterpret_cast<uint4*>(base + 2 * panel + off) = make_uint4(
       __byte_perm(l[0], l[1], 0x7632), __byte_perm(l[2], l[3], 0x7632),
       __byte_perm(l[4], l[5], 0x7632), __byte_perm(l[6], l[7], 0x7632));
+}
+
+// Eight consecutive float32 values (a, then b) split into three 16-byte
+// chunks of bf16 (`split3`), stored at byte offset `off` of three tiles
+// `panel` bytes apart from `base`: hi, mid, lo.
+__device__ __forceinline__ void split3_store8(uint8_t* base, uint32_t off,
+                                              int panel, float4 a,
+                                              float4 b) {
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t h[8], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) split3(v[i], h[i], m[i], l[i]);
+  store_pieces8(base, off, panel, h, m, l);
+}
+
+// `split3_store8` for values the caller treats as finite: `split3`'s
+// rule without its handling of inf and NaN (about half the work). A
+// non-finite x gives r = x - hi = NaN, and `nan` (the sum of every r)
+// turns NaN with it, so the caller can set the pieces of such values
+// aside.
+__device__ __forceinline__ void split_finite8(uint8_t* base, uint32_t off,
+                                              int panel, float4 a, float4 b,
+                                              float& nan) {
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t h[8], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    h[i] = __float_as_uint(v[i]) & 0xFFFF0000u;
+    const float r = v[i] - __uint_as_float(h[i]);
+    m[i] = __float_as_uint(r) & 0xFFFF0000u;
+    l[i] = __float_as_uint(r - __uint_as_float(m[i]));
+    nan += r;
+  }
+  store_pieces8(base, off, panel, h, m, l);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,

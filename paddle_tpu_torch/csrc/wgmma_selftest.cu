@@ -35,7 +35,14 @@
 // (`split3_store8`), and each k16 step three chained m64n128k16 wgmmas
 // (hi, mid, lo) into the block's partial. A wrong piece, pack order or
 // panel offset moves outputs by far more than float32 rounding; a
-// non-finite b row shows how inf and NaN pass the split. No tile here is
+// non-finite b row shows how inf and NaN pass the split.
+//
+// A fifth tile checks the SS product with B transposed as the grouped
+// float32 kernel's forward uses it: out [64, 128] = a [64, K] . b [K, 128]
+// with b row-major (the 128 columns contiguous), each 64-row slice of b
+// copied 16 bytes at a time into two 64-column panels and read MN-major
+// (`desc_sw128_mn`) by `mma_m64n128k16_ss_tb`. A wrong transpose flag,
+// panel step or swizzle moves outputs by their own size. No tile here is
 // on any model's path.
 
 #include <stdint.h>
@@ -295,6 +302,54 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+__global__ void __launch_bounds__(128)
+    ss_tb_tile(const __nv_bfloat16* __restrict__ a,
+               const __nv_bfloat16* __restrict__ b, float* __restrict__ out,
+               int K) {
+  constexpr uint32_t kPanel = 64 * 128;   // [64 k, 64 n] of bf16
+  __shared__ __align__(1024) uint8_t sa[64 * 128];
+  __shared__ __align__(1024) uint8_t sb[2 * kPanel];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 64) {
+    for (int q = t; q < 64 * 8; q += 128) {
+      const int r = q >> 3, c = q & 7;
+      wg::cp_async16(wg::smem_addr(sa) + wg::sw128(r, c),
+                     a + (size_t)r * K + k0 + c * 8, true);
+    }
+    // row r of the slice is k0 + r; chunk c holds columns 8c .. 8c + 7
+    for (int q = t; q < 64 * 16; q += 128) {
+      const int r = q >> 4, c = q & 15;
+      wg::cp_async16(wg::smem_addr(sb) + (c >> 3) * kPanel +
+                         wg::sw128(r, c & 7),
+                     b + (size_t)(k0 + r) * 128 + c * 8, true);
+    }
+    wg::cp_async_commit();
+    wg::cp_async_wait<0>();
+    wg::fence_proxy_async();
+    __syncthreads();
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wg::mma_m64n128k16_ss_tb(
+          acc, wg::desc_sw128(wg::smem_addr(sa) + 32 * j),
+          wg::desc_sw128_mn(wg::smem_addr(sb) + 2048 * j, kPanel), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    __syncthreads();  // the next slice overwrites the tiles
+  }
+  const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int row = r0 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    out[row * 128 + col] = acc[i];
+  }
+}
+
 }  // namespace
 
 // a [64, K] and b [128, K] bf16, scales [64, K / bk] float32, out [64, 128]
@@ -369,5 +424,18 @@ extern "C" int split3_selftest(const void* a, const void* b,
   split3_tile<<<1, 128, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)a, (const float*)b, (const float*)scales,
       (float*)out, K, bk);
+  return (int)cudaGetLastError();
+}
+
+// a [64, K] bf16 (K contiguous), b [K, 128] bf16 (the 128 columns
+// contiguous), out [64, 128] float32, all contiguous with 16-byte aligned
+// bases; K a multiple of 64. out = a . b through the fifth tile above.
+// Returns the CUDA error code of the launch.
+extern "C" int ss_tb_selftest(const void* a, const void* b, void* out, int K,
+                              void* stream) {
+  if (K <= 0 || K % 64 || (uintptr_t)a % 16 || (uintptr_t)b % 16)
+    return (int)cudaErrorInvalidValue;
+  ss_tb_tile<<<1, 128, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)out, K);
   return (int)cudaGetLastError();
 }

@@ -4,13 +4,19 @@ differentiable ``grouped_matmul``.
 
 Counterpart of paddle_tpu/kernels/pallas/grouped_matmul.py. Routes are
 sorted by expert into contiguous groups, each at a row offset that is a
-multiple of ``bm`` (``grouped_metadata``), and each expert's product runs
-over exactly its rows: no capacity buffer, no dropped route. The forward
-kernel (`_fwd_kernel`) and the weight-gradient kernel (`_dw_kernel`) are
-``csrc/grouped_matmul.cu``; its note says what bounds them and how they
-are laid out. The routing stays on the card: the metadata is built from
-one-hot cumsums in int32 (no sort, no host round trip), and the kernels
-read the group offsets and counts from device memory.
+multiple of ``bm`` (``grouped_metadata``), and each expert's product
+runs over exactly its rows: no capacity buffer, no dropped route. The
+forward kernel (`_fwd_kernel`) and the weight-gradient kernel
+(`_dw_kernel`) are ``csrc/grouped_matmul.cu``; its note says what bounds
+them and how they are laid out. `gm_route` picks one of the forward's
+two kernels for a call: the tensor-core product ("wgmma"; float32 x and
+w each as three exact bf16 pieces, six piece products a step, bf16 as it
+is) or the CUDA-core tile ("cuda_core");
+``grouped_matmul_fwd.route_launches`` counts each beside
+``grouped_matmul_fwd.launches``. The routing stays on the card: the
+metadata is built from one-hot cumsums in int32 (no sort, no host round
+trip), and the kernels read the group offsets and counts from device
+memory.
 
 Weights keep the JAX package's [E, K, N] layout (``x @ w[e]``), so an
 expert stack converts as it is.
@@ -26,12 +32,18 @@ from . import _build
 
 __all__ = ["DEFAULT_BM", "default_block_m", "aligned_group_size",
            "grouped_metadata", "grouped_matmul", "grouped_matmul_fwd",
-           "grouped_matmul_dw", "grouped_bias_grad"]
+           "grouped_matmul_dw", "grouped_bias_grad", "gm_route",
+           "GM_ROUTES", "GM_WGMMA_BM", "GM_WGMMA_BLOCK_K"]
 
 # the CUDA kernels' row tile: a group aligned to it fills whole blocks
 DEFAULT_BM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SIG = {"grouped_matmul_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+# the forward's kernels, as the C entry numbers them
+GM_ROUTES = ("cuda_core", "wgmma")
+_GM_ROUTE_CODE = {r: i for i, r in enumerate(GM_ROUTES)}
+GM_WGMMA_BM = 128          # the tensor-core kernel's token tile
+GM_WGMMA_BLOCK_K = 64      # and its stage along the contraction
+_SIG = {"grouped_matmul_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
         "grouped_matmul_dw": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_void_p]}
@@ -176,13 +188,28 @@ def _stream(x):
         return torch.cuda.current_stream().cuda_stream
 
 
+def gm_route(dtype, k, n, bm, transpose_w, ptrs):
+    """The kernel a CUDA grouped_matmul_fwd launches for x [Tp, k] against
+    w [E, k, n] (or [E, n, k] read transposed): "wgmma" (tensor cores:
+    float32 as three exact bf16 pieces, bf16 as it is) for float32 or bf16
+    with groups of whole 128-row token tiles, whole 64-deep stages of the
+    contraction, rows of w that split into whole 16-byte chunks (n % 8 ==
+    0 when w is [E, k, n]; w [E, n, k] reads along k) and every pointer in
+    ``ptrs`` (x and w) 16-byte aligned, else "cuda_core"."""
+    if (dtype in _DTYPE_CODE and bm % GM_WGMMA_BM == 0
+            and k % GM_WGMMA_BLOCK_K == 0 and (transpose_w or n % 8 == 0)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "cuda_core"
+
+
 def grouped_matmul_fwd(x, w, b, offsets, counts, bm, transpose_w=False):
     """out[r] = x[r] . w[e(r)] (+ b[e(r)]) over each group's live tiles.
     x [Tp, K]; w [E, K, N] (or [E, N, K] read transposed when
     transpose_w); b [E, N] or None; offsets, counts int32 [E]. Returns
     [Tp, N] in x's dtype; rows past a group's live tiles are unspecified.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises)."""
+    kernel `gm_route` picks (or raises)."""
     e = w.shape[0]
     _check_layout(x, offsets, counts, e, bm)
     kdim = 2 if transpose_w else 1
@@ -206,20 +233,24 @@ def grouped_matmul_fwd(x, w, b, offsets, counts, bm, transpose_w=False):
     b = b.contiguous() if b is not None else None
     tp, k = x.shape
     out = torch.empty((tp, n), dtype=x.dtype, device=x.device)
+    route = gm_route(x.dtype, k, n, int(bm), transpose_w,
+                     (x.data_ptr(), w.data_ptr()))
     lib = _build.load("grouped_matmul", _SIG)
     rc = lib.grouped_matmul_fwd(
         x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
         out.data_ptr(), offsets.data_ptr(), counts.data_ptr(), e, tp, k, n,
         int(bm), int(bool(transpose_w)), _DTYPE_CODE[x.dtype],
-        _stream(x))
+        _GM_ROUTE_CODE[route], _stream(x))
     if rc:
-        raise RuntimeError(f"grouped_matmul_fwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"grouped_matmul_fwd launch failed ({route} "
+                           f"kernel): CUDA error {rc}")
     grouped_matmul_fwd.launches += 1
+    grouped_matmul_fwd.route_launches[route] += 1
     return out
 
 
 grouped_matmul_fwd.launches = 0
+grouped_matmul_fwd.route_launches = dict.fromkeys(GM_ROUTES, 0)
 
 
 def grouped_matmul_dw(x, dy, offsets, counts, bm, num_expert):

@@ -43,13 +43,29 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_paged_attention_sharded", "merge_partials",
            "kv_quantize_rows", "kv_dequantize_rows", "kv_row_error_bound",
            "ragged_hbm_bytes", "dense_gather_hbm_bytes", "HEAD_DIMS",
-           "GROUP_SIZES", "decode_stage_tokens", "decode_split",
+           "GROUP_SIZES", "decode_route", "DECODE_ROUTES",
+           "decode_stage_tokens", "decode_split",
            "decode_cluster_size", "partials_split",
            "partials_cluster_size"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 GROUP_SIZES = (1, 2, 4, 8)        # query heads per kv head the kernel takes
+DECODE_ROUTES = ("kernel", "plain")
+
+
+def decode_route(dtype, head_dim, group_size):
+    """The route of a decoder's decode attention, from the query dtype, the
+    head dim and the query heads per KV head alone: "kernel" (the ragged,
+    int8-pool or split-context kernel, or its plain version on a CPU
+    tensor) for float32 or bf16 queries at a head dim in HEAD_DIMS and a
+    group size in GROUP_SIZES, else "plain" (the decoder's dense path, the
+    reference's math), as the reference serves a model of any head dim."""
+    if (dtype in _DTYPE_CODE and head_dim in HEAD_DIMS
+            and group_size in GROUP_SIZES):
+        return "kernel"
+    return "plain"
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"ragged_paged_attention_fwd":
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6

@@ -6,8 +6,11 @@ writes every layer's K/V into [L, B, max_len, Hkv, D] caches, and then
 decodes one token per step against the caches. The caches are updated in
 place. A prompt whose length is a multiple of 128 prefills through the
 flash-attention forward kernel (kernels/flash_attention.py), as the JAX
-engine switches to its Pallas kernel there; other lengths use the plain
-causal softmax. Only greedy decoding is ported.
+engine switches to its Pallas kernel there, where `attention_route` gives
+"kernel" for the model's dtype and head dim; other lengths, and a head
+dim no kernel takes (80, 96), use the plain causal softmax on every
+device. ``CachedDecoder.route_launches`` counts the prefill attention
+calls by route. Only greedy decoding is ported.
 
 ``weight_quant`` stores the projections and the head quantized, as the JAX
 engine does, and drops the dense copies:
@@ -32,6 +35,8 @@ from ..framework.device import resolve_device, torch_dtype
 from ..kernels.flash_attention import _flash_bhsd
 from ..kernels.quant_matmul import (blockwise_weight_bytes, quant_matmul,
                                     quantize_weight_blockwise)
+from ..nn.functional.flash_attention import (ATTENTION_ROUTES,
+                                             attention_route)
 from ..nn.layer.norm import rms_norm as _rms
 
 __all__ = ["CachedDecoder"]
@@ -43,6 +48,10 @@ _MATS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 class CachedDecoder:
     """Serving engine over a LlamaForCausalLM, on ``device`` (default
     ``cuda``; raises without a card unless ``device="cpu"``)."""
+
+    # prefill attention calls (one a layer a prefill) by route: "kernel"
+    # (the flash forward) or "plain", across every engine
+    route_launches = dict.fromkeys(ATTENTION_ROUTES, 0)
 
     def __init__(self, model, max_len=None, weight_quant=None, device=None):
         if weight_quant not in (None, "int8", "int8_blockwise"):
@@ -225,13 +234,17 @@ class CachedDecoder:
     @torch.no_grad()
     def _prefill(self, ids, kcache, vcache):
         """ids [B, S0] -> last-token logits [B, V] f32; fills the caches'
-        first S0 positions in place. S0 % 128 == 0 runs the flash kernel."""
+        first S0 positions in place. S0 % 128 == 0 runs the flash kernel
+        where `attention_route` takes the dtype and head dim."""
         B, S0 = ids.shape
         x = self.embed[ids]                              # [B, S0, H]
         cos = self.cos[:S0][None, :, None, :]
         sin = self.sin[:S0][None, :, None, :]
         nrep = self.nh // self.nkv
-        use_flash = S0 % 128 == 0
+        use_flash = (S0 % 128 == 0
+                     and attention_route(x.dtype, self.hd) == "kernel")
+        CachedDecoder.route_launches["kernel" if use_flash else "plain"] \
+            += self.n_layers
         causal = torch.ones(S0, S0, dtype=torch.bool,
                             device=self.device).tril()
         for l in range(self.n_layers):

@@ -18,7 +18,12 @@ pool tensors they are given and return only what they compute.
 Decode attention on a CUDA tensor runs the hand-written ragged paged
 attention kernel (kernels/ragged_paged_attention.py) straight off the
 pool through the tables; ``ragged_kernel=False`` selects the dense-gather
-``_attend`` that the JAX package keeps as its numerical oracle. Two
+``_attend`` that the JAX package keeps as its numerical oracle. A model
+whose head dim or query heads per KV head no kernel takes (`decode_route`
+"plain": head dim 80 or 96, 3 query heads a KV head) runs that dense path
+on every device, as the reference serves any head dim;
+``PagedDecoder.route_launches`` counts the decode attention calls by
+route. Two
 options change the ragged path:
 - ``kv_quant="int8"``: each pool is a ``QuantizedPool`` of int8 codes
   [L, NB, bs, Hkv, D] and one float32 scale per token row [L, NB, bs],
@@ -39,8 +44,9 @@ from dataclasses import dataclass, field
 import torch
 
 from ..kernels.ragged_paged_attention import (
-    kv_dequantize_rows, kv_quantize_rows, ragged_paged_attention,
-    ragged_paged_attention_quant, ragged_paged_attention_sharded)
+    DECODE_ROUTES, decode_route, kv_dequantize_rows, kv_quantize_rows,
+    ragged_paged_attention, ragged_paged_attention_quant,
+    ragged_paged_attention_sharded)
 from ..nn.layer.norm import rms_norm as _rms
 from .decode import NEG_INF, CachedDecoder
 
@@ -117,6 +123,10 @@ class PagedDecoder(CachedDecoder):
     """Serving engine with a paged KV cache and continuous batching, on
     ``device`` (default ``cuda``; raises without a card unless
     ``device="cpu"``). Weight preparation is CachedDecoder's."""
+
+    # decode attention calls (one a layer a step) by `decode_route`, across
+    # every engine; the dense oracle (ragged_kernel=False) counts none
+    route_launches = dict.fromkeys(DECODE_ROUTES, 0)
 
     def __init__(self, model, max_len=None, weight_quant=None,
                  block_size=64, num_blocks=None, max_slots=8,
@@ -249,14 +259,25 @@ class PagedDecoder(CachedDecoder):
             else:
                 pool.view(-1, self.nkv, self.hd)[widx] = x.to(pool.dtype)
 
-    def _pool_attend(self, q, kc, vc, tables, seqlens):
+    def _decode_route(self):
+        """The decode attention's route, or None on the dense oracle
+        (ragged_kernel=False): `decode_route` of the query dtype, head dim
+        and group size."""
+        if not self.use_ragged_kernel:
+            return None
+        return decode_route(self.dtype, self.hd, self.nh // self.nkv)
+
+    def _pool_attend(self, q, kc, vc, tables, seqlens, route=None):
         """Attention for q [S, nh, hd] against one layer's pools. Ragged
-        path: a kernel walks each slot's table up to seqlens (the
-        quantized kernel for an int8 pool, the sharded partials with
-        attn_shards > 1). Dense path: gather the block-granular window,
-        dequantized for an int8 pool, and run the reference math."""
+        path (route "kernel"): a kernel walks each slot's table up to
+        seqlens (the quantized kernel for an int8 pool, the sharded
+        partials with attn_shards > 1). Dense path (route "plain", or the
+        oracle's None): gather the block-granular window, dequantized for
+        an int8 pool, and run the reference math."""
         S = q.shape[0]
-        if self.use_ragged_kernel:
+        if route is not None:
+            PagedDecoder.route_launches[route] += 1
+        if route == "kernel":
             if self.kv_quant:
                 o = ragged_paged_attention_quant(
                     q, kc.codes, kc.scales, vc.codes, vc.scales, tables,
@@ -297,14 +318,15 @@ class PagedDecoder(CachedDecoder):
         if active is not None:
             blk = torch.where(active, blk, 0)
         widx = blk * bs + pos % bs                          # [S]
+        route = self._decode_route()
         for l in range(self.n_layers):
             q, k, v = self._qkv(x, l, cos, sin)
             kc, vc = kpool[l], vpool[l]
             self._pool_write(kc, vc, k, v, widx)
-            o = self._pool_attend(q, kc, vc, tables, seqlens)
+            o = self._pool_attend(q, kc, vc, tables, seqlens, route)
             x = x + self._layer_mm(o, "wo", l)
             x = self._mlp(x, l)
-        if self.use_ragged_kernel and self.attn_shards > 1:
+        if route == "kernel" and self.attn_shards > 1:
             self.sharded_attn_calls += 1
         return self._head_logits(_rms(x, self.norm_w, self.eps))
 

@@ -35,8 +35,9 @@ from paddle_tpu_torch.kernels.flash_varlen import (
 from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
                                             flash_attn_unpadded,
                                             flash_attn_varlen_qkvpacked)
+from paddle_tpu_torch.kernels import grouped_matmul as gmm_mod
 from paddle_tpu_torch.kernels.grouped_matmul import (
-    _ref_dw, _ref_fwd, grouped_matmul, grouped_matmul_dw,
+    _ref_dw, _ref_fwd, gm_route, grouped_matmul, grouped_matmul_dw,
     grouped_matmul_fwd, grouped_metadata)
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import quant_matmul as qmm_mod
@@ -51,6 +52,9 @@ from paddle_tpu_torch.kernels.rms_norm import (
 from paddle_tpu_torch.incubate import softmax_mask_fuse_upper_triangle
 from paddle_tpu_torch.incubate.nn.functional import (
     fused_rms_norm, fused_rotary_position_embedding)
+from paddle_tpu_torch.models.decode import CachedDecoder
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models.paged_decode import PagedDecoder
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
     decode_cluster_size, kv_quantize_rows, merge_partials,
     partials_cluster_size, ragged_paged_attention,
@@ -610,7 +614,9 @@ _SELFTEST_SIG = {"wgmma_selftest": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                  "mma_codes_selftest": [ctypes.c_void_p] * 4
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p],
                  "split3_selftest": [ctypes.c_void_p] * 4
-                 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                 "ss_tb_selftest": [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                 + [ctypes.c_void_p]}
 
 
 @pytest.mark.cuda
@@ -2557,3 +2563,253 @@ def test_row_wise_entry_points_match_plain_autograd(cuda_device):
     for name, got, ref in zip(("p", "dx", "dresidual", "dw"), *results):
         ok, err = _bwd_close(got, ref, 0.0, 1e-4)
         assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 256])
+def test_ss_tb_one_tile_matches_matmul(cuda_device, k):
+    """csrc/wgmma.cuh's SS m64n128k16 with B transposed on one 64 x 128
+    tile: a [64, K] K-major, b [K, 128] with its columns contiguous copied
+    into two 64-column panels and read MN-major, against float64 matmuls
+    of the same bf16 values. The products are exact, only the float32
+    sums differ: 1e-6 |ref| + 1e-5 of the largest output. A wrong
+    transpose flag, panel step or swizzle moves outputs by their own
+    size."""
+    rng = np.random.default_rng(k + 1)
+    a = torch.from_numpy(rng.standard_normal((64, k)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((k, 128)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    out = torch.empty(64, 128, device=cuda_device)
+    lib = _build.load("wgmma_selftest", _SELFTEST_SIG)
+    rc = lib.ss_tb_selftest(a.data_ptr(), b.data_ptr(), out.data_ptr(), k,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"CUDA error {rc}"
+    ref = torch.matmul(a.double(), b.double())
+    torch.cuda.synchronize()
+    lim = 1e-6 * ref.abs() + 1e-5 * ref.abs().max()
+    assert ((out.double() - ref).abs() <= lim).all(), \
+        ((out.double() - ref).abs() / lim).max().item()
+
+
+# -- the grouped forward on the tensor cores ------------------------------------
+#
+# `gm_route` sends float32 and bf16 with bm % 128 == 0, K % 64 == 0, N % 8
+# == 0 (forward) and 16-byte aligned x and w to `grouped_wgmma`: float32 x
+# and w each as three exact bf16 pieces, six piece products a k16 step.
+# Held to the plain version on the routed rows by the float32 rule (1e-6
+# |ref| + 1e-5 of the largest output: the products are exact or below
+# 2^-22 of x w, the sums differ in order) and in bf16 to one bf16 ulp.
+
+
+def _ragged_ids(rng, t, e, empty, single):
+    """t routes over e experts, skewed: none to `empty`, exactly one to
+    `single`."""
+    p = rng.dirichlet(np.full(e, 0.5))
+    p[[empty, single]] = 0
+    ids = rng.choice(e, t - 1, p=p / p.sum())
+    return np.concatenate([ids, [single]]).astype(np.int32)
+
+
+def _gw_inputs(dev, seed, t, k, n, e, bm, dtype, trans):
+    """A skewed routing with an empty expert and a one-row expert (a partial
+    last tile in every group), x [Tp, k], w [e, k, n] (or [e, n, k] when
+    trans) at 0.02 and b [e, n]."""
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(_ragged_ids(rng, t, e, 2, 5)).to(dev)
+    md = grouped_metadata(ids, e, bm)
+    tp = md["row_src"].shape[0]
+
+    def rnd(scale, *shape):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev).to(dtype)
+
+    w = rnd(0.02, e, n, k) if trans else rnd(0.02, e, k, n)
+    return md, rnd(1.0, tp, k), w, rnd(1.0, e, n)
+
+
+def _gw_call(md, x, w, b, bm, trans):
+    return grouped_matmul_fwd(x, w, b, md["offsets"], md["counts"], bm,
+                              transpose_w=trans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k,n,bm,route", [
+    (768, 3072, 128, "wgmma"),            # the MoE up projection
+    (3072, 768, 128, "wgmma"),            # and its down projection
+    (256, 520, 256, "wgmma"),             # bm 256; N off the 128-column tile
+    (768, 3072, 64, "cuda_core"),         # 128-row tiles straddle groups
+    (96, 256, 128, "cuda_core"),          # K short of whole stages
+])
+def test_grouped_wgmma_matches_plain(cuda_device, dtype, trans, k, n, bm,
+                                     route):
+    """The forward (with a bias) and the input gradient (w read
+    transposed, no bias) on each route, 3000 routes over 8 experts with an
+    empty one and a one-row one."""
+    md, x, w, b = _gw_inputs(cuda_device, k + n + bm, 3000, k, n, 8, bm,
+                             dtype, trans)
+    b = None if trans else b
+    assert gm_route(dtype, k, n, bm, trans,
+                    (x.data_ptr(), w.data_ptr())) == route
+    r0 = dict(grouped_matmul_fwd.route_launches)
+    out = _gw_call(md, x, w, b, bm, trans)
+    ref = _ref_fwd(x, w, b, md["offsets"], md["counts"], bm, dtype,
+                   transpose_w=trans)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert grouped_matmul_fwd.route_launches[route] == r0[route] + 1
+    assert md["counts"][2] == 0 and md["counts"][5] == 1
+    _grouped_close(out, ref, md["dest"].long(), dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans", [False, True])
+def test_grouped_wgmma_dead_rows_and_repeat(cuda_device, dtype, trans):
+    """Two launches give the same bits; NaN in every row that is not a
+    route's (padding in a group's last tile, the tiles past the groups)
+    leaves the routed rows bit for bit as they were."""
+    md, x, w, b = _gw_inputs(cuda_device, 31, 1500, 768, 520, 8, 128, dtype,
+                             trans)
+    rows = md["dest"].long()
+    r0 = grouped_matmul_fwd.route_launches["wgmma"]
+    clean = _gw_call(md, x, w, b, 128, trans)
+    again = _gw_call(md, x, w, b, 128, trans)
+    assert torch.equal(clean[rows], again[rows])
+    xp = x.clone()
+    xp[~md["row_valid"]] = float("nan")
+    poisoned = _gw_call(md, xp, w, b, 128, trans)
+    torch.cuda.synchronize()
+    assert grouped_matmul_fwd.route_launches["wgmma"] == r0 + 3
+    assert torch.isfinite(poisoned[rows]).all()
+    assert torch.equal(poisoned[rows], clean[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans", [False, True])
+def test_grouped_wgmma_non_finite_as_plain(cuda_device, dtype, trans):
+    """Live rows of +inf and of NaN in x, a single -inf in another row,
+    and +inf and -inf weights: inf, -inf and NaN in the places the plain
+    version gives them, every finite output within the rule. A split puts
+    inf whole into hi, so a cross product would give inf x 0 = NaN where
+    the float32 product is inf; the kernel redoes such a tile in float32
+    FMAs."""
+    md, x, w, b = _gw_inputs(cuda_device, 41, 1500, 256, 264, 8, 128, dtype,
+                             trans)
+    rows = md["dest"].long()
+    x[rows[5]] = float("inf")
+    x[rows[6], 3] = float("-inf")
+    x[rows[9]] = float("nan")
+    # an entry of the two largest experts' weights: +inf at (k 7, n 11),
+    # -inf at (k 20, n 40)
+    big = torch.argsort(md["counts"], descending=True)[:2].tolist()
+    for e, kk, nn, v in ((big[0], 7, 11, "inf"), (big[1], 20, 40, "-inf")):
+        if trans:
+            w[e, nn, kk] = float(v)
+        else:
+            w[e, kk, nn] = float(v)
+    out = _gw_call(md, x, w, b, 128, trans)[rows].float()
+    ref = _ref_fwd(x, w, b, md["offsets"], md["counts"], 128, dtype,
+                   transpose_w=trans)[rows].float()
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    assert not fin[5].any() and not fin[6].all() and torch.isnan(ref[9]).all()
+    assert (~fin).sum() > 3 * ref.shape[1]     # the weights' columns too
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(out[~fin].nan_to_num(0.0), ref[~fin].nan_to_num(0.0))
+    _grouped_close(torch.where(fin, out, 0.0), torch.where(fin, ref, 0.0),
+                   slice(None), dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_grouped_wgmma_refuses_what_it_does_not_take(cuda_device):
+    """x 4 bytes off a 16-byte boundary and a forward N off a multiple of
+    8 route to "cuda_core", right all the same; the C entry refuses the
+    tensor-core route for them (error 1), and for bm 64."""
+    md, x, w, b = _gw_inputs(cuda_device, 3, 700, 256, 96, 8, 128,
+                             torch.float32, False)
+    flat = torch.empty(1 + x.numel(), device=cuda_device)
+    xo = flat[1:].view_as(x)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 == 4
+    w100 = torch.randn(8, 256, 100, device=cuda_device)
+    lib = _build.load("grouped_matmul", gmm_mod._SIG)
+    stream = torch.cuda.current_stream().cuda_stream
+    for xx, ww, bm in ((xo, w, 128), (x, w100, 128), (x, w, 64)):
+        route = gm_route(xx.dtype, 256, ww.shape[2], bm, False,
+                         (xx.data_ptr(), ww.data_ptr()))
+        assert route == "cuda_core"
+        out = grouped_matmul_fwd(xx, ww, None, md["offsets"], md["counts"],
+                                 bm) if bm == 128 else None
+        if out is not None:
+            ref = _ref_fwd(xx, ww, None, md["offsets"], md["counts"], bm,
+                           torch.float32)
+            _grouped_close(out, ref, md["dest"].long(), False)
+        tp, n = xx.shape[0], ww.shape[2]
+        dst = torch.empty(tp, n, device=cuda_device)
+        rc = lib.grouped_matmul_fwd(
+            xx.data_ptr(), ww.data_ptr(), None, dst.data_ptr(),
+            md["offsets"].data_ptr(), md["counts"].data_ptr(), 8, tp, 256, n,
+            bm, 0, 0, 1, stream)
+        assert rc == 1
+
+
+# -- the decoders' routes ---------------------------------------------------------
+
+# (hidden, heads, KV heads) of tiny float32 Llamas: head dim 80, 3 query
+# heads a KV head at head dim 64, and head dim 128 (the kernels' own)
+DECODE_CONFIGS = {"hd80": (160, 2, 1), "group3": (384, 6, 2),
+                  "hd128": (256, 2, 2)}
+# where each one's prefill (128 tokens) and decode attention go
+DECODE_ROUTES = {"hd80": ("plain", "plain"), "group3": ("kernel", "plain"),
+                 "hd128": ("kernel", "kernel")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DECODE_CONFIGS))
+def test_decoders_serve_any_head_dim_on_the_card(cuda_device, name):
+    """CachedDecoder.generate (a 128-token prompt: the flash prefill where
+    it routes) and PagedDecoder.serve with the ragged kernel asked for, on
+    the card and on the CPU from the same weights: token for token the
+    same in float32, nothing raised, and every attention call counted on
+    the route `attention_route` / `decode_route` give it."""
+    hidden, nh, nkv = DECODE_CONFIGS[name]
+    cfg = LlamaConfig(vocab_size=97, hidden_size=hidden,
+                      intermediate_size=192, num_hidden_layers=2,
+                      num_attention_heads=nh, num_key_value_heads=nkv,
+                      max_position_embeddings=192, dtype="float32")
+    torch.manual_seed(3)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    model.eval()
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 97, (2, 128)).astype(np.int64))
+    want_prefill, want_decode = DECODE_ROUTES[name]
+    ref = CachedDecoder(model, max_len=140, device="cpu").generate(
+        ids, max_new_tokens=8)
+    before = dict(CachedDecoder.route_launches)
+    out = CachedDecoder(model, max_len=140, device=cuda_device).generate(
+        ids, max_new_tokens=8)
+    assert torch.equal(out, ref)
+    assert CachedDecoder.route_launches[want_prefill] == \
+        before[want_prefill] + 2
+    rng = np.random.default_rng(5)
+    reqs = [(f"r{i}", [int(t) for t in rng.integers(0, 97, ln)], budget)
+            for i, (ln, budget) in enumerate([(5, 9), (17, 4), (30, 6)])]
+
+    def serve(dev):
+        return PagedDecoder(model, max_len=64, block_size=16, max_slots=2,
+                            num_blocks=9, ragged_kernel=True,
+                            device=dev).serve(reqs, chunk=4)
+    ref = serve("cpu")
+    before = dict(PagedDecoder.route_launches)
+    r0 = ragged_paged_attention.launches
+    out = serve(cuda_device)
+    assert out == ref
+    moved = {r: PagedDecoder.route_launches[r] - before[r] for r in before}
+    assert moved[want_decode] > 0 and sum(moved.values()) == \
+        moved[want_decode]
+    assert (ragged_paged_attention.launches > r0) == \
+        (want_decode == "kernel")

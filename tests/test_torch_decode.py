@@ -25,9 +25,12 @@ from paddle_tpu_torch.models.decode import CachedDecoder
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.paged_decode import PagedDecoder
 
-# tests/test_paged_decode.py's _tiny config; max positions raised from 128
-# to 192 so a 128-token prompt (the flash prefill path) has room to decode
-TINY = dict(vocab_size=97, hidden_size=64, intermediate_size=128,
+# tests/test_paged_decode.py's _tiny config, with hidden raised from 64 to
+# 256 so that the head dim is 64, one the prefill and decode kernels take
+# (their routes are "kernel"; tests/test_torch_decode_routes.py serves
+# head dims no kernel takes), and max positions raised from 128 to 192 so
+# a 128-token prompt (the flash prefill path) has room to decode
+TINY = dict(vocab_size=97, hidden_size=256, intermediate_size=128,
             num_hidden_layers=3, num_attention_heads=4,
             num_key_value_heads=2, max_position_embeddings=192,
             use_flash_attention=False, dtype="float32")
@@ -56,11 +59,11 @@ def test_converter_transposes_linear_weights(models):
     """paddle Linear keeps [in, out], torch.nn.Linear [out, in]: the
     converter owns the transpose, so x @ w_jax == torch's linear(x)."""
     _, tmodel, sd = models
-    w_jax = sd["llama.layers.1.self_attn.k_proj.weight"]        # [64, 32]
+    w_jax = sd["llama.layers.1.self_attn.k_proj.weight"]      # [256, 128]
     lin = tmodel.llama.layers[1].self_attn.k_proj
-    assert tuple(lin.weight.shape) == (32, 64)
+    assert tuple(lin.weight.shape) == (128, 256)
     np.testing.assert_array_equal(lin.weight.detach().numpy(), w_jax.T)
-    x = np.random.default_rng(0).standard_normal((3, 64)).astype(
+    x = np.random.default_rng(0).standard_normal((3, 256)).astype(
         np.float32)
     np.testing.assert_allclose(lin(torch.from_numpy(x)).detach().numpy(),
                                x @ w_jax, atol=1e-5)
@@ -156,8 +159,13 @@ def test_paged_serve_token_identical(models, ragged):
     ref = jdec.serve(reqs, chunk=4, pipeline=False)
     tdec = _paged(PagedDecoder, tmodel, ragged_kernel=ragged, device="cpu")
     before = ragged_paged_attention.launches
+    routes = dict(PagedDecoder.route_launches)
     out = tdec.serve(reqs, chunk=4)
     assert out == ref
+    # head dim 64 routes the ragged engine's calls to the kernel's wrapper
+    # (its plain version here); the dense oracle counts none
+    moved = {r: PagedDecoder.route_launches[r] - routes[r] for r in routes}
+    assert moved["plain"] == 0 and (moved["kernel"] > 0) == ragged
     assert {rid: len(t) for rid, t in out.items()} == \
         {rid: b for rid, _, b in reqs}
     assert tdec.allocator.peak_in_use == jdec.allocator.peak_in_use

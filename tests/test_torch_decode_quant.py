@@ -1,6 +1,7 @@
 """The port's quantized and long-context serving options against the JAX
 engines, on the CPU at a tiny size (float32, the Llama of
-tests/test_torch_decode.py, weights carried by convert.params_from_jax):
+tests/test_torch_decode.py, head dim 64, weights carried by
+convert.params_from_jax):
 
 - ``CachedDecoder(weight_quant="int8" | "int8_blockwise")``;
 - ``PagedDecoder(kv_quant="int8")``, ragged and dense, with and without
@@ -33,7 +34,7 @@ from paddle_tpu_torch.models.decode import CachedDecoder
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.paged_decode import PagedDecoder, QuantizedPool
 
-TINY = dict(vocab_size=97, hidden_size=64, intermediate_size=128,
+TINY = dict(vocab_size=97, hidden_size=256, intermediate_size=128,
             num_hidden_layers=3, num_attention_heads=4,
             num_key_value_heads=2, max_position_embeddings=192,
             use_flash_attention=False, dtype="float32")
@@ -169,8 +170,13 @@ def test_paged_serve_matches_jax(models, opts, ragged):
                   **opts)
     counts = (ragged_paged_attention_quant.launches,
               ragged_paged_attention_partials.launches)
+    routes = dict(PagedDecoder.route_launches)
     out = tdec.serve(reqs, chunk=4)
     assert out == ref
+    # head dim 64 routes the ragged engine's calls to the kernels'
+    # wrappers (their plain versions here); the dense oracle counts none
+    moved = {r: PagedDecoder.route_launches[r] - routes[r] for r in routes}
+    assert moved["plain"] == 0 and (moved["kernel"] > 0) == ragged
     assert {rid: len(t) for rid, t in out.items()} == \
         {rid: b for rid, _, b in reqs}
     assert tdec.allocator.in_use == 0

@@ -15,8 +15,12 @@ Tolerances, and why:
   the largest: both round the same float32 sums to bf16, which may land
   on either side of a rounding boundary.
 
-The CUDA kernels are held against the plain versions on the card by
-tests/test_torch_cuda_kernels.py.
+The tensor-core forward's arithmetic (float32 x and w each split into
+three exact bf16 pieces, six piece products a k16 step, a float32 partial
+drained each 64-deep stage) is emulated here and held to the JAX kernel
+in interpret mode against the float32 rule, 1e-6 |ref| + 1e-5 of the
+largest output. The CUDA kernels are held against the plain versions on
+the card by tests/test_torch_cuda_kernels.py.
 """
 import numpy as np
 import pytest
@@ -28,8 +32,11 @@ import paddle_tpu  # noqa: F401  (x64 on, as in the JAX package's tests)
 from paddle_tpu.kernels.pallas import grouped_matmul as jgm
 
 from paddle_tpu_torch.kernels.grouped_matmul import (
-    DEFAULT_BM, aligned_group_size, default_block_m, grouped_bias_grad,
-    grouped_matmul, grouped_matmul_dw, grouped_matmul_fwd, grouped_metadata)
+    DEFAULT_BM, GM_ROUTES, _ref_fwd, _row_experts, _tile_experts,
+    aligned_group_size,
+    default_block_m, gm_route, grouped_bias_grad, grouped_matmul,
+    grouped_matmul_dw, grouped_matmul_fwd, grouped_metadata)
+from paddle_tpu_torch.kernels.quant_matmul import split3_bf16
 
 REL_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7
@@ -263,3 +270,224 @@ def test_layout_errors_raise():
                        group_counts=md["counts"], bm=8)
     with pytest.raises(ValueError, match="int32"):
         grouped_matmul_fwd(x, w, None, md["offsets"][:2], md["counts"], 8)
+
+
+# -- the tensor-core forward's arithmetic -------------------------------------
+
+# (x piece, w piece) of each product a k16 step, in the kernel's order:
+# (hi, hi), (hi, mid), (mid, hi), (mid, mid), (hi, lo), (lo, hi)
+SIX = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
+THREE = SIX[:3]
+
+
+def _toward_zero(v):
+    """float64 -> float32, rounded toward zero."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+class _one_thread:
+    """torch on one intra-op thread inside the block: the emulation is
+    thousands of small ops, which threads only slow down when test
+    workers share the cores."""
+
+    def __enter__(self):
+        self.n = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.n)
+
+
+def _wgmma_emulation(x, w, offsets, counts, bm, drain=True,
+                     rounding="nearest"):
+    """The tensor-core kernel's sum on the CPU: x [Tp, K] and w [E, K, N]
+    each split into hi, mid and lo (split3_bf16), each 128-row token tile
+    that holds a route against its expert's w; each k16 step adds the six
+    products in order, each product's 16 terms exact (float64), into a
+    float32 partial that starts at zero each 64-deep stage and is then
+    added to the float32 accumulator (drain False: straight into the
+    accumulator). Each product's sum into its target rounds to nearest
+    or, the model of a truncating adder, toward zero. float32 [Tp, N],
+    zero on tiles without a route."""
+    t_rows, k = x.shape
+    texp = _tile_experts(offsets, t_rows, bm, w.shape[0]).long()
+    _, valid = _row_experts(offsets, counts, t_rows, w.shape[0])
+    live = valid.reshape(-1, bm).any(1).nonzero()[:, 0]
+    out = torch.zeros(t_rows // bm, bm, w.shape[2])
+    with _one_thread():
+        xp = torch.stack([p.double().reshape(-1, bm, k)[live]
+                          for p in split3_bf16(x)])          # [3, T, bm, K]
+        wp = torch.stack([p.double()[texp[live]]
+                          for p in split3_bf16(w)])          # [3, T, K, N]
+        acc = torch.zeros(len(live), bm, w.shape[2])
+        for k0 in range(0, k, 64):
+            # every piece product of the stage's four k16 steps, exact
+            prods = torch.einsum(
+                "atmjc,btjcn->jabtmn",
+                xp[..., k0:k0 + 64].unflatten(-1, (4, 16)),
+                wp[:, :, k0:k0 + 64].unflatten(2, (4, 16)))
+            tgt = torch.zeros_like(acc) if drain else acc
+            for j in range(4):
+                for a, b in SIX:
+                    s = tgt.double() + prods[j, a, b]
+                    tgt = (_toward_zero(s) if rounding == "toward_zero"
+                           else s.float())
+            acc = acc + tgt if drain else tgt
+        out[live] = acc
+    return out.reshape(t_rows, -1)
+
+
+def _share(got, ref):
+    """The largest error as a share of the float32 rule."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    lim = 1e-6 * np.abs(ref) + 1e-5 * np.abs(ref).max()
+    return float((np.abs(got - ref) / lim).max())
+
+
+def _moe_operands(k, n=128, seed=0):
+    """300 routes over 4 experts (the last empty) at bm 128, unit normal
+    x and w at 0.02, the MoE layer's scales."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, E - 1, 300).astype(np.int32)
+    jmd = jgm.grouped_metadata(jnp.asarray(ids), E, 128)
+    tmd = grouped_metadata(torch.from_numpy(ids), E, 128)
+    row_src = np.asarray(jmd["row_src"])
+    x = rng.standard_normal((ids.size, k)).astype(np.float32)
+    buf = np.where((row_src >= 0)[:, None], x[np.clip(row_src, 0, None)],
+                   0).astype(np.float32)
+    w = (rng.standard_normal((E, k, n)) * 0.02).astype(np.float32)
+    return jmd, tmd, buf, w
+
+
+@pytest.mark.parametrize("k", [768, 3072])
+def test_six_products_meet_the_float32_rule(k):
+    """The kernel's sum (six piece products a k16 step, the partial drained
+    each stage) against the JAX `_fwd_kernel` in interpret mode at the
+    MoE layer's K: measured 0.067 (K 768) and 0.050 (K 3072) of the
+    float32 rule, and 0.060 and 0.041 of it from the port's plain
+    version. The pieces themselves, in float64 so that no summation
+    enters: six products miss x w by the three dropped terms only (below
+    2^-22 |x w| each; measured 0.006 of the rule), the three largest,
+    (hi, hi), (hi, mid) and (mid, hi), by far more than the rule allows
+    (measured 2.45 and 2.37): (mid, mid), (hi, lo) and (lo, hi) are each
+    about 2^-16 |x w| and share the product's sign, so they do not
+    cancel over K."""
+    jmd, tmd, buf, w = _moe_operands(k, seed=k)
+    tx, tw = torch.from_numpy(buf), torch.from_numpy(w)
+    ref = np.asarray(jgm.grouped_matmul(
+        jnp.asarray(buf), jnp.asarray(w), None,
+        group_offsets=jmd["offsets"], group_counts=jmd["counts"], bm=128,
+        bn=128, impl="kernel"))
+    assert gm_route(torch.float32, k, w.shape[2], 128, False, (0, 0)) \
+        == "wgmma"
+    emu = _wgmma_emulation(tx, tw, tmd["offsets"], tmd["counts"],
+                           128).numpy()
+    d = _dest(jmd)
+    share = _share(emu[d], ref[d])
+    assert share < 0.3, share
+    plain = _ref_fwd(tx, tw, None, tmd["offsets"], tmd["counts"], 128,
+                     torch.float32).numpy()
+    assert _share(emu[d], plain[d]) < 0.3
+    # the pieces in float64, over the routed rows
+    texp = _tile_experts(tmd["offsets"], buf.shape[0], 128, E).long()
+    xp = [p.double() for p in split3_bf16(tx)]
+    wp = [p.double() for p in split3_bf16(tw)]
+
+    def rows(prod):
+        return prod.reshape(buf.shape[0], -1).numpy()[d]
+
+    def pieces(pairs):
+        return rows(sum(torch.bmm(xp[a].reshape(-1, 128, k), wp[b][texp])
+                        for a, b in pairs))
+    with _one_thread():
+        exact = rows(torch.bmm(tx.double().reshape(-1, 128, k),
+                               tw.double()[texp]))
+        assert _share(pieces(SIX), exact) < 0.02
+        assert _share(pieces(THREE), exact) > 2.0
+
+
+def test_a_truncating_adder_needs_the_drain():
+    """Why the partial is drained each stage: with every product's sum
+    rounded toward zero (the truncating model of the tensor cores' adder),
+    the six products added straight into one accumulator over K 3072 miss
+    the float32 rule (measured 2.49 of it here; a build of the kernel
+    without the drain gives 2.5-2.6 on the card at K 3072, chip_smoke.py
+    --grouped-cost), while a partial that restarts each 64-deep stage and
+    is added in float32 stays inside it (measured 0.088; 0.17-0.27 on the
+    card). Rounded to nearest, both would pass (0.11 and 0.052)."""
+    k = 3072
+    jmd, tmd, buf, w = _moe_operands(k, seed=5)
+    tx, tw = torch.from_numpy(buf), torch.from_numpy(w)
+    d = _dest(jmd)
+    exact = _ref_fwd(tx.double(), tw.double(), None, tmd["offsets"],
+                     tmd["counts"], 128, torch.float64).numpy()[d]
+    shares = {(drain, r): _share(_wgmma_emulation(
+        tx, tw, tmd["offsets"], tmd["counts"], 128, drain, r).numpy()[d],
+        exact) for drain in (False, True)
+        for r in ("nearest", "toward_zero")}
+    assert shares[(False, "toward_zero")] > 1.0, shares
+    assert shares[(True, "toward_zero")] < 0.3, shares
+    assert shares[(False, "nearest")] < 0.3, shares
+    assert shares[(True, "nearest")] < 0.3, shares
+
+
+def test_split_cross_products_turn_inf_into_nan():
+    """The hazard of splitting both operands: an inf goes whole into hi
+    with mid = lo = 0, so where w is exact in bf16 (its mid and lo are
+    0) the cross product (hi, mid) is inf x 0 = NaN and the sum is NaN
+    where the float32 product is inf; likewise an inf weight meets x's
+    zero pieces. (A whole row of inf gives NaN on both sides: inf -
+    inf.) The kernel redoes a tile that holds a non-finite value in
+    float32 FMAs (held on the card by tests/test_torch_cuda_kernels.py::
+    test_grouped_wgmma_non_finite_as_plain)."""
+    k = 64
+    jmd, tmd, buf, w = _moe_operands(k, seed=3)
+    w = torch.from_numpy(w).to(torch.bfloat16).float()     # exact in bf16
+    x = torch.from_numpy(buf.copy())
+    d = torch.from_numpy(_dest(jmd).copy()).long()
+    x[d[0], 9] = float("inf")
+    plain = _ref_fwd(x, w, None, tmd["offsets"], tmd["counts"], 128,
+                     torch.float32)
+    emu = _wgmma_emulation(x, w, tmd["offsets"], tmd["counts"], 128)
+    assert torch.isinf(plain[d[0]]).all()
+    assert torch.isnan(emu[d[0]]).all()
+    w2 = w.clone()
+    w2[int(_tile_experts(tmd["offsets"], x.shape[0], 128, E)[
+        int(d[1]) // 128]), 5, 7] = float("-inf")
+    x2 = torch.from_numpy(buf).to(torch.bfloat16).float()  # exact in bf16
+    plain = _ref_fwd(x2, w2, None, tmd["offsets"], tmd["counts"], 128,
+                     torch.float32)
+    emu = _wgmma_emulation(x2, w2, tmd["offsets"], tmd["counts"], 128)
+    assert torch.isinf(plain[d[1], 7]) and torch.isnan(emu[d[1], 7])
+
+
+@pytest.mark.parametrize("dtype,k,n,bm,trans,ptrs,route", [
+    (torch.float32, 768, 3072, 128, False, (0, 16), "wgmma"),
+    (torch.float32, 3072, 768, 128, True, (0, 0), "wgmma"),
+    (torch.bfloat16, 768, 3072, 256, False, (32, 4096), "wgmma"),
+    (torch.float32, 768, 3072, 64, False, (0, 0), "cuda_core"),  # bm 64
+    (torch.float32, 768, 3072, 64, True, (0, 0), "cuda_core"),
+    (torch.float32, 96, 256, 128, False, (0, 0), "cuda_core"),  # K % 64
+    (torch.bfloat16, 130, 256, 128, True, (0, 0), "cuda_core"),
+    (torch.float32, 256, 100, 128, False, (0, 0), "cuda_core"),  # N % 8
+    (torch.float32, 256, 100, 128, True, (0, 0), "wgmma"),  # reads along K
+    (torch.float32, 256, 256, 128, False, (4, 0), "cuda_core"),  # x
+    (torch.bfloat16, 256, 256, 128, True, (0, 8), "cuda_core"),  # w
+    (torch.float16, 256, 256, 128, False, (0, 0), "cuda_core"),
+])
+def test_gm_route(dtype, k, n, bm, trans, ptrs, route):
+    assert gm_route(dtype, k, n, bm, trans, ptrs) == route
+    assert route in GM_ROUTES
+
+
+def test_cpu_calls_count_no_route():
+    """A CPU tensor takes the plain version: no launch, no route."""
+    _, tmd, buf, w, _ = _operands(_ids("random"), 16)
+    before = (grouped_matmul_fwd.launches,
+              dict(grouped_matmul_fwd.route_launches))
+    grouped_matmul_fwd(torch.from_numpy(buf), torch.from_numpy(w), None,
+                       tmd["offsets"], tmd["counts"], 16)
+    assert (grouped_matmul_fwd.launches,
+            grouped_matmul_fwd.route_launches) == before
