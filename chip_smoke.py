@@ -71,32 +71,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the flash kernels and again with the plain attention: losses and the
    first step's gradients must agree, every forward and backward on the
    CUDA cores;
-8. the card's L2 read rate (one reduction reading an L2-resident tensor
-   64 times), then the MoE training path's kernels (the grouped forward,
-   also as the input gradient against w^T read in place, the grouped
-   weight gradient and the grouped int8/fp8 forward) at its shapes:
-   16,384 routes of a seeded, skewed routing with one empty expert, the
-   up (768 -> 3072) and down (3072 -> 768) products, float32 and bf16, and
-   a case with NaN in every row that is not a route's; each against its
-   plain version, with its time, the plain time, per-expert torch.matmul
-   as the library yardstick and the bound (TF32 peak for float32 inputs,
-   bf16 peak for bf16). Every forward case names its route and gives the
-   same bits on two launches. The float32/bf16 forward and input-gradient
-   cases must take the tensor cores ("wgmma"; float32 x and w as three
-   bf16 pieces each, with a second bound at six bf16 products,
-   `bound_bf16x6_ms`, and a third, `bound_l2_ms`, at the L2 read rate for
-   the tiles' reads), but `up_dx_f32_bm64` and `down_dx_f32_bm64`
-   (groups of 64 rows, train_moe_quant_bm64's input gradients against
-   w^T read in place; the first is its kernels-line row), which hold the
-   CUDA-core kernel. The int8/fp8 cases must take
-   the tensor cores too ("wgmma"; float32 x as three bf16 pieces,
-   `bound_bf16x3_ms`), but two that hold the CUDA-core kernel:
-   `up_int8_f32_bm64` (groups of 64 rows, the shapes at which
+8. the card's L2 read rate (a probe kernel reading an L2-resident buffer
+   over and over), then the MoE training path's kernels (the grouped
+   forward, also as the input gradient against w^T read in place, the
+   grouped weight gradient and the grouped int8/fp8 forward) at its
+   shapes: 16,384 routes of a seeded, skewed routing with one empty
+   expert, the up (768 -> 3072) and down (3072 -> 768) products, float32
+   and bf16, and a case with NaN in every row that is not a route's (the
+   weight gradient on both routes); each
+   against its plain version, with its time, the plain time, per-expert
+   torch.matmul as the library yardstick and the bound (TF32 peak for
+   float32 inputs, bf16 peak for bf16). Every case names its route and
+   gives the same bits on two launches. The float32/bf16 forward,
+   input-gradient and weight-gradient cases must take the tensor cores
+   ("wgmma"; float32 operands as three bf16 pieces each, with a second
+   bound at six bf16 products, `bound_bf16x6_ms`, and a third,
+   `bound_l2_ms`, at the L2 read rate for the tiles' reads), but
+   `up_dx_f32_bm64` and `down_dx_f32_bm64` (groups of 64 rows,
+   train_moe_quant_bm64's input gradients against w^T read in place; the
+   first is its kernels-line row), which hold the CUDA-core kernel, and
+   two weight-gradient cases on the CUDA-core kernel: `up_dw_f32_x_offset`
+   (x 4 bytes off a 16-byte boundary) and `up_dw_f32_f3076` (an expert
+   width of 3076, train_moe_f3076's shapes; its kernels-line row). The
+   int8/fp8 cases must take the tensor cores too ("wgmma"; float32 x as
+   three bf16 pieces, `bound_bf16x3_ms`), but two that hold the CUDA-core
+   kernel: `up_int8_f32_bm64` (groups of 64 rows, the shapes at which
    train_moe_quant_bm64 launches it; its kernels-line row) and
    `up_int8_f32_bk96` (blocks of 96); with --parent DIR the parent
-   commit's grouped and quantized kernels, built from that checkout, are
-   checked and timed on the same inputs (parent, shipped, shipped,
-   parent: `parent_ms`);
+   commit's grouped forward, weight gradient and quantized kernel, built
+   from that checkout, are checked and timed on the same inputs (parent,
+   shipped, shipped, parent: `parent_ms`);
 9. train_moe: the GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths
    (hidden 768, 6 layers, 8 experts top-2, 12 heads, vocab 50257;
    318,151,297 parameters), float32, grouped dispatch, AdamW at lr 1e-4,
@@ -104,15 +108,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    steps: tokens/s, seconds per step, MFU over activated flops, every
    loss, peak memory and routes per step. Losses finite and falling, the
    grouped forward kernel 4 x layers and the dw kernel 2 x layers times a
-   step, every forward and input gradient on the tensor cores
-   (`grouped_route_launches`), no route dropped; with --parent, again on
-   the parent's grouped forward (train_moe_parent). train_moe_quant: the
-   same with expert_quant="int8" (5 timed steps; the quantized kernel 2 x
-   layers times a step and the input gradient as often, every launch on
-   the tensor cores); with --parent, again on the parent's quantized
-   kernel (train_moe_quant_parent); train_moe_quant_bm64: 3 steps with
-   groups of 64 rows, every quantized launch and input gradient on the
-   CUDA-core kernels (their launches on the kernels line);
+   step, every forward, input gradient and weight gradient on the tensor
+   cores (`grouped_route_launches`, `grouped_dw_route_launches`), no
+   route dropped, and each step's routes per expert in each layer
+   (`expert_counts`); with --parent, again on the parent's grouped forward
+   and weight gradient (train_moe_parent). train_moe_quant: the same with
+   expert_quant="int8" (5 timed steps; the quantized kernel 2 x layers
+   times a step and the input gradient and weight gradient as often,
+   every launch on the tensor cores); with --parent, again on the
+   parent's quantized and grouped kernels (train_moe_quant_parent);
+   train_moe_quant_bm64: 3 steps with groups of 64 rows, every quantized
+   launch and input gradient on the CUDA-core kernels (their launches on
+   the kernels line), every weight gradient on the tensor cores;
+   dw_order: the weight gradient on the group sizes of train_moe's and
+   train_moe_quant's last steps, layer by layer, with the experts in the
+   gates' order and largest group first, in turns (`tail_cost`,
+   `step_tail_cost`: what ranking the blocks by group size would save);
+   train_moe_f3076: 3 steps at an expert width of 3076 (not a multiple of
+   8), every weight gradient on the CUDA-core kernel (its launches on the
+   kernels line), every grouped forward too but the down projection's
+   input gradient;
 10. moe_parity: 3 float32 steps of a 2-layer full-width GPT-MoE, grouped
    against capacity dispatch with capacity_factor E / top_k (nothing
    drops): losses and the first step's gradients must agree;
@@ -175,8 +190,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pair, serve_quant
    for quant_matmul's two GEMVs and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
-   forward on the tensor cores and the dw kernel, train_moe_quant_bm64
-   for the grouped forward on the CUDA cores, train_moe_quant for the
+   forward and the dw kernel on the tensor cores, train_moe_quant_bm64
+   for the grouped forward on the CUDA cores, train_moe_f3076 for the dw
+   kernel on the CUDA cores, train_moe_quant for the
    quantized grouped
    kernel on the tensor cores and train_moe_quant_bm64 for it on the CUDA
    cores, varlen_attn and flashmask_attn for the packed kernels on the
@@ -188,9 +204,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 --nan-guard-cost, --gemv-cost, --grouped-cost and --ragged-cost only
 build the kernels and time one part of a kernel against extra builds
 without it (the masked kernels' NaN guard; the tensor-core GEMV's
-products and its code reads; the grouped tensor-core forward's drain,
-split, loads and products; the ragged kernels' arithmetic and their
-loads, and their cluster size fixed at 1, 2, 4 and 8), then exit.
+products and its code reads; the grouped tensor-core ring's drain,
+split, loads and products, in the forward and the weight gradient; the
+ragged kernels' arithmetic and their loads, and their cluster size fixed
+at 1, 2, 4 and 8), then exit.
 
 With --profile, short full-width serves (plain, serve_quant's and
 serve_long's engines), two train steps, two train_moe steps and three
@@ -330,7 +347,8 @@ def bound(bytes_moved, flops, peak_flops):
 # the tensor-core kernels of each source, whose SASS must hold HGMMA (the
 # masked forward, dq and dk/dv kernels are templates with a mask policy per
 # source; the quantized ones with a code type, and the grouped one an x
-# dtype too; the grouped float32/bf16 forward a dtype and a transpose)
+# dtype too; the grouped float32/bf16 forward a dtype and a transpose, its
+# weight gradient a dtype)
 MASKED_WGMMA = ("masked_fwd_wgmma", "masked_dq_wgmma", "masked_dkv_wgmma")
 WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma",),
                  "flash_attention_bwd": ("flash_bwd_dq_wgmma",
@@ -339,7 +357,7 @@ WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma",),
                  "flash_sparse_mask": MASKED_WGMMA,
                  "quant_matmul": ("qmm_wgmma",),
                  "quant_grouped_matmul": ("quant_grouped_wgmma",),
-                 "grouped_matmul": ("grouped_wgmma",)}
+                 "grouped_matmul": ("grouped_wgmma", "grouped_dw_wgmma")}
 
 
 def kernel_label(mangled):
@@ -1053,15 +1071,16 @@ def gemv_cost(torch, seed):
 
 
 # --grouped-cost: copies of csrc/grouped_matmul.cu, edited as they are
-# read, that leave one part of the tensor-core forward out (but no_drain,
-# their outputs are wrong and unchecked): {build: (text in the source, its
-# replacement), or a tuple of such pairs}
+# read, that leave one part of the tensor-core ring (`gw_mainloop`, shared
+# by the forward and the weight gradient) out (but no_drain, their outputs
+# are wrong and unchecked): {build: (text in the source, its replacement),
+# or a tuple of such pairs}
 GROUPED_COST_BUILDS = {
     # the products straight into the accumulator, no float32 partial: the
     # stores for stage kt + 1 wait for stage kt - 1's products instead
     "no_drain": (
-        ("    gw_stage<TRANS, P>(part, a, b, true);\n",
-         "    gw_stage<TRANS, P>(acc, a, b, false);\n"),
+        ("    gw_stage<F, P>(part, a, b, true);\n",
+         "    gw_stage<F, P>(acc, a, b, false);\n"),
         ("      uint8_t* nx = smem",
          "      wg::wait<1>();\n      __syncthreads();\n"
          "      uint8_t* nx = smem"),
@@ -1073,31 +1092,34 @@ GROUPED_COST_BUILDS = {
     # the registers' chunks folded into one sum instead of split and
     # stored into the panels (the loads and the products alone)
     "no_split": (
-        "      gw_store(nx, ox, rx, bad);\n"
-        "      gw_store(nx + L::kB, ow, rw, bad);\n",
-        "      { const float* u = reinterpret_cast<const float*>(&rx);\n"
-        "        const float* v = reinterpret_cast<const float*>(&rw);\n"
+        "      gw_store(nx, oa, ra, bad);\n"
+        "      gw_store(nx + L::kB, ob, rb, bad);\n",
+        "      { const float* u = reinterpret_cast<const float*>(&ra);\n"
+        "        const float* v = reinterpret_cast<const float*>(&rb);\n"
         "#pragma unroll\n"
-        "        for (int i = 0; i < (int)(sizeof(rx) / 4); ++i)\n"
+        "        for (int i = 0; i < (int)(sizeof(ra) / 4); ++i)\n"
         "          bad += u[i] * v[i]; }\n"),
     # no loads past the first two stages (the split and the products)
-    "no_loads": ("        gw_load(ox, kt + 2, rx);\n"
-                 "        gw_load(ow, kt + 2, rw);\n", ""),
+    "no_loads": ("      if (kt + 2 < KT) load(kt + 2, ra, rb);\n", ""),
     # no products (the loads and the split)
-    "no_products": ("    gw_stage<TRANS, P>(part, a, b, true);\n", "")}
-GROUPED_COST_CASES = (("up_fwd_f32", 768, 3072, "float32", False),
-                      ("down_fwd_f32", 3072, 768, "float32", False),
-                      ("up_dx_f32", 3072, 768, "float32", True),
-                      ("down_dx_f32", 768, 3072, "float32", True),
-                      ("up_fwd_bf16", 768, 3072, "bfloat16", False))
+    "no_products": ("    gw_stage<F, P>(part, a, b, true);\n", "")}
+# (case, k, n, dtype, kind)
+GROUPED_COST_CASES = (("up_fwd_f32", 768, 3072, "float32", "fwd"),
+                      ("down_fwd_f32", 3072, 768, "float32", "fwd"),
+                      ("up_dx_f32", 3072, 768, "float32", "dx"),
+                      ("down_dx_f32", 768, 3072, "float32", "dx"),
+                      ("up_fwd_bf16", 768, 3072, "bfloat16", "fwd"),
+                      ("up_dw_f32", 768, 3072, "float32", "dw"),
+                      ("down_dw_f32", 3072, 768, "float32", "dw"),
+                      ("up_dw_bf16", 768, 3072, "bfloat16", "dw"))
 
 
 def grouped_cost(torch, np, seed):
-    """--grouped-cost: what holds the grouped tensor-core forward.
+    """--grouped-cost: what holds the grouped tensor-core kernels.
     grouped_matmul.cu is built four times more into a directory of its
-    own (GROUPED_COST_BUILDS); each MoE case (train_moe's routing) runs on
-    every build in turns, shipped first and then the builds in order and
-    back, CUDA events over 10 launches each. The shipped and no_drain
+    own (GROUPED_COST_BUILDS); each MoE case (moe_routing's groups) runs
+    on every build in turns, shipped first and then the builds in order
+    and back, CUDA events over 10 launches each. The shipped and no_drain
     builds are held to the plain version (their share of the float32
     rule); the rest compute wrong outputs. Prints one line: each case's
     mean ms by build and the shares."""
@@ -1109,32 +1131,42 @@ def grouped_cost(torch, np, seed):
         os.path.join(str(_build.BUILD_DIR), "grouped_cost"),
         {build: ("grouped_matmul", gmm._SIG, (), edit)
          for build, edit in GROUPED_COST_BUILDS.items()}))
-    md, counts = moe_routing(torch, np, seed)
-    off, cnt = md["offsets"], md["counts"]
-    tp = md["row_src"].shape[0]
-    rows = md["dest"].long()
+    md = moe_routing(torch, np, seed)[0]
     dev = torch.device("cuda")
     rec = {"phase": "grouped_cost", "builds": list(libs),
            "ptxas": {b: {k: v for k, v in ptxas_kernels(
                lib.build_log if b != "shipped"
                else _build.build_log("grouped_matmul")).items()
-               if k.startswith("grouped_wgmma")} for b, lib in libs.items()}}
+               if "wgmma" in k} for b, lib in libs.items()}}
     try:
-        for name, k, n, dt, tr in GROUPED_COST_CASES:
+        for name, k, n, dt, kind in GROUPED_COST_CASES:
+            off, cnt = md["offsets"], md["counts"]
+            tp = md["row_src"].shape[0]
             dtype = getattr(torch, dt)
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed + k + n)
             x = torch.randn(tp, k, generator=gen, device=dev, dtype=dtype)
-            w = torch.randn(*((MOE_E, n, k) if tr else (MOE_E, k, n)),
-                            generator=gen, device=dev, dtype=dtype) \
-                * k ** -0.5
-            ref = gmm._ref_fwd(x, w, None, off, cnt, MOE_BM, dtype,
-                               transpose_w=tr)
+            tr = kind == "dx"
+            if kind == "dw":
+                w = torch.randn(tp, n, generator=gen, device=dev,
+                                dtype=dtype)         # dy
+                ref = gmm._ref_dw(x, w, off, cnt, MOE_BM, MOE_E)
+                rows = slice(None)
+            else:
+                w = torch.randn(*((MOE_E, n, k) if tr else (MOE_E, k, n)),
+                                generator=gen, device=dev, dtype=dtype) \
+                    * k ** -0.5
+                ref = gmm._ref_fwd(x, w, None, off, cnt, MOE_BM, dtype,
+                                   transpose_w=tr)
+                rows = md["dest"].long()
             shares = {}
             calls = {}
             for b, lib in libs.items():
                 def call(lib=lib):
                     _build._libs["grouped_matmul"] = lib
+                    if kind == "dw":
+                        return gmm.grouped_matmul_dw(x, w, off, cnt, MOE_BM,
+                                                     MOE_E)
                     return gmm.grouped_matmul_fwd(x, w, None, off, cnt,
                                                   MOE_BM, transpose_w=tr)
                 calls[b] = call
@@ -1149,7 +1181,8 @@ def grouped_cost(torch, np, seed):
                 ms[b].append(cuda_ms(torch, calls[b], 10))
             rec[name] = {"ms": {b: statistics.mean(v)
                                 for b, v in ms.items()},
-                         "ms_runs": ms, "rule_share": shares}
+                         "ms_runs": ms, "rule_share": shares,
+                         "counts": cnt.tolist()}
             del x, w, ref
             torch.cuda.empty_cache()
     finally:
@@ -2156,6 +2189,7 @@ def train_parity_phase(torch, np, seed):
 
 TF32_FLOPS = 494.7e12            # H100 SXM dense TF32 tensor-core peak
 MOE_E, MOE_H, MOE_F = 8, 768, 3072
+MOE_F_ODD = 3076                 # train_moe_f3076's expert width (not % 8)
 MOE_TOKENS, MOE_TOPK, MOE_BM = 8192, 2, 128
 MOE_EMPTY = 5                    # the expert the check's routing never picks
 # float32 rule: |out - ref| <= 1e-6 |ref| + 1e-5 max|ref|. Kernel and plain
@@ -2277,19 +2311,20 @@ def l2_read_rate(torch):
 
 def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
                  block_k=None, parent=None, bm=MOE_BM, parent_gm=None,
-                 l2_rate=None):
+                 l2_rate=None, x_offset=False):
     """One grouped kernel at the MoE path's shapes against its plain
     version: kind "fwd" (x [Tp, k] . w [E, k, n] + b), "dx" (dy [Tp, k] .
     w[e]^T with w [E, n, k], read in place), "dw" (x [Tp, k], dy [Tp, n]
     -> [E, k, n]) or "int8"/"fp8" (x . dequant(codes [E, n, k])^T, blocks
-    of block_k). A forward (fwd, dx, int8, fp8) record names the route the
-    wrapper took and checks two launches bit for bit; with the parent
-    commit's library (`parent` for the quantized kernel, `parent_gm` for
-    the float32/bf16 forward) its kernel is checked and timed on the same
-    inputs, parent, shipped, shipped, parent. md's groups are aligned to
-    bm rows. A tensor-core forward also gets the bound of its own work
+    of block_k). Every record names the route the wrapper took and checks
+    two launches bit for bit; with the parent commit's library (`parent`
+    for the quantized kernel, `parent_gm` for the float32/bf16 forward and
+    weight gradient) its kernel is checked and timed on the same inputs,
+    parent, shipped, shipped, parent. md's groups are aligned to bm rows.
+    A float32 case on the tensor cores also gets the bound of its own work
     (three or six bf16 products a value) and, with `l2_rate`, the time its
-    tiles' reads from L2 take at that rate."""
+    tiles' reads from L2 take at that rate. With x_offset, x is a view one
+    element (4 bytes in float32) past a 16-byte boundary."""
     from paddle_tpu_torch.kernels import grouped_matmul as gmm
     from paddle_tpu_torch.kernels import quant_matmul as qmm
     from paddle_tpu_torch.kernels.grouped_matmul import (
@@ -2306,6 +2341,9 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
     tp = md["row_src"].shape[0]
     rows = md["dest"].long()
     x = torch.randn(tp, k, generator=gen, device=dev, dtype=dtype)
+    if x_offset:
+        x = torch.empty(tp * k + 1, device=dev, dtype=dtype)[1:] \
+            .view(tp, k).copy_(x)
     routes = int(counts.sum())
     live = [e for e in range(MOE_E) if counts[e]]
     starts = np.concatenate([[0], np.cumsum(-(-counts // bm))[:-1]]) \
@@ -2324,13 +2362,15 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
                                       transpose_w=tr)
 
         def parent_kernel():
-            # the parent's C entry: no route argument (its one kernel)
+            # the parent's C entry, on the route the shipped wrapper takes
             out = torch.empty(tp, n, device=dev, dtype=dtype)
+            route = gmm.gm_route(dtype, k, n, bm, tr,
+                                 (x.data_ptr(), w.data_ptr()))
             rc = parent_gm.grouped_matmul_fwd(
                 x.data_ptr(), w.data_ptr(),
                 b.data_ptr() if b is not None else None, out.data_ptr(),
                 off.data_ptr(), cnt.data_ptr(), MOE_E, tp, k, n, bm,
-                int(tr), gmm._DTYPE_CODE[dtype],
+                int(tr), gmm._DTYPE_CODE[dtype], gmm._GM_ROUTE_CODE[route],
                 torch.cuda.current_stream().cuda_stream)
             check(rc == 0, f"{name}: the parent's kernel failed ({rc})")
             return out
@@ -2355,6 +2395,16 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
 
         def kernel():
             return grouped_matmul_dw(x, dy, off, cnt, bm, MOE_E)
+
+        def parent_kernel():
+            # the parent's C entry: no route argument (its one dw kernel)
+            out = torch.empty(MOE_E, k, n, device=dev, dtype=torch.float32)
+            rc = parent_gm.grouped_matmul_dw(
+                x.data_ptr(), dy.data_ptr(), out.data_ptr(), off.data_ptr(),
+                cnt.data_ptr(), MOE_E, tp, k, n, gmm._DTYPE_CODE[dtype],
+                torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"{name}: the parent's kernel failed ({rc})")
+            return out
 
         def plain():
             return _ref_dw(x, dy, off, cnt, bm, MOE_E)
@@ -2406,7 +2456,8 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
             blockwise_weight_bytes(k, n)[0] + routes * n * isz
     quant = kind in ("int8", "fp8")
     forward = kind != "dw"
-    counted = quant_grouped_matmul if quant else grouped_matmul_fwd
+    counted = quant_grouped_matmul if quant else \
+        grouped_matmul_fwd if forward else grouped_matmul_dw
     before = dict(counted.route_launches)
     out = kernel()
     ref = plain()
@@ -2418,25 +2469,24 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
     extra = {}
     if not quant:
         parent = parent_gm
-    if forward:
-        extra["route"] = next(r for r, c in counted.route_launches.items()
-                              if c > before[r])
-        if quant:
-            extra["block_k"] = k // scales.shape[2]
-        check(torch.equal(kernel()[rows], out[rows]),
-              f"{name}: two launches differ")
-        if parent is not None:
-            pout = parent_kernel()
-            perr, pratio = gmm_err(torch, pout, ref, rows, bf16)
-            check(pratio <= 1.0, f"{name}: the parent's kernel is off "
-                                 f"({perr})")
-            extra["parent_max_abs_err"] = perr
-            del pout
+    extra["route"] = next(r for r, c in counted.route_launches.items()
+                          if c > before[r])
+    if quant:
+        extra["block_k"] = k // scales.shape[2]
+    check(torch.equal(kernel()[rows], out[rows]),
+          f"{name}: two launches differ")
+    if parent is not None:
+        pout = parent_kernel()
+        perr, pratio = gmm_err(torch, pout, ref, rows, bf16)
+        check(pratio <= 1.0, f"{name}: the parent's kernel is off "
+                             f"({perr})")
+        extra["parent_max_abs_err"] = perr
+        del pout
     lib = library()
     lib_check(name, lib[rows], ref[rows])
     del out, ref, lib
     kernel_ms = cuda_ms(torch, kernel, 10)
-    if forward and parent is not None:
+    if parent is not None:
         # parent, shipped, shipped, parent: the same inputs in turns
         pm = [cuda_ms(torch, parent_kernel, 10)]
         km = [kernel_ms, cuda_ms(torch, kernel, 10)]
@@ -2451,18 +2501,23 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
     peak = BF16_FLOPS if bf16 else TF32_FLOPS
     bound_ms, bound_by = bound(bytes_moved, flops, peak)
     extra["bound_share"] = bound_ms / kernel_ms
-    if forward and not bf16 and extra["route"] == "wgmma":
+    if not bf16 and extra["route"] == "wgmma":
         # the tensor-core route's own work: three (x split, codes exact)
-        # or six (x and w split) bf16 products a value
+        # or six (x and w, or x and dy, split) bf16 products a value
         pieces = 3 if quant else 6
         bp = bound(bytes_moved, pieces * flops, BF16_FLOPS)[0]
         extra.update({f"bound_bf16x{pieces}_ms": bp,
                       f"bound_bf16x{pieces}_share": bp / kernel_ms,
                       "bf16_tflops_per_s": pieces * flops / kernel_ms / 1e9})
-    if forward and not quant and extra["route"] == "wgmma" and l2_rate:
-        # each 128 x 128 tile reads its x tile and its weight tile whole
-        tiles = int(sum(-(-int(c) // 128) for c in counts))
-        l2_bytes = tiles * -(-n // 128) * 2 * 128 * k * isz
+    if not quant and extra["route"] == "wgmma" and l2_rate:
+        if forward:
+            # each 128 x 128 tile reads its x tile and its weight tile whole
+            tiles = int(sum(-(-int(c) // 128) for c in counts))
+            l2_bytes = tiles * -(-n // 128) * 2 * 128 * k * isz
+        else:
+            # each 128 x 128 tile of dw[e] reads its group's rows of 128
+            # columns of x and of dy
+            l2_bytes = routes * -(-k // 128) * -(-n // 128) * 2 * 128 * isz
         extra.update(l2_bytes=l2_bytes, l2_tb_per_s=l2_rate / 1e12,
                      bound_l2_ms=l2_bytes / l2_rate * 1e3,
                      bound_l2_share=l2_bytes / l2_rate * 1e3 / kernel_ms)
@@ -2471,6 +2526,7 @@ def grouped_case(torch, np, name, kind, k, n, dtype, seed, md, counts,
                "dw": "grouped_matmul_dw"}.get(kind, "quant_grouped_matmul"),
            "case": name, "kind": kind, "dtype": str(dtype).split(".")[-1],
            "routes": routes, "rows": tp, "k": k, "n": n, "bm": bm,
+           "x_byte_offset": x.data_ptr() % 16,
            "max_abs_err": err, "err_over_tolerance": ratio,
            "rtol": BF16_RTOL if bf16 else GMM_RTOL_F32,
            "atol_of_max": GMM_ATOL_OF_MAX, "kernel_ms": kernel_ms,
@@ -2491,7 +2547,9 @@ def grouped_poison_case(torch, np, seed, md):
     """Every row that is not a route's (padding in a group's last tile,
     the dead tiles past the groups) NaN in x and dy: the routed rows of
     the forward, the input gradient and the quantized forward, and all
-    of dw, must equal the clean run's bit for bit."""
+    of dw, must equal the clean run's bit for bit. dw runs twice, on x
+    (the tensor cores) and on a copy of x 4 bytes off a 16-byte boundary
+    (the CUDA cores)."""
     from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
                                                          grouped_matmul_fwd)
     from paddle_tpu_torch.kernels.quant_matmul import (
@@ -2505,6 +2563,7 @@ def grouped_poison_case(torch, np, seed, md):
     k, n = MOE_H, MOE_F
     x = torch.randn(tp, k, generator=gen, device=dev)
     dy = torch.randn(tp, n, generator=gen, device=dev)
+    xo = torch.empty(tp * k + 1, device=dev)[1:].view(tp, k).copy_(x)
     w = torch.randn(MOE_E, k, n, generator=gen, device=dev)
     b = torch.randn(MOE_E, n, generator=gen, device=dev)
     codes, scales = quantize_weight_blockwise(w.transpose(1, 2))
@@ -2514,22 +2573,30 @@ def grouped_poison_case(torch, np, seed, md):
                 grouped_matmul_fwd(dy, w, None, off, cnt, MOE_BM,
                                    transpose_w=True)[rows],
                 grouped_matmul_dw(x, dy, off, cnt, MOE_BM, MOE_E),
+                grouped_matmul_dw(xo, dy, off, cnt, MOE_BM, MOE_E),
                 quant_grouped_matmul(x, codes, scales, group_offsets=off,
                                      group_counts=cnt, bm=MOE_BM)[rows])
+    dw_routes = dict(grouped_matmul_dw.route_launches)
     clean = run()
     dead = ~md["row_valid"]
     x[dead] = float("nan")
     dy[dead] = float("nan")
+    xo[dead] = float("nan")
     poisoned = run()
     torch.cuda.synchronize()
-    names = ("fwd", "dx", "dw", "int8")
+    dw_routes = {r: c - dw_routes[r]
+                 for r, c in grouped_matmul_dw.route_launches.items()}
+    check(dw_routes == {"cuda_core": 2, "wgmma": 2},
+          f"grouped nan_poison: dw launches by route {dw_routes}")
+    names = ("fwd", "dx", "dw", "dw_cuda_core", "int8")
     for nm, c, p in zip(names, clean, poisoned):
         check(torch.isfinite(p).all().item() and torch.equal(c, p),
               f"grouped nan_poison: {nm} read a padding or dead row")
     rec = {"phase": "kernel_check", "kernel": "grouped (all three)",
            "case": "nan_poison_dead_rows", "rows": tp,
            "poisoned_rows": int(dead.sum().item()),
-           "identical_to_clean": list(names)}
+           "identical_to_clean": list(names),
+           "dw_route_launches": dw_routes}
     emit(rec)
     torch.cuda.empty_cache()
     return rec
@@ -2570,16 +2637,20 @@ def moe_routes_kept(torch, model, ids):
 
 def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
                     quant_route=None, parent_gq=None, extra=None,
-                    grouped_route="wgmma", parent_gm=None, **overrides):
+                    grouped_route="wgmma", dw_route="wgmma", parent_gm=None,
+                    **overrides):
     """The GPT-MoE of benchmarks/gpt_moe_ep.py at its chip widths (hidden
     768, 6 layers, 8 experts top-2, 12 heads, vocab 50257; float32,
     grouped dispatch) through TrainStep with AdamW at lr 1e-4, on the
     benchmark's fixed batch of 8 x 1024 random ids from the seed. With
     quant_route, every quantized grouped launch must have taken it; every
-    grouped forward and input gradient must have taken grouped_route. With
-    parent_gq or parent_gm (a ParentGq or ParentGm swapped in by the
-    caller), every such launch must have gone to the parent's kernel, and
-    the record counts them as {"parent": n}."""
+    grouped forward and input gradient must have taken grouped_route
+    (None: any route), and every weight gradient dw_route. With parent_gq or parent_gm (a
+    ParentGq or ParentGm swapped in by the caller), every such launch must
+    have gone to the parent's kernel, and the record counts them as
+    {"parent": n}. The record keeps each step's routes per expert in each
+    layer (`expert_counts` [step][layer][expert], read from the gates'
+    outputs after the last step)."""
     from paddle_tpu_torch import AdamW, TrainStep
     from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
                                                          grouped_matmul_fwd)
@@ -2598,11 +2669,14 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
     n_params, n_active, flops_tok = moe_flops_per_token(model, seq)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_flash_counts(grouped_matmul_fwd)
-    grouped_matmul_dw.launches = 0
-    zero_flash_counts(quant_grouped_matmul)
+    caught = []         # each gate call's expert ids, counted at the end
+    hooks = [blk.moe.gate.register_forward_hook(
+        lambda mod, inp, out: caught.append(out[1].detach()))
+        for blk in model.blocks]
+    zero_flash_counts(grouped_matmul_fwd, grouped_matmul_dw,
+                      quant_grouped_matmul)
     if parent_gm is not None:
-        parent_gm.calls = 0
+        parent_gm.calls = parent_gm.dw_calls = 0
     losses = [step((ids,), (labels,)) for _ in range(warmup)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2610,18 +2684,34 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
         losses.append(step((ids,), (labels,)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    layers, experts = cfg.num_layers, cfg.num_experts
+    steps = warmup + timed
+    check(len(caught) == layers * steps,
+          f"{phase}: {len(caught)} gate calls in {steps} steps of {layers} "
+          f"layers")
+    expert_counts = torch.stack([
+        (c.reshape(-1, 1) == torch.arange(experts, device=c.device))
+        .sum(0) for c in caught]).view(steps, layers, experts).tolist()
+    del caught
     fwd, dw = grouped_matmul_fwd.launches, grouped_matmul_dw.launches
     qfwd = quant_grouped_matmul.launches
     qroutes = dict(quant_grouped_matmul.route_launches)
     groutes = dict(grouped_matmul_fwd.route_launches)
+    dwroutes = dict(grouped_matmul_dw.route_launches)
     if parent_gm is not None:
-        check(parent_gm.calls == fwd,
-              f"{phase}: {parent_gm.calls} calls of the parent's grouped "
-              f"kernel, {fwd} grouped forward launches")
+        check(parent_gm.calls == fwd and parent_gm.dw_calls == dw,
+              f"{phase}: {parent_gm.calls} and {parent_gm.dw_calls} calls "
+              f"of the parent's grouped kernels, {fwd} grouped forward and "
+              f"{dw} weight-gradient launches")
         groutes = {"parent": parent_gm.calls}
-    elif groutes[grouped_route] != fwd:
+        dwroutes = {"parent": parent_gm.dw_calls}
+    elif (grouped_route is not None and groutes[grouped_route] != fwd) \
+            or dwroutes[dw_route] != dw:
         raise AssertionError(f"{phase}: grouped forward launches by route "
-                             f"{groutes}, not all {grouped_route}")
+                             f"{groutes}, not all {grouped_route}; weight "
+                             f"gradients {dwroutes}, not all {dw_route}")
     if parent_gq is not None:
         check(parent_gq.calls == qfwd,
               f"{phase}: {parent_gq.calls} calls of the parent's kernel, "
@@ -2629,8 +2719,6 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
         qroutes = {"parent": parent_gq.calls}
     peak = torch.cuda.max_memory_allocated()
     losses = [x.item() for x in losses]
-    steps = warmup + timed
-    layers = cfg.num_layers
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     if cfg.expert_quant:
@@ -2669,8 +2757,10 @@ def train_moe_phase(torch, np, seed, phase="train_moe", warmup=2, timed=10,
            "second_routes_zeroed_by_gshard_random_routing": zeroed,
            "grouped_fwd_launches": fwd, "grouped_dw_launches": dw,
            "grouped_route_launches": groutes,
+           "grouped_dw_route_launches": dwroutes,
            "quant_grouped_launches": qfwd,
-           "quant_grouped_route_launches": qroutes, **(extra or {})}
+           "quant_grouped_route_launches": qroutes,
+           "expert_counts": expert_counts, **(extra or {})}
     emit(rec)
     del model, step
     torch.cuda.empty_cache()
@@ -2794,69 +2884,162 @@ def moe_parity_phase(torch, np, seed):
 
 def moe_kernel_checks(torch, np, seed, parent=None, parent_gm=None,
                       l2_rate=None):
-    """Phase 8: the three MoE kernels at train_moe's shapes. The forward
-    and input-gradient cases take the tensor-core route ("wgmma"), but
+    """Phase 8: the three MoE kernels at train_moe's shapes. The forward,
+    input-gradient and weight-gradient cases take the tensor-core route
+    ("wgmma"), but
     `up_dx_f32_bm64` and `down_dx_f32_bm64` (groups of 64 rows, the
     input gradients that train_moe_quant_bm64 launches, against w^T read
     in place: `grouped_fwd<float, true>`), which hold the CUDA-core
     kernel. The quantized cases take the tensor-core route, but
     two that hold the CUDA-core kernel: groups of 64 rows at blocks of
     128, the shapes at which train_moe_quant_bm64 launches it, and blocks
-    of 96 (not whole 64-deep stages). With `parent` (the parent commit's
-    quantized library) and `parent_gm` (its grouped library) each forward
+    of 96 (not whole 64-deep stages). Two weight-gradient cases hold the
+    CUDA-core dw: x 4 bytes off a 16-byte boundary, and an expert width
+    of 3076 (train_moe_f3076's). With `parent` (the parent commit's
+    quantized library) and `parent_gm` (its grouped library) each case
     is timed on the parent's kernel too. Returns the records the kernels
     line takes (the up projection's forward on the tensor cores, its
     input gradient in groups of 64 rows on the CUDA cores, its weight
-    gradient, the int8 up
-    projection on the tensor cores and, in groups of 64 rows, on the CUDA
-    cores)."""
+    gradient on the tensor cores and, at width 3076, on the CUDA cores,
+    the int8 up projection on the tensor cores and, in groups of 64 rows,
+    on the CUDA cores)."""
     md, counts = moe_routing(torch, np, seed)
     md64, counts64 = moe_routing(torch, np, seed, bm=64)
     h, f = MOE_H, MOE_F
     f32, bf16 = torch.float32, torch.bfloat16
     recs = {}
-    for name, kind, k, n, dt, bk, bm in (
-            ("up_fwd_f32", "fwd", h, f, f32, None, MOE_BM),
-            ("down_fwd_f32", "fwd", f, h, f32, None, MOE_BM),
-            ("up_dx_f32", "dx", f, h, f32, None, MOE_BM),
-            ("down_dx_f32", "dx", h, f, f32, None, MOE_BM),
-            ("up_dx_f32_bm64", "dx", f, h, f32, None, 64),
-            ("down_dx_f32_bm64", "dx", h, f, f32, None, 64),
-            ("up_dw_f32", "dw", h, f, f32, None, MOE_BM),
-            ("down_dw_f32", "dw", f, h, f32, None, MOE_BM),
-            ("up_fwd_bf16", "fwd", h, f, bf16, None, MOE_BM),
-            ("up_dw_bf16", "dw", h, f, bf16, None, MOE_BM),
-            ("up_int8_f32", "int8", h, f, f32, None, MOE_BM),
-            ("down_int8_f32", "int8", f, h, f32, None, MOE_BM),
-            ("up_fp8_f32", "fp8", h, f, f32, None, MOE_BM),
-            ("up_int8_bf16", "int8", h, f, bf16, None, MOE_BM),
-            ("up_int8_f32_bm64", "int8", h, f, f32, None, 64),
-            ("up_int8_f32_bk96", "int8", h, f, f32, 96, MOE_BM)):
+    tc, cc = "wgmma", "cuda_core"
+    for name, kind, k, n, dt, bk, bm, want in (
+            ("up_fwd_f32", "fwd", h, f, f32, None, MOE_BM, tc),
+            ("down_fwd_f32", "fwd", f, h, f32, None, MOE_BM, tc),
+            ("up_dx_f32", "dx", f, h, f32, None, MOE_BM, tc),
+            ("down_dx_f32", "dx", h, f, f32, None, MOE_BM, tc),
+            ("up_dx_f32_bm64", "dx", f, h, f32, None, 64, cc),
+            ("down_dx_f32_bm64", "dx", h, f, f32, None, 64, cc),
+            ("up_dw_f32", "dw", h, f, f32, None, MOE_BM, tc),
+            ("down_dw_f32", "dw", f, h, f32, None, MOE_BM, tc),
+            ("up_fwd_bf16", "fwd", h, f, bf16, None, MOE_BM, tc),
+            ("up_dw_bf16", "dw", h, f, bf16, None, MOE_BM, tc),
+            ("up_int8_f32", "int8", h, f, f32, None, MOE_BM, tc),
+            ("down_int8_f32", "int8", f, h, f32, None, MOE_BM, tc),
+            ("up_fp8_f32", "fp8", h, f, f32, None, MOE_BM, tc),
+            ("up_int8_bf16", "int8", h, f, bf16, None, MOE_BM, tc),
+            ("up_int8_f32_bm64", "int8", h, f, f32, None, 64, cc),
+            ("up_int8_f32_bk96", "int8", h, f, f32, 96, MOE_BM, cc),
+            ("up_dw_f32_x_offset", "dw", h, f, f32, None, MOE_BM, cc),
+            ("up_dw_f32_f3076", "dw", h, MOE_F_ODD, f32, None, MOE_BM, cc)):
         recs[name] = grouped_case(
             torch, np, name, kind, k, n, dt, seed + len(recs),
             *((md, counts) if bm == MOE_BM else (md64, counts64)),
             block_k=bk, parent=parent, bm=bm, parent_gm=parent_gm,
-            l2_rate=l2_rate)
-        if kind != "dw":
-            want = "wgmma" if (bk, bm) == (None, MOE_BM) else "cuda_core"
-            check(recs[name]["route"] == want,
-                  f"{name}: routed to {recs[name]['route']}, not {want}")
+            l2_rate=l2_rate, x_offset=name.endswith("_x_offset"))
+        check(recs[name]["route"] == want,
+              f"{name}: routed to {recs[name]['route']}, not {want}")
     grouped_poison_case(torch, np, seed + 99, md)
     return (recs["up_fwd_f32"], recs["up_dx_f32_bm64"], recs["up_dw_f32"],
-            recs["up_int8_f32"], recs["up_int8_f32_bm64"])
+            recs["up_dw_f32_f3076"], recs["up_int8_f32"],
+            recs["up_int8_f32_bm64"])
 
 
-# the parent commit's (694a369) quantized grouped library: its C entry
+def dw_order_phase(torch, np, seed, expert_counts):
+    """The weight gradient's tail on the group sizes the MoE phases' gates
+    gave: expert_counts maps a phase to its last step's counts [layer]
+    [expert]. For each layer, the tensor-core dw at the up (768 x 3072)
+    and down (3072 x 768) shapes on a routing with the experts in the
+    gates' order and on one with the same counts largest first (the
+    order in which blocks ranked by their group's size would start), in
+    turns (gate, largest first, largest first, gate; CUDA events over 10
+    launches each), each held to the plain version by the float32 rule.
+    `tail_cost` is the share by which the gates' order is slower, per
+    launch and over a phase's step (`step_tail_cost`: the sums of its
+    layers' up and down times)."""
+    from paddle_tpu_torch.kernels.grouped_matmul import (
+        _ref_dw, grouped_matmul_dw, grouped_metadata)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    before = dict(grouped_matmul_dw.route_launches)
+    rec = {"phase": "dw_order", "dtype": "float32"}
+    for phase, by_layer in expert_counts.items():
+        layers = []
+        for counts in by_layer:
+            mds = {}
+            for order, cs in (("gate", counts),
+                              ("largest_first", sorted(counts,
+                                                       reverse=True))):
+                ids = rng.permutation(np.repeat(np.arange(MOE_E), cs))
+                mds[order] = grouped_metadata(
+                    torch.as_tensor(ids.astype(np.int32), device=dev),
+                    MOE_E, MOE_BM)
+            row = {"counts": counts}
+            for shape, k, n in (("up", MOE_H, MOE_F),
+                                ("down", MOE_F, MOE_H)):
+                calls, shares = {}, {}
+                for order, md in mds.items():
+                    tp = md["row_src"].shape[0]
+                    gen = torch.Generator(device=dev)
+                    gen.manual_seed(seed + k)
+                    x = torch.randn(tp, k, generator=gen, device=dev)
+                    dy = torch.randn(tp, n, generator=gen, device=dev)
+                    off, cnt = md["offsets"], md["counts"]
+
+                    def call(x=x, dy=dy, off=off, cnt=cnt):
+                        return grouped_matmul_dw(x, dy, off, cnt, MOE_BM,
+                                                 MOE_E)
+                    out, ref = call(), _ref_dw(x, dy, off, cnt, MOE_BM,
+                                               MOE_E)
+                    shares[order] = gmm_err(torch, out, ref, slice(None),
+                                            False)[1]
+                    check(shares[order] <= 1.0,
+                          f"dw_order {phase} {shape} {order}: "
+                          f"{shares[order]} x the float32 rule")
+                    calls[order] = call
+                    del out, ref
+                runs = {"gate": [], "largest_first": []}
+                for order in ("gate", "largest_first", "largest_first",
+                              "gate"):
+                    runs[order].append(cuda_ms(torch, calls[order], 10))
+                ms = {o: statistics.mean(v) for o, v in runs.items()}
+                row[shape] = {"gate_ms": ms["gate"],
+                              "largest_first_ms": ms["largest_first"],
+                              "ms_runs": runs, "rule_share": shares,
+                              "tail_cost": ms["gate"]
+                              / ms["largest_first"] - 1}
+                del calls
+                torch.cuda.empty_cache()
+            layers.append(row)
+        total = {o: sum(r[sh][f"{o}_ms"] for r in layers
+                        for sh in ("up", "down"))
+                 for o in ("gate", "largest_first")}
+        rec[phase] = {"layers": layers,
+                      "max_tail_cost": max(r[sh]["tail_cost"]
+                                           for r in layers
+                                           for sh in ("up", "down")),
+                      "step_gate_ms": total["gate"],
+                      "step_largest_first_ms": total["largest_first"],
+                      "step_tail_cost": total["gate"]
+                      / total["largest_first"] - 1}
+    routes = {r: c - before[r]
+              for r, c in grouped_matmul_dw.route_launches.items()}
+    check(routes["cuda_core"] == 0 and routes["wgmma"] > 0,
+          f"dw_order: dw launches by route {routes}")
+    rec["dw_route_launches"] = routes
+    emit(rec)
+    return rec
+
+
+# the parent commit's (cb1a8cf) quantized grouped library: its C entry
 # takes the route, as the shipped one does
 GQ_PARENT_SIG = {"quant_grouped_matmul_fwd":
                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                  + [ctypes.c_void_p]}
 
 
-# the parent commit's (694a369) grouped library: its forward's C entry has
-# no route argument (its one forward kernel)
+# the parent commit's (cb1a8cf) grouped library: its forward's C entry
+# takes the route, as the shipped one does; its weight gradient's has no
+# route argument (its one dw kernel)
 GM_PARENT_SIG = {"grouped_matmul_fwd": [ctypes.c_void_p] * 6
-                 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
                  "grouped_matmul_dw": [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
@@ -2911,20 +3094,23 @@ class ParentGq:
 
 class ParentGm:
     """The parent's grouped library under the shipped wrapper: the
-    forward's route argument is dropped (the parent has one forward
-    kernel) and each forward call is counted in `calls`; the weight
-    gradient (unchanged) passes through."""
+    forward passes through (the parent's takes the route too) and the
+    weight gradient's route argument is dropped (the parent has one dw
+    kernel); each call is counted, the forward's in `calls` and the
+    weight gradient's in `dw_calls`."""
 
     def __init__(self, lib):
         self.lib = lib
         self.calls = 0
+        self.dw_calls = 0
 
     def grouped_matmul_fwd(self, *args):
         self.calls += 1
-        return self.lib.grouped_matmul_fwd(*args[:-2], args[-1])
+        return self.lib.grouped_matmul_fwd(*args)
 
     def grouped_matmul_dw(self, *args):
-        return self.lib.grouped_matmul_dw(*args)
+        self.dw_calls += 1
+        return self.lib.grouped_matmul_dw(*args[:-2], args[-1])
 
 
 def attention_fallback_check(torch, seed):
@@ -4514,9 +4700,10 @@ def main():
                          "reads (extra builds), then exit")
     ap.add_argument("--grouped-cost", action="store_true",
                     help="only build the kernels and time the grouped "
-                         "tensor-core forward without its drain, its "
-                         "split, its loads and its products (extra "
-                         "builds), then exit")
+                         "tensor-core forward and weight gradient without "
+                         "their drain, split, loads or products, and the "
+                         "weight gradient with its blocks in expert order "
+                         "(extra builds), then exit")
     ap.add_argument("--ragged-cost", action="store_true",
                     help="only build the kernels and time the three ragged "
                          "kernels without their arithmetic, without their "
@@ -4575,8 +4762,8 @@ def main():
     # nine flash kernels (the masked forward, dq and dk/dv under two
     # policies) at D 64 and 128; qmm_wgmma for 2 code types; the grouped
     # quantized kernel for 2 x dtypes x 2 code types; the grouped forward
-    # for 2 dtypes x 2 transposes
-    check(len(hgmma) == 28 and all(hgmma.values()),
+    # for 2 dtypes x 2 transposes and its weight gradient for 2 dtypes
+    check(len(hgmma) == 30 and all(hgmma.values()),
           f"a kernel meant for the tensor cores has no HGMMA: {hgmma}")
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
           "hgmma": hgmma})
@@ -4776,12 +4963,14 @@ def main():
                             _build.build_log("quant_matmul"),
                             quant_parent["qmm"])
     l2_rate = l2_read_rate(torch)
-    gmm_main, gmm_cuda_core, dw_main, qgmm_main, qgmm_cuda_core = \
-        moe_kernel_checks(torch, np, args.seed + 40, parent=gq_parent,
-                          parent_gm=gm_parent, l2_rate=l2_rate)
+    (gmm_main, gmm_cuda_core, dw_main, dw_cuda_core, qgmm_main,
+     qgmm_cuda_core) = moe_kernel_checks(
+        torch, np, args.seed + 40, parent=gq_parent, parent_gm=gm_parent,
+        l2_rate=l2_rate)
     train_moe = train_moe_phase(torch, np, args.seed + 41)
     if gm_parent is not None:
-        # the same phase on the parent's grouped forward, swapped in
+        # the same phase on the parent's grouped forward and weight
+        # gradient, swapped in
         stem = "grouped_matmul"
         shipped = _build._libs[stem]
         parent_gm = _build._libs[stem] = ParentGm(gm_parent)
@@ -4799,7 +4988,7 @@ def main():
                                       expert_quant="int8")
     if gq_parent is not None:
         # the same phase on the parent's quantized kernel and grouped
-        # forward (the input gradient), swapped in
+        # kernels (the input and weight gradients), swapped in
         shipped = {stem: _build._libs[stem] for stem in
                    ("quant_grouped_matmul", "grouped_matmul")}
         parent_gq = _build._libs["quant_grouped_matmul"] = \
@@ -4813,12 +5002,27 @@ def main():
                             expert_quant="int8")
         finally:
             _build._libs.update(shipped)
+    dw_order_phase(torch, np, args.seed + 42,
+                   {p["phase"]: p["expert_counts"][-1]
+                    for p in (train_moe, train_moe_quant)})
     # groups of 64 rows: every quantized launch and every input gradient on
-    # the CUDA-core kernels
+    # the CUDA-core kernels, every weight gradient on the tensor cores
     train_moe_quant_bm64 = train_moe_phase(
         torch, np, args.seed + 41, phase="train_moe_quant_bm64", warmup=1,
         timed=2, quant_route="cuda_core", grouped_route="cuda_core",
         expert_quant="int8", group_block=64)
+    # an expert width off multiples of 8: every weight gradient on the
+    # CUDA-core kernel (the forwards too, but the down projection's input
+    # gradient, whose contraction is 768 wide)
+    train_moe_f3076 = train_moe_phase(
+        torch, np, args.seed + 41, phase="train_moe_f3076", warmup=1,
+        timed=2, grouped_route=None, dw_route="cuda_core",
+        d_hidden=MOE_F_ODD)
+    odd_calls = train_moe_f3076["layers"] * 3     # layers x steps
+    check(train_moe_f3076["grouped_route_launches"]
+          == {"cuda_core": 3 * odd_calls, "wgmma": odd_calls},
+          f"train_moe_f3076: grouped forward launches by route "
+          f"{train_moe_f3076['grouped_route_launches']}")
     moe_parity_phase(torch, np, args.seed)
     attention_fallback_check(torch, args.seed + 45)
 
@@ -4891,9 +5095,15 @@ def main():
              "paddle_tpu_torch/csrc/grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/grouped_matmul.py:226",
              gmm_main, train_moe["grouped_route_launches"]["wgmma"]),
-            ("grouped_matmul_dw", "paddle_tpu_torch/csrc/grouped_matmul.cu",
+            ("grouped_matmul_dw",
+             "paddle_tpu_torch/csrc/grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/grouped_matmul.py:287",
-             dw_main, train_moe["grouped_dw_launches"]),
+             dw_cuda_core,
+             train_moe_f3076["grouped_dw_route_launches"]["cuda_core"]),
+            ("grouped_matmul_dw_wgmma",
+             "paddle_tpu_torch/csrc/grouped_matmul.cu",
+             "paddle_tpu/kernels/pallas/grouped_matmul.py:287",
+             dw_main, train_moe["grouped_dw_route_launches"]["wgmma"]),
             ("quant_grouped_matmul",
              "paddle_tpu_torch/csrc/quant_grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:263",

@@ -17,9 +17,10 @@
 // Its users: the CUDA-core routes of the grouped forward (`grouped_fwd`,
 // grouped_matmul.cu) and of the quantized grouped forward
 // (`quant_grouped_fwd`, quant_grouped_matmul.cu), the weight gradient
-// (`grouped_dw`), and the tensor-core forward's redo of a tile that
-// holds an inf or a NaN (`grouped_wgmma`: its split pieces would turn inf
-// x 0 into NaN; these float32 FMAs give the IEEE products).
+// (`grouped_dw`), and the tensor-core forward's and weight gradient's
+// redo of a tile that holds an inf or a NaN (`grouped_wgmma`,
+// `grouped_dw_wgmma`: their split pieces would turn inf x 0 into NaN;
+// these float32 FMAs give the IEEE products).
 #pragma once
 
 #include <stdint.h>

@@ -99,8 +99,47 @@
 //   grouped_gemm.cuh: 128 x 128 outputs, 8 x 8 a thread, float32 FMAs,
 //   near the CUDA cores' peak. Its grid is (N tiles, ceil(Tp / 128) row
 //   tiles, E); a block past its group's live tiles returns at once.
-// The weight gradient (`grouped_dw`, grid (N tiles, K tiles, E)) is the
-// same CUDA-core tile with the block looping over its group's rows.
+//
+// The weight gradient has two kernels too; the wrapper's `gm_dw_route`
+// picks one and passes it in, under the same rule:
+// - "wgmma" (`grouped_dw_wgmma<T>`: float32 or bf16, K % 8 == 0, N % 8
+//   == 0, 16-byte aligned x and dy), the forward's ring and arithmetic
+//   with the contraction moved to the group's rows. A block of two
+//   warpgroups owns one 128 x 128 tile of dw[e]: 128 columns of x (M, 64
+//   a warpgroup) by 128 columns of dy (N), and walks the group's rows
+//   [offsets[e], offsets[e] + counts[e]) in 64-row stages. Both tiles are
+//   rows of the contraction by contiguous columns, loaded as the
+//   forward's weight tile (`mn_operand`), with the rows at or past the
+//   group's end zero-filled without a read (`rows_below`: a NaN in a
+//   padding row reaches no dw), and both are read MN-major
+//   (`mma_m64n128k16_ss_tatb`). float32 x and dy are split into hi + mid
+//   + lo and each k16 step issues the forward's six piece products into
+//   a float32 partial drained each stage: a group's contraction runs to
+//   thousands of rows, far past the K 3072 at which the undrained sum
+//   already missed the float32 rule. bf16 is one piece and one product.
+//   A block whose split met an inf or a NaN redoes its tile with the
+//   float32 FMA loop of grouped_gemm.cuh (`GroupRows`), as the forward
+//   does. The grid is (N tiles, K tiles, E), the experts' blocks in
+//   expert order. One block owns a tile: no atomics, and two launches
+//   give the same bits. An empty group writes zeros.
+//   What holds it (H100 80GB HBM3 at 700 W, the MoE shapes, float32):
+//   0.838-0.849 ms against a six-product bound of 0.469 ms (the parent
+//   commit's CUDA-core `grouped_dw`, in turns: 1.755-1.769; bf16 0.283
+//   against 2.215), 0.08-0.10 of the float32 rule; without its drain the
+//   sum misses that rule 3.6-3.7 times. Without its products 0.48-0.52
+//   ms, without its split 0.74-0.79, without its loads no faster
+//   (chip_smoke.py --grouped-cost): the products and the split hold it,
+//   as they hold the forward; the tiles' reads from L2 (2.42 GB a
+//   launch) take 0.347 ms at the 6.96 TB/s of chip_smoke.py's L2 probe.
+//   Groups differ in length (0 to 7,168 routes in the MoE phases'
+//   gates), so the blocks of a long group run longer: blocks taken
+//   largest group first would save 4.7-4.9 % of train_moe's dw time a
+//   step (12 % on its worst launch) and 8.3 % of train_moe_quant's, 0.3-
+//   0.5 % of a step (chip_smoke.py's dw_order phase), so the experts
+//   stay in order.
+// - "cuda_core" (`grouped_dw`: widths off multiples of 8, unaligned
+//   views; grid (N tiles, K tiles, E)): the CUDA-core tile of
+//   grouped_gemm.cuh with the block looping over its group's rows.
 // No TMA, mbarrier ring or warp specialisation yet.
 
 #include <type_traits>
@@ -341,6 +380,16 @@ __device__ __forceinline__ GwOperand<T> mn_operand(const T* w, int N,
   return o;
 }
 
+// o for stage kt of an MN-major operand whose contraction rows end `left`
+// rows past this thread's first (row t / 16 of the stage's 64): chunks of
+// rows at or past the end are zero-filled without a read
+template <typename T>
+__device__ __forceinline__ GwOperand<T> rows_below(GwOperand<T> o, int kt,
+                                                   int left) {
+  o.rows = min(o.rows, (left - kt * kGK + 15) >> 4);
+  return o;
+}
+
 // A thread's chunks of one operand for a stage, in registers
 template <typename T>
 struct GwRaw;
@@ -400,40 +449,96 @@ __device__ __forceinline__ void gw_store(uint8_t* tile,
     *reinterpret_cast<uint4*>(tile + o.off + i * o.soff) = r.v[i];
 }
 
+// How a stage's tiles are read: A (x's pieces, 64 rows of M a warpgroup)
+// K-major and B (w's) MN-major, the forward; both K-major, the input
+// gradient against w [N, K] read in place; both MN-major, the weight
+// gradient, whose x and dy tiles are rows of the contraction by
+// contiguous columns.
+constexpr int kFormFwd = 0, kFormDx = 1, kFormDw = 2;
+
 // one k16 step's product q of this warpgroup's 64 rows into d: A at `a`
-// (piece 0 of its rows), B at `b` (piece 0 of the weight tile)
-template <bool TRANS, int Q>
+// (piece 0 of its rows), B at `b` (piece 0 of the B tile). A k16 step
+// starts 32 bytes into a K-major row, 16 rows (2048 bytes) into an
+// MN-major panel.
+template <int F, int Q>
 __device__ __forceinline__ void gw_mma(float (&d)[64], uint32_t a,
                                        uint32_t b, int j, int scale_d) {
-  const uint64_t da = wg::desc_sw128(a + piece_a(Q) * kGPanel + 32 * j);
-  if constexpr (TRANS) {
-    wg::mma_m64n128k16(d, da, wg::desc_sw128(b + piece_b(Q) * kGPanel +
-                                             32 * j),
-                       scale_d);
-  } else {
-    wg::mma_m64n128k16_ss_tb(
-        d, da, wg::desc_sw128_mn(b + piece_b(Q) * kGPanel + 2048 * j,
-                                 64 * 128),
-        scale_d);
-  }
+  const uint32_t pa = a + piece_a(Q) * kGPanel;
+  const uint32_t pb = b + piece_b(Q) * kGPanel;
+  const uint64_t da = F == kFormDw
+                          ? wg::desc_sw128_mn(pa + 2048 * j, 64 * 128)
+                          : wg::desc_sw128(pa + 32 * j);
+  const uint64_t db = F == kFormDx
+                          ? wg::desc_sw128(pb + 32 * j)
+                          : wg::desc_sw128_mn(pb + 2048 * j, 64 * 128);
+  wg::mma_m64n128k16_ss<F == kFormDw, F != kFormDx>(d, da, db, scale_d);
 }
 
 // the stage's products (4 k16 steps x P products) into d; scale_d 0 on
 // the first when `fresh`
-template <bool TRANS, int P>
+template <int F, int P>
 __device__ __forceinline__ void gw_stage(float (&d)[64], uint32_t a,
                                          uint32_t b, bool fresh) {
 #pragma unroll
   for (int j = 0; j < kGK / 16; ++j) {
     const int s = !(fresh && j == 0);
-    gw_mma<TRANS, 0>(d, a, b, j, s);
+    gw_mma<F, 0>(d, a, b, j, s);
     if constexpr (P == 6) {
-      gw_mma<TRANS, 1>(d, a, b, j, 1);
-      gw_mma<TRANS, 2>(d, a, b, j, 1);
-      gw_mma<TRANS, 3>(d, a, b, j, 1);
-      gw_mma<TRANS, 4>(d, a, b, j, 1);
-      gw_mma<TRANS, 5>(d, a, b, j, 1);
+      gw_mma<F, 1>(d, a, b, j, 1);
+      gw_mma<F, 2>(d, a, b, j, 1);
+      gw_mma<F, 3>(d, a, b, j, 1);
+      gw_mma<F, 4>(d, a, b, j, 1);
+      gw_mma<F, 5>(d, a, b, j, 1);
     }
+  }
+}
+
+// The ring, shared by the forward and the weight gradient: KT stages of 64
+// along the contraction. `load(kt, ra, rb)` fills the registers with stage
+// kt's chunks of A (described by oa) and B (ob); stage kt + 2 is loaded
+// while stage kt + 1 is split into the free buffers and stage kt's P
+// products run into `part`, which the drain then adds to `acc`. `bad`
+// turns NaN if a split value was not finite.
+template <int F, int P, typename T, class Load>
+__device__ __forceinline__ void gw_mainloop(uint8_t* smem, int KT, int g,
+                                            const GwOperand<T>& oa,
+                                            const GwOperand<T>& ob,
+                                            Load load, float (&acc)[64],
+                                            float (&part)[64], float& bad) {
+  using L = GwLayout<T>;
+  const uint32_t sbase = wg::smem_addr(smem);
+  GwRaw<T> ra, rb;    // A and B of the stage after next
+  load(0, ra, rb);
+  gw_store(smem, oa, ra, bad);
+  gw_store(smem + L::kB, ob, rb, bad);
+  if (KT > 1) load(1, ra, rb);
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const uint32_t st = sbase + (kt & 1) * L::kStage;
+    const uint32_t a = st + g * 64 * 128;  // this warpgroup's 64 rows of M
+    const uint32_t b = st + L::kB;
+    wg::fence();
+    gw_stage<F, P>(part, a, b, true);
+    wg::commit();
+    const bool more = kt + 1 < KT;
+    if (more) {
+      // while the products run: stage kt + 1 into the buffers that stage
+      // kt - 1's products read (the drain after stage kt - 1 has waited
+      // for them, and the barrier after it freed them)
+      uint8_t* nx = smem + ((kt + 1) & 1) * L::kStage;
+      gw_store(nx, oa, ra, bad);
+      gw_store(nx + L::kB, ob, rb, bad);
+      wg::fence_proxy_async();
+      if (kt + 2 < KT) load(kt + 2, ra, rb);
+    }
+    // the drain: this stage's partial onto the accumulator
+    wg::wait<0>();
+    wg::fence_operand(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    if (more) __syncthreads();  // publishes stage kt + 1
   }
 }
 
@@ -451,8 +556,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
   constexpr int P = L::kProducts;
   extern __shared__ __align__(1024) uint8_t gw_smem[];
   uint8_t* smem = gw_smem;
-  const uint32_t sbase = wg::smem_addr(smem);
-  if (sbase & 1023) __trap();  // the swizzle needs it
+  if (wg::smem_addr(smem) & 1023) __trap();  // the swizzle needs it
   // the group that owns this token tile
   const int t0 = blockIdx.y * kGM;
   int e = -1, xend = 0, oend = 0;
@@ -481,47 +585,13 @@ __global__ void __launch_bounds__(kGThreads, 1)
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
   float bad = 0.f;    // NaN once this thread split a non-finite value
-  GwRaw<T> rx, rw;    // x and w of the stage after next
-
-  gw_load(ox, 0, rx);
-  gw_load(ow, 0, rw);
-  gw_store(smem, ox, rx, bad);
-  gw_store(smem + L::kB, ow, rw, bad);
-  if (KT > 1) {
-    gw_load(ox, 1, rx);
-    gw_load(ow, 1, rw);
-  }
-  wg::fence_proxy_async();
-  __syncthreads();
-
-  for (int kt = 0; kt < KT; ++kt) {
-    const uint32_t st = sbase + (kt & 1) * L::kStage;
-    const uint32_t a = st + g * 64 * 128;  // this warpgroup's 64 rows
-    const uint32_t b = st + L::kB;
-    wg::fence();
-    gw_stage<TRANS, P>(part, a, b, true);
-    wg::commit();
-    const bool more = kt + 1 < KT;
-    if (more) {
-      // while the products run: stage kt + 1 into the buffers that stage
-      // kt - 1's products read (the drain after stage kt - 1 has waited
-      // for them, and the barrier after it freed them)
-      uint8_t* nx = smem + ((kt + 1) & 1) * L::kStage;
-      gw_store(nx, ox, rx, bad);
-      gw_store(nx + L::kB, ow, rw, bad);
-      wg::fence_proxy_async();
-      if (kt + 2 < KT) {
-        gw_load(ox, kt + 2, rx);
-        gw_load(ow, kt + 2, rw);
-      }
-    }
-    // the drain: this stage's partial onto the accumulator
-    wg::wait<0>();
-    wg::fence_operand(part);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
-    if (more) __syncthreads();  // publishes stage kt + 1
-  }
+  gw_mainloop<TRANS ? kFormDx : kFormFwd, P>(
+      smem, KT, g, ox, ow,
+      [&](int kt, GwRaw<T>& rx, GwRaw<T>& rw) {
+        gw_load(ox, kt, rx);
+        gw_load(ow, kt, rw);
+      },
+      acc, part, bad);
   const T* be = bias != nullptr ? bias + (size_t)e * N : nullptr;
 
   // a non-finite value anywhere in the block's operands: the tile again,
@@ -565,6 +635,91 @@ __global__ void __launch_bounds__(kGThreads, 1)
     } else {
       for (int i = 0; i < V && gn + i < N; ++i) dst[i] = src[i];
     }
+  }
+}
+
+// -- the tensor-core weight gradient -----------------------------------------
+
+// the weight gradient's shared memory: the ring, then the float32 output
+// tile (pitch kGN + 4) for the epilogue's 16-byte stores
+template <typename T>
+struct DwLayout {
+  static constexpr int kPitch = kGN + 4;
+  static constexpr int kEpi = kGM * kPitch * 4;
+  static constexpr int kSmem =
+      GwLayout<T>::kSmem > kEpi ? GwLayout<T>::kSmem : kEpi;
+};
+
+// dw[e] [K, N] = sum over rows r in [offsets[e], offsets[e] + counts[e])
+// of x[r]^T dy[r] on the tensor cores. Block (n tile, m tile, e) owns one
+// 128 x 128 tile of dw[e] and walks the group's rows in 64-row stages;
+// A = x's tile, B = dy's, both read MN-major. An empty group writes zeros.
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, 1)
+    grouped_dw_wgmma(const T* __restrict__ x, const T* __restrict__ dy,
+                     float* __restrict__ dw, const int* __restrict__ offsets,
+                     const int* __restrict__ counts, int Tp, int K, int N) {
+  constexpr int P = GwLayout<T>::kProducts;
+  extern __shared__ __align__(1024) uint8_t gw_smem[];
+  uint8_t* smem = gw_smem;
+  if (wg::smem_addr(smem) & 1023) __trap();  // the swizzle needs it
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int r0 = offsets[e];
+  const int cnt = max(0, min(counts[e], Tp - r0));
+  const int KT = (cnt + kGK - 1) / kGK;  // 64-row stages
+  const int t = threadIdx.x, lane = t & 31;
+  const int g = t >> 7, warp = (t >> 5) & 3;  // warpgroup, warp within it
+  // x [rows, K] and dy [rows, N] from the group's first row; thread t's
+  // first row is t / 16 of each stage
+  const GwOperand<T> ox = mn_operand(x + (size_t)r0 * K, K, m0);
+  const GwOperand<T> oy = mn_operand(dy + (size_t)r0 * N, N, n0);
+  const int left = cnt - (t >> 4);
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  float bad = 0.f;    // NaN once this thread split a non-finite value
+  if (KT > 0)
+    gw_mainloop<kFormDw, P>(
+        smem, KT, g, ox, oy,
+        [&](int kt, GwRaw<T>& rx, GwRaw<T>& ry) {
+          gw_load(rows_below(ox, kt, left), kt, rx);
+          gw_load(rows_below(oy, kt, left), kt, ry);
+        },
+        acc, part, bad);
+  float* out = dw + (size_t)e * K * N;
+
+  // a non-finite value anywhere in the block's operands: the tile again,
+  // in float32 FMAs (the barrier also frees the ring: every product is done)
+  if (__syncthreads_or(isnan(bad))) {
+    Smem& sm = *reinterpret_cast<Smem*>(smem);
+    float f[8][8];
+    zero_acc(f);
+    const int tx = t & 15, ty = t >> 4;
+    const GroupRows<T> la(x, K, r0, r0 + cnt, m0, true);
+    const GroupRows<T> lb(dy, N, r0, r0 + cnt, n0, true);
+    mainloop(la, lb, cnt, sm, f, tx, ty);
+    store_tile<float, float>(out, N, m0, K, n0, nullptr, f, tx, ty);
+    return;
+  }
+
+  // epilogue: the tile through shared memory as dw[e] [kGM m][kGN n];
+  // N % 8 == 0, so a 4-column chunk lies wholly inside N or past it
+  constexpr int pitch = DwLayout<T>::kPitch;
+  float* ep = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int m = g * 64 + warp * 16 + lane / 4 + 8 * ((i >> 1) & 1);
+    const int n = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    ep[m * pitch + n] = acc[i];
+  }
+  __syncthreads();
+  for (int q = t; q < kGM * (kGN / 4); q += kGThreads) {
+    const int r = q / (kGN / 4), c = q % (kGN / 4);
+    const int gm = m0 + r, gn = n0 + c * 4;
+    if (gm < K && gn < N)
+      *reinterpret_cast<float4*>(out + (size_t)gm * N + gn) =
+          *reinterpret_cast<const float4*>(ep + r * pitch + c * 4);
   }
 }
 
@@ -633,8 +788,23 @@ int launch_fwd(const void* x, const void* w, const void* b, void* out,
 
 template <typename T>
 int launch_dw(const void* x, const void* dy, void* dw, const int* offsets,
-              const int* counts, int E, int Tp, int K, int N,
+              const int* counts, int E, int Tp, int K, int N, int route,
               cudaStream_t st) {
+  if (route == kRouteWgmma) {
+    // whole 16-byte chunks of bf16 along x's and dy's rows, 16-byte
+    // aligned bases (then every row of every group is aligned too)
+    if (K % 8 || N % 8 || !aligned(x, 16) || !aligned(dy, 16))
+      return (int)cudaErrorInvalidValue;
+    auto kernel = grouped_dw_wgmma<T>;
+    constexpr int smem = DwLayout<T>::kSmem;
+    static bool smem_set[ptt::kMaxDevices] = {};
+    if (int e = ptt::raise_smem(kernel, smem, smem_set)) return e;
+    const dim3 grid((N + kGN - 1) / kGN, (K + kGM - 1) / kGM, E);
+    kernel<<<grid, kGThreads, smem, st>>>(
+        (const T*)x, (const T*)dy, (float*)dw, offsets, counts, Tp, K, N);
+    return (int)cudaGetLastError();
+  }
+  if (route != kRouteCudaCore) return (int)cudaErrorInvalidValue;
   const int vb = sizeof(T) * 4;
   const int vec_x = (K % 4 == 0) && aligned(x, vb);
   const int vec_dy = (N % 4 == 0) && aligned(dy, vb);
@@ -677,11 +847,14 @@ extern "C" int grouped_matmul_fwd(const void* x, const void* w,
 
 // x [Tp, K] and dy [Tp, N] of one dtype (0 = float32, 1 = bfloat16);
 // dw [E, K, N] float32; offsets, counts [E] int32 on the card. All
-// contiguous. Returns the CUDA error code of the launch (0 on success).
+// contiguous. route: 0 = cuda_core (`grouped_dw`), 1 = wgmma
+// (`grouped_dw_wgmma`: K % 8 == 0, N % 8 == 0, 16-byte aligned x and dy).
+// Returns the CUDA error code of the launch (0 on success);
+// cudaErrorInvalidValue for inputs the route does not take.
 extern "C" int grouped_matmul_dw(const void* x, const void* dy, void* dw,
                                  const void* offsets, const void* counts,
                                  int E, int Tp, int K, int N, int dtype,
-                                 void* stream) {
+                                 int route, void* stream) {
   if (E <= 0 || Tp <= 0 || K <= 0 || N <= 0 ||
       (K + kBM - 1) / kBM > 65535 || E > 65535)
     return (int)cudaErrorInvalidValue;
@@ -689,8 +862,9 @@ extern "C" int grouped_matmul_dw(const void* x, const void* dy, void* dw,
   const int* off = (const int*)offsets;
   const int* cnt = (const int*)counts;
   if (dtype == ptt::kFloat32)
-    return launch_dw<float>(x, dy, dw, off, cnt, E, Tp, K, N, st);
+    return launch_dw<float>(x, dy, dw, off, cnt, E, Tp, K, N, route, st);
   if (dtype == ptt::kBFloat16)
-    return launch_dw<__nv_bfloat16>(x, dy, dw, off, cnt, E, Tp, K, N, st);
+    return launch_dw<__nv_bfloat16>(x, dy, dw, off, cnt, E, Tp, K, N, route,
+                                    st);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,6 +34,11 @@
 //   1): A K-major as above, B [K, N 128] stored as two N-panels of 64 and
 //   read through `desc_sw128_mn`, as an N-contiguous weight [K, N] lands
 //   when its rows are copied 16 bytes at a time.
+// - `mma_m64n128k16_ss_tatb` transposes A too (`tnspA` = 1): A [K, M 64]
+//   is one such M-panel (M = 64 is one swizzle atom wide, so its LBO is
+//   never read), the same descriptor, as the columns of a row-major
+//   [rows, M] matrix land when the rows are the contraction (the grouped
+//   weight gradient's x). All three are `mma_m64n128k16_ss<TA, TB>`.
 // - `mma_m64n{64,128}k16_rs_tb` is the RS form with B transposed: A
 //   [64, 16] comes from registers, B through an MN-major descriptor
 //   (`tnspB` = 1). Thread t's four A registers hold, as bf16 pairs with
@@ -131,8 +136,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
-                                               uint64_t db, int scale_d) {
+// D[64, 128] (+)= A[64, 16] . B[16, 128] from shared memory (the SS form);
+// TA, TB: A, B read MN-major (the `tnspA`, `tnspB` immediates), else
+// K-major
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n128k16_ss(float (&d)[64],
+                                                  uint64_t da, uint64_t db,
+                                                  int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -146,7 +156,7 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -164,7 +174,13 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// both operands K-major
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  mma_m64n128k16_ss<0, 0>(d, da, db, scale_d);
 }
 
 // the SS product with B transposed: B [K 16, N 128] read MN-major through
@@ -173,38 +189,16 @@ __device__ __forceinline__ void mma_m64n128k16_ss_tb(float (&d)[64],
                                                      uint64_t da,
                                                      uint64_t db,
                                                      int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  mma_m64n128k16_ss<0, 1>(d, da, db, scale_d);
+}
+
+// the SS product with A and B both transposed (tnspA = tnspB = 1): A [K
+// 16, M 64] and B [K 16, N 128] each read MN-major through `desc_sw128_mn`
+__device__ __forceinline__ void mma_m64n128k16_ss_tatb(float (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  mma_m64n128k16_ss<1, 1>(d, da, db, scale_d);
 }
 
 __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t da,

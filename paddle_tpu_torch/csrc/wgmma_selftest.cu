@@ -42,8 +42,16 @@
 // with b row-major (the 128 columns contiguous), each 64-row slice of b
 // copied 16 bytes at a time into two 64-column panels and read MN-major
 // (`desc_sw128_mn`) by `mma_m64n128k16_ss_tb`. A wrong transpose flag,
-// panel step or swizzle moves outputs by their own size. No tile here is
-// on any model's path.
+// panel step or swizzle moves outputs by their own size.
+//
+// A sixth tile checks the SS product with A and B both transposed as the
+// grouped weight gradient uses it: out [128, 128] = a^T . b with a [K,
+// 128] and b [K, 128] row-major (the 128 columns contiguous: x and dy of
+// one group, the rows the contraction), each 64-row slice of each copied
+// into two 64-column panels; warpgroup g reads a's panel g MN-major as its
+// A [K, M 64] and all of b as B (`mma_m64n128k16_ss_tatb`). A wrong
+// transpose flag, panel or swizzle moves outputs by their own size. No
+// tile here is on any model's path.
 
 #include <stdint.h>
 #include <cuda_bf16.h>
@@ -350,6 +358,53 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+__global__ void __launch_bounds__(256)
+    ss_tatb_tile(const __nv_bfloat16* __restrict__ a,
+                 const __nv_bfloat16* __restrict__ b, float* __restrict__ out,
+                 int K) {
+  constexpr uint32_t kPanel = 64 * 128;   // [64 k, 64 m or n] of bf16
+  __shared__ __align__(1024) uint8_t sa[2 * kPanel];
+  __shared__ __align__(1024) uint8_t sb[2 * kPanel];
+  const int t = threadIdx.x, g = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 64) {
+    // row r of the slice is k0 + r; chunk c holds columns 8c .. 8c + 7
+    for (int q = t; q < 64 * 16; q += 256) {
+      const int r = q >> 4, c = q & 15;
+      const uint32_t off = (c >> 3) * kPanel + wg::sw128(r, c & 7);
+      wg::cp_async16(wg::smem_addr(sa) + off,
+                     a + (size_t)(k0 + r) * 128 + c * 8, true);
+      wg::cp_async16(wg::smem_addr(sb) + off,
+                     b + (size_t)(k0 + r) * 128 + c * 8, true);
+    }
+    wg::cp_async_commit();
+    wg::cp_async_wait<0>();
+    wg::fence_proxy_async();
+    __syncthreads();
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wg::mma_m64n128k16_ss_tatb(
+          acc,
+          wg::desc_sw128_mn(wg::smem_addr(sa) + g * kPanel + 2048 * j,
+                            kPanel),
+          wg::desc_sw128_mn(wg::smem_addr(sb) + 2048 * j, kPanel), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    __syncthreads();  // the next slice overwrites the tiles
+  }
+  const int r0 = g * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int row = r0 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    out[row * 128 + col] = acc[i];
+  }
+}
+
 }  // namespace
 
 // a [64, K] and b [128, K] bf16, scales [64, K / bk] float32, out [64, 128]
@@ -436,6 +491,19 @@ extern "C" int ss_tb_selftest(const void* a, const void* b, void* out, int K,
   if (K <= 0 || K % 64 || (uintptr_t)a % 16 || (uintptr_t)b % 16)
     return (int)cudaErrorInvalidValue;
   ss_tb_tile<<<1, 128, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)out, K);
+  return (int)cudaGetLastError();
+}
+
+// a [K, 128] and b [K, 128] bf16 (the 128 columns contiguous), out [128,
+// 128] float32, all contiguous with 16-byte aligned bases; K a multiple of
+// 64. out = a^T . b through the sixth tile above. Returns the CUDA error
+// code of the launch.
+extern "C" int ss_tatb_selftest(const void* a, const void* b, void* out,
+                                int K, void* stream) {
+  if (K <= 0 || K % 64 || (uintptr_t)a % 16 || (uintptr_t)b % 16)
+    return (int)cudaErrorInvalidValue;
+  ss_tatb_tile<<<1, 256, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)out, K);
   return (int)cudaGetLastError();
 }

@@ -9,11 +9,12 @@ runs over exactly its rows: no capacity buffer, no dropped route. The
 forward kernel (`_fwd_kernel`) and the weight-gradient kernel
 (`_dw_kernel`) are ``csrc/grouped_matmul.cu``; its note says what bounds
 them and how they are laid out. `gm_route` picks one of the forward's
-two kernels for a call: the tensor-core product ("wgmma"; float32 x and
-w each as three exact bf16 pieces, six piece products a step, bf16 as it
-is) or the CUDA-core tile ("cuda_core");
-``grouped_matmul_fwd.route_launches`` counts each beside
-``grouped_matmul_fwd.launches``. The routing stays on the card: the
+two kernels for a call, and `gm_dw_route` one of the weight gradient's:
+the tensor-core product ("wgmma"; float32 operands each as three exact
+bf16 pieces, six piece products a step, bf16 as it is) or the CUDA-core
+tile ("cuda_core"); ``grouped_matmul_fwd.route_launches`` and
+``grouped_matmul_dw.route_launches`` count each beside the wrappers'
+``launches``. The routing stays on the card: the
 metadata is built from one-hot cumsums in int32 (no sort, no host round
 trip), and the kernels read the group offsets and counts from device
 memory.
@@ -33,19 +34,20 @@ from . import _build
 __all__ = ["DEFAULT_BM", "default_block_m", "aligned_group_size",
            "grouped_metadata", "grouped_matmul", "grouped_matmul_fwd",
            "grouped_matmul_dw", "grouped_bias_grad", "gm_route",
-           "GM_ROUTES", "GM_WGMMA_BM", "GM_WGMMA_BLOCK_K"]
+           "gm_dw_route", "GM_ROUTES", "GM_WGMMA_BM", "GM_WGMMA_BLOCK_K"]
 
 # the CUDA kernels' row tile: a group aligned to it fills whole blocks
 DEFAULT_BM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the forward's kernels, as the C entry numbers them
+# the kernels of the forward and of the weight gradient, as the C entries
+# number them
 GM_ROUTES = ("cuda_core", "wgmma")
 _GM_ROUTE_CODE = {r: i for i, r in enumerate(GM_ROUTES)}
 GM_WGMMA_BM = 128          # the tensor-core kernel's token tile
 GM_WGMMA_BLOCK_K = 64      # and its stage along the contraction
 _SIG = {"grouped_matmul_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
-        "grouped_matmul_dw": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        "grouped_matmul_dw": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_void_p]}
 
 
@@ -203,6 +205,19 @@ def gm_route(dtype, k, n, bm, transpose_w, ptrs):
     return "cuda_core"
 
 
+def gm_dw_route(dtype, k, n, ptrs):
+    """The kernel a CUDA grouped_matmul_dw launches for x [Tp, k] and dy
+    [Tp, n]: "wgmma" (tensor cores: float32 as three exact bf16 pieces,
+    bf16 as it is) for float32 or bf16 whose rows split into whole 16-byte
+    chunks of bf16 (k % 8 == 0 and n % 8 == 0) with every pointer in
+    ``ptrs`` (x and dy) 16-byte aligned, else "cuda_core". bm plays no
+    part: a block reads its group's rows from the group's offset on."""
+    if (dtype in _DTYPE_CODE and k % 8 == 0 and n % 8 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "cuda_core"
+
+
 def grouped_matmul_fwd(x, w, b, offsets, counts, bm, transpose_w=False):
     """out[r] = x[r] . w[e(r)] (+ b[e(r)]) over each group's live tiles.
     x [Tp, K]; w [E, K, N] (or [E, N, K] read transposed when
@@ -257,7 +272,7 @@ def grouped_matmul_dw(x, dy, offsets, counts, bm, num_expert):
     """dw [E, K, N] float32 = per-expert x^T dy over each group's rows
     below its count (rows past it are never read). x [Tp, K], dy [Tp, N]
     of one dtype. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (or raises)."""
+    launches the kernel `gm_dw_route` picks (or raises)."""
     _check_layout(x, offsets, counts, num_expert, bm)
     if dy.dim() != 2 or dy.shape[0] != x.shape[0] or dy.dtype != x.dtype:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match "
@@ -273,19 +288,22 @@ def grouped_matmul_dw(x, dy, offsets, counts, bm, num_expert):
     n = dy.shape[1]
     dw = torch.empty((num_expert, k, n), dtype=torch.float32,
                      device=x.device)
+    route = gm_dw_route(x.dtype, k, n, (x.data_ptr(), dy.data_ptr()))
     lib = _build.load("grouped_matmul", _SIG)
     rc = lib.grouped_matmul_dw(
         x.data_ptr(), dy.data_ptr(), dw.data_ptr(), offsets.data_ptr(),
         counts.data_ptr(), num_expert, tp, k, n, _DTYPE_CODE[x.dtype],
-        _stream(x))
+        _GM_ROUTE_CODE[route], _stream(x))
     if rc:
-        raise RuntimeError(f"grouped_matmul_dw launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"grouped_matmul_dw launch failed ({route} "
+                           f"kernel): CUDA error {rc}")
     grouped_matmul_dw.launches += 1
+    grouped_matmul_dw.route_launches[route] += 1
     return dw
 
 
 grouped_matmul_dw.launches = 0
+grouped_matmul_dw.route_launches = dict.fromkeys(GM_ROUTES, 0)
 
 
 def grouped_backward(x, w, dy, offsets, counts, bm, has_bias):

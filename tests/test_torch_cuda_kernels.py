@@ -37,7 +37,8 @@ from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
                                             flash_attn_varlen_qkvpacked)
 from paddle_tpu_torch.kernels import grouped_matmul as gmm_mod
 from paddle_tpu_torch.kernels.grouped_matmul import (
-    _ref_dw, _ref_fwd, gm_route, grouped_matmul, grouped_matmul_dw,
+    _ref_dw, _ref_fwd, gm_dw_route, gm_route, grouped_matmul,
+    grouped_matmul_dw,
     grouped_matmul_fwd, grouped_metadata)
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import quant_matmul as qmm_mod
@@ -616,6 +617,8 @@ _SELFTEST_SIG = {"wgmma_selftest": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                  "split3_selftest": [ctypes.c_void_p] * 4
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p],
                  "ss_tb_selftest": [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                 + [ctypes.c_void_p],
+                 "ss_tatb_selftest": [ctypes.c_void_p] * 3 + [ctypes.c_int]
                  + [ctypes.c_void_p]}
 
 
@@ -1289,6 +1292,13 @@ def _grouped_inputs(dev, seed, t, k, n, e, bm, dtype, empty=None):
     return md, rnd(tp, k), rnd(e, k, n), rnd(e, n), rnd(tp, n)
 
 
+def _offset_view(t):
+    """A copy of t one element past a 16-byte boundary: the tensor-core
+    routes refuse it, so it takes the CUDA-core kernels."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    return flat[1:].view_as(t).copy_(t)
+
+
 def _grouped_close(out, ref, rows, bf16):
     o, r = out.float()[rows], ref.float()[rows]
     lim = 1e-5 * r.abs().max() + (2.0 ** -7 if bf16 else 1e-6) * r.abs()
@@ -1296,19 +1306,28 @@ def _grouped_close(out, ref, rows, bf16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,k,n,e,bm", [(300, 64, 96, 4, 8),
                                         (1000, 130, 36, 8, 128),
                                         (2048, 256, 512, 8, 128)])
-def test_grouped_kernels_match_plain(cuda_device, dtype, t, k, n, e, bm):
+def test_grouped_kernels_match_plain(cuda_device, dtype, t, k, n, e, bm,
+                                     layout):
     """Forward with and without bias, the transposed forward (dx) and dw,
-    on a skewed routing with one empty expert."""
+    on a skewed routing with one empty expert; with x and dy as views one
+    element off a 16-byte boundary ("offset") every launch takes the
+    CUDA-core kernels, dw's route counted."""
     md, x, w, b, dy = _grouped_inputs(cuda_device, t + k, t, k, n, e, bm,
                                       dtype, empty=1)
+    if layout == "offset":
+        x, dy = _offset_view(x), _offset_view(dy)
+    dw_route = gm_dw_route(dtype, k, n, (x.data_ptr(), dy.data_ptr()))
+    assert layout == "aligned" or dw_route == "cuda_core"
     off, cnt = md["offsets"], md["counts"]
     rows = md["dest"].long()
     bf16 = dtype == torch.bfloat16
     f0, d0 = grouped_matmul_fwd.launches, grouped_matmul_dw.launches
+    r0 = dict(grouped_matmul_dw.route_launches)
     for bias in (b, None):
         out = grouped_matmul_fwd(x, w, bias, off, cnt, bm)
         ref = _ref_fwd(x, w, bias, off, cnt, bm, dtype)
@@ -1325,15 +1344,25 @@ def test_grouped_kernels_match_plain(cuda_device, dtype, t, k, n, e, bm):
     _grouped_close(dw, ref, slice(None), False)
     assert grouped_matmul_fwd.launches == f0 + 3
     assert grouped_matmul_dw.launches == d0 + 1
+    assert grouped_matmul_dw.route_launches[dw_route] == r0[dw_route] + 1
 
 
 @pytest.mark.cuda
-def test_grouped_kernels_never_read_dead_rows(cuda_device):
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_grouped_kernels_never_read_dead_rows(cuda_device, layout):
     """NaN in every row that is not a route's (padding inside a group's
     last tile, whole tiles past the groups): the routed outputs equal the
-    clean run's, and dw stays finite and equal."""
+    clean run's, and dw stays finite and equal, on the tensor cores
+    ("aligned") and, with x and dy one element off a 16-byte boundary, on
+    the CUDA cores ("offset")."""
     md, x, w, b, dy = _grouped_inputs(cuda_device, 5, 700, 96, 160, 8, 128,
                                       torch.float32, empty=3)
+    if layout == "offset":
+        x, dy = _offset_view(x), _offset_view(dy)
+    dw_route = {"aligned": "wgmma", "offset": "cuda_core"}[layout]
+    assert gm_dw_route(x.dtype, 96, 160, (x.data_ptr(), dy.data_ptr())) \
+        == dw_route
+    r0 = grouped_matmul_dw.route_launches[dw_route]
     off, cnt = md["offsets"], md["counts"]
     valid = md["row_valid"]
     rows = md["dest"].long()
@@ -1344,6 +1373,7 @@ def test_grouped_kernels_never_read_dead_rows(cuda_device):
     out = grouped_matmul_fwd(x, w, b, off, cnt, 128)
     dw = grouped_matmul_dw(x, dy, off, cnt, 128, 8)
     torch.cuda.synchronize()
+    assert grouped_matmul_dw.route_launches[dw_route] == r0 + 2
     assert torch.equal(out[rows], clean[rows])
     assert torch.isfinite(dw).all() and torch.equal(dw, dw_clean)
 
@@ -2592,6 +2622,32 @@ def test_ss_tb_one_tile_matches_matmul(cuda_device, k):
         ((out.double() - ref).abs() / lim).max().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 256])
+def test_ss_tatb_one_tile_matches_matmul(cuda_device, k):
+    """csrc/wgmma.cuh's SS m64n128k16 with A and B both transposed on one
+    128 x 128 tile, as the grouped weight gradient uses it: a [K, 128]
+    and b [K, 128] with their columns contiguous, each 64-row slice copied
+    into two 64-column panels, warpgroup g reading a's panel g MN-major as
+    A and b as B, against float64 a^T b of the same bf16 values. The
+    products are exact, only the float32 sums differ: 1e-6 |ref| + 1e-5
+    of the largest output. A wrong transpose flag, panel or swizzle moves
+    outputs by their own size."""
+    rng = np.random.default_rng(k + 2)
+    a, b = (torch.from_numpy(rng.standard_normal((k, 128)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(2))
+    out = torch.empty(128, 128, device=cuda_device)
+    lib = _build.load("wgmma_selftest", _SELFTEST_SIG)
+    rc = lib.ss_tatb_selftest(a.data_ptr(), b.data_ptr(), out.data_ptr(), k,
+                              torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"CUDA error {rc}"
+    ref = torch.matmul(a.double().t(), b.double())
+    torch.cuda.synchronize()
+    lim = 1e-6 * ref.abs() + 1e-5 * ref.abs().max()
+    assert ((out.double() - ref).abs() <= lim).all(), \
+        ((out.double() - ref).abs() / lim).max().item()
+
+
 # -- the grouped forward on the tensor cores ------------------------------------
 #
 # `gm_route` sends float32 and bf16 with bm % 128 == 0, K % 64 == 0, N % 8
@@ -2755,6 +2811,147 @@ def test_grouped_wgmma_refuses_what_it_does_not_take(cuda_device):
             md["offsets"].data_ptr(), md["counts"].data_ptr(), 8, tp, 256, n,
             bm, 0, 0, 1, stream)
         assert rc == 1
+
+
+# -- the grouped weight gradient on the tensor cores ----------------------------
+#
+# `gm_dw_route` sends float32 and bf16 with K % 8 == 0, N % 8 == 0 and
+# 16-byte aligned x and dy to `grouped_dw_wgmma` at any bm: float32 x and
+# dy each as three exact bf16 pieces, six piece products a k16 step over
+# the group's rows, a float32 partial drained each 64-row stage. Held to
+# the plain version by the float32 rule (1e-6 |ref| + 1e-5 of the largest
+# output; over a group's thousands of rows the sums differ in order) and
+# in bf16 (exact products, float32 sums) by the same rule plus one bf16
+# ulp of the value, as the forward.
+
+
+def _dw_inputs(dev, seed, t, k, n, e, bm, dtype):
+    """_ragged_ids' routing (expert 2 empty, expert 5 one route), x [Tp,
+    k] unit normal and dy [Tp, n] at 0.02, zero on padding rows."""
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(_ragged_ids(rng, t, e, 2, 5)).to(dev)
+    md = grouped_metadata(ids, e, bm)
+    tp = md["row_src"].shape[0]
+    live = md["row_valid"][:, None]
+
+    def rnd(scale, cols):
+        v = torch.from_numpy((rng.standard_normal((tp, cols)) * scale)
+                             .astype(np.float32)).to(dev)
+        return torch.where(live, v, 0.0).to(dtype)
+    return md, rnd(1.0, k), rnd(0.02, n)
+
+
+def _dw_call(md, x, dy, bm):
+    return grouped_matmul_dw(x, dy, md["offsets"], md["counts"], bm,
+                             md["counts"].shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [128, 64])
+@pytest.mark.parametrize("k,n", [(768, 3072), (3072, 768), (136, 520)])
+def test_grouped_dw_wgmma_matches_plain(cuda_device, dtype, bm, k, n):
+    """The weight gradient on the tensor cores, 6000 routes over 8 experts
+    with an empty one and a one-row one, at the MoE layer's widths and at
+    odd multiples of 8 (tiles past K and N), in groups aligned to 128 and
+    to 64 rows: the empty expert's dw is zeros, the rest within the
+    rule."""
+    md, x, dy = _dw_inputs(cuda_device, k + n + bm, 6000, k, n, 8, bm, dtype)
+    assert gm_dw_route(dtype, k, n, (x.data_ptr(), dy.data_ptr())) == \
+        "wgmma"
+    r0 = dict(grouped_matmul_dw.route_launches)
+    dw = _dw_call(md, x, dy, bm)
+    ref = _ref_dw(x, dy, md["offsets"], md["counts"], bm, 8)
+    torch.cuda.synchronize()
+    assert grouped_matmul_dw.route_launches["wgmma"] == r0["wgmma"] + 1
+    assert dw.dtype == torch.float32 and tuple(dw.shape) == (8, k, n)
+    assert md["counts"][2] == 0 and (dw[2] == 0).all()
+    _grouped_close(dw, ref, slice(None), dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_dw_wgmma_padding_and_repeat(cuda_device, dtype):
+    """Two launches give the same bits; NaN in every row that is not a
+    route's, in x and dy, leaves dw bit for bit as it was (those rows are
+    never read), the empty expert's zeros included."""
+    md, x, dy = _dw_inputs(cuda_device, 51, 3000, 264, 392, 8, 128, dtype)
+    clean = _dw_call(md, x, dy, 128)
+    again = _dw_call(md, x, dy, 128)
+    dead = ~md["row_valid"]
+    xp, dyp = x.clone(), dy.clone()
+    xp[dead] = float("nan")
+    dyp[dead] = float("nan")
+    poisoned = _dw_call(md, xp, dyp, 128)
+    torch.cuda.synchronize()
+    assert dead.sum() > 0
+    assert torch.equal(clean, again)
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
+    assert (poisoned[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_dw_wgmma_non_finite_as_plain(cuda_device, dtype):
+    """+inf in a live row of x, NaN in a live row of dy, and -inf in one
+    entry of each: inf, -inf and NaN in the places the plain version gives
+    them, every finite output within the rule. A split puts inf whole into
+    hi, so a cross product would give inf x 0 = NaN where the float32
+    product is inf; the kernel redoes such a tile in float32 FMAs."""
+    md, x, dy = _dw_inputs(cuda_device, 61, 3000, 256, 264, 8, 128, dtype)
+    rows = md["dest"].long()
+    x[rows[5]] = float("inf")
+    x[rows[40], 3] = float("-inf")
+    dy[rows[9]] = float("nan")
+    dy[rows[70], 17] = float("-inf")
+    dw = _dw_call(md, x, dy, 128)
+    ref = _ref_dw(x, dy, md["offsets"], md["counts"], 128, 8)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    assert (~fin).sum() > 256 and torch.isnan(ref).any()
+    assert torch.isinf(ref).any()
+    assert torch.equal(torch.isnan(dw), torch.isnan(ref))
+    assert torch.equal(dw[~fin].nan_to_num(0.0), ref[~fin].nan_to_num(0.0))
+    _grouped_close(torch.where(fin, dw, 0.0), torch.where(fin, ref, 0.0),
+                   slice(None), dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_grouped_dw_wgmma_refuses_what_it_does_not_take(cuda_device,
+                                                        monkeypatch):
+    """x 4 bytes off a 16-byte boundary and a K off a multiple of 8 route
+    to "cuda_core", right all the same; the C entry refuses the
+    tensor-core route for them (error 1), and a wrapper made to ask for it
+    raises instead of computing on another kernel."""
+    md, x, dy = _dw_inputs(cuda_device, 7, 1500, 256, 128, 8, 128,
+                           torch.float32)
+    flat = torch.empty(1 + x.numel(), device=cuda_device)
+    xo = flat[1:].view_as(x)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 == 4
+    x130 = torch.randn(x.shape[0], 130, device=cuda_device)
+    lib = _build.load("grouped_matmul", gmm_mod._SIG)
+    stream = torch.cuda.current_stream().cuda_stream
+    for xx in (xo, x130):
+        k = xx.shape[1]
+        assert gm_dw_route(xx.dtype, k, 128,
+                           (xx.data_ptr(), dy.data_ptr())) == "cuda_core"
+        r0 = grouped_matmul_dw.route_launches["cuda_core"]
+        dw = _dw_call(md, xx, dy, 128)
+        assert grouped_matmul_dw.route_launches["cuda_core"] == r0 + 1
+        _grouped_close(dw, _ref_dw(xx, dy, md["offsets"], md["counts"], 128,
+                                   8), slice(None), False)
+        dst = torch.empty(8, k, 128, device=cuda_device)
+        rc = lib.grouped_matmul_dw(
+            xx.data_ptr(), dy.data_ptr(), dst.data_ptr(),
+            md["offsets"].data_ptr(), md["counts"].data_ptr(), 8,
+            xx.shape[0], k, 128, 0, 1, stream)
+        assert rc == 1
+    monkeypatch.setattr(gmm_mod, "gm_dw_route", lambda *args: "wgmma")
+    n0 = grouped_matmul_dw.launches
+    with pytest.raises(RuntimeError, match="wgmma kernel"):
+        _dw_call(md, x130, dy, 128)
+    assert grouped_matmul_dw.launches == n0
 
 
 # -- the decoders' routes ---------------------------------------------------------

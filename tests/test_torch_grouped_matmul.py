@@ -19,8 +19,10 @@ The tensor-core forward's arithmetic (float32 x and w each split into
 three exact bf16 pieces, six piece products a k16 step, a float32 partial
 drained each 64-deep stage) is emulated here and held to the JAX kernel
 in interpret mode against the float32 rule, 1e-6 |ref| + 1e-5 of the
-largest output. The CUDA kernels are held against the plain versions on
-the card by tests/test_torch_cuda_kernels.py.
+largest output; so is the weight gradient's (x and dy split, the
+contraction over a group's rows in 64-row stages). The CUDA kernels are
+held against the plain versions on the card by
+tests/test_torch_cuda_kernels.py.
 """
 import numpy as np
 import pytest
@@ -34,8 +36,8 @@ from paddle_tpu.kernels.pallas import grouped_matmul as jgm
 from paddle_tpu_torch.kernels.grouped_matmul import (
     DEFAULT_BM, GM_ROUTES, _ref_fwd, _row_experts, _tile_experts,
     aligned_group_size,
-    default_block_m, gm_route, grouped_bias_grad, grouped_matmul,
-    grouped_matmul_dw, grouped_matmul_fwd, grouped_metadata)
+    default_block_m, gm_dw_route, gm_route, grouped_bias_grad,
+    grouped_matmul, grouped_matmul_dw, grouped_matmul_fwd, grouped_metadata)
 from paddle_tpu_torch.kernels.quant_matmul import split3_bf16
 
 REL_TOL = 1e-5
@@ -491,3 +493,183 @@ def test_cpu_calls_count_no_route():
                        tmd["offsets"], tmd["counts"], 16)
     assert (grouped_matmul_fwd.launches,
             grouped_matmul_fwd.route_launches) == before
+
+
+# -- the tensor-core weight gradient's arithmetic -------------------------------
+
+def _dw_wgmma_emulation(x, dy, offsets, counts, num_expert, drain=True,
+                        rounding="nearest"):
+    """The tensor-core weight gradient's sum on the CPU: x [Tp, K] and dy
+    [Tp, N] each split into hi, mid and lo (split3_bf16); each group's
+    rows [offsets[e], offsets[e] + counts[e]) in 64-row stages (rows past
+    the count zero, never read); each k16 step (16 rows) adds the six
+    products x_a^T dy_b in order, each product's 16 terms exact
+    (float64), into a float32 partial that starts at zero each stage and
+    is then added to the float32 accumulator (drain False: straight into
+    the accumulator). Each product's sum into its target rounds to
+    nearest or, the model of a truncating adder, toward zero. float32
+    [E, K, N], zero for an empty group."""
+    k, n = x.shape[1], dy.shape[1]
+    out = torch.zeros(num_expert, k, n)
+    xs = [p.double() for p in split3_bf16(x)]
+    ys = [p.double() for p in split3_bf16(dy)]
+    with _one_thread():
+        for e in range(num_expert):
+            r0, c = int(offsets[e]), int(counts[e])
+            stages = -(-c // 64)
+
+            def rows(p):        # [stages, 4 k16 steps, 16 rows, columns]
+                v = torch.zeros(stages * 64, p.shape[1], dtype=p.dtype)
+                v[:c] = p[r0:r0 + c]
+                return v.reshape(stages, 4, 16, p.shape[1])
+            xp = torch.stack([rows(p) for p in xs])
+            yp = torch.stack([rows(p) for p in ys])
+            acc = torch.zeros(k, n)
+            for st in range(stages):
+                # every piece product of the stage's four k16 steps, exact
+                prods = torch.einsum("ajrk,bjrn->jabkn", xp[:, st],
+                                     yp[:, st])
+                tgt = torch.zeros_like(acc) if drain else acc
+                for j in range(4):
+                    for a, b in SIX:
+                        v = tgt.double() + prods[j, a, b]
+                        tgt = (_toward_zero(v) if rounding == "toward_zero"
+                               else v.float())
+                acc = acc + tgt if drain else tgt
+            out[e] = acc
+    return out
+
+
+# a group of 4,200 rows (65 stages and a partial one of 40 rows), an empty
+# group, and groups of 300 and 1,000 rows (not multiples of 64)
+DW_COUNTS = (4200, 0, 300, 1000)
+
+
+def _dw_operands(seed, k=128, n=128):
+    """(jax metadata, torch metadata, x, dy, w) as numpy float32 at bm 128
+    for DW_COUNTS: x unit normal, dy at 0.02 (the MoE layer's scales), w
+    for the JAX forward; padding rows zero in x and dy (the JAX dw kernel
+    masks x's and multiplies dy's unmasked)."""
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(np.arange(len(DW_COUNTS)), DW_COUNTS).astype(np.int32)
+    ids = rng.permutation(ids)
+    jmd = jgm.grouped_metadata(jnp.asarray(ids), E, 128)
+    tmd = grouped_metadata(torch.from_numpy(ids), E, 128)
+    live = (np.asarray(jmd["row_src"]) >= 0)[:, None]
+    tp = live.shape[0]
+    x = np.where(live, rng.standard_normal((tp, k)), 0).astype(np.float32)
+    dy = np.where(live, rng.standard_normal((tp, n)) * 0.02,
+                  0).astype(np.float32)
+    w = (rng.standard_normal((E, k, n)) * 0.02).astype(np.float32)
+    return jmd, tmd, x, dy, w
+
+
+def _exact_dw(x, dy, tmd):
+    """x^T dy over each group's rows in float64 (its products exact)."""
+    out = np.zeros((E, x.shape[1], dy.shape[1]))
+    for e, (r0, c) in enumerate(zip(tmd["offsets"].tolist(),
+                                    tmd["counts"].tolist())):
+        out[e] = x[r0:r0 + c].astype(np.float64).T @ dy[r0:r0 + c]
+    return out
+
+
+def test_dw_six_products_meet_the_float32_rule():
+    """The tensor-core weight gradient's sum (x and dy split, six piece
+    products a k16 step, the partial drained each 64-row stage) over a
+    group of 4,200 rows, an empty group and groups of 300 and 1,000 rows,
+    against the JAX `_dw_kernel` in interpret mode, reached through
+    jax.vjp of grouped_matmul(impl="kernel"), and against the port's
+    plain version: measured 0.037 of the float32 rule against each (the
+    two float32 references agree bit for bit here), 0.027 against the
+    float64 sum."""
+    jmd, tmd, x, dy, w = _dw_operands(seed=1)
+    assert tuple(np.asarray(jmd["counts"])) == DW_COUNTS
+
+    def fwd(x, w):
+        return jgm.grouped_matmul(x, w, None, group_offsets=jmd["offsets"],
+                                  group_counts=jmd["counts"], bm=128,
+                                  bn=128, impl="kernel")
+    _, vjp = jax.vjp(fwd, jnp.asarray(x), jnp.asarray(w))
+    ref = np.asarray(vjp(jnp.asarray(dy))[1])
+    tx, tdy = torch.from_numpy(x), torch.from_numpy(dy)
+    assert gm_dw_route(torch.float32, x.shape[1], dy.shape[1], (0, 0)) \
+        == "wgmma"
+    emu = _dw_wgmma_emulation(tx, tdy, tmd["offsets"], tmd["counts"],
+                              E).numpy()
+    assert (emu[1] == 0).all() and (ref[1] == 0).all()
+    share = _share(emu, ref)
+    assert share < 0.3, share
+    plain = grouped_matmul_dw(tx, tdy, tmd["offsets"], tmd["counts"], 128,
+                              E).numpy()
+    assert _share(emu, plain) < 0.3
+    assert _share(plain, ref) < 0.3
+
+
+def test_dw_truncating_adder_needs_the_drain():
+    """Why the weight gradient drains its partial each stage: with every
+    product's sum rounded toward zero (the tensor cores' truncating
+    adder), the six products added straight into one accumulator over the
+    group of 4,200 rows miss the float32 rule (measured 3.85 of it),
+    while a partial that restarts each 64-row stage and is added in
+    float32 stays inside it (measured 0.084). Rounded to nearest, both
+    pass (0.13 and 0.024)."""
+    _, tmd, x, dy, _ = _dw_operands(seed=2)
+    exact = _exact_dw(x, dy, tmd)
+    tx, tdy = torch.from_numpy(x), torch.from_numpy(dy)
+    shares = {(drain, r): _share(_dw_wgmma_emulation(
+        tx, tdy, tmd["offsets"], tmd["counts"], E, drain, r).numpy(), exact)
+        for drain in (False, True) for r in ("nearest", "toward_zero")}
+    assert shares[(False, "toward_zero")] > 1.0, shares
+    assert shares[(True, "toward_zero")] < 0.3, shares
+    assert shares[(False, "nearest")] < 0.3, shares
+    assert shares[(True, "nearest")] < 0.3, shares
+
+
+def test_dw_split_cross_products_turn_inf_into_nan():
+    """The weight gradient's hazard is the forward's: an inf in a live row
+    of x goes whole into hi with mid = lo = 0, so where dy is exact in
+    bf16 the cross product (hi, mid) is inf x 0 = NaN where the float32
+    product is inf. The kernel redoes such a tile in float32 FMAs (held on
+    the card by tests/test_torch_cuda_kernels.py::
+    test_grouped_dw_wgmma_non_finite_as_plain)."""
+    _, tmd, x, dy, _ = _dw_operands(seed=3, k=64, n=64)
+    dy = torch.from_numpy(dy).to(torch.bfloat16).float()  # exact in bf16
+    x = torch.from_numpy(x.copy())
+    row = int(tmd["offsets"][2]) + 7                  # a row of group 2
+    x[row, 5] = float("inf")
+    plain = grouped_matmul_dw(x, dy, tmd["offsets"], tmd["counts"], 128, E)
+    emu = _dw_wgmma_emulation(x, dy, tmd["offsets"], tmd["counts"], E)
+    assert torch.isinf(plain[2, 5]).all()
+    assert torch.isnan(emu[2, 5]).all()
+    assert torch.isfinite(emu[[0, 3]]).all()
+
+
+@pytest.mark.parametrize("dtype,k,n,ptrs,route", [
+    (torch.float32, 768, 3072, (0, 16), "wgmma"),     # the MoE up product
+    (torch.float32, 3072, 768, (0, 0), "wgmma"),      # and its down one
+    (torch.bfloat16, 768, 3072, (32, 4096), "wgmma"),
+    (torch.float32, 136, 264, (0, 0), "wgmma"),       # odd multiples of 8
+    (torch.float32, 130, 256, (0, 0), "cuda_core"),   # K % 8
+    (torch.bfloat16, 256, 100, (0, 0), "cuda_core"),  # N % 8
+    (torch.float32, 256, 256, (4, 0), "cuda_core"),   # x off 16 bytes
+    (torch.bfloat16, 256, 256, (0, 8), "cuda_core"),  # dy off 16 bytes
+    (torch.float16, 256, 256, (0, 0), "cuda_core"),
+    (torch.float64, 256, 256, (0, 0), "cuda_core"),
+])
+def test_gm_dw_route(dtype, k, n, ptrs, route):
+    assert gm_dw_route(dtype, k, n, ptrs) == route
+    assert route in GM_ROUTES
+
+
+def test_dw_cpu_calls_count_no_route():
+    """A CPU tensor takes the weight gradient's plain version: no launch,
+    no route, at bm 128 and 64 alike."""
+    before = (grouped_matmul_dw.launches,
+              dict(grouped_matmul_dw.route_launches))
+    for bm in (128, 64):
+        _, tmd, buf, _, _ = _operands(_ids("random"), bm)
+        x = torch.from_numpy(buf)
+        grouped_matmul_dw(x, x[:, :8].contiguous(), tmd["offsets"],
+                          tmd["counts"], bm, E)
+    assert (grouped_matmul_dw.launches,
+            grouped_matmul_dw.route_launches) == before
