@@ -71,6 +71,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the flash kernels and again with the plain attention: losses and the
    first step's gradients must agree, every forward and backward on the
    CUDA cores;
+7b. GPT-2 124M pretraining (benchmarks/gpt2_dp.py on its chip): the flash
+   forward and backward at its shape (bf16, BH 96, S 1024, D 64, causal)
+   against their plain versions on the tensor cores, timed beside SDPA;
+   train_gpt2: 12 layers, hidden 768, 12 heads of dim 64, vocab 50257,
+   dropout 0.1 (masks from the model's CUDA generator), bf16, batch 8 x
+   1024, AdamW at lr 1e-4 through TrainStep with CrossEntropyLoss on
+   float32 logits, 2 warm-up and 10 timed steps: s per step, tokens/s,
+   MFU, peak memory, losses finite and falling, 12 flash forwards and 12
+   backwards a step, every one on the tensor cores and none on the plain
+   route; train_gpt2_sched: the same model for 1 + 5 steps under
+   ClipGradByGlobalNorm(1.0) and LinearWarmup over CosineAnnealingDecay
+   (each step's optimizer must read the scheduled rate), s per step beside
+   train_gpt2's; train_gpt2_parity: 2 layers at GPT-2 widths in float32,
+   dropout 0, with the flash kernels (CUDA cores) and with the plain
+   attention: losses and the first step's gradients must agree;
 8. the card's L2 read rate (a probe kernel reading an L2-resident buffer
    over and over), then the MoE training path's kernels (the grouped
    forward, also as the input gradient against w^T read in place, the
@@ -187,7 +202,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    generate of phase 5 for the flash forward's tensor-core kernel,
    train_parity for its CUDA-core kernel, the train of phase 6 for the
    flash backward's tensor-core pair and train_parity for its CUDA-core
-   pair, serve_quant
+   pair, train_gpt2 for both at D 64, serve_quant
    for quant_matmul's two GEMVs and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, train_moe for the grouped
    forward and the dw kernel on the tensor cores, train_moe_quant_bm64
@@ -211,7 +226,8 @@ at 1, 2, 4 and 8), then exit.
 
 With --profile, short full-width serves (plain, serve_quant's and
 serve_long's engines), two train steps, two train_moe steps and three
-passes of each packed-attention path and of rowwise_attn also run under
+passes of each packed-attention path and of rowwise_attn, and two
+train_gpt2 steps, also run under
 torch.profiler, and one more line for each gives the device time by
 kernel (for a serve also every kernel of the port's own, whatever its
 rank) and the device's idle share. With --parent too, serve_long's
@@ -2072,17 +2088,22 @@ def train_phase(torch, np, seed):
     return rec
 
 
-def train_profile_phase(torch, np, seed, steps=2):
-    """--profile only: `steps` train steps at the train phase's shapes, run
-    once plainly for their wall time and once under torch.profiler for the
-    device time by kernel, grouped into the flash kernels, matrix products
+def train_profile_phase(torch, np, seed, steps=2, phase="train_profile",
+                        build=None):
+    """--profile only: `steps` train steps at the train phase's shapes (or
+    those `build(seed)` gives: model, step, ids, labels), run once plainly
+    for their wall time and once under torch.profiler for the device time
+    by kernel, grouped into the flash kernels, matrix products
     (cuBLAS/CUTLASS GEMMs) and the rest (element-wise, reductions,
     AdamW)."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = train_config()
-    model, step = make_train_step(torch, cfg, seed)
-    ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
-                              TRAIN_BATCH, TRAIN_SEQ)
+    if build is None:
+        cfg = train_config()
+        model, step = make_train_step(torch, cfg, seed)
+        ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                                  TRAIN_BATCH, TRAIN_SEQ)
+    else:
+        model, step, ids, labels = build(seed)
     step((ids,), (labels,))                               # warm up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2107,7 +2128,7 @@ def train_profile_phase(torch, np, seed, steps=2):
             groups["gemm"] += us / 1e6
         else:
             groups["other"] += us / 1e6
-    rec = {"phase": "train_profile", "steps": steps, "wall_s": wall,
+    rec = {"phase": phase, "steps": steps, "wall_s": wall,
            "s_per_step": wall / steps,
            "device_busy_s": busy_s if rows else "not measured",
            "device_idle_share": 1 - busy_s / wall if rows
@@ -2174,6 +2195,228 @@ def train_parity_phase(torch, np, seed):
     rec = {"phase": "train_parity", "dtype": "float32", "layers": 2,
            "hidden": 512, "heads": 4, "seq": 256, "batch": 2,
            "steps": PARITY_STEPS, "losses_flash": fl, "losses_plain": pl_,
+           "max_loss_rel_diff": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
+           "max_grad_diff_over_max": grad_rel,
+           "grad_atol_of_max": PARITY_GRAD_ATOL,
+           "flash_fwd_launches": ff, "flash_bwd_launches": fb,
+           "flash_fwd_route_launches": fwd_routes,
+           "flash_bwd_route_launches": routes}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 7b: GPT-2 124M pretraining (benchmarks/gpt2_dp.py) -----------------
+
+GPT2_BATCH, GPT2_SEQ = 8, 1024   # benchmarks/gpt2_dp.py:22 on its chip
+GPT2_SCHED_STEPS = 5
+GPT2_PARITY_LAYERS, GPT2_PARITY_BATCH = 2, 2
+
+
+def gpt2_config(**overrides):
+    """benchmarks/gpt2_dp.py:40-45 on its chip: GPT-2 124M at the GPT-2
+    vocabulary of 50257 (not gpt2_124m's 50304), bf16, dropout 0.1."""
+    from paddle_tpu_torch.models.gpt import gpt2_124m
+    kw = dict(vocab_size=50257, dtype="bfloat16")
+    kw.update(overrides)
+    return gpt2_124m(**kw)
+
+
+def gpt2_loss(logits, labels):
+    """The benchmark's loss_fn: CrossEntropyLoss on the flattened float32
+    logits."""
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    v = logits.shape[-1]
+    return CrossEntropyLoss()(logits.reshape(-1, v).float(),
+                              labels.reshape(-1))
+
+
+def make_gpt2_step(torch, cfg, seed, lr=1e-4, **opt_kw):
+    """The benchmark's model (built with no device: the card), AdamW and
+    TrainStep; weights, then dropout masks, from a seeded CUDA
+    generator."""
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    model = GPTForCausalLM(cfg, generator=gen)
+    check(model.device.type == "cuda", f"GPTForCausalLM built on "
+                                       f"{model.device}, not the card")
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(), **opt_kw)
+    return model, TrainStep(model, gpt2_loss, opt)
+
+
+def gpt2_batch(torch, np, seed, cfg, batch=GPT2_BATCH, seq=GPT2_SEQ):
+    return train_batch(torch, np, seed, cfg.vocab_size, batch, seq)
+
+
+def train_gpt2_phase(torch, np, seed, phase="train_gpt2", sched=False,
+                     beside=None):
+    """The benchmark's training: GPT-2 124M (12 layers, hidden 768, 12
+    heads of dim 64, FFN 3072, vocab 50257, dropout 0.1, bf16), batch 8 x
+    1024, AdamW at lr 1e-4 under TrainStep, 2 warm-up and 10 timed steps:
+    s per step, tokens/s, MFU (the tied head counted once), peak memory,
+    losses (finite and falling) and the flash launches by route: forward
+    and backward each 12 x steps, all on the tensor cores, and no
+    attention call on the plain route. With ``sched`` (train_gpt2_sched):
+    1 warm-up and 5 timed steps under ClipGradByGlobalNorm(1.0) and
+    LinearWarmup over CosineAnnealingDecay, stepped after each train step,
+    checking that each step's optimizer read the scheduled rate."""
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.observability import model_flops_per_token
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    cfg = gpt2_config()
+    reads = []
+    if sched:
+        class ReadLog(lr_mod.LinearWarmup):
+            """LinearWarmup that records every rate read from it."""
+
+            def __call__(self):
+                reads.append(super().__call__())
+                return reads[-1]
+
+        schedule = ReadLog(lr_mod.CosineAnnealingDecay(1e-4, T_max=10), 2,
+                           1e-5, 1e-4)
+        model, step = make_gpt2_step(torch, cfg, seed, lr=schedule,
+                                     grad_clip=ClipGradByGlobalNorm(1.0))
+        warmup, timed = 1, GPT2_SCHED_STEPS
+    else:
+        model, step = make_gpt2_step(torch, cfg, seed)
+        warmup, timed = TRAIN_WARMUP, TRAIN_TIMED
+    n_params = sum(p.numel() for p in model.parameters())
+    ids, labels = gpt2_batch(torch, np, seed + 3, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+    zero_attention_routes()
+    losses, expected = [], []
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step((ids,), (labels,)))
+        if sched:
+            expected.append(schedule.last_lr)
+            schedule.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = _flash_bhsd.launches, _flash_bhsd_bwd.launches
+    fwd_routes = dict(_flash_bhsd.route_launches)
+    routes = dict(_flash_bhsd_bwd.route_launches)
+    attn_routes = attention_routes_without_plain(phase)
+    losses = [x.item() for x in losses]
+    n = warmup + timed
+    check(all(math.isfinite(x) for x in losses),
+          f"{phase}: non-finite loss {losses}")
+    layers = cfg.num_hidden_layers
+    check(fwd == layers * n and bwd == layers * n,
+          f"{phase}: flash launches fwd {fwd}, bwd {bwd} != {layers} "
+          f"layers x {n} steps")
+    check(fwd_routes["wgmma"] == fwd and routes["wgmma"] == bwd,
+          f"{phase}: every GPT-2 attention runs on the tensor cores: "
+          f"{fwd_routes}, {routes}")
+    if sched:
+        # one read per step, inside its optimizer step, of the rate the
+        # schedule held then (warm-up, then the cosine)
+        check(reads == expected and len(set(expected)) == warmup + timed,
+              f"{phase}: the optimizer read {reads}, the schedule gave "
+              f"{expected}")
+    else:
+        check(losses[-1] < losses[0], f"{phase}: the loss did not fall: "
+                                      f"{losses}")
+    tokens = GPT2_BATCH * GPT2_SEQ
+    tps = tokens * timed / wall
+    flops_tok = model_flops_per_token(cfg, GPT2_SEQ, n_params)
+    rec = {"phase": phase, "model": "benchmarks/gpt2_dp.py GPT-2 124M, "
+                                    "random weights",
+           "dtype": cfg.dtype, "layers": layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads, "head_dim": cfg.head_dim,
+           "ffn": cfg.intermediate_size, "vocab": cfg.vocab_size,
+           "dropout": cfg.dropout, "params": n_params,
+           "batch": GPT2_BATCH, "seq": GPT2_SEQ,
+           "optimizer": ("AdamW, ClipGradByGlobalNorm(1.0), LinearWarmup "
+                         "over CosineAnnealingDecay" if sched
+                         else "AdamW lr 1e-4"),
+           "warmup_steps": warmup, "timed_steps": timed,
+           "wall_s": wall, "s_per_step": wall / timed,
+           "tokens_per_s": tps, "model_flops_per_token": flops_tok,
+           "mfu": flops_tok * tps / BF16_FLOPS, "losses": losses,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+           "flash_fwd_route_launches": fwd_routes,
+           "flash_bwd_route_launches": routes,
+           "attention_route_launches": attn_routes}
+    if sched:
+        rec["lr_read_per_step"] = reads
+        rec["train_gpt2_s_per_step"] = beside
+    emit(rec)
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gpt2_profile_build(torch, np):
+    def build(seed):
+        cfg = gpt2_config()
+        model, step = make_gpt2_step(torch, cfg, seed)
+        ids, labels = gpt2_batch(torch, np, seed + 3, cfg)
+        return model, step, ids, labels
+    return build
+
+
+def train_gpt2_parity_phase(torch, np, seed):
+    """GPT-2 at its widths (hidden 768, 12 heads of dim 64, vocab 50257),
+    2 layers, float32, dropout 0, batch 2 x 1024, TF32 off: 3 steps with
+    the flash kernels (float32 takes their CUDA-core route) and again with
+    the plain attention (use_flash_attention=False), from the same
+    weights: losses to 1e-5 relative, the first step's gradients to 1e-4
+    of each one's largest element (summation order only)."""
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for flash in (True, False):
+        cfg = gpt2_config(num_hidden_layers=GPT2_PARITY_LAYERS,
+                          dtype="float32", dropout=0.0,
+                          use_flash_attention=flash)
+        ids, labels = gpt2_batch(torch, np, seed + 4, cfg,
+                                 batch=GPT2_PARITY_BATCH)
+        model, step = make_gpt2_step(torch, cfg, seed + 5)
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+        losses, grads = [], None
+        for i in range(PARITY_STEPS):
+            losses.append(step((ids,), (labels,)).item())
+            if i == 0:
+                grads = {k: p.grad.clone()
+                         for k, p in model.named_parameters()}
+        runs[flash] = (losses, grads, _flash_bhsd.launches,
+                       _flash_bhsd_bwd.launches,
+                       dict(_flash_bhsd.route_launches),
+                       dict(_flash_bhsd_bwd.route_launches))
+        del model, step
+    (fl, fg, ff, fb, fwd_routes, routes), (pl_, pg, pf, pb, _, _) = \
+        runs[True], runs[False]
+    n = GPT2_PARITY_LAYERS * PARITY_STEPS
+    check(ff == fb == n and pf == pb == 0,
+          f"train_gpt2_parity: flash launches: kernels run {ff}/{fb}, plain "
+          f"run {pf}/{pb}")
+    check(fwd_routes["cuda_core"] == ff and routes["cuda_core"] == fb,
+          f"train_gpt2_parity: float32 runs on the CUDA cores: "
+          f"{fwd_routes}, {routes}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fl, pl_))
+    grad_rel = max(((fg[k] - pg[k]).abs().max()
+                    / pg[k].abs().max()).item() for k in pg)
+    check(loss_rel <= PARITY_LOSS_RTOL and grad_rel <= PARITY_GRAD_ATOL,
+          f"train_gpt2_parity: loss rel {loss_rel}, step-1 grad {grad_rel} "
+          f"of the largest element")
+    rec = {"phase": "train_gpt2_parity", "dtype": cfg.dtype,
+           "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads, "head_dim": cfg.head_dim,
+           "vocab": cfg.vocab_size, "seq": ids.shape[1],
+           "batch": ids.shape[0], "steps": PARITY_STEPS,
+           "losses_flash": fl, "losses_plain": pl_,
            "max_loss_rel_diff": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
            "max_grad_diff_over_max": grad_rel,
            "grad_atol_of_max": PARITY_GRAD_ATOL,
@@ -4953,6 +5196,26 @@ def main():
         train_profile_phase(torch, np, args.seed)
     train_parity = train_parity_phase(torch, np, args.seed)
 
+    # GPT-2 124M: the flash kernels at the shape its training gives them
+    # (bf16, batch 8 x 12 heads, S 1024, D 64, causal) on the tensor cores,
+    # then the benchmark's training, with clipping and a schedule, and
+    # its float32 parity
+    fwd_gpt2 = flash_case(torch, "gpt2_bh96_s1024_d64_causal", 96, 1024, 64,
+                          True, 10)
+    bwd_gpt2 = flash_bwd_case(torch, "gpt2_bh96_s1024_d64_causal", 96,
+                              1024, 64, True, 11)
+    for rec in (fwd_gpt2, bwd_gpt2):
+        check(rec["route"] == "wgmma", f"{rec['kernel']} {rec['case']}: "
+                                       f"routed to {rec['route']}")
+    train_gpt2 = train_gpt2_phase(torch, np, args.seed + 30)
+    if args.profile:
+        train_profile_phase(torch, np, args.seed + 30,
+                            phase="train_gpt2_profile",
+                            build=gpt2_profile_build(torch, np))
+    train_gpt2_phase(torch, np, args.seed + 30, phase="train_gpt2_sched",
+                     sched=True, beside=train_gpt2["s_per_step"])
+    train_gpt2_parity_phase(torch, np, args.seed + 31)
+
     # the MoE training path: its kernels at train_moe's shapes, then the
     # full-width GPT-MoE, its int8-expert lane and the dispatch parity
     gq_parent = gm_parent = None
@@ -5060,6 +5323,10 @@ def main():
              "paddle_tpu/kernels/pallas/flash_attention.py:135, :220",
              fwd_main, train["flash_fwd_route_launches"]["wgmma"]
              + gen["flash_route_launches"]["wgmma"]),
+            ("flash_attention_fwd_wgmma_d64",
+             "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+             "paddle_tpu/kernels/pallas/flash_attention.py:135",
+             fwd_gpt2, train_gpt2["flash_fwd_route_launches"]["wgmma"]),
             ("flash_attention_bwd",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480",
@@ -5068,6 +5335,10 @@ def main():
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480, :497",
              bwd_main, train["flash_bwd_route_launches"]["wgmma"]),
+            ("flash_attention_bwd_wgmma_d64",
+             "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+             "paddle_tpu/kernels/pallas/flash_attention.py:480, :497",
+             bwd_gpt2, train_gpt2["flash_bwd_route_launches"]["wgmma"]),
             ("quant_matmul", "paddle_tpu_torch/csrc/quant_matmul.cu",
              "paddle_tpu/kernels/pallas/quant_matmul.py:177",
              qmm_head, serve_quant["quant_matmul_route_launches"]["rows"]),

@@ -5,7 +5,7 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. Six slices are ported: greedy serving
+plain PyTorch version. Seven slices are ported: greedy serving
 (LlamaForCausalLM, CachedDecoder and PagedDecoder with the
 continuous-batching serve loop), the pretraining step (TrainStep over
 LlamaForCausalLM, LlamaPretrainingCriterion and AdamW), quantized and
@@ -18,7 +18,10 @@ attention, forward and backward (``nn.functional.flash_attn_unpadded``,
 ``flash_attention_with_sparse_mask``), and the row-wise incubate
 functionals, forward and backward (``incubate.nn.functional.
 fused_rms_norm``, ``fused_rotary_position_embedding`` and
-``incubate.softmax_mask_fuse_upper_triangle``).
+``incubate.softmax_mask_fuse_upper_triangle``), and GPT-2 pretraining
+(GPTForCausalLM with LayerNorm, GELU and generator-driven dropout, under
+TrainStep with the LRScheduler learning rates of ``optimizer.lr`` and the
+gradient clipping of ``nn.clip``).
 """
 from . import nn
 from .framework.device import resolve_device, seed
@@ -26,12 +29,15 @@ from .jit import TrainStep
 from .models.decode import CachedDecoder
 from .models.llama import (LlamaConfig, LlamaForCausalLM,
                            LlamaPretrainingCriterion, llama_2_7b, llama_tiny)
+from .models.gpt import GPTConfig, GPTForCausalLM, gpt2_124m, gpt_tiny
 from .models.gpt_moe import GPTMoEConfig, MoEGPT, gpt_moe_config, moe_loss
 from .models.paged_decode import BlockAllocator, PagedDecoder
+from . import optimizer
 from .optimizer import Adam, AdamW
 
 __all__ = ["nn", "resolve_device", "seed", "LlamaConfig", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "llama_tiny", "llama_2_7b",
            "CachedDecoder", "PagedDecoder", "BlockAllocator", "TrainStep",
            "Adam", "AdamW", "GPTMoEConfig", "MoEGPT", "gpt_moe_config",
-           "moe_loss"]
+           "moe_loss", "GPTConfig", "GPTForCausalLM", "gpt2_124m", "gpt_tiny",
+           "optimizer"]

@@ -13,6 +13,12 @@ optimizer accumulators (Adam's moments are laid out as their parameter,
 so a Linear's moments are transposed too), so that a run can go on in the
 port from a JAX run's state.
 
+``gpt_params_from_jax`` does it for GPT-2 (models/gpt.py): the fused qkv,
+the attention output and the two MLP Linears are transposed; ``wte`` (which
+the tied head reads as it is), ``wpe``, the biases and the LayerNorms
+convert as they are, and there is no head entry to convert.
+``optimizer_state_from_jax`` takes a GPTConfig too.
+
 ``moe_params_from_jax`` does it for the GPT-MoE of models/gpt_moe.py (or
 one of its MoELayers): the attention projections, the gate's Linear, the
 dense lane's fc1/fc2 and the head are transposed; the expert stacks keep
@@ -25,9 +31,10 @@ import numpy as np
 import torch
 
 from .framework.device import torch_dtype
+from .models.gpt import GPTConfig
 
 __all__ = ["params_from_jax", "optimizer_state_from_jax",
-           "moe_params_from_jax"]
+           "gpt_params_from_jax", "moe_params_from_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -70,6 +77,42 @@ def _to_torch(name, a, dtype, is_linear=_is_linear):
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
 
+_GPT_LINEAR_SUFFIXES = ("qkv_proj.weight", "out_proj.weight",
+                        "fc_in.weight", "fc_out.weight")
+
+
+def _gpt_is_linear(name):
+    return name.endswith(_GPT_LINEAR_SUFFIXES)
+
+
+def _gpt_check_shape(name, a, cfg):
+    """Raise unless the JAX array ``a`` of parameter ``name`` (or of one of
+    its optimizer moments) has the shape the GPTConfig ``cfg`` gives it. A
+    head entry raises: the head is tied to wte and has none."""
+    if "lm_head" in name:
+        raise ValueError(f"{name}: GPT's head is tied to gpt.wte.weight and "
+                         f"has no parameter of its own")
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    expect = {
+        "qkv_proj.weight": (h, 3 * h), "qkv_proj.bias": (3 * h,),
+        "out_proj.weight": (h, h), "out_proj.bias": (h,),
+        "fc_in.weight": (h, f), "fc_in.bias": (f,),
+        "fc_out.weight": (f, h), "fc_out.bias": (h,),
+        "wte.weight": (cfg.vocab_size, h),
+        "wpe.weight": (cfg.max_position_embeddings, h),
+    }
+    expect.update({f"{ln}.{w}": (h,) for ln in ("ln_1", "ln_2", "ln_f")
+                   for w in ("weight", "bias")})
+    _check_suffixes(name, a, expect)
+
+
+def _layout(cfg):
+    """(is_linear, check_shape) of the model a config builds."""
+    if isinstance(cfg, GPTConfig):
+        return _gpt_is_linear, _gpt_check_shape
+    return _is_linear, _check_shape
+
+
 def params_from_jax(state_dict_numpy, cfg):
     """{name: numpy array} of the JAX model -> {name: torch tensor} for
     ``LlamaForCausalLM(cfg).load_state_dict``, in the config's dtype."""
@@ -86,18 +129,34 @@ def optimizer_state_from_jax(named_accums_numpy, cfg, step):
     """The JAX TrainStep's accumulators, ``{"<param>::<accumulator>":
     numpy array}`` (``TrainStep._accums_to_named()``, converted to numpy by
     the caller), and its optimizer's step count -> a state dict for the
-    port's ``Optimizer.set_state_dict`` on a LlamaForCausalLM(cfg), whose
-    parameters carry their qualified names. Each accumulator keeps its
+    port's ``Optimizer.set_state_dict`` on a LlamaForCausalLM(cfg) or,
+    for a GPTConfig, a GPTForCausalLM(cfg), whose parameters carry their
+    qualified names. Each accumulator keeps its
     dtype (a bfloat16 moment stays bfloat16)."""
+    is_linear, check_shape = _layout(cfg)
     out = {}
     for key, arr in named_accums_numpy.items():
         pname, acc = key.split("::", 1)
         a = np.asarray(arr)
-        _check_shape(pname, a, cfg)
+        check_shape(pname, a, cfg)
         dtype = torch_dtype("bfloat16" if a.dtype.name == "bfloat16"
                             else "float32")
-        out[f"{pname}__{acc}"] = _to_torch(pname, a, dtype)
+        out[f"{pname}__{acc}"] = _to_torch(pname, a, dtype, is_linear)
     out["@step"] = int(step)
+    return out
+
+
+def gpt_params_from_jax(state_dict_numpy, cfg):
+    """{name: numpy array} of the JAX GPTForCausalLM -> {name: torch
+    tensor} for the port's ``GPTForCausalLM(cfg).load_state_dict``, in the
+    config's dtype: the four Linear weights of each block transposed once,
+    everything else (wte included) as it is."""
+    dtype = torch_dtype(cfg.dtype)
+    out = {}
+    for name, arr in state_dict_numpy.items():
+        a = np.asarray(arr)
+        _gpt_check_shape(name, a, cfg)
+        out[name] = _to_torch(name, a, dtype, _gpt_is_linear)
     return out
 
 

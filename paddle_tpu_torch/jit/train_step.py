@@ -13,7 +13,11 @@ optimizer. What the JAX step guarantees is kept:
 - ``master_grad`` keeps the gradients, and their accumulation, in
   float32 for low-precision parameters;
 - the returned loss is a float32 tensor on the device: the call does not
-  wait for the device.
+  wait for the device;
+- the optimizer's learning rate is read on each call (its ``step()``
+  calls ``get_lr``), so an LRScheduler the caller steps between calls
+  sets each step's rate, and its ``grad_clip`` clips the gradients the
+  step hands it, the accumulated float32 master gradients included.
 
 Capturing the step in a CUDA graph, gradient sync across devices, an
 auto-parallel plan and fleet's optimizer wrappers are not ported.

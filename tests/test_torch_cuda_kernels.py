@@ -3010,3 +3010,78 @@ def test_decoders_serve_any_head_dim_on_the_card(cuda_device, name):
         moved[want_decode]
     assert (ragged_paged_attention.launches > r0) == \
         (want_decode == "kernel")
+
+
+@pytest.mark.cuda
+def test_gpt_tiny_bf16_train_step_on_the_card(cuda_device):
+    """One TrainStep of a narrow GPT-2 in bf16 at head dim 64 (dropout 0.1,
+    masks from the model's CUDA generator): the loss is finite and every
+    attention runs on the flash kernels' tensor-core route, one forward
+    and one backward per layer."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    cfg = gpt_tiny(hidden_size=128, num_attention_heads=2, dropout=0.1,
+                   dtype="bfloat16")
+    model = GPTForCausalLM(cfg)
+    assert model.device.type == "cuda"
+    step = TrainStep(model, lambda lo, la: model.loss(lo, la),
+                     AdamW(learning_rate=1e-4,
+                           parameters=model.parameters()))
+    ids = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 128)).astype(np.int64)).to(cuda_device)
+    fwd = dict(_flash_bhsd.route_launches)
+    bwd = dict(_flash_bhsd_bwd.route_launches)
+    loss = step((ids,), (ids,))
+    assert loss.dtype == torch.float32 and torch.isfinite(loss).item()
+    layers = cfg.num_hidden_layers
+    assert _flash_bhsd.route_launches["wgmma"] - fwd["wgmma"] == layers
+    assert _flash_bhsd_bwd.route_launches["wgmma"] - bwd["wgmma"] == layers
+    assert _flash_bhsd.route_launches["cuda_core"] == fwd["cuda_core"]
+
+
+@pytest.mark.cuda
+def test_dropout_keep_share_on_a_cuda_generator(cuda_device):
+    """The mask from a CUDA generator: keep share within 0.006 of 0.9 over
+    100,000 elements (six standard deviations), kept elements exactly
+    x / 0.9, the same mask again from the same seed."""
+    from paddle_tpu_torch.nn.functional import dropout
+    x = torch.randn(100, 1000, device=cuda_device) + 3.0
+
+    def draw(seed):
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(seed)
+        return dropout(x, p=0.1, generator=gen)
+
+    y = draw(0)
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.9) <= 0.006
+    assert torch.equal(y[kept], x[kept] / 0.9)
+    assert torch.equal(draw(0), y) and not torch.equal(draw(1), y)
+
+
+@pytest.mark.cuda
+def test_global_norm_clip_on_the_card(cuda_device):
+    """ClipGradByGlobalNorm's multi-tensor path on CUDA gradients (bf16
+    and float32, as a bf16 model with float32 master gradients hands
+    them over) against its definition in float64, g x clip / max(||all||,
+    clip): float32 to 1e-5 relative (the card's float32 norm sums each
+    thread's share of a 65,536-element chunk serially, at most about 128
+    terms, 128 x 6e-8 = 7.7e-6 at worst, then as a tree; one rounding of
+    the product), bf16 to one bf16 ulp (2^-8 relative). A missed or wrong
+    clip moves every element by far more. (The CPU's float32 norm is no
+    reference at this size: it is off by 2-4e-5 relative.)"""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    gen = torch.Generator().manual_seed(7)
+    grads = [torch.randn(s, generator=gen) * 3 for s in
+             [(768, 2304), (2304,), (3072, 768), (50, 7)]]
+    grads[1] = grads[1].to(torch.bfloat16)
+    grads[3] = grads[3].to(torch.bfloat16)
+    total = sum(g.double().square().sum() for g in grads).sqrt()
+    scale = 1.0 / total.clamp(min=1.0)
+    got = ClipGradByGlobalNorm(1.0)([(None, g.to(cuda_device))
+                                     for g in grads])
+    for g, (_, o) in zip(grads, got):
+        assert o.dtype == g.dtype and o.device.type == "cuda"
+        rtol = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(o.cpu().double(), g.double() * scale,
+                                   rtol=rtol, atol=0)
