@@ -34,18 +34,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
    serve_long's shapes, MHA and GQA, timed as the ragged cases, and with
    NaN past every window);
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
-   seeded torch.Generator) on 16 requests: every request gets its budget
-   and the ragged kernel ran once per layer per decode step (each serve
-   and generate phase also records the decoders' attention calls by
-   route, `decoder_route_launches`, none of them "plain");
+   seeded torch.Generator) on 16 requests, with the reference's default
+   loop (the one-chunk lookahead, every decode chunk a CUDA graph
+   replay): every request gets its budget and the ragged kernel ran once
+   per layer per decode step (each serve and generate phase also records
+   the decoders' attention calls by route, `decoder_route_launches`, none
+   of them "plain"); each serving phase prints decode ms per step and
+   tokens/s, the loop's chunk dispatches, lookahead dispatches, uploads
+   and drains (checked: uploads 6 x (drains + 1), a lookahead in every
+   pipelined serve and none in a serial one, one graph replay per chunk),
+   the graphs captured and the seconds spent capturing, and its peak
+   memory; serve_serial: the same serve with pipeline=False, whose
+   streams must equal serve's; chunk_graph: a captured paged chunk at
+   full width replayed twice against the same chunk called eagerly on
+   clones of its state and pools, in bf16 and with the int8 pool: tokens,
+   state and every pool byte identical, and layers x 8 ragged launches
+   counted a replay;
 4. the same requests at 4 layers in float32, with the ragged kernel and
-   with the dense-gather oracle: the token streams must be identical, and
-   two of them must equal greedy generation through the full forward;
+   with the dense-gather oracle, both through the pipelined loop: the
+   token streams must be identical, and two of them must equal greedy
+   generation through the full forward;
 5. CachedDecoder.generate at full width, batch 4, 1024-token prompts: the
    prefill runs the flash-attention forward once per layer, every launch
-   on the tensor-core kernel;
-5b. serve_quant: phase 3's requests with int8_blockwise weights and an
-   int8 KV pool (quant_matmul 7 per layer plus the head, per decode step
+   on the tensor-core kernel, then the fused greedy chunks as CUDA graphs
+   (a first call captures, a second is timed and must give the same
+   tokens); generate_sample: 64 new tokens sampled (temperature 0.8,
+   top_k 50, top_p 0.9) from a seeded CUDA generator: the same seed
+   reproduces the tokens, another seed changes them, and the per-token
+   loop gives the fused chunks' tokens; tokens/s;
+5b. serve_quant (and serve_quant_serial, pipeline=False, whose streams
+   must equal serve_quant's): phase 3's requests with int8_blockwise
+   weights and an int8 KV pool (quant_matmul 7 per layer plus the head, per decode step
    and per prefill: every prefill projection on the tensor-core product,
    every decode projection on the tensor-core GEMV, every head on the
    CUDA-core GEMV; the quantized ragged kernel once per layer per step);
@@ -230,7 +249,9 @@ passes of each packed-attention path and of rowwise_attn, and two
 train_gpt2 steps, also run under
 torch.profiler, and one more line for each gives the device time by
 kernel (for a serve also every kernel of the port's own, whatever its
-rank) and the device's idle share. With --parent too, serve_long's
+rank) and the device's idle share; a serve's line also gives its decode
+steps' busy ms a step and idle share (the same prefills profiled alone,
+at budget 1, are taken off the device time). With --parent too, serve_long's
 profile runs again on the parent's partials kernel.
 
 Tolerance of the kernel checks, element by element: |out - ref| <=
@@ -1583,11 +1604,15 @@ def build_model(torch, cfg, seed):
     return LlamaForCausalLM(cfg, device="cuda", generator=gen)
 
 
-def serve_phase(torch, np, model, reqs, layers):
+def serve_phase(torch, np, model, reqs, layers, pipeline=None):
+    """PagedDecoder.serve at full width, with the reference's default loop
+    (pipeline None: the one-chunk lookahead) as "serve", or the serial
+    loop (pipeline False) as "serve_serial"; returns (record, streams)."""
     from paddle_tpu_torch.kernels.flash_attention import _flash_bhsd
     from paddle_tpu_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention)
     from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    phase = "serve" if pipeline is None else "serve_serial"
     dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
                        num_blocks=257)
     check(dec.use_ragged_kernel, "ragged kernel is off on the card")
@@ -1597,48 +1622,57 @@ def serve_phase(torch, np, model, reqs, layers):
     zero_flash_counts(_flash_bhsd)
     zero_decoder_routes()
     t0 = time.perf_counter()
-    out = dec.serve(reqs, chunk=8)
+    out = dec.serve(reqs, chunk=8, pipeline=pipeline)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ragged_paged_attention.launches
-    dec_routes = decoder_routes_without_plain("serve")
+    dec_routes = decoder_routes_without_plain(phase)
     check(dec_routes["decode"]["kernel"] == launches,
-          f"serve: decode attention calls {dec_routes} against ragged "
+          f"{phase}: decode attention calls {dec_routes} against ragged "
           f"launches {launches}")
-    for rid, prompt, budget in reqs:
-        toks = out[rid]
-        check(len(toks) == budget, f"{rid}: {len(toks)} tokens, budget "
-                                   f"{budget}")
-        check(all(0 <= t < model.config.vocab_size for t in toks),
-              f"{rid}: token out of the vocabulary")
-    st = dec.serve_stats
-    steps = st["decode_steps"]
+    check_served(dec, out, reqs, model.config.vocab_size)
+    steps = dec.serve_stats["decode_steps"]
     check(launches == layers * steps,
           f"ragged launches {launches} != layers {layers} x decode steps "
           f"{steps}")
-    check(dec.allocator.in_use == 0, "blocks leaked after serve")
-    decode_tokens = sum(b for _, _, b in reqs) - len(reqs)
-    ttft = sorted(st["first_token_s"].values())
-    rec = {"phase": "serve", "model": "llama_2_7b widths, random weights",
-           "dtype": "bfloat16", "layers": layers, "layers_cut": layers != 32,
-           "requests": len(reqs),
-           "prompt_lens": [len(p) for _, p, _ in reqs],
-           "budgets": [b for _, _, b in reqs], "chunk": 8, "max_slots": 8,
-           "block_size": 64, "num_blocks": 257, "wall_s": wall,
-           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-           "decode_steps": steps, "chunks": st["chunks"],
-           "decode_tokens": decode_tokens,
-           "decode_tokens_per_s": decode_tokens / st["decode_s"],
-           "tokens_per_s_end_to_end": sum(b for _, _, b in reqs) / wall,
-           "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
-           "peak_blocks": dec.allocator.peak_in_use,
-           "ragged_launches": launches,
-           "decoder_route_launches": dec_routes,
-           "flash_launches": _flash_bhsd.launches,
-           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    rec = serve_record(torch, phase, dec, reqs, layers, wall, {
+        "tokens_per_s_end_to_end": sum(b for _, _, b in reqs) / wall,
+        "ragged_launches": launches, "decoder_route_launches": dec_routes,
+        "flash_launches": _flash_bhsd.launches})
     emit(rec)
     del dec
     torch.cuda.empty_cache()
+    return rec, out
+
+
+def pipeline_stats(dec, phase):
+    """The pipelined loop's counters of one fresh engine's serve, checked:
+    every decode chunk a CUDA graph replay, six uploads at the start and
+    six after each drain, and a lookahead exactly when the loop had it."""
+    st = dec.serve_stats
+    graphs = dec._chunk_graphs
+    rec = {"pipeline": "serial" if phase.endswith("_serial")
+           else "lookahead",
+           "decode_ms_per_step": 1e3 * st["decode_s"] / st["decode_steps"],
+           "chunk_dispatches": dec.chunk_dispatches,
+           "lookahead_dispatches": dec.lookahead_dispatches,
+           "h2d_uploads": dec.h2d_uploads,
+           "pipeline_drains": dec.pipeline_drains,
+           "graph_replays": graphs.replays,
+           "graphs_captured": st["graphs_captured"],
+           "capture_s": st["capture_s"]}
+    check(graphs.replays == dec.chunk_dispatches == st["chunks"],
+          f"{phase}: {graphs.replays} graph replays for "
+          f"{dec.chunk_dispatches} chunk dispatches")
+    check(dec.h2d_uploads == 6 * (dec.pipeline_drains + 1),
+          f"{phase}: {dec.h2d_uploads} uploads, {dec.pipeline_drains} "
+          f"drains")
+    if rec["pipeline"] == "serial":
+        check(dec.lookahead_dispatches == 0,
+              f"{phase}: a lookahead dispatch in the serial loop")
+    else:
+        check(dec.lookahead_dispatches >= 1,
+              f"{phase}: no lookahead dispatch")
     return rec
 
 
@@ -1660,6 +1694,7 @@ def serve_record(torch, phase, dec, reqs, layers, wall, extra):
            "decode_tokens_per_s": decode_tokens / st["decode_s"],
            "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
            "peak_blocks": dec.allocator.peak_in_use,
+           **pipeline_stats(dec, phase),
            "weight_bytes": dec.weight_stream_bytes["quant"],
            "weight_bytes_bf16": dec.weight_stream_bytes["bf16eq"],
            "pool_bytes": dec.pool_bytes(),
@@ -1680,7 +1715,7 @@ def check_served(dec, out, reqs, vocab):
     check(dec.allocator.in_use == 0, "blocks leaked after serve")
 
 
-def serve_quant_phase(torch, np, model, reqs, layers):
+def serve_quant_phase(torch, np, model, reqs, layers, pipeline=None):
     """The quantized serving deployment: block-scaled int8 weights and an
     int8 paged KV pool, at phase 3's widths and requests. Every
     projection and the head go through quant_matmul: 7 per layer plus the
@@ -1692,11 +1727,13 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     the tensor-core product (bf16 x, M > 32); every decode step's 7
     projections a layer (8 slots, bf16) take the tensor-core GEMV; every
     head (float32 x) takes the CUDA-core GEMV, once per decode step and
-    once per prefill."""
+    once per prefill. pipeline False runs the serial loop
+    ("serve_quant_serial"); returns (record, streams)."""
     from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
     from paddle_tpu_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_quant)
     from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    phase = "serve_quant" if pipeline is None else "serve_quant_serial"
     dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
                        num_blocks=257, weight_quant="int8_blockwise",
                        kv_quant="int8")
@@ -1710,11 +1747,11 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     ragged_paged_attention.launches = 0
     zero_decoder_routes()
     t0 = time.perf_counter()
-    out = dec.serve(reqs, chunk=8)
+    out = dec.serve(reqs, chunk=8, pipeline=pipeline)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     qmm, rq = quant_matmul.launches, ragged_paged_attention_quant.launches
-    dec_routes = decoder_routes_without_plain("serve_quant")
+    dec_routes = decoder_routes_without_plain(phase)
     routes = dict(quant_matmul.route_launches)
     check_served(dec, out, reqs, model.config.vocab_size)
     steps = dec.serve_stats["decode_steps"]
@@ -1734,7 +1771,7 @@ def serve_quant_phase(torch, np, model, reqs, layers):
           f"bf16 rows), gemv_tc = 7 x {layers} layers x {steps} decode "
           f"steps, rows = {steps} decode steps + {len(reqs)} prefills (the "
           f"float32 head) and no tiled launch")
-    rec = serve_record(torch, "serve_quant", dec, reqs, layers, wall, {
+    rec = serve_record(torch, phase, dec, reqs, layers, wall, {
         "weight_quant": "int8_blockwise", "kv_quant": "int8",
         "requests_cut": False, "quant_matmul_launches": qmm,
         "quant_matmul_launches_rule": "(7 x layers + 1) x (decode steps + "
@@ -1747,7 +1784,7 @@ def serve_quant_phase(torch, np, model, reqs, layers):
     emit(rec)
     del dec
     torch.cuda.empty_cache()
-    return rec
+    return rec, out
 
 
 def make_long_requests(np, seed, n=4):
@@ -1861,13 +1898,27 @@ def profile_phase(torch, model, reqs, phase="profile", parent=None,
         dec.serve(short, chunk=8)
         torch.cuda.synchronize()
     rows, busy_s = device_kernel_rows(prof)
+    # the same prefills alone (budget 1: no decode step), so that the
+    # decode's own device time is the difference
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_p:
+        dec.serve([(rid, p, 1) for rid, p, _ in short], chunk=8)
+        torch.cuda.synchronize()
+    prefill_rows, prefill_busy_s = device_kernel_rows(prof_p)
+    decode_busy_s = busy_s - prefill_busy_s
+    measured = bool(rows and prefill_rows)
     rec = {"phase": phase, "engine": kw, "requests": len(short),
            "budget": 16, "wall_s": wall,
            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
            "decode_steps": st["decode_steps"],
+           "decode_ms_per_step": 1e3 * st["decode_s"] / st["decode_steps"],
            "device_busy_s": busy_s if rows else "not measured",
            "device_idle_share": 1 - busy_s / wall if rows
            else "not measured",
+           "decode_busy_ms_per_step": 1e3 * decode_busy_s
+           / st["decode_steps"] if measured else "not measured",
+           "decode_idle_share": 1 - decode_busy_s / st["decode_s"]
+           if measured else "not measured",
            "top_device_kernels": top_kernels(rows, busy_s, 12),
            # the port's own kernels, whatever their rank
            "port_kernels": top_kernels(
@@ -1924,11 +1975,12 @@ def parity_phase(torch, np, reqs, seed):
     torch.backends.cudnn.allow_tf32 = False
     cfg = llama_2_7b(num_hidden_layers=4, dtype="float32")
     model = build_model(torch, cfg, seed + 1)
-    streams = {}
+    streams, lookahead = {}, {}
     for ragged in (True, False):
         dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
                            num_blocks=257, ragged_kernel=ragged)
         streams[ragged] = dec.serve(reqs, chunk=8)
+        lookahead[ragged] = pipeline_stats(dec, "ragged_vs_dense")
         del dec
     same = sum(streams[True][rid] == streams[False][rid]
                for rid, _, _ in reqs)
@@ -1942,7 +1994,9 @@ def parity_phase(torch, np, reqs, seed):
         oracle += 1
     rec = {"phase": "ragged_vs_dense", "dtype": "float32", "layers": 4,
            "requests": len(reqs), "identical_streams": same,
-           "full_forward_oracle_streams": oracle}
+           "full_forward_oracle_streams": oracle,
+           "pipeline": {"ragged": lookahead[True],
+                        "dense": lookahead[False]}}
     emit(rec)
     del model
     torch.cuda.empty_cache()
@@ -1950,17 +2004,29 @@ def parity_phase(torch, np, reqs, seed):
 
 
 def generate_phase(torch, np, model, layers, seed):
+    """CachedDecoder.generate at full width, greedy: the prefill, then the
+    fused chunks (31 steps after the prefill's token: 16, 8, 4 and 2, each
+    a CUDA graph, and one single step). The first call captures the
+    graphs; the second is timed."""
     from paddle_tpu_torch.kernels.flash_attention import _flash_bhsd
     from paddle_tpu_torch.models.decode import CachedDecoder
     B, S0, N = 4, 1024, 32
     dec = CachedDecoder(model, max_len=S0 + N)
-    ids = np.random.default_rng(seed + 2).integers(0, 32000, (B, S0))
+    ids = torch.as_tensor(np.random.default_rng(seed + 2).integers(
+        0, 32000, (B, S0)))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = dec.generate(ids, max_new_tokens=N)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    graphs = dec._gen_graphs
+    replays0 = graphs.replays
     zero_flash_counts(_flash_bhsd)
     zero_attention_routes()
     zero_decoder_routes()
     t0 = time.perf_counter()
-    out = dec.generate(torch.as_tensor(ids), max_new_tokens=N)
+    out = dec.generate(ids, max_new_tokens=N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _flash_bhsd.launches
@@ -1971,22 +2037,195 @@ def generate_phase(torch, np, model, layers, seed):
           f"generate: prefill attention calls {dec_routes} against flash "
           f"launches {launches}")
     check(tuple(out.shape) == (B, S0 + N), f"generate shape {out.shape}")
-    check(bool((out[:, :S0] == torch.as_tensor(ids)).all()),
-          "generate changed the prompt")
+    check(bool((out[:, :S0] == ids).all()), "generate changed the prompt")
     check(bool(((out >= 0) & (out < 32000)).all()), "token out of vocab")
     check(launches == layers * 1,
           f"flash launches {launches} != {layers} layers x 1 prefill")
     check(routes["wgmma"] == launches,
           f"every prefill forward runs on the tensor cores: {routes}")
+    check(torch.equal(out, first), "generate: a replayed greedy call "
+                                   "differs from the capturing one")
+    check(graphs.captured == 4 and graphs.replays - replays0 == 4,
+          f"generate: {graphs.captured} graphs, "
+          f"{graphs.replays - replays0} replays in the timed call (want 4 "
+          f"chunks: 16, 8, 4, 2)")
     rec = {"phase": "generate", "dtype": "bfloat16", "layers": layers,
            "batch": B, "prompt_len": S0, "new_tokens": N, "wall_s": wall,
-           "tokens_per_s": B * N / wall, "flash_launches": launches,
+           "tokens_per_s": B * N / wall, "first_call_wall_s": first_wall,
+           "graphs_captured": graphs.captured,
+           "capture_s": graphs.capture_s, "chunk_lengths": [16, 8, 4, 2],
+           "flash_launches": launches,
            "flash_route_launches": routes,
            "attention_route_launches": attn_routes,
-           "decoder_route_launches": dec_routes}
+           "decoder_route_launches": dec_routes,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
     emit(rec)
     del dec
     torch.cuda.empty_cache()
+    return rec
+
+
+def generate_sample_phase(torch, np, model, layers, seed):
+    """generate_sample: CachedDecoder.generate with do_sample at full
+    width (batch 4, 1024-token prompts, 64 new tokens: chunks of 32, 16,
+    8, 4 and 2 and one single step; temperature 0.8, top_k 50, top_p 0.9)
+    from a seeded CUDA generator. The first call captures; the second,
+    timed, must reproduce it under the same seed; another seed must give
+    other tokens; and the per-token loop (CHUNK 1, no graph) must give the
+    fused chunks' tokens under the same seed."""
+    from paddle_tpu_torch.models.decode import CachedDecoder
+    B, S0, N = 4, 1024, 64
+    dec = CachedDecoder(model, max_len=S0 + N)
+    ids = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+        0, 32000, (B, S0)))
+    kw = dict(max_new_tokens=N, do_sample=True, temperature=0.8, top_k=50,
+              top_p=0.9)
+
+    def gen(s):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(s)
+        return g
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = dec.generate(ids, generator=gen(seed), **kw)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    graphs = dec._gen_graphs
+    captured, capture_s = graphs.captured, graphs.capture_s
+    t0 = time.perf_counter()
+    again = dec.generate(ids, generator=gen(seed), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    other = dec.generate(ids, generator=gen(seed + 1), **kw)
+    check(torch.equal(again, first), "generate_sample: the same seed gave "
+                                     "other tokens")
+    check(not torch.equal(other[:, S0:], first[:, S0:]),
+          "generate_sample: another seed gave the same tokens")
+    check(captured == 5, f"generate_sample: {captured} graphs (want 32, 16,"
+                         f" 8, 4, 2)")
+    check(bool((first[:, :S0] == ids).all()), "generate changed the prompt")
+    check(bool(((first >= 0) & (first < 32000)).all()), "token out of vocab")
+    peak = torch.cuda.max_memory_allocated()
+    dec.CHUNK = 1
+    t0 = time.perf_counter()
+    per_token = dec.generate(ids, generator=gen(seed), **kw)
+    torch.cuda.synchronize()
+    per_token_wall = time.perf_counter() - t0
+    same = int((per_token == first).all(dim=1).sum())
+    check(same == B, f"generate_sample: the per-token loop differs from the "
+                     f"fused chunks in {B - same} of {B} rows")
+    rec = {"phase": "generate_sample", "dtype": "bfloat16", "layers": layers,
+           "batch": B, "prompt_len": S0, "new_tokens": N,
+           "temperature": 0.8, "top_k": 50, "top_p": 0.9, "wall_s": wall,
+           "tokens_per_s": B * N / wall, "first_call_wall_s": first_wall,
+           "graphs_captured": captured, "capture_s": capture_s,
+           "per_token_wall_s": per_token_wall,
+           "per_token_tokens_per_s": B * N / per_token_wall,
+           "same_seed_identical": True, "other_seed_differs": True,
+           "per_token_identical_rows": same, "peak_device_bytes": peak}
+    emit(rec)
+    del dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def chunk_graph_phase(torch, np, model, seed):
+    """chunk_graph: at full width, a captured paged chunk (8 steps, 8
+    slots: one not live, budgets that end inside the chunk, random pool
+    contents) replayed twice, each time against `_paged_chunk_state`
+    called eagerly on clones of the same state and pools: the tokens, the
+    flags, the advanced state and every byte of the pools' blocks (all but
+    the trash block) must be identical, in bf16 and with the int8 pool,
+    and each replay must add layers x 8 to
+    the ragged kernel's launch count (the capture and its warm-up add
+    nothing)."""
+    from paddle_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_quant)
+    from paddle_tpu_torch.models.paged_decode import (PagedDecoder,
+                                                     QuantizedPool)
+    rng = np.random.default_rng(seed)
+    layers = model.config.num_hidden_layers
+    recs = {}
+    for name, kw in (("bf16", {}), ("int8_pool", {"kv_quant": "int8"})):
+        dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
+                           num_blocks=97, **kw)
+        S, MB, n, per = dec.max_slots, dec.blocks_per_seq, 8, 12
+        kpool, vpool = dec.serve_pools()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        for pool in (kpool, vpool):
+            if isinstance(pool, QuantizedPool):
+                pool.codes.copy_(torch.randint(
+                    -127, 128, pool.codes.shape, generator=gen,
+                    device="cuda", dtype=torch.int8))
+                pool.scales.copy_(torch.rand(
+                    pool.scales.shape, generator=gen, device="cuda")
+                    * 0.02 + 1e-3)
+            else:
+                pool.normal_(generator=gen)
+        tables = np.zeros((S, MB), np.int32)
+        for i in range(S):
+            tables[i, :per] = np.arange(1 + per * i, 1 + per * (i + 1))
+        live = np.ones(S, bool)
+        live[5] = False
+        dec.upload_state(rng.integers(0, 32000, S).astype(np.int32),
+                         rng.integers(64, per * 64 - 2 * n, S).astype(
+                             np.int32), tables, live,
+                         rng.integers(1, 2 * n, S).astype(np.int32),
+                         np.zeros(S, bool))
+        counter = (ragged_paged_attention_quant if kw
+                   else ragged_paged_attention)
+
+        def leaves(pool):
+            # every block but the trash block 0, which inactive slots
+            # write, no live slot reads, and the capture's warm-up (no
+            # slot live) writes too
+            return ([pool.codes[:, 1:], pool.scales[:, 1:]]
+                    if isinstance(pool, QuantizedPool) else [pool[:, 1:]])
+
+        def clone_pool(pool):
+            if isinstance(pool, QuantizedPool):
+                return QuantizedPool(pool.codes.clone(), pool.scales.clone())
+            return pool.clone()
+
+        identical = []
+        moved = []
+        for _ in range(2):
+            st0 = [t.clone() for t in dec.decode_state()]
+            kc, vc = clone_pool(kpool), clone_pool(vpool)
+            torch.cuda.synchronize()
+            before = counter.launches
+            toks, bad = dec.dispatch_chunk_state(n)
+            torch.cuda.synchronize()
+            moved.append(counter.launches - before)
+            got = [toks.clone(), bad.clone()] + [
+                t.clone() for t in dec.decode_state()]
+            ref = dec._paged_chunk_state(*st0, kc, vc, n)
+            torch.cuda.synchronize()
+            want = [ref[0], ref[1], ref[2], ref[3], st0[2], ref[4], ref[5],
+                    st0[5]]
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            for a, b in zip(leaves(kpool) + leaves(vpool),
+                            leaves(kc) + leaves(vc)):
+                same = same and torch.equal(a.contiguous().view(torch.uint8),
+                                            b.contiguous().view(torch.uint8))
+            identical.append(same)
+        check(all(identical), f"chunk_graph {name}: replay against eager "
+                              f"{identical}")
+        check(moved == [layers * n] * 2,
+              f"chunk_graph {name}: launches per replay {moved}, want "
+              f"{layers * n}")
+        recs[name] = {"identical_replays": sum(identical),
+                      "launches_per_replay": moved,
+                      "graphs_captured": dec._chunk_graphs.captured,
+                      "capture_s": dec._chunk_graphs.capture_s}
+        del dec, kpool, vpool, kc, vc
+        torch.cuda.empty_cache()
+    rec = {"phase": "chunk_graph", "layers": layers, "steps": 8,
+           "slots": 8, "cases": recs}
+    emit(rec)
     return rec
 
 
@@ -5129,11 +5368,23 @@ def main():
     model = build_model(torch, llama_2_7b(dtype="bfloat16",
                                           num_hidden_layers=layers),
                         args.seed)
-    serve = serve_phase(torch, np, model, reqs, layers)
+    serve, served = serve_phase(torch, np, model, reqs, layers)
+    _, served_serial = serve_phase(torch, np, model, reqs, layers,
+                                   pipeline=False)
+    check(served_serial == served, "serve_serial: the serial loop's "
+                                   "streams differ from serve's")
+    chunk_graph_phase(torch, np, model, args.seed + 4)
     gen = generate_phase(torch, np, model, layers, args.seed)
+    generate_sample_phase(torch, np, model, layers, args.seed)
     if args.profile:
         profile_phase(torch, model, reqs)
-    serve_quant = serve_quant_phase(torch, np, model, reqs, layers)
+    serve_quant, served_quant = serve_quant_phase(torch, np, model, reqs,
+                                                  layers)
+    _, served_quant_serial = serve_quant_phase(torch, np, model, reqs,
+                                               layers, pipeline=False)
+    check(served_quant_serial == served_quant,
+          "serve_quant_serial: the serial loop's streams differ from "
+          "serve_quant's")
     long_reqs = make_long_requests(np, args.seed)
     serve_long = serve_long_phase(torch, np, model, long_reqs, layers)
     if args.profile:

@@ -5,9 +5,10 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. Seven slices are ported: greedy serving
-(LlamaForCausalLM, CachedDecoder and PagedDecoder with the
-continuous-batching serve loop), the pretraining step (TrainStep over
+plain PyTorch version. Seven slices are ported: serving, greedy or
+sampled (LlamaForCausalLM, CachedDecoder's fused decode chunks and
+PagedDecoder with the zero-sync pipelined continuous-batching loop, each
+decode chunk a CUDA graph on the card), the pretraining step (TrainStep over
 LlamaForCausalLM, LlamaPretrainingCriterion and AdamW), quantized and
 long-context serving (the decoders' weight_quant, kv_quant and
 attn_shards options), mixture-of-experts training on one device (the

@@ -10,7 +10,18 @@ engine switches to its Pallas kernel there, where `attention_route` gives
 "kernel" for the model's dtype and head dim; other lengths, and a head
 dim no kernel takes (80, 96), use the plain causal softmax on every
 device. ``CachedDecoder.route_launches`` counts the prefill attention
-calls by route. Only greedy decoding is ported.
+calls by route.
+
+``generate`` fuses up to ``CHUNK`` (32) decode steps into one chunk, greedy
+or sampled (temperature / top-k / top-p, noise from a ``generator=``), as
+the JAX engine fuses them into one executable; a tail shorter than CHUNK
+runs as the largest power of two that fits, and a last single step runs
+alone. On the card each chunk is one CUDA graph (``jit/chunk_graph.py``)
+keyed on (n, top_k, use_top_p), over static buffers that hold the last
+token, the position, the caches, the temperature, top_p and the chunk's
+uniform draws; it advances the token and the position in place. With
+``eos_token_id=None`` nothing is read back until the end; otherwise each
+chunk's tokens are read once.
 
 ``weight_quant`` stores the projections and the head quantized, as the JAX
 engine does, and drops the dense copies:
@@ -32,12 +43,15 @@ import torch
 from torch.nn import functional as F
 
 from ..framework.device import resolve_device, torch_dtype
+from ..jit.chunk_graph import ChunkGraphs
 from ..kernels.flash_attention import _flash_bhsd
 from ..kernels.quant_matmul import (blockwise_weight_bytes, quant_matmul,
                                     quantize_weight_blockwise)
 from ..nn.functional.flash_attention import (ATTENTION_ROUTES,
                                              attention_route)
 from ..nn.layer.norm import rms_norm as _rms
+from .generation import (gumbel_from_uniform, sample_next,
+                         sample_next_traced, sampling_args)
 
 __all__ = ["CachedDecoder"]
 
@@ -100,6 +114,13 @@ class CachedDecoder:
                                  f"({llama.rope_cos.shape[0]})")
             self.cos = llama.rope_cos[:self.max_len].to(self.device)
             self.sin = llama.rope_sin[:self.max_len].to(self.device)
+        # decode steps fused into one generate chunk (an instance knob, as
+        # in the JAX engine: tests shrink it to mix chunks and tails)
+        self.CHUNK = 32
+        self._gen = None
+        self._gen_graphs = ChunkGraphs(
+            self.device, lambda: [(quant_matmul, "launches"),
+                                  (quant_matmul, "route_launches")])
 
     def _quantize_weights(self):
         """Quantize the projections and the head for ``weight_quant`` (the
@@ -206,29 +227,108 @@ class CachedDecoder:
     # -- one decode step ---------------------------------------------------
     @torch.no_grad()
     def _step(self, tokens, pos, kcache, vcache):
-        """tokens [B] int; pos int (the position being written); caches
-        [L, B, T, Hkv, D], written in place. Returns logits [B, V] f32."""
-        x = self.embed[tokens]                           # [B, H]
+        """tokens [B] int; pos, the position being written: a 0-d integer
+        tensor on the engine's device (an int is taken too); caches [L, B,
+        T, Hkv, D], written in place. Attends over the whole cache with
+        the positions past pos masked, as the JAX engine's step does, so
+        no shape depends on pos. Returns logits [B, V] float32."""
+        if not torch.is_tensor(pos):
+            pos = torch.tensor(pos, device=self.device)
+        pos = pos.long().reshape(1)
+        x = self.embed[tokens.long()]                    # [B, H]
         B = x.shape[0]
-        cos = self.cos[pos][None, None, :]
-        sin = self.sin[pos][None, None, :]
+        T = kcache.shape[2]
+        cos = self.cos[pos][:, None, :]
+        sin = self.sin[pos][:, None, :]
+        keep = torch.arange(T, device=x.device) <= pos   # [T]
         nrep = self.nh // self.nkv
         for l in range(self.n_layers):
             q, k, v = self._qkv(x, l, cos, sin)
-            kcache[l, :, pos] = k
-            vcache[l, :, pos] = v
-            # grouped attention against the unrepeated cache; positions
-            # past pos would be masked to -1e30 and weigh exactly 0
+            kc, vc = kcache[l], vcache[l]
+            kc.index_copy_(1, pos, k[:, None].to(kc.dtype))
+            vc.index_copy_(1, pos, v[:, None].to(vc.dtype))
+            # grouped attention against the unrepeated cache
             qg = q.reshape(B, self.nkv, nrep, self.hd).float()
             att = torch.einsum("bgnd,btgd->bgnt", qg,
-                               kcache[l, :, :pos + 1].float()) * self.scale
+                               kc.float()) * self.scale
+            att = att.masked_fill(~keep, NEG_INF)
             p = torch.softmax(att, dim=-1)
-            o = torch.einsum("bgnt,btgd->bgnd", p,
-                             vcache[l, :, :pos + 1].float()).to(x.dtype)
+            o = torch.einsum("bgnt,btgd->bgnd", p, vc.float()).to(x.dtype)
             x = x + self._layer_mm(o.reshape(B, self.nh * self.hd), "wo",
                                    l)
             x = self._mlp(x, l)
         return self._head_logits(_rms(x, self.norm_w, self.eps))
+
+    def _chunk(self, tok, pos, kcache, vcache, n, sampler=None):
+        """n fused decode steps from tok [B] at position pos (0-d tensor):
+        each step's token feeds the next. ``sampler`` (None: greedy argmax)
+        maps (step i, logits) to the next tokens. Returns [B, n]
+        tokens."""
+        out = []
+        for i in range(n):
+            logits = self._step(tok, pos + i, kcache, vcache)
+            tok = (torch.argmax(logits, dim=-1) if sampler is None
+                   else sampler(i, logits))
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    def _gen_state(self, batch, sampled):
+        """The static buffers of generate for ``batch`` rows: the caches
+        (zeroed), the last token, the position, and for sampling the
+        temperature, top_p and CHUNK uniform draws [CHUNK, B, V]. Kept
+        across calls while the batch and CHUNK stay, since the graphs bind
+        their addresses."""
+        g = self._gen
+        if g is None or g["batch"] != batch or g["chunk"] != self.CHUNK:
+            self._gen_graphs.clear()
+            self._gen = None
+            g = {"batch": batch, "chunk": self.CHUNK, "u": None}
+            g["kc"], g["vc"] = self.new_caches(batch)
+            g["tok"] = torch.zeros(batch, dtype=torch.long,
+                                   device=self.device)
+            g["pos"] = torch.zeros((), dtype=torch.long, device=self.device)
+            g["temp"] = torch.ones((), device=self.device)
+            g["top_p"] = torch.ones((), device=self.device)
+            self._gen = g
+        else:
+            g["kc"].zero_()
+            g["vc"].zero_()
+        if sampled and g["u"] is None:
+            g["u"] = torch.zeros((self.CHUNK, batch, self.cfg.vocab_size),
+                                 device=self.device)
+        return g
+
+    def _gen_chunk(self, g, n, do_sample, top_k, use_top_p, generator):
+        """One fused chunk of n steps on generate's static buffers,
+        advancing the token and the position in place; returns the [B, n]
+        tokens (overwritten by the next replay of the same graph). A
+        sampled chunk first draws its n uniforms [B, V] from
+        ``generator``, one draw a step, as the per-token loop does."""
+        sampler = None
+        if do_sample:
+            for i in range(n):
+                g["u"][i].uniform_(generator=generator)
+
+            def sampler(i, logits):
+                return sample_next_traced(
+                    logits, g["temp"], top_k, use_top_p, g["top_p"],
+                    gumbel_from_uniform(g["u"][i]))
+
+        def body():
+            toks = self._chunk(g["tok"], g["pos"], g["kc"], g["vc"], n,
+                               sampler)
+            g["tok"].copy_(toks[:, -1])
+            g["pos"].add_(n)
+            return toks
+
+        def warmup():
+            # writes the cache rows pos..pos+n-1 that the chunk itself
+            # writes next, with the same values; the static state stays
+            self._chunk(g["tok"], g["pos"], g["kc"], g["vc"], n, sampler)
+
+        key = (int(n), int(top_k), bool(use_top_p)) if do_sample \
+            else (int(n),)
+        return self._gen_graphs.run(key, body, warmup)
 
     # -- prefill -----------------------------------------------------------
     @torch.no_grad()
@@ -283,14 +383,17 @@ class CachedDecoder:
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
-                 pad_token_id=0):
-        """Greedy continuation with the token contract of
-        models.generation.generate: returns an int64 CPU tensor
-        [B, S0 + max_new_tokens], pad after each row's first eos.
-        Sampling (do_sample=True) raises."""
-        if do_sample:
-            raise NotImplementedError(
-                "sampling is not ported yet; the port generates greedily")
+                 pad_token_id=0, generator=None):
+        """Generation with the token contract of models.generation.generate
+        (an int64 CPU tensor [B, S0 + max_new_tokens], pad after each
+        row's first eos), O(1) work a token through the caches, in fused
+        chunks of CHUNK steps (the loop of the JAX engine's generate).
+        do_sample draws from ``generator`` (a torch.Generator on the
+        engine's device; None: its default generator), one [B, V] uniform
+        draw a token in step order, so fused chunks give the per-token
+        loop's stream (CHUNK = 1) under the same seed; with eos_token_id
+        set, the draws of a chunk past every row's eos are made all the
+        same."""
         ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
                          else input_ids)
         b, s0 = ids.shape
@@ -301,20 +404,52 @@ class CachedDecoder:
         buf[:, :s0] = ids
         if max_new_tokens <= 0:
             return torch.from_numpy(buf)
-        kc, vc = self.new_caches(b)
+        g = self._gen_state(b, do_sample)
+        kc, vc = g["kc"], g["vc"]
         logits = self._prefill(torch.as_tensor(ids, device=self.device),
                                kc, vc)
-        tok = torch.argmax(logits, dim=-1)
-        toks = [tok]
-        for t in range(s0, total - 1):
-            tok = torch.argmax(self._step(tok, t, kc, vc), dim=-1)
-            toks.append(tok)
+        temp, use_top_p, top_p = sampling_args(temperature, top_p)
+        first = sample_next(logits, do_sample, temperature, top_k, top_p,
+                            generator)
+        g["tok"].copy_(first)
+        g["pos"].fill_(s0)
+        g["temp"].fill_(temp)
+        g["top_p"].fill_(top_p)
+        pieces = [first[:, None]]      # generated tokens, on the device
+        done = s0                      # buf columns filled from pieces
+        t = s0
+
+        def flush():
+            nonlocal done
+            if len(pieces) > 0:
+                new = torch.cat(pieces, dim=1).cpu().numpy()
+                buf[:, done:done + new.shape[1]] = new
+                done += new.shape[1]
+                pieces.clear()
+
+        while t + 1 < total:
+            n = min(total - 1 - t, self.CHUNK)
+            if n < self.CHUNK:
+                # tails round down to powers of two: the chunk lengths stay
+                # {CHUNK, 16, 8, 4, 2} whatever max_new_tokens is
+                n = 1 << (n.bit_length() - 1)
+            if n >= 2:
+                toks = self._gen_chunk(g, n, do_sample, top_k, use_top_p,
+                                       generator).clone()
+            else:
+                logits = self._step(g["tok"], g["pos"], kc, vc)
+                nxt = sample_next(logits, do_sample, temperature, top_k,
+                                  top_p, generator)
+                g["tok"].copy_(nxt)
+                g["pos"].add_(1)
+                toks = nxt[:, None]
+            pieces.append(toks)
+            t += n
             if eos_token_id is not None:
-                gen = torch.stack(toks, dim=1)
-                if bool((gen == eos_token_id).any(dim=1).all()):
+                flush()
+                if (buf[:, s0:t + 1] == eos_token_id).any(axis=1).all():
                     break
-        gen = torch.stack(toks, dim=1).cpu().numpy()
-        buf[:, s0:s0 + gen.shape[1]] = gen
+        flush()
         if eos_token_id is not None:
             for row in buf:
                 hits = np.where(row[s0:] == eos_token_id)[0]

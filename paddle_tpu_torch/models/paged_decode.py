@@ -12,8 +12,17 @@ advancing and writes into the trash block.
 
 The JAX engine threads the pools through its executables functionally
 (donated buffers); this port updates the pools IN PLACE: ``_pool_write``,
-``_paged_step``, ``_paged_chunk`` and ``_prefill_paged`` write into the
-pool tensors they are given and return only what they compute.
+``_paged_step``, ``_paged_chunk_state`` and ``_prefill_paged`` write into
+the pool tensors they are given and return only what they compute.
+
+The serve loop decodes through ``_paged_chunk_state``, the state-carrying
+chunk: it takes (tok, seqlens, tables, live, budgets, poison), runs n
+greedy steps and returns the advanced state beside the tokens, retiring a
+slot's liveness on the device at its eos or at the end of its budget.
+On the card each (n, eos_id) chunk is one CUDA graph
+(``jit/chunk_graph.py``) over the engine's static state buffers and its
+persistent pools, replayed once a chunk; the pools are zeroed at the
+start of every serve, the JAX engine's fresh pools.
 
 Decode attention on a CUDA tensor runs the hand-written ragged paged
 attention kernel (kernels/ragged_paged_attention.py) straight off the
@@ -39,14 +48,19 @@ block_size="auto") raise NotImplementedError.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..jit.chunk_graph import ChunkGraphs
+from ..kernels.quant_matmul import quant_matmul
 from ..kernels.ragged_paged_attention import (
     DECODE_ROUTES, decode_route, kv_dequantize_rows, kv_quantize_rows,
-    ragged_paged_attention, ragged_paged_attention_quant,
-    ragged_paged_attention_sharded)
+    ragged_paged_attention, ragged_paged_attention_partials,
+    ragged_paged_attention_quant, ragged_paged_attention_sharded)
 from ..nn.layer.norm import rms_norm as _rms
 from .decode import NEG_INF, CachedDecoder
 
@@ -64,6 +78,20 @@ class QuantizedPool:
 
     def __getitem__(self, i):
         return QuantizedPool(self.codes[i], self.scales[i])
+
+
+class DecodeState(NamedTuple):
+    """The batch state a decode chunk reads and advances, on the device:
+    tok [S] int32 (each slot's last token), lens [S] int32 (tokens in its
+    pages), tables [S, MB] int32, live [S] bool, budgets [S] int32
+    (tokens still to generate), poison [S] bool (all false: the fault
+    injection lane of the JAX engine, not ported)."""
+    tok: torch.Tensor
+    lens: torch.Tensor
+    tables: torch.Tensor
+    live: torch.Tensor
+    budgets: torch.Tensor
+    poison: torch.Tensor
 
 
 class BlockAllocator:
@@ -199,6 +227,21 @@ class PagedDecoder(CachedDecoder):
         self._slots = [_Slot(done=True) for _ in range(self.max_slots)]
         self.rejected_requests = {}
         self.serve_stats = {}
+        # host<->device traffic of the serve loop, as the JAX engine counts
+        # it: decode-state uploads (6 a composition change), chunk
+        # dispatches, dispatches made while another chunk was in flight,
+        # and drains of the device state after a change it cannot see
+        self.h2d_uploads = 0
+        self.chunk_dispatches = 0
+        self.lookahead_dispatches = 0
+        self.pipeline_drains = 0
+        self._pools = None
+        self._state = None
+        # the graphs reach the engine through a weak reference: an engine
+        # and its graph memory go as soon as the caller drops the engine
+        engine = weakref.ref(self)
+        self._chunk_graphs = ChunkGraphs(
+            self.device, lambda: engine()._graph_counters())
 
     # -- pools -------------------------------------------------------------
     def new_pools(self):
@@ -214,6 +257,54 @@ class PagedDecoder(CachedDecoder):
                            device=self.device)) for _ in range(2))
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    def serve_pools(self):
+        """The engine's own (kpool, vpool), zeroed: allocated on the first
+        call and zeroed in place on every later one (int8 scales back to
+        1), so the chunk graphs, which bind their addresses, stay valid
+        while each serve starts from fresh pools as the JAX engine's
+        does."""
+        if self._pools is None:
+            self._pools = self.new_pools()
+            return self._pools
+        for pool in self._pools:
+            if isinstance(pool, QuantizedPool):
+                pool.codes.zero_()
+                pool.scales.fill_(1.0)
+            else:
+                pool.zero_()
+        return self._pools
+
+    def decode_state(self):
+        """The engine's static DecodeState buffers (allocated zero on
+        first use): the chunk graphs read and advance them in place."""
+        if self._state is None:
+            S, MB = self.max_slots, self.blocks_per_seq
+
+            def zeros(*shape, dtype=torch.int32):
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+
+            self._state = DecodeState(
+                zeros(S), zeros(S), zeros(S, MB), zeros(S, dtype=torch.bool),
+                zeros(S), zeros(S, dtype=torch.bool))
+        return self._state
+
+    def upload_state(self, tok, lens, tables, live, budgets, poison):
+        """Copy the host mirrors (numpy) into the static state buffers:
+        six uploads, counted in ``h2d_uploads``."""
+        st = self.decode_state()
+        for dst, src in zip(st, (tok, lens, tables, live, budgets, poison)):
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+        self.h2d_uploads += 6
+
+    def _graph_counters(self):
+        """The launch counters a decode chunk moves (see ChunkGraphs)."""
+        return [(ragged_paged_attention, "launches"),
+                (ragged_paged_attention_quant, "launches"),
+                (ragged_paged_attention_partials, "launches"),
+                (quant_matmul, "launches"), (quant_matmul, "route_launches"),
+                (PagedDecoder, "route_launches"),
+                (self, "sharded_attn_calls")]
 
     def kv_token_bytes(self):
         """Bytes one pool token row of K (or V) costs: the values at the
@@ -331,25 +422,69 @@ class PagedDecoder(CachedDecoder):
         return self._head_logits(_rms(x, self.norm_w, self.eps))
 
     @torch.no_grad()
-    def _paged_chunk(self, tok0, seqlens0, tables, live, budgets, kpool,
-                     vpool, n):
-        """n fused greedy steps with argmax feedback. live [S] bool masks
-        slots that advance; budgets [S] int32 is each slot's remaining
-        token budget: at step i only slots with i < budget stay active,
-        so a chunk sized by the largest budget cannot run a smaller
-        budget's slot past its allocation (its writes go to the trash
-        block and its length freezes). Returns [S, n] tokens (device)."""
+    def _paged_chunk_state(self, tok0, seqlens0, tables, live, budgets,
+                           poison, kpool, vpool, n, eos_id=-1):
+        """State-carrying decode chunk (the JAX engine's
+        `_paged_chunk_state_impl`): n greedy steps with argmax feedback.
+        live [S] bool masks the slots that advance; budgets [S] int32 is
+        each slot's remaining token budget, and at step i only slots with
+        i < budget are active (an inactive slot writes into the trash
+        block and its length freezes); poison [S] bool sets a slot's
+        logits to NaN after the head. ``eos_id`` (-1: none) retires a
+        slot's liveness on the device when it emits eos, and a slot whose
+        budget this chunk spends retires too (took = min(n, max(budget,
+        0))), so the state needs no host update until the batch changes.
+        Returns (toks [S, n], bad [S] (an active step's logits went
+        non-finite), tok', seqlens', live', budgets'); the pools are
+        written in place."""
         tok, lens = tok0, seqlens0
+        bad = torch.zeros_like(live)
+        eos = torch.zeros_like(live)
         out = []
         for i in range(n):
             act = live & (i < budgets)
             logits = self._paged_step(tok, lens, tables, kpool, vpool,
                                       active=act)
+            logits = torch.where(poison[:, None], float("nan"), logits)
+            bad = bad | (act & ~torch.isfinite(logits).all(dim=-1))
             nxt = torch.argmax(logits, dim=-1).to(tok.dtype)
             tok = torch.where(act, nxt, tok)
             lens = torch.where(act, lens + 1, lens)
+            if eos_id >= 0:
+                eos = eos | (act & (tok == eos_id))
             out.append(tok)
-        return torch.stack(out, dim=1)
+        took = budgets.clamp(0, n)
+        budgets = torch.where(live, budgets - took, budgets)
+        live = live & (budgets > 0) & ~eos
+        return torch.stack(out, dim=1), bad, tok, lens, live, budgets
+
+    def dispatch_chunk_state(self, n, eos_id=-1):
+        """Run one `_paged_chunk_state` of n steps on the static state
+        buffers and the engine's pools, advancing the state in place;
+        returns (toks [S, n], bad [S]). On the card this replays the
+        chunk's CUDA graph (captured on first use of (n, eos_id)), whose
+        outputs the next replay of the same graph overwrites; on the CPU
+        it runs eagerly."""
+        st = self.decode_state()
+        kpool, vpool = self._pools
+
+        def body():
+            toks, bad, tok, lens, live, budgets = self._paged_chunk_state(
+                *st, kpool, vpool, n, eos_id)
+            st.tok.copy_(tok)
+            st.lens.copy_(lens)
+            st.live.copy_(live)
+            st.budgets.copy_(budgets)
+            return toks, bad
+
+        def warmup():
+            # no slot live: every write lands in the trash block, and the
+            # static state is left as it is
+            self._paged_chunk_state(
+                st.tok, st.lens, st.tables, torch.zeros_like(st.live),
+                st.budgets, st.poison, kpool, vpool, n, eos_id)
+
+        return self._chunk_graphs.run((int(n), int(eos_id)), body, warmup)
 
     @staticmethod
     def _encode_first_token(logits):
@@ -406,14 +541,25 @@ class PagedDecoder(CachedDecoder):
     # -- continuous batching ----------------------------------------------
     def serve(self, requests, max_new_tokens=32, eos_token_id=None,
               chunk=8, pad_token_id=0, admission_timeout_s=None,
-              reject_oversized=False, spec_decode=None, feed=None,
-              feed_active=None, pipeline=False):
-        """Continuous-batching serve loop (serving.batcher.serve_loop).
-        requests: (req_id, prompt) pairs, (req_id, prompt, max_new)
-        triples or (req_id, prompt, max_new, arrival_s) quads. Returns
-        {req_id: [generated tokens]}, post-eos positions padded. The
-        port runs the serial loop (the JAX engine's pipeline=False);
-        spec_decode, feed and the pipelined lookahead raise."""
+              reject_oversized=False, spec_decode=None,
+              max_restarts=3, evict_after_deferrals=2,
+              max_deferrals=8, replay_backoff_s=0.05,
+              max_chunk_retries=8, feed=None, feed_active=None,
+              pipeline=None):
+        """Continuous-batching serve loop (serving.batcher.serve_loop), with
+        the JAX engine's signature. requests: (req_id, prompt) pairs,
+        (req_id, prompt, max_new) triples or (req_id, prompt, max_new,
+        arrival_s) quads. Returns {req_id: [generated tokens]}, post-eos
+        positions padded.
+
+        The decode state stays on the device between chunks, and
+        ``pipeline`` sets the one-chunk lookahead: None (default) or True
+        dispatch chunk N+1 before chunk N's tokens reach the host; False
+        waits for each chunk. The token streams are the same either way.
+        spec_decode, feed and feed_active raise NotImplementedError, and
+        so do the fault-recovery arguments (max_restarts,
+        evict_after_deferrals, max_deferrals, replay_backoff_s,
+        max_chunk_retries) unless they hold their defaults."""
         from ..serving.batcher import serve_loop
         return serve_loop(
             self, requests, max_new_tokens=max_new_tokens,
@@ -421,4 +567,9 @@ class PagedDecoder(CachedDecoder):
             pad_token_id=pad_token_id,
             admission_timeout_s=admission_timeout_s,
             reject_oversized=reject_oversized, spec_decode=spec_decode,
-            feed=feed, feed_active=feed_active, pipeline=pipeline)
+            max_restarts=max_restarts,
+            evict_after_deferrals=evict_after_deferrals,
+            max_deferrals=max_deferrals,
+            replay_backoff_s=replay_backoff_s,
+            max_chunk_retries=max_chunk_retries, feed=feed,
+            feed_active=feed_active, pipeline=pipeline)

@@ -3085,3 +3085,108 @@ def test_global_norm_clip_on_the_card(cuda_device):
         rtol = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-5
         torch.testing.assert_close(o.cpu().double(), g.double() * scale,
                                    rtol=rtol, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_paged_chunk_graph_replay_equals_eager(cuda_device, kv_quant):
+    """A paged decode chunk captured as a CUDA graph, replayed twice, each
+    time against `_paged_chunk_state` called eagerly on clones of the same
+    state and pools (bf16, head dim 64: the ragged kernel's route): the
+    tokens, the advanced state and every byte of the pools' blocks but
+    the trash block identical, and each
+    replay adds layers x n to the ragged kernel's launch count and to the
+    decoder's "kernel" route (the warm-up and the capture add nothing)."""
+    from paddle_tpu_torch.models.paged_decode import QuantizedPool
+    cfg = LlamaConfig(vocab_size=97, hidden_size=128, intermediate_size=192,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=2, max_position_embeddings=128,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=cuda_device)
+    dec = PagedDecoder(model, max_len=64, block_size=16, max_slots=4,
+                       num_blocks=17, kv_quant=kv_quant, device=cuda_device)
+    kpool, vpool = dec.serve_pools()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    for pool in (kpool, vpool):
+        if kv_quant:
+            pool.codes.copy_(torch.randint(-127, 128, pool.codes.shape,
+                                           generator=gen, device=cuda_device,
+                                           dtype=torch.int8))
+            pool.scales.uniform_(1e-3, 2e-2, generator=gen)
+        else:
+            pool.normal_(generator=gen)
+    S, n = 4, 4
+    tables = np.arange(1, 17, dtype=np.int32).reshape(S, 4)
+    dec.upload_state(np.asarray([5, 17, 40, 3], np.int32),
+                     np.asarray([9, 30, 6, 40], np.int32), tables,
+                     np.asarray([True, True, False, True]),
+                     np.asarray([7, 2, 5, 6], np.int32), np.zeros(S, bool))
+    counter = ragged_paged_attention_quant if kv_quant \
+        else ragged_paged_attention
+
+    def leaves(pool):
+        # every block but the trash block 0, which inactive slots write, no
+        # live slot reads, and the capture's warm-up (no slot live) writes
+        return [pool.codes[:, 1:], pool.scales[:, 1:]] if kv_quant \
+            else [pool[:, 1:]]
+
+    def clone(pool):
+        return QuantizedPool(pool.codes.clone(), pool.scales.clone()) \
+            if kv_quant else pool.clone()
+
+    for _ in range(2):
+        st0 = [t.clone() for t in dec.decode_state()]
+        kc, vc = clone(kpool), clone(vpool)
+        launches = counter.launches
+        routes = dict(PagedDecoder.route_launches)
+        toks, bad = dec.dispatch_chunk_state(n)
+        torch.cuda.synchronize()
+        assert counter.launches - launches == cfg.num_hidden_layers * n
+        assert PagedDecoder.route_launches["kernel"] - routes["kernel"] == \
+            cfg.num_hidden_layers * n
+        got = [toks.clone(), bad.clone()] + [
+            t.clone() for t in dec.decode_state()]
+        ref = dec._paged_chunk_state(*st0, kc, vc, n)
+        want = list(ref[:4]) + [st0[2], ref[4], ref[5], st0[5]]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for a, b in zip(leaves(kpool) + leaves(vpool),
+                        leaves(kc) + leaves(vc)):
+            assert torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+    assert dec._chunk_graphs.captured == 1
+    assert dec._chunk_graphs.replays == 2
+
+
+@pytest.mark.cuda
+def test_sampled_generate_graph_replays_reseed(cuda_device):
+    """CachedDecoder's sampled chunks as CUDA graphs: 1 + 2 x 8 new tokens
+    replay one graph (n 8) twice with fresh noise, so the fused tokens
+    equal the per-token loop's (CHUNK 1, no graph) under the same seed;
+    the same seed reproduces them and another seed changes them."""
+    cfg = LlamaConfig(vocab_size=97, hidden_size=128, intermediate_size=192,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=2, max_position_embeddings=128,
+                      dtype="float32")
+    model = LlamaForCausalLM(cfg, device=cuda_device)
+    ids = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 97, (3, 10)).astype(np.int64))
+    kw = dict(max_new_tokens=17, do_sample=True, temperature=0.8, top_k=20,
+              top_p=0.9)
+    dec = CachedDecoder(model, max_len=32, device=cuda_device)
+    dec.CHUNK = 8
+
+    def run(seed):
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(seed)
+        return dec.generate(ids, generator=gen, **kw)
+
+    first = run(0)
+    assert dec._gen_graphs.captured == 1 and dec._gen_graphs.replays == 2
+    assert torch.equal(run(0), first)
+    assert not torch.equal(run(1)[:, 10:], first[:, 10:])
+    # the two replays drew their own noise: the stream is the per-token one
+    assert not torch.equal(first[:, 11:19], first[:, 19:27])
+    dec.CHUNK = 1
+    assert torch.equal(run(0), first)

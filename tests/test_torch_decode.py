@@ -130,8 +130,15 @@ def test_cached_generate_matches_full_forward_oracle(models):
                                     eos_token_id=eos), masked)
     row = masked[0, 9:].tolist()
     assert all(t == 0 for t in row[row.index(eos) + 1:])
-    with pytest.raises(NotImplementedError):
-        tmodel.generate(ids, max_new_tokens=2, do_sample=True)
+    # sampling: the cached engine draws the full forward's noise, one
+    # [B, V] uniform draw a token, so one seed gives one stream
+    kw = dict(max_new_tokens=8, do_sample=True, temperature=0.7, top_k=20,
+              top_p=0.9)
+    full = tmodel.generate(ids, generator=torch.Generator().manual_seed(3),
+                           **kw)
+    cached = dec.generate(ids, generator=torch.Generator().manual_seed(3),
+                          **kw)
+    assert torch.equal(cached, full)
 
 
 # five mixed (prompt, budget) requests through two slots: admission
@@ -156,7 +163,8 @@ def test_paged_serve_token_identical(models, ragged):
     jmodel, tmodel, _ = models
     reqs = _requests()
     jdec = _paged(JaxPagedDecoder, jmodel, ragged_kernel=ragged)
-    ref = jdec.serve(reqs, chunk=4, pipeline=False)
+    # both engines' default loop: the one-chunk lookahead
+    ref = jdec.serve(reqs, chunk=4)
     tdec = _paged(PagedDecoder, tmodel, ragged_kernel=ragged, device="cpu")
     before = ragged_paged_attention.launches
     routes = dict(PagedDecoder.route_launches)
@@ -182,7 +190,7 @@ def test_paged_serve_per_slot_eos(models):
     free = _paged(PagedDecoder, tmodel, device="cpu").serve(reqs, chunk=4)
     eos = free["r2"][3]
     jdec = _paged(JaxPagedDecoder, jmodel, ragged_kernel=True)
-    ref = jdec.serve(reqs, chunk=4, eos_token_id=eos, pipeline=False)
+    ref = jdec.serve(reqs, chunk=4, eos_token_id=eos)
     tdec = _paged(PagedDecoder, tmodel, ragged_kernel=True, device="cpu")
     out = tdec.serve(reqs, chunk=4, eos_token_id=eos)
     assert out == ref
@@ -209,11 +217,11 @@ def test_exhausted_slot_stops_advancing(models):
     tables = torch.zeros(2, dec.blocks_per_seq, dtype=torch.int32)
     for i in range(2):
         tables[i, :2] = torch.tensor(dec.allocator.alloc(2))
-    dec._paged_chunk(torch.tensor([5, 7], dtype=torch.int32),
-                     torch.tensor([10, 10], dtype=torch.int32), tables,
-                     torch.ones(2, dtype=torch.bool),
-                     torch.tensor([3, 8], dtype=torch.int32), kpool, vpool,
-                     8)
+    dec._paged_chunk_state(torch.tensor([5, 7], dtype=torch.int32),
+                           torch.tensor([10, 10], dtype=torch.int32), tables,
+                           torch.ones(2, dtype=torch.bool),
+                           torch.tensor([3, 8], dtype=torch.int32),
+                           torch.zeros(2, dtype=torch.bool), kpool, vpool, 8)
     k0 = kpool[0]
     b00, b10, b11 = (int(tables[0, 0]), int(tables[1, 0]),
                      int(tables[1, 1]))

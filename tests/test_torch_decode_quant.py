@@ -151,8 +151,9 @@ def _jax_serve(jmodel, opts):
     key = tuple(sorted(opts.items()))
     if key not in _JAX_SERVES:
         jdec = _paged(JaxPagedDecoder, jmodel, ragged_kernel=True, **opts)
-        _JAX_SERVES[key] = (jdec.serve(_requests(), chunk=4,
-                                       pipeline=False), jdec)
+        # the JAX engine's default loop (the one-chunk lookahead), as the
+        # port's
+        _JAX_SERVES[key] = (jdec.serve(_requests(), chunk=4), jdec)
     return _JAX_SERVES[key]
 
 

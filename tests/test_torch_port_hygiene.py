@@ -110,7 +110,7 @@ def test_unported_decoder_options_raise(opt):
 
 @pytest.mark.parametrize("opt", [
     {"spec_decode": 2}, {"feed": list}, {"feed_active": bool},
-    {"pipeline": None}, {"pipeline": True}])
+    {"max_restarts": 0}, {"max_chunk_retries": 0}])
 def test_unported_serve_options_raise(opt):
     model = LlamaForCausalLM(llama_tiny(), device="cpu")
     dec = PagedDecoder(model, max_len=64, block_size=16, device="cpu")
