@@ -32,7 +32,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rows: the CUDA-core tile; each case names its route and rate), ragged
    attention over the int8 pool and the split-context partials (at
    serve_long's shapes, MHA and GQA, timed as the ragged cases, and with
-   NaN past every window);
+   NaN past every window); the three ragged kernels at the warm
+   prefill's shape (one prompt's 512 suffix rows after 512 cached tokens,
+   one table, NaN wherever no row's window reaches; timed in a CUDA graph
+   beside SDPA on the prompt's contiguous K/V);
 3. PagedDecoder.serve at Llama-2-7B widths (bf16, random weights from a
    seeded torch.Generator) on 16 requests, with the reference's default
    loop (the one-chunk lookahead, every decode chunk a CUDA graph
@@ -69,9 +72,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    every decode projection on the tensor-core GEMV, every head on the
    CUDA-core GEMV; the quantized ragged kernel once per layer per step);
    serve_long: 4 prompts of 3000-4000 tokens at max_len 4096 in 4 shards
-   (the partials kernel once per layer per step); then, in float32 at 4
+   (the partials kernel once per layer per step); serve_prefix: the radix
+   prefix cache at full width (16 requests sharing a 512-token system
+   prompt plus 64-512 tokens of their own, budgets 32-64), served cold
+   then warm by one cache-on engine: prefill seconds, p50 TTFT, decode ms
+   a step, the cache's counts, prompt tokens computed, ragged launches of
+   decode and of the warm prefill, peak memory; every block in use the
+   cache's, at least 90 % of the warm prompts' whole blocks found, and the
+   warm streams identical to the cold ones counted; then, in float32 at 4
    layers, the quantized ragged serve against the quantized dense one and
    2 and 4 shards against the unsharded serve, token for token;
+   prefix_parity (float32, 4 layers, TF32 off): cache-off, cache-on cold
+   and warm serves, a second conversational turn, the int8 pool and 4
+   shards cold against warm, prefill_chunk 256 on a 1000-token prompt
+   against one window, and a serve after every free block is NaN (no
+   quarantine), token for token; quarantine: the reference's
+   one-chunk-late fault plan (logits_poison on the first two coins) on
+   serve with and without the lookahead, streams equal to the unpoisoned
+   serial serve's with quarantines and replays, uploads and drains
+   reported;
 6. the training path's kernels checked and timed the same way at the
    training shapes (after the serving phases, so that those see the card
    as the serving slice left it): the flash forward at the train shape on
@@ -223,7 +242,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    flash backward's tensor-core pair and train_parity for its CUDA-core
    pair, train_gpt2 for both at D 64, serve_quant
    for quant_matmul's two GEMVs and tensor-core product and the quantized
-   ragged kernel, serve_long for the partials, train_moe for the grouped
+   ragged kernel, serve_long for the partials, serve_prefix for the
+   ragged kernel at the warm prefill's shape and prefix_parity for the
+   other two there, train_moe for the grouped
    forward and the dw kernel on the tensor cores, train_moe_quant_bm64
    for the grouped forward on the CUDA cores, train_moe_f3076 for the dw
    kernel on the CUDA cores, train_moe_quant for the
@@ -1584,6 +1605,202 @@ def partials_case(torch, np, name, nh, nkv, seed, shards=4, poison=False,
     return rec
 
 
+# the warm prefill's shape: one prompt's suffix rows after its cached tokens
+WARM_ROWS, WARM_CACHED = 512, 512
+WARM_PLAIN_ROWS = 32             # rows per plain-version call ([32, 2048]
+                                 # float32 windows: 2 GB)
+WARM_STEMS = {"kernel": "ragged_paged_attention",
+              "qkernel": "ragged_paged_attention_quant",
+              "pkernel": "ragged_paged_attention_partials"}
+
+
+def warm_kernel_case(torch, np, kind, seed, rows=WARM_ROWS,
+                     cached=WARM_CACHED, shards=4):
+    """A decode kernel at the warm prefill's shape: one prompt's `rows`
+    suffix rows after `cached` cached tokens, row i at seq_len cached + i
+    with the prompt's table, Llama-2-7B's 32 heads of 128, bs 64, a
+    32-entry table (max_len 2048) whose entries past the prompt's blocks
+    are 0, the trash block, as the engine's are. kind: "kernel" (bf16
+    pool), "qkernel" (int8 pool, quantized from bf16 draws) or "pkernel"
+    (bf16, `shards` shards: the partials, merged). Every pool position no
+    row's window covers is NaN (the trash block and the blocks outside the
+    table; int8: code 127 and a NaN scale); within a row's window the
+    positions past its own length hold the later rows' finite K/V, which
+    the plain version never reads, so a row that read them would leave
+    the tolerance. Held against the plain version (run on
+    WARM_PLAIN_ROWS rows at a time) by the ragged cases' rule, the
+    partials' o and lse as partials_case holds them; two launches bit for
+    bit. Timed by events (kernel_ms) and in a CUDA graph over pool copies
+    (graph_ms) beside SDPA on the prompt's contiguous K/V with the same
+    mask. The bound reads the prompt's K/V once, q once, and writes o
+    once."""
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    dev = torch.device("cuda")
+    nh = nkv = 32
+    hd, bs, mb = 128, 64, 32
+    total = cached + rows
+    nblk = -(-total // bs)
+    nb = 2 * nblk + 1
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    used = rng.permutation(nb - 1)[:nblk] + 1
+    row = np.zeros(mb, np.int32)
+    row[:nblk] = used
+    tables = torch.as_tensor(np.tile(row, (rows, 1)), device=dev)
+    lens = (cached + np.arange(rows)).astype(np.int32)
+    seq = torch.as_tensor(lens, device=dev)
+    dead = torch.as_tensor(np.setdiff1d(np.arange(nb), used), device=dev)
+    q = torch.randn(rows, nh, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    scale = hd ** -0.5
+    draw = [torch.randn(nb, bs, nkv, hd, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2)]
+    if kind == "qkernel":
+        pools = []
+        for x in draw:
+            codes, scales = rpa.kv_quantize_rows(x)
+            codes[dead], scales[dead] = 127, float("nan")
+            pools += [codes, scales]
+
+        def call(kc, ks, vc, vs, q=q, tables=tables, seq=seq):
+            return rpa.ragged_paged_attention_quant(q, kc, ks, vc, vs,
+                                                    tables, seq, scale)
+
+        def plain(q, tables, seq):
+            return rpa.ragged_paged_attention_quant_plain(q, *pools, tables,
+                                                          seq, scale)
+
+        def window(codes, scales):
+            return rpa.kv_dequantize_rows(codes[used], scales[used])
+    else:
+        for x in draw:
+            x[dead] = float("nan")
+        pools = draw
+        if kind == "pkernel":
+            def call(kp, vp, q=q, tables=tables, seq=seq):
+                return rpa.ragged_paged_attention_partials(
+                    q, kp, vp, tables, seq, shards, scale)
+
+            def plain(q, tables, seq):
+                return rpa.ragged_paged_attention_partials_plain(
+                    q, *pools, tables, seq, shards, scale)
+        else:
+            def call(kp, vp, q=q, tables=tables, seq=seq):
+                return rpa.ragged_paged_attention(q, kp, vp, tables, seq,
+                                                  scale)
+
+            def plain(q, tables, seq):
+                return rpa.ragged_paged_attention_plain(q, *pools, tables,
+                                                        seq, scale)
+
+        def window(p):
+            return p[used]
+    del draw
+
+    def plain_all():
+        parts = [plain(q[i:i + WARM_PLAIN_ROWS],
+                       tables[i:i + WARM_PLAIN_ROWS],
+                       seq[i:i + WARM_PLAIN_ROWS])
+                 for i in range(0, rows, WARM_PLAIN_ROWS)]
+        if kind == "pkernel":
+            return (torch.cat([o for o, _ in parts], dim=1),
+                    torch.cat([lse for _, lse in parts], dim=1))
+        return torch.cat(parts)
+
+    out = call(*pools)
+    again = call(*pools)
+    ref = plain_all()
+    torch.cuda.synchronize()
+    rec = {"phase": "kernel_check", "kernel": WARM_STEMS[kind],
+           "case": f"warm_prefill_{kind}_rows{rows}_cached{cached}",
+           "dtype": "bfloat16 q, int8 pool" if kind == "qkernel"
+           else "bfloat16", "rows": rows, "cached_tokens": cached,
+           "nh": nh, "nkv": nkv, "hd": hd, "block_size": bs,
+           "blocks_per_seq": mb, "nan_outside_the_windows": True}
+    if kind == "pkernel":
+        o, lse = out
+        check(bool(torch.equal(o, again[0]) and torch.equal(lse, again[1])),
+              f"warm {kind}: two launches differ")
+        ro, rlse = ref
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+              f"warm {kind}: NaN reached the partials")
+        live = rlse > -1e29
+        check(bool(torch.equal(live, lse > -1e29)
+                   and (o[~live] == 0).all()),
+              f"warm {kind}: empty shards disagree")
+        o_err = (o - ro).abs().max().item()
+        lse_err = (lse - rlse)[live].abs().max().item()
+        merged = rpa.merge_partials(o, lse, q.dtype)
+        err, ratio = bf16_err(merged, rpa.merge_partials(ro, rlse, q.dtype))
+        check(o_err <= FWD_ATOL_F32 and lse_err <= LSE_ATOL
+              and ratio <= 1.0,
+              f"warm {kind}: o err {o_err}, lse err {lse_err}, merged "
+              f"{ratio} x tolerance")
+        rec.update({"shards": shards, "o_max_abs_err": o_err,
+                    "lse_max_abs_err": lse_err,
+                    "merged_err_over_tolerance": ratio})
+        err = max(err, o_err)
+        out_bytes = o.numel() * 4 + lse.numel() * 4
+        ref_out = merged
+    else:
+        check(bool(torch.equal(out, again)), f"warm {kind}: two launches "
+                                             f"differ")
+        check(bool(torch.isfinite(out).all()), f"warm {kind}: NaN reached "
+                                               f"out")
+        err, ratio = bf16_err(out, ref)
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"warm {kind}: kernel vs plain max abs err {err}, {ratio} x "
+              f"tolerance")
+        rec["err_over_tolerance"] = ratio
+        out_bytes = out.numel() * 2
+        ref_out = ref
+    kernel_ms = cuda_ms(torch, lambda: call(*pools), 50)
+    plain_ms = cuda_ms(torch, plain_all, 2, warmup=1)
+    # yardstick: SDPA over the prompt's contiguous K/V (gathered, not
+    # timed), row i masked to keys 0..cached + i
+    if kind == "qkernel":
+        kw = window(*pools[:2]).to(torch.bfloat16)
+        vw = window(*pools[2:]).to(torch.bfloat16)
+    else:
+        kw, vw = window(pools[0]), window(pools[1])
+    kw, vw = (t.reshape(1, nblk * bs, nkv, hd)[:, :total].transpose(1, 2)
+              .contiguous() for t in (kw, vw))
+    mask = (torch.arange(total, device=dev)[None, :]
+            <= seq.long()[:, None])[None, None]
+    q4 = q.transpose(0, 1)[None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_check(f"warm {kind}", sdpa(q4, kw, vw, attn_mask=mask,
+                                   scale=scale)[0].transpose(0, 1), ref_out)
+    library_ms = cuda_ms(torch, lambda: sdpa(q4, kw, vw, attn_mask=mask,
+                                             scale=scale), 20)
+    library_graph = sdpa_graph_ms(torch, q4, kw, vw, mask, scale)
+    del kw, vw
+    # the prompt's K and V once (codes and a float32 scale per row for the
+    # int8 pool), q in, the output out, each row's live table entries and
+    # its seq_len
+    row_bytes = nkv * hd + 4 if kind == "qkernel" else nkv * hd * 2
+    bytes_moved = (2 * row_bytes * total + q.numel() * 2 + out_bytes
+                   + 4 * int((lens // bs + 1).sum()) + 4 * rows)
+    flops = 4 * nh * hd * int((lens.astype(np.int64) + 1).sum())
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    ms, copies = ragged_graph_times(torch, WARM_STEMS[kind], call,
+                                    tuple(pools), bytes_moved)
+    rec.update({"max_abs_err": err, "rtol": BF16_RTOL, "atol": BF16_ATOL,
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "library": "scaled_dot_product_attention on the prompt's "
+                           "contiguous K/V" + (" (dequantized to bf16)"
+                                               if kind == "qkernel" else ""),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": bytes_moved, "flops": flops})
+    ragged_record(rec, ms, copies, library_graph)
+    emit(rec)
+    del pools, out, again, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phases 3-5: the serving path ----------------------------------------------
 
 def make_requests(np, seed, n=16):
@@ -1868,6 +2085,304 @@ def quant_shard_parity_phase(torch, np, reqs, seed):
     del model
     torch.cuda.empty_cache()
     return rec
+
+
+def make_prefix_requests(np, seed, n=16, system=512, own=(64, 513),
+                         budgets=(32, 65), vocab=32000):
+    """n requests that share one `system`-token system prompt, each with
+    its own tokens (counts drawn from `own`) and budget."""
+    rng = np.random.default_rng(seed)
+    shared = [int(t) for t in rng.integers(0, vocab, system)]
+    reqs = []
+    for i in range(n):
+        mine = [int(t) for t in rng.integers(0, vocab,
+                                             int(rng.integers(*own)))]
+        reqs.append((f"req{i}", shared + mine, int(rng.integers(*budgets))))
+    return reqs
+
+
+PREFIX_SYSTEM = 512              # serve_prefix's shared system prompt
+PREFIX_STATS = ("hits", "misses", "tokens_saved", "blocks_shared",
+                "cow_copies", "evicted_blocks")
+
+
+def cache_serve(torch, dec, reqs, phase, counter, layers, vocab):
+    """One serve of a cache-on engine, with its counts: the cache's stats
+    and the engine's prefill counters over this serve, the decode steps,
+    the launches of `counter` (the decode kernel of the engine's pools)
+    split into decode steps and warm-prefill calls, and checks: every
+    request gets its budget, every block in use is the cache's, every
+    decode chunk is a graph replay, and the kernel ran once a layer per
+    decode step and per prefill call."""
+    st0 = dict(dec.prefix_cache.stats)
+    calls0, computed0 = dec.prefill_device_calls, dec.prefill_tokens_computed
+    chunks0, replays0 = dec.chunk_dispatches, dec._chunk_graphs.replays
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.launches = 0
+    zero_decoder_routes()
+    t0 = time.perf_counter()
+    out = dec.serve(reqs, chunk=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    routes = decoder_routes_without_plain(phase)
+    sst = dec.serve_stats
+    steps, calls = sst["decode_steps"], dec.prefill_device_calls - calls0
+    for rid, _, budget in reqs:
+        check(len(out[rid]) == budget and all(0 <= t < vocab
+                                               for t in out[rid]),
+              f"{phase}: {rid} got {len(out[rid])} tokens of {budget}")
+    check(dec.allocator.in_use == dec.prefix_cache.held_blocks,
+          f"{phase}: {dec.allocator.in_use} blocks in use, the cache holds "
+          f"{dec.prefix_cache.held_blocks}")
+    chunks = dec.chunk_dispatches - chunks0
+    check(dec._chunk_graphs.replays - replays0 == chunks == sst["chunks"],
+          f"{phase}: {dec._chunk_graphs.replays - replays0} graph replays "
+          f"for {chunks} chunks")
+    check(launches == layers * (steps + calls)
+          and routes["decode"]["kernel"] == launches,
+          f"{phase}: {launches} launches for {layers} layers x ({steps} "
+          f"decode steps + {calls} prefill calls); routes {routes}")
+    ttft = sorted(sst["first_token_s"].values())
+    rec = {"phase": phase, "requests": len(reqs), "wall_s": wall,
+           "prefill_s": sst["prefill_s"], "ttft_p50_s":
+           statistics.median(ttft), "ttft_max_s": ttft[-1],
+           "decode_s": sst["decode_s"], "decode_steps": steps,
+           "decode_ms_per_step": 1e3 * sst["decode_s"] / steps,
+           "chunks": chunks, "graph_replays": chunks,
+           "graphs_captured": sst["graphs_captured"],
+           "capture_s": sst["capture_s"],
+           "prefix_cache": {k: dec.prefix_cache.stats[k] - st0[k]
+                            for k in PREFIX_STATS},
+           "prefill_device_calls": calls,
+           "prefill_tokens_computed": dec.prefill_tokens_computed
+           - computed0,
+           "prompt_tokens": sum(len(p) for _, p, _ in reqs),
+           "launches": {"kernel": counter.__name__, "total": launches,
+                        "decode": layers * steps,
+                        "warm_prefill": layers * calls},
+           "held_blocks": dec.prefix_cache.held_blocks,
+           "peak_blocks": dec.allocator.peak_in_use,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    return out, rec
+
+
+def serve_prefix_phase(torch, np, model, layers, seed):
+    """The prefix cache at full width (bf16): 16 requests sharing a
+    512-token system prompt, each with 64-512 tokens of its own and a
+    budget of 32-64, served twice by one cache-on engine, cold then warm.
+    Each serve's line: prefill seconds, p50 TTFT, decode ms a step, the
+    cache's counts, the prompt tokens computed, the ragged launches of
+    decode and of the warm prefill, peak memory (`cache_serve`). The warm
+    serve must find at least 90 % of its prompts' whole blocks cached;
+    the count of warm streams identical to the cold ones is reported (in
+    bf16 a prefill of other row counts may round differently and tip a
+    near tie; the float32 gate is prefix_parity)."""
+    from paddle_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention)
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    reqs = make_prefix_requests(np, seed, system=PREFIX_SYSTEM)
+    dec = PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
+                       num_blocks=257, prefix_cache=True)
+    check(dec.use_ragged_kernel, "ragged kernel is off on the card")
+    vocab = model.config.vocab_size
+    streams, recs = {}, {}
+    for run in ("cold", "warm"):
+        streams[run], recs[run] = cache_serve(
+            torch, dec, reqs, f"serve_prefix_{run}", ragged_paged_attention,
+            layers, vocab)
+    whole = sum(len(p) // 64 * 64 for _, p, _ in reqs)
+    saved = recs["warm"]["prefix_cache"]["tokens_saved"]
+    check(saved >= 0.9 * whole, f"serve_prefix_warm: {saved} tokens saved "
+                                f"of {whole} in whole prompt blocks")
+    same = sum(streams["warm"][rid] == streams["cold"][rid]
+               for rid, _, _ in reqs)
+    # how far each warm stream follows its cold one before they part
+    common = []
+    for rid, _, _ in reqs:
+        a, b = streams["warm"][rid], streams["cold"][rid]
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        common.append(n)
+    for run in ("cold", "warm"):
+        recs[run].update({
+            "model": "llama_2_7b widths, random weights",
+            "dtype": "bfloat16", "layers": layers, "layers_cut": layers != 32,
+            "system_prompt_tokens": PREFIX_SYSTEM,
+            "prompt_lens": [len(p) for _, p, _ in reqs],
+            "budgets": [b for _, _, b in reqs], "chunk": 8,
+            "max_len": dec.max_len, "max_slots": dec.max_slots,
+            "block_size": dec.block_size, "num_blocks": dec.num_blocks})
+    recs["warm"].update({"whole_prompt_block_tokens": whole,
+                         "warm_streams_identical_to_cold": same,
+                         "warm_cold_common_prefix_tokens": common,
+                         "prefill_s_warm_over_cold":
+                         recs["warm"]["prefill_s"] / recs["cold"]["prefill_s"],
+                         "ttft_p50_warm_over_cold":
+                         recs["warm"]["ttft_p50_s"]
+                         / recs["cold"]["ttft_p50_s"]})
+    for run in ("cold", "warm"):
+        emit(recs[run])
+    del dec
+    torch.cuda.empty_cache()
+    return recs
+
+
+def prefix_parity_phase(torch, np, model, seed):
+    """Float32 at full width, 4 layers, TF32 off: token-identical streams
+    of cache-off, cache-on cold and cache-on warm serves (8 requests
+    sharing a 512-token system prompt); a second turn of two of them
+    (prompt + reply + 64 new tokens) against cache-off; cold against warm
+    with an int8 pool and with 4 shards; prefill_chunk 256 on a
+    1000-token prompt against the single-shot warm prefill; and a serve
+    after every free block is poisoned with NaN against the cold streams.
+    Records the int8 and sharded engines' kernel launches (decode and warm
+    prefill), the kernels-line rows of those kernels at this shape."""
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    reqs = make_prefix_requests(np, seed, n=8, own=(64, 257),
+                                budgets=(16, 33))
+    vocab = model.config.vocab_size
+    layers = model.config.num_hidden_layers
+
+    def engine(**kw):
+        return PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
+                            num_blocks=257, **kw)
+
+    def same(a, b):
+        return sum(a[rid] == b[rid] for rid in a)
+
+    rec = {"phase": "prefix_parity", "dtype": "float32", "layers": layers,
+           "requests": len(reqs), "identical_streams": {}}
+    ident = rec["identical_streams"]
+    off = engine()
+    ref = off.serve(reqs, chunk=8)
+    on = engine(prefix_cache=True)
+    cold, rec["cold"] = cache_serve(torch, on, reqs, "prefix_parity_cold",
+                                    rpa.ragged_paged_attention, layers,
+                                    vocab)
+    warm, rec["warm"] = cache_serve(torch, on, reqs, "prefix_parity_warm",
+                                    rpa.ragged_paged_attention, layers,
+                                    vocab)
+    ident["cold_vs_off"] = same(cold, ref)
+    ident["warm_vs_off"] = same(warm, ref)
+    rng = np.random.default_rng(seed + 1)
+    turn1 = [(f"{rid}:t1", p + ref[rid] + [int(t) for t in
+                                          rng.integers(0, vocab, 64)], b)
+             for rid, p, b in reqs[:2]]
+    saved0 = on.prefix_cache.stats["tokens_saved"]
+    t1_on = on.serve(turn1, chunk=8)
+    ident["turn1_vs_off"] = same(t1_on, off.serve(turn1, chunk=8))
+    rec["turn1_tokens_saved"] = on.prefix_cache.stats["tokens_saved"] - saved0
+    check(rec["turn1_tokens_saved"] >= sum(
+        len(p) + b - 64 for _, p, b in reqs[:2]),
+        f"prefix_parity: turn 1 saved {rec['turn1_tokens_saved']} tokens")
+    on.prefix_cache.evict(on.prefix_cache.held_blocks)
+    free = [b for b in range(1, on.num_blocks)
+            if on.allocator.refcount(b) == 0]
+    check(len(free) == on.num_blocks - 1, "prefix_parity: blocks held after "
+                                          "the cache was emptied")
+    on.poison_blocks(free)
+    q0 = on.quarantines
+    ident["poisoned_vs_cold"] = same(on.serve(reqs, chunk=8), cold)
+    # the kernels read no position past a row's length: not one poisoned
+    # value reaches a logit (the dense route would read them as 0 x NaN)
+    rec["poisoned_quarantines"] = on.quarantines - q0
+    check(rec["poisoned_quarantines"] == 0,
+          f"prefix_parity: {rec['poisoned_quarantines']} quarantines after "
+          f"the free blocks were poisoned")
+    del off, on
+    for key, kw, counter in (
+            ("int8", dict(kv_quant="int8"), rpa.ragged_paged_attention_quant),
+            ("shards4", dict(attn_shards=4),
+             rpa.ragged_paged_attention_partials)):
+        dec = engine(prefix_cache=True, **kw)
+        c, rc = cache_serve(torch, dec, reqs, f"prefix_parity_{key}_cold",
+                            counter, layers, vocab)
+        w, rw = cache_serve(torch, dec, reqs, f"prefix_parity_{key}_warm",
+                            counter, layers, vocab)
+        ident[f"{key}_warm_vs_cold"] = same(w, c)
+        rec[key] = {"cold": rc, "warm": rw}
+        del dec
+    long = [("long", [int(t) for t in rng.integers(0, vocab, 1000)], 16)]
+    chunked = engine(prefix_cache=True, prefill_chunk=256)
+    single = engine(prefix_cache=True)
+    ident["prefill_chunk256_vs_single"] = same(chunked.serve(long, chunk=8),
+                                               single.serve(long, chunk=8))
+    rec["prefill_chunk256_calls"] = chunked.prefill_device_calls
+    check(chunked.prefill_device_calls == 4
+          and single.prefill_device_calls == 1,
+          f"prefix_parity: {chunked.prefill_device_calls} windows of 256 "
+          f"for 1000 tokens")
+    del chunked, single
+    want = {k: 1 if k == "prefill_chunk256_vs_single"
+            else 2 if k == "turn1_vs_off" else len(reqs) for k in ident}
+    check(ident == want, f"prefix_parity: identical streams {ident} of "
+                         f"{want}")
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def quarantine_phase(torch, np, model, seed):
+    """The fault plan of the reference's one-chunk-late test (logits_poison
+    at p 1 on the first two coins) on the float32 4-layer model, on serve
+    with the lookahead (pipeline None) and without (False): the streams
+    must equal the unpoisoned serial serve's, with at least one quarantine
+    and one replay, every decode chunk a graph replay. Reports uploads
+    (the poison column's one-column upload among them) and drains."""
+    from paddle_tpu_torch.models.paged_decode import PagedDecoder
+    from paddle_tpu_torch.resilience import faults
+    reqs = make_requests(np, seed, n=8)
+    plan = {"seed": 7, "sites": {
+        "logits_poison": {"p": 1.0, "window": [0, 2]}}}
+
+    def engine():
+        return PagedDecoder(model, max_len=2048, block_size=64, max_slots=8,
+                            num_blocks=257)
+
+    ref = engine().serve(reqs, chunk=8, pipeline=False)
+    rec = {"phase": "quarantine", "dtype": "float32",
+           "layers": model.config.num_hidden_layers, "requests": len(reqs),
+           "plan": plan}
+    for pipeline in (None, False):
+        dec = engine()
+        faults.install_plan(plan)
+        try:
+            out = dec.serve(reqs, chunk=8, pipeline=pipeline)
+        finally:
+            faults.clear()
+        key = "lookahead" if pipeline is None else "serial"
+        rec[key] = {c: getattr(dec, c) for c in (
+            "quarantines", "replays", "replay_giveups", "h2d_uploads",
+            "pipeline_drains", "chunk_dispatches", "lookahead_dispatches")}
+        rec[key]["graph_replays"] = dec._chunk_graphs.replays
+        rec[key]["identical_streams"] = sum(out[r] == ref[r]
+                                            for r, _, _ in reqs)
+        check(out == ref, f"quarantine ({key}): {rec[key]}")
+        check(dec.quarantines >= 1 and dec.replays >= 1
+              and dec._chunk_graphs.replays == dec.chunk_dispatches,
+              f"quarantine ({key}): {rec[key]}")
+        del dec
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def prefix_phases(torch, np, seed):
+    """prefix_parity and quarantine on one float32 model at Llama-2-7B
+    widths, 4 layers, TF32 off."""
+    from paddle_tpu_torch.models.llama import llama_2_7b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(torch, llama_2_7b(num_hidden_layers=4,
+                                          dtype="float32"), seed + 1)
+    parity = prefix_parity_phase(torch, np, model, seed + 2)
+    quarantine = quarantine_phase(torch, np, model, seed + 3)
+    del model
+    torch.cuda.empty_cache()
+    return parity, quarantine
 
 
 def profile_phase(torch, model, reqs, phase="profile", parent=None,
@@ -5362,6 +5877,10 @@ def main():
     partials_case(torch, np, "shards4_s4_32x8_mb64", 32, 8, 26,
                   variants=parent["ragged_paged_attention_partials"])
     partials_case(torch, np, "shards4_nan_poison", 32, 32, 27, poison=True)
+    # the three at the warm prefill's shape (512 suffix rows after 512
+    # cached tokens, one table), with NaN outside every row's window
+    warm_main = {kind: warm_kernel_case(torch, np, kind, 28 + i)
+                 for i, kind in enumerate(WARM_STEMS)}
 
     layers = args.layers
     reqs = make_requests(np, args.seed)
@@ -5387,6 +5906,8 @@ def main():
           "serve_quant's")
     long_reqs = make_long_requests(np, args.seed)
     serve_long = serve_long_phase(torch, np, model, long_reqs, layers)
+    serve_prefix = serve_prefix_phase(torch, np, model, layers,
+                                      args.seed + 5)
     if args.profile:
         profile_phase(torch, model, reqs, "profile_serve_quant",
                       weight_quant="int8_blockwise", kv_quant="int8")
@@ -5408,6 +5929,7 @@ def main():
     torch.cuda.empty_cache()
     parity_phase(torch, np, reqs, args.seed)
     quant_shard_parity_phase(torch, np, reqs, args.seed)
+    prefix_parity, _ = prefix_phases(torch, np, args.seed)
 
     # the training path's kernel checks run after the serving phases, so
     # that those see the card as the serving slice left it
@@ -5609,6 +6131,27 @@ def main():
              "paddle_tpu_torch/csrc/ragged_paged_attention_partials.cu",
              "paddle_tpu/kernels/pallas/ragged_paged_attention.py:310",
              partials_main, serve_long["partials_launches"]),
+            # the warm prefill's rows: serve_prefix (both serves) for the
+            # bf16 pool, prefix_parity's int8 and sharded engines for the
+            # other two
+            ("ragged_paged_attention_warm",
+             "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+             "paddle_tpu/kernels/pallas/ragged_paged_attention.py:170",
+             warm_main["kernel"],
+             sum(serve_prefix[r]["launches"]["warm_prefill"]
+                 for r in ("cold", "warm"))),
+            ("ragged_paged_attention_quant_warm",
+             "paddle_tpu_torch/csrc/ragged_paged_attention_quant.cu",
+             "paddle_tpu/kernels/pallas/ragged_paged_attention.py:506",
+             warm_main["qkernel"],
+             sum(prefix_parity["int8"][r]["launches"]["warm_prefill"]
+                 for r in ("cold", "warm"))),
+            ("ragged_paged_attention_partials_warm",
+             "paddle_tpu_torch/csrc/ragged_paged_attention_partials.cu",
+             "paddle_tpu/kernels/pallas/ragged_paged_attention.py:310",
+             warm_main["pkernel"],
+             sum(prefix_parity["shards4"][r]["launches"]["warm_prefill"]
+                 for r in ("cold", "warm"))),
             ("grouped_matmul_fwd", "paddle_tpu_torch/csrc/grouped_matmul.cu",
              "paddle_tpu/kernels/pallas/grouped_matmul.py:226",
              gmm_cuda_core,

@@ -8,7 +8,8 @@ asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
 plain PyTorch version. Seven slices are ported: serving, greedy or
 sampled (LlamaForCausalLM, CachedDecoder's fused decode chunks and
 PagedDecoder with the zero-sync pipelined continuous-batching loop, each
-decode chunk a CUDA graph on the card), the pretraining step (TrainStep over
+decode chunk a CUDA graph on the card, its radix prefix cache and the
+quarantine and replay of non-finite logits), the pretraining step (TrainStep over
 LlamaForCausalLM, LlamaPretrainingCriterion and AdamW), quantized and
 long-context serving (the decoders' weight_quant, kv_quant and
 attn_shards options), mixture-of-experts training on one device (the

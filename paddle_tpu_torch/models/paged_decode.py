@@ -21,8 +21,20 @@ greedy steps and returns the advanced state beside the tokens, retiring a
 slot's liveness on the device at its eos or at the end of its budget.
 On the card each (n, eos_id) chunk is one CUDA graph
 (``jit/chunk_graph.py``) over the engine's static state buffers and its
-persistent pools, replayed once a chunk; the pools are zeroed at the
-start of every serve, the JAX engine's fresh pools.
+persistent pools, replayed once a chunk. A cache-off engine zeroes its
+pools at the start of every serve (the JAX engine's fresh pools); a
+cache-on engine keeps them, since its cached KV outlives the serve.
+
+The prefix cache (``prefix_cache=True``, ``"radix"`` or a
+``serving.cache.RadixPrefixCache``; ``prefix_cache_blocks`` caps it)
+shares whole blocks between requests through the refcounted
+``BlockAllocator``. Every cache-on prefill runs ``_prefill_warm``: the
+uncached suffix's tokens are query rows of `_paged_step`, each at its own
+position with the prompt's table, so decode attention (the ragged
+kernels on the card) reads the cached blocks; ``prefill_chunk`` cuts a
+long suffix into windows. ``_cow_copy`` forks a fully cached prompt's
+boundary block, ``release_pools`` drops the cache and zeroes the pools in
+place, and ``poison_blocks`` fills blocks with NaN for tests.
 
 Decode attention on a CUDA tensor runs the hand-written ragged paged
 attention kernel (kernels/ragged_paged_attention.py) straight off the
@@ -43,8 +55,8 @@ options change the ragged path:
   attention as per-shard partials over contiguous sub-tables, merged by
   the lse rescale (split-context attention; one launch for all shards).
 ``weight_quant`` is CachedDecoder's. Options the port has not reached yet
-(prefix_cache, kv_offload, prefill_chunk, hbm_budget_gib, headroom_guard,
-block_size="auto") raise NotImplementedError.
+(kv_offload, hbm_budget_gib, headroom_guard, block_size="auto") raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -80,12 +92,19 @@ class QuantizedPool:
         return QuantizedPool(self.codes[i], self.scales[i])
 
 
+def _pool_leaves(pool):
+    """The tensors of one pool side: (codes, scales) or the tensor."""
+    if isinstance(pool, QuantizedPool):
+        return pool.codes, pool.scales
+    return (pool,)
+
+
 class DecodeState(NamedTuple):
     """The batch state a decode chunk reads and advances, on the device:
     tok [S] int32 (each slot's last token), lens [S] int32 (tokens in its
     pages), tables [S, MB] int32, live [S] bool, budgets [S] int32
-    (tokens still to generate), poison [S] bool (all false: the fault
-    injection lane of the JAX engine, not ported)."""
+    (tokens still to generate), poison [S] bool (the fault plan's
+    logits_poison coins: a poisoned slot's logits are NaN)."""
     tok: torch.Tensor
     lens: torch.Tensor
     tables: torch.Tensor
@@ -96,13 +115,19 @@ class DecodeState(NamedTuple):
 
 class BlockAllocator:
     """Host-side free list over pool blocks. Block 0 is reserved as the
-    trash block; sequences get blocks 1..num_blocks-1. Freeing a block
-    that is not in use raises instead of corrupting the free list."""
+    trash block; sequences get blocks 1..num_blocks-1.
+
+    Blocks are refcounted: the prefix cache maps one block into several
+    tables (copy-on-write sharing), so a block is owned by every table
+    that maps it and by the radix tree if it is cached. ``alloc`` bears
+    blocks at refcount 1, ``retain`` adds a reference and ``free`` drops
+    one, returning the block to the free list at 0. A double free, or the
+    retain of a free block, raises instead of corrupting the free list."""
 
     def __init__(self, num_blocks):
         self.num_blocks = int(num_blocks)
         self._free = list(range(self.num_blocks - 1, 0, -1))
-        self._used = set()
+        self._rc = {}                 # block id -> refcount (absent: free)
         self.peak_in_use = 0
 
     @property
@@ -111,7 +136,10 @@ class BlockAllocator:
 
     @property
     def in_use(self):
-        return len(self._used)
+        return (self.num_blocks - 1) - len(self._free)
+
+    def refcount(self, block):
+        return self._rc.get(int(block), 0)
 
     def alloc(self, n):
         if n > len(self._free):
@@ -119,19 +147,33 @@ class BlockAllocator:
                 f"KV pool exhausted: need {n} blocks, {len(self._free)} "
                 f"free (raise num_blocks or lower max_slots)")
         out = [self._free.pop() for _ in range(n)]
-        self._used.update(out)
+        for b in out:
+            self._rc[b] = 1
         self.peak_in_use = max(self.peak_in_use, self.in_use)
         return out
+
+    def retain(self, block):
+        """Add one reference to a live block. Retaining a free block would
+        alias a later allocation onto cached KV, so it raises."""
+        b = int(block)
+        rc = self._rc.get(b, 0)
+        if rc <= 0:
+            raise ValueError(f"retain of free block {b}")
+        self._rc[b] = rc + 1
 
     def free(self, blocks):
         for b in blocks:
             b = int(b)
             if not 0 < b < self.num_blocks:
                 raise ValueError(f"bad block id {b}")
-            if b not in self._used:
+            rc = self._rc.get(b, 0)
+            if rc <= 0:
                 raise ValueError(f"double free of block {b}")
-            self._used.remove(b)
-            self._free.append(b)
+            if rc == 1:
+                del self._rc[b]
+                self._free.append(b)
+            else:
+                self._rc[b] = rc - 1
 
 
 @dataclass
@@ -139,12 +181,12 @@ class _Slot:
     req_id: object = None
     blocks: list = field(default_factory=list)
     emitted: list = field(default_factory=list)   # generated tokens
+    prompt: list = field(default_factory=list)    # for replay and the cache
     budget: int = 0            # max_new_tokens remaining
     done: bool = False
 
 
-_UNPORTED = ("prefix_cache", "prefix_cache_blocks", "prefill_chunk",
-             "kv_offload", "hbm_budget_gib", "headroom_guard")
+_UNPORTED = ("kv_offload", "hbm_budget_gib", "headroom_guard")
 
 
 class PagedDecoder(CachedDecoder):
@@ -163,10 +205,7 @@ class PagedDecoder(CachedDecoder):
                  attn_shards=None, shard_block_budget=None,
                  prefill_chunk=None, kv_offload=None,
                  hbm_budget_gib=None, device=None):
-        opts = dict(prefix_cache=prefix_cache,
-                    prefix_cache_blocks=prefix_cache_blocks,
-                    prefill_chunk=prefill_chunk, kv_offload=kv_offload,
-                    hbm_budget_gib=hbm_budget_gib,
+        opts = dict(kv_offload=kv_offload, hbm_budget_gib=hbm_budget_gib,
                     headroom_guard=headroom_guard)
         for name in _UNPORTED:
             if opts[name] not in (None, False):
@@ -218,6 +257,15 @@ class PagedDecoder(CachedDecoder):
                 "attn_shards > 1 is not supported with kv_quant: the "
                 "partials kernel has no int8 variant yet; serve long "
                 "contexts unquantized or raise shard_block_budget")
+        # chunked prefill: a warm-prefill suffix longer than this runs in
+        # windows of this many tokens
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk < self.block_size:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} below block_size "
+                    f"{self.block_size}")
+        self.prefill_chunk = prefill_chunk
         # decode steps whose attention ran as sharded partials
         self.sharded_attn_calls = 0
         self.num_blocks = int(num_blocks or
@@ -225,7 +273,29 @@ class PagedDecoder(CachedDecoder):
                               + 1)
         self.allocator = BlockAllocator(self.num_blocks)
         self._slots = [_Slot(done=True) for _ in range(self.max_slots)]
+        # the radix prefix cache: True or "radix" builds one over this
+        # engine's allocator, an instance is taken as it is. A cache-on
+        # engine keeps its pools across serves: the cached KV must outlive
+        # the serve that wrote it
+        if prefix_cache in (True, "radix"):
+            from ..serving.cache import RadixPrefixCache
+            prefix_cache = RadixPrefixCache(self.block_size, self.allocator,
+                                            max_blocks=prefix_cache_blocks)
+        elif prefix_cache in (None, False):
+            prefix_cache = None
+        self.prefix_cache = prefix_cache
         self.rejected_requests = {}
+        # fault recovery: slots evicted, replays admitted, slots
+        # quarantined on non-finite logits, requests given up past
+        # max_restarts
+        self.evictions = 0
+        self.replays = 0
+        self.quarantines = 0
+        self.replay_giveups = 0
+        # the prefills' device calls and the prompt tokens they computed
+        # (a cached span is not computed)
+        self.prefill_device_calls = 0
+        self.prefill_tokens_computed = 0
         self.serve_stats = {}
         # host<->device traffic of the serve loop, as the JAX engine counts
         # it: decode-state uploads (6 a composition change), chunk
@@ -258,21 +328,49 @@ class PagedDecoder(CachedDecoder):
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
 
-    def serve_pools(self):
-        """The engine's own (kpool, vpool), zeroed: allocated on the first
-        call and zeroed in place on every later one (int8 scales back to
-        1), so the chunk graphs, which bind their addresses, stay valid
-        while each serve starts from fresh pools as the JAX engine's
-        does."""
+    def ensure_pools(self):
+        """The engine's own (kpool, vpool), allocated on first use and kept
+        for the engine's life: the chunk graphs bind their addresses, and a
+        cache-on engine's cached KV lives in them across serves."""
         if self._pools is None:
             self._pools = self.new_pools()
-            return self._pools
+        return self._pools
+
+    def _zero_pools(self):
         for pool in self._pools:
             if isinstance(pool, QuantizedPool):
                 pool.codes.zero_()
                 pool.scales.fill_(1.0)
             else:
                 pool.zero_()
+
+    def serve_pools(self):
+        """The engine's pools, zeroed in place (int8 scales back to 1): a
+        cache-off serve starts from fresh pools as the JAX engine's does,
+        and the chunk graphs stay valid."""
+        if self._pools is None:
+            return self.ensure_pools()
+        self._zero_pools()
+        return self._pools
+
+    def release_pools(self):
+        """Drop every cache entry and zero the pools in place (the JAX
+        engine drops its persistent pools; here the chunk graphs point at
+        them, so the tensors stay)."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        if self._pools is not None:
+            self._zero_pools()
+
+    def poison_blocks(self, block_ids):
+        """Test hook: poison blocks of the engine's pools in place, every
+        layer, K and V (float planes NaN, int8 code planes 127). A freed
+        block poisoned so is never read while no table maps it."""
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                              device=self.device)
+        for pool in self.ensure_pools():
+            for t in _pool_leaves(pool):
+                t[:, idx] = float("nan") if t.is_floating_point() else 127
         return self._pools
 
     def decode_state(self):
@@ -296,6 +394,12 @@ class PagedDecoder(CachedDecoder):
         for dst, src in zip(st, (tok, lens, tables, live, budgets, poison)):
             dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
         self.h2d_uploads += 6
+
+    def upload_poison(self, poison):
+        """Copy a new poison column into its static buffer: one upload."""
+        self.decode_state().poison.copy_(
+            torch.from_numpy(np.ascontiguousarray(poison)))
+        self.h2d_uploads += 1
 
     def _graph_counters(self):
         """The launch counters a decode chunk moves (see ChunkGraphs)."""
@@ -399,6 +503,12 @@ class PagedDecoder(CachedDecoder):
         bs, Hkv, D], written in place; active [S] bool (optional) marks
         slots that really advance: the others write into the trash
         block. Returns logits [S, V] float32."""
+        x = self._paged_layers(tokens, seqlens, tables, kpool, vpool, active)
+        return self._head_logits(_rms(x, self.norm_w, self.eps))
+
+    def _paged_layers(self, tokens, seqlens, tables, kpool, vpool, active):
+        """The layers of `_paged_step`: its rows' hidden states [S, H]
+        before the final norm."""
         S = tokens.shape[0]
         bs = self.block_size
         pos = seqlens.long()
@@ -419,7 +529,7 @@ class PagedDecoder(CachedDecoder):
             x = self._mlp(x, l)
         if route == "kernel" and self.attn_shards > 1:
             self.sharded_attn_calls += 1
-        return self._head_logits(_rms(x, self.norm_w, self.eps))
+        return x
 
     @torch.no_grad()
     def _paged_chunk_state(self, tok0, seqlens0, tables, live, budgets,
@@ -538,6 +648,39 @@ class PagedDecoder(CachedDecoder):
                                         self.eps))[0]
         return self._encode_first_token(logits)
 
+    @torch.no_grad()
+    def _prefill_warm(self, ids, start, true_len, table, kpool, vpool):
+        """Pool-mapped (warm) prefill (the JAX engine's
+        `_prefill_warm_impl`): compute only the suffix of a prompt whose
+        first ``start`` tokens have KV in ``table``'s blocks already. ids
+        [S0pad] holds the suffix padded to its bucket, true_len its real
+        length; table [MB] int32. Each suffix token is one query row of
+        `_paged_step` at position min(start + i, max_len - 1), attending
+        with its own seq_len and the prompt's table, so the decode kernel
+        reads the cached blocks and row i sees the rows before it; rows at
+        or past true_len write into the trash block. Every cache-on
+        prefill runs here, a miss with start 0. Returns the encoded first
+        token of row true_len - 1 (the head runs on that row alone)."""
+        S0 = ids.shape[0]
+        ii = torch.arange(S0, device=ids.device, dtype=torch.int32)
+        pos = torch.clamp(ii + int(start), max=self.max_len - 1)
+        tabs = table[None, :].expand(S0, -1)
+        x = self._paged_layers(ids, pos, tabs, kpool, vpool,
+                               ii < int(true_len))
+        last = x[max(int(true_len) - 1, 0)]
+        logits = self._head_logits(_rms(last[None], self.norm_w,
+                                        self.eps))[0]
+        return self._encode_first_token(logits)
+
+    @torch.no_grad()
+    def _cow_copy(self, kpool, vpool, src, dst):
+        """Copy pool block ``src`` into ``dst`` in every layer, K and V
+        (codes and scales of a QuantizedPool): the copy-on-write fork of a
+        fully cached prompt's boundary block."""
+        for pool in (kpool, vpool):
+            for t in _pool_leaves(pool):
+                t[:, int(dst)].copy_(t[:, int(src)])
+
     # -- continuous batching ----------------------------------------------
     def serve(self, requests, max_new_tokens=32, eos_token_id=None,
               chunk=8, pad_token_id=0, admission_timeout_s=None,
@@ -556,10 +699,17 @@ class PagedDecoder(CachedDecoder):
         ``pipeline`` sets the one-chunk lookahead: None (default) or True
         dispatch chunk N+1 before chunk N's tokens reach the host; False
         waits for each chunk. The token streams are the same either way.
+        A slot whose logits go non-finite is quarantined and its request
+        replayed from its last good token after ``replay_backoff_s`` x
+        2^(restarts - 1) s, up to ``max_restarts`` times, then given up
+        with its partial stream (``quarantines``, ``replays``,
+        ``replay_giveups``). A cache-on engine maps cached prefixes and
+        prefills only the rest (``prefix_cache.stats``,
+        ``prefill_device_calls``, ``prefill_tokens_computed``).
         spec_decode, feed and feed_active raise NotImplementedError, and
-        so do the fault-recovery arguments (max_restarts,
-        evict_after_deferrals, max_deferrals, replay_backoff_s,
-        max_chunk_retries) unless they hold their defaults."""
+        so do evict_after_deferrals, max_deferrals and max_chunk_retries
+        (the headroom guard's and the chunk-fault sites') unless they hold
+        their defaults."""
         from ..serving.batcher import serve_loop
         return serve_loop(
             self, requests, max_new_tokens=max_new_tokens,

@@ -1,9 +1,8 @@
-"""Admission queue for the serving loop (counterpart of
-paddle_tpu/serving/scheduler.py's AdmissionQueue; the replay tracker of
-the fault-recovery path is not ported)."""
+"""Admission queue and replay tracker for the serving loop (counterpart of
+paddle_tpu/serving/scheduler.py)."""
 from __future__ import annotations
 
-__all__ = ["AdmissionQueue"]
+__all__ = ["AdmissionQueue", "ReplayTracker"]
 
 
 class AdmissionQueue:
@@ -69,3 +68,29 @@ class AdmissionQueue:
 
     def __iter__(self):
         return iter(self._q)
+
+
+class ReplayTracker:
+    """Replay and backoff state of evicted or quarantined incarnations:
+    each request's restart count and the tokens its earlier incarnations
+    generated (delivered even past the max_restarts cap)."""
+
+    def __init__(self, max_restarts, backoff_s):
+        self.max_restarts = int(max_restarts)
+        self.backoff_s = float(backoff_s)
+        self._state = {}            # rid -> {"restarts", "emitted"}
+
+    def prefix(self, rid):
+        """Tokens earlier incarnations of ``rid`` already generated."""
+        return list(self._state.get(rid, {}).get("emitted") or [])
+
+    def note(self, rid, prefix):
+        """Record one more restart of ``rid`` carrying ``prefix``. Returns
+        the backoff delay in seconds, or None once the request is past its
+        restart cap (give up: deliver the partial stream)."""
+        st = self._state.setdefault(rid, {"restarts": 0})
+        st["emitted"] = list(prefix)
+        st["restarts"] += 1
+        if st["restarts"] > self.max_restarts:
+            return None
+        return self.backoff_s * (2 ** (st["restarts"] - 1))

@@ -3190,3 +3190,132 @@ def test_sampled_generate_graph_replays_reseed(cuda_device):
     assert not torch.equal(first[:, 11:19], first[:, 19:27])
     dec.CHUNK = 1
     assert torch.equal(run(0), first)
+
+
+# -- the prefix cache's warm prefill, COW copy and poison column ------------------
+
+def _hd128_model(dtype):
+    """A tiny Llama on the CPU whose decode attention takes the kernel
+    route (head dim 128); the engines copy its weights to their device."""
+    cfg = LlamaConfig(vocab_size=97, hidden_size=256, intermediate_size=192,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=2, max_position_embeddings=128,
+                      dtype=dtype)
+    torch.manual_seed(11)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    model.eval()
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", [{}, {"kv_quant": "int8"},
+                                 {"attn_shards": 2}],
+                         ids=["raw", "int8", "shards2"])
+def test_warm_prefill_kernels_match_dense(cuda_device, opt):
+    """Cache-on serves on the card in float32: the warm prefill's rows on
+    the ragged kernels (the int8-pool kernel, the partials kernel) against
+    the same engine on the dense route, cold, warm (a full hit: the COW
+    fork) and an extension prompt: the same streams and cache stats, and
+    each kernel launched for every layer of every prefill call and decode
+    step."""
+    model = _hd128_model("float32")
+    rng = np.random.default_rng(12)
+    P = [int(t) for t in rng.integers(0, 97, 48)]     # three whole blocks
+    ext = P + [int(t) for t in rng.integers(0, 97, 13)]
+    counter = {"kv_quant": ragged_paged_attention_quant,
+               "attn_shards": ragged_paged_attention_partials}.get(
+        next(iter(opt), None), ragged_paged_attention)
+
+    def run(ragged):
+        dec = PagedDecoder(model, max_len=128, block_size=16, max_slots=2,
+                           num_blocks=17, prefix_cache=True,
+                           ragged_kernel=ragged, device=cuda_device, **opt)
+        n0 = counter.launches
+        out = [dec.serve([("c", P, 6)])["c"], dec.serve([("w", P, 6)])["w"],
+               dec.serve([("e", ext, 6)])["e"]]
+        return out, dec, counter.launches - n0
+
+    ref, ddec, dense_launches = run(False)
+    out, kdec, launches = run(True)
+    assert out == ref and out[0] == out[1]
+    assert kdec.prefix_cache.stats == ddec.prefix_cache.stats
+    assert kdec.prefix_cache.stats["cow_copies"] == 1
+    assert dense_launches == 0
+    steps = 3 * 5                      # budget 6: five decode steps a serve
+    assert launches == 2 * (steps + kdec.prefill_device_calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["raw", "int8"])
+def test_cow_copy_on_the_card(cuda_device, kv_quant):
+    """_cow_copy forks one block in every layer, K and V (codes and scales
+    of an int8 pool), bit for bit, and touches no other block."""
+    model = _hd128_model("bfloat16")
+    dec = PagedDecoder(model, max_len=64, block_size=16, max_slots=2,
+                       num_blocks=9, kv_quant=kv_quant, device=cuda_device)
+    kpool, vpool = dec.ensure_pools()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    leaves = []
+    for pool in (kpool, vpool):
+        if kv_quant:
+            pool.codes.copy_(torch.randint(-127, 128, pool.codes.shape,
+                                           generator=gen, device=cuda_device,
+                                           dtype=torch.int8))
+            pool.scales.uniform_(1e-3, 2e-2, generator=gen)
+            leaves += [pool.codes, pool.scales]
+        else:
+            pool.normal_(generator=gen)
+            leaves.append(pool)
+    before = [t.clone() for t in leaves]
+    dec._cow_copy(kpool, vpool, 3, 7)
+    torch.cuda.synchronize()
+    for t, b in zip(leaves, before):
+        assert torch.equal(t[:, 7], b[:, 3])
+        keep = [i for i in range(dec.num_blocks) if i != 7]
+        assert torch.equal(t[:, keep], b[:, keep])
+
+
+@pytest.mark.cuda
+def test_chunk_graph_replay_after_poison_change(cuda_device):
+    """The poison column changes between two replays of one captured chunk
+    (``upload_poison``, one upload): the replay reads the new column, so
+    its tokens, bad flags, state and pools equal the eager chunk's on
+    clones with the same column, and the poisoned live slots are flagged
+    bad."""
+    model = _hd128_model("bfloat16")
+    dec = PagedDecoder(model, max_len=64, block_size=16, max_slots=4,
+                       num_blocks=17, device=cuda_device)
+    kpool, vpool = dec.ensure_pools()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    for pool in (kpool, vpool):
+        pool.normal_(generator=gen)
+    S, n = 4, 4
+    tables = np.arange(1, 17, dtype=np.int32).reshape(S, 4)
+    live = np.asarray([True, True, False, True])
+    dec.upload_state(np.asarray([5, 17, 40, 3], np.int32),
+                     np.asarray([9, 30, 6, 40], np.int32), tables, live,
+                     np.asarray([7, 6, 5, 6], np.int32), np.zeros(S, bool))
+    for poison in (np.asarray([True, False, True, True]),
+                   np.zeros(S, bool)):
+        uploads = dec.h2d_uploads
+        dec.upload_poison(poison)
+        assert dec.h2d_uploads == uploads + 1
+        st0 = [t.clone() for t in dec.decode_state()]
+        kc, vc = kpool.clone(), vpool.clone()
+        toks, bad = dec.dispatch_chunk_state(n)
+        torch.cuda.synchronize()
+        got = [toks.clone(), bad.clone()] + [
+            t.clone() for t in dec.decode_state()]
+        ref = dec._paged_chunk_state(*st0, kc, vc, n)
+        want = list(ref[:4]) + [st0[2], ref[4], ref[5], st0[5]]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for a, b in ((kpool, kc), (vpool, vc)):
+            assert torch.equal(a[:, 1:].contiguous().view(torch.uint8),
+                               b[:, 1:].contiguous().view(torch.uint8))
+        assert got[1].cpu().numpy().tolist() == \
+            (poison & st0[3].cpu().numpy()).tolist()
+    assert dec._chunk_graphs.captured == 1
+    assert dec._chunk_graphs.replays == 2

@@ -96,9 +96,11 @@ def test_seed_needs_a_card_or_an_explicit_cpu(no_card):
 
 
 @pytest.mark.parametrize("opt", [
-    {"prefix_cache_blocks": 4}, {"hbm_budget_gib": 1.0},
-    {"prefix_cache": True}, {"kv_offload": True}, {"prefill_chunk": 32},
-    {"headroom_guard": object()}, {"prefix_cache": "radix"},
+    {"kv_offload": True, "prefix_cache": True}, {"hbm_budget_gib": 1.0},
+    {"hbm_budget_gib": 1.0, "prefix_cache": True}, {"kv_offload": True},
+    {"headroom_guard": object(), "prefix_cache": True},
+    {"headroom_guard": object()},
+    {"kv_offload": True, "prefix_cache": "radix", "prefill_chunk": 32},
     {"block_size": "auto"}])
 def test_unported_decoder_options_raise(opt):
     model = LlamaForCausalLM(llama_tiny(), device="cpu")
@@ -109,13 +111,46 @@ def test_unported_decoder_options_raise(opt):
 
 
 @pytest.mark.parametrize("opt", [
+    {"prefix_cache": True}, {"prefix_cache": "radix"},
+    {"prefix_cache": True, "prefix_cache_blocks": 4},
+    {"prefix_cache": True, "prefill_chunk": 32}, {"prefill_chunk": 16}])
+def test_ported_decoder_options_construct(opt):
+    """The prefix cache's options build an engine that serves."""
+    model = LlamaForCausalLM(llama_tiny(), device="cpu")
+    dec = PagedDecoder(model, max_len=64, block_size=16, device="cpu", **opt)
+    assert (dec.prefix_cache is not None) == bool(opt.get("prefix_cache"))
+    out = dec.serve([("a", list(range(1, 20)))], max_new_tokens=3)
+    assert len(out["a"]) == 3
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        PagedDecoder(model, max_len=64, block_size=16, device="cpu",
+                     prefill_chunk=8)
+
+
+@pytest.mark.parametrize("opt", [
     {"spec_decode": 2}, {"feed": list}, {"feed_active": bool},
-    {"max_restarts": 0}, {"max_chunk_retries": 0}])
+    {"evict_after_deferrals": 1}, {"max_chunk_retries": 0},
+    {"max_deferrals": 1}])
 def test_unported_serve_options_raise(opt):
     model = LlamaForCausalLM(llama_tiny(), device="cpu")
     dec = PagedDecoder(model, max_len=64, block_size=16, device="cpu")
     with pytest.raises(NotImplementedError):
         dec.serve([("a", [1, 2, 3])], max_new_tokens=2, **opt)
+
+
+@pytest.mark.parametrize("site", ["paged_kv_alloc", "prefill_chunk",
+                                  "decode_chunk", "headroom_pressure"])
+def test_unhooked_fault_sites_raise(site):
+    """A fault plan that names a site the port's serve does not hook would
+    inject nothing: serve refuses it."""
+    from paddle_tpu_torch.resilience import faults
+    model = LlamaForCausalLM(llama_tiny(), device="cpu")
+    dec = PagedDecoder(model, max_len=64, block_size=16, device="cpu")
+    faults.install_plan({"sites": {site: {"p": 1.0}}})
+    try:
+        with pytest.raises(NotImplementedError, match=site):
+            dec.serve([("a", [1, 2, 3])], max_new_tokens=2)
+    finally:
+        faults.clear()
 
 
 @pytest.mark.parametrize("field", ["tensor_parallel", "sequence_parallel",
