@@ -235,6 +235,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    4, softmax 1 + 1 a pass); rowwise_parity: the same pass in float32
    through the kernels and through their plain versions (loss, gradients
    of x, the residual, the norm weight and the projections);
+16b. train_resnet50: benchmarks/resnet50_eager.py's configuration
+   through the port's entry points (resnet50(num_classes=1000), float32
+   with TF32 off, batch 64 x 3 x 224 x 224, Momentum(0.1, 0.9) under
+   TrainStep, 2 warm-up and 10 timed steps, cuDNN's benchmark mode on):
+   s per step, images/s, TFLOP/s over 3 x flops(net, [1, 3, 224, 224]) an
+   image and its share of 67 TFLOP/s, peak memory, every loss (finite),
+   the batch norms' buffers (moved, finite); two information lines, each
+   on a fresh model: the same steps with TF32 allowed, and in
+   channels_last memory format. resnet_parity: resnet18 at 64 x 64,
+   batch 4, 2 Momentum steps on the card twice (bit for bit, cuDNN
+   deterministic) and on the CPU, in float32 and float64 (see
+   RESNET_PARITY_TOLS). This path has no kernel of the port's own: the
+   reference runs it on XLA's convolutions, pools and batch norms;
 16. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the train of phase 6 and the
    generate of phase 5 for the flash forward's tensor-core kernel,
@@ -266,8 +279,10 @@ at 1, 2, 4 and 8), then exit.
 
 With --profile, short full-width serves (plain, serve_quant's and
 serve_long's engines), two train steps, two train_moe steps and three
-passes of each packed-attention path and of rowwise_attn, and two
-train_gpt2 steps, also run under
+passes of each packed-attention path and of rowwise_attn, two
+train_gpt2 steps and two train_resnet50 steps (by group: cuDNN
+convolution forward, data and weight gradients, batch norm,
+element-wise, the optimizer, the rest), also run under
 torch.profiler, and one more line for each gives the device time by
 kernel (for a serve also every kernel of the port's own, whatever its
 rank) and the device's idle share; a serve's line also gives its decode
@@ -5680,6 +5695,388 @@ def rowwise_parity_phase(torch, seed):
     return rec
 
 
+# -- phase 17: ResNet-50 eager training (benchmarks/resnet50_eager.py) -------
+
+RESNET_BATCH, RESNET_SIZE = 64, 224      # benchmarks/resnet50_eager.py:13-36
+RESNET_CLASSES = 1000
+# cuDNN's benchmark mode times the candidate algorithms of each
+# convolution shape on its first call and keeps the fastest, as the
+# reference's compiled step autotunes its convolutions; the warm-up steps
+# take that cost
+RESNET_CUDNN_BENCHMARK = True
+RESNET_PARITY_STEPS = 2
+# resnet_parity's limits, each of the largest magnitude of its array.
+# float64, card against CPU: summation order only (measured 2e-8 on the
+# first step of six batch seeds)
+RESNET_PARITY_F64_TOL = 1e-6
+# float32 with TF32 off, card against CPU, as the CPU tests hold the port
+# to the JAX package (measured there up to 1.6e-5). They hold where the
+# two devices' forwards put every ReLU input on the same side of 0 and
+# pick the same max-pool window maxima. Where float32 rounding puts one
+# ReLU input on the other side (seen: one input at 2e-7 of its tensor's
+# largest, in 3 of 6 batch seeds), that element's gradient passes
+# on one device and not on the other, and the velocities part by up to
+# 4e-2 (tests/torch_resnet_cases.py has the same on the CPU against JAX):
+# then every such straddle must lie within RESNET_STRADDLE_TOL of its
+# tensor's largest, and only the losses are held to their limit
+RESNET_PARITY_TOLS = {"losses": 1e-5, "buffers": 1e-4, "params": 1e-4,
+                      "velocities": 1e-4}
+RESNET_STRADDLE_TOL = 1e-5
+
+
+def resnet_batch(torch, np, seed, batch, size, classes, device="cuda"):
+    """The benchmark's images and labels from a seed."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((batch, 3, size, size),
+                                            np.float32), device=device)
+    y = torch.as_tensor(rng.integers(0, classes, (batch,)), device=device)
+    return x, y
+
+
+def make_resnet_step(torch, build, seed, classes, device="cuda", state=None):
+    """build(num_classes=classes) on ``device`` from a seeded generator (or
+    loaded with ``state``), Momentum(0.1, 0.9) and CrossEntropyLoss under
+    TrainStep, as the benchmark builds its step."""
+    from paddle_tpu_torch import Momentum, TrainStep, nn
+    from paddle_tpu_torch import seed as make_generator
+    model = build(num_classes=classes, device=device,
+                  generator=make_generator(seed, device))
+    if state is not None:
+        model.load_state_dict(state)
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters())
+    return model, opt, TrainStep(model, nn.CrossEntropyLoss(), opt)
+
+
+def _run_steps(torch, step, x, y, warmup, timed):
+    """(losses, wall seconds of the timed steps)."""
+    losses = []
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step((x,), (y,)))
+    torch.cuda.synchronize()
+    return [v.item() for v in losses], time.perf_counter() - t0
+
+
+class _Backends:
+    """Set torch.backends' TF32 and cuDNN flags for a phase and put them
+    back after it."""
+
+    def __init__(self, torch, tf32, benchmark=False, deterministic=False):
+        self.torch = torch
+        self.want = (tf32, tf32, benchmark, deterministic)
+
+    def _flags(self):
+        b = self.torch.backends
+        return (b.cuda.matmul, "allow_tf32"), (b.cudnn, "allow_tf32"), \
+            (b.cudnn, "benchmark"), (b.cudnn, "deterministic")
+
+    def __enter__(self):
+        self.saved = [getattr(o, a) for o, a in self._flags()]
+        for (o, a), v in zip(self._flags(), self.want):
+            setattr(o, a, v)
+        return self
+
+    def __exit__(self, *exc):
+        for (o, a), v in zip(self._flags(), self.saved):
+            setattr(o, a, v)
+
+
+def _resnet50_run(torch, np, seed, tf32, channels_last=False):
+    """TRAIN_WARMUP + TRAIN_TIMED train_resnet50 steps on a fresh model
+    from ``seed``: (model, losses, timed wall seconds, peak bytes, forward
+    flops an image, the buffers as built)."""
+    from paddle_tpu_torch import flops
+    from paddle_tpu_torch.vision.models import resnet50
+    with _Backends(torch, tf32=tf32, benchmark=RESNET_CUDNN_BENCHMARK):
+        model, _, step = make_resnet_step(torch, resnet50, seed,
+                                          RESNET_CLASSES)
+        fwd_flops = flops(model, [1, 3, RESNET_SIZE, RESNET_SIZE])
+        buffers0 = {k: b.clone() for k, b in model.named_buffers()}
+        x, y = resnet_batch(torch, np, seed + 1, RESNET_BATCH, RESNET_SIZE,
+                            RESNET_CLASSES)
+        if channels_last:
+            model.to(memory_format=torch.channels_last)
+            x = x.contiguous(memory_format=torch.channels_last)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, wall = _run_steps(torch, step, x, y, TRAIN_WARMUP,
+                                  TRAIN_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+    return model, losses, wall, peak, fwd_flops, buffers0
+
+
+def train_resnet50_phase(torch, np, seed):
+    """Phase 17: benchmarks/resnet50_eager.py's configuration at full size
+    through the port's entry points: resnet50(num_classes=1000), float32
+    with TF32 off (the reference's "highest" precision), batch 64 x 3 x
+    224 x 224 and labels from the seed, Momentum(0.1, 0.9) and
+    CrossEntropyLoss under TrainStep, TRAIN_WARMUP + TRAIN_TIMED steps,
+    cuDNN's benchmark mode on (RESNET_CUDNN_BENCHMARK). Prints s per step,
+    images/s, TFLOP/s (3 x flops(net, [1, 3, 224, 224]) an image) and its
+    share of F32_FLOPS, peak memory, every loss (finite) and the batch
+    norms' buffers (moved, finite). Two more lines, information and not
+    the configuration, each on a fresh model from the same seed: the same
+    steps with TF32 allowed, and with the model and images in
+    channels_last memory format (TF32 off)."""
+    model, losses, wall, peak, fwd_flops, buffers0 = _resnet50_run(
+        torch, np, seed, tf32=False)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(all(math.isfinite(v) for v in losses),
+          f"train_resnet50: non-finite loss {losses}")
+    moved = sum(not torch.equal(b, buffers0[k])
+                for k, b in model.named_buffers())
+    check(moved == len(buffers0) and all(
+        bool(torch.isfinite(b).all()) for b in model.buffers()),
+        f"train_resnet50: {moved} of {len(buffers0)} batch-norm buffers "
+        f"moved, or one is not finite")
+    del model, buffers0
+    torch.cuda.empty_cache()
+    train_flops = 3 * fwd_flops * RESNET_BATCH
+
+    def rates(w):
+        s = w / TRAIN_TIMED
+        return {"s_per_step": s, "images_per_s": RESNET_BATCH / s,
+                "tflop_per_s": train_flops / s / 1e12,
+                "share_of_f32_peak": train_flops / s / F32_FLOPS}
+
+    rec = {"phase": "train_resnet50",
+           "model": "benchmarks/resnet50_eager.py ResNet-50, random weights",
+           "dtype": "float32", "tf32": False,
+           "cudnn_benchmark": RESNET_CUDNN_BENCHMARK, "params": n_params,
+           "batch": RESNET_BATCH, "image": [3, RESNET_SIZE, RESNET_SIZE],
+           "classes": RESNET_CLASSES, "optimizer": "Momentum(0.1, 0.9)",
+           "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_TIMED,
+           "wall_s": wall, "flops_fwd_per_image": fwd_flops,
+           "flops_per_step": train_flops, "f32_peak_flops": F32_FLOPS,
+           **rates(wall), "losses": losses, "peak_device_bytes": peak,
+           "bn_buffers_moved": moved}
+    emit(rec)
+    for phase, kw, note in (
+            ("train_resnet50_tf32", dict(tf32=True),
+             "TF32 allowed in cuDNN and cuBLAS; not the configuration, "
+             "whose reference trains in float32"),
+            ("train_resnet50_channels_last",
+             dict(tf32=False, channels_last=True),
+             "the model and images in channels_last memory format, TF32 "
+             "off")):
+        model, info_losses, info_wall, info_peak, _, _ = _resnet50_run(
+            torch, np, seed, **kw)
+        emit({"phase": phase, "information_only": True, "note": note,
+              **rates(info_wall), "losses": info_losses,
+              "peak_device_bytes": info_peak})
+        del model
+        torch.cuda.empty_cache()
+    return rec
+
+
+RESNET_PROFILE_GROUPS = ("conv_fwd", "conv_dgrad", "conv_wgrad",
+                         "conv_bwd_unnamed", "batch_norm", "elementwise",
+                         "optimizer", "other")
+
+
+def _resnet_group(ops, kernel):
+    """The group of a kernel launched under the CPU ops ``ops`` (innermost
+    first: aten ops, autograd nodes and record_function labels)."""
+    name = kernel.lower()
+    if "resnet_optimizer" in ops:
+        return "optimizer"
+    if any("convolution_backward" in o or "ConvolutionBackward" in o
+           for o in ops):
+        return ("conv_wgrad" if "wgrad" in name else
+                "conv_dgrad" if "dgrad" in name else "conv_bwd_unnamed")
+    if any("convolution" in o for o in ops):
+        return "conv_fwd"
+    if any("batch_norm" in o or "BatchNorm" in o for o in ops):
+        return "batch_norm"
+    if any(o in ("aten::relu", "aten::threshold_backward", "aten::add")
+           for o in ops):
+        return "elementwise"
+    return "other"
+
+
+def train_resnet50_profile_phase(torch, np, seed, steps=2):
+    """--profile only: train_resnet50's steps (TF32 off) under
+    torch.profiler: device time by group (cuDNN convolution forward, data
+    gradient and weight gradient by the kernels' names, batch norm,
+    element-wise ReLU and residual adds, the optimizer under its own
+    label, the rest), the device's idle share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch.vision.models import resnet50
+    with _Backends(torch, tf32=False, benchmark=RESNET_CUDNN_BENCHMARK):
+        model, opt, step = make_resnet_step(torch, resnet50, seed,
+                                            RESNET_CLASSES)
+        x, y = resnet_batch(torch, np, seed + 1, RESNET_BATCH, RESNET_SIZE,
+                            RESNET_CLASSES)
+        apply = opt.step
+
+        def labelled_step(*args, **kwargs):
+            with record_function("resnet_optimizer"):
+                return apply(*args, **kwargs)
+
+        opt.step = labelled_step
+        _, wall = _run_steps(torch, step, x, y, 1, steps)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step((x,), (y,))
+            torch.cuda.synchronize()
+    # the label's own range on the device timeline is not a kernel
+    rows = [r for r in device_kernel_rows(prof)[0]
+            if r[1] != "resnet_optimizer"]
+    busy_s = sum(r[0] for r in rows) / 1e6
+    groups = dict.fromkeys(RESNET_PROFILE_GROUPS, 0.0)
+    for evt in prof.events():
+        if not getattr(evt, "kernels", None):
+            continue
+        ops, node = [], evt
+        while node is not None:
+            ops.append(node.name)
+            node = node.cpu_parent
+        for k in evt.kernels:
+            if k.name != "resnet_optimizer":
+                groups[_resnet_group(ops, k.name)] += k.duration / 1e6
+    attributed = sum(groups.values())
+    rec = {"phase": "train_resnet50_profile", "steps": steps,
+           "wall_s": wall, "s_per_step": wall / steps,
+           "device_busy_s": busy_s if rows else "not measured",
+           "device_idle_share": 1 - busy_s / wall if rows
+           else "not measured",
+           "device_s_per_step_by_group": {
+               k: v / steps for k, v in groups.items()},
+           "attributed_share_of_busy": attributed / busy_s if rows
+           else "not measured",
+           "top_device_kernels": top_kernels(rows, busy_s, 15)}
+    emit(rec)
+    del model, opt, step, x, y
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _record_branch_inputs(torch, model, seen):
+    """Forward hooks that keep each ReLU's and the max pool's input (on
+    the CPU), in call order."""
+    from paddle_tpu_torch.nn import MaxPool2D, ReLU
+    for name, m in model.named_modules():
+        if isinstance(m, (ReLU, MaxPool2D)):
+            m.register_forward_hook(
+                lambda mod, inputs, out, name=name: seen.append(
+                    (name, inputs[0].detach().cpu())))
+
+
+def _straddles(torch, card_seen, cpu_seen):
+    """Branch points where the two devices' float32 forwards part: ReLU
+    inputs on opposite sides of 0, max-pool windows whose maxima differ.
+    Returns [(where, how far from the branch, relative to the tensor's
+    largest)]."""
+    from paddle_tpu_torch.nn.functional.pooling import _max_pool_mask
+    out = []
+    for (name, a), (_, b) in zip(card_seen, cpu_seen):
+        scale = b.abs().max().item()
+        if name.endswith("maxpool"):
+            ma = _max_pool_mask(a, 3, 2, 1, 2, False)
+            mb = _max_pool_mask(b, 3, 2, 1, 2, False)
+            win = torch.nn.functional.pad(b, [1, 1, 1, 1],
+                                          value=-math.inf)
+            top2 = win.unfold(2, 3, 2).unfold(3, 3, 2).flatten(-2) \
+                .topk(2, dim=-1).values
+            gap = (top2[..., 0] - top2[..., 1])[ma != mb]
+            out += [(name, g / scale) for g in gap.tolist()]
+        else:
+            bad = (a > 0) != (b > 0)
+            out += [(name, v / scale) for v in
+                    torch.maximum(a.abs(), b.abs())[bad].tolist()]
+    return out
+
+
+def resnet_parity_phase(torch, np, seed):
+    """resnet18(num_classes=10) at 64 x 64, batch 4, TF32 off and
+    cudnn.deterministic: the same weights for RESNET_PARITY_STEPS
+    Momentum(0.1, 0.9) steps on the card, again on the card, and on the
+    CPU, in float32; then on the card and the CPU in float64. The two
+    float32 card runs must agree bit for bit; float64 card against CPU,
+    losses, batch-norm buffers, parameters and velocities within
+    RESNET_PARITY_F64_TOL of each array's largest; float32 card against
+    CPU within RESNET_PARITY_TOLS, or, where the devices' float32
+    forwards straddle a ReLU's 0 or a max-pool tie (each straddle within
+    RESNET_STRADDLE_TOL of its tensor's largest), in the losses."""
+    from paddle_tpu_torch import seed as make_generator
+    from paddle_tpu_torch.vision.models import resnet18
+    state = resnet18(num_classes=10, device="cpu",
+                     generator=make_generator(seed, "cpu")).state_dict()
+    x, y = resnet_batch(torch, np, seed + 3, 4, 64, 10, device="cpu")
+
+    def run(device, dtype=torch.float32, seen=None):
+        model, opt, step = make_resnet_step(torch, resnet18, seed, 10,
+                                            device=device, state=state)
+        model.to(dtype)
+        if seen is not None:
+            _record_branch_inputs(torch, model, seen)
+        losses = [step((x.to(device, dtype),), (y.to(device),)).item()
+                  for _ in range(RESNET_PARITY_STEPS)]
+        tensors = {k: v.detach().cpu().double()
+                   for k, v in model.state_dict().items()}
+        tensors.update({k: v.cpu().double()
+                        for k, v in opt.state_dict().items()
+                        if k.endswith("__velocity")})
+        return losses, tensors
+
+    def kind(k):
+        return ("velocities" if k.endswith("__velocity") else "buffers"
+                if k.endswith(("._mean", "._variance")) else "params")
+
+    def errs(got, ref):
+        e = dict.fromkeys(RESNET_PARITY_TOLS, 0.0)
+        e["losses"] = max(abs(a - b) for a, b in zip(got[0], ref[0])) / \
+            max(abs(b) for b in ref[0])
+        for k, r in ref[1].items():
+            e[kind(k)] = max(e[kind(k)], ((got[1][k] - r).abs().max()
+                                          / r.abs().max()).item())
+        return e
+
+    card_seen, cpu_seen = [], []
+    with _Backends(torch, tf32=False, deterministic=True):
+        card = run("cuda", seen=card_seen)
+        again = run("cuda")
+        card64 = run("cuda", torch.float64)
+    cpu = run("cpu", seen=cpu_seen)
+    cpu64 = run("cpu", torch.float64)
+    bitwise = card[0] == again[0] and all(
+        torch.equal(v, again[1][k]) for k, v in card[1].items())
+    check(bitwise, "resnet_parity: two card runs from one seed differ")
+    check(len([k for k in card[1] if kind(k) == "velocities"]) == 62,
+          "resnet_parity: a velocity per parameter")
+    e64, e32 = errs(card64, cpu64), errs(card, cpu)
+    check(all(v <= RESNET_PARITY_F64_TOL for v in e64.values()),
+          f"resnet_parity: float64 card against CPU {e64}")
+    straddles = _straddles(torch, card_seen, cpu_seen)
+    check(all(d <= RESNET_STRADDLE_TOL for _, d in straddles),
+          f"resnet_parity: the devices part away from a branch point: "
+          f"{straddles}")
+    held = ("losses",) if straddles else tuple(RESNET_PARITY_TOLS)
+    check(all(e32[k] <= RESNET_PARITY_TOLS[k] for k in held),
+          f"resnet_parity: float32 card against CPU {e32} with "
+          f"{len(straddles)} straddles, limits {RESNET_PARITY_TOLS} on "
+          f"{held}")
+    rec = {"phase": "resnet_parity", "model": "resnet18(num_classes=10)",
+           "dtype": "float32 and float64", "tf32": False,
+           "cudnn_deterministic": True, "batch": 4, "image": [3, 64, 64],
+           "steps": RESNET_PARITY_STEPS, "losses_card": card[0],
+           "losses_cpu": cpu[0], "card_runs_bitwise_equal": bitwise,
+           "f64_card_vs_cpu_err_of_max": e64,
+           "f64_tolerance_of_max": RESNET_PARITY_F64_TOL,
+           "f32_card_vs_cpu_err_of_max": e32,
+           "f32_tolerance_of_max": RESNET_PARITY_TOLS, "f32_held": held,
+           "straddles": [{"where": w, "from_branch_of_max": d}
+                         for w, d in straddles],
+           "straddle_tolerance_of_max": RESNET_STRADDLE_TOL}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6080,6 +6477,13 @@ def main():
         rowwise_kernel_checks(torch, args.seed + 60)
     rowwise = rowwise_attn_phase(torch, args.seed + 61, args.profile)
     rowwise_parity_phase(torch, args.seed + 61)
+
+    # ResNet-50 eager training: no kernel of the port's own (the reference
+    # runs it on XLA convolutions, pools and batch norms, no Pallas call)
+    train_resnet50_phase(torch, np, args.seed + 70)
+    if args.profile:
+        train_resnet50_profile_phase(torch, np, args.seed + 70)
+    resnet_parity_phase(torch, np, args.seed + 71)
 
     kernels = []
     for name, route_src, replaces, rec, launches in (

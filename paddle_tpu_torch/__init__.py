@@ -5,7 +5,7 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. Seven slices are ported: serving, greedy or
+plain PyTorch version. Eight slices are ported: serving, greedy or
 sampled (LlamaForCausalLM, CachedDecoder's fused decode chunks and
 PagedDecoder with the zero-sync pipelined continuous-batching loop, each
 decode chunk a CUDA graph on the card, its radix prefix cache and the
@@ -23,7 +23,10 @@ fused_rms_norm``, ``fused_rotary_position_embedding`` and
 ``incubate.softmax_mask_fuse_upper_triangle``), and GPT-2 pretraining
 (GPTForCausalLM with LayerNorm, GELU and generator-driven dropout, under
 TrainStep with the LRScheduler learning rates of ``optimizer.lr`` and the
-gradient clipping of ``nn.clip``).
+gradient clipping of ``nn.clip``), and ResNet-50 eager training
+(``vision.models.resnet50`` on the convolutions, batch norms, pools and
+containers of ``nn``, under TrainStep with ``Momentum`` or ``SGD`` and a
+``regularizer.L2Decay``; ``flops`` counts its forward).
 """
 from . import nn
 from .framework.device import resolve_device, seed
@@ -34,12 +37,14 @@ from .models.llama import (LlamaConfig, LlamaForCausalLM,
 from .models.gpt import GPTConfig, GPTForCausalLM, gpt2_124m, gpt_tiny
 from .models.gpt_moe import GPTMoEConfig, MoEGPT, gpt_moe_config, moe_loss
 from .models.paged_decode import BlockAllocator, PagedDecoder
-from . import optimizer
-from .optimizer import Adam, AdamW
+from . import optimizer, regularizer, vision
+from .hapi import flops, summary
+from .optimizer import SGD, Adam, AdamW, Momentum
 
 __all__ = ["nn", "resolve_device", "seed", "LlamaConfig", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "llama_tiny", "llama_2_7b",
            "CachedDecoder", "PagedDecoder", "BlockAllocator", "TrainStep",
            "Adam", "AdamW", "GPTMoEConfig", "MoEGPT", "gpt_moe_config",
            "moe_loss", "GPTConfig", "GPTForCausalLM", "gpt2_124m", "gpt_tiny",
-           "optimizer"]
+           "optimizer", "regularizer", "vision", "flops", "summary", "SGD",
+           "Momentum"]

@@ -24,6 +24,14 @@ one of its MoELayers): the attention projections, the gate's Linear, the
 dense lane's fc1/fc2 and the head are transposed; the expert stacks keep
 the JAX package's [E, K, N] layout, and biases, the embedding and the
 LayerNorms convert as they are.
+
+``resnet_params_from_jax`` does it for the ResNet family
+(vision/models/resnet.py): the convolution weights ([out, in / groups, *k]
+in both packages) and the batch norms' ``weight``, ``bias``, ``_mean`` and
+``_variance`` convert as they are, and ``fc.weight`` is transposed; every
+name and shape is checked against the port's model.
+``optimizer_state_from_jax`` takes that model in place of a config, for
+Momentum's ``velocity`` (the fc's transposed too).
 """
 from __future__ import annotations
 
@@ -32,9 +40,11 @@ import torch
 
 from .framework.device import torch_dtype
 from .models.gpt import GPTConfig
+from .vision.models.resnet import ResNet
 
 __all__ = ["params_from_jax", "optimizer_state_from_jax",
-           "gpt_params_from_jax", "moe_params_from_jax"]
+           "gpt_params_from_jax", "moe_params_from_jax",
+           "resnet_params_from_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -107,9 +117,12 @@ def _gpt_check_shape(name, a, cfg):
 
 
 def _layout(cfg):
-    """(is_linear, check_shape) of the model a config builds."""
+    """(is_linear, check_shape) of the model a config builds (or of a
+    port ResNet, given itself)."""
     if isinstance(cfg, GPTConfig):
         return _gpt_is_linear, _gpt_check_shape
+    if isinstance(cfg, ResNet):
+        return _resnet_is_linear, _resnet_checker(cfg)
     return _is_linear, _check_shape
 
 
@@ -130,9 +143,9 @@ def optimizer_state_from_jax(named_accums_numpy, cfg, step):
     numpy array}`` (``TrainStep._accums_to_named()``, converted to numpy by
     the caller), and its optimizer's step count -> a state dict for the
     port's ``Optimizer.set_state_dict`` on a LlamaForCausalLM(cfg) or,
-    for a GPTConfig, a GPTForCausalLM(cfg), whose parameters carry their
-    qualified names. Each accumulator keeps its
-    dtype (a bfloat16 moment stays bfloat16)."""
+    for a GPTConfig, a GPTForCausalLM(cfg), or for a port ResNet ``cfg``
+    that model, whose parameters carry their qualified names. Each
+    accumulator keeps its dtype (a bfloat16 moment stays bfloat16)."""
     is_linear, check_shape = _layout(cfg)
     out = {}
     for key, arr in named_accums_numpy.items():
@@ -197,4 +210,45 @@ def moe_params_from_jax(state_dict_numpy, cfg):
         a = np.asarray(arr)
         _moe_check_shape(name, a, cfg)
         out[name] = _to_torch(name, a, dtype, _moe_is_linear)
+    return out
+
+
+def _resnet_is_linear(name):
+    return name == "fc.weight"
+
+
+def _resnet_checker(model):
+    """check_shape against the port ResNet ``model``: the JAX shape of
+    each entry must be the model's (transposed for fc.weight), and the
+    name one of the model's."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+    def check(name, a, _cfg=None):
+        if name not in shapes:
+            raise ValueError(f"{name}: the port's model has no such entry")
+        expect = shapes[name][::-1] if _resnet_is_linear(name) \
+            else shapes[name]
+        if a.shape != expect:
+            raise ValueError(f"{name}: JAX shape {a.shape}, the port's "
+                             f"model expects {expect}")
+    return check
+
+
+def resnet_params_from_jax(state_dict_numpy, model):
+    """{name: numpy array} of the JAX ResNet (parameters and the batch
+    norms' ``_mean`` / ``_variance``) -> {name: torch tensor} for the port
+    ResNet ``model``'s ``load_state_dict``, in its dtype: ``fc.weight``
+    transposed, everything else as it is. Raises for a name the model
+    lacks, a shape it does not have, or an entry of the model missing."""
+    check = _resnet_checker(model)
+    missing = set(model.state_dict()) - set(state_dict_numpy)
+    if missing:
+        raise ValueError(f"entries of the port's model missing from the JAX "
+                         f"state: {sorted(missing)}")
+    dtype = next(model.parameters()).dtype
+    out = {}
+    for name, arr in state_dict_numpy.items():
+        a = np.asarray(arr)
+        check(name, a)
+        out[name] = _to_torch(name, a, dtype, _resnet_is_linear)
     return out

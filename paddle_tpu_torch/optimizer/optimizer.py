@@ -16,8 +16,9 @@ update, as the JAX package does.
 A parameter's name is its ``param_name`` attribute when it has one (the
 port's models name each parameter by its qualified name, as the JAX
 TrainStep keys its accumulators); otherwise ``param_<i>`` by position.
-Regularizer objects as ``weight_decay`` and per-parameter learning rates
-(ParamAttr) are not ported.
+``weight_decay`` is a float or a ``regularizer.L2Decay`` (an ``L1Decay``
+raises, see regularizer.py); per-parameter learning rates and
+regularizers (ParamAttr) are not ported.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from ..framework.device import check_device
 from ..nn.clip import ClipGradBase
+from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -74,13 +76,22 @@ class Optimizer:
 
     @staticmethod
     def _wd_value(wd):
+        """The L2 coefficient of ``weight_decay``: a float, or an L2Decay's
+        coeff. An L1Decay raises: the reference folds its coeff into the
+        gradient as L2, and the port does not train L1 as L2."""
         if wd is None:
             return 0.0
         if isinstance(wd, (int, float)):
             return float(wd)
+        if isinstance(wd, L2Decay):
+            return wd.coeff
+        if isinstance(wd, L1Decay):
+            raise NotImplementedError(
+                "L1Decay as weight_decay is not ported: the reference "
+                "applies its coeff as L2 (coeff * param), the port refuses "
+                "to; pass an L2Decay or a float")
         raise NotImplementedError(
-            "a regularizer weight_decay is not ported to the PyTorch "
-            "package yet; pass a float")
+            f"weight_decay must be a float or an L2Decay, got {type(wd)}")
 
     @property
     def _parameter_list(self):

@@ -1,4 +1,13 @@
-"""Adam and AdamW (counterpart of paddle_tpu/optimizer/optimizers.py).
+"""SGD, Momentum, Adam and AdamW (counterpart of
+paddle_tpu/optimizer/optimizers.py).
+
+SGD and Momentum are the JAX package's ``_sgd_update`` and
+``_momentum_update``: the gradient is cast to the parameter's dtype, the
+L2 term ``weight_decay * param`` is folded into it, Momentum keeps a
+``velocity`` laid out as its parameter in the parameter's dtype, v = mu v
++ g, and steps by v (or g + mu v with ``use_nesterov``). In float32 the
+update runs in place on the parameter and the velocity; other dtypes
+compute in float32 and store back.
 
 The update math is the JAX package's ``_adam_update``/``_adamw_update``
 exactly: float32 arithmetic whatever the parameter's dtype, moments
@@ -19,7 +28,7 @@ import torch
 from ..framework.device import torch_dtype
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["SGD", "Momentum", "Adam", "AdamW"]
 
 _f32 = np.float32
 
@@ -28,6 +37,47 @@ def _as_dtype(value, dtype):
     """A Python scalar rounded to ``dtype``, as JAX rounds a weak Python
     float that meets an array of that dtype."""
     return float(torch.tensor(value, dtype=dtype))
+
+
+def _store(dst, value):
+    """Write a float32 result back unless it is ``dst`` itself (a float32
+    parameter or velocity updated in place)."""
+    if value is not dst:
+        dst.copy_(value)
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+
+    def _apply_one(self, p, g, lr, wd):
+        g32 = g.to(p.dtype).float()
+        if wd:
+            g32 = g32 + p.float() * float(_f32(wd))
+        _store(p, p.float().sub_(g32, alpha=float(_f32(lr))))
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _apply_one(self, p, g, lr, wd):
+        vel = self._get_accumulator("velocity", p)
+        mu = float(_f32(self._momentum))
+        g32 = g.to(p.dtype).float()
+        if wd:
+            g32 = g32 + p.float() * float(_f32(wd))
+        v32 = vel.float().mul_(mu).add_(g32)
+        upd = g32.add(v32, alpha=mu) if self._use_nesterov else v32
+        _store(vel, v32)
+        _store(p, p.float().sub_(upd, alpha=float(_f32(lr))))
 
 
 class Adam(Optimizer):

@@ -3319,3 +3319,107 @@ def test_chunk_graph_replay_after_poison_change(cuda_device):
             (poison & st0[3].cpu().numpy()).tolist()
     assert dec._chunk_graphs.captured == 1
     assert dec._chunk_graphs.replays == 2
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 convolutions and products in float32 (the reference's
+    "highest" precision), the flags put back after the test."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _close_of_max(got, ref, tol):
+    err = (got.detach().cpu().float() - ref.detach().float()).abs().max()
+    assert err <= tol * ref.detach().float().abs().max(), float(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("downsample", [False, True])
+def test_bottleneck_block_on_the_card(cuda_device, no_tf32, downsample):
+    """A ResNet-50 bottleneck in training mode, forward and backward, on
+    cuDNN against the same block on the CPU: output, input and parameter
+    gradients, and the batch norms' running statistics (float32, 1e-4 of
+    each array's largest: summation order only)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.vision.models import BottleneckBlock
+
+    def block(device):
+        ds = ptt.nn.Sequential(
+            ptt.nn.Conv2D(256, 512, 1, stride=2, bias_attr=False,
+                          device=device),
+            ptt.nn.BatchNorm2D(512, device=device)) if downsample else None
+        return BottleneckBlock(256, 128 if downsample else 64,
+                               2 if downsample else 1, ds, device=device)
+
+    cpu = block("cpu")
+    card = block("cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(31 + downsample)
+    x = torch.from_numpy(rng.standard_normal((4, 256, 28, 28), np.float32))
+    outs = {}
+    for name, m, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        xi = x.detach().to(dev).requires_grad_()
+        out = m(xi)
+        g = torch.from_numpy(rng.standard_normal(tuple(out.shape),
+                                                 np.float32)) \
+            if name == "cpu" else outs["cpu"][3].to(dev)
+        (out * g).sum().backward()
+        outs[name] = (out, xi.grad, {k: p.grad for k, p in
+                                     m.named_parameters()}, g)
+    (co, cx, cg, _), (ko, kx, kg, _) = outs["cpu"], outs["card"]
+    _close_of_max(ko, co, 1e-4)
+    _close_of_max(kx, cx, 1e-4)
+    for k, ref in cg.items():
+        _close_of_max(kg[k], ref, 1e-4)
+    for k, ref in cpu.state_dict().items():
+        _close_of_max(card.state_dict()[k], ref, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,kw", [
+    ("max_pool2d", dict(kernel_size=3, stride=2, padding=1)),
+    ("max_pool2d", dict(kernel_size=2, stride=2, padding=1, ceil_mode=True)),
+    ("avg_pool2d", dict(kernel_size=3, stride=2, padding=1)),
+    ("avg_pool2d", dict(kernel_size=3, stride=2, padding=1, ceil_mode=True,
+                        exclusive=False)),
+    ("avg_pool2d", dict(kernel_size=3, stride=1, padding=2)),
+    ("adaptive_avg_pool2d", dict(output_size=1)),
+    ("adaptive_max_pool2d", dict(output_size=(3, 5))),
+    ("max_pool1d", dict(kernel_size=3, stride=2, ceil_mode=True)),
+    ("avg_pool3d", dict(kernel_size=2, stride=2, ceil_mode=True)),
+], ids=["max_resnet", "max_ceil", "avg_resnet", "avg_ceil_inclusive",
+        "avg_pad_past_half", "adaptive_avg_1x1", "adaptive_max_uneven",
+        "max1d_ceil", "avg3d_ceil"])
+def test_pools_on_the_card(cuda_device, fn, kw):
+    """Each pool forward and backward on the card against the CPU: max
+    pools' outputs bit for bit, their gradients (sums of the windows that
+    share an element, in another order) and the averages to 1e-5 of the
+    largest."""
+    from paddle_tpu_torch.nn import functional as TF
+    nd = int(fn[-2])
+    rng = np.random.default_rng(nd + len(kw))
+    x = torch.from_numpy(rng.standard_normal((2, 8) + (13,) * nd,
+                                             np.float32))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        xi = x.detach().to(dev).requires_grad_()
+        out = getattr(TF, fn)(xi, **kw)
+        g = torch.linspace(-1, 1, out.numel()).reshape(out.shape).to(dev)
+        (out * g).sum().backward()
+        res[dev] = (out.detach().cpu(), xi.grad.cpu())
+    (out, dx), (ref_out, ref_dx) = res["cuda"], res["cpu"]
+    if "max" in fn:         # a window wholly in its padding gives -inf
+        assert torch.equal(out, ref_out)
+    else:
+        assert (out - ref_out).abs().max() <= 1e-5 * ref_out.abs().max()
+    assert (dx - ref_dx).abs().max() <= 1e-5 * ref_dx.abs().max()
+    if fn == "max_pool2d":
+        _, m_cpu = TF.max_pool2d(x, return_mask=True, **kw)
+        _, m_card = TF.max_pool2d(x.cuda(), return_mask=True, **kw)
+        assert torch.equal(m_card.cpu(), m_cpu)

@@ -188,3 +188,47 @@ def test_dropout_is_deterministic_per_generator_and_leaves_global_rng():
         F.dropout(x, p=0.2)
     with pytest.raises(ValueError, match="mode"):
         F.dropout(x, p=0.2, mode="scale", generator=_gen())
+
+
+def test_relu_matches_jax():
+    x = _x()
+    ref = pt.nn.functional.relu(pt.to_tensor(x)).numpy()
+    got = F.relu(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    from paddle_tpu_torch.nn import GELU, ReLU
+    assert torch.equal(ReLU()(torch.from_numpy(x)), got)
+    assert torch.equal(GELU(True)(torch.from_numpy(x)),
+                       F.gelu(torch.from_numpy(x), True))
+
+
+def test_containers_follow_the_reference():
+    """Sequential's (name, layer) form names its sublayers as the JAX
+    container does; indexing, slicing, LayerList, LayerDict and
+    ParameterList keep the reference's behaviour."""
+    import paddle_tpu_torch as ptt
+    tlay = [("stem", Dropout(0.0)), ("head", Dropout(0.0))]
+    jlay = [("stem", pt.nn.Dropout(0.0)), ("head", pt.nn.Dropout(0.0))]
+    seq, jseq = ptt.nn.Sequential(tlay), pt.nn.Sequential(jlay)
+    assert [n for n, _ in seq.named_children()] == \
+        list(jseq._sub_layers) == ["stem", "head"]
+    assert len(seq) == 2 and seq[1] is tlay[1][1]
+    assert isinstance(seq[0:1], ptt.nn.Sequential) and len(seq[0:1]) == 1
+    pos = ptt.nn.Sequential(Dropout(0.0), Dropout(0.0))
+    assert [n for n, _ in pos.named_children()] == ["0", "1"]
+    x = torch.ones(3)
+    assert torch.equal(seq(x), x)
+    ll = ptt.nn.LayerList([Dropout(0.0)])
+    ll.append(Dropout(0.0)).extend([Dropout(0.0)])
+    ll.insert(0, Dropout(0.5))
+    assert len(ll) == 4 and ll[0].p == 0.5 and ll[-1] is ll[3]
+    ld = ptt.nn.LayerDict({"a": Dropout(0.0)})
+    ld["b"] = Dropout(0.0)
+    assert list(ld) == ["a", "b"] and "a" in ld
+    ld.pop("a")
+    assert list(ld.keys()) == ["b"]
+    pl = ptt.nn.ParameterList([torch.nn.Parameter(torch.zeros(2))])
+    pl.append(torch.nn.Parameter(torch.ones(3)))
+    assert len(pl) == 2 and [p.numel() for p in pl] == [2, 3]
+    holder = torch.nn.Module()
+    holder.params = pl
+    assert len(list(holder.parameters())) == 2

@@ -1,4 +1,5 @@
-"""The port's Adam and AdamW against the JAX package's, over 3 steps.
+"""The port's Adam, AdamW, SGD and Momentum against the JAX package's,
+over 3 steps.
 
 Both sides get the same numpy parameters and, at every step, the same
 numpy gradients (set on ``p.grad``, then ``step()``). Parameters carry the
@@ -189,3 +190,64 @@ def test_clear_grad_and_bf16_grads_step_in_float32():
     assert opt.state_dict()["w0__moment1"].dtype == torch.float32
     opt.clear_grad()
     assert all(p.grad is None for p in tp.values())
+
+
+SGD_CASES = [
+    # (optimizer, options)
+    ("SGD", {}),
+    ("SGD", {"weight_decay": 0.1}),
+    ("SGD", {"weight_decay": "L2Decay"}),
+    ("Momentum", {}),
+    ("Momentum", {"momentum": 0.8, "use_nesterov": True}),
+    ("Momentum", {"weight_decay": 0.05}),
+    ("Momentum", {"weight_decay": "L2Decay", "use_nesterov": True}),
+]
+
+
+@pytest.mark.parametrize("name,opts", SGD_CASES,
+                         ids=[f"{c[0]}-{sorted(c[1].items())}"
+                              for c in SGD_CASES])
+def test_sgd_and_momentum_match_jax_over_three_steps(name, opts):
+    """float32 parameters and velocities to 1e-6 of the largest, as the
+    Adam cases (the same element-wise float32 arithmetic, which XLA may
+    fuse into fewer roundings); an L2Decay weight_decay is its coeff."""
+    import paddle_tpu_torch as ptt
+    jp, tp = _make("float32")
+    jkw, tkw = dict(opts), dict(opts)
+    if opts.get("weight_decay") == "L2Decay":
+        jkw["weight_decay"] = pt.regularizer.L2Decay(0.1)
+        tkw["weight_decay"] = ptt.regularizer.L2Decay(0.1)
+    jopt = getattr(pt.optimizer, name)(learning_rate=0.05,
+                                       parameters=list(jp.values()), **jkw)
+    topt = getattr(ptt.optimizer, name)(learning_rate=0.05,
+                                        parameters=list(tp.values()), **tkw)
+    _run(jopt, topt, jp, tp, "float32")
+    for n in SHAPES:
+        _close(tp[n].detach().numpy(), np.asarray(jp[n]._data), "float32")
+    if name == "Momentum":
+        jstate, tstate = jopt.state_dict(), topt.state_dict()
+        for n in SHAPES:
+            vel = tstate[f"{n}__velocity"]
+            assert vel.dtype == torch.float32 and vel.shape == tp[n].shape
+            _close(vel.numpy(), np.asarray(jstate[f"{n}__velocity"]._data),
+                   "float32")
+
+
+def test_l1_decay_and_unknown_regularizers_raise():
+    """The reference folds any regularizer's coeff into the gradient as
+    L2, so its L1Decay(c) trains as L2Decay(c); the port refuses."""
+    import paddle_tpu_torch as ptt
+    _, tp = _make("float32")
+    for cls in (ptt.optimizer.Momentum, ptt.optimizer.SGD, Adam):
+        with pytest.raises(NotImplementedError, match="L1Decay"):
+            cls(parameters=list(tp.values()),
+                weight_decay=ptt.regularizer.L1Decay(0.1))
+        with pytest.raises(NotImplementedError):
+            cls(parameters=list(tp.values()),
+                weight_decay=ptt.regularizer.WeightDecayRegularizer(0.1))
+    reg = ptt.regularizer.L2Decay(0.25)
+    assert reg.coeff == 0.25 and "0.25" in repr(reg)
+    assert torch.equal(reg(torch.tensor([2.0, -4.0])),
+                       torch.tensor([0.5, -1.0]))
+    assert torch.equal(ptt.regularizer.L1Decay(0.5)(
+        torch.tensor([2.0, -4.0, 0.0])), torch.tensor([0.5, -0.5, 0.0]))

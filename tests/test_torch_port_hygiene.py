@@ -318,3 +318,31 @@ def test_row_wise_entry_points_run_where_their_inputs_lie():
     with pytest.raises(RuntimeError, match="no causal softmax kernel"):
         inc.softmax_mask_fuse_upper_triangle(
             torch.zeros(1, 128, 128, device="meta"))
+
+
+def test_vision_entry_points_need_a_card_or_an_explicit_cpu(no_card):
+    """The ResNet slice's constructors follow the entry points' rule."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.vision.models import BasicBlock, BottleneckBlock
+    for build in (lambda **kw: ptt.vision.models.resnet18(num_classes=10,
+                                                          **kw),
+                  lambda **kw: ptt.vision.models.resnet50(num_classes=0,
+                                                          **kw),
+                  lambda **kw: BasicBlock(8, 8, **kw),
+                  lambda **kw: BottleneckBlock(16, 4, **kw),
+                  lambda **kw: ptt.nn.Conv2D(3, 4, 3, **kw),
+                  lambda **kw: ptt.nn.Conv1DTranspose(3, 4, 3, **kw),
+                  lambda **kw: ptt.nn.BatchNorm2D(4, **kw),
+                  lambda **kw: ptt.nn.SyncBatchNorm(4, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        assert all(p.device.type == "cpu"
+                   for p in build(device="cpu").parameters())
+
+
+@pytest.mark.parametrize("name", ["ReLU6", "Sigmoid", "Tanh", "LeakyReLU",
+                                  "Softmax", "Silu", "PReLU", "GLU"])
+def test_unported_activation_layers_raise(name):
+    import paddle_tpu_torch as ptt
+    with pytest.raises(NotImplementedError, match=name):
+        getattr(ptt.nn, name)()
