@@ -248,6 +248,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    deterministic) and on the CPU, in float32 and float64 (see
    RESNET_PARITY_TOLS). This path has no kernel of the port's own: the
    reference runs it on XLA's convolutions, pools and batch norms;
+16c. data and tensor parallelism (one card: NCCL takes one rank a
+   device, so NCCL runs at world 1 and the two-rank phases run as two
+   gloo ranks on the card, whose CUDA collectives go through host memory;
+   gloo's send/recv abort on CUDA tensors and no phase uses them):
+   dist_collectives_nccl (init_parallel_env on NCCL through a TCPStore on
+   127.0.0.1 and a free port; every collective on CUDA tensors against
+   the world-1 result; compress="int8" and "bf16" against the port's CPU
+   bodies; the int8 codec on the card against its CPU version, with the
+   count of codes one apart); train_gpt2_dp (train_gpt2 through
+   fleet.init(dp_degree=1), distributed_model, distributed_optimizer and
+   TrainStep: losses equal train_gpt2's bit for bit, s/step beside the
+   plain step's, timed in turns); train_mp1_nccl (train's configuration
+   with tensor_parallel=True under fleet.init(mp_degree=1): losses equal
+   train's bit for bit); dp2_gloo_on_card (GPT-2 124M, float32, dropout
+   0, 4 + 4 rows of 8 x 1024, 3 steps exact and 3 with
+   grad_compress="int8", against one process over the 8 rows: losses,
+   step-1 gradients, parameters, replicas bit for bit after every step,
+   wire bytes a step); mp2_gloo_on_card (Llama at Llama-2-7B widths, 2
+   layers, float32, 2 x 512, mp 2, against the mp-1 model from the same
+   full weights: losses, step-1 gradient shards, parameter shards, the
+   replicated parameters bit for bit on both ranks). `--dist-only` runs
+   the train and train_gpt2 phases and this phase alone;
 16. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the train of phase 6 and the
    generate of phase 5 for the flash forward's tensor-core kernel,
@@ -6077,6 +6099,771 @@ def resnet_parity_phase(torch, np, seed):
     return rec
 
 
+# -- phase 16c: data and tensor parallelism on torch.distributed --------------
+
+DIST_COMM_TIMEOUT_S = 300        # a rank's rendezvous and each collective
+DIST_JOIN_TIMEOUT_S = 900        # a spawned world's join
+DP2_STEPS = 3
+DP2_LR = 1e-4
+DP2_LOSS_RTOL = 1e-5             # float32, the sums ordered differently
+DP2_GRAD_TOL = 1e-5              # of each tensor's largest magnitude
+DP2_INT8_RTOL = 5e-3             # tests/test_quantized_collectives.py:479
+# parameters after AdamW steps: every element within 2 lr a step, and
+# all but PARAM_FRAC of all elements within GRAD_TOL of their tensor's
+# largest (AdamW divides a gradient by its own root mean square, so an
+# element whose gradient is near 0 moves by up to lr on rounding noise)
+PARAM_FRAC = 1e-3
+MP2_LAYERS, MP2_BATCH, MP2_SEQ, MP2_STEPS = 2, 2, 512, 3
+# at lr 1e-4 the 7B-wide model learns the 1,024 tokens in one step (loss
+# 11.2 -> 0.69 -> 0.00095), and a relative comparison of a loss near 0
+# reads rounding; at 1e-5 the three losses stay of order 1
+MP2_LR = 1e-5
+MP2_TOL = 1e-5
+# the gloo collectives the two-rank phases run, probed on CUDA tensors
+# first (gloo's send/recv read a CUDA pointer as host memory: the
+# phases use none)
+GLOO_CUDA_OPS = ("all_reduce", "all_reduce_max", "broadcast",
+                 "all_gather_into_tensor", "all_to_all_single_int8",
+                 "all_gather_object", "barrier")
+
+
+def _world_of_one():
+    """This process as rank 0 of a world of 1 on card 0 (no master: a
+    TCPStore on 127.0.0.1 and a free port)."""
+    os.environ.update({"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+                       "PADDLE_MASTER": "", "FLAGS_selected_gpus": "0",
+                       "PADDLE_COMM_TIMEOUT": str(DIST_COMM_TIMEOUT_S)})
+
+
+def _f32_no_tf32(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _param_checksums(torch, params):
+    """Two exact integers a parameter (the sum of its float bits, and the
+    sum weighted by position mod 1009), for (name, parameter) pairs in
+    name order: equal on two replicas that are equal bit for bit, and
+    differing (but for a collision) otherwise."""
+    out = []
+    for _, p in sorted(params, key=lambda kv: kv[0]):
+        bits = p.detach().reshape(-1).contiguous().view(torch.int32) \
+            .to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 1009 + 1
+        out.append((int(bits.sum()), int((bits * w).sum())))
+    return out
+
+
+def _worst_over_max(torch, ref, got, shard=None):
+    """(the largest |got - ref| over max |ref| of any tensor, its name);
+    ``shard(name, full)`` slices a full reference to ``got``'s shard."""
+    worst, worst_k = 0.0, None
+    for k, g in got.items():
+        r = ref[k] if shard is None else shard(k, ref[k])
+        r = r.to(g.device) if g.is_cuda else r.cpu()
+        e = float((g.to(r.device) - r).abs().max()) / \
+            max(float(r.abs().max()), 1e-30)
+        if e > worst:
+            worst, worst_k = e, k
+    return worst, worst_k
+
+
+def _param_gap(torch, ref, got, step_bound, shard=None):
+    """Parameters after AdamW steps against a reference run: the largest
+    element gap (within 2 x step_bound, the farthest two runs can part),
+    the share of all elements beyond GRAD_TOL of their tensor's largest
+    (under PARAM_FRAC), and the worst tensor's gap over its largest."""
+    far = total = 0
+    gap = 0.0
+    for k, g in got.items():
+        r = ref[k] if shard is None else shard(k, ref[k])
+        d = (g.to("cuda") - r.to("cuda")).abs()
+        gap = max(gap, float(d.max()))
+        far += int((d > DP2_GRAD_TOL * float(r.abs().max())).sum())
+        total += d.numel()
+    worst, worst_k = _worst_over_max(torch, ref, got, shard)
+    return {"max_abs_gap": gap, "bound": 2 * step_bound,
+            "share_beyond_tol": far / total, "share_limit": PARAM_FRAC,
+            "worst_tensor_gap_over_max": worst, "worst_tensor": worst_k,
+            "ok": gap <= 2 * step_bound * (1 + 1e-3)
+            and far / total < PARAM_FRAC}
+
+
+def dist_collectives_nccl_phase(torch, np, seed):
+    """init_parallel_env() on NCCL at world 1 through a TCPStore on
+    127.0.0.1 and a free port, then every collective of the API on CUDA
+    tensors against the world-1 result, the compressed wires against the
+    port's CPU bodies (the reference's one-rank result, which the CPU
+    tests hold them to), and the int8 codec on the card against its CPU
+    version."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import ReduceOp, collective as C
+    _world_of_one()
+    dist.init_parallel_env()
+    check(dist.get_backend() == "NCCL" and dist.get_world_size() == 1,
+          f"dist_collectives_nccl: backend {dist.get_backend()}")
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((37, 129)).astype(np.float32),
+                        device="cuda")
+    xi = torch.as_tensor(rng.integers(-99, 99, (64,)).astype(np.int32),
+                         device="cuda")
+    results = {}
+
+    def same(name, got, want):
+        ok = torch.equal(got, want)
+        results[name] = ok
+        check(ok, f"dist_collectives_nccl: {name} differs from the world-1 "
+                  f"result")
+
+    for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        for src in (x, xi):
+            t = src.clone()
+            dist.all_reduce(t, op=getattr(ReduceOp, op))
+            same(f"all_reduce_{op.lower()}_{str(src.dtype)[6:]}", t, src)
+    parts = []
+    dist.all_gather(parts, x)
+    same("all_gather", torch.stack(parts), x[None])
+    same("all_gather_axis", dist.all_gather(None, x, axis=1), x)
+    out = torch.empty_like(x)
+    dist.reduce_scatter(out, x.clone())
+    same("reduce_scatter", out, x)
+    t = x.clone()
+    dist.reduce(t, dst=0)
+    same("reduce", t, x)
+    t = x.clone()
+    dist.broadcast(t, src=0)
+    same("broadcast", t, x)
+    t = torch.empty_like(x)
+    dist.scatter(t, [x], src=0)
+    same("scatter", t, x)
+    same("gather", dist.gather(x)[0], x)
+    same("alltoall", dist.alltoall(x), x)
+    same("alltoall_single", dist.alltoall_single(x), x)
+    g = dist.new_group([0])
+    t = x.clone()
+    dist.all_reduce(t, group=g)
+    same("new_group_all_reduce", t, x)
+    t = x.clone()
+    dist.all_reduce(t, op=ReduceOp.AVG, sync_op=False).wait()
+    same("all_reduce_task", t, x)
+    objs = []
+    dist.all_gather_object(objs, {"seed": seed})
+    box = [seed]
+    dist.broadcast_object_list(box, src=0)
+    got = []
+    dist.scatter_object_list(got, ["a"], src=0)
+    results["object_lists"] = objs == [{"seed": seed}] and box == [seed] \
+        and got == ["a"]
+    check(results["object_lists"], "dist_collectives_nccl: object lists")
+    dist.barrier()
+    # the compressed wires at one rank: the reference quantizes even
+    # there; held to the port's CPU body (a one-rank local group)
+    local = C.Group([0], None)
+    wires = {}
+    for comp in ("int8", "bf16"):
+        t = x.clone()
+        dist.all_reduce(t, compress=comp)
+        cpu = x.cpu().clone()
+        dist.all_reduce(cpu, group=local, compress=comp)
+        o = torch.empty_like(x)
+        dist.reduce_scatter(o, x.clone(), compress=comp)
+        cpu_rs = torch.empty_like(cpu)
+        dist.reduce_scatter(cpu_rs, x.cpu().clone(), group=local,
+                            compress=comp)
+        diff = (t.cpu() - cpu).abs()
+        wires[comp] = {"all_reduce_unequal": int((diff > 0).sum()),
+                       "all_reduce_max_abs_diff": float(diff.max()),
+                       "reduce_scatter_unequal":
+                           int((o.cpu() != cpu_rs).sum()),
+                       "max_abs_err_vs_exact": float((t - x).abs().max())}
+        check(not torch.equal(t, x), f"dist_collectives_nccl: "
+                                     f"compress={comp} changed nothing")
+    # the int8 codec on the card against its CPU version, on one input
+    flat, _ = C._pad_flat(x, C.QUANT_BLOCK)
+    qc, sc = C.quantize_blockwise_int8(flat)
+    qh, sh = C.quantize_blockwise_int8(flat.cpu())
+    code_diff = (qc.cpu().to(torch.int32) - qh.to(torch.int32)).abs()
+    codec = {"codes": int(flat.numel()),
+             "codes_unequal": int((code_diff > 0).sum()),
+             "codes_max_diff": int(code_diff.max()),
+             "scales_unequal": int((sc.cpu() != sh).sum())}
+    check(codec["codes_max_diff"] <= 1 and codec["scales_unequal"] == 0,
+          f"dist_collectives_nccl: the card's int8 codec: {codec}")
+    # one rank's bf16 wire is one rounding, the same on both; an int8 code
+    # one apart (a tie rounded apart) moves its element by one step
+    check(wires["bf16"]["all_reduce_unequal"] == 0
+          and wires["bf16"]["reduce_scatter_unequal"] == 0
+          and wires["int8"]["all_reduce_unequal"]
+          <= 2 * codec["codes_unequal"],
+          f"dist_collectives_nccl: the compressed wires at one rank on the "
+          f"card against the CPU bodies: {wires}")
+    rec = {"phase": "dist_collectives_nccl", "card": card_line(),
+           "backend": dist.get_backend(), "world_size": 1,
+           "rendezvous": "TCPStore 127.0.0.1, a free port",
+           "collectives_equal_world1": results,
+           "compressed_world1_vs_cpu_body": wires,
+           "int8_codec_card_vs_cpu": codec}
+    emit(rec)
+    return rec
+
+
+def _fleet_init(torch, backend=None, grad_compress=None, **degrees):
+    """fleet.init on the world (its backend as init_parallel_env chose,
+    or ``backend``) with these degrees and the gradient-sync codec."""
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+                        **degrees}
+    s.grad_compress = grad_compress
+    fleet.init(is_collective=True, strategy=s, backend=backend)
+    return fleet
+
+
+def _gpt2_steps(torch, step, ids, labels):
+    """TRAIN_WARMUP + TRAIN_TIMED steps: (losses, s per timed step)."""
+    losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        losses.append(step((ids,), (labels,)))
+    torch.cuda.synchronize()
+    return [x.item() for x in losses], \
+        (time.perf_counter() - t0) / TRAIN_TIMED
+
+
+def train_gpt2_dp_phase(torch, np, seed, base):
+    """train_gpt2's configuration through fleet.init(dp_degree=1),
+    fleet.distributed_model, fleet.distributed_optimizer and TrainStep on
+    NCCL at world 1: 2 warm-up and 10 timed steps whose losses must be
+    train_gpt2's bit for bit (one rank: the sync is the identity, as the
+    reference's trivial axis tags nothing). The plain TrainStep of
+    train_gpt2 is timed the same way in turns (plain, fleet, plain):
+    s/step, tokens/s and their ratio, the wrapper's cost."""
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    fleet = _fleet_init(torch, dp_degree=1)
+    cfg = gpt2_config()
+    ids, labels = gpt2_batch(torch, np, seed + 3, cfg)
+    plain_s = []
+    for turn in ("plain", "fleet", "plain"):
+        if turn == "plain":
+            model, step = make_gpt2_step(torch, cfg, seed)
+            plain_losses, s = _gpt2_steps(torch, step, ids, labels)
+            plain_s.append(s)
+            del model, step
+            continue
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        model = fleet.distributed_model(GPTForCausalLM(cfg, generator=gen))
+        opt = fleet.distributed_optimizer(
+            AdamW(learning_rate=1e-4, parameters=model.parameters()))
+        step = TrainStep(model, gpt2_loss, opt)
+        torch.cuda.synchronize()
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+        losses, s_step = _gpt2_steps(torch, step, ids, labels)
+        fwd_routes = dict(_flash_bhsd.route_launches)
+        bwd_routes = dict(_flash_bhsd_bwd.route_launches)
+        wrapper = type(model).__name__
+        hooks = len(model._grad_sync._handles)
+        del model, step, opt
+    torch.cuda.empty_cache()
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    plain = sum(plain_s) / 2
+    rec = {"phase": "train_gpt2_dp", "card": card_line(),
+           "entry_points": ["fleet.init(dp_degree=1)",
+                            "fleet.distributed_model",
+                            "fleet.distributed_optimizer", "TrainStep"],
+           "backend": "NCCL", "world_size": 1, "wrapper": wrapper,
+           "grad_sync_hooks": hooks,
+           "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_TIMED,
+           "s_per_step": s_step,
+           "tokens_per_s": GPT2_BATCH * GPT2_SEQ / s_step,
+           "plain_s_per_step_before_after": plain_s,
+           "plain_tokens_per_s": GPT2_BATCH * GPT2_SEQ / plain,
+           "s_per_step_over_plain": s_step / plain,
+           "train_gpt2_s_per_step": base["s_per_step"],
+           "losses": losses,
+           "losses_equal_train_gpt2": losses == base["losses"],
+           "losses_equal_plain_in_turn": losses == plain_losses,
+           "flash_fwd_route_launches": fwd_routes,
+           "flash_bwd_route_launches": bwd_routes}
+    emit(rec)
+    check(wrapper == "DataParallel",
+          f"train_gpt2_dp: fleet wrapped the model as {wrapper}")
+    check(rec["losses_equal_train_gpt2"] and rec["losses_equal_plain_in_turn"],
+          f"train_gpt2_dp: losses {losses} are not train_gpt2's "
+          f"{base['losses']} bit for bit")
+    check(fwd_routes["wgmma"] == cfg.num_hidden_layers * n
+          and bwd_routes["wgmma"] == cfg.num_hidden_layers * n,
+          f"train_gpt2_dp: flash launches {fwd_routes}, {bwd_routes}")
+    return rec
+
+
+def train_mp1_nccl_phase(torch, np, seed, base):
+    """The train phase's configuration built with tensor_parallel=True
+    under fleet.init(mp_degree=1) on NCCL (the mp layers at one rank, the
+    criterion on ParallelCrossEntropy): its losses must be the train
+    phase's bit for bit, its s/step is printed beside that phase's."""
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion, TrainStep
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    fleet = _fleet_init(torch, mp_degree=1)
+    cfg = train_config()
+    cfg.tensor_parallel = True
+    model = fleet.distributed_model(build_model(torch, cfg, seed))
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = fleet.distributed_optimizer(
+        AdamW(learning_rate=1e-4, parameters=model.parameters(),
+              moment_dtype="bfloat16"))
+    step = TrainStep(model, lambda lo, la: crit(lo, la), opt)
+    ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                              TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+    losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        losses.append(step((ids,), (labels,)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [x.item() for x in losses]
+    fwd_routes = dict(_flash_bhsd.route_launches)
+    bwd_routes = dict(_flash_bhsd_bwd.route_launches)
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    check(losses == base["losses"],
+          f"train_mp1_nccl: losses {losses} are not train's "
+          f"{base['losses']} bit for bit")
+    check(fwd_routes["wgmma"] == cfg.num_hidden_layers * n
+          and bwd_routes["wgmma"] == cfg.num_hidden_layers * n,
+          f"train_mp1_nccl: flash launches {fwd_routes}, {bwd_routes}")
+    rec = {"phase": "train_mp1_nccl", "card": card_line(),
+           "entry_points": ["fleet.init(mp_degree=1)",
+                            "LlamaConfig(tensor_parallel=True)",
+                            "fleet.distributed_model",
+                            "fleet.distributed_optimizer", "TrainStep"],
+           "backend": "NCCL", "world_size": 1,
+           "layers": cfg.num_hidden_layers, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "s_per_step": wall / TRAIN_TIMED,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_TIMED / wall,
+           "train_s_per_step": base["s_per_step"],
+           "s_per_step_over_train": wall / TRAIN_TIMED / base["s_per_step"],
+           "losses": losses, "losses_equal_train": True,
+           "flash_fwd_route_launches": fwd_routes,
+           "flash_bwd_route_launches": bwd_routes}
+    emit(rec)
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _probe_gloo_cuda(torch, progress):
+    """Each gloo collective the phase needs once on tiny CUDA tensors,
+    noted in ``progress`` before it runs (an op that aborts the rank is
+    named by the last note). A refusal raises, naming the op."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import ReduceOp
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(x.clone(),
+                                                  op=ReduceOp.MAX),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather_into_tensor": lambda: dist.all_gather(None, x),
+        "all_to_all_single_int8": lambda: dist.alltoall_single(
+            x.to(torch.int8)),
+        "all_gather_object": lambda: dist.all_gather_object([], 1),
+        "barrier": lambda: dist.barrier()}
+    for name in GLOO_CUDA_OPS:
+        with open(progress, "a") as f:
+            f.write(f"{name}\n")
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+        except Exception as e:
+            raise RuntimeError(f"gloo refuses {name} on CUDA tensors: "
+                               f"{e}") from e
+
+
+def _rank_done(tmpdir, rank, result):
+    import pickle
+    with open(os.path.join(tmpdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def _rank_failed(tmpdir, rank):
+    with open(os.path.join(tmpdir, f"rank{rank}.err"), "w") as f:
+        f.write(traceback.format_exc())
+
+
+def _spawn_world(fn, args, tmpdir, phase):
+    """Two ranks on cuda:0 over gloo; each rank's failure fails the
+    phase, with its traceback (or the probed op it died in)."""
+    import pickle
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.distributed.misc import join_all
+    procs = spawn(fn, args=(tmpdir,) + tuple(args), nprocs=2, join=False,
+                  gpus=[0, 0], master=f"file://{tmpdir}/store")
+    try:
+        join_all(procs, DIST_JOIN_TIMEOUT_S)
+    except RuntimeError as e:
+        why = []
+        for r in range(2):
+            for ext in ("err", "probe"):
+                p = os.path.join(tmpdir, f"rank{r}.{ext}")
+                if os.path.exists(p):
+                    why.append(f"rank {r} {ext}: "
+                               + open(p).read().strip()[-3000:])
+        raise AssertionError(f"{phase}: {e}\n" + "\n".join(why)) from None
+    out = []
+    for r in range(2):
+        with open(os.path.join(tmpdir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _dp2_rank(tmpdir, seed, ids, labels):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    os.environ["PADDLE_COMM_TIMEOUT"] = str(DIST_COMM_TIMEOUT_S)
+    try:
+        import numpy as np
+        import torch
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+        from paddle_tpu_torch.kernels.flash_attention import (
+            _flash_bhsd, _flash_bhsd_bwd)
+        dist.init_parallel_env(backend="gloo")
+        _probe_gloo_cuda(torch, os.path.join(tmpdir, f"rank{rank}.probe"))
+        _f32_no_tf32(torch)
+        cfg = gpt2_config(dtype="float32", dropout=0.0)
+        per = ids.shape[0] // 2
+        x = torch.as_tensor(ids[rank * per:(rank + 1) * per], device="cuda")
+        y = torch.as_tensor(labels[rank * per:(rank + 1) * per],
+                            device="cuda")
+        res = {}
+        for compress in (None, "int8"):
+            fleet = _fleet_init(torch, backend="gloo", grad_compress=compress,
+                                dp_degree=2)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            model = fleet.distributed_model(GPTForCausalLM(cfg,
+                                                           generator=gen))
+            opt = fleet.distributed_optimizer(AdamW(
+                learning_rate=DP2_LR, parameters=model.parameters()))
+            step = TrainStep(model, gpt2_loss, opt)
+            zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+            losses, times, equal = [], [], []
+            for i in range(DP2_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step((x,), (y,)).item())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if i == 0 and rank == 0 and compress is None:
+                    torch.save({k: p.grad.detach().cpu() for k, p in
+                                model.named_parameters()},
+                               os.path.join(tmpdir, "exact_grads1.pt"))
+                sums = []
+                dist.all_gather_object(sums, _param_checksums(
+                    torch, model.named_parameters()))
+                equal.append(sums[0] == sums[1])
+            sched = step._grad_sync
+            name = compress or "exact"
+            res[name] = {
+                "losses": losses, "step_s": times,
+                "replicas_equal_each_step": equal,
+                "buckets": len(sched.buckets),
+                "bucket_mb": sched.bucket_mb,
+                "bytes_per_step": sched.bytes_per_step,
+                "wire_bytes_per_step": sched.wire_bytes_per_step,
+                "counters": dict(sched.counters),
+                "flash_fwd_route_launches": dict(_flash_bhsd.route_launches),
+                "flash_bwd_route_launches":
+                    dict(_flash_bhsd_bwd.route_launches)}
+            if rank == 0 and compress is None:
+                torch.save({k: p.detach().cpu() for k, p in
+                            model.named_parameters()},
+                           os.path.join(tmpdir, "exact_params.pt"))
+            del model, step, opt
+            torch.cuda.empty_cache()
+        dist.barrier()
+        _rank_done(tmpdir, rank, res)
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def dp2_gloo_on_card_phase(torch, np, seed, tmpdir):
+    """Data parallelism in two ranks on cuda:0 over gloo (one card: NCCL
+    takes one rank a device), with CUDA tensors: GPT-2 124M at full
+    width in float32 with TF32 off and dropout 0, the global batch of 8 x
+    1024 split 4 + 4, 3 steps with the exact sync and 3 with
+    grad_compress="int8" (the default 32 MiB buckets), through fleet's
+    entry points. Held against one process over the full batch on the
+    card: every loss within 1e-5 relative; step 1's synced gradients
+    within 1e-5 of each tensor's largest (the sync's exactness, before
+    AdamW); the parameters after step 3 by PARAM_FRAC's rule, the worst
+    tensor's gap printed; the replicas equal bit for bit after every
+    step; int8 step 1 within 1e-6 of the exact run, steps 2-3 within 5e-3
+    and not equal. The wire here is host memory (gloo copies CUDA
+    tensors through it): its times are no NCCL figure."""
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    _f32_no_tf32(torch)
+    cfg = gpt2_config(dtype="float32", dropout=0.0)
+    rng = np.random.default_rng(seed + 3)
+    ids = rng.integers(0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ))
+    labels = rng.integers(0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    model = GPTForCausalLM(cfg, generator=gen)
+    step = TrainStep(model, gpt2_loss, AdamW(
+        learning_rate=DP2_LR, parameters=model.parameters()))
+    x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+    one, one_s, grads1 = [], [], None
+    for i in range(DP2_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.append(step((x,), (y,)).item())
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+        if i == 0:
+            grads1 = {k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()}
+    ref = {k: p.detach() for k, p in model.named_parameters()}
+    del step
+    torch.cuda.empty_cache()
+    ranks = _spawn_world(_dp2_rank, (seed, ids, labels), tmpdir,
+                         "dp2_gloo_on_card")
+    grad_worst = _worst_over_max(torch, grads1, torch.load(
+        os.path.join(tmpdir, "exact_grads1.pt")))
+    param_gap = _param_gap(torch, ref, torch.load(
+        os.path.join(tmpdir, "exact_params.pt")), DP2_LR * DP2_STEPS)
+    del model, ref, grads1
+    torch.cuda.empty_cache()
+    exact = [np.mean([r["exact"]["losses"][i] for r in ranks])
+             for i in range(DP2_STEPS)]
+    int8 = [np.mean([r["int8"]["losses"][i] for r in ranks])
+            for i in range(DP2_STEPS)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(exact, one))
+    r0 = ranks[0]
+    rec = {"phase": "dp2_gloo_on_card", "card": card_line(),
+           "note": "two ranks on one card over gloo: the wire is host "
+                   "memory, no NCCL figure",
+           "model": "GPT-2 124M, float32, TF32 off, dropout 0",
+           "global_batch": [GPT2_BATCH, GPT2_SEQ], "rank_batch":
+           [GPT2_BATCH // 2, GPT2_SEQ], "steps": DP2_STEPS,
+           "gloo_cuda_ops_probed": list(GLOO_CUDA_OPS),
+           "one_process_losses": one, "one_process_step_s": one_s,
+           "exact_losses_mean_of_ranks": exact,
+           "int8_losses_mean_of_ranks": int8,
+           "exact_loss_max_rel_diff": loss_rel,
+           "step1_grad_worst_over_max": grad_worst[0],
+           "step1_grad_worst_tensor": grad_worst[1],
+           "params_after_step3": param_gap,
+           "exact": {k: r0["exact"][k] for k in (
+               "step_s", "buckets", "bucket_mb", "bytes_per_step",
+               "wire_bytes_per_step", "counters",
+               "flash_fwd_route_launches", "flash_bwd_route_launches")},
+           "int8": {k: r0["int8"][k] for k in (
+               "step_s", "buckets", "bucket_mb", "bytes_per_step",
+               "wire_bytes_per_step", "counters")},
+           "replicas_equal_each_step": {
+               run: [r[run]["replicas_equal_each_step"] for r in ranks]
+               for run in ("exact", "int8")}}
+    emit(rec)
+    check(loss_rel <= DP2_LOSS_RTOL, f"dp2_gloo_on_card: exact losses "
+                                     f"{exact} vs one process {one}")
+    check(grad_worst[0] <= DP2_GRAD_TOL,
+          f"dp2_gloo_on_card: step 1's synced gradient of {grad_worst[1]} "
+          f"off by {grad_worst[0]} of its largest")
+    check(param_gap["ok"], f"dp2_gloo_on_card: parameters after step "
+                           f"{DP2_STEPS}: {param_gap}")
+    for r in ranks:
+        for run in ("exact", "int8"):
+            check(all(r[run]["replicas_equal_each_step"]),
+                  f"dp2_gloo_on_card: {run} replicas differ")
+    check(abs(int8[0] - exact[0]) <= 1e-6 * abs(exact[0]),
+          f"dp2_gloo_on_card: int8 step 1 {int8[0]} vs {exact[0]}")
+    for i in range(1, DP2_STEPS):
+        check(abs(int8[i] - exact[i]) <= DP2_INT8_RTOL * abs(exact[i])
+              and int8[i] != exact[i],
+              f"dp2_gloo_on_card: int8 step {i + 1} {int8[i]} vs exact "
+              f"{exact[i]}")
+    return rec
+
+
+def _mp2_config(tensor_parallel):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=4096,
+                       intermediate_size=11008, num_hidden_layers=MP2_LAYERS,
+                       num_attention_heads=32, num_key_value_heads=32,
+                       max_position_embeddings=MP2_SEQ, dtype="float32",
+                       tensor_parallel=tensor_parallel)
+
+
+def _mp2_rank(tmpdir, seed, ids, labels, ref_losses):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    os.environ["PADDLE_COMM_TIMEOUT"] = str(DIST_COMM_TIMEOUT_S)
+    try:
+        import torch
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch import (AdamW, LlamaPretrainingCriterion,
+                                      TrainStep)
+        from paddle_tpu_torch.convert import tp_shard
+        from paddle_tpu_torch.kernels.flash_attention import (
+            _flash_bhsd, _flash_bhsd_bwd)
+        dist.init_parallel_env(backend="gloo")
+        _probe_gloo_cuda(torch, os.path.join(tmpdir, f"rank{rank}.probe"))
+        _f32_no_tf32(torch)
+        fleet = _fleet_init(torch, mp_degree=2, backend="gloo")
+        hcg = fleet.get_hybrid_communicate_group()
+        cfg = _mp2_config(True)
+        model = fleet.distributed_model(build_model(torch, cfg, seed))
+        crit = LlamaPretrainingCriterion(cfg)
+        opt = fleet.distributed_optimizer(AdamW(
+            learning_rate=MP2_LR, parameters=model.parameters()))
+        step = TrainStep(model, lambda lo, la: crit(lo, la), opt)
+        x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+        mr = hcg.get_model_parallel_rank()
+
+        def shard(k, full):
+            return tp_shard(k, full, mr, 2)
+        losses, times = [], []
+        for i in range(MP2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step((x,), (y,)).item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                grad_worst = _worst_over_max(
+                    torch, torch.load(os.path.join(tmpdir,
+                                                   "mp1_grads1.pt"),
+                                      mmap=True),
+                    {k: p.grad for k, p in model.named_parameters()},
+                    shard)
+        param_gap = _param_gap(
+            torch, torch.load(os.path.join(tmpdir, "mp1_params.pt"),
+                              mmap=True),
+            {k: p.detach() for k, p in model.named_parameters()},
+            MP2_LR * MP2_STEPS, shard)
+        sums = []
+        dist.all_gather_object(sums, _param_checksums(
+            torch, [(k, p) for k, p in model.named_parameters()
+                    if not getattr(p, "mp_sharded", False)]))
+        _rank_done(tmpdir, rank, {
+            "mp_rank": mr, "losses": losses, "step_s": times,
+            "step1_grad_worst": grad_worst, "params_after_step3": param_gap,
+            "replicated_equal": sums[0] == sums[1],
+            "flash_fwd_route_launches": dict(_flash_bhsd.route_launches),
+            "flash_bwd_route_launches": dict(_flash_bhsd_bwd.route_launches),
+            "params_per_rank": sum(p.numel() for p in model.parameters())})
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def mp2_gloo_on_card_phase(torch, np, seed, tmpdir):
+    """Tensor parallelism in two ranks on cuda:0 over gloo: Llama at
+    Llama-2-7B widths (hidden 4096, 32 heads of 128, FFN 11008, vocab
+    32000), 2 layers, float32 with TF32 off, batch 2 x 512, AdamW at lr
+    1e-5, 3 steps, with tensor_parallel=True under fleet.init(mp_degree=
+    2). Held against one process running the same model at mp 1 from the
+    same full weights (the ranks draw them whole from the same seed and
+    keep their slices): every loss within 1e-5 relative, each rank's
+    step-1 gradient shards within 1e-5 of their largest to the matching
+    slices of the mp-1 gradients, its shards after step 3 against the
+    matching slices of the mp-1 parameters by PARAM_FRAC's rule (the
+    worst tensor's gap printed), and the parameters no rank shards equal
+    on both ranks bit for bit."""
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion, TrainStep
+    _f32_no_tf32(torch)
+    cfg = _mp2_config(False)
+    rng = np.random.default_rng(seed + 3)
+    ids = rng.integers(0, cfg.vocab_size, (MP2_BATCH, MP2_SEQ))
+    labels = rng.integers(0, cfg.vocab_size, (MP2_BATCH, MP2_SEQ))
+    model = build_model(torch, cfg, seed)
+    crit = LlamaPretrainingCriterion(cfg)
+    step = TrainStep(model, lambda lo, la: crit(lo, la), AdamW(
+        learning_rate=MP2_LR, parameters=model.parameters()))
+    x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+    one, one_s = [], []
+    for i in range(MP2_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.append(step((x,), (y,)).item())
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+        if i == 0:
+            torch.save({k: p.grad.detach().cpu()
+                        for k, p in model.named_parameters()},
+                       os.path.join(tmpdir, "mp1_grads1.pt"))
+    torch.save({k: p.detach().cpu() for k, p in model.named_parameters()},
+               os.path.join(tmpdir, "mp1_params.pt"))
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, step
+    torch.cuda.empty_cache()
+    ranks = _spawn_world(_mp2_rank, (seed, ids, labels, one), tmpdir,
+                         "mp2_gloo_on_card")
+    rec = {"phase": "mp2_gloo_on_card", "card": card_line(),
+           "note": "two ranks on one card over gloo: the mp collectives "
+                   "go through host memory, no NCCL figure",
+           "model": "Llama, Llama-2-7B widths, float32, TF32 off",
+           "layers": MP2_LAYERS, "batch": [MP2_BATCH, MP2_SEQ],
+           "params_mp1": n_params,
+           "params_per_rank": [r["params_per_rank"] for r in ranks],
+           "lr": MP2_LR, "mp1_losses": one, "mp1_step_s": one_s,
+           "rank_losses": [r["losses"] for r in ranks],
+           "rank_step_s": [r["step_s"] for r in ranks],
+           "step1_grad_worst_over_max": [r["step1_grad_worst"]
+                                         for r in ranks],
+           "params_after_step3": [r["params_after_step3"] for r in ranks],
+           "flash_fwd_route_launches": ranks[0]["flash_fwd_route_launches"],
+           "flash_bwd_route_launches": ranks[0]["flash_bwd_route_launches"],
+           "replicated_equal_bit_for_bit": [r["replicated_equal"]
+                                            for r in ranks]}
+    emit(rec)
+    for r in ranks:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one))
+        check(rel <= MP2_TOL, f"mp2_gloo_on_card: mp rank {r['mp_rank']} "
+                              f"losses {r['losses']} vs mp 1 {one}")
+        check(r["step1_grad_worst"][0] <= MP2_TOL,
+              f"mp2_gloo_on_card: step 1's gradient shard of "
+              f"{r['step1_grad_worst'][1]} off by "
+              f"{r['step1_grad_worst'][0]} of its largest")
+        check(r["params_after_step3"]["ok"],
+              f"mp2_gloo_on_card: mp rank {r['mp_rank']}'s shards after "
+              f"step {MP2_STEPS}: {r['params_after_step3']}")
+        check(r["replicated_equal"], "mp2_gloo_on_card: the replicated "
+                                     "parameters differ between ranks")
+        check(r["flash_fwd_route_launches"]["cuda_core"]
+              == MP2_LAYERS * MP2_STEPS,
+              f"mp2_gloo_on_card: flash launches "
+              f"{r['flash_fwd_route_launches']}")
+    return rec
+
+
+def dist_phases(torch, np, seed, train, train_gpt2):
+    """Phase 16c: the collectives on NCCL at world 1, train_gpt2 and train
+    through fleet at one rank (bit for bit against those phases), then
+    data and tensor parallelism in two gloo ranks on the card."""
+    import tempfile
+    dist_collectives_nccl_phase(torch, np, seed + 80)
+    train_gpt2_dp_phase(torch, np, seed + 30, train_gpt2)
+    train_mp1_nccl_phase(torch, np, seed, train)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp2_gloo_on_card_phase(torch, np, seed + 81,
+                               tempfile.mkdtemp(dir=tmp))
+        mp2_gloo_on_card_phase(torch, np, seed + 82,
+                               tempfile.mkdtemp(dir=tmp))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6110,6 +6897,11 @@ def main():
                          "ones, the same way, in the ragged, partials and "
                          "grouped cases, and train_moe and train_moe_quant "
                          "run again on its grouped and quantized kernels")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="only build the flash kernels and run the train "
+                         "and train_gpt2 phases (the bases of the "
+                         "bit-for-bit checks) and the data- and "
+                         "tensor-parallel phases, then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -6145,6 +6937,16 @@ def main():
                "ragged_paged_attention_partials", "grouped_matmul",
                "quant_grouped_matmul", "flash_varlen", "flash_sparse_mask",
                "rms_norm", "fused_elementwise")
+    if args.dist_only:
+        _build.build("flash_attention_fwd", "flash_attention_bwd")
+        train = train_phase(torch, np, args.seed)
+        train_gpt2 = train_gpt2_phase(torch, np, args.seed + 30)
+        dist_phases(torch, np, args.seed, train, train_gpt2)
+        print(card_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     t0 = time.perf_counter()
     libs = _build.build(*sources)
     build_s = time.perf_counter() - t0
@@ -6484,6 +7286,10 @@ def main():
     if args.profile:
         train_resnet50_profile_phase(torch, np, args.seed + 70)
     resnet_parity_phase(torch, np, args.seed + 71)
+
+    # data and tensor parallelism: NCCL at world 1, two gloo ranks on the
+    # card
+    dist_phases(torch, np, args.seed, train, train_gpt2)
 
     kernels = []
     for name, route_src, replaces, rec, launches in (

@@ -5,7 +5,7 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. Eight slices are ported: serving, greedy or
+plain PyTorch version. Nine slices are ported: serving, greedy or
 sampled (LlamaForCausalLM, CachedDecoder's fused decode chunks and
 PagedDecoder with the zero-sync pipelined continuous-batching loop, each
 decode chunk a CUDA graph on the card, its radix prefix cache and the
@@ -26,7 +26,11 @@ TrainStep with the LRScheduler learning rates of ``optimizer.lr`` and the
 gradient clipping of ``nn.clip``), and ResNet-50 eager training
 (``vision.models.resnet50`` on the convolutions, batch norms, pools and
 containers of ``nn``, under TrainStep with ``Momentum`` or ``SGD`` and a
-``regularizer.L2Decay``; ``flops`` counts its forward).
+``regularizer.L2Decay``; ``flops`` counts its forward), and data and
+tensor parallelism on torch.distributed (``distributed``: the collectives
+with their int8/bf16 wire codecs, ``DataParallel`` over the bucketed
+gradient sync, fleet's topology and wrappers, the tensor-parallel layers,
+GPT-2 and Llama with ``tensor_parallel=True``).
 """
 from . import nn
 from .framework.device import resolve_device, seed

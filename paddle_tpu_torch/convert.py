@@ -25,6 +25,14 @@ dense lane's fc1/fc2 and the head are transposed; the expert stacks keep
 the JAX package's [E, K, N] layout, and biases, the embedding and the
 LayerNorms convert as they are.
 
+``tp_params_from_jax`` gives one rank's shard for a model built with
+``tensor_parallel=True`` (Llama or GPT-2) over ``mp_degree`` ranks: the
+full parameters converted as above, then each sharded one sliced as the
+port's mp layers hold it (fleet/meta_parallel/mp_layers.py): the vocab
+rows of the embedding, the output rows of a column projection (and of
+its bias; GPT's fused qkv takes its heads of each of q, k and v), the
+input columns of a row projection, and everything else whole.
+
 ``resnet_params_from_jax`` does it for the ResNet family
 (vision/models/resnet.py): the convolution weights ([out, in / groups, *k]
 in both packages) and the batch norms' ``weight``, ``bias``, ``_mean`` and
@@ -44,7 +52,7 @@ from .vision.models.resnet import ResNet
 
 __all__ = ["params_from_jax", "optimizer_state_from_jax",
            "gpt_params_from_jax", "moe_params_from_jax",
-           "resnet_params_from_jax"]
+           "resnet_params_from_jax", "tp_params_from_jax", "tp_shard"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -252,3 +260,43 @@ def resnet_params_from_jax(state_dict_numpy, model):
         check(name, a)
         out[name] = _to_torch(name, a, dtype, _resnet_is_linear)
     return out
+
+
+# "module.parameter" -> (split dim, fused parts) of the tensor-parallel
+# shards, in the port's layout; a parameter not named here is whole on
+# every rank
+_TP_SPLITS = {
+    "embed_tokens.weight": (0, 1), "lm_head.weight": (0, 1),
+    "q_proj.weight": (0, 1), "k_proj.weight": (0, 1),
+    "v_proj.weight": (0, 1), "gate_proj.weight": (0, 1),
+    "up_proj.weight": (0, 1), "o_proj.weight": (1, 1),
+    "down_proj.weight": (1, 1),
+    "wte.weight": (0, 1), "qkv_proj.weight": (0, 3),
+    "qkv_proj.bias": (0, 3), "fc_in.weight": (0, 1), "fc_in.bias": (0, 1),
+    "out_proj.weight": (1, 1), "fc_out.weight": (1, 1),
+}
+
+
+def tp_shard(name, full, mp_rank, mp_degree):
+    """Rank ``mp_rank``'s shard of the port-layout tensor ``full`` of
+    parameter ``name`` over ``mp_degree`` ranks."""
+    from .distributed.fleet.meta_parallel.mp_layers import shard_of
+    split = _TP_SPLITS.get(".".join(name.split(".")[-2:]))
+    if split is None:
+        return full
+    dim, parts = split
+    if full.shape[dim] % (mp_degree * parts):
+        raise ValueError(f"{name}: dim {dim} of {tuple(full.shape)} does "
+                         f"not split over mp {mp_degree}")
+    return shard_of(full, dim, mp_degree, mp_rank, parts).contiguous()
+
+
+def tp_params_from_jax(state_dict_numpy, cfg, mp_rank, mp_degree):
+    """{name: numpy array} of the JAX Llama or GPT-2 (full parameters) ->
+    {name: torch tensor}: rank ``mp_rank``'s shard of each, in the port's
+    layout, for the port's model built with ``tensor_parallel=True`` over
+    ``mp_degree`` ranks."""
+    full = gpt_params_from_jax(state_dict_numpy, cfg) \
+        if isinstance(cfg, GPTConfig) else params_from_jax(state_dict_numpy,
+                                                           cfg)
+    return {k: tp_shard(k, v, mp_rank, mp_degree) for k, v in full.items()}

@@ -1,0 +1,42 @@
+"""paddle.distributed on torch.distributed (counterpart of
+paddle_tpu/distributed/).
+
+One process per rank (``spawn`` or any launcher that sets env.py's
+contract). ``init_parallel_env`` joins the world on NCCL for a card or
+gloo for the CPU (or when asked); collective.py has the collective API
+with its int8 / bf16 wire codecs, parallel.py ``DataParallel``, and
+``fleet`` the hybrid topology, the gradient buckets and the
+tensor-parallel layers. Pipeline, sharding, sep, expert parallelism,
+auto-parallel, checkpointing and the launcher are not ported.
+"""
+from .env import (  # noqa: F401
+    ParallelEnv, get_rank, get_world_size, is_initialized,
+)
+from .collective import (  # noqa: F401
+    ReduceOp, Group, new_group, get_group, destroy_process_group,
+    all_reduce, all_gather, all_gather_object, reduce, reduce_scatter,
+    broadcast, scatter, alltoall, all_to_all, alltoall_single,
+    send, recv, isend, irecv, batch_isend_irecv, P2POp, barrier, wait, stream,
+    collective_permute,
+)
+from .misc import (  # noqa: F401
+    gather, scatter_object_list, broadcast_object_list, spawn, ParallelMode,
+    ReduceType, is_available, get_backend, split, CountFilterEntry,
+    ShowClickEntry, ProbabilityEntry,
+)
+from .parallel import init_parallel_env, DataParallel  # noqa: F401
+from .store import TCPStore  # noqa: F401
+from . import communication, fleet  # noqa: F401
+
+__all__ = [
+    "ParallelEnv", "get_rank", "get_world_size", "is_initialized",
+    "ReduceOp", "Group", "new_group", "get_group", "destroy_process_group",
+    "all_reduce", "all_gather", "all_gather_object", "reduce",
+    "reduce_scatter", "broadcast", "scatter", "alltoall", "all_to_all",
+    "alltoall_single", "send", "recv", "isend", "irecv", "batch_isend_irecv",
+    "P2POp", "barrier", "wait", "stream", "collective_permute", "gather",
+    "scatter_object_list", "broadcast_object_list", "spawn", "ParallelMode",
+    "ReduceType", "is_available", "get_backend", "split", "CountFilterEntry",
+    "ShowClickEntry", "ProbabilityEntry", "init_parallel_env",
+    "DataParallel", "TCPStore", "communication", "fleet",
+]

@@ -1,0 +1,141 @@
+"""DistributedStrategy (counterpart of
+paddle_tpu/distributed/fleet/distributed_strategy.py).
+
+The reference's fields and defaults, and its ``validate()``. The knobs of
+slices not ported yet raise NotImplementedError, naming themselves, when
+``validate()`` (fleet.init) finds them set: ``mp_overlap``,
+``mp_activation_compress``, ``dispatch_compress``, ``matmul_quant``,
+``pipeline_save_mode``, and ``sharding_degree``, ``pp_degree``,
+``sep_degree`` or ``ep_degree`` above 1. Data and tensor parallelism
+(``dp_degree``, ``mp_degree``) and the gradient sync's ``grad_compress``
+and ``grad_bucket_mb`` are ported.
+"""
+from __future__ import annotations
+
+__all__ = ["DistributedStrategy"]
+
+
+class _SubConfig(dict):
+    def __getattr__(self, k):
+        return self.get(k)
+
+    def __setattr__(self, k, v):
+        self[k] = v
+
+
+# (field, default) of the knobs a later slice ports
+_LATER_KNOBS = (("mp_overlap", False), ("mp_activation_compress", None),
+                ("dispatch_compress", None), ("matmul_quant", None),
+                ("pipeline_save_mode", None))
+_LATER_DEGREES = ("sharding_degree", "pp_degree", "sep_degree", "ep_degree")
+
+
+class DistributedStrategy:
+    def __init__(self):
+        object.__setattr__(self, "_explicit_fields", None)
+        self._hybrid_configs = {
+            "dp_degree": 1,
+            "mp_degree": 1,
+            "pp_degree": 1,
+            "sharding_degree": 1,
+            "sep_degree": 1,
+            "ep_degree": 1,
+            "order": ["dp", "pp", "sharding", "sep", "mp"],
+            "mp_configs": _SubConfig(),
+            "pp_configs": _SubConfig(
+                micro_batch_size=1, accumulate_steps=1,
+                delay_scale_loss=False, enable_timer=False,
+                sharding_comm_overlap=False, schedule_mode="1F1B"),
+            "sharding_configs": _SubConfig(),
+        }
+        self.amp = False
+        self.amp_configs = _SubConfig(init_loss_scaling=32768.0,
+                                      use_pure_fp16=False, use_bf16=False)
+        self.recompute = False
+        self.recompute_configs = _SubConfig(checkpoints=[])
+        self.gradient_merge = False
+        self.gradient_merge_configs = _SubConfig(k_steps=1, avg=True)
+        self.sharding = False
+        self.sharding_configs = _SubConfig()
+        self.pipeline = False
+        self.pipeline_configs = _SubConfig(accumulate_steps=1,
+                                           micro_batch_size=1)
+        self.tensor_parallel = False
+        self.tensor_parallel_configs = _SubConfig(tensor_parallel_degree=1)
+        self.heter_ccl_mode = False
+        self.find_unused_parameters = False
+        self.fuse_all_reduce_ops = True
+        self.fuse_grad_size_in_MB = 32
+        self.nccl_comm_num = 1
+        self.sync_nccl_allreduce = True
+        self.gradient_scale_configs = _SubConfig(scale_strategy="avg")
+        # the gradient sync (fleet/grad_buckets.py): grad_compress = None |
+        # "int8" | "bf16" selects the compressed all-reduce bodies,
+        # grad_bucket_mb the bucket size in MiB
+        self.grad_compress = None
+        self.grad_bucket_mb = None
+        for knob, default in _LATER_KNOBS:
+            setattr(self, knob, default)
+        self.mp_overlap_chunks = "auto"
+        object.__setattr__(self, "_explicit_fields", set())
+
+    def __setattr__(self, k, v):
+        exp = getattr(self, "_explicit_fields", None)
+        if isinstance(exp, set) and not k.startswith("_"):
+            exp.add(k)
+        super().__setattr__(k, v)
+
+    @property
+    def hybrid_configs(self):
+        return self._hybrid_configs
+
+    @hybrid_configs.setter
+    def hybrid_configs(self, configs):
+        exp = getattr(self, "_explicit_fields", None)
+        for k, v in configs.items():
+            if k.endswith("_configs") and isinstance(v, dict):
+                self._hybrid_configs[k].update(v)
+            else:
+                self._hybrid_configs[k] = v
+                if isinstance(exp, set):
+                    exp.add(k)
+
+    def validate(self):
+        """Raise NotImplementedError for a knob of a later slice that is
+        set, then the reference's ValueError naming every incoherent knob
+        combination; returns self."""
+        hc = self._hybrid_configs
+        for knob, default in _LATER_KNOBS:
+            v = getattr(self, knob, default)
+            if v != default:
+                raise NotImplementedError(
+                    f"DistributedStrategy.{knob}={v!r} is not ported to the "
+                    f"PyTorch package yet (a later slice of distributed)")
+        for deg in _LATER_DEGREES:
+            if int(hc.get(deg, 1)) > 1:
+                raise NotImplementedError(
+                    f"hybrid_configs {deg}={hc[deg]} is not ported to the "
+                    f"PyTorch package yet (data and tensor parallelism are)")
+        dp = int(hc.get("dp_degree", 1))
+        sharding = int(hc.get("sharding_degree", 1))
+        errors = []
+        if getattr(self, "grad_compress", None) and dp * sharding == 1:
+            errors.append(
+                "grad_compress set with dp_degree*sharding_degree==1: "
+                "there is no gradient wire to compress")
+        if getattr(self, "grad_bucket_mb", None) and dp * sharding == 1:
+            errors.append(
+                "grad_bucket_mb set with dp_degree*sharding_degree==1: "
+                "there are no grad-sync collectives to bucket")
+        v = getattr(self, "grad_compress", None)
+        if v not in (None, "int8", "bf16"):
+            errors.append(f"grad_compress={v!r} not in "
+                          f"{(None, 'int8', 'bf16')}")
+        if errors:
+            raise ValueError(
+                "incoherent DistributedStrategy knobs:\n  - "
+                + "\n  - ".join(errors))
+        return self
+
+    def __repr__(self):
+        return f"DistributedStrategy(hybrid={self._hybrid_configs})"

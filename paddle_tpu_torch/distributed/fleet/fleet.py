@@ -1,0 +1,162 @@
+"""The fleet facade (counterpart of paddle_tpu/distributed/fleet/fleet.py).
+
+``init`` joins the world (init_parallel_env), validates the strategy,
+infers a ``-1`` degree from the world size and builds the hybrid
+topology's process groups; ``distributed_model`` wraps the model in
+DataParallel (mp 1) or TensorParallel (mp > 1); ``distributed_optimizer``
+wraps the optimizer and carries the strategy's gradient-sync knobs to
+TrainStep.
+"""
+from __future__ import annotations
+
+import math
+
+from .distributed_strategy import DistributedStrategy
+from .topology import CommunicateTopology, HybridCommunicateGroup
+
+__all__ = ["Fleet", "fleet", "HybridParallelOptimizer"]
+
+
+class HybridParallelOptimizer:
+    """Wraps the inner optimizer (reference: fleet/meta_optimizers/
+    dygraph_optimizer/hybrid_parallel_optimizer.py). The gradients it
+    steps on are already synced by the model wrapper's hooks."""
+
+    def __init__(self, optimizer, hcg, strategy):
+        self._inner_opt = optimizer
+        self._hcg = hcg
+        self._strategy = strategy
+
+    def __getattr__(self, item):
+        return getattr(self._inner_opt, item)
+
+    def step(self, *a, **k):
+        return self._inner_opt.step(*a, **k)
+
+    def clear_grad(self, *a, **k):
+        return self._inner_opt.clear_grad(*a, **k)
+
+    def minimize(self, loss, *a, **k):
+        loss.backward()
+        self.step()
+        return None, None
+
+
+_NAME_OF = {"dp": "data", "pp": "pipe", "sharding": "sharding", "sep": "sep",
+            "mp": "model", "ep": "expert"}
+
+
+class Fleet:
+    def __init__(self):
+        self._is_initialized = False
+        self._hcg = None
+        self._user_defined_strategy = None
+
+    def init(self, role_maker=None, is_collective=True, strategy=None,
+             log_level="INFO", *, backend=None, device=None):
+        """Join the world (``backend`` / ``device`` as init_parallel_env)
+        and build the hybrid topology of ``strategy``."""
+        from ..env import get_world_size
+        from ..parallel import init_parallel_env
+        if role_maker is not None or not is_collective:
+            raise NotImplementedError(
+                "fleet.init with a role maker or is_collective=False (the "
+                "parameter-server mode) is not ported")
+        init_parallel_env(backend=backend, device=device)
+        s = strategy or DistributedStrategy()
+        s.validate()
+        hc = s.hybrid_configs
+        order = list(hc.get("order", ["dp", "pp", "sharding", "sep", "mp"]))
+        if "ep" not in order:
+            if "sharding" in order:
+                order.insert(order.index("sharding") + 1, "ep")
+            elif "mp" in order:
+                order.insert(order.index("mp"), "ep")
+            else:
+                order.append("ep")
+        degrees = {"dp": hc["dp_degree"], "pp": hc["pp_degree"],
+                   "sharding": hc["sharding_degree"],
+                   "sep": hc.get("sep_degree", 1), "mp": hc["mp_degree"],
+                   "ep": hc.get("ep_degree", 1)}
+        world = get_world_size()
+        known = math.prod(d for d in degrees.values() if d > 0)
+        for k, v in degrees.items():
+            if v == -1:
+                degrees[k] = world // known
+        if math.prod(degrees.values()) != world:
+            raise ValueError(
+                f"hybrid degrees {degrees} must multiply to the world size "
+                f"{world}")
+        topo = CommunicateTopology(
+            hybrid_group_names=[_NAME_OF[a] for a in order],
+            dims=[int(degrees[a]) for a in order])
+        self._hcg = HybridCommunicateGroup(topo)
+        self._user_defined_strategy = s
+        self._is_initialized = True
+        return self
+
+    def apply_plan(self, plan, strategy=None, **init_kw):
+        raise NotImplementedError(
+            "fleet.apply_plan: auto-parallel plans are not ported to the "
+            "PyTorch package yet")
+
+    def get_hybrid_communicate_group(self):
+        return self._hcg
+
+    @property
+    def worker_num(self):
+        from ..env import get_world_size
+        return get_world_size()
+
+    def worker_index(self):
+        from ..env import get_rank
+        return get_rank()
+
+    def is_first_worker(self):
+        return self.worker_index() == 0
+
+    def barrier_worker(self):
+        from ..collective import barrier
+        barrier()
+
+    def distributed_model(self, model):
+        """DataParallel over the dp group at mp 1, TensorParallel at mp >
+        1 (reference fleet/model.py's dispatch)."""
+        from ..parallel import DataParallel
+        from .meta_parallel import TensorParallel
+        if not self._is_initialized:
+            raise RuntimeError("call fleet.init first")
+        hcg, s = self._hcg, self._user_defined_strategy
+        if hcg.get_model_parallel_world_size() > 1:
+            return TensorParallel(model, hcg, s)
+        return DataParallel(model, comm_buffer_size=s.fuse_grad_size_in_MB,
+                            group=hcg.get_data_parallel_group())
+
+    def distributed_optimizer(self, optimizer, strategy=None):
+        if not self._is_initialized:
+            raise RuntimeError("call fleet.init first")
+        s = strategy or self._user_defined_strategy
+        if getattr(s, "gradient_merge", False):
+            raise NotImplementedError(
+                "DistributedStrategy.gradient_merge is not ported to the "
+                "PyTorch package yet")
+        if self._hcg.get_model_parallel_world_size() > 1 and \
+                getattr(optimizer, "_grad_clip", None) is not None:
+            raise NotImplementedError(
+                "gradient clipping under tensor parallelism (the global "
+                "norm over mp shards) is not ported to the PyTorch package "
+                "yet")
+        gs_cfg = None
+        if getattr(s, "grad_compress", None) or \
+                getattr(s, "grad_bucket_mb", None):
+            gs_cfg = {"compress": getattr(s, "grad_compress", None),
+                      "bucket_mb": getattr(s, "grad_bucket_mb", None),
+                      "axis": "dp"}
+        wrapped = HybridParallelOptimizer(optimizer, self._hcg, s)
+        if gs_cfg is not None:
+            # TrainStep reads it while it unwraps the optimizer
+            wrapped._grad_sync_config = gs_cfg
+        return wrapped
+
+
+fleet = Fleet()

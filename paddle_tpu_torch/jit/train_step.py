@@ -19,10 +19,23 @@ optimizer. What the JAX step guarantees is kept:
   sets each step's rate, and its ``grad_clip`` clips the gradients the
   step hands it, the accumulated float32 master gradients included.
 
-Capturing the step in a CUDA graph, gradient sync across devices, an
-auto-parallel plan and fleet's optimizer wrappers are not ported.
+Data parallelism: ``grad_sync`` (a fleet GradBucketScheduler) averages
+the gradients over its group, bucket by bucket during the backward; with
+``accum_steps > 1`` the hooks stay quiet through the microbatches and the
+accumulated gradients are synced once. The scheduler is the argument, or
+one built from the gradient-sync config that fleet's
+``distributed_optimizer`` carries (its ``grad_compress`` and
+``grad_bucket_mb``), or the model wrapper's own (DataParallel,
+TensorParallel), in that order of precedence; the one chosen is handed to
+the wrapper or hooked on the model. Fleet's optimizer wrapper is
+unwrapped, so the step reads and writes the inner optimizer.
+
+Capturing the step in a CUDA graph and an auto-parallel plan are not
+ported.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -35,16 +48,18 @@ class TrainStep:
     def __init__(self, model, loss_fn, optimizer, accum_steps=1,
                  accum_mean=True, master_grad=False, with_outputs=False,
                  grad_sync=None, plan=None):
-        if grad_sync is not None:
-            raise NotImplementedError("TrainStep(grad_sync=...) is not "
-                                      "ported to the PyTorch package yet")
         if plan is not None:
             raise NotImplementedError("TrainStep(plan=...) is not ported "
                                       "to the PyTorch package yet")
-        if hasattr(optimizer, "_inner_opt") or \
-                hasattr(optimizer, "inner_optimizer"):
-            raise NotImplementedError("fleet's optimizer wrappers are not "
-                                      "ported to the PyTorch package yet")
+        # fleet's facade carries the strategy's grad-sync config; read it
+        # and step the inner optimizer
+        gs_cfg = None
+        while "_inner_opt" in getattr(optimizer, "__dict__", {}):
+            gs_cfg = gs_cfg or optimizer.__dict__.get("_grad_sync_config")
+            optimizer = optimizer._inner_opt
+        if hasattr(optimizer, "inner_optimizer"):
+            raise NotImplementedError("GradientMergeOptimizer is not ported "
+                                      "to the PyTorch package yet")
         self.accum_steps = int(accum_steps)
         if self.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -55,10 +70,39 @@ class TrainStep:
         self.master_grad = bool(master_grad)
         self.with_outputs = with_outputs
         self.last_outputs = None
-        self._params = [p for p in model.parameters() if p.requires_grad]
+        self._named = [(n, p) for n, p in model.named_parameters()
+                       if p.requires_grad]
+        self._params = [p for _, p in self._named]
         if not self._params:
             raise ValueError("the model has no trainable parameters")
         self.device = check_device(self._params[0].device)
+        self._grad_sync = self._grad_sync_of(model, grad_sync, gs_cfg)
+
+    def _grad_sync_of(self, model, grad_sync, gs_cfg):
+        """The scheduler this step syncs through (None: no sync), hooked
+        on the model's parameters."""
+        from ..distributed.fleet.grad_buckets import GradBucketScheduler
+        if grad_sync is not None and \
+                not isinstance(grad_sync, GradBucketScheduler):
+            raise TypeError(f"grad_sync must be a fleet GradBucketScheduler, "
+                            f"got {type(grad_sync).__name__}")
+        own = getattr(model, "_grad_sync", None)
+        sched = grad_sync
+        if sched is None and gs_cfg is not None:
+            from ..distributed.fleet.grad_buckets import DEFAULT_BUCKET_MB
+            sched = GradBucketScheduler(
+                self._named,
+                bucket_mb=gs_cfg.get("bucket_mb") or DEFAULT_BUCKET_MB,
+                compress=gs_cfg.get("compress"),
+                axis=gs_cfg.get("axis", "dp"),
+                group=getattr(own, "group", None))
+        if sched is None or sched is own:
+            return own
+        if own is not None:
+            model._install_grad_sync(sched)
+        else:
+            sched.attach(self._named)
+        return sched
 
     def _as_tensors(self, xs):
         if isinstance(xs, torch.Tensor):
@@ -78,6 +122,12 @@ class TrainStep:
         loss = self.loss_fn(out, *labels).float()
         loss.backward()
         return loss.detach(), out
+
+    def _quiet(self):
+        """The microbatches' backward passes sync nothing."""
+        if self._grad_sync is None:
+            return contextlib.nullcontext()
+        return self._grad_sync.disarmed()
 
     def _microbatches(self, xs):
         n = self.accum_steps
@@ -110,8 +160,9 @@ class TrainStep:
             lsum = torch.zeros((), dtype=torch.float32, device=self.device)
             outs = []
             for i in range(n):
-                loss_i, out = self._forward_backward(
-                    [x[i] for x in mb_in], [x[i] for x in mb_lab])
+                with self._quiet():
+                    loss_i, out = self._forward_backward(
+                        [x[i] for x in mb_in], [x[i] for x in mb_lab])
                 lsum = lsum + loss_i
                 outs.append(out)
                 if master is not None:
@@ -128,6 +179,11 @@ class TrainStep:
                           (p.grad for p in self._params)):
                     if g is not None:
                         g.div_(n)
+            if self._grad_sync is not None:
+                # the accumulated gradients, synced once
+                self._grad_sync.sync_grads(
+                    {name: master.get(id(p)) if master is not None
+                     else p.grad for name, p in self._named})
         for p in self._params:
             if p.grad is None and (master is None or id(p) not in master):
                 # a parameter the loss does not reach: JAX's value_and_grad

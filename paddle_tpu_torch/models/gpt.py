@@ -35,8 +35,9 @@ from ..nn.functional.activation import gelu
 from ..nn.functional.flash_attention import (flash_attention,
                                              scaled_dot_product_attention)
 from ..nn.functional.loss import cross_entropy
-from ..nn.layer.common import Dropout, embedding, linear
+from ..nn.layer.common import Dropout, embedding
 from ..nn.layer.norm import LayerNorm
+from ._tp_utils import mp_group, parallel_linears
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt2_124m",
            "gpt_tiny"]
@@ -80,7 +81,7 @@ class GPTConfig:
 
 
 def _check_supported(cfg):
-    for name in ("tensor_parallel", "pipeline_parallel"):
+    for name in ("pipeline_parallel",):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"GPTConfig.{name} is not ported to the PyTorch package yet "
@@ -91,11 +92,18 @@ class GPTAttention(nn.Module):
     def __init__(self, config, device, dtype, generator):
         super().__init__()
         self.config = config
-        self.num_heads = config.num_attention_heads
+        g = mp_group(config)
+        mp = 1 if g is None else g.nranks
+        if config.num_attention_heads % mp:
+            raise ValueError(f"{config.num_attention_heads} heads do not "
+                             f"split over mp {mp}")
+        self.num_heads = config.num_attention_heads // mp   # this rank's
         self.head_dim = config.head_dim
         h = config.hidden_size
-        self.qkv_proj = linear(h, 3 * h, device, dtype, generator)
-        self.out_proj = linear(h, h, device, dtype, generator)
+        col, row = parallel_linears(config, device, dtype, generator,
+                                    has_bias=True)
+        self.qkv_proj = col(h, 3 * h, fused_parts=3)
+        self.out_proj = row(h, h)
         self.dropout = Dropout(config.dropout, generator=generator)
 
     def forward(self, x):
@@ -115,8 +123,10 @@ class GPTMLP(nn.Module):
     def __init__(self, config, device, dtype, generator):
         super().__init__()
         h, f = config.hidden_size, config.intermediate_size
-        self.fc_in = linear(h, f, device, dtype, generator)
-        self.fc_out = linear(f, h, device, dtype, generator)
+        col, row = parallel_linears(config, device, dtype, generator,
+                                    has_bias=True)
+        self.fc_in = col(h, f)
+        self.fc_out = row(f, h)
         self.dropout = Dropout(config.dropout, generator=generator)
 
     def forward(self, x):
@@ -169,7 +179,15 @@ class GPTModel(nn.Module):
         self.config = config
         self.generator = generator
         h = config.hidden_size
-        self.wte = embedding(config.vocab_size, h, device, dtype, generator)
+        if config.tensor_parallel:
+            from ..distributed.fleet.meta_parallel import (
+                VocabParallelEmbedding)
+            self.wte = VocabParallelEmbedding(config.vocab_size, h,
+                                              device=device, dtype=dtype,
+                                              generator=generator)
+        else:
+            self.wte = embedding(config.vocab_size, h, device, dtype,
+                                 generator)
         self.wpe = embedding(config.max_position_embeddings, h, device, dtype,
                              generator)
         self.drop = Dropout(config.dropout, generator=generator)
@@ -219,11 +237,25 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.wte.weight.device
 
     def forward(self, input_ids):
+        """Logits [B, S, V]; under tensor parallelism this rank's vocab
+        shard [B, S, V / mp]."""
         hidden = self.gpt(input_ids)
         # tied head: logits = h @ wte^T
+        if self.config.tensor_parallel:
+            from ..distributed.fleet.meta_parallel.mp_layers import (
+                parallel_logits)
+            return parallel_logits(hidden, self.gpt.wte.weight,
+                                   mp_group(self.config))
         return F.linear(hidden, self.gpt.wte.weight)
 
     def loss(self, logits, labels):
+        """Mean cross entropy over the labels that are not -100 (vocab-
+        sharded logits under tensor parallelism)."""
+        if self.config.tensor_parallel:
+            from ..distributed.fleet.meta_parallel import (
+                ParallelCrossEntropy)
+            per = ParallelCrossEntropy()(logits.float(), labels.unsqueeze(-1))
+            return per.sum() / (labels != -100).sum().clamp(min=1)
         return cross_entropy(logits.float(), labels.unsqueeze(-1))
 
     def generate(self, input_ids, **kwargs):

@@ -5,8 +5,18 @@ The modules and parameter names mirror the JAX package, so a JAX state
 dict converts one to one (convert.params_from_jax). Two layouts differ:
 torch.nn.Linear keeps its weight as [out, in] where paddle keeps [in,
 out], and the converter owns that transpose. The model trains under
-``.train()``; ``recompute=True`` checkpoints each decoder layer. Tensor
-and pipeline parallelism, MoE, context (ring) parallelism, sequence
+``.train()``; ``recompute=True`` checkpoints each decoder layer.
+
+``tensor_parallel=True`` builds the Megatron split over fleet's mp group
+(one rank when fleet is not initialized): the embedding is a
+VocabParallelEmbedding, q/k/v and gate/up are ColumnParallelLinear (each
+rank computes heads / mp query heads and kv_heads / mp key-value heads,
+and intermediate / mp features), o and down are RowParallelLinear, the
+head a ColumnParallelLinear whose logits stay vocab-sharded, and the
+criterion is ParallelCrossEntropy. Weights are drawn whole from the
+generator and sliced, so n ranks hold the slices of the one-rank model,
+and at one rank the model computes what the dense model does, kernel for
+kernel. Pipeline parallelism, MoE, context (ring) parallelism, sequence
 parallelism and selective recompute policies are not ported; a config
 that asks for them raises.
 """
@@ -23,6 +33,7 @@ from ..nn.functional.flash_attention import (flash_attention,
                                              scaled_dot_product_attention)
 from ..nn.functional.loss import cross_entropy
 from ..nn.layer.norm import RMSNorm
+from ._tp_utils import mp_group, parallel_linears
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "llama_tiny", "llama_2_7b"]
@@ -70,7 +81,7 @@ class LlamaConfig:
 
 
 def _check_supported(cfg):
-    for name in ("tensor_parallel", "sequence_parallel", "pipeline_parallel",
+    for name in ("sequence_parallel", "pipeline_parallel",
                  "context_parallel", "num_experts"):
         if getattr(cfg, name):
             raise NotImplementedError(
@@ -104,23 +115,32 @@ def _rope_apply(x, cos, sin):
     return x * c + torch.cat([-x2, x1], dim=-1) * s
 
 
-def _linear(n_in, n_out, device, dtype):
-    return nn.utils.skip_init(nn.Linear, n_in, n_out, bias=False,
-                              device=device, dtype=dtype)
+def _mp_size(config):
+    g = mp_group(config)
+    return 1 if g is None else g.nranks
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
+        mp = _mp_size(config)
+        if config.num_attention_heads % mp or \
+                config.num_key_value_heads % mp:
+            raise ValueError(
+                f"{config.num_attention_heads} heads and "
+                f"{config.num_key_value_heads} key-value heads do not "
+                f"split over mp {mp}")
+        # this rank's heads (all of them without tensor parallelism)
+        self.num_heads = config.num_attention_heads // mp
+        self.num_kv_heads = config.num_key_value_heads // mp
         self.head_dim = config.head_dim
         self.use_flash = config.use_flash_attention
         h, hd = config.hidden_size, config.head_dim
-        self.q_proj = _linear(h, self.num_heads * hd, device, dtype)
-        self.k_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
-        self.v_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
-        self.o_proj = _linear(self.num_heads * hd, h, device, dtype)
+        col, row = parallel_linears(config, device, dtype)
+        self.q_proj = col(h, config.num_attention_heads * hd)
+        self.k_proj = col(h, config.num_key_value_heads * hd)
+        self.v_proj = col(h, config.num_key_value_heads * hd)
+        self.o_proj = row(config.num_attention_heads * hd, h)
 
     def forward(self, x, cos, sin):
         B, S = x.shape[0], x.shape[1]
@@ -143,9 +163,10 @@ class LlamaMLP(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         h, f = config.hidden_size, config.intermediate_size
-        self.gate_proj = _linear(h, f, device, dtype)
-        self.up_proj = _linear(h, f, device, dtype)
-        self.down_proj = _linear(f, h, device, dtype)
+        col, row = parallel_linears(config, device, dtype)
+        self.gate_proj = col(h, f)
+        self.up_proj = col(h, f)
+        self.down_proj = row(f, h)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -171,9 +192,16 @@ class LlamaModel(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.utils.skip_init(
-            nn.Embedding, config.vocab_size, config.hidden_size,
-            device=device, dtype=dtype)
+        if config.tensor_parallel:
+            from ..distributed.fleet.meta_parallel import (
+                VocabParallelEmbedding)
+            self.embed_tokens = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, device=device,
+                dtype=dtype)
+        else:
+            self.embed_tokens = nn.utils.skip_init(
+                nn.Embedding, config.vocab_size, config.hidden_size,
+                device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
@@ -218,8 +246,8 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, dev, dtype)
         self.lm_head = None
         if not config.tie_word_embeddings:
-            self.lm_head = _linear(config.hidden_size, config.vocab_size,
-                                   dev, dtype)
+            col, _ = parallel_linears(config, dev, dtype)
+            self.lm_head = col(config.hidden_size, config.vocab_size)
         self.init_weights(seed(0, dev) if generator is None else generator)
         # parameters carry their qualified names, as paddle parameters
         # carry a name (torch's Tensor.name is taken): the optimizer keys
@@ -233,16 +261,29 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator):
+        """Norms 1, everything else N(0, 0.02); a tensor-parallel shard is
+        its slice of the whole tensor drawn in its place."""
+        from ..distributed.fleet.meta_parallel.mp_layers import shard_like
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
+            elif hasattr(p, "tp_full_shape"):
+                full = torch.empty(p.tp_full_shape, device=p.device,
+                                   dtype=p.dtype)
+                p.copy_(shard_like(full.normal_(0.0, 0.02,
+                                                generator=generator), p))
             else:
                 p.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, input_ids):
+        """Logits [B, S, V]; under tensor parallelism this rank's
+        vocab shard [B, S, V / mp]."""
         hidden = self.llama(input_ids)
         if self.lm_head is None:
-            return F.linear(hidden, self.llama.embed_tokens.weight)
+            from ..distributed.fleet.meta_parallel.mp_layers import (
+                parallel_logits)
+            return parallel_logits(hidden, self.llama.embed_tokens.weight,
+                                   mp_group(self.config))
         return self.lm_head(hidden)
 
     def generate(self, input_ids, **kwargs):
@@ -254,17 +295,28 @@ class LlamaPretrainingCriterion(nn.Module):
     """Next-token cross-entropy over logits [B, S, V] and pre-shifted
     labels [B, S] (the caller shifts, as the reference's data pipeline
     does): logits are cast to float32 first, labels of -100 are ignored,
-    and the mean is over the valid labels."""
+    and the mean is over the valid labels. With a tensor-parallel config
+    the logits are vocab-sharded and ParallelCrossEntropy computes the
+    loss; as the reference's, that mean is then over every position (an
+    ignored one counts 0)."""
 
     def __init__(self, config=None):
         super().__init__()
+        self._pce = None
         if config is not None and config.tensor_parallel:
-            raise NotImplementedError(
-                "the tensor-parallel criterion (ParallelCrossEntropy) is "
-                "not ported to the PyTorch package yet")
+            from ..distributed.fleet.meta_parallel import (
+                ParallelCrossEntropy)
+            self._pce = ParallelCrossEntropy()
 
     def forward(self, logits, labels):
-        return cross_entropy(logits.float(), labels.unsqueeze(-1))
+        logits = logits.float()
+        if self._pce is not None:
+            loss = self._pce(logits, labels.unsqueeze(-1))
+            # divided by a device count, as cross_entropy's mean is, so
+            # that one rank's loss is the dense criterion's bit for bit
+            return loss.sum() / torch.tensor(loss.numel(),
+                                             device=loss.device)
+        return cross_entropy(logits, labels.unsqueeze(-1))
 
 
 def llama_tiny(**overrides):

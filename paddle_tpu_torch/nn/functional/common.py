@@ -22,6 +22,11 @@ __all__ = ["dropout"]
 _MODES = ("upscale_in_train", "downscale_in_infer")
 
 
+# the generator of an active RNG tracker region, which every dropout draws
+# from in place of its own (fleet.meta_parallel.random_ctrl.rng_state)
+_REGION_GENERATOR = [None]
+
+
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None, *, generator=None):
     """paddle.nn.functional.dropout with the mask drawn from ``generator``
@@ -35,6 +40,9 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
+    if _REGION_GENERATOR[0] is not None:
+        # inside an RNG tracker region (fleet.meta_parallel.random_ctrl)
+        generator = _REGION_GENERATOR[0]
     if generator is None:
         raise ValueError(
             "dropout draws its mask from an explicit torch.Generator (the "

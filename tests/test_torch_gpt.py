@@ -273,6 +273,10 @@ def test_entry_point_needs_a_card_and_unported_options_raise():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPTForCausalLM(gpt_tiny())
     GPTForCausalLM(gpt_tiny(), device="cpu")
-    for kw in ({"tensor_parallel": True}, {"pipeline_parallel": True}):
+    # tensor parallelism is ported (one rank without fleet); pipeline
+    # parallelism, alone or with it, is not
+    GPTForCausalLM(gpt_tiny(tensor_parallel=True), device="cpu")
+    for kw in ({"tensor_parallel": True, "pipeline_parallel": True},
+               {"pipeline_parallel": True}):
         with pytest.raises(NotImplementedError):
             GPTForCausalLM(gpt_tiny(**kw), device="cpu")

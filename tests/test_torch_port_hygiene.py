@@ -25,12 +25,17 @@ PORT = ROOT / "paddle_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
+# the rank side of the distributed tests: spawned ranks unpickle their
+# functions from it, so it must load neither
+RANK_HELPER = ROOT / "tests" / "torch_dist_cases.py"
+
+
 def _port_sources():
     files = sorted(PORT.rglob("*.py"))
     smoke = ROOT / "chip_smoke.py"
     if smoke.exists():
         files.append(smoke)
-    return files
+    return files + [RANK_HELPER]
 
 
 def _imported_roots(tree):
@@ -45,6 +50,7 @@ def _imported_roots(tree):
 def test_no_file_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 10
+    assert any("distributed" in f.parts for f in files)
     bad = []
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
@@ -57,6 +63,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib, pkgutil, paddle_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_dist_cases\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n"
@@ -162,8 +170,29 @@ def test_unported_model_options_raise(field):
         # whole-layer recompute (policy None) is ported; a selective
         # policy is not
         kw["recompute_policy"] = "dots"
+    if field == "tensor_parallel":
+        # tensor parallelism is ported; its sequence-parallel variant is
+        # not
+        kw["sequence_parallel"] = True
     with pytest.raises(NotImplementedError):
         LlamaForCausalLM(llama_tiny(**kw), device="cpu")
+
+
+def test_tensor_parallel_at_one_rank_is_the_dense_model():
+    """Without fleet (one rank) tensor_parallel=True builds the dense
+    model's weights and computes its logits and loss bit for bit."""
+    ids = torch.randint(0, 256, (2, 16), generator=torch.Generator()
+                        .manual_seed(0))
+    tp = LlamaForCausalLM(llama_tiny(tensor_parallel=True), device="cpu")
+    dense = LlamaForCausalLM(llama_tiny(), device="cpu")
+    for (n, a), (m, b) in zip(tp.named_parameters(),
+                              dense.named_parameters()):
+        assert n == m and torch.equal(a, b), n
+    assert torch.equal(tp(ids), dense(ids))
+    assert torch.equal(
+        LlamaPretrainingCriterion(llama_tiny(tensor_parallel=True))(
+            tp(ids), ids),
+        LlamaPretrainingCriterion()(dense(ids), ids))
 
 
 def test_training_needs_a_card_or_cpu_tensors(no_card):
@@ -194,15 +223,19 @@ def test_unported_training_options_raise():
         Adam(parameters=[{"params": model.parameters(),
                           "weight_decay": object()}])
     opt = AdamW(parameters=model.parameters())
+    from paddle_tpu_torch.distributed.fleet import GradBucketScheduler
     with pytest.raises(NotImplementedError):
-        TrainStep(model, lambda lo, la: lo.sum(), opt, grad_sync=object())
+        TrainStep(model, lambda lo, la: lo.sum(), opt,
+                  grad_sync=GradBucketScheduler(
+                      list(model.named_parameters()), bucket_mb="auto"))
     with pytest.raises(NotImplementedError):
         TrainStep(model, lambda lo, la: lo.sum(), opt, plan=object())
     logits = torch.zeros(2, 5)
     with pytest.raises(NotImplementedError):
         cross_entropy(logits, torch.softmax(logits, -1), soft_label=True)
     with pytest.raises(NotImplementedError):
-        LlamaPretrainingCriterion(llama_tiny(tensor_parallel=True))
+        LlamaForCausalLM(llama_tiny(tensor_parallel=True,
+                                    pipeline_parallel=True), device="cpu")
 
 
 def test_config_mirrors_the_jax_widths():
