@@ -248,10 +248,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    deterministic) and on the CPU, in float32 and float64 (see
    RESNET_PARITY_TOLS). This path has no kernel of the port's own: the
    reference runs it on XLA's convolutions, pools and batch norms;
-16c. data and tensor parallelism (one card: NCCL takes one rank a
-   device, so NCCL runs at world 1 and the two-rank phases run as two
+16c. data, tensor and pipeline parallelism (one card: NCCL takes one
+   rank a device, so NCCL runs at world 1 and the spawned phases run as
    gloo ranks on the card, whose CUDA collectives go through host memory;
-   gloo's send/recv abort on CUDA tensors and no phase uses them):
+   gloo's own send/recv abort on CUDA tensors, so the port's p2p stages
+   them through pinned host buffers and counts them, p2p_host_staged):
    dist_collectives_nccl (init_parallel_env on NCCL through a TCPStore on
    127.0.0.1 and a free port; every collective on CUDA tensors against
    the world-1 result; compress="int8" and "bf16" against the port's CPU
@@ -268,7 +269,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    wire bytes a step); mp2_gloo_on_card (Llama at Llama-2-7B widths, 2
    layers, float32, 2 x 512, mp 2, against the mp-1 model from the same
    full weights: losses, step-1 gradient shards, parameter shards, the
-   replicated parameters bit for bit on both ranks). `--dist-only` runs
+   replicated parameters bit for bit on both ranks); train_pp1_nccl
+   (train's configuration with pipeline_parallel=True under
+   fleet.init(pp_degree=1): at pp_microbatches=1 losses equal train's bit
+   for bit with train's flash launches a step, then the auto microbatch
+   count, each s/step beside train's); pp2_gloo_on_card (two ranks, pp 2,
+   float32, TF32 off: Llama at Llama-2-7B widths, 4 layers, 4 x 512, 4
+   microbatches, 1F1B, and GPT-2 124M at virtual_pp_degree 2, 8 x 1024,
+   4 microbatches, interleaved, each against one process at pp 1 over
+   the same microbatches: Llama's losses and parameters after step 2 bit
+   for bit, GPT's step-1 loss bit for bit and the rest within the
+   tolerance its tied wte's summation order needs; s/step, stage-to-stage
+   bytes, host-staged bytes and calls and each rank's receive wait a
+   step); pp2mp2_gloo_on_card (four ranks, pp 2 x mp 2, bf16, the same
+   7B-wide Llama: losses within 1e-2 of one process, every stage
+   attention on the wgmma flash pair by route_launches). A spawned world
+   that does not end by its deadline fails the phase. `--dist-only` runs
    the train and train_gpt2 phases and this phase alone;
 16. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the train of phase 6 and the
@@ -6119,12 +6135,12 @@ MP2_LAYERS, MP2_BATCH, MP2_SEQ, MP2_STEPS = 2, 2, 512, 3
 # reads rounding; at 1e-5 the three losses stay of order 1
 MP2_LR = 1e-5
 MP2_TOL = 1e-5
-# the gloo collectives the two-rank phases run, probed on CUDA tensors
-# first (gloo's send/recv read a CUDA pointer as host memory: the
-# phases use none)
+# the gloo collectives the spawned phases run, probed on CUDA tensors
+# first; send and recv go through the port's host staging (gloo's own
+# read a CUDA pointer as host memory and abort)
 GLOO_CUDA_OPS = ("all_reduce", "all_reduce_max", "broadcast",
                  "all_gather_into_tensor", "all_to_all_single_int8",
-                 "all_gather_object", "barrier")
+                 "all_gather_object", "send", "recv", "barrier")
 
 
 def _world_of_one():
@@ -6466,6 +6482,8 @@ def _probe_gloo_cuda(torch, progress):
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.distributed import ReduceOp
     x = torch.arange(8, dtype=torch.float32, device="cuda")
+    me, n = dist.get_rank(), dist.get_world_size()
+    box = {}
     calls = {
         "all_reduce": lambda: dist.all_reduce(x.clone()),
         "all_reduce_max": lambda: dist.all_reduce(x.clone(),
@@ -6475,6 +6493,10 @@ def _probe_gloo_cuda(torch, progress):
         "all_to_all_single_int8": lambda: dist.alltoall_single(
             x.to(torch.int8)),
         "all_gather_object": lambda: dist.all_gather_object([], 1),
+        # a ring: each rank sends to the next and receives from the last
+        "send": lambda: box.update(task=dist.isend(x, (me + 1) % n)),
+        "recv": lambda: (dist.recv(torch.empty_like(x), (me - 1) % n),
+                         box["task"].wait()),
         "barrier": lambda: dist.barrier()}
     for name in GLOO_CUDA_OPS:
         with open(progress, "a") as f:
@@ -6498,19 +6520,21 @@ def _rank_failed(tmpdir, rank):
         f.write(traceback.format_exc())
 
 
-def _spawn_world(fn, args, tmpdir, phase):
-    """Two ranks on cuda:0 over gloo; each rank's failure fails the
-    phase, with its traceback (or the probed op it died in)."""
+def _spawn_world(fn, args, tmpdir, phase, n=2, deadline=DIST_JOIN_TIMEOUT_S):
+    """``n`` ranks on cuda:0 over gloo; each rank's failure fails the
+    phase, with its traceback (or the probed op it died in), and so does
+    a world that has not ended within ``deadline`` seconds (its ranks are
+    ended: a deadlocked schedule cannot hang the run)."""
     import pickle
     from paddle_tpu_torch.distributed import spawn
     from paddle_tpu_torch.distributed.misc import join_all
-    procs = spawn(fn, args=(tmpdir,) + tuple(args), nprocs=2, join=False,
-                  gpus=[0, 0], master=f"file://{tmpdir}/store")
+    procs = spawn(fn, args=(tmpdir,) + tuple(args), nprocs=n, join=False,
+                  gpus=[0] * n, master=f"file://{tmpdir}/store")
     try:
-        join_all(procs, DIST_JOIN_TIMEOUT_S)
+        join_all(procs, deadline)
     except RuntimeError as e:
         why = []
-        for r in range(2):
+        for r in range(n):
             for ext in ("err", "probe"):
                 p = os.path.join(tmpdir, f"rank{r}.{ext}")
                 if os.path.exists(p):
@@ -6518,7 +6542,7 @@ def _spawn_world(fn, args, tmpdir, phase):
                                + open(p).read().strip()[-3000:])
         raise AssertionError(f"{phase}: {e}\n" + "\n".join(why)) from None
     out = []
-    for r in range(2):
+    for r in range(n):
         with open(os.path.join(tmpdir, f"rank{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
@@ -6849,19 +6873,399 @@ def mp2_gloo_on_card_phase(torch, np, seed, tmpdir):
     return rec
 
 
+# -- phase 16c, pipeline parallelism -------------------------------------------
+
+PP_STEPS = 2
+PP2_BATCH, PP2_SEQ, PP2_MICRO = 4, 512, 4
+PP2_LR = 1e-5                    # as mp2: the 7B-wide model's losses stay O(1)
+PP2_GPT_LR = 1e-4
+# GPT's tied wte: one process sums each microbatch's head and embedding
+# gradients into one tensor in turn, the two stages sum their own and
+# then the pair; past step 1 the float32 losses part by rounding
+PP2_GPT_TOL = 1e-5
+PP2MP2_LR = 1e-4
+PP2MP2_TOL = 1e-2                # bf16: mp's partial sums round apart
+PP_COMM_TIMEOUT_S = 120          # a deadlocked receive fails within this
+PP_DEADLINE_S = 420              # a spawned pipeline world's join
+
+
+def _pp_llama_config(dtype, **kw):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=4096,
+                       intermediate_size=11008, num_hidden_layers=4,
+                       num_attention_heads=32, num_key_value_heads=32,
+                       max_position_embeddings=PP2_SEQ, dtype=dtype,
+                       pipeline_parallel=True, pp_microbatches=PP2_MICRO,
+                       **kw)
+
+
+def _pp_gpt2_config():
+    return gpt2_config(dtype="float32", dropout=0.0, pipeline_parallel=True,
+                       virtual_pp_degree=2, pp_microbatches=PP2_MICRO)
+
+
+def _pp_steps(torch, model, step, x, y, steps):
+    """(losses, s per step, the schedule's stats per step, host-staged
+    bytes and calls per step)."""
+    from paddle_tpu_torch.distributed.collective import p2p_host_staged
+    inner = getattr(model, "_layers", model)
+    losses, times, stats, staged = [], [], [], []
+    for _ in range(steps):
+        before = dict(p2p_host_staged)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step((x,), (y,)).item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        stats.append(dict(inner.last_pipeline_stats))
+        staged.append({k: p2p_host_staged[k] - before[k] for k in before})
+    return losses, times, stats, staged
+
+
+def train_pp1_nccl_phase(torch, np, seed, base):
+    """The train phase's configuration built with pipeline_parallel=True
+    under fleet.init(pp_degree=1) on NCCL at world 1: the stage holds every
+    layer and TrainStep runs the 1F1B list of one stage. At
+    pp_microbatches=1 its losses must be train's bit for bit with train's
+    flash launches a step; then at the auto count (the largest divisor
+    of the batch <= 2 pp: 2 microbatches of 3 x 2048), every microbatch
+    launching the pair. s/step of both beside train's."""
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion, TrainStep
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    fleet = _fleet_init(torch, pp_degree=1)
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    runs = {}
+    for name, micro in (("pp_microbatches_1", 1), ("auto", None)):
+        cfg = train_config()
+        cfg.pipeline_parallel = True
+        cfg.pp_microbatches = micro
+        inner = build_model(torch, cfg, seed)
+        model = fleet.distributed_model(inner)
+        crit = LlamaPretrainingCriterion(cfg)
+        opt = fleet.distributed_optimizer(
+            AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                  moment_dtype="bfloat16"))
+        step = TrainStep(model, lambda lo, la: crit(lo, la), opt)
+        ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                                  TRAIN_BATCH, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+        losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED):
+            losses.append(step((ids,), (labels,)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {
+            "microbatches": inner.last_pipeline_stats["microbatches"],
+            "wrapper": type(model).__name__,
+            "s_per_step": wall / TRAIN_TIMED,
+            "s_per_step_over_train": wall / TRAIN_TIMED / base["s_per_step"],
+            "losses": [x.item() for x in losses],
+            "flash_fwd_route_launches": dict(_flash_bhsd.route_launches),
+            "flash_bwd_route_launches": dict(_flash_bhsd_bwd.route_launches)}
+        del inner, model, step, opt
+        torch.cuda.empty_cache()
+    rec = {"phase": "train_pp1_nccl", "card": card_line(),
+           "entry_points": ["fleet.init(pp_degree=1)",
+                            "LlamaConfig(pipeline_parallel=True)",
+                            "fleet.distributed_model",
+                            "fleet.distributed_optimizer", "TrainStep"],
+           "backend": "NCCL", "world_size": 1, "layers": TRAIN_LAYERS,
+           "dtype": "bfloat16", "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_TIMED,
+           "train_s_per_step": base["s_per_step"], "runs": runs}
+    emit(rec)
+    one, auto = runs["pp_microbatches_1"], runs["auto"]
+    check(one["losses"] == base["losses"],
+          f"train_pp1_nccl: losses {one['losses']} are not train's "
+          f"{base['losses']} bit for bit")
+    check(auto["microbatches"] == 2,
+          f"train_pp1_nccl: the auto count gave {auto['microbatches']}")
+    check(all(math.isfinite(x) for x in auto["losses"]),
+          f"train_pp1_nccl: non-finite auto losses {auto['losses']}")
+    for r in (one, auto):
+        want = TRAIN_LAYERS * n * r["microbatches"]
+        check(r["flash_fwd_route_launches"]["wgmma"] == want
+              and r["flash_bwd_route_launches"]["wgmma"] == want,
+              f"train_pp1_nccl: flash launches {r['flash_fwd_route_launches']}"
+              f", {r['flash_bwd_route_launches']} (want {want} each)")
+    return rec
+
+
+def _pp_llama_run(torch, cfg, seed, x, y, lr, steps):
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion, TrainStep
+    model = build_model(torch, cfg, seed)
+    crit = LlamaPretrainingCriterion(cfg)
+    step = TrainStep(model, lambda lo, la: crit(lo, la),
+                     AdamW(learning_rate=lr, parameters=model.parameters()))
+    model.pipeline_timed = True
+    return model, _pp_steps(torch, model, step, x, y, steps)
+
+
+def _pp_gpt2_run(torch, seed, x, y, steps):
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    model = GPTForCausalLM(_pp_gpt2_config(), generator=gen)
+    step = TrainStep(model, gpt2_loss,
+                     AdamW(learning_rate=PP2_GPT_LR,
+                           parameters=model.parameters()))
+    model.pipeline_timed = True
+    return model, _pp_steps(torch, model, step, x, y, steps)
+
+
+def _pp_record(run):
+    losses, times, stats, staged = run
+    return {"losses": losses, "step_s": times, "stats": stats,
+            "host_staged": staged}
+
+
+def _pp2_rank(tmpdir, seed, data):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    os.environ["PADDLE_COMM_TIMEOUT"] = str(PP_COMM_TIMEOUT_S)
+    try:
+        import pickle
+        import torch
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch.kernels.flash_attention import (
+            _flash_bhsd, _flash_bhsd_bwd)
+        dist.init_parallel_env(backend="gloo")
+        _probe_gloo_cuda(torch, os.path.join(tmpdir, f"rank{rank}.probe"))
+        _f32_no_tf32(torch)
+        _fleet_init(torch, backend="gloo", pp_degree=2)
+        with open(os.path.join(tmpdir, "pp1_sums.pkl"), "rb") as f:
+            ref_sums = pickle.load(f)
+        res = {}
+        for fam in ("llama", "gpt2"):
+            x, y = (torch.as_tensor(a, device="cuda") for a in data[fam])
+            zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+            if fam == "llama":
+                model, run = _pp_llama_run(torch, _pp_llama_config("float32"),
+                                           seed, x, y, PP2_LR, PP_STEPS)
+                bound = PP2_LR * PP_STEPS
+            else:
+                model, run = _pp_gpt2_run(torch, seed + 1, x, y, PP_STEPS)
+                bound = PP2_GPT_LR * PP_STEPS
+            named = dict(model.named_parameters())
+            sums = dict(zip(sorted(named), _param_checksums(
+                torch, named.items())))
+            ref = torch.load(os.path.join(tmpdir, f"pp1_{fam}.pt"),
+                             mmap=True)
+            res[fam] = dict(
+                _pp_record(run), stage=model._pp_stack()._stage,
+                params_bit_for_bit=all(ref_sums[fam][k] == v
+                                       for k, v in sums.items()),
+                params_after=_param_gap(
+                    torch, ref, {k: p.detach() for k, p in named.items()},
+                    bound),
+                tied=None if model._pp_tied() is None
+                else _param_checksums(torch, [("t", model._pp_tied())]),
+                params_per_rank=sum(p.numel() for p in named.values()),
+                flash_fwd_route_launches=dict(_flash_bhsd.route_launches),
+                flash_bwd_route_launches=dict(_flash_bhsd_bwd.route_launches))
+            del model, ref
+            torch.cuda.empty_cache()
+        dist.barrier()
+        _rank_done(tmpdir, rank, res)
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def pp2_gloo_on_card_phase(torch, np, seed, tmpdir):
+    """Pipeline parallelism in two ranks on cuda:0 over gloo (one card:
+    NCCL takes one rank a device), float32 with TF32 off: Llama at
+    Llama-2-7B widths cut to 4 layers (depth only), batch 4 x 512, 4
+    microbatches, 1F1B; then GPT-2 124M (benchmarks/gpt2_dp.py's widths,
+    12 layers, dropout 0, tied wte) at virtual_pp_degree 2, batch 8 x
+    1024, 4 microbatches, interleaved. Each rank draws
+    the one-process weights from the seed and keeps its stage;
+    stage-to-stage messages go through the port's host staging. Each is
+    held to one process (pp 1, the same microbatches in the same order):
+    Llama's losses and parameters after step 2 bit for bit; GPT's step-1
+    loss bit for bit and later losses within 1e-5 relative (its tied
+    wte's gradients add in another order), its parameters by
+    PARAM_FRAC's rule. Printed: s/step, stage-to-stage bytes a step, the
+    host-staged bytes and calls, and each rank's receive wait (its idle
+    time between instructions, the device drained first)."""
+    import pickle
+    _f32_no_tf32(torch)
+    _fleet_init(torch, pp_degree=1)
+    rng = np.random.default_rng(seed + 3)
+    lcfg = _pp_llama_config("float32")
+    gcfg = _pp_gpt2_config()
+    data = {"llama": (rng.integers(0, lcfg.vocab_size, (PP2_BATCH, PP2_SEQ)),
+                      rng.integers(0, lcfg.vocab_size, (PP2_BATCH, PP2_SEQ))),
+            "gpt2": (rng.integers(0, gcfg.vocab_size, (GPT2_BATCH, GPT2_SEQ)),
+                     rng.integers(0, gcfg.vocab_size, (GPT2_BATCH, GPT2_SEQ)))}
+    one, sums = {}, {}
+    for fam in ("llama", "gpt2"):
+        x, y = (torch.as_tensor(a, device="cuda") for a in data[fam])
+        if fam == "llama":
+            model, run = _pp_llama_run(torch, lcfg, seed, x, y, PP2_LR,
+                                       PP_STEPS)
+        else:
+            model, run = _pp_gpt2_run(torch, seed + 1, x, y, PP_STEPS)
+        one[fam] = dict(_pp_record(run),
+                        params=sum(p.numel() for p in model.parameters()))
+        named = dict(model.named_parameters())
+        sums[fam] = dict(zip(sorted(named),
+                             _param_checksums(torch, named.items())))
+        torch.save({k: p.detach().cpu() for k, p in named.items()},
+                   os.path.join(tmpdir, f"pp1_{fam}.pt"))
+        del model, named
+        torch.cuda.empty_cache()
+    with open(os.path.join(tmpdir, "pp1_sums.pkl"), "wb") as f:
+        pickle.dump(sums, f)
+    ranks = _spawn_world(_pp2_rank, (seed, data), tmpdir,
+                         "pp2_gloo_on_card", n=2, deadline=PP_DEADLINE_S)
+    rec = {"phase": "pp2_gloo_on_card", "card": card_line(),
+           "note": "two ranks on one card over gloo: stage-to-stage "
+                   "messages through host memory, the ranks time-sliced "
+                   "on the card; no NVLink figure",
+           "steps": PP_STEPS, "dtype": "float32, TF32 off"}
+    for fam, desc in (("llama", "Llama-2-7B widths, 4 layers, 4 x 512, "
+                                "4 microbatches, 1F1B, lr 1e-5"),
+                      ("gpt2", "GPT-2 124M, 12 layers, 8 x 1024, vpp 2, "
+                               "4 microbatches, lr 1e-4")):
+        rec[fam] = {
+            "model": desc, "one_process": one[fam],
+            "ranks": [dict(r[fam], params_after=r[fam]["params_after"])
+                      for r in ranks],
+            "s_per_step_over_one_process": [
+                r[fam]["step_s"][-1] / one[fam]["step_s"][-1]
+                for r in ranks]}
+    emit(rec)
+    for fam in ("llama", "gpt2"):
+        want = one[fam]["losses"]
+        for r in ranks:
+            got = r[fam]["losses"]
+            check(r[fam]["stats"][0]["p2p_bytes"] > 0,
+                  f"pp2_gloo_on_card {fam}: stage {r[fam]['stage']} sent "
+                  f"nothing")
+            check(all(st["calls"] > 0 for st in r[fam]["host_staged"]),
+                  f"pp2_gloo_on_card {fam}: no host-staged transfer")
+            if fam == "llama":
+                check(got == want, f"pp2_gloo_on_card llama: losses {got} "
+                                   f"are not one process's {want} bit for bit")
+                check(r[fam]["params_bit_for_bit"],
+                      f"pp2_gloo_on_card llama: stage {r[fam]['stage']}'s "
+                      f"parameters after step {PP_STEPS} differ from one "
+                      f"process's: {r[fam]['params_after']}")
+            else:
+                check(got[0] == want[0], f"pp2_gloo_on_card gpt2: step-1 "
+                                         f"loss {got[0]} is not {want[0]}")
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+                check(rel <= PP2_GPT_TOL, f"pp2_gloo_on_card gpt2: losses "
+                                          f"{got} vs one process {want}")
+                check(r[fam]["params_after"]["ok"],
+                      f"pp2_gloo_on_card gpt2: stage {r[fam]['stage']}'s "
+                      f"parameters: {r[fam]['params_after']}")
+    check(ranks[0]["gpt2"]["tied"] == ranks[1]["gpt2"]["tied"],
+          "pp2_gloo_on_card gpt2: the two stages' wte differ")
+    return rec
+
+
+def _pp2mp2_rank(tmpdir, seed, ids, labels):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    os.environ["PADDLE_COMM_TIMEOUT"] = str(PP_COMM_TIMEOUT_S)
+    try:
+        import torch
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch.kernels.flash_attention import (
+            _flash_bhsd, _flash_bhsd_bwd)
+        dist.init_parallel_env(backend="gloo")
+        _probe_gloo_cuda(torch, os.path.join(tmpdir, f"rank{rank}.probe"))
+        fleet = _fleet_init(torch, backend="gloo", pp_degree=2, mp_degree=2)
+        hcg = fleet.get_hybrid_communicate_group()
+        x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+        model, run = _pp_llama_run(
+            torch, _pp_llama_config("bfloat16", tensor_parallel=True), seed,
+            x, y, PP2MP2_LR, PP_STEPS)
+        _rank_done(tmpdir, rank, dict(
+            _pp_record(run), stage=hcg.get_stage_id(),
+            mp_rank=hcg.get_model_parallel_rank(),
+            params_per_rank=sum(p.numel() for p in model.parameters()),
+            flash_fwd_route_launches=dict(_flash_bhsd.route_launches),
+            flash_bwd_route_launches=dict(_flash_bhsd_bwd.route_launches)))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def pp2mp2_gloo_on_card_phase(torch, np, seed, tmpdir):
+    """BASELINE configuration 3's mp x pp: four gloo ranks on cuda:0 (pp 2
+    x mp 2), Llama at Llama-2-7B widths cut to 4 layers, bf16, batch 4 x
+    512, 4 microbatches, AdamW lr 1e-4, 2 steps: every rank's losses
+    within 1e-2 relative of one process running the same model at pp 1,
+    mp 1 (bf16: the row-parallel partial sums round apart), and each
+    stage's attention on the wgmma flash pair at D 128 (route_launches:
+    2 layers x 4 microbatches a step, forward and backward, none on
+    another route). s/step printed."""
+    _fleet_init(torch, pp_degree=1)
+    rng = np.random.default_rng(seed + 3)
+    cfg = _pp_llama_config("bfloat16")
+    ids = rng.integers(0, cfg.vocab_size, (PP2_BATCH, PP2_SEQ))
+    labels = rng.integers(0, cfg.vocab_size, (PP2_BATCH, PP2_SEQ))
+    x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+    model, run = _pp_llama_run(torch, cfg, seed, x, y, PP2MP2_LR, PP_STEPS)
+    one = _pp_record(run)
+    del model
+    torch.cuda.empty_cache()
+    ranks = _spawn_world(_pp2mp2_rank, (seed, ids, labels), tmpdir,
+                         "pp2mp2_gloo_on_card", n=4, deadline=PP_DEADLINE_S)
+    rec = {"phase": "pp2mp2_gloo_on_card", "card": card_line(),
+           "note": "four ranks on one card over gloo: the mp all-reduces "
+                   "and the stage-to-stage messages through host memory; "
+                   "no NVLink figure",
+           "model": "Llama, Llama-2-7B widths, 4 layers, bf16, 4 x 512, "
+                    "4 microbatches, pp 2 x mp 2",
+           "steps": PP_STEPS, "one_process": one, "ranks": ranks,
+           "s_per_step_over_one_process": [
+               r["step_s"][-1] / one["step_s"][-1] for r in ranks]}
+    emit(rec)
+    want_launches = 2 * PP2_MICRO * PP_STEPS
+    for r in ranks:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                      one["losses"]))
+        check(rel <= PP2MP2_TOL, f"pp2mp2_gloo_on_card: rank (stage "
+                                 f"{r['stage']}, mp {r['mp_rank']}) losses "
+                                 f"{r['losses']} vs one process "
+                                 f"{one['losses']}")
+        fwd, bwd = r["flash_fwd_route_launches"], r["flash_bwd_route_launches"]
+        check(fwd.get("wgmma") == want_launches == sum(fwd.values())
+              and bwd.get("wgmma") == want_launches == sum(bwd.values()),
+              f"pp2mp2_gloo_on_card: flash launches {fwd}, {bwd} (want "
+              f"{want_launches} wgmma each)")
+    return rec
+
+
 def dist_phases(torch, np, seed, train, train_gpt2):
     """Phase 16c: the collectives on NCCL at world 1, train_gpt2 and train
-    through fleet at one rank (bit for bit against those phases), then
-    data and tensor parallelism in two gloo ranks on the card."""
+    through fleet at one rank (bit for bit against those phases; train
+    also pipelined at pp 1), then data, tensor and pipeline parallelism
+    in gloo ranks on the card."""
     import tempfile
     dist_collectives_nccl_phase(torch, np, seed + 80)
     train_gpt2_dp_phase(torch, np, seed + 30, train_gpt2)
     train_mp1_nccl_phase(torch, np, seed, train)
+    train_pp1_nccl_phase(torch, np, seed, train)
     with tempfile.TemporaryDirectory() as tmp:
         dp2_gloo_on_card_phase(torch, np, seed + 81,
                                tempfile.mkdtemp(dir=tmp))
         mp2_gloo_on_card_phase(torch, np, seed + 82,
                                tempfile.mkdtemp(dir=tmp))
+        pp2_gloo_on_card_phase(torch, np, seed + 83,
+                               tempfile.mkdtemp(dir=tmp))
+        pp2mp2_gloo_on_card_phase(torch, np, seed + 84,
+                                  tempfile.mkdtemp(dir=tmp))
 
 
 def main():
@@ -6900,8 +7304,8 @@ def main():
     ap.add_argument("--dist-only", action="store_true",
                     help="only build the flash kernels and run the train "
                          "and train_gpt2 phases (the bases of the "
-                         "bit-for-bit checks) and the data- and "
-                         "tensor-parallel phases, then exit")
+                         "bit-for-bit checks) and the data-, tensor- and "
+                         "pipeline-parallel phases, then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "

@@ -33,6 +33,15 @@ rows of the embedding, the output rows of a column projection (and of
 its bias; GPT's fused qkv takes its heads of each of q, k and v), the
 input columns of a row projection, and everything else whole.
 
+``pp_params_from_jax`` gives one rank's stage for a model built with
+``pipeline_parallel=True``: the JAX model's stacked (natural-order
+``decoder_stack.<key>``, [L, ...]) or per-layer weights become the
+per-layer weights of the layers the stage holds
+(``decoder_stack.layers.<l>``), with the embeddings, norm and head of its
+ends, then sliced as ``tp_params_from_jax`` slices for tensor
+parallelism. ``pp_params_to_jax`` gathers the stages (and the mp shards)
+back into the JAX model's natural-order state dict on stage 0.
+
 ``resnet_params_from_jax`` does it for the ResNet family
 (vision/models/resnet.py): the convolution weights ([out, in / groups, *k]
 in both packages) and the batch norms' ``weight``, ``bias``, ``_mean`` and
@@ -52,7 +61,8 @@ from .vision.models.resnet import ResNet
 
 __all__ = ["params_from_jax", "optimizer_state_from_jax",
            "gpt_params_from_jax", "moe_params_from_jax",
-           "resnet_params_from_jax", "tp_params_from_jax", "tp_shard"]
+           "resnet_params_from_jax", "tp_params_from_jax", "tp_shard",
+           "pp_params_from_jax", "pp_params_to_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -300,3 +310,120 @@ def tp_params_from_jax(state_dict_numpy, cfg, mp_rank, mp_degree):
         if isinstance(cfg, GPTConfig) else params_from_jax(state_dict_numpy,
                                                            cfg)
     return {k: tp_shard(k, v, mp_rank, mp_degree) for k, v in full.items()}
+
+
+def _pp_family(cfg):
+    """(root module, the one-rank model's layer list, stacked decoder
+    class, whole-model converter) of the family a config builds."""
+    if isinstance(cfg, GPTConfig):
+        from .models.gpt_pipe import GPTStackedDecoder
+        return "gpt", "h", GPTStackedDecoder, gpt_params_from_jax
+    from .models.llama_pipe import LlamaStackedDecoder
+    return "llama", "layers", LlamaStackedDecoder, params_from_jax
+
+
+def _pp_keeps(root, name, cfg, first, last):
+    """Whether a stage holds the non-layer entry ``name``."""
+    leaf = name[len(root) + 1:] if name.startswith(root + ".") else name
+    if root == "gpt":
+        if leaf.startswith("wte."):
+            return first or last
+        if leaf.startswith("wpe."):
+            return first
+        return last                       # ln_f
+    if leaf.startswith("embed_tokens."):
+        return first or (last and cfg.tie_word_embeddings)
+    return last                           # norm, lm_head
+
+
+def pp_params_from_jax(state_dict_numpy, cfg, pp_rank, pp_degree, mp_rank=0,
+                       mp_degree=1):
+    """{name: numpy array} of the JAX Llama or GPT-2, pipelined (the
+    natural-order stacked ``decoder_stack.<key>`` arrays, [L, ...]) or not
+    (the one-rank model's per-layer names) -> {name: torch tensor} of the
+    stage ``pp_rank`` of ``pp_degree`` holds (``cfg.virtual_pp_degree``
+    chunks: models/_stacked_pipe.py's assignment), in the port's layout
+    (Linear weights transposed) and sliced to rank ``mp_rank`` of
+    ``mp_degree`` as tp_shard slices, for that rank's pipelined model's
+    ``load_state_dict``."""
+    from .models._stacked_pipe import stage_layers
+    root, plain, stack, convert = _pp_family(cfg)
+    L = cfg.num_hidden_layers
+    V = int(getattr(cfg, "virtual_pp_degree", 1) or 1)
+    mine = {l for chunk in stage_layers(L, pp_degree, V, pp_rank)
+            for l in chunk}
+    first, last = pp_rank == 0, pp_rank == pp_degree - 1
+    stacked, per_layer = f"{root}.decoder_stack.", f"{root}.{plain}."
+    flat = {}
+    for name, arr in state_dict_numpy.items():
+        a = np.asarray(arr)
+        if name.startswith(stacked):
+            key = name[len(stacked):]
+            path = ".".join(stack._LAYER_ATTRS[key])
+            if a.shape[0] != L:
+                raise ValueError(f"{name}: {a.shape[0]} stacked layers, the "
+                                 f"config has {L}")
+            for l in sorted(mine):
+                flat[f"{stacked}layers.{l}.{path}"] = a[l]
+        elif name.startswith(per_layer):
+            l, rest = name[len(per_layer):].split(".", 1)
+            if int(l) in mine:
+                flat[f"{stacked}layers.{l}.{rest}"] = a
+        elif _pp_keeps(root, name, cfg, first, last):
+            flat[name] = a
+    return {k: tp_shard(k, v, mp_rank, mp_degree)
+            for k, v in convert(flat, cfg).items()}
+
+
+def _tp_unshard(name, shards):
+    """The whole port-layout tensor of parameter ``name`` from its mp
+    shards in rank order (tp_shard's inverse)."""
+    split = _TP_SPLITS.get(".".join(name.split(".")[-2:]))
+    if split is None or len(shards) == 1:
+        return shards[0]
+    dim, parts = split
+    if parts == 1:
+        return np.concatenate(shards, dim)
+    sections = [np.split(s, parts, dim) for s in shards]
+    return np.concatenate([np.concatenate([sec[p] for sec in sections], dim)
+                           for p in range(parts)], dim)
+
+
+def pp_params_to_jax(model):
+    """The inverse of pp_params_from_jax, a collective over the pipelined
+    ``model``'s pp and mp groups (every rank calls it): on pp stage 0 the
+    JAX package's natural-order state dict of the pipelined model
+    ({name: float32 numpy array}, paddle's layout, the decoder weights
+    stacked [L, ...] as ``decoder_stack.<key>``); None on the other
+    stages."""
+    from .distributed.collective import all_gather_object
+    cfg = model.config
+    root, _, stack, _ = _pp_family(cfg)
+    hcg = model._pp_stack()._hcg
+    sd = {k: v.detach().float().cpu().numpy()
+          for k, v in model.state_dict().items()}
+    mp = hcg.get_model_parallel_group()
+    if mp.nranks > 1:
+        parts = []
+        all_gather_object(parts, sd, group=mp)
+        sd = {k: _tp_unshard(k, [p[k] for p in parts]) for k in sd}
+    stages = []
+    all_gather_object(stages, sd, group=hcg.get_pipe_parallel_group())
+    if hcg.get_stage_id() != 0:
+        return None
+    merged = {}
+    for part in stages:
+        for k, v in part.items():
+            merged.setdefault(k, v)
+    is_linear = _gpt_is_linear if root == "gpt" else _is_linear
+    prefix = f"{root}.decoder_stack."
+    out = {k: (v.T if is_linear(k) else v) for k, v in merged.items()
+           if not k.startswith(prefix)}
+    for key, attrs in stack._LAYER_ATTRS.items():
+        path = ".".join(attrs)
+        mats = [merged[f"{prefix}layers.{l}.{path}"]
+                for l in range(cfg.num_hidden_layers)]
+        if key in stack._TRANSPOSED:
+            mats = [m.T for m in mats]
+        out[prefix + key] = np.stack(mats)
+    return out

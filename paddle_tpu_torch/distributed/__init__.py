@@ -4,9 +4,11 @@ paddle_tpu/distributed/).
 One process per rank (``spawn`` or any launcher that sets env.py's
 contract). ``init_parallel_env`` joins the world on NCCL for a card or
 gloo for the CPU (or when asked); collective.py has the collective API
-with its int8 / bf16 wire codecs, parallel.py ``DataParallel``, and
-``fleet`` the hybrid topology, the gradient buckets and the
-tensor-parallel layers. Pipeline, sharding, sep, expert parallelism,
+with its int8 / bf16 wire codecs (and p2p that stages CUDA tensors
+through host memory on gloo), parallel.py ``DataParallel``, ``passes``
+the pipeline schedulers, and ``fleet`` the hybrid topology, the gradient
+buckets, the tensor-parallel layers and the pipeline (its executor,
+PipelineLayer and PipelineParallel). Sharding, sep, expert parallelism,
 auto-parallel, checkpointing and the launcher are not ported.
 """
 from .env import (  # noqa: F401
@@ -26,7 +28,7 @@ from .misc import (  # noqa: F401
 )
 from .parallel import init_parallel_env, DataParallel  # noqa: F401
 from .store import TCPStore  # noqa: F401
-from . import communication, fleet  # noqa: F401
+from . import communication, fleet, passes  # noqa: F401
 
 __all__ = [
     "ParallelEnv", "get_rank", "get_world_size", "is_initialized",
@@ -38,5 +40,5 @@ __all__ = [
     "scatter_object_list", "broadcast_object_list", "spawn", "ParallelMode",
     "ReduceType", "is_available", "get_backend", "split", "CountFilterEntry",
     "ShowClickEntry", "ProbabilityEntry", "init_parallel_env",
-    "DataParallel", "TCPStore", "communication", "fleet",
+    "DataParallel", "TCPStore", "communication", "fleet", "passes",
 ]

@@ -35,6 +35,12 @@ are the reference's, staged as two stages of the wire:
   rounding).
 
 Integer payloads and MAX/MIN/PROD reject compression.
+
+Point to point: ``send``, ``recv``, ``isend``, ``irecv`` and
+``batch_isend_irecv`` (and ``collective_permute`` on them) move a CUDA
+tensor on a gloo group through a pinned host buffer, whose bytes and
+calls ``p2p_host_staged`` counts: gloo's own send/recv read a CUDA
+pointer as host memory. On NCCL, or for CPU tensors, nothing is staged.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ __all__ = [
     "alltoall_single", "send", "recv", "isend", "irecv", "batch_isend_irecv",
     "P2POp", "barrier", "wait", "stream", "collective_permute",
     "quantize_blockwise_int8", "dequantize_blockwise_int8", "encode_wire",
+    "p2p_host_staged",
     "decode_wire", "wire_ppermute", "wire_all_to_all", "QUANT_BLOCK",
 ]
 
@@ -417,16 +424,14 @@ def _permute(parts, perm, g):
     ops = []
     for s, d in perm:
         if s == me and d != me:
-            ops += [dist.P2POp(dist.isend, p.contiguous(), g.ranks[d], g._pg)
-                    for p in parts]
+            ops += [(True, p, g.ranks[d], g) for p in parts]
         if d == me and s != me:
-            ops += [dist.P2POp(dist.irecv, o, g.ranks[s], g._pg)
-                    for o in outs]
+            ops += [(False, o, g.ranks[s], g) for o in outs]
         if s == d == me:
             outs = [p.clone() for p in parts]
     if ops:
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
+        for task in _post_p2p(ops):
+            task.wait()
     return outs
 
 
@@ -684,6 +689,49 @@ def collective_permute(tensor, perm, group=None):
 
 
 # -- p2p ----------------------------------------------------------------------
+# gloo's send and recv read a CUDA tensor's pointer as host memory and
+# abort, where its collectives copy through the host themselves. On a gloo
+# group the p2p calls therefore move a CUDA tensor through a pinned host
+# buffer of their own: the send copies it there (waiting for the work that
+# produced it) and sends the copy; the receive lands in one and copies it
+# to the caller's tensor when the caller waits. Each staged transfer adds
+# its bytes and one call to ``p2p_host_staged``. On NCCL (and for CPU
+# tensors) a tensor goes as it is and the counter does not move. The
+# backend is the one the world was joined on: nothing here picks gloo.
+p2p_host_staged = {"bytes": 0, "calls": 0}
+
+
+def _staged(t, g):
+    """Whether ``t`` travels through host memory on ``g``."""
+    return t.is_cuda and dist.get_backend(g._pg) == "gloo"
+
+
+def _post_p2p(ops):
+    """Post [(is_send, tensor, peer global rank, group)] as one batch;
+    returns one _Task per op, in order. A staged receive's task copies
+    the host buffer into the tensor on wait()."""
+    posted, thens, keep = [], [], []
+    for is_send, t, peer, g in ops:
+        buf, then = t, None
+        if _staged(t, g):
+            p2p_host_staged["bytes"] += t.numel() * t.element_size()
+            p2p_host_staged["calls"] += 1
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if is_send:
+                buf.copy_(t)              # waits for t's producers
+            else:
+                then = (lambda t=t, buf=buf: t.copy_(buf, non_blocking=True))
+        elif is_send:
+            buf = t.contiguous()
+        fn = dist.isend if is_send else dist.irecv
+        posted.append(dist.P2POp(fn, buf, peer, g._pg))
+        thens.append(then)
+        keep.append(buf)
+    works = dist.batch_isend_irecv(posted)
+    return [_Task((w,), then, result=buf)
+            for w, then, buf in zip(works, thens, keep)]
+
+
 class P2POp:
     def __init__(self, op, tensor, peer, group=None):
         self.op = op  # send / isend / recv / irecv
@@ -693,21 +741,24 @@ class P2POp:
 
 
 def send(tensor, dst=0, group=None, sync_op=True):
-    """Point-to-point send to global rank ``dst``."""
-    g = _group_of(group)
+    """Point-to-point send to global rank ``dst`` (through host memory for
+    a CUDA tensor on a gloo group: see ``p2p_host_staged``)."""
+    task = _post_p2p([(True, tensor, dst, _group_of(group))])[0]
+    task._result = None
     if sync_op:
-        dist.send(tensor.contiguous(), dst, group=g._pg)
+        task.wait()
         return _Task()
-    return _Task((dist.isend(tensor.contiguous(), dst, group=g._pg),))
+    return task
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
     """Point-to-point receive from global rank ``src`` into ``tensor``."""
-    g = _group_of(group)
+    task = _post_p2p([(False, tensor, src, _group_of(group))])[0]
+    task._result = tensor
     if sync_op:
-        dist.recv(tensor, src, group=g._pg)
+        task.wait()
         return _Task(result=tensor)
-    return _Task((dist.irecv(tensor, src, group=g._pg),), result=tensor)
+    return task
 
 
 def isend(tensor, dst=0, group=None):
@@ -723,15 +774,15 @@ def irecv(tensor, src=0, group=None):
 
 def batch_isend_irecv(p2p_op_list):
     """The pipeline's p2p entry: every send and receive of the batch is
-    posted at once; returns one task per op (wait on each)."""
+    posted at once; returns one task per op (wait on each). CUDA tensors
+    on a gloo group go through host memory, as ``send`` and ``recv``."""
     if not p2p_op_list:
         return []
-    ops = []
-    for op in p2p_op_list:
-        g = _group_of(op.group)
-        fn = dist.isend if op.op in (send, isend) else dist.irecv
-        ops.append(dist.P2POp(fn, op.tensor, op.peer, g._pg))
-    return [_Task((w,)) for w in dist.batch_isend_irecv(ops)]
+    tasks = _post_p2p([(op.op in (send, isend), op.tensor, op.peer,
+                        _group_of(op.group)) for op in p2p_op_list])
+    for op, task in zip(p2p_op_list, tasks):
+        task._result = None if op.op in (send, isend) else op.tensor
+    return tasks
 
 
 def barrier(group=None):

@@ -4,11 +4,13 @@ paddle_tpu/distributed/fleet/distributed_strategy.py).
 The reference's fields and defaults, and its ``validate()``. The knobs of
 slices not ported yet raise NotImplementedError, naming themselves, when
 ``validate()`` (fleet.init) finds them set: ``mp_overlap``,
-``mp_activation_compress``, ``dispatch_compress``, ``matmul_quant``,
-``pipeline_save_mode``, and ``sharding_degree``, ``pp_degree``,
-``sep_degree`` or ``ep_degree`` above 1. Data and tensor parallelism
-(``dp_degree``, ``mp_degree``) and the gradient sync's ``grad_compress``
-and ``grad_bucket_mb`` are ported.
+``mp_activation_compress``, ``dispatch_compress``, ``matmul_quant``, and
+``sharding_degree``, ``sep_degree`` or ``ep_degree`` above 1. Data,
+tensor and pipeline parallelism (``dp_degree``, ``mp_degree``,
+``pp_degree`` with ``pp_configs``), the gradient sync's ``grad_compress``
+and ``grad_bucket_mb``, and ``pipeline_save_mode`` (validated as the
+reference does; the port's pipeline keeps one storage whatever its value)
+are ported.
 """
 from __future__ import annotations
 
@@ -25,9 +27,8 @@ class _SubConfig(dict):
 
 # (field, default) of the knobs a later slice ports
 _LATER_KNOBS = (("mp_overlap", False), ("mp_activation_compress", None),
-                ("dispatch_compress", None), ("matmul_quant", None),
-                ("pipeline_save_mode", None))
-_LATER_DEGREES = ("sharding_degree", "pp_degree", "sep_degree", "ep_degree")
+                ("dispatch_compress", None), ("matmul_quant", None))
+_LATER_DEGREES = ("sharding_degree", "sep_degree", "ep_degree")
 
 
 class DistributedStrategy:
@@ -77,6 +78,9 @@ class DistributedStrategy:
         for knob, default in _LATER_KNOBS:
             setattr(self, knob, default)
         self.mp_overlap_chunks = "auto"
+        # the pipeline's backward-save mode: None (the model's default),
+        # "scan", "unroll" or "buffer"
+        self.pipeline_save_mode = None
         object.__setattr__(self, "_explicit_fields", set())
 
     def __setattr__(self, k, v):
@@ -115,8 +119,10 @@ class DistributedStrategy:
             if int(hc.get(deg, 1)) > 1:
                 raise NotImplementedError(
                     f"hybrid_configs {deg}={hc[deg]} is not ported to the "
-                    f"PyTorch package yet (data and tensor parallelism are)")
+                    f"PyTorch package yet (data, tensor and pipeline "
+                    f"parallelism are)")
         dp = int(hc.get("dp_degree", 1))
+        pp = int(hc.get("pp_degree", 1))
         sharding = int(hc.get("sharding_degree", 1))
         errors = []
         if getattr(self, "grad_compress", None) and dp * sharding == 1:
@@ -127,10 +133,21 @@ class DistributedStrategy:
             errors.append(
                 "grad_bucket_mb set with dp_degree*sharding_degree==1: "
                 "there are no grad-sync collectives to bucket")
+        if getattr(self, "pipeline_save_mode", None) and pp <= 1:
+            errors.append(
+                f"pipeline_save_mode="
+                f"{getattr(self, 'pipeline_save_mode')!r} with "
+                f"pp_degree==1: there is no pipeline backward to "
+                f"restructure")
         v = getattr(self, "grad_compress", None)
         if v not in (None, "int8", "bf16"):
             errors.append(f"grad_compress={v!r} not in "
                           f"{(None, 'int8', 'bf16')}")
+        sm = getattr(self, "pipeline_save_mode", None)
+        if sm not in (None, "scan", "unroll", "buffer"):
+            errors.append(
+                f"pipeline_save_mode={sm!r} not in "
+                f"(None, 'scan', 'unroll', 'buffer')")
         if errors:
             raise ValueError(
                 "incoherent DistributedStrategy knobs:\n  - "

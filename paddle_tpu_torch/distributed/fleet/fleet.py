@@ -3,7 +3,8 @@
 ``init`` joins the world (init_parallel_env), validates the strategy,
 infers a ``-1`` degree from the world size and builds the hybrid
 topology's process groups; ``distributed_model`` wraps the model in
-DataParallel (mp 1) or TensorParallel (mp > 1); ``distributed_optimizer``
+PipelineParallel (pp > 1), TensorParallel (mp > 1) or DataParallel, in
+the reference's order of precedence; ``distributed_optimizer``
 wraps the optimizer and carries the strategy's gradient-sync knobs to
 TrainStep.
 """
@@ -120,13 +121,16 @@ class Fleet:
         barrier()
 
     def distributed_model(self, model):
-        """DataParallel over the dp group at mp 1, TensorParallel at mp >
-        1 (reference fleet/model.py's dispatch)."""
+        """PipelineParallel at pp > 1, TensorParallel at mp > 1, else
+        DataParallel over the dp group (reference fleet/model.py's
+        dispatch)."""
         from ..parallel import DataParallel
-        from .meta_parallel import TensorParallel
+        from .meta_parallel import PipelineParallel, TensorParallel
         if not self._is_initialized:
             raise RuntimeError("call fleet.init first")
         hcg, s = self._hcg, self._user_defined_strategy
+        if hcg.get_pipe_parallel_world_size() > 1:
+            return PipelineParallel(model, hcg, s)
         if hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, hcg, s)
         return DataParallel(model, comm_buffer_size=s.fuse_grad_size_in_MB,
@@ -140,12 +144,13 @@ class Fleet:
             raise NotImplementedError(
                 "DistributedStrategy.gradient_merge is not ported to the "
                 "PyTorch package yet")
-        if self._hcg.get_model_parallel_world_size() > 1 and \
+        if (self._hcg.get_model_parallel_world_size() > 1
+                or self._hcg.get_pipe_parallel_world_size() > 1) and \
                 getattr(optimizer, "_grad_clip", None) is not None:
             raise NotImplementedError(
-                "gradient clipping under tensor parallelism (the global "
-                "norm over mp shards) is not ported to the PyTorch package "
-                "yet")
+                "gradient clipping under tensor or pipeline parallelism "
+                "(the global norm over mp shards and pp stages) is not "
+                "ported to the PyTorch package yet")
         gs_cfg = None
         if getattr(s, "grad_compress", None) or \
                 getattr(s, "grad_bucket_mb", None):

@@ -1,16 +1,26 @@
 """fleet.meta_parallel (counterpart of
 paddle_tpu/distributed/fleet/meta_parallel/): the tensor-parallel layers,
-the RNG state tracker and the TensorParallel wrapper."""
+the RNG state tracker, the pipeline's layers and executor, and the
+TensorParallel and PipelineParallel wrappers."""
 from .mp_layers import (  # noqa: F401
     VocabParallelEmbedding, ColumnParallelLinear, RowParallelLinear,
     ParallelCrossEntropy,
 )
+from .pp_layers import (  # noqa: F401
+    LayerDesc, SharedLayerDesc, SegmentLayers, PipelineLayer,
+)
+from .pipeline_spmd import (  # noqa: F401
+    run_schedule, spmd_pipeline, spmd_pipeline_interleaved,
+)
 from .random_ctrl import (  # noqa: F401
     RNGStatesTracker, get_rng_state_tracker, model_parallel_random_seed,
 )
-from .parallel_wrappers import TensorParallel  # noqa: F401
+from .parallel_wrappers import TensorParallel, PipelineParallel  # noqa: F401
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
-           "RowParallelLinear", "ParallelCrossEntropy", "RNGStatesTracker",
-           "get_rng_state_tracker", "model_parallel_random_seed",
-           "TensorParallel"]
+           "RowParallelLinear", "ParallelCrossEntropy", "LayerDesc",
+           "SharedLayerDesc", "SegmentLayers", "PipelineLayer",
+           "run_schedule", "spmd_pipeline", "spmd_pipeline_interleaved",
+           "RNGStatesTracker", "get_rng_state_tracker",
+           "model_parallel_random_seed", "TensorParallel",
+           "PipelineParallel"]

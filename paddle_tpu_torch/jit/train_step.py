@@ -30,6 +30,17 @@ TensorParallel), in that order of precedence; the one chosen is handed to
 the wrapper or hooked on the model. Fleet's optimizer wrapper is
 unwrapped, so the step reads and writes the inner optimizer.
 
+Pipeline parallelism: on a model with an internal pipeline (Llama or
+GPT with ``pipeline_parallel=True``, bare or inside fleet's wrapper) a
+step runs this rank's schedule over the whole batch (the model's
+``forward_backward``: its microbatches' forwards and backwards over
+send/recv), sums the tied weights' gradients over the first and last
+stage, syncs each stage's gradients over its dp group once (the
+scheduler above, or one over fleet's dp group), and steps the optimizer
+on this rank's parameters. The loss it returns is the batch's, the same
+on every rank of the pp group. ``accum_steps``, ``master_grad``,
+``with_outputs`` and gradient clipping do not combine with it.
+
 Capturing the step in a CUDA graph and an auto-parallel plan are not
 ported.
 """
@@ -42,6 +53,17 @@ import torch
 from ..framework.device import check_device
 
 __all__ = ["TrainStep"]
+
+
+def _pipelined(model):
+    """The model with an internal pipeline under ``model``'s wrappers, or
+    None."""
+    while model is not None:
+        if getattr(model, "_internal_pipeline", False) and \
+                hasattr(model, "forward_backward"):
+            return model
+        model = getattr(model, "_layers", None)
+    return None
 
 
 class TrainStep:
@@ -77,6 +99,26 @@ class TrainStep:
             raise ValueError("the model has no trainable parameters")
         self.device = check_device(self._params[0].device)
         self._grad_sync = self._grad_sync_of(model, grad_sync, gs_cfg)
+        self._pipe = _pipelined(model)
+        if self._pipe is not None:
+            self._check_pipeline(optimizer)
+
+    def _check_pipeline(self, optimizer):
+        for what, bad in (("accum_steps > 1", self.accum_steps > 1),
+                          ("master_grad", self.master_grad),
+                          ("with_outputs", self.with_outputs),
+                          ("gradient clipping",
+                           getattr(optimizer, "_grad_clip", None)
+                           is not None)):
+            if bad:
+                raise NotImplementedError(
+                    f"TrainStep with {what} on a pipeline-parallel model "
+                    f"is not ported to the PyTorch package yet")
+        if self._grad_sync is None:
+            from ..distributed.fleet.grad_buckets import GradBucketScheduler
+            dp = self._pipe._pp_stack()._hcg.get_data_parallel_group()
+            if dp is not None and dp.nranks > 1:
+                self._grad_sync = GradBucketScheduler(self._named, group=dp)
 
     def _grad_sync_of(self, model, grad_sync, gs_cfg):
         """The scheduler this step syncs through (None: no sync), hooked
@@ -137,6 +179,17 @@ class TrainStep:
                                  f"batch dim, got shape {tuple(x.shape)}")
         return [x.chunk(n, dim=0) for x in xs]
 
+    def _pipeline_step(self, inputs, labels):
+        """The schedule's forwards and backwards, then the tied and the dp
+        gradient sums."""
+        with self._quiet():
+            loss = self._pipe.forward_backward(inputs, labels, self.loss_fn)
+        self._pipe.allreduce_shared_weight_gradients()
+        if self._grad_sync is not None:
+            self._grad_sync.sync_grads({name: p.grad
+                                        for name, p in self._named})
+        return loss
+
     def __call__(self, inputs, labels=()):
         """One step: loss = loss_fn(model(*inputs), *labels), its
         gradients, and one optimizer update. Returns the float32 loss."""
@@ -144,7 +197,10 @@ class TrainStep:
         labels = self._as_tensors(labels)
         self.opt.clear_grad()
         master = None
-        if self.accum_steps == 1:
+        if self._pipe is not None:
+            loss = self._pipeline_step(inputs, labels)
+            outs = []
+        elif self.accum_steps == 1:
             # (master_grad changes nothing here: the optimizer casts a
             # bfloat16 gradient to float32 before it uses it)
             loss, out = self._forward_backward(inputs, labels)

@@ -18,7 +18,16 @@ models built from one seed draw the same masks. ``recompute=True``
 checkpoints each block in training; the recomputation replays the
 generator from the state it had when the block first ran, so a
 recomputed block draws the forward's masks and its gradients are the
-ones without recompute. Tensor and pipeline parallelism raise.
+ones without recompute.
+
+``tensor_parallel=True`` splits the blocks and the vocabulary over fleet's
+mp group. ``pipeline_parallel=True`` (with dropout 0, as the reference
+requires) builds this rank's stage (models/gpt_pipe.py): ``wte`` on the
+first and the last stage (the head is tied: the two gradients are summed
+over the pair before a step), ``wpe`` on the first, ``ln_f`` on the last.
+Every rank builds every weight in the one-rank model's order from the
+generator and keeps its own, so the stages hold the one-rank model's
+weights.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from ..nn.functional.flash_attention import (flash_attention,
 from ..nn.functional.loss import cross_entropy
 from ..nn.layer.common import Dropout, embedding
 from ..nn.layer.norm import LayerNorm
+from ._stacked_pipe import PipelinedLM
 from ._tp_utils import mp_group, parallel_linears
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt2_124m",
@@ -44,9 +54,7 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt2_124m",
 
 
 class GPTConfig:
-    """The JAX package's GPTConfig fields. The port reads the model
-    fields; the parallelism fields exist so that a shared config raises
-    instead of being silently ignored."""
+    """The JAX package's GPTConfig fields, defaults and validators."""
 
     def __init__(self, vocab_size=50304, hidden_size=768,
                  num_hidden_layers=12, num_attention_heads=12,
@@ -68,24 +76,20 @@ class GPTConfig:
         self.use_flash_attention = use_flash_attention
         self.tensor_parallel = tensor_parallel
         self.recompute = recompute
-        self.recompute_granularity = recompute_granularity
+        from .llama import (check_pipeline_save_mode,
+                            check_recompute_granularity)
+        self.recompute_granularity = check_recompute_granularity(
+            recompute_granularity)
         self.dtype = dtype
         self.pipeline_parallel = pipeline_parallel
         self.pp_microbatches = pp_microbatches
         self.virtual_pp_degree = virtual_pp_degree
-        self.pipeline_save_mode = pipeline_save_mode
+        self.pipeline_save_mode = check_pipeline_save_mode(
+            pipeline_save_mode, virtual_pp_degree)
 
     @property
     def head_dim(self):
         return self.hidden_size // self.num_attention_heads
-
-
-def _check_supported(cfg):
-    for name in ("pipeline_parallel",):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"GPTConfig.{name} is not ported to the PyTorch package yet "
-                f"(it runs on a single device)")
 
 
 class GPTAttention(nn.Module):
@@ -173,33 +177,66 @@ def _replay_generator(generator):
     return forward(), recompute()
 
 
-class GPTModel(nn.Module):
+class GPTModel(PipelinedLM, nn.Module):
     def __init__(self, config, device, dtype, generator):
         super().__init__()
+        from .llama import _stage_ends
         self.config = config
         self.generator = generator
+        first, last = _stage_ends(config)
         h = config.hidden_size
+        # every weight is drawn in the one-rank model's order; a pipelined
+        # rank drops the ones another stage holds
         if config.tensor_parallel:
             from ..distributed.fleet.meta_parallel import (
                 VocabParallelEmbedding)
-            self.wte = VocabParallelEmbedding(config.vocab_size, h,
-                                              device=device, dtype=dtype,
-                                              generator=generator)
+            wte = VocabParallelEmbedding(config.vocab_size, h,
+                                         device=device, dtype=dtype,
+                                         generator=generator)
         else:
-            self.wte = embedding(config.vocab_size, h, device, dtype,
-                                 generator)
-        self.wpe = embedding(config.max_position_embeddings, h, device, dtype,
-                             generator)
+            wte = embedding(config.vocab_size, h, device, dtype, generator)
+        if first or last:
+            self.wte = wte
+        wpe = embedding(config.max_position_embeddings, h, device, dtype,
+                        generator)
+        if first:
+            self.wpe = wpe
+        del wte, wpe
         self.drop = Dropout(config.dropout, generator=generator)
-        self.h = nn.ModuleList([GPTBlock(config, device, dtype, generator)
-                                for _ in range(config.num_hidden_layers)])
-        self.ln_f = LayerNorm(h, epsilon=config.layer_norm_epsilon,
-                              device=device, dtype=dtype)
+        if config.pipeline_parallel:
+            from .gpt_pipe import GPTStackedDecoder
+            self.decoder_stack = GPTStackedDecoder(config, device, dtype,
+                                                   generator)
+        else:
+            self.h = nn.ModuleList([GPTBlock(config, device, dtype,
+                                             generator)
+                                    for _ in range(config.num_hidden_layers)])
+        if last:
+            self.ln_f = LayerNorm(h, epsilon=config.layer_norm_epsilon,
+                                  device=device, dtype=dtype)
 
-    def forward(self, input_ids):
+    def _pp_stack(self):
+        return getattr(self, "decoder_stack", None)
+
+    def _embed(self, input_ids):
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        return self.drop(self.wte(input_ids) + self.wpe(pos))
+
+    def _pp_stage(self, chunk, x):
+        """Chunk ``chunk`` of this stage: the embeddings first on virtual
+        stage 0, ln_f last on the last one."""
+        st = self.decoder_stack
+        v = chunk * st._pp + st._stage
+        if v == 0:
+            x = self._embed(x)
+        x = st(chunk, x)
+        return self.ln_f(x) if v == st._pp * st._vpp - 1 else x
+
+    def forward(self, input_ids):
+        if self.config.pipeline_parallel:
+            return self._pipeline_forward(input_ids)
+        x = self._embed(input_ids)
         recompute = self.config.recompute and self.training
         # the global RNG is not saved: the masks come from self.generator,
         # which _replay_generator restores for the rerun
@@ -212,8 +249,12 @@ class GPTModel(nn.Module):
                 x = block(x)
         return self.ln_f(x)
 
+    @property
+    def device(self):
+        return next(self.parameters()).device
 
-class GPTForCausalLM(nn.Module):
+
+class GPTForCausalLM(PipelinedLM, nn.Module):
     """GPT-2 with its tied head, built on ``device`` (default ``cuda``;
     raises without a card unless ``device="cpu"``), weights and then
     dropout masks drawn from ``generator`` (a torch.Generator on that
@@ -222,11 +263,12 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, config, device=None, generator=None):
         super().__init__()
-        _check_supported(config)
         dev = resolve_device(device)
         gen = seed(0, dev) if generator is None else generator
         self.config = config
         self.gpt = GPTModel(config, dev, torch_dtype(config.dtype), gen)
+        if config.pipeline_parallel:
+            self._make_shared_group(True)
         # parameters carry their qualified names (the optimizer keys its
         # state and apply_decay_param_fun by them), as LlamaForCausalLM's do
         for name, p in self.named_parameters():
@@ -234,12 +276,16 @@ class GPTForCausalLM(nn.Module):
 
     @property
     def device(self):
-        return self.gpt.wte.weight.device
+        return self.gpt.device
 
-    def forward(self, input_ids):
-        """Logits [B, S, V]; under tensor parallelism this rank's vocab
-        shard [B, S, V / mp]."""
-        hidden = self.gpt(input_ids)
+    def _pp_stack(self):
+        return self.gpt._pp_stack()
+
+    def _pp_tied(self):
+        wte = getattr(self.gpt, "wte", None)
+        return None if wte is None else wte.weight
+
+    def _head(self, hidden):
         # tied head: logits = h @ wte^T
         if self.config.tensor_parallel:
             from ..distributed.fleet.meta_parallel.mp_layers import (
@@ -247,6 +293,20 @@ class GPTForCausalLM(nn.Module):
             return parallel_logits(hidden, self.gpt.wte.weight,
                                    mp_group(self.config))
         return F.linear(hidden, self.gpt.wte.weight)
+
+    def _pp_stage(self, chunk, x):
+        st = self._pp_stack()
+        h = self.gpt._pp_stage(chunk, x)
+        last = chunk * st._pp + st._stage == st._pp * st._vpp - 1
+        return self._head(h) if last else h
+
+    def forward(self, input_ids):
+        """Logits [B, S, V]; under tensor parallelism this rank's vocab
+        shard [B, S, V / mp]; under pipeline parallelism the last stage's,
+        on every rank of the pp group."""
+        if self.config.pipeline_parallel:
+            return self._pipeline_forward(input_ids)
+        return self._head(self.gpt(input_ids))
 
     def loss(self, logits, labels):
         """Mean cross entropy over the labels that are not -100 (vocab-
@@ -259,6 +319,10 @@ class GPTForCausalLM(nn.Module):
         return cross_entropy(logits.float(), labels.unsqueeze(-1))
 
     def generate(self, input_ids, **kwargs):
+        if self.config.pipeline_parallel:
+            raise NotImplementedError(
+                "generate on a pipeline-parallel model is not ported; "
+                "load its weights into a one-rank model to decode")
         from .generation import generate
         return generate(self, input_ids, **kwargs)
 

@@ -16,11 +16,21 @@ head a ColumnParallelLinear whose logits stay vocab-sharded, and the
 criterion is ParallelCrossEntropy. Weights are drawn whole from the
 generator and sliced, so n ranks hold the slices of the one-rank model,
 and at one rank the model computes what the dense model does, kernel for
-kernel. Pipeline parallelism, MoE, context (ring) parallelism, sequence
-parallelism and selective recompute policies are not ported; a config
-that asks for them raises.
+kernel.
+
+``pipeline_parallel=True`` under fleet.init with a pp topology builds
+only this rank's stage (models/llama_pipe.py): the embedding on stage 0,
+its decoder layers, and the final norm and head on the last stage (a tied
+embedding on both ends, its gradient summed over the two). TrainStep and
+fleet's PipelineParallel run the 1F1B (or, with ``virtual_pp_degree`` >
+1, interleaved) schedule over send/recv; ``forward`` returns the last
+stage's logits on every rank of the pp group. MoE, context (ring)
+parallelism, sequence parallelism and selective recompute policies are
+not ported; a config that asks for them raises.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -33,15 +43,42 @@ from ..nn.functional.flash_attention import (flash_attention,
                                              scaled_dot_product_attention)
 from ..nn.functional.loss import cross_entropy
 from ..nn.layer.norm import RMSNorm
+from ._stacked_pipe import PipelinedLM
 from ._tp_utils import mp_group, parallel_linears
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "llama_tiny", "llama_2_7b"]
 
 
+def check_recompute_granularity(value):
+    """The pipeline remat granularity knob (LlamaConfig and GPTConfig):
+    "layer" checkpoints each decoder layer, "stage" each stage call."""
+    if value not in ("layer", "stage"):
+        raise ValueError(
+            f"recompute_granularity must be 'layer' or 'stage', got "
+            f"{value!r}")
+    return value
+
+
+def check_pipeline_save_mode(value, virtual_pp_degree=1):
+    """The reference's validator of the pipeline's backward-save knob
+    (LlamaConfig and GPTConfig). The knob says how XLA stores the JAX
+    package's traced scan; the port keeps each microbatch's autograd
+    graph whatever its value (fleet/meta_parallel/pipeline_spmd.py)."""
+    if value not in ("scan", "unroll", "buffer"):
+        raise ValueError(
+            f"pipeline_save_mode must be 'scan', 'unroll' or 'buffer', "
+            f"got {value!r}")
+    if value == "buffer" and virtual_pp_degree > 1:
+        raise ValueError(
+            "pipeline_save_mode='buffer' applies to the non-interleaved "
+            "pipeline; use 'unroll' with virtual_pp_degree > 1")
+    return value
+
+
 class LlamaConfig:
-    """The JAX package's LlamaConfig fields. The port reads the model
-    fields; the parallelism fields exist so a shared config raises
+    """The JAX package's LlamaConfig fields and defaults. The parallelism
+    fields the port has not ported exist so a shared config raises
     instead of being silently ignored."""
 
     def __init__(self, vocab_size=32000, hidden_size=4096,
@@ -51,8 +88,10 @@ class LlamaConfig:
                  rope_theta=10000.0, tie_word_embeddings=False,
                  use_flash_attention=True, tensor_parallel=False,
                  sequence_parallel=False, recompute=False,
-                 recompute_policy=None, dtype="float32",
-                 pipeline_parallel=False, head_dim=None,
+                 recompute_policy=None, recompute_granularity="layer",
+                 dtype="float32", pipeline_parallel=False,
+                 pp_microbatches=None, virtual_pp_degree=1, head_dim=None,
+                 pin_pipeline_carry=False, pipeline_save_mode="scan",
                  context_parallel=False, num_experts=0):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -69,8 +108,19 @@ class LlamaConfig:
         self.sequence_parallel = sequence_parallel
         self.recompute = recompute
         self.recompute_policy = recompute_policy
+        self.recompute_granularity = check_recompute_granularity(
+            recompute_granularity)
         self.dtype = dtype
         self.pipeline_parallel = pipeline_parallel
+        self.pp_microbatches = pp_microbatches
+        # interleaved chunks a stage (virtual pipeline): the bubble shrinks
+        # by this factor
+        self.virtual_pp_degree = virtual_pp_degree
+        # a placement hint of the JAX package's scan carry: accepted and
+        # ignored (a rank's carry is its own tensor)
+        self.pin_pipeline_carry = pin_pipeline_carry
+        self.pipeline_save_mode = check_pipeline_save_mode(
+            pipeline_save_mode, virtual_pp_degree)
         self._head_dim = head_dim
         self.context_parallel = context_parallel
         self.num_experts = int(num_experts or 0)
@@ -81,12 +131,11 @@ class LlamaConfig:
 
 
 def _check_supported(cfg):
-    for name in ("sequence_parallel", "pipeline_parallel",
-                 "context_parallel", "num_experts"):
+    for name in ("sequence_parallel", "context_parallel", "num_experts"):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"LlamaConfig.{name} is not ported to the PyTorch package "
-                f"yet (it runs on a single device)")
+                f"yet (data, tensor and pipeline parallelism are)")
     if cfg.recompute and cfg.recompute_policy is not None:
         raise NotImplementedError(
             f"LlamaConfig.recompute_policy={cfg.recompute_policy!r} is not "
@@ -188,25 +237,58 @@ class LlamaDecoderLayer(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
-class LlamaModel(nn.Module):
+def _no_mask(config, attn_mask):
+    """The models are causal: an explicit mask raises the reference's
+    ValueError under the pipeline, NotImplementedError elsewhere."""
+    if attn_mask is None:
+        return
+    if config.pipeline_parallel:
+        raise ValueError("pipeline_parallel Llama supports causal attention "
+                         "only (attn_mask must be None)")
+    raise NotImplementedError("LlamaForCausalLM(attn_mask=...) is not "
+                              "ported to the PyTorch package yet")
+
+
+def _embedding(config, device, dtype):
+    if config.tensor_parallel:
+        from ..distributed.fleet.meta_parallel import VocabParallelEmbedding
+        return VocabParallelEmbedding(config.vocab_size, config.hidden_size,
+                                      device=device, dtype=dtype)
+    return nn.utils.skip_init(nn.Embedding, config.vocab_size,
+                              config.hidden_size, device=device, dtype=dtype)
+
+
+def _stage_ends(config):
+    """(holds the first stage, holds the last stage) of this rank."""
+    if not config.pipeline_parallel:
+        return True, True
+    from ._stacked_pipe import pipeline_topology
+    hcg = pipeline_topology()
+    return hcg.is_first_stage(), hcg.is_last_stage()
+
+
+class LlamaModel(PipelinedLM, nn.Module):
+    """Embedding, decoder layers and final norm; under pipeline_parallel
+    this rank's stage of them (the embedding on the first stage, and on
+    the last too for a tied head; the norm on the last)."""
+
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         self.config = config
-        if config.tensor_parallel:
-            from ..distributed.fleet.meta_parallel import (
-                VocabParallelEmbedding)
-            self.embed_tokens = VocabParallelEmbedding(
-                config.vocab_size, config.hidden_size, device=device,
-                dtype=dtype)
+        first, last = _stage_ends(config)
+        if first or (last and config.tie_word_embeddings):
+            self.embed_tokens = _embedding(config, device, dtype)
+        if config.pipeline_parallel:
+            from .llama_pipe import LlamaStackedDecoder
+            self.decoder_stack = LlamaStackedDecoder(config, device, dtype)
         else:
-            self.embed_tokens = nn.utils.skip_init(
-                nn.Embedding, config.vocab_size, config.hidden_size,
-                device=device, dtype=dtype)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device, dtype)
-             for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
-                            device=device, dtype=dtype)
+            self.layers = nn.ModuleList(
+                [LlamaDecoderLayer(config, device, dtype)
+                 for _ in range(config.num_hidden_layers)])
+        if last:
+            self.norm = RMSNorm(config.hidden_size,
+                                epsilon=config.rms_norm_eps, device=device,
+                                dtype=dtype)
         cos, sin = _rope_tables(config.head_dim,
                                 config.max_position_embeddings,
                                 config.rope_theta)
@@ -215,7 +297,31 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(device),
                              persistent=False)
 
-    def forward(self, input_ids):
+    @property
+    def device(self):
+        return self.rope_cos.device
+
+    def _pp_stack(self):
+        return getattr(self, "decoder_stack", None)
+
+    def _pp_tied(self):
+        return None
+
+    def _pp_stage(self, chunk, x):
+        """Chunk ``chunk`` of this stage: the embedding first on virtual
+        stage 0, the norm last on the last one."""
+        st = self.decoder_stack
+        v = chunk * st._pp + st._stage
+        if v == 0:
+            x = self.embed_tokens(x)
+        S = x.shape[1]
+        x = st(chunk, x, self.rope_cos[:S], self.rope_sin[:S])
+        return self.norm(x) if v == st._pp * st._vpp - 1 else x
+
+    def forward(self, input_ids, attn_mask=None):
+        _no_mask(self.config, attn_mask)
+        if self.config.pipeline_parallel:
+            return self._pipeline_forward(input_ids)
         S = input_ids.shape[1]
         x = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos[:S], self.rope_sin[:S]
@@ -231,11 +337,14 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(PipelinedLM, nn.Module):
     """Llama with its LM head, built on ``device`` (default ``cuda``;
     raises without a card unless ``device="cpu"``). Weights are drawn
     from ``generator`` (a torch.Generator on that device; seed 0 when
-    None) as N(0, 0.02) for embeddings and projections, 1 for norms."""
+    None) as N(0, 0.02) for embeddings and projections, 1 for norms, in
+    the one-rank model's order: a tensor-parallel or pipelined rank draws
+    every weight whole and keeps its shard, so it holds the one-rank
+    model's weights."""
 
     def __init__(self, config, device=None, generator=None):
         super().__init__()
@@ -244,10 +353,13 @@ class LlamaForCausalLM(nn.Module):
         dtype = torch_dtype(config.dtype)
         self.config = config
         self.llama = LlamaModel(config, dev, dtype)
+        first, last = _stage_ends(config)
         self.lm_head = None
-        if not config.tie_word_embeddings:
+        if not config.tie_word_embeddings and last:
             col, _ = parallel_linears(config, dev, dtype)
             self.lm_head = col(config.hidden_size, config.vocab_size)
+        if config.pipeline_parallel:
+            self._make_shared_group(config.tie_word_embeddings)
         self.init_weights(seed(0, dev) if generator is None else generator)
         # parameters carry their qualified names, as paddle parameters
         # carry a name (torch's Tensor.name is taken): the optimizer keys
@@ -257,28 +369,59 @@ class LlamaForCausalLM(nn.Module):
 
     @property
     def device(self):
-        return self.llama.embed_tokens.weight.device
+        return self.llama.device
+
+    def _natural_params(self):
+        """(name, whole shape) of every parameter of the one-rank model,
+        in its order, under this model's names."""
+        cfg = self.config
+        V, h = cfg.vocab_size, cfg.hidden_size
+        yield "llama.embed_tokens.weight", (V, h)
+        dense = copy.copy(cfg)
+        dense.tensor_parallel = False
+        per = [(n, tuple(p.shape)) for n, p in
+               LlamaDecoderLayer(dense, "meta").named_parameters()]
+        prefix = "llama.decoder_stack.layers" if cfg.pipeline_parallel \
+            else "llama.layers"
+        for l in range(cfg.num_hidden_layers):
+            for n, shape in per:
+                yield f"{prefix}.{l}.{n}", shape
+        yield "llama.norm.weight", (h,)
+        if not cfg.tie_word_embeddings:
+            yield "lm_head.weight", (V, h)
 
     @torch.no_grad()
     def init_weights(self, generator):
-        """Norms 1, everything else N(0, 0.02); a tensor-parallel shard is
-        its slice of the whole tensor drawn in its place."""
+        """Norms 1, everything else N(0, 0.02), drawn whole in the one-rank
+        model's order; a rank keeps the weights (or tensor-parallel
+        slices) it holds and draws the others only to keep its generator
+        in step."""
         from ..distributed.fleet.meta_parallel.mp_layers import shard_like
-        for name, p in self.named_parameters():
+        local = dict(self.named_parameters())
+        dtype = torch_dtype(self.config.dtype)
+        for name, shape in self._natural_params():
+            p = local.get(name)
             if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            elif hasattr(p, "tp_full_shape"):
-                full = torch.empty(p.tp_full_shape, device=p.device,
-                                   dtype=p.dtype)
-                p.copy_(shard_like(full.normal_(0.0, 0.02,
-                                                generator=generator), p))
-            else:
+                if p is not None:
+                    p.fill_(1.0)
+            elif p is not None and not hasattr(p, "tp_full_shape"):
                 p.normal_(0.0, 0.02, generator=generator)
+            else:
+                full = torch.empty(shape, device=self.device, dtype=dtype)
+                full.normal_(0.0, 0.02, generator=generator)
+                if p is not None:
+                    p.copy_(shard_like(full, p))
 
-    def forward(self, input_ids):
-        """Logits [B, S, V]; under tensor parallelism this rank's
-        vocab shard [B, S, V / mp]."""
-        hidden = self.llama(input_ids)
+    def _pp_stack(self):
+        return self.llama._pp_stack()
+
+    def _pp_tied(self):
+        if not self.config.tie_word_embeddings:
+            return None
+        emb = getattr(self.llama, "embed_tokens", None)
+        return None if emb is None else emb.weight
+
+    def _head(self, hidden):
         if self.lm_head is None:
             from ..distributed.fleet.meta_parallel.mp_layers import (
                 parallel_logits)
@@ -286,7 +429,26 @@ class LlamaForCausalLM(nn.Module):
                                    mp_group(self.config))
         return self.lm_head(hidden)
 
+    def _pp_stage(self, chunk, x):
+        st = self._pp_stack()
+        h = self.llama._pp_stage(chunk, x)
+        last = chunk * st._pp + st._stage == st._pp * st._vpp - 1
+        return self._head(h) if last else h
+
+    def forward(self, input_ids, attn_mask=None):
+        """Logits [B, S, V]; under tensor parallelism this rank's
+        vocab shard [B, S, V / mp]; under pipeline parallelism the last
+        stage's, on every rank of the pp group."""
+        _no_mask(self.config, attn_mask)
+        if self.config.pipeline_parallel:
+            return self._pipeline_forward(input_ids)
+        return self._head(self.llama(input_ids))
+
     def generate(self, input_ids, **kwargs):
+        if self.config.pipeline_parallel:
+            raise NotImplementedError(
+                "generate on a pipeline-parallel model is not ported; "
+                "load its weights into a one-rank model to decode")
         from .generation import generate
         return generate(self, input_ids, **kwargs)
 
@@ -303,6 +465,10 @@ class LlamaPretrainingCriterion(nn.Module):
     def __init__(self, config=None):
         super().__init__()
         self._pce = None
+        # the pipeline weights microbatch losses by the positions this
+        # mean counts: every position under tensor parallelism
+        self.pipeline_mean_over_positions = bool(
+            config is not None and config.tensor_parallel)
         if config is not None and config.tensor_parallel:
             from ..distributed.fleet.meta_parallel import (
                 ParallelCrossEntropy)

@@ -248,6 +248,14 @@ def test_p2p_rings_match_ppermute(worlds, n):
 
 
 @pytest.mark.parametrize("n", WORLDS)
+def test_p2p_of_cpu_tensors_is_not_staged(worlds, n):
+    """gloo moves CPU tensors as they are: the host-staging counter of the
+    p2p calls stays 0 through the rings above."""
+    for res in worlds[n][1]:
+        assert res["p2p_host_staged"] == {"bytes": 0, "calls": 0}
+
+
+@pytest.mark.parametrize("n", WORLDS)
 @pytest.mark.parametrize("compress", [None, "bf16", "int8"])
 def test_wire_ppermute_matches_jax(worlds, n, compress):
     """One ring hop under the wire codec against the reference's

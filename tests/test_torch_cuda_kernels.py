@@ -3423,3 +3423,20 @@ def test_pools_on_the_card(cuda_device, fn, kw):
         _, m_cpu = TF.max_pool2d(x, return_mask=True, **kw)
         _, m_card = TF.max_pool2d(x.cuda(), return_mask=True, **kw)
         assert torch.equal(m_card.cpu(), m_cpu)
+
+
+@pytest.mark.cuda
+def test_gloo_p2p_stages_cuda_tensors_through_host(cuda_device, tmp_path):
+    """send/recv and batch_isend_irecv of CUDA tensors in two gloo ranks
+    on the card: the values of a ring, each transfer counted by
+    p2p_host_staged (6 float32 values = 24 bytes a transfer)."""
+    import torch_dist_cases as cases
+    world = cases.run_world(2, "p2p_cuda", {}, tmp_path)
+    x = [np.arange(6, dtype=np.float32) + 10 * r for r in range(2)]
+    for r, res in enumerate(world):
+        assert res["device"].startswith("cuda")
+        np.testing.assert_array_equal(res["recv"], x[1 - r])
+        np.testing.assert_array_equal(res["fwd"], x[1 - r])
+        np.testing.assert_array_equal(res["back"], 2 * x[1 - r])
+        # isend + recv, then two sends and two receives
+        assert res["staged"] == {"calls": 6, "bytes": 6 * 24}

@@ -183,8 +183,7 @@ def test_validate_rejections_match_the_reference():
 @pytest.mark.parametrize("knob,value", [
     ("mp_overlap", True), ("mp_activation_compress", "int8"),
     ("dispatch_compress", "int8"), ("matmul_quant", "int8"),
-    ("pipeline_save_mode", "buffer"), ("sharding_degree", 2),
-    ("pp_degree", 2), ("sep_degree", 2), ("ep_degree", 2)])
+    ("sharding_degree", 2), ("sep_degree", 2), ("ep_degree", 2)])
 def test_later_slice_knobs_raise_and_name_themselves(knob, value):
     s = fleet.DistributedStrategy()
     if knob.endswith("_degree"):
@@ -193,6 +192,32 @@ def test_later_slice_knobs_raise_and_name_themselves(knob, value):
         setattr(s, knob, value)
     with pytest.raises(NotImplementedError, match=knob):
         s.validate()
+
+
+@pytest.mark.parametrize("knobs", [
+    {"pp_degree": 2},
+    {"pp_degree": 2, "pipeline_save_mode": "buffer"},
+    {"pp_degree": 1, "pipeline_save_mode": "unroll"},
+    {"pp_degree": 2, "pipeline_save_mode": "ring"}])
+def test_pipeline_knobs_validate_as_the_reference(knobs):
+    """pp_degree and pipeline_save_mode are ported: a coherent strategy
+    validates, an incoherent one raises the reference's ValueError."""
+    made = []
+    for cls in (JStrategy, fleet.DistributedStrategy):
+        s = cls()
+        s.hybrid_configs = {"pp_degree": knobs["pp_degree"]}
+        if "pipeline_save_mode" in knobs:
+            s.pipeline_save_mode = knobs["pipeline_save_mode"]
+        made.append(s)
+    ref, got = made
+    try:
+        ref.validate()
+    except ValueError as e:
+        with pytest.raises(ValueError) as te:
+            got.validate()
+        assert str(te.value) == str(e)
+    else:
+        assert got.validate() is got
 
 
 @pytest.mark.parametrize("call", ["apply_plan", "split", "ps_entry",

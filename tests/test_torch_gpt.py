@@ -274,9 +274,10 @@ def test_entry_point_needs_a_card_and_unported_options_raise():
         GPTForCausalLM(gpt_tiny())
     GPTForCausalLM(gpt_tiny(), device="cpu")
     # tensor parallelism is ported (one rank without fleet); pipeline
-    # parallelism, alone or with it, is not
+    # parallelism, alone or with it, is ported too and needs fleet's pp
+    # topology: without one it raises the reference's ValueError
     GPTForCausalLM(gpt_tiny(tensor_parallel=True), device="cpu")
     for kw in ({"tensor_parallel": True, "pipeline_parallel": True},
                {"pipeline_parallel": True}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="pp topology"):
             GPTForCausalLM(gpt_tiny(**kw), device="cpu")

@@ -59,6 +59,22 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "distributed/passes/pipeline_scheduler.py",
+    "distributed/fleet/meta_parallel/pipeline_spmd.py",
+    "distributed/fleet/meta_parallel/pp_layers.py",
+    "models/_stacked_pipe.py", "models/llama_pipe.py",
+    "models/gpt_pipe.py"])
+def test_pipeline_modules_are_scanned_and_stand_alone(module):
+    """The pipeline's modules are among the scanned sources, and import
+    neither JAX nor the JAX package (the scheduler is the port's own
+    copy)."""
+    f = PORT / module
+    assert f in _port_sources()
+    roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
+    assert not roots & set(FORBIDDEN), roots
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib, pkgutil, paddle_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -174,6 +190,9 @@ def test_unported_model_options_raise(field):
         # tensor parallelism is ported; its sequence-parallel variant is
         # not
         kw["sequence_parallel"] = True
+    if field == "pipeline_parallel":
+        # pipeline parallelism is ported; its MoE stack is not
+        kw["num_experts"] = 4
     with pytest.raises(NotImplementedError):
         LlamaForCausalLM(llama_tiny(**kw), device="cpu")
 
@@ -233,7 +252,8 @@ def test_unported_training_options_raise():
     logits = torch.zeros(2, 5)
     with pytest.raises(NotImplementedError):
         cross_entropy(logits, torch.softmax(logits, -1), soft_label=True)
-    with pytest.raises(NotImplementedError):
+    # pipeline parallelism is ported and needs fleet's pp topology
+    with pytest.raises(ValueError, match="pp topology"):
         LlamaForCausalLM(llama_tiny(tensor_parallel=True,
                                     pipeline_parallel=True), device="cpu")
 

@@ -32,7 +32,12 @@ def start_world(n, case, payload, tmpdir):
     from paddle_tpu_torch.distributed import spawn
     tmpdir = str(tmpdir)
     store = os.path.join(tmpdir, f"store_{case}_{n}")
-    procs = spawn(_rank_main, args=(case, payload, tmpdir), nprocs=n,
+    # the payload goes through a file: arguments pickled into a spawned
+    # process cost seconds a megabyte
+    path = os.path.join(tmpdir, f"{case}_{n}_payload.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    procs = spawn(_rank_main, args=(case, path, tmpdir), nprocs=n,
                   join=False, master=f"file://{store}", gpus=[0] * n)
     return n, case, tmpdir, procs
 
@@ -62,12 +67,14 @@ def run_world(n, case, payload, tmpdir):
     return finish_world(start_world(n, case, payload, tmpdir))
 
 
-def _rank_main(case, payload, tmpdir):
+def _rank_main(case, payload_path, tmpdir):
     rank = int(os.environ["PADDLE_TRAINER_ID"])
     n = int(os.environ["PADDLE_TRAINERS_NUM"])
     os.environ["PADDLE_COMM_TIMEOUT"] = "60"
     torch.set_num_threads(1)
     try:
+        with open(payload_path, "rb") as f:
+            payload = pickle.load(f)
         import paddle_tpu_torch.distributed as dist
         dist.init_parallel_env(device="cpu")
         out = CASES[case](rank, n, payload)
@@ -176,6 +183,8 @@ def case_collectives(rank, n, inp):
     dist.send(3 * x, (rank + 1) % n)
     task.wait()
     out["ring:irecv"] = _np(recv)
+    from paddle_tpu_torch.distributed.collective import p2p_host_staged
+    out["p2p_host_staged"] = dict(p2p_host_staged)
     # one hop of a ring under each wire codec (the collective-matmul hop)
     from paddle_tpu_torch.distributed.collective import wire_ppermute
     ring = [(i, (i + 1) % n) for i in range(n)]
@@ -535,5 +544,201 @@ def case_tp_models(rank, n, inp):
     return out
 
 
+# -- pipeline parallelism ------------------------------------------------------
+def _init_pp(n, pp, mp=1, **pp_configs):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": n // (pp * mp), "mp_degree": mp,
+                        "pp_degree": pp, "pp_configs": pp_configs}
+    fleet.init(is_collective=True, strategy=s, device="cpu")
+    return fleet.get_hybrid_communicate_group()
+
+
+def _pp_model(spec, hcg):
+    """The pipelined model of a spec {"family", "cfg", "sd"} with this
+    rank's stage of the JAX weights."""
+    from paddle_tpu_torch.convert import pp_params_from_jax
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.llama import (
+        LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion)
+    gpt = spec["family"] == "gpt"
+    cfg = (GPTConfig if gpt else LlamaConfig)(pipeline_parallel=True,
+                                             **spec["cfg"])
+    model = (GPTForCausalLM if gpt else LlamaForCausalLM)(cfg, device="cpu")
+    sd = pp_params_from_jax(spec["sd"], cfg, hcg.get_stage_id(),
+                            hcg.get_pipe_parallel_world_size(),
+                            hcg.get_model_parallel_rank(),
+                            hcg.get_model_parallel_world_size())
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    assert not missing and not unexpected, (missing, unexpected)
+    crit = model.loss if gpt else LlamaPretrainingCriterion(cfg)
+    return model, crit
+
+
+def _pp_train(spec, hcg, lr, steps):
+    from paddle_tpu_torch import AdamW, TrainStep
+    model, crit = _pp_model(spec, hcg)
+    step = TrainStep(model, lambda lo, la: crit(lo, la),
+                     AdamW(learning_rate=lr, parameters=model.parameters()))
+    ids, labels = _t(spec["ids"]), _t(spec["labels"])
+    losses = [float(step((ids,), (labels,))) for _ in range(steps)]
+    tied = model._pp_tied()
+    return {"losses": losses, "stats": model.last_pipeline_stats,
+            "tied": None if tied is None else _np(tied),
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def case_pipeline(rank, n, inp):
+    """Llama and GPT with pipeline_parallel=True trained by TrainStep from
+    the JAX weights, each spec in its own fleet topology, and the
+    executor's, converters' and layouts' checks."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.convert import pp_params_to_jax
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline, spmd_pipeline_interleaved)
+    out = {}
+    for name, spec in inp["train"].items():
+        hcg = _init_pp(n, spec["pp"], spec.get("mp", 1))
+        out[name] = _pp_train(spec, hcg, inp["lr"], inp["steps"])
+        out[name]["stage"] = hcg.get_stage_id()
+    for name, spec in inp.get("layouts", {}).items():
+        hcg = _init_pp(n, spec["pp"], spec.get("mp", 1))
+        model, _ = _pp_model(spec, hcg)
+        try:
+            model(_t(spec["ids"]), attn_mask=torch.ones(1))
+            mask_error = None
+        except (ValueError, NotImplementedError, TypeError) as e:
+            mask_error = (type(e).__name__, str(e))
+        # the one-rank model's whole natural-order state dict loads into
+        # this rank's stage
+        from paddle_tpu_torch.convert import pp_params_from_jax
+        whole = pp_params_from_jax(spec["sd"], model.config, 0, 1)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()
+        missing, _ = model.set_state_dict(whole)
+        reloaded = all(torch.equal(before[k], v)
+                       for k, v in model.state_dict().items())
+        out["layout:" + name] = {
+            "mask_error": mask_error, "reloaded": reloaded,
+            "reload_missing": missing,
+            "to_jax": pp_params_to_jax(model),
+            "factors": model._pp_stack().placement_factors(),
+            "chunks": model._pp_stack().chunks,
+            "names": sorted(model.state_dict()),
+            "logits": _np(model(_t(spec["ids"])))}
+    # the forward-only runners against the stages applied in order
+    hcg = _init_pp(n, n)
+    ws = [_t(w) for w in inp["runner"]["ws"]]
+    x = _t(inp["runner"]["x"])
+    s = hcg.get_stage_id()
+    out["runner"] = _np(spmd_pipeline(lambda w, h: torch.tanh(h @ w),
+                                      ws[s], x))
+    out["runner_vpp"] = _np(spmd_pipeline_interleaved(
+        lambda w, h: torch.tanh(h @ w), [ws[s], ws[n + s]], x, 2))
+    out["errors"] = _pp_errors(n, inp["errors"])
+    dist.barrier()
+    return out
+
+
+def _pp_errors(n, specs):
+    """The type and message of each spec's construction or first step."""
+    out = {}
+    for name, spec in specs.items():
+        hcg = _init_pp(n, n)
+        try:
+            _pp_train(spec, hcg, 1e-3, 1)
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def case_pp_layers(rank, n, inp):
+    """A PipelineLayer with a shared embedding under fleet's
+    PipelineParallel.train_batch, and fleet's wrapper over Llama's
+    internal pipeline."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch import AdamW, SGD
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer, SharedLayerDesc)
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               LlamaForCausalLM,
+                                               LlamaPretrainingCriterion)
+    out = {}
+    hcg = _init_pp(n, n, accumulate_steps=inp["accumulate_steps"])
+    V, H = inp["vocab"], inp["hidden"]
+
+    def head(layer, x):
+        return F.linear(x, layer.weight)
+
+    descs = [SharedLayerDesc("emb", torch.nn.Embedding, None, "weight", V,
+                             H)]
+    descs += [LayerDesc(torch.nn.Linear, H, H) for _ in range(inp["mid"])]
+    descs += [SharedLayerDesc("emb", torch.nn.Embedding, head, "weight", V,
+                              H)]
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, V), labels.reshape(-1))
+
+    pl = PipelineLayer(descs, loss_fn=loss_fn, seg_method="uniform")
+    with torch.no_grad():
+        for key, w in inp["weights"].items():
+            idx, pname = key.split(".", 1)
+            if idx in pl._callables:
+                getattr(pl._callables[idx], pname).copy_(_t(w))
+    model = fleet.distributed_model(pl)
+    opt = SGD(learning_rate=inp["lr"], parameters=model.parameters())
+    ids, labels = _t(inp["ids"]), _t(inp["labels"])
+    out["wrapper"] = type(model).__name__
+    out["stages"] = [pl.get_stage_from_index(i) for i in range(len(descs))]
+    out["losses"] = [float(model.train_batch((ids, labels), opt))
+                     for _ in range(inp["steps"])]
+    out["eval"] = float(model.eval_batch((ids, labels)))
+    out["emb"] = _np(pl._shared["emb"].weight)
+    out["own"] = len(pl.parameters_of_stage[hcg.get_stage_id()])
+    # fleet over Llama's internal pipeline: accumulate_steps becomes the
+    # stack's microbatch count, the user's config stays as it was
+    cfg = LlamaConfig(pipeline_parallel=True, **inp["llama_cfg"])
+    llama = LlamaForCausalLM(cfg, device="cpu")
+    crit = LlamaPretrainingCriterion(cfg)
+    llama._loss_fn = lambda lo, la: crit(lo, la)
+    wrapped = fleet.distributed_model(llama)
+    out["llama_wrapper"] = type(wrapped).__name__
+    out["mb_override"] = llama.llama.decoder_stack._mb_override
+    out["cfg_microbatches"] = cfg.pp_microbatches
+    lopt = AdamW(learning_rate=1e-3, parameters=llama.parameters())
+    lids = _t(inp["llama_ids"])
+    out["llama_losses"] = [float(wrapped.train_batch((lids, lids), lopt))
+                           for _ in range(2)]
+    out["llama_microbatches"] = llama.last_pipeline_stats["microbatches"]
+    return out
+
+
+def case_p2p_cuda(rank, n, inp):
+    """send / recv / batch_isend_irecv of CUDA tensors over gloo: staged
+    through host memory and counted."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.collective import p2p_host_staged
+    x = torch.arange(6, dtype=torch.float32, device="cuda") + 10 * rank
+    got = torch.zeros_like(x)
+    task = dist.isend(x, (rank + 1) % n)
+    dist.recv(got, (rank - 1) % n)
+    task.wait()
+    fwd, back = torch.zeros_like(x), torch.zeros_like(x)
+    for t in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, (rank + 1) % n),
+            dist.P2POp(dist.isend, 2 * x, (rank - 1) % n),
+            dist.P2POp(dist.irecv, fwd, (rank - 1) % n),
+            dist.P2POp(dist.irecv, back, (rank + 1) % n)]):
+        t.wait()
+    return {"recv": _np(got), "fwd": _np(fwd), "back": _np(back),
+            "staged": dict(p2p_host_staged), "device": str(got.device)}
+
+
 CASES = {"collectives": case_collectives, "fleet": case_fleet, "dp": case_dp,
-         "mp_layers": case_mp_layers, "tp_models": case_tp_models}
+         "mp_layers": case_mp_layers, "tp_models": case_tp_models,
+         "pipeline": case_pipeline, "pp_layers": case_pp_layers,
+         "p2p_cuda": case_p2p_cuda}
