@@ -283,8 +283,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bytes, host-staged bytes and calls and each rank's receive wait a
    step); pp2mp2_gloo_on_card (four ranks, pp 2 x mp 2, bf16, the same
    7B-wide Llama: losses within 1e-2 of one process, every stage
-   attention on the wgmma flash pair by route_launches). A spawned world
-   that does not end by its deadline fails the phase. `--dist-only` runs
+   attention on the wgmma flash pair by route_launches); then BASELINE
+   configuration 4 on train_moe's GPT-MoE (full width and depth, float32,
+   TF32 off, train_moe's batch and seed, 3 AdamW steps):
+   train_moe_stage2_nccl (GroupShardedOptimizerStage2 through fleet at
+   world 1 on NCCL in both lanes, and group_sharded_parallel at "os",
+   "os_g" and "p_g_os": losses bit for bit with one process, and with
+   train_moe's when it ran), ep2_gloo_on_card (two ranks, ep 2, 4 + 4
+   rows: grouped with dispatch_compress None, "bf16" and "int8", and
+   capacity; each rank's expert bytes half of one process's, every
+   grouped launch on the wgmma route, the exchange's wire bytes a step
+   equal to dispatch_wire_bytes), sharding2_gloo_on_card (two ranks,
+   stages 1-3: each rank's moment, gradient and at-rest parameter bytes,
+   its peak memory) and ep2sharding2_gloo_on_card (four ranks, ep 2 x
+   sharding 2 at stage 2), each held to one process on the whole batch
+   (1e-5 relative; the codecs 1e-4, and each codec lane more than 1e-6
+   from the exact lane). A spawned world that does not end
+   by its deadline fails the phase. `--dist-only` runs
    the train and train_gpt2 phases and this phase alone;
 16. one line naming each kernel with its launches on the main path (the
    serve of phase 3 for the ragged kernel, the train of phase 6 and the
@@ -374,7 +389,14 @@ GRAD_ATOL_F32 = 1e-4
 LIB_TOL = 2e-2
 
 
+_T_START = time.monotonic()
+
+
 def emit(obj):
+    """Print one record; a phase's record also carries the seconds since
+    the script started (``script_s``), which time the phases."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.monotonic() - _T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -6140,6 +6162,7 @@ MP2_TOL = 1e-5
 # read a CUDA pointer as host memory and abort)
 GLOO_CUDA_OPS = ("all_reduce", "all_reduce_max", "broadcast",
                  "all_gather_into_tensor", "all_to_all_single_int8",
+                 "all_to_all_single_float32", "reduce_scatter_tensor",
                  "all_gather_object", "send", "recv", "barrier")
 
 
@@ -6323,14 +6346,17 @@ def dist_collectives_nccl_phase(torch, np, seed):
     return rec
 
 
-def _fleet_init(torch, backend=None, grad_compress=None, **degrees):
+def _fleet_init(torch, backend=None, grad_compress=None,
+                dispatch_compress=None, **degrees):
     """fleet.init on the world (its backend as init_parallel_env chose,
-    or ``backend``) with these degrees and the gradient-sync codec."""
+    or ``backend``) with these degrees, the gradient-sync codec and the
+    MoE dispatch's."""
     from paddle_tpu_torch.distributed import fleet
     s = fleet.DistributedStrategy()
     s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
                         **degrees}
     s.grad_compress = grad_compress
+    s.dispatch_compress = dispatch_compress
     fleet.init(is_collective=True, strategy=s, backend=backend)
     return fleet
 
@@ -6492,6 +6518,9 @@ def _probe_gloo_cuda(torch, progress):
         "all_gather_into_tensor": lambda: dist.all_gather(None, x),
         "all_to_all_single_int8": lambda: dist.alltoall_single(
             x.to(torch.int8)),
+        "all_to_all_single_float32": lambda: dist.alltoall_single(x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter(
+            x.new_empty(8 // n), x.clone()),
         "all_gather_object": lambda: dist.all_gather_object([], 1),
         # a ring: each rank sends to the next and receives from the last
         "send": lambda: box.update(task=dist.isend(x, (me + 1) % n)),
@@ -7247,11 +7276,512 @@ def pp2mp2_gloo_on_card_phase(torch, np, seed, tmpdir):
     return rec
 
 
-def dist_phases(torch, np, seed, train, train_gpt2):
+# -- configuration 4 across ranks: ZeRO stages and expert parallelism -------
+MOE_DIST_STEPS = 3
+MOE_DIST_LAYERS = 6              # train_moe's depth (the cut a limit allows)
+MOE_DIST_LR = 1e-4               # train_moe's AdamW
+MOE_DIST_BATCH, MOE_DIST_SEQ = 8, 1024
+# float32 exact wires: the sums run in other orders (the gates draw their
+# random numbers for the whole batch, so the routes are one process's)
+MOE_DIST_LOSS_RTOL = 1e-5
+# the codecs round every exchanged activation (bf16: 2^-9 relative; int8:
+# blockmax / 254), twice a layer each way; the loss averages 8192 tokens,
+# and the card showed 1.5e-5 (bf16) and 1.2e-5 (int8)
+MOE_DIST_CODEC_RTOL = 1e-4
+# a codec lane's losses must depart from the exact lane's by more than
+# this (relative, at some step): a lane that skipped its codec would give
+# the exact lane's losses bit for bit, and the exact lane sits 1e-7 from
+# one process
+MOE_DIST_CODEC_FLOOR = 1e-6
+EP2_LANES = {"grouped": ("grouped", None), "grouped_bf16": ("grouped", "bf16"),
+             "grouped_int8": ("grouped", "int8"),
+             "capacity": ("capacity", None)}
+ZERO_LEVELS = ("os", "os_g", "p_g_os")
+
+
+def _moe_steps(torch, step, x, y, steps=MOE_DIST_STEPS):
+    """(losses, s per step) of ``steps`` TrainStep calls, each timed to
+    the card's end."""
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step((x,), (y,)).item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _grouped_launches(torch):
+    from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
+                                                         grouped_matmul_fwd)
+    return {"fwd": grouped_matmul_fwd.launches,
+            "dw": grouped_matmul_dw.launches,
+            "fwd_routes": dict(grouped_matmul_fwd.route_launches),
+            "dw_routes": dict(grouped_matmul_dw.route_launches)}
+
+
+def _zero_grouped_counts():
+    from paddle_tpu_torch.kernels.grouped_matmul import (grouped_matmul_dw,
+                                                         grouped_matmul_fwd)
+    zero_flash_counts(grouped_matmul_fwd, grouped_matmul_dw)
+
+
+def _check_grouped_wgmma(phase, launches, layers, steps):
+    """Every grouped launch of the path on the tensor cores: 4 forward-
+    kernel launches (up, down and their input gradients) and 2 dw
+    launches a layer a step."""
+    fwd, dw = launches["fwd_routes"], launches["dw_routes"]
+    check(launches["fwd"] == 4 * layers * steps == fwd.get("wgmma")
+          and launches["dw"] == 2 * layers * steps == dw.get("wgmma"),
+          f"{phase}: grouped launches {launches} (want {4 * layers * steps} "
+          f"and {2 * layers * steps}, every one wgmma)")
+
+
+def _moe_one_process(torch, np, seed, dispatch, layers=MOE_DIST_LAYERS):
+    """train_moe's procedure (the GPT-MoE at full width, float32, TF32 off,
+    AdamW lr 1e-4, the batch of 8 x 1024 ids from the seed) for
+    MOE_DIST_STEPS steps on one process: the reference of the phases
+    below."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.models.gpt_moe import moe_loss
+    _f32_no_tf32(torch)
+    model = moe_model(torch, seed, dispatch_mode=dispatch, num_layers=layers)
+    step = TrainStep(model, moe_loss, AdamW(learning_rate=MOE_DIST_LR,
+                                            parameters=model.parameters()))
+    x, y = train_batch(torch, np, seed, model.config.vocab_size,
+                       MOE_DIST_BATCH, MOE_DIST_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = _moe_steps(torch, step, x, y)
+    rec = {"losses": losses, "step_s": times,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "expert_bytes": sum(p.numel() * p.element_size()
+                               for blk in model.blocks
+                               for p in blk.moe.experts.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "layers": model.config.num_layers}
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_moe_stage2_nccl_phase(torch, np, seed, base=None,
+                                layers=MOE_DIST_LAYERS):
+    """Configuration 4 as benchmarks/gpt_moe_ep.py:102-128 composes it, at
+    world 1 on NCCL: train_moe's model, batch and AdamW, through
+    fleet.init (every degree 1), distributed_model and distributed_optimizer
+    over GroupShardedOptimizerStage2, under TrainStep, in both lanes
+    (grouped, capacity); then group_sharded_parallel at "os", "os_g" and
+    "p_g_os" (grouped). Each run's 3 losses equal one process's plain
+    AdamW run bit for bit (and train_moe's first 3 when it ran), every
+    grouped launch on the wgmma route. Returns the one-process runs (the
+    gloo phases' references)."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        GroupShardedOptimizerStage2)
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models.gpt_moe import moe_loss
+    one = {lane: _moe_one_process(torch, np, seed, lane, layers)
+           for lane in ("grouped", "capacity")}
+    runs = {}
+    for name in ("grouped", "capacity") + ZERO_LEVELS:
+        lane = name if name in ("grouped", "capacity") else "grouped"
+        fleet = _fleet_init(torch)
+        model = moe_model(torch, seed, dispatch_mode=lane, num_layers=layers)
+        x, y = train_batch(torch, np, seed, model.config.vocab_size,
+                           MOE_DIST_BATCH, MOE_DIST_SEQ)
+        opt = AdamW(learning_rate=MOE_DIST_LR, parameters=model.parameters())
+        if name in ("grouped", "capacity"):
+            wrapped = fleet.distributed_model(model)
+            sopt = fleet.distributed_optimizer(
+                GroupShardedOptimizerStage2(optim=opt))
+        else:
+            wrapped, sopt, _ = group_sharded_parallel(model, opt, name)
+        step = TrainStep(wrapped, moe_loss, sopt)
+        _zero_grouped_counts()
+        losses, times = _moe_steps(torch, step, x, y)
+        launches = _grouped_launches(torch)
+        runs[name] = {"wrapper": type(wrapped).__name__,
+                      "optimizer": type(step.opt).__name__,
+                      "losses": losses, "step_s": times,
+                      "one_process_step_s": one[lane]["step_s"],
+                      "bit_for_bit": losses == one[lane]["losses"],
+                      "grouped_launches": launches}
+        if lane == "grouped":
+            _check_grouped_wgmma(f"train_moe_stage2_nccl {name}", launches,
+                                 layers, MOE_DIST_STEPS)
+        del model, wrapped, step, opt, sopt
+        torch.cuda.empty_cache()
+    base_losses = base["losses"][:MOE_DIST_STEPS] \
+        if base and base["layers"] == layers else None
+    rec = {"phase": "train_moe_stage2_nccl", "card": card_line(),
+           "backend": "NCCL", "world_size": 1,
+           "model": "benchmarks/gpt_moe_ep.py GPT-MoE at its chip widths, "
+                    "random weights, float32, TF32 off",
+           "batch": [MOE_DIST_BATCH, MOE_DIST_SEQ], "steps": MOE_DIST_STEPS,
+           "one_process": one, "train_moe_losses": base_losses,
+           "runs": runs}
+    emit(rec)
+    for name, r in runs.items():
+        check(r["bit_for_bit"], f"train_moe_stage2_nccl: {name} losses "
+                                f"{r['losses']} differ from one process")
+    if base_losses is not None:
+        check(one["grouped"]["losses"] == base_losses,
+              f"train_moe_stage2_nccl: one process {one['grouped']['losses']}"
+              f" differs from train_moe {base_losses}")
+    return one
+
+
+def _moe_rank_start(tmpdir, rank):
+    """A spawned rank of the MoE phases: gloo on cuda:0, the probe, TF32
+    off; returns torch."""
+    os.environ["PADDLE_COMM_TIMEOUT"] = str(DIST_COMM_TIMEOUT_S)
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    dist.init_parallel_env(backend="gloo")
+    _probe_gloo_cuda(torch, os.path.join(tmpdir, f"rank{rank}.probe"))
+    _f32_no_tf32(torch)
+    return torch
+
+
+def _rows(torch, a, part, n):
+    per = a.shape[0] // n
+    return torch.as_tensor(a[part * per:(part + 1) * per], device="cuda")
+
+
+def _ep2_rank(tmpdir, seed, ids, labels, layers):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    try:
+        torch = _moe_rank_start(tmpdir, rank)
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch import AdamW, TrainStep
+        from paddle_tpu_torch.incubate.distributed.models.moe.dispatch import (
+            dispatch_wire_bytes, ep_all_to_all)
+        from paddle_tpu_torch.models.gpt_moe import moe_loss
+        x, y = _rows(torch, ids, rank, 2), _rows(torch, labels, rank, 2)
+        res = {}
+        for lane, (dispatch, compress) in EP2_LANES.items():
+            fleet = _fleet_init(torch, backend="gloo", ep_degree=2,
+                                dispatch_compress=compress)
+            model = fleet.distributed_model(moe_model(
+                torch, seed, dispatch_mode=dispatch, num_layers=layers))
+            step = TrainStep(model, moe_loss, fleet.distributed_optimizer(
+                AdamW(learning_rate=MOE_DIST_LR,
+                      parameters=model.parameters())))
+            _zero_grouped_counts()
+            ep_all_to_all.counters.update(calls=0, wire_bytes=0)
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = _moe_steps(torch, step, x, y)
+            cap = x.numel() * 2                     # every local route
+            res[lane] = {
+                "losses": losses, "step_s": times,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                "expert_bytes": sum(p.numel() * p.element_size()
+                                    for p in model.parameters()
+                                    if getattr(p, "expert", False)),
+                "grouped_launches": _grouped_launches(torch),
+                "exchange_calls_per_step":
+                    ep_all_to_all.counters["calls"] / MOE_DIST_STEPS,
+                "exchange_wire_bytes_per_step":
+                    ep_all_to_all.counters["wire_bytes"] / MOE_DIST_STEPS,
+                "dispatch_wire_bytes_per_step": 2 * layers *
+                    dispatch_wire_bytes(2, cap, MOE_H, 4, compress)
+                    if dispatch == "grouped" else 0,
+                "layers": layers,
+                "dense_sync_bytes_per_step": step._grad_sync.bytes_per_step}
+            del model, step
+            torch.cuda.empty_cache()
+        dist.barrier()
+        _rank_done(tmpdir, rank, res)
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def _loss_gaps(ranks, key, one, rtol):
+    """The mean of the ranks' losses (each the mean over its rows: their
+    mean is the batch's) against one process on the whole batch, each
+    step's gap relative, and whether every gap is within ``rtol``."""
+    mean = [sum(r[key]["losses"][i] for r in ranks) / len(ranks)
+            for i in range(len(one["losses"]))]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(mean, one["losses"])]
+    return {"losses_mean_of_ranks": mean,
+            "one_process_losses": one["losses"],
+            "one_process_step_s": one["step_s"], "rel_gaps": gaps,
+            "loss_rtol": rtol, "ok": max(gaps) <= rtol}
+
+
+def ep2_gloo_on_card_phase(torch, np, seed, tmpdir, one):
+    """Expert parallelism in two gloo ranks on cuda:0 (ep 2, fleet.init
+    and distributed_model: DataParallel over the data world, the experts'
+    gradients summed over their replicas): train_moe's GPT-MoE at full
+    width and depth (hidden 768, 12 heads, 8 experts of width 3072, vocab
+    50257, 6 layers, float32, TF32 off), the batch of 8 x 1024 as 4 + 4
+    rows, 3 steps in each lane: grouped with dispatch_compress None,
+    "bf16" and "int8", and capacity. The mean of the ranks' losses against
+    one process on the whole batch (exact lanes within 1e-5 relative, the
+    codecs within 1e-4 and more than 1e-6 from the exact lane), each
+    rank's expert bytes half of one process's,
+    every grouped launch on the wgmma route, and the exchange's wire bytes
+    a step (counted from the payload the codec encoded) equal to
+    dispatch_wire_bytes' price. Gloo's CUDA collectives
+    go through host memory and both ranks share the card: the times are
+    printed as they are, no NVLink figure."""
+    rng = np.random.default_rng(seed)
+    vocab = 50257
+    ids = rng.integers(0, vocab, (MOE_DIST_BATCH, MOE_DIST_SEQ))
+    labels = rng.integers(0, vocab, (MOE_DIST_BATCH, MOE_DIST_SEQ))
+    layers = one["grouped"]["layers"]
+    ranks = _spawn_world(_ep2_rank, (seed, ids, labels, layers), tmpdir,
+                         "ep2_gloo_on_card")
+    lanes = {}
+    for lane, (dispatch, compress) in EP2_LANES.items():
+        lanes[lane] = {
+            "dispatch": dispatch, "dispatch_compress": compress,
+            **_loss_gaps(ranks, lane, one[dispatch],
+                         MOE_DIST_CODEC_RTOL if compress
+                         else MOE_DIST_LOSS_RTOL),
+            "ranks": [r[lane] for r in ranks]}
+    exact = lanes["grouped"]["losses_mean_of_ranks"]
+    for lane, l in lanes.items():
+        if l["dispatch_compress"]:
+            l["departure_from_exact_lane"] = max(
+                abs(a - b) / abs(b)
+                for a, b in zip(l["losses_mean_of_ranks"], exact))
+            l["departure_floor"] = MOE_DIST_CODEC_FLOOR
+    rec = {"phase": "ep2_gloo_on_card", "card": card_line(),
+           "note": "two ranks on one card over gloo: the exchange and the "
+                   "gradient sync go through host memory; no NVLink figure",
+           "model": f"train_moe's GPT-MoE, full width, {layers} layers, "
+                    f"float32, TF32 off, ep 2",
+           "global_batch": [MOE_DIST_BATCH, MOE_DIST_SEQ],
+           "rank_batch": [MOE_DIST_BATCH // 2, MOE_DIST_SEQ],
+           "steps": MOE_DIST_STEPS,
+           "gloo_cuda_ops_probed": list(GLOO_CUDA_OPS), "lanes": lanes}
+    emit(rec)
+    for lane, l in lanes.items():
+        check(l["ok"], f"ep2_gloo_on_card: {lane} losses "
+                       f"{l['losses_mean_of_ranks']} vs one process "
+                       f"{l['one_process_losses']}")
+        if l["dispatch_compress"]:
+            check(l["departure_from_exact_lane"] > MOE_DIST_CODEC_FLOOR,
+                  f"ep2_gloo_on_card: {lane} departs "
+                  f"{l['departure_from_exact_lane']} from the exact lane: "
+                  f"its codec did not act")
+        for r in l["ranks"]:
+            check(2 * r["expert_bytes"] == one[l["dispatch"]]["expert_bytes"],
+                  f"ep2_gloo_on_card: {lane} holds {r['expert_bytes']} "
+                  f"expert bytes a rank")
+            if l["dispatch"] == "grouped":
+                _check_grouped_wgmma(f"ep2_gloo_on_card {lane}",
+                                     r["grouped_launches"], r["layers"],
+                                     MOE_DIST_STEPS)
+                check(r["exchange_calls_per_step"] == 4 * r["layers"]
+                      and r["exchange_wire_bytes_per_step"]
+                      == r["dispatch_wire_bytes_per_step"],
+                      f"ep2_gloo_on_card: {lane} exchange {r}")
+    return rec
+
+
+def _zero2_rank(tmpdir, seed, ids, labels, layers):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    try:
+        torch = _moe_rank_start(tmpdir, rank)
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch import AdamW, TrainStep
+        from paddle_tpu_torch.distributed.fleet.meta_parallel.\
+            sharding_optimizer import zero_state_bytes
+        from paddle_tpu_torch.distributed.sharding import \
+            group_sharded_parallel
+        from paddle_tpu_torch.models.gpt_moe import moe_loss
+        x, y = _rows(torch, ids, rank, 2), _rows(torch, labels, rank, 2)
+        res = {}
+        for level in ZERO_LEVELS:
+            _fleet_init(torch, backend="gloo", sharding_degree=2)
+            model = moe_model(torch, seed, dispatch_mode="grouped",
+                              num_layers=layers)
+            wrapped, sopt, _ = group_sharded_parallel(
+                model, AdamW(learning_rate=MOE_DIST_LR,
+                             parameters=model.parameters()), level)
+            step = TrainStep(wrapped, moe_loss, sopt)
+            _zero_grouped_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = _moe_steps(torch, step, x, y)
+            res[level] = {"losses": losses, "step_s": times,
+                          "wrapper": type(wrapped).__name__,
+                          "tensors": len(list(model.parameters())),
+                          "state_bytes": zero_state_bytes(sopt, model),
+                          "peak_device_bytes":
+                              torch.cuda.max_memory_allocated(),
+                          "grouped_launches": _grouped_launches(torch),
+                          "layers": layers}
+            del model, wrapped, step, sopt
+            torch.cuda.empty_cache()
+        dist.barrier()
+        _rank_done(tmpdir, rank, res)
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def sharding2_gloo_on_card_phase(torch, np, seed, tmpdir, one):
+    """ZeRO in two gloo ranks on cuda:0 (fleet.init(sharding_degree=2),
+    group_sharded_parallel at "os", "os_g" and "p_g_os") on train_moe's
+    GPT-MoE at full width and depth, 4 + 4 rows of the batch, 3 steps
+    each: the mean of the ranks' losses against one process (1e-5
+    relative), each rank's moment, gradient and at-rest parameter bytes
+    (moments half of one process's at every stage, gradients half at
+    stages 2 and 3, parameters half at stage 3, each to within a padded
+    value a tensor), its peak device memory, every grouped launch on the
+    wgmma route. Times as they are (gloo through host memory, one
+    card)."""
+    rng = np.random.default_rng(seed)
+    vocab = 50257
+    ids = rng.integers(0, vocab, (MOE_DIST_BATCH, MOE_DIST_SEQ))
+    labels = rng.integers(0, vocab, (MOE_DIST_BATCH, MOE_DIST_SEQ))
+    layers = one["grouped"]["layers"]
+    ranks = _spawn_world(_zero2_rank, (seed, ids, labels, layers), tmpdir,
+                         "sharding2_gloo_on_card")
+    ref = one["grouped"]
+    whole = ref["param_bytes"]
+    levels = {}
+    for level in ZERO_LEVELS:
+        levels[level] = {**_loss_gaps(ranks, level, ref,
+                                      MOE_DIST_LOSS_RTOL),
+                         "ranks": [r[level] for r in ranks]}
+    rec = {"phase": "sharding2_gloo_on_card", "card": card_line(),
+           "note": "two ranks on one card over gloo: the reduce-scatters, "
+                   "all-gathers and all-reduces go through host memory; no "
+                   "NVLink figure",
+           "model": f"train_moe's GPT-MoE, full width, {layers} layers, "
+                    f"float32, TF32 off, sharding 2",
+           "global_batch": [MOE_DIST_BATCH, MOE_DIST_SEQ],
+           "steps": MOE_DIST_STEPS,
+           "one_process": {"losses": ref["losses"],
+                           "step_s": ref["step_s"],
+                           "param_bytes": whole,
+                           "moment_bytes": 2 * whole,
+                           "peak_device_bytes": ref["peak_device_bytes"]},
+           "levels": levels}
+    emit(rec)
+    for level, l in levels.items():
+        check(l["ok"], f"sharding2_gloo_on_card: {level} losses "
+                       f"{l['losses_mean_of_ranks']} vs one process "
+                       f"{ref['losses']}")
+        for r in l["ranks"]:
+            b = r["state_bytes"]
+            pad = 8 * r["tensors"]          # a padded value a tensor
+            half = {"moments": abs(b["moments"] - whole) <= pad,
+                    "grads": abs(b["grads"] - whole / 2) <= pad
+                    if level != "os" else b["grads"] == whole,
+                    "params": abs(b["params"] - whole / 2) <= pad
+                    if level == "p_g_os" else b["params"] == whole}
+            check(all(half.values()), f"sharding2_gloo_on_card: {level} "
+                                      f"state bytes {b}: {half}")
+            _check_grouped_wgmma(f"sharding2_gloo_on_card {level}",
+                                 r["grouped_launches"], r["layers"],
+                                 MOE_DIST_STEPS)
+    return rec
+
+
+def _ep2sh2_rank(tmpdir, seed, ids, labels, layers):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    try:
+        torch = _moe_rank_start(tmpdir, rank)
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch import AdamW, TrainStep
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            GroupShardedOptimizerStage2)
+        from paddle_tpu_torch.distributed.fleet.meta_parallel.\
+            sharding_optimizer import zero_state_bytes
+        from paddle_tpu_torch.models.gpt_moe import moe_loss
+        fleet = _fleet_init(torch, backend="gloo", ep_degree=2,
+                            sharding_degree=2)
+        hcg = fleet.get_hybrid_communicate_group()
+        part = hcg.get_data_world_group().rank
+        x, y = _rows(torch, ids, part, 4), _rows(torch, labels, part, 4)
+        model = moe_model(torch, seed, dispatch_mode="grouped",
+                          num_layers=layers)
+        opt = GroupShardedOptimizerStage2(optim=AdamW(
+            learning_rate=MOE_DIST_LR, parameters=model.parameters()))
+        step = TrainStep(model, moe_loss, opt)
+        _zero_grouped_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = _moe_steps(torch, step, x, y)
+        res = {"cfg": {"losses": losses, "step_s": times,
+                       "ep_rank": hcg.get_expert_parallel_rank(),
+                       "sharding_rank": hcg.get_sharding_parallel_rank(),
+                       "state_bytes": zero_state_bytes(opt, model),
+                       "expert_bytes": sum(
+                           p.numel() * p.element_size()
+                           for p in model.parameters()
+                           if getattr(p, "expert", False)),
+                       "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                       "grouped_launches": _grouped_launches(torch),
+                       "layers": layers}}
+        dist.barrier()
+        _rank_done(tmpdir, rank, res)
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def ep2sharding2_gloo_on_card_phase(torch, np, seed, tmpdir, one):
+    """Configuration 4's composition in four gloo ranks on cuda:0:
+    fleet.init(ep_degree=2, sharding_degree=2), train_moe's GPT-MoE at full
+    width and depth built under it (each MoELayer takes fleet's ep group),
+    GroupShardedOptimizerStage2 over AdamW under TrainStep
+    (benchmarks/gpt_moe_ep.py:115-128), 2 rows of the batch a rank, 3
+    steps: the mean of the ranks' losses against one process (1e-5
+    relative), each rank's expert bytes half of one process's, every
+    grouped launch on the wgmma route; state bytes and times as they are
+    (gloo through host memory, four ranks time-sliced on one card)."""
+    rng = np.random.default_rng(seed)
+    vocab = 50257
+    ids = rng.integers(0, vocab, (MOE_DIST_BATCH, MOE_DIST_SEQ))
+    labels = rng.integers(0, vocab, (MOE_DIST_BATCH, MOE_DIST_SEQ))
+    layers = one["grouped"]["layers"]
+    ranks = _spawn_world(_ep2sh2_rank, (seed, ids, labels, layers), tmpdir,
+                         "ep2sharding2_gloo_on_card", n=4)
+    ref = one["grouped"]
+    gaps = _loss_gaps(ranks, "cfg", ref, MOE_DIST_LOSS_RTOL)
+    rec = {"phase": "ep2sharding2_gloo_on_card", "card": card_line(),
+           "note": "four ranks on one card over gloo: the exchange, the "
+                   "reduce-scatters and all-gathers through host memory; no "
+                   "NVLink figure",
+           "model": f"train_moe's GPT-MoE, full width, {layers} layers, "
+                    f"float32, TF32 off, ep 2 x sharding 2, stage 2",
+           "global_batch": [MOE_DIST_BATCH, MOE_DIST_SEQ],
+           "rank_batch": [MOE_DIST_BATCH // 4, MOE_DIST_SEQ],
+           "steps": MOE_DIST_STEPS, **gaps,
+           "ranks": [r["cfg"] for r in ranks]}
+    emit(rec)
+    check(gaps["ok"], f"ep2sharding2_gloo_on_card: losses "
+                      f"{gaps['losses_mean_of_ranks']} vs one process "
+                      f"{ref['losses']}")
+    for r in ranks:
+        r = r["cfg"]
+        check(2 * r["expert_bytes"] == ref["expert_bytes"],
+              f"ep2sharding2_gloo_on_card: {r['expert_bytes']} expert bytes")
+        _check_grouped_wgmma("ep2sharding2_gloo_on_card",
+                             r["grouped_launches"], r["layers"],
+                             MOE_DIST_STEPS)
+    return rec
+
+
+def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None):
     """Phase 16c: the collectives on NCCL at world 1, train_gpt2 and train
     through fleet at one rank (bit for bit against those phases; train
     also pipelined at pp 1), then data, tensor and pipeline parallelism
-    in gloo ranks on the card."""
+    in gloo ranks on the card; then configuration 4: the stage-2
+    composition at world 1 on NCCL (bit for bit with one process, and
+    with train_moe when it ran), expert parallelism, the ZeRO stages and
+    both together in gloo ranks."""
     import tempfile
     dist_collectives_nccl_phase(torch, np, seed + 80)
     train_gpt2_dp_phase(torch, np, seed + 30, train_gpt2)
@@ -7266,6 +7796,15 @@ def dist_phases(torch, np, seed, train, train_gpt2):
                                tempfile.mkdtemp(dir=tmp))
         pp2mp2_gloo_on_card_phase(torch, np, seed + 84,
                                   tempfile.mkdtemp(dir=tmp))
+    # configuration 4 on train_moe's seed and batch
+    one = train_moe_stage2_nccl_phase(torch, np, seed + 41, train_moe)
+    with tempfile.TemporaryDirectory() as tmp:
+        ep2_gloo_on_card_phase(torch, np, seed + 41,
+                               tempfile.mkdtemp(dir=tmp), one)
+        sharding2_gloo_on_card_phase(torch, np, seed + 41,
+                                     tempfile.mkdtemp(dir=tmp), one)
+        ep2sharding2_gloo_on_card_phase(torch, np, seed + 41,
+                                        tempfile.mkdtemp(dir=tmp), one)
 
 
 def main():
@@ -7302,10 +7841,11 @@ def main():
                          "grouped cases, and train_moe and train_moe_quant "
                          "run again on its grouped and quantized kernels")
     ap.add_argument("--dist-only", action="store_true",
-                    help="only build the flash kernels and run the train "
-                         "and train_gpt2 phases (the bases of the "
-                         "bit-for-bit checks) and the data-, tensor- and "
-                         "pipeline-parallel phases, then exit")
+                    help="only build the flash and grouped kernels and run "
+                         "the train and train_gpt2 phases (the bases of the "
+                         "bit-for-bit checks) and the data-, tensor-, "
+                         "pipeline-, sharding- and expert-parallel phases, "
+                         "then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -7342,7 +7882,8 @@ def main():
                "quant_grouped_matmul", "flash_varlen", "flash_sparse_mask",
                "rms_norm", "fused_elementwise")
     if args.dist_only:
-        _build.build("flash_attention_fwd", "flash_attention_bwd")
+        _build.build("flash_attention_fwd", "flash_attention_bwd",
+                     "grouped_matmul")
         train = train_phase(torch, np, args.seed)
         train_gpt2 = train_gpt2_phase(torch, np, args.seed + 30)
         dist_phases(torch, np, args.seed, train, train_gpt2)
@@ -7693,7 +8234,7 @@ def main():
 
     # data and tensor parallelism: NCCL at world 1, two gloo ranks on the
     # card
-    dist_phases(torch, np, args.seed, train, train_gpt2)
+    dist_phases(torch, np, args.seed, train, train_gpt2, train_moe)
 
     kernels = []
     for name, route_src, replaces, rec, launches in (

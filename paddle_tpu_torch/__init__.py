@@ -5,7 +5,7 @@ every Pallas kernel of the JAX package on a ported path is a CUDA C++
 kernel written for sm_90a (``csrc/``), built with nvcc at first use
 (``kernels/_build.py``). Entry points run on ``cuda`` unless the caller
 asks for the CPU (``device="cpu"``), where each kernel wrapper takes its
-plain PyTorch version. Ten slices are ported: serving, greedy or
+plain PyTorch version. Eleven slices are ported: serving, greedy or
 sampled (LlamaForCausalLM, CachedDecoder's fused decode chunks and
 PagedDecoder with the zero-sync pipelined continuous-batching loop, each
 decode chunk a CUDA graph on the card, its radix prefix cache and the
@@ -33,7 +33,10 @@ gradient sync, fleet's topology and wrappers, the tensor-parallel layers,
 GPT-2 and Llama with ``tensor_parallel=True``), and pipeline parallelism
 on it (the 1F1B and interleaved schedules run per rank over send/recv,
 ``PipelineLayer`` and ``PipelineParallel``, GPT-2 and Llama with
-``pipeline_parallel=True``).
+``pipeline_parallel=True``), and BASELINE configuration 4 across ranks
+(the ZeRO stages of ``distributed.sharding.group_sharded_parallel`` and
+fleet's sharding optimizers, and the MoE layer's expert-parallel
+exchange under ``moe_group`` or fleet's ``ep_degree``).
 """
 from . import nn
 from .framework.device import resolve_device, seed

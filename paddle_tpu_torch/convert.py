@@ -42,6 +42,14 @@ ends, then sliced as ``tp_params_from_jax`` slices for tensor
 parallelism. ``pp_params_to_jax`` gathers the stages (and the mp shards)
 back into the JAX model's natural-order state dict on stage 0.
 
+``moe_ep_params_from_jax`` gives one expert-parallel rank of the GPT-MoE
+(or of one MoELayer) its expert slice, rows ep_rank * E / ep ... of each
+expert stack, with the dense weights whole; ``moe_ep_params_to_jax``
+gathers a rank's model back (a collective over the expert group: the
+expert slices concatenated, every Linear transposed back) into the JAX
+model's state dict, and ``zero_params_to_jax`` does it for a
+GroupShardedStage3 model (its whole state dict, gathered).
+
 ``resnet_params_from_jax`` does it for the ResNet family
 (vision/models/resnet.py): the convolution weights ([out, in / groups, *k]
 in both packages) and the batch norms' ``weight``, ``bias``, ``_mean`` and
@@ -62,7 +70,9 @@ from .vision.models.resnet import ResNet
 __all__ = ["params_from_jax", "optimizer_state_from_jax",
            "gpt_params_from_jax", "moe_params_from_jax",
            "resnet_params_from_jax", "tp_params_from_jax", "tp_shard",
-           "pp_params_from_jax", "pp_params_to_jax"]
+           "pp_params_from_jax", "pp_params_to_jax",
+           "moe_ep_params_from_jax", "moe_ep_params_to_jax",
+           "zero_params_to_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -229,6 +239,50 @@ def moe_params_from_jax(state_dict_numpy, cfg):
         _moe_check_shape(name, a, cfg)
         out[name] = _to_torch(name, a, dtype, _moe_is_linear)
     return out
+
+
+def _is_expert_stack(name):
+    return name.split(".")[-2:-1] == ["experts"] and \
+        name.rsplit(".", 1)[-1] in ("w1", "b1", "w2", "b2")
+
+
+def moe_ep_params_from_jax(state_dict_numpy, cfg, ep_rank, ep_degree):
+    """moe_params_from_jax for rank ``ep_rank`` of ``ep_degree``: each
+    expert stack [E, ...] cut to this rank's E / ep_degree rows, the dense
+    weights whole."""
+    full = moe_params_from_jax(state_dict_numpy, cfg)
+    el = cfg.num_experts // ep_degree
+    return {k: (v[ep_rank * el:(ep_rank + 1) * el].clone()
+                if _is_expert_stack(k) else v) for k, v in full.items()}
+
+
+def moe_ep_params_to_jax(model, ep_group=None):
+    """The JAX state dict ({name: float32 numpy array}, paddle's layout)
+    of an expert-parallel GPT-MoE or MoELayer rank ``model``: the expert
+    stacks gathered over ``ep_group`` (the model's own by default) in
+    group-rank order. A collective: every rank of the group calls it."""
+    from .distributed.collective import all_gather_object
+    sd = {k: v.detach().float().cpu().numpy()
+          for k, v in model.state_dict().items()}
+    if ep_group is None:
+        ep_group = next((m.ep_group for m in model.modules()
+                         if getattr(m, "ep_group", None) is not None), None)
+    if ep_group is not None and ep_group.nranks > 1:
+        parts = []
+        all_gather_object(parts, {k: v for k, v in sd.items()
+                                  if _is_expert_stack(k)}, group=ep_group)
+        for k in parts[0]:
+            sd[k] = np.concatenate([p[k] for p in parts])
+    return {k: (v.T if _moe_is_linear(k) else v) for k, v in sd.items()}
+
+
+def zero_params_to_jax(model, is_linear=_moe_is_linear):
+    """The JAX state dict of a model under a ZeRO wrapper (the whole
+    parameters, gathered by the wrapper's state_dict: a collective), with
+    the Linear weights ``is_linear`` names transposed back."""
+    return {k: (v.detach().float().cpu().numpy().T if is_linear(k)
+                else v.detach().float().cpu().numpy())
+            for k, v in model.state_dict().items()}
 
 
 def _resnet_is_linear(name):

@@ -8,8 +8,10 @@ with its int8 / bf16 wire codecs (and p2p that stages CUDA tensors
 through host memory on gloo), parallel.py ``DataParallel``, ``passes``
 the pipeline schedulers, and ``fleet`` the hybrid topology, the gradient
 buckets, the tensor-parallel layers and the pipeline (its executor,
-PipelineLayer and PipelineParallel). Sharding, sep, expert parallelism,
-auto-parallel, checkpointing and the launcher are not ported.
+PipelineLayer and PipelineParallel, the ZeRO sharding stages) and
+``sharding`` ``group_sharded_parallel``; the MoE layer's expert-parallel
+exchange is in incubate. Sep, auto-parallel, checkpointing and the
+launcher are not ported.
 """
 from .env import (  # noqa: F401
     ParallelEnv, get_rank, get_world_size, is_initialized,
@@ -28,7 +30,7 @@ from .misc import (  # noqa: F401
 )
 from .parallel import init_parallel_env, DataParallel  # noqa: F401
 from .store import TCPStore  # noqa: F401
-from . import communication, fleet, passes  # noqa: F401
+from . import communication, fleet, passes, sharding  # noqa: F401
 
 __all__ = [
     "ParallelEnv", "get_rank", "get_world_size", "is_initialized",
@@ -41,4 +43,5 @@ __all__ = [
     "ReduceType", "is_available", "get_backend", "split", "CountFilterEntry",
     "ShowClickEntry", "ProbabilityEntry", "init_parallel_env",
     "DataParallel", "TCPStore", "communication", "fleet", "passes",
+    "sharding",
 ]

@@ -352,7 +352,7 @@ def _bf16_all_reduce(x, g, n):
     return out[:L].reshape(x.shape)
 
 
-def _q8_all_to_all_wire(x, g, n):
+def _q8_all_to_all_wire(x, g, n, counters=None):
     """Block-quantized all_to_all for activation exchange: x [n, ...] with
     row d destined to rank d. Values are permuted, not summed, so the
     scales stay local per block and travel next to their codes (|err| <=
@@ -367,22 +367,34 @@ def _q8_all_to_all_wire(x, g, n):
     qr, sr = torch.empty_like(q), torch.empty_like(s)
     _a2a(qr, q, g)
     _a2a(sr, s, g)
+    _count_wire(counters, q, s)
     out = dequantize_blockwise_int8(qr, sr)
     return out.reshape(n, -1)[:, :L].reshape(shape).to(x.dtype)
 
 
-def wire_all_to_all(x, group=None, compress=None, nranks=None):
+def _count_wire(counters, *sent):
+    """Add the bytes of the tensors handed to the exchange to
+    ``counters["wire_bytes"]`` (when given)."""
+    if counters is not None:
+        counters["wire_bytes"] += sum(t.numel() * t.element_size()
+                                      for t in sent)
+
+
+def wire_all_to_all(x, group=None, compress=None, nranks=None,
+                    counters=None):
     """Leading-axis all_to_all under the wire codec: bf16 halves the
     wire, int8 ships codes and per-256-value float32 scales, None is the
-    exact exchange."""
+    exact exchange. ``counters`` (a dict) gets the bytes of the payload
+    as encoded, the tensors the exchange sends, under "wire_bytes"."""
     g = _group_of(group)
     n = nranks or g.nranks
     if compress == "int8":
-        return _q8_all_to_all_wire(x, g, n)
+        return _q8_all_to_all_wire(x, g, n, counters)
     src = x.to(torch.bfloat16) if compress == "bf16" else x
     src = src.contiguous()
     out = torch.empty_like(src)
     _a2a(out.reshape(-1), src.reshape(-1), g)
+    _count_wire(counters, src)
     return out.to(x.dtype)
 
 

@@ -4,13 +4,16 @@ paddle_tpu/distributed/fleet/distributed_strategy.py).
 The reference's fields and defaults, and its ``validate()``. The knobs of
 slices not ported yet raise NotImplementedError, naming themselves, when
 ``validate()`` (fleet.init) finds them set: ``mp_overlap``,
-``mp_activation_compress``, ``dispatch_compress``, ``matmul_quant``, and
-``sharding_degree``, ``sep_degree`` or ``ep_degree`` above 1. Data,
-tensor and pipeline parallelism (``dp_degree``, ``mp_degree``,
-``pp_degree`` with ``pp_configs``), the gradient sync's ``grad_compress``
-and ``grad_bucket_mb``, and ``pipeline_save_mode`` (validated as the
-reference does; the port's pipeline keeps one storage whatever its value)
-are ported.
+``mp_activation_compress``, ``matmul_quant``, ``sep_degree`` above 1,
+and these combinations: ``sharding_degree`` above 1 with ``mp_degree`` or
+``pp_degree`` above 1 or with the gradient sync's knobs, ``ep_degree``
+above 1 with ``mp_degree`` or ``pp_degree`` above 1. Data, tensor,
+pipeline and sharding parallelism (``dp_degree``, ``mp_degree``,
+``pp_degree`` with ``pp_configs``, ``sharding_degree``), expert
+parallelism (``ep_degree``) with its ``dispatch_compress`` wire codec,
+the gradient sync's ``grad_compress`` and ``grad_bucket_mb``, and
+``pipeline_save_mode`` (validated as the reference does; the port's
+pipeline keeps one storage whatever its value) are ported.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ class _SubConfig(dict):
 
 # (field, default) of the knobs a later slice ports
 _LATER_KNOBS = (("mp_overlap", False), ("mp_activation_compress", None),
-                ("dispatch_compress", None), ("matmul_quant", None))
-_LATER_DEGREES = ("sharding_degree", "sep_degree", "ep_degree")
+                ("matmul_quant", None))
+_LATER_DEGREES = ("sep_degree",)
 
 
 class DistributedStrategy:
@@ -75,6 +78,8 @@ class DistributedStrategy:
         # grad_bucket_mb the bucket size in MiB
         self.grad_compress = None
         self.grad_bucket_mb = None
+        # the expert-parallel dispatch's wire codec: None | "int8" | "bf16"
+        self.dispatch_compress = None
         for knob, default in _LATER_KNOBS:
             setattr(self, knob, default)
         self.mp_overlap_chunks = "auto"
@@ -119,11 +124,28 @@ class DistributedStrategy:
             if int(hc.get(deg, 1)) > 1:
                 raise NotImplementedError(
                     f"hybrid_configs {deg}={hc[deg]} is not ported to the "
-                    f"PyTorch package yet (data, tensor and pipeline "
-                    f"parallelism are)")
+                    f"PyTorch package yet (data, tensor, pipeline, sharding "
+                    f"and expert parallelism are)")
         dp = int(hc.get("dp_degree", 1))
+        mp = int(hc.get("mp_degree", 1))
         pp = int(hc.get("pp_degree", 1))
+        ep = int(hc.get("ep_degree", 1))
         sharding = int(hc.get("sharding_degree", 1))
+        for deg, val in (("sharding_degree", sharding), ("ep_degree", ep)):
+            if val > 1 and (mp > 1 or pp > 1):
+                raise NotImplementedError(
+                    f"hybrid_configs {deg}={val} with mp_degree={mp} and "
+                    f"pp_degree={pp}: {deg.split('_')[0]} parallelism "
+                    f"combined with tensor or pipeline parallelism is not "
+                    f"ported to the PyTorch package yet")
+        if sharding > 1:
+            for knob in ("grad_compress", "grad_bucket_mb"):
+                if getattr(self, knob, None):
+                    raise NotImplementedError(
+                        f"DistributedStrategy.{knob} with sharding_degree="
+                        f"{sharding}: the gradient sync's codecs and buckets "
+                        f"on the sharding axis are not ported to the "
+                        f"PyTorch package yet")
         errors = []
         if getattr(self, "grad_compress", None) and dp * sharding == 1:
             errors.append(
@@ -139,10 +161,15 @@ class DistributedStrategy:
                 f"{getattr(self, 'pipeline_save_mode')!r} with "
                 f"pp_degree==1: there is no pipeline backward to "
                 f"restructure")
-        v = getattr(self, "grad_compress", None)
-        if v not in (None, "int8", "bf16"):
-            errors.append(f"grad_compress={v!r} not in "
-                          f"{(None, 'int8', 'bf16')}")
+        if getattr(self, "dispatch_compress", None) and ep <= 1:
+            errors.append(
+                "dispatch_compress set with ep_degree==1: there is no "
+                "expert-parallel all_to_all wire")
+        for knob in ("grad_compress", "dispatch_compress"):
+            v = getattr(self, knob, None)
+            if v not in (None, "int8", "bf16"):
+                errors.append(f"{knob}={v!r} not in "
+                              f"{(None, 'int8', 'bf16')}")
         sm = getattr(self, "pipeline_save_mode", None)
         if sm not in (None, "scan", "unroll", "buffer"):
             errors.append(

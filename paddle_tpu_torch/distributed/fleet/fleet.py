@@ -1,12 +1,15 @@
 """The fleet facade (counterpart of paddle_tpu/distributed/fleet/fleet.py).
 
 ``init`` joins the world (init_parallel_env), validates the strategy,
-infers a ``-1`` degree from the world size and builds the hybrid
-topology's process groups; ``distributed_model`` wraps the model in
-PipelineParallel (pp > 1), TensorParallel (mp > 1) or DataParallel, in
-the reference's order of precedence; ``distributed_optimizer``
-wraps the optimizer and carries the strategy's gradient-sync knobs to
-TrainStep.
+infers a ``-1`` degree from the world size, builds the hybrid
+topology's process groups and sets the MoE dispatch's wire codec from
+``dispatch_compress``; ``distributed_model`` wraps the model in
+PipelineParallel (pp > 1), TensorParallel (mp > 1), ShardingParallel
+(sharding > 1) or DataParallel, in the reference's order of precedence
+(under expert parallelism DataParallel averages over the data world and
+sums the experts' gradients over their replicas); ``distributed_optimizer``
+wraps the optimizer in DygraphShardingOptimizer at sharding > 1 and
+carries the strategy's gradient-sync knobs to TrainStep.
 """
 from __future__ import annotations
 
@@ -93,6 +96,12 @@ class Fleet:
             dims=[int(degrees[a]) for a in order])
         self._hcg = HybridCommunicateGroup(topo)
         self._user_defined_strategy = s
+        # MoELayers built from now on inherit the dispatch codec; init is
+        # authoritative, so a re-init with the knob off turns it off
+        from ...incubate.distributed.models.moe.moe_layer import (
+            configure_moe_dispatch)
+        configure_moe_dispatch(
+            compress=getattr(s, "dispatch_compress", None) or "none")
         self._is_initialized = True
         return self
 
@@ -121,11 +130,14 @@ class Fleet:
         barrier()
 
     def distributed_model(self, model):
-        """PipelineParallel at pp > 1, TensorParallel at mp > 1, else
-        DataParallel over the dp group (reference fleet/model.py's
-        dispatch)."""
+        """PipelineParallel at pp > 1, TensorParallel at mp > 1,
+        ShardingParallel at sharding > 1, else DataParallel over the dp
+        group, or under expert parallelism over the data world with the
+        experts' gradients summed over their replicas (reference
+        fleet/model.py's dispatch)."""
         from ..parallel import DataParallel
-        from .meta_parallel import PipelineParallel, TensorParallel
+        from .meta_parallel import (PipelineParallel, ShardingParallel,
+                                    TensorParallel)
         if not self._is_initialized:
             raise RuntimeError("call fleet.init first")
         hcg, s = self._hcg, self._user_defined_strategy
@@ -133,6 +145,13 @@ class Fleet:
             return PipelineParallel(model, hcg, s)
         if hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, hcg, s)
+        if hcg.get_sharding_parallel_world_size() > 1:
+            return ShardingParallel(model, hcg, s)
+        if hcg.get_expert_parallel_world_size() > 1:
+            return DataParallel(model,
+                                comm_buffer_size=s.fuse_grad_size_in_MB,
+                                group=hcg.get_data_world_group(),
+                                expert_group=hcg.get_expert_replica_group())
         return DataParallel(model, comm_buffer_size=s.fuse_grad_size_in_MB,
                             group=hcg.get_data_parallel_group())
 
@@ -157,6 +176,9 @@ class Fleet:
             gs_cfg = {"compress": getattr(s, "grad_compress", None),
                       "bucket_mb": getattr(s, "grad_bucket_mb", None),
                       "axis": "dp"}
+        if self._hcg.get_sharding_parallel_world_size() > 1:
+            from .meta_parallel import DygraphShardingOptimizer
+            optimizer = DygraphShardingOptimizer(optimizer, self._hcg)
         wrapped = HybridParallelOptimizer(optimizer, self._hcg, s)
         if gs_cfg is not None:
             # TrainStep reads it while it unwraps the optimizer
@@ -165,3 +187,11 @@ class Fleet:
 
 
 fleet = Fleet()
+
+
+def live_hcg():
+    """fleet's hybrid topology while this process is in a world, else
+    None."""
+    from ..env import is_initialized
+    return fleet.get_hybrid_communicate_group() if is_initialized() \
+        else None

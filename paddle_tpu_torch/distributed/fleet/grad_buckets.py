@@ -23,6 +23,13 @@ when ``backward()`` returns, the gradients are the group's mean. A
 parameter used twice (GPT-2's tied embedding and head) accumulates both
 uses before its hook fires once.
 
+Under expert parallelism (``expert_group``) the expert parameters (those
+marked ``expert``) sit in buckets of their own, summed over the expert
+replicas (the ranks that hold the same experts) and divided by the size
+of the whole group: each rank's loss is the mean over its own rows, and
+the backward exchange has already brought every rank of the expert group
+its experts' share.
+
 A trivial group (one rank) syncs nothing, as the reference's
 ``_axis_active`` makes it: no hook is registered. ``bytes_per_step`` and
 ``wire_bytes_per_step`` are the reference's numbers, and ``counters``
@@ -34,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
+import weakref
 
 import torch
 
@@ -75,10 +83,12 @@ def wire_bytes(nbytes_logical, compress, stages=1, itemsize=4):
 
 class GradBucket:
     """One sync unit: an ordered list of (name, shape, dtype) and its byte
-    totals."""
+    totals; the scheduler sets the group it sums over and the divisor."""
 
     def __init__(self, index, entries):
         self.index = index
+        self.group = None
+        self.div = None
         self.names = [e[0] for e in entries]
         self.shapes = {e[0]: tuple(e[1]) for e in entries}
         self.dtypes = {e[0]: e[2] for e in entries}
@@ -148,7 +158,8 @@ class GradBucketScheduler:
     """
 
     def __init__(self, named_params, bucket_mb=DEFAULT_BUCKET_MB,
-                 compress=None, axis="dp", mesh=None, group=None):
+                 compress=None, axis="dp", mesh=None, group=None,
+                 expert_group=None):
         if bucket_mb == "auto":
             raise NotImplementedError(
                 "GradBucketScheduler(bucket_mb='auto'): the grad-bucket "
@@ -170,7 +181,20 @@ class GradBucketScheduler:
         self.compress = compress
         self.axis = axis
         self.group = group if group is not None else _default_group(axis)
-        self.buckets = partition_buckets(self.entries, self.bucket_mb)
+        self.expert_group = expert_group
+        experts = set() if expert_group is None else {
+            e[0] for e in named_params
+            if len(e) == 2 and getattr(e[1], "expert", False)}
+        dense = [e for e in self.entries if e[0] not in experts]
+        self.buckets = partition_buckets(dense, self.bucket_mb)
+        div = self.group.nranks if self.group is not None else 1
+        for b in self.buckets:
+            b.group, b.div = self.group, div
+        for b in partition_buckets([e for e in self.entries
+                                    if e[0] in experts], self.bucket_mb):
+            b.index = len(self.buckets)
+            b.group, b.div = expert_group, div
+            self.buckets.append(b)
         self._bucket_of = {n: b for b in self.buckets for n in b.names}
         self.bytes_per_step = sum(b.nbytes for b in self.buckets)
         self.wire_bytes_per_step = sum(b.wire(compress) for b in self.buckets)
@@ -199,9 +223,18 @@ class GradBucketScheduler:
                         if n in self._bucket_of and p.requires_grad}
         if not self._axis_active():
             return self
+        # the hooks hold the scheduler weakly: a parameter's hook holding
+        # it strongly would keep it, its model and its buffers alive after
+        # the caller lets them go
+        me = weakref.ref(self)
+
+        def hook(p, name):
+            sched = me()
+            if sched is not None:
+                sched._on_grad(name)
         for name, p in self._params.items():
             self._handles.append(p.register_post_accumulate_grad_hook(
-                lambda p, name=name: self._on_grad(name)))
+                lambda p, name=name: hook(p, name)))
         return self
 
     def detach(self):
@@ -262,12 +295,17 @@ class GradBucketScheduler:
         dts = {g.dtype for g in grads}
         flat_dt = dts.pop() if len(dts) == 1 else torch.float32
         flat = torch.cat([g.reshape(-1).to(flat_dt) for g in grads])
-        n = self.group.nranks
+        n = b.div
         if self.compress is None:
-            task = all_reduce(flat, group=self.group, sync_op=False)
-        else:
-            all_reduce(flat, op=ReduceOp.AVG, group=self.group,
+            task = all_reduce(flat, group=b.group, sync_op=False)
+        elif n == b.group.nranks:
+            all_reduce(flat, op=ReduceOp.AVG, group=b.group,
                        compress=self.compress)
+            task = None
+        else:
+            all_reduce(flat, op=ReduceOp.SUM, group=b.group,
+                       compress=self.compress)
+            flat = _avg_div(flat, n)
             task = None
 
         def finish():

@@ -1,7 +1,8 @@
 """fleet.meta_parallel (counterpart of
 paddle_tpu/distributed/fleet/meta_parallel/): the tensor-parallel layers,
-the RNG state tracker, the pipeline's layers and executor, and the
-TensorParallel and PipelineParallel wrappers."""
+the RNG state tracker, the pipeline's layers and executor, the ZeRO
+sharding stages, and the TensorParallel, ShardingParallel and
+PipelineParallel wrappers."""
 from .mp_layers import (  # noqa: F401
     VocabParallelEmbedding, ColumnParallelLinear, RowParallelLinear,
     ParallelCrossEntropy,
@@ -15,7 +16,13 @@ from .pipeline_spmd import (  # noqa: F401
 from .random_ctrl import (  # noqa: F401
     RNGStatesTracker, get_rng_state_tracker, model_parallel_random_seed,
 )
-from .parallel_wrappers import TensorParallel, PipelineParallel  # noqa: F401
+from .parallel_wrappers import (  # noqa: F401
+    TensorParallel, ShardingParallel, PipelineParallel,
+)
+from .sharding_optimizer import (  # noqa: F401
+    DygraphShardingOptimizer, GroupShardedOptimizerStage2,
+    GroupShardedStage2, GroupShardedStage3,
+)
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "LayerDesc",
@@ -23,4 +30,6 @@ __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "run_schedule", "spmd_pipeline", "spmd_pipeline_interleaved",
            "RNGStatesTracker", "get_rng_state_tracker",
            "model_parallel_random_seed", "TensorParallel",
-           "PipelineParallel"]
+           "ShardingParallel", "PipelineParallel",
+           "DygraphShardingOptimizer", "GroupShardedOptimizerStage2",
+           "GroupShardedStage2", "GroupShardedStage3"]

@@ -1,5 +1,10 @@
-"""TensorParallel and PipelineParallel (counterpart of
-paddle_tpu/distributed/fleet/meta_parallel/parallel_wrappers.py:73-147).
+"""TensorParallel, ShardingParallel and PipelineParallel (counterpart of
+paddle_tpu/distributed/fleet/meta_parallel/parallel_wrappers.py:51-147).
+
+ShardingParallel broadcasts the parameters at wrap time (dense ones over
+the data world, experts over their replicas) and adds no gradient hook:
+the sharding optimizer fleet's ``distributed_optimizer`` wraps reduces
+the gradients in its step.
 
 At wrap time the parameters that are not sharded over mp are broadcast
 over the mp group (each rank keeps its own shard of the sharded ones),
@@ -24,10 +29,11 @@ from __future__ import annotations
 import torch
 
 from ...parallel import _SyncedLayers
+from .sharding_optimizer import _Wrapper
 from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,
                                           broadcast_mp_parameters)
 
-__all__ = ["TensorParallel", "PipelineParallel"]
+__all__ = ["TensorParallel", "ShardingParallel", "PipelineParallel"]
 
 
 class TensorParallel(_SyncedLayers):
@@ -37,6 +43,18 @@ class TensorParallel(_SyncedLayers):
         bucket_mb = strategy.fuse_grad_size_in_MB if strategy is not None \
             else 32
         super().__init__(layers, hcg.get_data_parallel_group(), bucket_mb)
+        self._hcg = hcg
+        self._strategy = strategy
+
+
+class ShardingParallel(_Wrapper):
+    def __init__(self, layers, hcg, strategy=None):
+        from ...parallel import sync_params_buffers
+        ep = hcg.get_expert_parallel_world_size() > 1
+        sync_params_buffers(
+            layers, hcg.get_data_world_group(),
+            expert_group=hcg.get_expert_replica_group() if ep else None)
+        super().__init__(layers)
         self._hcg = hcg
         self._strategy = strategy
 

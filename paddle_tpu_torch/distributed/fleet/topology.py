@@ -10,6 +10,15 @@ for each axis, one torch ProcessGroup per rank list of
 as Paddle's does, and keeps the one it belongs to. An axis of degree 1
 gets a one-rank group with no ProcessGroup, whose collectives are local
 copies.
+
+Three groups span several axes (the ZeRO and expert-parallel gradient
+sums, made after the axis groups, every rank making every one):
+the *data world* (``data`` x ``sharding`` x ``expert``: every rank that
+sees its own rows), the *expert replicas* (``data`` x ``sharding``: the
+ranks that hold the same experts) and the *sharding complement*
+(``data`` x ``expert``: the data world's ranks of this rank's sharding
+coordinate). A group whose ranks differ on one axis only is that axis'
+group.
 """
 from __future__ import annotations
 
@@ -68,6 +77,16 @@ class CommunicateTopology:
         moved = np.moveaxis(self._world, axis, -1)
         return moved.reshape(-1, self._dims[axis]).tolist()
 
+    def get_multi_axis_comm_list(self, axis_names):
+        """All rank-groups whose ranks differ on ``axis_names`` only (the
+        names absent from the topology are skipped)."""
+        axes = [self._parallel_names.index(a) for a in axis_names
+                if a in self._parallel_names]
+        size = int(np.prod([self._dims[a] for a in axes]))
+        moved = np.moveaxis(self._world, axes, list(
+            range(len(self._dims) - len(axes), len(self._dims))))
+        return moved.reshape(-1, size).tolist()
+
     def get_rank_from_stage(self, global_rank, **kwargs):
         coord = self.get_coord(global_rank)
         tf = coord._asdict()
@@ -95,8 +114,35 @@ class HybridCommunicateGroup:
         self._sep_degree = topology.get_dim("sep") if "sep" in names else 1
         self._ep_degree = topology.get_dim("expert") \
             if "expert" in names else 1
+        self._multi, made = {}, {}
+        for key, axes in (("data_world", ("data", "sharding", "expert")),
+                          ("expert_replica", ("data", "sharding")),
+                          ("sharding_complement", ("data", "expert"))):
+            self._multi[key] = self._multi_axis_group(key, axes, made)
         from ..collective import _world_group
         self._check_group = _world_group()
+
+    def _multi_axis_group(self, key, axes, made):
+        """This rank's group over ``axes``: a one-axis group's own when
+        only one of them has a degree above 1, the group ``made`` holds
+        for the same rank lists, else a new group per rank list (every
+        rank makes every one, in comm-list order)."""
+        names = self._topo.get_hybrid_group_names()
+        live = [a for a in axes if a in names and self._topo.get_dim(a) > 1]
+        if len(live) <= 1:
+            return self._groups[_AXIS_ALIAS[live[0] if live else "data"]]
+        lists = tuple(map(tuple, self._topo.get_multi_axis_comm_list(live)))
+        if lists in made:
+            return made[lists]
+        mine = None
+        for ranks in lists:
+            g = new_group(ranks)
+            g.name = f"{key}_group"
+            g._explicit = False
+            if self.global_rank in ranks:
+                mine = g
+        made[lists] = mine
+        return mine
 
     def _axis_group(self, name):
         """This rank's group along ``name``; every rank makes every
@@ -182,6 +228,24 @@ class HybridCommunicateGroup:
 
     def get_expert_parallel_group(self):
         return self._groups.get("ep") if self._ep_degree > 1 else None
+
+    def get_data_world_group(self):
+        """Every rank that sees its own rows (dp x sharding x ep): the
+        group dense gradients are averaged over."""
+        return self._multi["data_world"]
+
+    def get_expert_replica_group(self):
+        """The ranks that hold this rank's experts (dp x sharding of one
+        ep rank): the group expert gradients are summed over."""
+        return self._multi["expert_replica"]
+
+    def get_sharding_complement_group(self, expert=False):
+        """The ranks of the data world (of the expert replicas when
+        ``expert``) that share this rank's sharding coordinate: where a
+        gradient reduce-scattered over the sharding group is summed
+        further."""
+        return self._groups["dp"] if expert \
+            else self._multi["sharding_complement"]
 
     def get_check_parallel_group(self, sharding=False):
         return self._check_group

@@ -41,6 +41,14 @@ on this rank's parameters. The loss it returns is the batch's, the same
 on every rank of the pp group. ``accum_steps``, ``master_grad``,
 ``with_outputs`` and gradient clipping do not combine with it.
 
+Sharding: with a ZeRO optimizer (fleet/meta_parallel/
+sharding_optimizer.py) the optimizer reduces the gradients itself (or
+takes the slices GroupShardedStage2 / GroupShardedStage3 reduced in
+backward) and steps this rank's slice; ``accum_steps > 1`` over those two
+model wrappers is not ported. Under expert parallelism the model wrapper
+(DataParallel over the data world) or the sharding optimizer sums the
+expert gradients over their replicas.
+
 Capturing the step in a CUDA graph and an auto-parallel plan are not
 ported.
 """
@@ -102,6 +110,12 @@ class TrainStep:
         self._pipe = _pipelined(model)
         if self._pipe is not None:
             self._check_pipeline(optimizer)
+        if self.accum_steps > 1 and getattr(model, "_grads_in_backward",
+                                            False):
+            raise NotImplementedError(
+                "TrainStep with accum_steps > 1 over a GroupShardedStage2 / "
+                "GroupShardedStage3 model (gradients reduce-scattered in "
+                "backward) is not ported to the PyTorch package yet")
 
     def _check_pipeline(self, optimizer):
         for what, bad in (("accum_steps > 1", self.accum_steps > 1),
@@ -137,7 +151,8 @@ class TrainStep:
                 bucket_mb=gs_cfg.get("bucket_mb") or DEFAULT_BUCKET_MB,
                 compress=gs_cfg.get("compress"),
                 axis=gs_cfg.get("axis", "dp"),
-                group=getattr(own, "group", None))
+                group=getattr(own, "group", None),
+                expert_group=getattr(own, "expert_group", None))
         if sched is None or sched is own:
             return own
         if own is not None:
@@ -241,6 +256,8 @@ class TrainStep:
                     {name: master.get(id(p)) if master is not None
                      else p.grad for name, p in self._named})
         for p in self._params:
+            if getattr(self.opt, "_shards_grads", False):
+                break       # the sharding optimizer reads None as zeros
             if p.grad is None and (master is None or id(p) not in master):
                 # a parameter the loss does not reach: JAX's value_and_grad
                 # gives it a zero gradient, and the optimizer still steps it

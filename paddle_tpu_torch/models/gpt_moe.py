@@ -11,7 +11,11 @@ cross-entropy on float32 logits, flattened. ``gpt_moe_config`` gives the
 benchmark's TPU widths (``_shapes``: hidden 768, 6 layers, 8 experts, 12
 heads) and ``gpt_moe_tiny`` its CPU widths (64, 2, 4, 4). The benchmark
 trains through fleet's stage-2 optimizer wrapper, which at sharding
-degree 1 is AdamW; the port trains with its AdamW under TrainStep.
+degree 1 is AdamW; the port trains with its AdamW under TrainStep, or
+through that wrapper (fleet/meta_parallel/sharding_optimizer.py).
+Configuration 4 across ranks: under fleet.init with ``ep_degree`` above 1
+(or with ``moe_group`` in the config) each MoELayer holds its rank's
+experts and exchanges the routes over the expert group.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ class GPTMoEConfig:
                  num_heads=12, num_experts=8, top_k=2, d_hidden=None,
                  dispatch_mode="grouped", capacity_factor=1.25,
                  group_block="auto", expert_quant=None, random_routing=True,
-                 layer_norm_eps=1e-5, dtype="float32"):
+                 layer_norm_eps=1e-5, dtype="float32", moe_group=None):
         if dispatch_mode not in ("capacity", "grouped", "dense"):
             raise ValueError(f"dispatch_mode must be 'capacity', 'grouped' "
                              f"or 'dense', got {dispatch_mode!r}")
@@ -56,6 +60,9 @@ class GPTMoEConfig:
         self.random_routing = random_routing
         self.layer_norm_eps = layer_norm_eps
         self.dtype = dtype
+        # expert parallelism: the MoELayers' moe_group (None: fleet's ep
+        # axis when its degree is above 1)
+        self.moe_group = moe_group
 
 
 def gpt_moe_config(**overrides):
@@ -106,6 +113,7 @@ class MoEBlock(nn.Module):
                 dispatch_mode=cfg.dispatch_mode,
                 capacity_factor=cfg.capacity_factor,
                 group_block=cfg.group_block, expert_quant=cfg.expert_quant,
+                moe_group=cfg.moe_group,
                 device=device, dtype=dtype, generator=generator)
 
     def forward(self, x):

@@ -65,21 +65,34 @@ class ClipGradByNorm(ClipGradBase):
 class ClipGradByGlobalNorm(ClipGradBase):
     """All gradients together: g * clip_norm / max(||all||, clip_norm).
     ``group_name`` and ``auto_skip_clip`` are accepted and unused, as in
-    the JAX package (there is one device)."""
+    the JAX package (there is one device). Parameters marked ``expert``
+    (experts split over an expert group) raise: their norm needs
+    ClipGradForMOEByGlobalNorm's sum over the group. ``sum_squares`` (the
+    ZeRO optimizers pass it) sums the local squared norm over the ranks
+    that hold the other slices of the gradients."""
 
     def __init__(self, clip_norm, group_name="default_group",
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def _dygraph_clip(self, params_grads):
+    def _dygraph_clip(self, params_grads, sum_squares=None):
+        if any(getattr(p, "expert", False) for p, g in params_grads
+               if _clipped(p, g)):
+            raise NotImplementedError(
+                "ClipGradByGlobalNorm over experts split across an expert "
+                "group: this rank sees only its own experts' gradients; "
+                "use ClipGradForMOEByGlobalNorm with the expert group")
         grads = [g for p, g in params_grads if _clipped(p, g)]
         if not grads:
             return params_grads
         # multi-tensor ops: a step clips every gradient of the model, and
         # one launch per gradient per op would hold the host back
         norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-        total = torch.linalg.vector_norm(torch.stack(norms))
+        if sum_squares is None:
+            total = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            total = sum_squares(torch.stack(norms).square().sum()).sqrt()
         scale = self.clip_norm / total.clamp(min=self.clip_norm)
         scaled = iter(torch._foreach_mul(grads, scale))
         return [(p, next(scaled) if _clipped(p, g) else g)

@@ -185,11 +185,24 @@ def test_validate_rejections_match_the_reference():
     ("dispatch_compress", "int8"), ("matmul_quant", "int8"),
     ("sharding_degree", 2), ("sep_degree", 2), ("ep_degree", 2)])
 def test_later_slice_knobs_raise_and_name_themselves(knob, value):
+    """The knobs of later slices raise NotImplementedError naming
+    themselves; sharding_degree, ep_degree and dispatch_compress are
+    ported: they raise only combined with tensor parallelism (or, for
+    dispatch_compress, validate as the reference's rules say)."""
     s = fleet.DistributedStrategy()
     if knob.endswith("_degree"):
         s.hybrid_configs = {knob: value}
     else:
         setattr(s, knob, value)
+    if knob in ("sharding_degree", "ep_degree", "dispatch_compress"):
+        s.hybrid_configs = {"ep_degree": 2}
+        assert s.validate() is s
+        if knob == "dispatch_compress":
+            s.hybrid_configs = {"ep_degree": 1}
+            with pytest.raises(ValueError, match=knob):
+                s.validate()
+            return
+        s.hybrid_configs = {"mp_degree": 2}
     with pytest.raises(NotImplementedError, match=knob):
         s.validate()
 

@@ -256,10 +256,11 @@ def test_bf16_activations_stay_bf16():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"moe_group": object()}, NotImplementedError),
+    ({"moe_group": object()}, TypeError),
     ({"mp_group": object()}, NotImplementedError),
-    ({"dispatch_compress": "int8"}, NotImplementedError),
-    ({"dispatch_compress": "bf16"}, NotImplementedError),
+    ({"dispatch_compress": "int8", "mp_group": object()},
+     NotImplementedError),
+    ({"dispatch_compress": "bf16", "moe_group": 2}, TypeError),
     ({"dispatch_compress": "fp4"}, ValueError),
     ({"dispatch_mode": "ep"}, ValueError),
     ({"expert_quant": "int4"}, ValueError),
@@ -270,12 +271,17 @@ def test_unported_and_bad_options_raise(kw, exc):
 
 
 def test_unported_expert_and_gate_options_raise():
-    with pytest.raises(NotImplementedError):
+    """Expert parallelism is ported (tests/test_torch_moe_ep.py): ep_axes
+    naming a hybrid axis needs fleet's topology, two axes raise; a gate's
+    world_size multiplies its experts and its group averages the aux
+    loss."""
+    with pytest.raises(ValueError, match="fleet.init"):
         ExpertMLP(E, H, F, ep_axes=("ep",), device="cpu")
     with pytest.raises(NotImplementedError):
-        GShardGate(H, E, world_size=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        GShardGate(H, E, group=object(), device="cpu")
+        ExpertMLP(E, H, F, ep_axes=("ep", "dp"), device="cpu")
+    assert GShardGate(H, E, world_size=2, device="cpu").tot_expert == 2 * E
+    group = object()
+    assert GShardGate(H, E, group=group, device="cpu").group is group
     experts = [torch.nn.Linear(H, H) for _ in range(E)]
     layer = MoELayer(d_model=H, experts=experts, gate="naive",
                      dispatch_mode="grouped", device="cpu")

@@ -26,8 +26,9 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
 # the rank side of the distributed tests: spawned ranks unpickle their
-# functions from it, so it must load neither
-RANK_HELPER = ROOT / "tests" / "torch_dist_cases.py"
+# functions from these, so they must load neither
+RANK_HELPERS = [ROOT / "tests" / "torch_dist_cases.py",
+                ROOT / "tests" / "torch_zero_cases.py"]
 
 
 def _port_sources():
@@ -35,7 +36,7 @@ def _port_sources():
     smoke = ROOT / "chip_smoke.py"
     if smoke.exists():
         files.append(smoke)
-    return files + [RANK_HELPER]
+    return files + RANK_HELPERS
 
 
 def _imported_roots(tree):

@@ -16,6 +16,7 @@ rank r of the reference's stacked (single-controller) call does.
 """
 from __future__ import annotations
 
+import importlib
 import os
 import pickle
 import traceback
@@ -26,8 +27,9 @@ import torch
 TIMEOUT_S = 120          # a world's join; each collective gets 60 s
 
 
-def start_world(n, case, payload, tmpdir):
-    """Spawn ``n`` ranks running ``case`` on ``payload``; returns a
+def start_world(n, case, payload, tmpdir, module=None):
+    """Spawn ``n`` ranks running ``case`` (of this module's CASES, or of
+    the CASES of the rank-side ``module`` named) on ``payload``; returns a
     handle for finish_world."""
     from paddle_tpu_torch.distributed import spawn
     tmpdir = str(tmpdir)
@@ -37,7 +39,7 @@ def start_world(n, case, payload, tmpdir):
     path = os.path.join(tmpdir, f"{case}_{n}_payload.pkl")
     with open(path, "wb") as f:
         pickle.dump(payload, f)
-    procs = spawn(_rank_main, args=(case, path, tmpdir), nprocs=n,
+    procs = spawn(_rank_main, args=(case, path, tmpdir, module), nprocs=n,
                   join=False, master=f"file://{store}", gpus=[0] * n)
     return n, case, tmpdir, procs
 
@@ -63,11 +65,11 @@ def finish_world(handle):
     return out
 
 
-def run_world(n, case, payload, tmpdir):
-    return finish_world(start_world(n, case, payload, tmpdir))
+def run_world(n, case, payload, tmpdir, module=None):
+    return finish_world(start_world(n, case, payload, tmpdir, module))
 
 
-def _rank_main(case, payload_path, tmpdir):
+def _rank_main(case, payload_path, tmpdir, module=None):
     rank = int(os.environ["PADDLE_TRAINER_ID"])
     n = int(os.environ["PADDLE_TRAINERS_NUM"])
     os.environ["PADDLE_COMM_TIMEOUT"] = "60"
@@ -77,7 +79,9 @@ def _rank_main(case, payload_path, tmpdir):
             payload = pickle.load(f)
         import paddle_tpu_torch.distributed as dist
         dist.init_parallel_env(device="cpu")
-        out = CASES[case](rank, n, payload)
+        cases = CASES if module is None else \
+            importlib.import_module(module).CASES
+        out = cases[case](rank, n, payload)
         with open(os.path.join(tmpdir, f"{case}_{n}_r{rank}.pkl"),
                   "wb") as f:
             pickle.dump(out, f)
