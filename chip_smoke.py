@@ -262,7 +262,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    TrainStep: losses equal train_gpt2's bit for bit, s/step beside the
    plain step's, timed in turns); train_mp1_nccl (train's configuration
    with tensor_parallel=True under fleet.init(mp_degree=1): losses equal
-   train's bit for bit); dp2_gloo_on_card (GPT-2 124M, float32, dropout
+   train's bit for bit); train_semi_auto_nccl (BASELINE configuration 5
+   at world 1: train's model, seed and batch through the auto-parallel
+   API, ProcessMesh([[0]], ["dp", "mp"]), shard_layer with the
+   reference's megatron shard_fn, shard_optimizer, shard_dataloader,
+   to_static and DistModel: losses equal train's bit for bit, the wgmma
+   flash pair a layer a step each way, s/step beside train's);
+   dp2_gloo_on_card (GPT-2 124M, float32, dropout
    0, 4 + 4 rows of 8 x 1024, 3 steps exact and 3 with
    grad_compress="int8", against one process over the 8 rows: losses,
    step-1 gradients, parameters, replicas bit for bit after every step,
@@ -283,7 +289,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bytes, host-staged bytes and calls and each rank's receive wait a
    step); pp2mp2_gloo_on_card (four ranks, pp 2 x mp 2, bf16, the same
    7B-wide Llama: losses within 1e-2 of one process, every stage
-   attention on the wgmma flash pair by route_launches); then BASELINE
+   attention on the wgmma flash pair by route_launches);
+   semi_auto_dp2mp2_gloo_on_card (configuration 5 across four ranks: the
+   mesh [[0, 1], [2, 3]] as ["dp", "mp"], Llama at Llama-2-7B widths, 2
+   layers, float32, TF32 off, 4 x 512 split 2 + 2 over dp by
+   shard_dataloader, megatron placements over mp, 3 AdamW steps through
+   DistModel, after a probe of DTensor's redistributions on CUDA tensors
+   over gloo: losses within 1e-5 of one process on the whole batch,
+   parameters after step 3 by PARAM_FRAC's rule, each rank's bytes of
+   the split linears half of one process's, the CUDA-core flash pair a
+   layer a step each way, s/step and peak memory a rank); then BASELINE
    configuration 4 on train_moe's GPT-MoE (full width and depth, float32,
    TF32 off, train_moe's batch and seed, 3 AdamW steps):
    train_moe_stage2_nccl (GroupShardedOptimizerStage2 through fleet at
@@ -306,7 +321,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    generate of phase 5 for the flash forward's tensor-core kernel,
    train_parity for its CUDA-core kernel, the train of phase 6 for the
    flash backward's tensor-core pair and train_parity for its CUDA-core
-   pair, train_gpt2 for both at D 64, serve_quant
+   pair, each flash row with the auto-parallel phases' launches added
+   (train_semi_auto_nccl's tensor-core pair, rank 0 of
+   semi_auto_dp2mp2_gloo_on_card's CUDA-core pair), train_gpt2 for both
+   at D 64, serve_quant
    for quant_matmul's two GEMVs and tensor-core product and the quantized
    ragged kernel, serve_long for the partials, serve_prefix for the
    ragged kernel at the warm prefill's shape and prefix_parity for the
@@ -7774,19 +7792,352 @@ def ep2sharding2_gloo_on_card_phase(torch, np, seed, tmpdir, one):
     return rec
 
 
+# -- phase 16c, auto-parallel (BASELINE configuration 5) -------------------------
+
+SEMI_STEPS = 3
+SEMI_BATCH = 4                   # split 2 + 2 over dp
+SEMI_LOSS_RTOL = 1e-5            # float32, the sums ordered differently
+# the DTensor collectives the auto-parallel ranks run, probed on CUDA
+# tensors over gloo first (redistributions: s -> r all-gather, p -> r
+# all-reduce, p -> s reduce-scatter, r -> s a local slice, s -> s'
+# all-to-all). torch's functional all-gather ends a gloo rank with a
+# segfault on CUDA tensors on the card's torch, so a gloo rank on the
+# card routes it to c10d's all_gather_into_tensor
+# (distributed/collective.py, counted by gloo_cuda_all_gathers)
+DTENSOR_GLOO_OPS = ("shard_to_replicate", "partial_to_replicate",
+                    "partial_to_shard", "replicate_to_shard",
+                    "shard_to_shard", "full_tensor")
+
+
+def megatron_shard_fn():
+    """tests/test_semi_auto_llama.py's megatron shard_fn, verbatim (in
+    Paddle's [in, out] layout: column Shard(1), row Shard(0))."""
+    from paddle_tpu_torch.distributed.auto_parallel import (Replicate,
+                                                            Shard,
+                                                            shard_tensor)
+    col = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+    row = ("o_proj", "down_proj")
+
+    def fn(name, sublayer, pm):
+        for pname, p in sublayer._parameters.items():
+            if p is None:
+                continue
+            leaf = name.rsplit(".", 1)[-1]
+            if p.ndim == 2 and leaf in col:
+                shard_tensor(p, pm, [Replicate(), Shard(1)])
+            elif p.ndim == 2 and leaf in row:
+                shard_tensor(p, pm, [Replicate(), Shard(0)])
+            else:
+                shard_tensor(p, pm, [Replicate(), Replicate()])
+
+    return fn
+
+
+def _split_linear_bytes(model):
+    """Bytes of the parameters split over a mesh axis (this rank's shards
+    of a DTensor model; the same parameters whole in a dense one)."""
+    from torch.distributed.tensor import DTensor
+    total = 0
+    for name, p in model.named_parameters():
+        if isinstance(p, DTensor):
+            if any(pl.is_shard() for pl in p.placements):
+                total += p.to_local().numel() * p.element_size()
+        elif name.endswith(("_proj.weight",)):
+            total += p.numel() * p.element_size()
+    return total
+
+
+def train_semi_auto_nccl_phase(torch, np, seed, base):
+    """BASELINE configuration 5 at world 1 on NCCL: the train phase's
+    model (Llama-2-7B widths, TRAIN_LAYERS layers, bf16, its seed and
+    batch, AdamW with bf16 moments built first) through the reference's
+    calls: ProcessMesh([[0]], ["dp", "mp"]), shard_layer with the
+    megatron shard_fn, shard_optimizer, shard_dataloader, to_static and
+    DistModel. A mesh of one rank changes no arithmetic: the losses must
+    be train's bit for bit, the wgmma flash pair launch a layer a step
+    each way, and s/step is printed beside train's (DTensor's per-op
+    sharding propagation runs on the host)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    cfg = train_config()
+    model = build_model(torch, cfg, seed)
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                moment_dtype="bfloat16")
+    mesh = dist.ProcessMesh([[0]], dim_names=["dp", "mp"])
+    dist.shard_layer(model, mesh, megatron_shard_fn())
+    opt = dist.shard_optimizer(opt)
+    ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                              TRAIN_BATCH, TRAIN_SEQ)
+    loader = dist.shard_dataloader([(ids, labels)], mesh, shard_dims="dp")
+    dm, loader = dist.to_static(model, loader, lambda lo, la: crit(lo, la),
+                                opt)
+    (x, y), = list(loader)
+    torch.cuda.synchronize()
+    zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+    zero_attention_routes()
+    losses = [dm(x, y) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        losses.append(dm(x, y))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [v.item() for v in losses]
+    fwd_routes = dict(_flash_bhsd.route_launches)
+    bwd_routes = dict(_flash_bhsd_bwd.route_launches)
+    attn_routes = attention_routes_without_plain("train_semi_auto_nccl")
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    want = cfg.num_hidden_layers * n
+    rec = {"phase": "train_semi_auto_nccl", "card": card_line(),
+           "entry_points": ["ProcessMesh", "shard_layer (megatron shard_fn)",
+                            "shard_optimizer", "shard_dataloader",
+                            "to_static", "DistModel"],
+           "backend": "NCCL", "world_size": 1, "mesh": [[0]],
+           "layers": cfg.num_hidden_layers, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "s_per_step": wall / TRAIN_TIMED,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_TIMED / wall,
+           "train_s_per_step": base["s_per_step"],
+           "s_per_step_over_train": wall / TRAIN_TIMED / base["s_per_step"],
+           "losses": losses, "losses_equal_train": losses == base["losses"],
+           "q_proj_placements": str(model.llama.layers[0].self_attn
+                                    .q_proj.weight.placements),
+           "flash_fwd_route_launches": fwd_routes,
+           "flash_bwd_route_launches": bwd_routes,
+           "attention_route_launches": attn_routes}
+    emit(rec)
+    check(losses == base["losses"],
+          f"train_semi_auto_nccl: losses {losses} are not train's "
+          f"{base['losses']} bit for bit")
+    check(fwd_routes["wgmma"] == want == sum(fwd_routes.values())
+          and bwd_routes["wgmma"] == want == sum(bwd_routes.values()),
+          f"train_semi_auto_nccl: flash launches {fwd_routes}, "
+          f"{bwd_routes} (want {want} wgmma each)")
+    del model, dm, opt, loader
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _probe_dtensor_gloo(torch, progress):
+    """Each DTensor redistribution the auto-parallel ranks run, once on
+    tiny CUDA tensors over the 2 x 2 mesh, noted in ``progress`` before it
+    runs; a refusal raises, naming it."""
+    import paddle_tpu_torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = dist.ProcessMesh([[0, 1], [2, 3]], dim_names=["dp", "mp"])
+    dm = mesh.device_mesh()
+    x = torch.arange(32, dtype=torch.float32, device="cuda").reshape(4, 8)
+    s = DTensor.from_local(x[:2, :4].contiguous(), dm, [Shard(0), Shard(1)],
+                           run_check=False)
+    p = DTensor.from_local(x.clone(), dm, [Partial(), Partial()],
+                           run_check=False)
+    r = DTensor.from_local(x.clone(), dm, [Replicate(), Replicate()],
+                           run_check=False)
+    calls = {
+        "shard_to_replicate": lambda: s.redistribute(
+            dm, [Replicate(), Replicate()]).to_local(),
+        "partial_to_replicate": lambda: p.redistribute(
+            dm, [Replicate(), Replicate()]).to_local(),
+        "partial_to_shard": lambda: p.redistribute(
+            dm, [Shard(0), Shard(1)]).to_local(),
+        "replicate_to_shard": lambda: r.redistribute(
+            dm, [Shard(0), Shard(1)]).to_local(),
+        "shard_to_shard": lambda: s.redistribute(
+            dm, [Shard(1), Shard(0)]).to_local(),
+        "full_tensor": lambda: s.full_tensor()}
+    for name in DTENSOR_GLOO_OPS:
+        with open(progress, "a") as f:
+            f.write(f"dtensor {name}\n")
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+        except Exception as e:
+            raise RuntimeError(f"gloo refuses DTensor's {name} on CUDA "
+                               f"tensors: {e}") from e
+
+
+def _semi_auto_rank(tmpdir, seed, ids, labels):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    os.environ["PADDLE_COMM_TIMEOUT"] = str(DIST_COMM_TIMEOUT_S)
+    try:
+        import torch
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion
+        from paddle_tpu_torch.kernels.flash_attention import (
+            _flash_bhsd, _flash_bhsd_bwd)
+        dist.init_parallel_env(backend="gloo")
+        progress = os.path.join(tmpdir, f"rank{rank}.probe")
+        _probe_gloo_cuda(torch, progress)
+        _probe_dtensor_gloo(torch, progress)
+        _f32_no_tf32(torch)
+        cfg = _mp2_config(False)
+        model = build_model(torch, cfg, seed)
+        crit = LlamaPretrainingCriterion(cfg)
+        opt = AdamW(learning_rate=MP2_LR, parameters=model.parameters())
+        mesh = dist.ProcessMesh([[0, 1], [2, 3]], dim_names=["dp", "mp"])
+        dist.shard_layer(model, mesh, megatron_shard_fn())
+        opt = dist.shard_optimizer(opt)
+        x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+        loader = dist.shard_dataloader([(x, y)] * SEMI_STEPS, mesh,
+                                       shard_dims="dp")
+        dm, loader = dist.to_static(model, loader,
+                                    lambda lo, la: crit(lo, la), opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+        losses, times, rows = [], [], []
+        for bx, by in loader:
+            rows.append(tuple(bx.to_local().shape))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(dm(bx, by).item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        from paddle_tpu_torch.distributed.collective import (
+            gloo_cuda_all_gathers)
+        train_gathers = dict(gloo_cuda_all_gathers)
+        split_bytes = _split_linear_bytes(model)
+        ref = torch.load(os.path.join(tmpdir, "one_params.pt"), mmap=True)
+        got = {}
+        for k, p in model.named_parameters():
+            whole = dist.unshard_dtensor(p.detach())     # a collective
+            if rank == 0:
+                got[k] = whole
+        gap = _param_gap(torch, ref, got, MP2_LR * SEMI_STEPS) \
+            if rank == 0 else None
+        _rank_done(tmpdir, rank, {
+            "losses": losses, "step_s": times, "local_rows": rows,
+            "params_after_step3": gap, "split_linear_bytes": split_bytes,
+            "peak_device_bytes": peak,
+            "rerouted_all_gathers_by_training": train_gathers,
+            "q_proj_local_shape": list(model.llama.layers[0].self_attn
+                                       .q_proj.weight.to_local().shape),
+            "flash_fwd_route_launches": dict(_flash_bhsd.route_launches),
+            "flash_bwd_route_launches": dict(_flash_bhsd_bwd.route_launches)})
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def semi_auto_dp2mp2_gloo_on_card_phase(torch, np, seed, tmpdir):
+    """BASELINE configuration 5 across ranks: four gloo ranks on cuda:0 on
+    the mesh [[0, 1], [2, 3]] named ["dp", "mp"], Llama at Llama-2-7B
+    widths (hidden 4096, 32 heads of 128, FFN 11008, vocab 32000), 2
+    layers, float32 with TF32 off, batch 4 x 512 split 2 + 2 over dp by
+    shard_dataloader, the megatron shard_fn over mp, AdamW at lr 1e-5
+    built before shard_layer, 3 steps through to_static / DistModel. Held
+    against one process on the whole batch from the same full weights
+    (every rank draws them whole from the seed and keeps its shards):
+    every loss within 1e-5 relative, the parameters after step 3 (made
+    whole by unshard_dtensor) by PARAM_FRAC's rule, each rank's bytes of
+    the split linears half of one process's, and each rank's attention on
+    the CUDA-core flash pair (float32), a layer a step each way. s/step
+    and peak memory a rank are printed."""
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion, TrainStep
+    _f32_no_tf32(torch)
+    cfg = _mp2_config(False)
+    rng = np.random.default_rng(seed + 3)
+    ids = rng.integers(0, cfg.vocab_size, (SEMI_BATCH, MP2_SEQ))
+    labels = rng.integers(0, cfg.vocab_size, (SEMI_BATCH, MP2_SEQ))
+    model = build_model(torch, cfg, seed)
+    crit = LlamaPretrainingCriterion(cfg)
+    step = TrainStep(model, lambda lo, la: crit(lo, la), AdamW(
+        learning_rate=MP2_LR, parameters=model.parameters()))
+    x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one, one_s = [], []
+    for _ in range(SEMI_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.append(step((x,), (y,)).item())
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+    one_peak = torch.cuda.max_memory_allocated()
+    torch.save({k: p.detach().cpu() for k, p in model.named_parameters()},
+               os.path.join(tmpdir, "one_params.pt"))
+    one_bytes = _split_linear_bytes(model)
+    del model, step
+    torch.cuda.empty_cache()
+    ranks = _spawn_world(_semi_auto_rank, (seed, ids, labels), tmpdir,
+                         "semi_auto_dp2mp2_gloo_on_card", n=4)
+    rec = {"phase": "semi_auto_dp2mp2_gloo_on_card", "card": card_line(),
+           "note": "four ranks on one card over gloo: DTensor's "
+                   "redistributions (the mp all-reduces, the dp gradient "
+                   "all-reduce, the gathers) go through host memory; no "
+                   "NVLink figure",
+           "model": "Llama, Llama-2-7B widths, float32, TF32 off",
+           "mesh": [[0, 1], [2, 3]], "dim_names": ["dp", "mp"],
+           "layers": MP2_LAYERS, "global_batch": [SEMI_BATCH, MP2_SEQ],
+           "lr": MP2_LR, "steps": SEMI_STEPS,
+           "dtensor_gloo_ops_probed": list(DTENSOR_GLOO_OPS),
+           "one_process_losses": one, "one_process_step_s": one_s,
+           "one_process_peak_device_bytes": one_peak,
+           "one_process_split_linear_bytes": one_bytes,
+           "rank_losses": [r["losses"] for r in ranks],
+           "rank_step_s": [r["step_s"] for r in ranks],
+           "rank_s_per_step_over_one_process": [
+               r["step_s"][-1] / one_s[-1] for r in ranks],
+           "rank_peak_device_bytes": [r["peak_device_bytes"] for r in ranks],
+           "rank_split_linear_bytes": [r["split_linear_bytes"]
+                                       for r in ranks],
+           "rank_local_rows": [r["local_rows"] for r in ranks],
+           "rerouted_all_gathers_by_probe_and_training": [
+               r["rerouted_all_gathers_by_training"] for r in ranks],
+           "q_proj_local_shape": [r["q_proj_local_shape"] for r in ranks],
+           "params_after_step3": ranks[0]["params_after_step3"],
+           "flash_fwd_route_launches": [r["flash_fwd_route_launches"]
+                                        for r in ranks],
+           "flash_bwd_route_launches": [r["flash_bwd_route_launches"]
+                                        for r in ranks]}
+    emit(rec)
+    want = MP2_LAYERS * SEMI_STEPS
+    for rank, r in enumerate(ranks):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one))
+        check(rel <= SEMI_LOSS_RTOL,
+              f"semi_auto_dp2mp2_gloo_on_card: rank {rank} losses "
+              f"{r['losses']} vs one process {one}")
+        check(2 * r["split_linear_bytes"] == one_bytes,
+              f"semi_auto_dp2mp2_gloo_on_card: rank {rank} holds "
+              f"{r['split_linear_bytes']} bytes of the split linears, one "
+              f"process {one_bytes}")
+        check(all(rows == (SEMI_BATCH // 2, MP2_SEQ)
+                  for rows in r["local_rows"]),
+              f"semi_auto_dp2mp2_gloo_on_card: rank {rank} rows "
+              f"{r['local_rows']}")
+        fwd, bwd = r["flash_fwd_route_launches"], r["flash_bwd_route_launches"]
+        check(fwd["cuda_core"] == want == sum(fwd.values())
+              and bwd["cuda_core"] == want == sum(bwd.values()),
+              f"semi_auto_dp2mp2_gloo_on_card: flash launches {fwd}, "
+              f"{bwd} (want {want} cuda_core each)")
+    check(ranks[0]["params_after_step3"]["ok"],
+          f"semi_auto_dp2mp2_gloo_on_card: parameters after step "
+          f"{SEMI_STEPS}: {ranks[0]['params_after_step3']}")
+    return rec
+
+
 def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None):
     """Phase 16c: the collectives on NCCL at world 1, train_gpt2 and train
     through fleet at one rank (bit for bit against those phases; train
-    also pipelined at pp 1), then data, tensor and pipeline parallelism
-    in gloo ranks on the card; then configuration 4: the stage-2
+    also pipelined at pp 1, and through the auto-parallel API on a mesh
+    of one rank), then data, tensor, pipeline and auto parallelism in
+    gloo ranks on the card; then configuration 4: the stage-2
     composition at world 1 on NCCL (bit for bit with one process, and
     with train_moe when it ran), expert parallelism, the ZeRO stages and
-    both together in gloo ranks."""
+    both together in gloo ranks. Returns the auto-parallel phases'
+    records (their flash launches join the kernels line)."""
     import tempfile
     dist_collectives_nccl_phase(torch, np, seed + 80)
     train_gpt2_dp_phase(torch, np, seed + 30, train_gpt2)
     train_mp1_nccl_phase(torch, np, seed, train)
     train_pp1_nccl_phase(torch, np, seed, train)
+    semi = {"nccl": train_semi_auto_nccl_phase(torch, np, seed, train)}
     with tempfile.TemporaryDirectory() as tmp:
         dp2_gloo_on_card_phase(torch, np, seed + 81,
                                tempfile.mkdtemp(dir=tmp))
@@ -7796,6 +8147,8 @@ def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None):
                                tempfile.mkdtemp(dir=tmp))
         pp2mp2_gloo_on_card_phase(torch, np, seed + 84,
                                   tempfile.mkdtemp(dir=tmp))
+        semi["gloo"] = semi_auto_dp2mp2_gloo_on_card_phase(
+            torch, np, seed + 85, tempfile.mkdtemp(dir=tmp))
     # configuration 4 on train_moe's seed and batch
     one = train_moe_stage2_nccl_phase(torch, np, seed + 41, train_moe)
     with tempfile.TemporaryDirectory() as tmp:
@@ -7805,6 +8158,7 @@ def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None):
                                      tempfile.mkdtemp(dir=tmp), one)
         ep2sharding2_gloo_on_card_phase(torch, np, seed + 41,
                                         tempfile.mkdtemp(dir=tmp), one)
+    return semi
 
 
 def main():
@@ -7844,8 +8198,8 @@ def main():
                     help="only build the flash and grouped kernels and run "
                          "the train and train_gpt2 phases (the bases of the "
                          "bit-for-bit checks) and the data-, tensor-, "
-                         "pipeline-, sharding- and expert-parallel phases, "
-                         "then exit")
+                         "pipeline-, auto-, sharding- and expert-parallel "
+                         "phases, then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
                          "quantized, long-context), train steps and the "
@@ -8232,9 +8586,17 @@ def main():
         train_resnet50_profile_phase(torch, np, args.seed + 70)
     resnet_parity_phase(torch, np, args.seed + 71)
 
-    # data and tensor parallelism: NCCL at world 1, two gloo ranks on the
-    # card
-    dist_phases(torch, np, args.seed, train, train_gpt2, train_moe)
+    # data, tensor, pipeline and auto parallelism: NCCL at world 1, gloo
+    # ranks on the card
+    semi = dist_phases(torch, np, args.seed, train, train_gpt2, train_moe)
+    # the auto-parallel phases' attention: the wgmma pair at world 1 (bf16),
+    # the CUDA-core pair on each gloo rank (float32; rank 0's count)
+    semi_fwd = {"wgmma": semi["nccl"]["flash_fwd_route_launches"]["wgmma"],
+                "cuda_core": semi["gloo"]["flash_fwd_route_launches"][0]
+                ["cuda_core"]}
+    semi_bwd = {"wgmma": semi["nccl"]["flash_bwd_route_launches"]["wgmma"],
+                "cuda_core": semi["gloo"]["flash_bwd_route_launches"][0]
+                ["cuda_core"]}
 
     kernels = []
     for name, route_src, replaces, rec, launches in (
@@ -8245,12 +8607,13 @@ def main():
             ("flash_attention_fwd",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:135",
-             fwd_f32, train_parity["flash_fwd_route_launches"]["cuda_core"]),
+             fwd_f32, train_parity["flash_fwd_route_launches"]["cuda_core"]
+             + semi_fwd["cuda_core"]),
             ("flash_attention_fwd_wgmma",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:135, :220",
              fwd_main, train["flash_fwd_route_launches"]["wgmma"]
-             + gen["flash_route_launches"]["wgmma"]),
+             + gen["flash_route_launches"]["wgmma"] + semi_fwd["wgmma"]),
             ("flash_attention_fwd_wgmma_d64",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:135",
@@ -8258,11 +8621,13 @@ def main():
             ("flash_attention_bwd",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480",
-             bwd_f32, train_parity["flash_bwd_route_launches"]["cuda_core"]),
+             bwd_f32, train_parity["flash_bwd_route_launches"]["cuda_core"]
+             + semi_bwd["cuda_core"]),
             ("flash_attention_bwd_wgmma",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480, :497",
-             bwd_main, train["flash_bwd_route_launches"]["wgmma"]),
+             bwd_main, train["flash_bwd_route_launches"]["wgmma"]
+             + semi_bwd["wgmma"]),
             ("flash_attention_bwd_wgmma_d64",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/kernels/pallas/flash_attention.py:480, :497",

@@ -50,6 +50,11 @@ expert slices concatenated, every Linear transposed back) into the JAX
 model's state dict, and ``zero_params_to_jax`` does it for a
 GroupShardedStage3 model (its whole state dict, gathered).
 
+``semi_auto_params_to_jax`` gathers an auto-parallel Llama (its DTensor
+parameters after ``distributed.shard_layer``, each made whole by
+``full_tensor``, a collective of the mesh) into the JAX model's names and
+layout. Loading one stays ``params_from_jax`` followed by ``shard_layer``.
+
 ``resnet_params_from_jax`` does it for the ResNet family
 (vision/models/resnet.py): the convolution weights ([out, in / groups, *k]
 in both packages) and the batch norms' ``weight``, ``bias``, ``_mean`` and
@@ -72,7 +77,7 @@ __all__ = ["params_from_jax", "optimizer_state_from_jax",
            "resnet_params_from_jax", "tp_params_from_jax", "tp_shard",
            "pp_params_from_jax", "pp_params_to_jax",
            "moe_ep_params_from_jax", "moe_ep_params_to_jax",
-           "zero_params_to_jax"]
+           "zero_params_to_jax", "semi_auto_params_to_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -276,13 +281,25 @@ def moe_ep_params_to_jax(model, ep_group=None):
     return {k: (v.T if _moe_is_linear(k) else v) for k, v in sd.items()}
 
 
+def _sd_to_jax(sd, is_linear):
+    return {k: (v.detach().float().cpu().numpy().T if is_linear(k)
+                else v.detach().float().cpu().numpy())
+            for k, v in sd.items()}
+
+
 def zero_params_to_jax(model, is_linear=_moe_is_linear):
     """The JAX state dict of a model under a ZeRO wrapper (the whole
     parameters, gathered by the wrapper's state_dict: a collective), with
     the Linear weights ``is_linear`` names transposed back."""
-    return {k: (v.detach().float().cpu().numpy().T if is_linear(k)
-                else v.detach().float().cpu().numpy())
-            for k, v in model.state_dict().items()}
+    return _sd_to_jax(model.state_dict(), is_linear)
+
+
+def semi_auto_params_to_jax(model):
+    """The JAX state dict of a Llama whose parameters are DTensors (each
+    gathered whole on every rank by ``full_tensor``: a collective)."""
+    from torch.distributed.tensor import DTensor
+    return _sd_to_jax({k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in model.state_dict().items()}, _is_linear)
 
 
 def _resnet_is_linear(name):

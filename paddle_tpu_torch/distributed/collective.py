@@ -41,6 +41,14 @@ Point to point: ``send``, ``recv``, ``isend``, ``irecv`` and
 tensor on a gloo group through a pinned host buffer, whose bytes and
 calls ``p2p_host_staged`` counts: gloo's own send/recv read a CUDA
 pointer as host memory. On NCCL, or for CPU tensors, nothing is staged.
+
+DTensor's all-gathers (torch's functional ``all_gather_into_tensor``)
+end a gloo rank with a segfault on CUDA tensors, where c10d's
+``all_gather_into_tensor`` takes them (through host memory, as gloo's
+collectives do). A rank that joins a gloo world on a card routes the
+functional op's CUDA kernel to c10d's (``reroute_gloo_cuda_all_gather``,
+counted by ``gloo_cuda_all_gathers``) until ``destroy_process_group``
+gives torch's kernel back.
 """
 from __future__ import annotations
 
@@ -65,7 +73,8 @@ __all__ = [
     "alltoall_single", "send", "recv", "isend", "irecv", "batch_isend_irecv",
     "P2POp", "barrier", "wait", "stream", "collective_permute",
     "quantize_blockwise_int8", "dequantize_blockwise_int8", "encode_wire",
-    "p2p_host_staged",
+    "p2p_host_staged", "gloo_cuda_all_gathers", "reroute_gloo_cuda_all_gather",
+    "restore_all_gather",
     "decode_wire", "wire_ppermute", "wire_all_to_all", "QUANT_BLOCK",
 ]
 
@@ -179,6 +188,7 @@ def destroy_process_group(group=None):
         dist.destroy_process_group()
     _GROUPS.clear()
     _WORLD[0] = None
+    restore_all_gather()
     _env._reset()
 
 
@@ -698,6 +708,51 @@ def collective_permute(tensor, perm, group=None):
     dst; returns what this rank received (zeros if nothing)."""
     return _permute((tensor,), [tuple(p) for p in perm],
                     _group_of(group))[0]
+
+
+# -- DTensor's all-gather on gloo and CUDA -------------------------------------
+gloo_cuda_all_gathers = {"bytes": 0, "calls": 0}
+_REROUTED = []
+
+
+def _c10d_all_gather(inp, group_size, group_name):
+    """torch's functional all_gather_into_tensor by c10d's call on the
+    group it names: [group_size * d0, ...], rank-major."""
+    from torch._C._distributed_c10d import _resolve_process_group
+    pg = _resolve_process_group(group_name)
+    out = inp.new_empty((inp.shape[0] * group_size,) + tuple(inp.shape[1:]))
+    dist.all_gather_into_tensor(out, inp.contiguous(), group=pg)
+    gloo_cuda_all_gathers["bytes"] += out.numel() * out.element_size()
+    gloo_cuda_all_gathers["calls"] += 1
+    return out
+
+
+def _c10d_all_gather_coalesced(inputs, group_size, group_name):
+    return [_c10d_all_gather(t, group_size, group_name) for t in inputs]
+
+
+def reroute_gloo_cuda_all_gather():
+    """Route the CUDA kernels of torch's functional all-gathers (which
+    DTensor's redistributions call) to c10d's all_gather_into_tensor, in
+    this process, until ``restore_all_gather`` (destroy_process_group
+    calls it). For a rank of a gloo world on a card; c10d's call serves
+    any backend, so a group of another world gathers right meanwhile."""
+    if _REROUTED:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    with warnings.catch_warnings():
+        # torch warns that a registered kernel is overridden
+        warnings.simplefilter("ignore")
+        lib.impl("all_gather_into_tensor", _c10d_all_gather, "CUDA")
+        lib.impl("all_gather_into_tensor_coalesced",
+                 _c10d_all_gather_coalesced, "CUDA")
+    _REROUTED.append(lib)
+
+
+def restore_all_gather():
+    """Give the functional all-gathers torch's own CUDA kernels back."""
+    while _REROUTED:
+        _REROUTED.pop()._destroy()
 
 
 # -- p2p ----------------------------------------------------------------------

@@ -25,10 +25,12 @@ import torch.distributed as dist
 from ..framework.device import resolve_device
 
 __all__ = ["ParallelEnv", "get_rank", "get_world_size", "is_initialized",
-           "init_distributed_runtime"]
+           "init_distributed_runtime", "world_device_type"]
 
 # the rank's TCPStore (its server lives in rank 0's process)
 _STORE = [None]
+# the device type the rank joined the world on ("cuda" or "cpu")
+_DEVICE_TYPE = [None]
 
 
 class ParallelEnv:
@@ -125,7 +127,26 @@ def init_distributed_runtime(backend=None, device=None):
     dist.init_process_group(backend, store=store, rank=env.rank,
                             world_size=env.world_size,
                             timeout=comm_timeout(), **kw)
+    _DEVICE_TYPE[0] = dev.type
+    if backend == "gloo" and dev.type == "cuda":
+        from .collective import reroute_gloo_cuda_all_gather
+        reroute_gloo_cuda_all_gather()
     return env
+
+
+def world_device_type():
+    """The device type this rank's tensors lie on: the one it joined the
+    world with, or "cuda" for a world joined elsewhere on NCCL. A gloo
+    world joined elsewhere (torch.distributed.init_process_group) raises:
+    its ranks may hold their tensors on the card or the host."""
+    if _DEVICE_TYPE[0] is not None:
+        return _DEVICE_TYPE[0]
+    if dist.get_backend() == "nccl":
+        return "cuda"
+    raise RuntimeError(
+        "this gloo world was not joined through the port, so the device "
+        "its ranks' tensors lie on is unknown: join it with "
+        "distributed.init_parallel_env(backend='gloo', device=...)")
 
 
 def is_initialized():
@@ -148,3 +169,4 @@ def get_world_size(group=None):
 def _reset():
     """Drop the rank's store (destroy_process_group)."""
     _STORE[0] = None
+    _DEVICE_TYPE[0] = None

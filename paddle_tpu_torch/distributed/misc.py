@@ -1,7 +1,8 @@
 """The rest of paddle.distributed a training job uses (counterpart of
 paddle_tpu/distributed/misc.py): ``spawn``, ``gather``, the object-list
-collectives, ``ParallelMode``, ``ReduceType``, ``is_available`` and
-``get_backend``. ``split`` and the parameter-server entries are not
+collectives, ``ParallelMode``, ``ReduceType``, ``is_available``,
+``get_backend``, auto-parallel's ``ShardingStage1/2/3`` markers and
+``shard_scaler``. ``split`` and the parameter-server entries are not
 ported and raise.
 """
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch.distributed as dist
 __all__ = ["gather", "scatter_object_list", "broadcast_object_list",
            "spawn", "ParallelMode", "ReduceType", "is_available",
            "get_backend", "split", "CountFilterEntry", "ShowClickEntry",
-           "ProbabilityEntry"]
+           "ProbabilityEntry", "ShardingStage1", "ShardingStage2",
+           "ShardingStage3", "shard_scaler"]
 
 
 class ParallelMode:
@@ -36,6 +38,33 @@ class ReduceType:
     kRedAvg = 4
     kRedAny = 5
     kRedAll = 6
+
+
+class ShardingStage1:
+    """Marker for shard_optimizer (reference:
+    distributed/auto_parallel/api.py ShardingStage1). It has no
+    ``__call__``, in the reference too, where shard_optimizer takes it and
+    fails at the first step; the port's shard_optimizer raises
+    NotImplementedError when it is passed."""
+
+    def __init__(self, axis_name="dp", mesh=None):
+        self.axis_name = axis_name
+        self.mesh = mesh
+
+
+class ShardingStage2(ShardingStage1):
+    pass
+
+
+class ShardingStage3(ShardingStage1):
+    pass
+
+
+def shard_scaler(scaler):
+    """reference: auto_parallel/api.py shard_scaler. The port's GradScaler
+    is not ported; the scaler is returned as it is, as the reference
+    returns it."""
+    return scaler
 
 
 def is_available():

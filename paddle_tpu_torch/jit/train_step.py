@@ -49,18 +49,46 @@ model wrappers is not ported. Under expert parallelism the model wrapper
 (DataParallel over the data world) or the sharding optimizer sums the
 expert gradients over their replicas.
 
-Capturing the step in a CUDA graph and an auto-parallel plan are not
-ported.
+Auto-parallel: over DTensor parameters (distributed.shard_layer) the
+step is the same sequence. The loss is replicated over the mesh before
+its backward and returned as this rank's (whole) value; a DTensor input
+split over dim 0 is cut into microbatches on each rank's own rows; the
+gradients accumulate as backward leaves them (a Partial sum over the
+data axis stays pending) and the optimizer lays each out as its
+parameter once a step. A parameter that shard_tensor replaces after the
+step was built is replaced here too.
+
+Capturing the step in a CUDA graph and an auto-parallel plan
+(``plan=``, which waits for the auto-tuner's cost model) are not ported.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..framework.device import check_device
+from ..framework.dtensor import register_holder, replicated, swapped
 
 __all__ = ["TrainStep"]
+
+
+def _chunks(x, n):
+    """``x`` cut into ``n`` microbatches along dim 0; a DTensor split over
+    dim 0 is cut on each rank's own rows."""
+    if not isinstance(x, DTensor) or not any(
+            p.is_shard(0) for p in x.placements):
+        return x.chunk(n, dim=0)
+    rows = x.to_local()
+    if rows.shape[0] % n:
+        raise ValueError(f"accum_steps {n} must divide each rank's rows, "
+                         f"got {rows.shape[0]}")
+    shape = torch.Size((x.shape[0] // n,) + tuple(x.shape[1:]))
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(c, x.device_mesh, x.placements, shape=shape,
+                               stride=stride, run_check=False)
+            for c in rows.chunk(n, dim=0)]
 
 
 def _pipelined(model):
@@ -116,6 +144,13 @@ class TrainStep:
                 "TrainStep with accum_steps > 1 over a GroupShardedStage2 / "
                 "GroupShardedStage3 model (gradients reduce-scattered in "
                 "backward) is not ported to the PyTorch package yet")
+        register_holder(self)
+
+    def _replace_parameter(self, old, new):
+        """Step ``new`` where ``old`` was (shard_tensor on a parameter of
+        this step's model)."""
+        self._params = swapped(self._params, old, new)
+        self._named = [(n, new if p is old else p) for n, p in self._named]
 
     def _check_pipeline(self, optimizer):
         for what, bad in (("accum_steps > 1", self.accum_steps > 1),
@@ -176,9 +211,10 @@ class TrainStep:
 
     def _forward_backward(self, inputs, labels):
         out = self.model(*inputs)
-        loss = self.loss_fn(out, *labels).float()
+        loss = replicated(self.loss_fn(out, *labels).float())
         loss.backward()
-        return loss.detach(), out
+        loss = loss.detach()
+        return (loss.to_local() if isinstance(loss, DTensor) else loss), out
 
     def _quiet(self):
         """The microbatches' backward passes sync nothing."""
@@ -192,7 +228,7 @@ class TrainStep:
             if x.shape[0] % n != 0:
                 raise ValueError(f"accum_steps {n} must divide the leading "
                                  f"batch dim, got shape {tuple(x.shape)}")
-        return [x.chunk(n, dim=0) for x in xs]
+        return [_chunks(x, n) for x in xs]
 
     def _pipeline_step(self, inputs, labels):
         """The schedule's forwards and backwards, then the tied and the dp

@@ -27,6 +27,14 @@ fleet's PipelineParallel run the 1F1B (or, with ``virtual_pp_degree`` >
 stage's logits on every rank of the pp group. MoE, context (ring)
 parallelism, sequence parallelism and selective recompute policies are
 not ported; a config that asks for them raises.
+
+Auto-parallel: after ``distributed.shard_layer`` the parameters are
+DTensors, and the forward lifts every dense operand that meets them (the
+ids, unless they came as a DTensor from ``shard_dataloader``, and the
+RoPE tables) to a replicated DTensor on their mesh. Heads split over the
+mesh stay split through the reshapes, RoPE and the grouped key-value
+repeat, and ``flash_attention`` runs on each rank's heads. Megatron's
+all-reduces at the split projections are shard_layer's hooks.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..framework.device import resolve_device, seed, torch_dtype
+from ..framework.dtensor import lift
 from ..nn.functional.flash_attention import (flash_attention,
                                              scaled_dot_product_attention)
 from ..nn.functional.loss import cross_entropy
@@ -323,8 +332,9 @@ class LlamaModel(PipelinedLM, nn.Module):
         if self.config.pipeline_parallel:
             return self._pipeline_forward(input_ids)
         S = input_ids.shape[1]
-        x = self.embed_tokens(input_ids)
-        cos, sin = self.rope_cos[:S], self.rope_sin[:S]
+        w = self.embed_tokens.weight
+        x = self.embed_tokens(lift(input_ids, w))
+        cos, sin = lift(self.rope_cos[:S], w), lift(self.rope_sin[:S], w)
         # full recompute of each layer in training, as the JAX model's
         # recompute with policy None: the backward reruns the layer's
         # forward instead of keeping its activations

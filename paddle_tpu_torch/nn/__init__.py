@@ -8,7 +8,7 @@ from .layer.common import Dropout
 from .layer.container import LayerDict, LayerList, ParameterList, Sequential
 from .layer.conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
                          Conv3D, Conv3DTranspose)
-from .layer.loss import CrossEntropyLoss
+from .layer.loss import CrossEntropyLoss, MSELoss
 from .layer.norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                          LayerNorm, RMSNorm, SyncBatchNorm)
 from .layer.pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
@@ -18,7 +18,7 @@ from .layer.pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                             MaxPool3D)
 
 __all__ = ["functional", "LayerNorm", "RMSNorm", "Dropout",
-           "CrossEntropyLoss", "ClipGradByValue", "ClipGradByNorm",
+           "CrossEntropyLoss", "MSELoss", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm", "Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",

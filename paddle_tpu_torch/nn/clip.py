@@ -8,10 +8,17 @@ float32 and every scale stays a device tensor, so clipping never waits
 for the device. A clipped gradient keeps its dtype: a bfloat16 one is
 scaled in float32 and rounded back, as the JAX package promotes it.
 ``clip_grad_norm_`` and ``clip_grad_value_`` clip ``p.grad`` in place.
+
+``ClipGradByGlobalNorm`` takes DTensor gradients (auto-parallel): the
+global norm is the norm of the whole tensors. Each rank sums the squares
+of its shards, and the sums of the gradients sharded over a mesh
+dimension are summed over that dimension; a replicated dimension is not
+summed. Each rank then scales its own shards.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "clip_grad_norm_", "clip_grad_value_"]
@@ -86,17 +93,62 @@ class ClipGradByGlobalNorm(ClipGradBase):
         grads = [g for p, g in params_grads if _clipped(p, g)]
         if not grads:
             return params_grads
+        locals_ = [g.to_local() if isinstance(g, DTensor) else g
+                   for g in grads]
         # multi-tensor ops: a step clips every gradient of the model, and
         # one launch per gradient per op would hold the host back
-        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-        if sum_squares is None:
-            total = torch.linalg.vector_norm(torch.stack(norms))
-        else:
+        norms = torch._foreach_norm(locals_, 2, dtype=torch.float32)
+        if sum_squares is not None:
             total = sum_squares(torch.stack(norms).square().sum()).sqrt()
+        elif any(_split_dims(g) for g in grads):
+            total = _dtensor_norm(grads, norms)
+        else:
+            total = torch.linalg.vector_norm(torch.stack(norms))
         scale = self.clip_norm / total.clamp(min=self.clip_norm)
-        scaled = iter(torch._foreach_mul(grads, scale))
+        scaled = iter([_like(g, s) for g, s in
+                       zip(grads, torch._foreach_mul(locals_, scale))])
         return [(p, next(scaled) if _clipped(p, g) else g)
                 for p, g in params_grads]
+
+
+def _split_dims(g):
+    """The mesh dimensions of more than one rank a DTensor gradient is
+    sharded over (none for a dense tensor)."""
+    if not isinstance(g, DTensor):
+        return ()
+    mesh = g.device_mesh
+    return tuple(i for i, p in enumerate(g.placements)
+                 if p.is_shard() and mesh.size(i) > 1)
+
+
+def _dtensor_norm(grads, norms):
+    """The norm of the whole gradients from their shards' norms: the
+    squares of the gradients sharded over the same mesh dimensions are
+    summed, then over those dimensions."""
+    groups = {}
+    for g, n in zip(grads, norms):
+        key = (g.device_mesh, _split_dims(g)) if isinstance(g, DTensor) \
+            else (None, ())
+        groups.setdefault(key, []).append(n)
+    total = None
+    for (mesh, dims), ns in groups.items():
+        sq = torch.stack(ns).square().sum()
+        if dims:
+            sq = DTensor.from_local(
+                sq, mesh, [Partial() if i in dims else Replicate()
+                           for i in range(mesh.ndim)],
+                run_check=False).full_tensor()
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
+def _like(g, local):
+    """``local`` as a shard of a DTensor laid out as ``g`` (or itself)."""
+    if not isinstance(g, DTensor):
+        return local
+    return DTensor.from_local(local, g.device_mesh, g.placements,
+                              shape=g.shape, stride=g.stride(),
+                              run_check=False)
 
 
 def _grads_of(parameters):

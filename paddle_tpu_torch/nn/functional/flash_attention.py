@@ -14,12 +14,23 @@ in HEAD_DIMS) or the plain version differentiated op by op by autograd
 ("plain": any other head dim, float16), as the reference runs its XLA
 attention wherever no Pallas kernel fits. Each functional counts its
 calls by route in ``route_launches``.
+
+On DTensor q/k/v (auto-parallel) ``flash_attention`` runs the route
+``attention_route`` picks on each rank's own shards, through
+``local_map``: the batch may be sharded (dim 0) and the heads (dim 2);
+a sharded sequence or head dim raises ValueError (a rank would see part
+of a softmax row), as does a Partial input. The output, and through
+autograd the gradients of q, k and v, carry the inputs' placements. On
+CUDA shards the kernels launch and are counted; nothing falls to the
+plain version there.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from ...kernels.flash_attention import (HEAD_DIMS, _flash_bhsd,
                                         _flash_bhsd_bwd,
@@ -105,8 +116,35 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     _no_dropout(dropout, training, "flash_attention")
     route = _count_route(flash_attention, query.dtype, query.shape[-1])
     core = _FlashAttention.apply if route == "kernel" else _plain_core
+    if isinstance(query, DTensor):
+        return _local_heads(core, query, key, value, causal, scale), None
     out = _bshd(core, query, key, value, causal, scale)
     return out, None
+
+
+def _local_heads(core, query, key, value, causal, scale):
+    """Attention of DTensor q/k/v [B, S, H, D] on each rank's batch rows
+    and heads; the output is placed as q."""
+    plc = tuple(query.placements)
+    for t in (key, value):
+        if not isinstance(t, DTensor) or tuple(t.placements) != plc or \
+                t.device_mesh != query.device_mesh:
+            raise ValueError(
+                "flash_attention on DTensors: key and value must be "
+                "DTensors placed as query on its mesh")
+    for p in plc:
+        if p.is_partial() or (p.is_shard() and p.dim % 4 not in (0, 2)):
+            raise ValueError(
+                f"flash_attention on DTensors splits the batch (dim 0) and "
+                f"the heads (dim 2) only; query is placed {plc}: "
+                f"redistribute the sequence and head dims whole first")
+    if scale is None:
+        scale = 1.0 / math.sqrt(query.shape[-1])
+    fn = local_map(
+        lambda q, k, v: _bshd(core, q, k, v, causal, scale),
+        out_placements=list(plc), in_placements=(list(plc),) * 3,
+        redistribute_inputs=False, device_mesh=query.device_mesh)
+    return fn(query, key, value)
 
 
 flash_attention.route_launches = dict.fromkeys(ATTENTION_ROUTES, 0)

@@ -1,13 +1,23 @@
 """Loss layers (counterpart of paddle_tpu/nn/layer/loss.py): the
 CrossEntropyLoss layer over the port's ``cross_entropy``, which raises on
-the options it has not ported (class weights, soft labels)."""
+the options it has not ported (class weights, soft labels), and MSELoss
+over ``mse_loss``."""
 from __future__ import annotations
 
 from torch import nn
 
-from ..functional.loss import cross_entropy
+from ..functional.loss import cross_entropy, mse_loss
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss"]
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return mse_loss(input, label, self.reduction)
 
 
 class CrossEntropyLoss(nn.Module):

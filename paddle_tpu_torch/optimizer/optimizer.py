@@ -13,6 +13,16 @@ carries the scheduler's state under ``"LR_Scheduler"``. ``grad_clip`` (one
 of nn/clip.py's classes) clips the gradients inside ``step()`` before the
 update, as the JAX package does.
 
+DTensor parameters (auto-parallel, distributed/auto_parallel/) step as
+dense ones do: a gradient is first redistributed to its parameter's
+placements (a Partial sum over the data axis is all-reduced; the result
+replaces the pending gradient, in ``p.grad`` or in ``grads``), the
+accumulators are created ``zeros_like`` the parameter, so they are
+DTensors laid out as it, and every operation of the update runs on this
+rank's shards. An optimizer registers itself with framework/dtensor.py,
+so a parameter that ``shard_tensor`` replaces after the optimizer was
+built is replaced here too, under its name and with its states.
+
 A parameter's name is its ``param_name`` attribute when it has one (the
 port's models name each parameter by its qualified name, as the JAX
 TrainStep keys its accumulators); otherwise ``param_<i>`` by position.
@@ -23,8 +33,11 @@ regularizers (ParamAttr) are not ported.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..framework.device import check_device
+from ..framework.dtensor import (as_param_placements, moved_accumulators,
+                                 register_holder, swapped)
 from ..nn.clip import ClipGradBase
 from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
@@ -61,6 +74,17 @@ class Optimizer:
         for i, p in enumerate(self._parameter_list):
             check_device(p.device)
             self._names[id(p)] = getattr(p, "param_name", None) or f"param_{i}"
+        register_holder(self)
+
+    def _replace_parameter(self, old, new):
+        """Hold ``new`` where ``old`` was, under its name and with its
+        states (shard_tensor on a parameter this optimizer holds)."""
+        if id(old) not in self._names:
+            return
+        for g in self._param_groups:
+            g["params"] = swapped(g["params"], old, new)
+        self._names[id(new)] = self._names.pop(id(old))
+        self._accumulators = moved_accumulators(self._accumulators, old, new)
 
     # -- groups ------------------------------------------------------------
     def _build_groups(self, parameters):
@@ -134,8 +158,8 @@ class Optimizer:
         ({id(param): tensor}) replaces ``p.grad`` where given: TrainStep's
         float32 master gradients of bfloat16 parameters, which torch does
         not store in ``p.grad``."""
-        grads = grads or {}
-        pgs = [(p, grads.get(id(p), p.grad), group)
+        grads = {} if grads is None else grads
+        pgs = [(p, self._laid_out_grad(p, grads), group)
                for group in self._param_groups for p in group["params"]
                if p.requires_grad]
         if self._grad_clip is not None:
@@ -155,6 +179,19 @@ class Optimizer:
                 g = g.float()
             self._apply_one(p, g, lr, wd)
         self._step_count += 1
+
+    @staticmethod
+    def _laid_out_grad(p, grads):
+        """``p``'s gradient (its entry in ``grads``, else ``p.grad``) laid
+        out as ``p``. A DTensor gradient that had to be redistributed is
+        stored back where it was read, so the pending one is freed before
+        the update."""
+        if id(p) in grads:
+            g = grads[id(p)] = as_param_placements(grads[id(p)], p)
+            return g
+        if isinstance(p.grad, DTensor):
+            p.grad = as_param_placements(p.grad, p)
+        return p.grad
 
     def _apply_one(self, p, grad, lr, wd):
         raise NotImplementedError

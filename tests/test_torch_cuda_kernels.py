@@ -3440,3 +3440,82 @@ def test_gloo_p2p_stages_cuda_tensors_through_host(cuda_device, tmp_path):
         np.testing.assert_array_equal(res["back"], 2 * x[1 - r])
         # isend + recv, then two sends and two receives
         assert res["staged"] == {"calls": 6, "bytes": 6 * 24}
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_dtensors_launches_the_wgmma_pair(cuda_device,
+                                                             monkeypatch):
+    """flash_attention on DTensor q/k/v (batch split over dp, heads over
+    mp) on a one-rank CUDA mesh: the wgmma forward and backward launch
+    once each, flash_attention counts its kernel route, and the output
+    and gradients equal the kernel's on the local tensors bit for bit,
+    with the inputs' placements."""
+    import paddle_tpu_torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    for k, v in {"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+                 "PADDLE_MASTER": "", "FLAGS_selected_gpus": "0"}.items():
+        monkeypatch.setenv(k, v)
+    dist.init_parallel_env()
+    try:
+        mesh = dist.ProcessMesh([[0]], dim_names=["dp", "mp"])
+        rng = np.random.default_rng(26)
+        b, s, h, d = 2, 256, 4, 128
+        qkv = [torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                .astype(np.float32)).to(cuda_device,
+                                                        torch.bfloat16)
+               for _ in range(3)]
+        g = torch.from_numpy(rng.standard_normal((b, s, h, d))
+                             .astype(np.float32)).to(cuda_device,
+                                                     torch.bfloat16)
+        plc = [dist.Shard(0), dist.Shard(2)]
+        dq, dk, dv = (dist.shard_tensor(x, mesh, plc).requires_grad_()
+                      for x in qkv)
+        fwd, bwd = (_flash_bhsd.route_launches["wgmma"],
+                    _flash_bhsd_bwd.route_launches["wgmma"])
+        routed = flash_attention.route_launches["kernel"]
+        out, _ = flash_attention(dq, dk, dv, causal=True)
+        assert isinstance(out, DTensor)
+        assert tuple(out.placements) == tuple(dq.placements)
+        out.backward(dist.shard_tensor(g, mesh, plc))
+        assert _flash_bhsd.route_launches["wgmma"] == fwd + 1
+        assert _flash_bhsd_bwd.route_launches["wgmma"] == bwd + 1
+        assert flash_attention.route_launches["kernel"] == routed + 1
+        lq, lk, lv = (x.clone().requires_grad_() for x in qkv)
+        ref, _ = flash_attention(lq, lk, lv, causal=True)
+        ref.backward(g)
+        assert torch.equal(out.to_local(), ref)
+        for dx, lx in ((dq, lq), (dk, lk), (dv, lv)):
+            assert tuple(dx.grad.placements) == tuple(dx.placements)
+            assert torch.equal(dx.grad.to_local(), lx.grad)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dtensor_gathers_on_nccl_after_a_gloo_world_on_the_card(cuda_device,
+                                                                monkeypatch):
+    """A rank that joined a gloo world on the card (which reroutes torch's
+    functional all-gathers to c10d's) and destroyed it gathers DTensors
+    through torch's own kernels in a later NCCL world; the rerouted body
+    itself serves an NCCL group too."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    for k, v in {"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+                 "PADDLE_MASTER": "", "FLAGS_selected_gpus": "0"}.items():
+        monkeypatch.setenv(k, v)
+    x = torch.arange(12, dtype=torch.float32, device=cuda_device).view(4, 3)
+    for backend in ("gloo", "nccl"):
+        dist.init_parallel_env(backend=backend)
+        try:
+            assert bool(collective._REROUTED) == (backend == "gloo")
+            mesh = dist.ProcessMesh([[0]], dim_names=["dp", "mp"])
+            d = dist.shard_tensor(x, mesh, [dist.Shard(0), dist.Shard(1)])
+            assert d.device.type == "cuda"
+            assert torch.equal(d.full_tensor(), x)
+            assert torch.equal(dist.unshard_dtensor(d), x)
+            group = mesh.device_mesh().get_group(0)
+            assert torch.equal(collective._c10d_all_gather(
+                x, 1, group.group_name), x)
+        finally:
+            dist.destroy_process_group()
+        assert not collective._REROUTED

@@ -28,7 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 # the rank side of the distributed tests: spawned ranks unpickle their
 # functions from these, so they must load neither
 RANK_HELPERS = [ROOT / "tests" / "torch_dist_cases.py",
-                ROOT / "tests" / "torch_zero_cases.py"]
+                ROOT / "tests" / "torch_zero_cases.py",
+                ROOT / "tests" / "torch_auto_parallel_cases.py"]
 
 
 def _port_sources():
