@@ -262,7 +262,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    TrainStep: losses equal train_gpt2's bit for bit, s/step beside the
    plain step's, timed in turns); train_mp1_nccl (train's configuration
    with tensor_parallel=True under fleet.init(mp_degree=1): losses equal
-   train's bit for bit); train_semi_auto_nccl (BASELINE configuration 5
+   train's bit for bit); train_mp1_quant_nccl (the same under
+   matmul_quant "int8" and "fp8": every mp layer's forward on
+   quant_matmul's wgmma route, 29 launches a step, the step-1 loss within
+   2 % of train_mp1_nccl's and not equal to it, falling losses, s/step,
+   tokens/s and MFU over 5 timed steps; quant_matmul at the step's four
+   shapes, M 12,288, against its plain version, timed beside F.linear);
+   train_semi_auto_nccl (BASELINE configuration 5
    at world 1: train's model, seed and batch through the auto-parallel
    API, ProcessMesh([[0]], ["dp", "mp"]), shard_layer with the
    reference's megatron shard_fn, shard_optimizer, shard_dataloader,
@@ -275,7 +281,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    wire bytes a step); mp2_gloo_on_card (Llama at Llama-2-7B widths, 2
    layers, float32, 2 x 512, mp 2, against the mp-1 model from the same
    full weights: losses, step-1 gradient shards, parameter shards, the
-   replicated parameters bit for bit on both ranks); train_pp1_nccl
+   replicated parameters bit for bit on both ranks);
+   mp2_overlap_gloo_on_card (that world and model in five lanes:
+   sequence_parallel; mp_overlap's column / row rings exact, bf16 and
+   int8; sequence_parallel with the column_sp / row_sp rings; the exact
+   lanes within 1e-5 of the mp-1 losses and by PARAM_FRAC's rule after
+   step 3, the codec lanes' step-1 loss within 1e-4 of the exact ring
+   lane's (1e-3 later) and more than 1e-6 from it; the bytes the rings posted a rank a step equal to
+   the sum of overlap_wire_plan over the step's calls, 251,658,240 /
+   125,829,120 / 63,897,600 for the three column / row lanes); train_pp1_nccl
    (train's configuration with pipeline_parallel=True under
    fleet.init(pp_degree=1): at pp_microbatches=1 losses equal train's bit
    for bit with train's flash launches a step, then the auto microbatch
@@ -325,7 +339,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (train_semi_auto_nccl's tensor-core pair, rank 0 of
    semi_auto_dp2mp2_gloo_on_card's CUDA-core pair), train_gpt2 for both
    at D 64, serve_quant
-   for quant_matmul's two GEMVs and tensor-core product and the quantized
+   for quant_matmul's two GEMVs and tensor-core product (and
+   train_mp1_quant_nccl for that product at the training shapes, the
+   check at its gate_up shape) and the quantized
    ragged kernel, serve_long for the partials, serve_prefix for the
    ragged kernel at the warm prefill's shape and prefix_parity for the
    other two there, train_moe for the grouped
@@ -2940,9 +2956,9 @@ def train_profile_phase(torch, np, seed, steps=2, phase="train_profile",
     """--profile only: `steps` train steps at the train phase's shapes (or
     those `build(seed)` gives: model, step, ids, labels), run once plainly
     for their wall time and once under torch.profiler for the device time
-    by kernel, grouped into the flash kernels, matrix products
-    (cuBLAS/CUTLASS GEMMs) and the rest (element-wise, reductions,
-    AdamW)."""
+    by kernel, grouped into the flash kernels, quant_matmul's, matrix
+    products (cuBLAS/CUTLASS GEMMs) and the rest (element-wise,
+    reductions, AdamW)."""
     from torch.profiler import ProfilerActivity, profile
     if build is None:
         cfg = train_config()
@@ -2964,12 +2980,15 @@ def train_profile_phase(torch, np, seed, steps=2, phase="train_profile",
             step((ids,), (labels,))
         torch.cuda.synchronize()
     rows, busy_s = device_kernel_rows(prof)
-    groups = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash_fwd": 0.0, "flash_bwd": 0.0, "quant_matmul": 0.0,
+              "gemm": 0.0, "other": 0.0}
     for us, name, _ in rows:
         if "flash_fwd" in name:
             groups["flash_fwd"] += us / 1e6
         elif "flash_bwd" in name:
             groups["flash_bwd"] += us / 1e6
+        elif "qmm_" in name:
+            groups["quant_matmul"] += us / 1e6
         elif any(t in name.lower() for t in ("gemm", "nvjet", "cutlass",
                                              "xmma")):
             groups["gemm"] += us / 1e6
@@ -6365,16 +6384,18 @@ def dist_collectives_nccl_phase(torch, np, seed):
 
 
 def _fleet_init(torch, backend=None, grad_compress=None,
-                dispatch_compress=None, **degrees):
+                dispatch_compress=None, knobs=None, **degrees):
     """fleet.init on the world (its backend as init_parallel_env chose,
-    or ``backend``) with these degrees, the gradient-sync codec and the
-    MoE dispatch's."""
+    or ``backend``) with these degrees, the gradient-sync codec, the MoE
+    dispatch's and the strategy's other ``knobs`` (a dict)."""
     from paddle_tpu_torch.distributed import fleet
     s = fleet.DistributedStrategy()
     s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
                         **degrees}
     s.grad_compress = grad_compress
     s.dispatch_compress = dispatch_compress
+    for k, v in (knobs or {}).items():
+        setattr(s, k, v)
     fleet.init(is_collective=True, strategy=s, backend=backend)
     return fleet
 
@@ -6517,6 +6538,155 @@ def train_mp1_nccl_phase(torch, np, seed, base):
     del model, step, opt
     torch.cuda.empty_cache()
     return rec
+
+
+# train_mp1_quant_nccl: train's configuration under matmul_quant, 2 warm-up
+# and 5 timed steps a lane (train times 10: the cut saves script time)
+QUANT_TRAIN_TIMED = 5
+# the quantized forward moves the step-1 loss from the exact one by less
+# than this (relative), and by something
+QUANT_LOSS_RTOL = 2e-2
+# the mp layers' products a step: q, k, v, o, gate, up, down a layer and
+# the head; each forward runs quant_matmul once (the backward is float32)
+QUANT_LINEARS_PER_LAYER = 7
+# quant_matmul at the step's shapes: (name, K, N) for M = batch x seq
+QUANT_TRAIN_SHAPES = (("qkvo", 4096, 4096), ("gate_up", 4096, 11008),
+                      ("down", 11008, 4096), ("head", 4096, 32000))
+
+
+def train_mp1_quant_nccl_phase(torch, np, seed, base):
+    """train_mp1_nccl's configuration (train's Llama: 4 layers, hidden
+    4096, batch 6 x 2048, bf16, AdamW with bf16 moments; fleet.init at
+    world 1 on NCCL, tensor_parallel=True) under
+    ``DistributedStrategy.matmul_quant`` "int8" and "fp8": every mp
+    layer's forward runs quant_matmul on its weight quantized per block
+    (7 a layer and the head a step, all on the wgmma route), the backward
+    is float32 against the bf16 weights (the reference's straight-through
+    estimator). Per lane: s/step, tokens/s and MFU over 5 timed steps
+    after 2 warm-up ones; the step-1 loss within 2 % of train_mp1_nccl's
+    on the same weights and batch, and not equal to it; the losses fall.
+    Then quant_matmul at the step's four shapes (M 12,288; int8 codes,
+    bf16 x) against its plain version, timed beside F.linear on the bf16
+    weight. Returns the lanes and the gate_up check."""
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion, TrainStep
+    from paddle_tpu_torch.kernels.flash_attention import (_flash_bhsd,
+                                                          _flash_bhsd_bwd)
+    from paddle_tpu_torch.kernels.quant_matmul import (configure_matmul_quant,
+                                                       quant_matmul)
+    from paddle_tpu_torch.observability import model_flops_per_token
+    cfg = train_config()
+    cfg.tensor_parallel = True
+    ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                              TRAIN_BATCH, TRAIN_SEQ)
+    layers = cfg.num_hidden_layers
+    per_step = QUANT_LINEARS_PER_LAYER * layers + 1
+    lanes = {}
+    try:
+        for qd in ("int8", "fp8"):
+            fleet = _fleet_init(torch, mp_degree=1,
+                                knobs={"matmul_quant": qd})
+            model = fleet.distributed_model(build_model(torch, cfg, seed))
+            n_params = sum(p.numel() for p in model.parameters())
+            crit = LlamaPretrainingCriterion(cfg)
+            opt = fleet.distributed_optimizer(
+                AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                      moment_dtype="bfloat16"))
+            step = TrainStep(model, lambda lo, la: crit(lo, la), opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            quant_matmul.launches = 0
+            quant_matmul.route_launches = dict.fromkeys(
+                quant_matmul.route_launches, 0)
+            zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+            losses = [step((ids,), (labels,)) for _ in range(TRAIN_WARMUP)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(QUANT_TRAIN_TIMED):
+                losses.append(step((ids,), (labels,)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            losses = [x.item() for x in losses]
+            n = TRAIN_WARMUP + QUANT_TRAIN_TIMED
+            routes = dict(quant_matmul.route_launches)
+            tps = TRAIN_BATCH * TRAIN_SEQ * QUANT_TRAIN_TIMED / wall
+            flops_tok = model_flops_per_token(cfg, TRAIN_SEQ, n_params)
+            rel = abs(losses[0] - base["losses"][0]) / abs(base["losses"][0])
+            lanes[qd] = {
+                "s_per_step": wall / QUANT_TRAIN_TIMED, "tokens_per_s": tps,
+                "mfu": flops_tok * tps / BF16_FLOPS,
+                "train_mp1_nccl_s_per_step": base["s_per_step"],
+                "losses": losses, "step1_loss_rel_gap_to_exact": rel,
+                "quant_matmul_launches": quant_matmul.launches,
+                "quant_matmul_route_launches": routes,
+                "quant_matmul_launches_rule": f"(7 x {layers} layers + the "
+                                              f"head) x {n} steps",
+                "flash_fwd_route_launches": dict(_flash_bhsd.route_launches),
+                "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            check(all(math.isfinite(x) for x in losses) and
+                  losses[-1] < losses[0],
+                  f"train_mp1_quant_nccl {qd}: losses {losses}")
+            check(0 < rel <= QUANT_LOSS_RTOL,
+                  f"train_mp1_quant_nccl {qd}: step-1 loss {losses[0]} vs "
+                  f"the exact {base['losses'][0]} (rel {rel})")
+            check(routes == {**dict.fromkeys(routes, 0),
+                             "wgmma": per_step * n},
+                  f"train_mp1_quant_nccl {qd}: quant_matmul routes {routes}, "
+                  f"want {per_step * n} wgmma")
+            check(_flash_bhsd.route_launches["wgmma"] == layers * n,
+                  f"train_mp1_quant_nccl {qd}: flash launches "
+                  f"{_flash_bhsd.route_launches}")
+            del model, step, opt
+            torch.cuda.empty_cache()
+    finally:
+        configure_matmul_quant("none")
+    m = TRAIN_BATCH * TRAIN_SEQ
+    checks = {name: qmm_case(torch, f"train_{name}_m{m}_k{k}_n{n}", m, k, n,
+                             "int8", torch.bfloat16, m + k + n)
+              for name, k, n in QUANT_TRAIN_SHAPES}
+    for name, rec in checks.items():
+        check(rec["route"] == "wgmma", f"train {name}: routed to "
+                                       f"{rec['route']}")
+    rec = {"phase": "train_mp1_quant_nccl", "card": card_line(),
+           "entry_points": ["fleet.init(mp_degree=1, matmul_quant=...)",
+                            "LlamaConfig(tensor_parallel=True)",
+                            "fleet.distributed_model",
+                            "fleet.distributed_optimizer", "TrainStep"],
+           "backend": "NCCL", "world_size": 1, "layers": layers,
+           "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "warmup_steps": TRAIN_WARMUP, "timed_steps": QUANT_TRAIN_TIMED,
+           "timed_steps_note": "5, not train's 10: saves script time",
+           "exact_step1_loss": base["losses"][0], "lanes": lanes,
+           "kernel_checks": {k: {"kernel_ms": r["kernel_ms"],
+                                 "bound_ms": r["bound_ms"],
+                                 "library_ms": r["library_ms"],
+                                 "plain_ms": r["plain_ms"],
+                                 "max_abs_err": r["max_abs_err"]}
+                             for k, r in checks.items()}}
+    emit(rec)
+    return {"lanes": lanes, "check": checks["gate_up"],
+            "wgmma_launches": sum(l["quant_matmul_route_launches"]["wgmma"]
+                                  for l in lanes.values())}
+
+
+def quant_profile_build(torch, np, qd):
+    """train_mp1_quant_nccl's model, step and batch under matmul_quant
+    ``qd``, for train_profile_phase (the caller turns the knob off)."""
+    from paddle_tpu_torch import AdamW, LlamaPretrainingCriterion, TrainStep
+
+    def build(seed):
+        cfg = train_config()
+        cfg.tensor_parallel = True
+        fleet = _fleet_init(torch, mp_degree=1, knobs={"matmul_quant": qd})
+        model = fleet.distributed_model(build_model(torch, cfg, seed))
+        crit = LlamaPretrainingCriterion(cfg)
+        opt = fleet.distributed_optimizer(
+            AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                  moment_dtype="bfloat16"))
+        step = TrainStep(model, lambda lo, la: crit(lo, la), opt)
+        ids, labels = train_batch(torch, np, seed + 3, cfg.vocab_size,
+                                  TRAIN_BATCH, TRAIN_SEQ)
+        return model, step, ids, labels
+    return build
 
 
 def _probe_gloo_cuda(torch, progress):
@@ -6917,6 +7087,210 @@ def mp2_gloo_on_card_phase(torch, np, seed, tmpdir):
               == MP2_LAYERS * MP2_STEPS,
               f"mp2_gloo_on_card: flash launches "
               f"{r['flash_fwd_route_launches']}")
+    return rec
+
+
+# mp2_overlap_gloo_on_card's lanes: (sequence_parallel, mp_overlap,
+# mp_activation_compress) in one spawned world, mp2_gloo_on_card's model,
+# batch, lr and steps
+MP2_OVERLAP_LANES = {"sp": (True, False, None),
+                     "overlap": (False, True, None),
+                     "overlap_bf16": (False, True, "bf16"),
+                     "overlap_int8": (False, True, "int8"),
+                     "sp_overlap": (True, True, None)}
+MP2_OVERLAP_CHUNKS = 4
+# the codec lanes against the exact ring lane, relative, at each of the
+# three steps, and more than MOE_DIST_CODEC_FLOOR away at some step. Step
+# 1 carries the forward wire's error alone, within 1e-4 (the MoE codec
+# lanes' rule); the gap grows with training whichever wire carries the
+# error: on an H100 80GB HBM3 at 700 W the int8 lane read 6.6e-6, 7.8e-5
+# and 3.3e-4, and 6.6e-6, 8.7e-5 and 2.7e-4 with the backward rings on
+# the exact wire. The limits of steps 2 and 3 lie between those readings
+# and what the lane read with the backward rings' int8 codes truncated
+# instead of rounded, 2.3e-4 and 4.1e-4 (PERF.md, PR 27)
+MP2_CODEC_RTOLS = (1e-4, 1.4e-4, 3.7e-4)
+# the rings' bytes a rank a step, as encoded, reckoned from the
+# reference's overlap_wire_plan for mp2's 15 column / row calls of
+# 2,097,152 values, 2 rings of 1 hop each
+MP2_OVERLAP_WIRE = {"overlap": 251658240, "overlap_bf16": 125829120,
+                    "overlap_int8": 63897600}
+
+
+def _mp2_overlap_rank(tmpdir, one_dir, seed, ids, labels):
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    os.environ["PADDLE_COMM_TIMEOUT"] = str(DIST_COMM_TIMEOUT_S)
+    try:
+        import gc
+        import torch
+        import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch import (AdamW, LlamaPretrainingCriterion,
+                                      TrainStep)
+        from paddle_tpu_torch.convert import tp_shard
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            collective_matmul as cm)
+        from paddle_tpu_torch.kernels.flash_attention import (
+            _flash_bhsd, _flash_bhsd_bwd)
+        dist.init_parallel_env(backend="gloo")
+        _probe_gloo_cuda(torch, os.path.join(tmpdir, f"rank{rank}.probe"))
+        _f32_no_tf32(torch)
+        x, y = (torch.as_tensor(a, device="cuda") for a in (ids, labels))
+        ref = torch.load(os.path.join(one_dir, "mp1_params.pt"), mmap=True)
+        out = {}
+        for lane, (sp, overlap, comp) in MP2_OVERLAP_LANES.items():
+            knobs = {"mp_overlap": overlap, "mp_activation_compress": comp,
+                     "mp_overlap_chunks": MP2_OVERLAP_CHUNKS if overlap
+                     else "auto"}
+            fleet = _fleet_init(torch, mp_degree=2, backend="gloo",
+                                knobs=knobs)
+            mr = fleet.get_hybrid_communicate_group() \
+                .get_model_parallel_rank()
+            cfg = _mp2_config(True)
+            cfg.sequence_parallel = sp
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model = fleet.distributed_model(build_model(torch, cfg, seed))
+            crit = LlamaPretrainingCriterion(cfg)
+            opt = fleet.distributed_optimizer(AdamW(
+                learning_rate=MP2_LR, parameters=model.parameters()))
+            step = TrainStep(model, lambda lo, la: crit(lo, la), opt)
+            zero_flash_counts(_flash_bhsd, _flash_bhsd_bwd)
+            cm.reset_counters()
+            losses, times = [], []
+            for _ in range(MP2_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step((x,), (y,)).item())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            gap = _param_gap(
+                torch, ref,
+                {k: p.detach() for k, p in model.named_parameters()},
+                MP2_LR * MP2_STEPS,
+                lambda k, full, mr=mr: tp_shard(k, full, mr, 2))
+            c = cm.counters
+            out[lane] = {
+                "mp_rank": mr, "losses": losses, "step_s": times,
+                "params_after_step3": gap,
+                "posted_wire_bytes_per_step": {
+                    k: v // MP2_STEPS
+                    for k, v in c["posted_wire_bytes"].items() if v},
+                "plan_wire_bytes_per_step": {
+                    k: v // MP2_STEPS for k, v in
+                    c["paddle_tpu_mp_overlap_compressed_bytes_total"].items()
+                    if v},
+                "plan_logical_bytes_per_step": {
+                    k: v // MP2_STEPS for k, v in
+                    c["paddle_tpu_mp_overlap_bytes_total"].items() if v},
+                "chunks": {k: v for k, v in
+                           c["paddle_tpu_mp_overlap_chunks_total"].items()
+                           if v},
+                "flash_fwd_route_launches": dict(_flash_bhsd.route_launches),
+                "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            del model, step, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        _rank_done(tmpdir, rank, out)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        _rank_failed(tmpdir, rank)
+        raise
+
+
+def mp2_overlap_gloo_on_card_phase(torch, np, seed, tmpdir, one_dir, mp2):
+    """mp2_gloo_on_card's world and configuration (two gloo ranks on
+    cuda:0, Llama at Llama-2-7B widths, 2 layers, float32 with TF32 off,
+    2 x 512, AdamW lr 1e-5, 3 steps) in five lanes of one spawned world:
+    "sp" (sequence_parallel, the collectives whole), "overlap" (mp_overlap:
+    the column / row permute rings, 4 chunks a hop, exact wire),
+    "overlap_bf16", "overlap_int8" (mp_activation_compress) and
+    "sp_overlap" (the column_sp / row_sp rings). The exact lanes are held
+    to mp2_gloo_on_card's one process (``mp2``, whose parameters after
+    step 3 lie in ``one_dir``): every loss within 1e-5 relative, the
+    shards after step 3 by PARAM_FRAC's rule. The codec lanes are held to
+    the "overlap" lane: the losses of steps 1-3 within 1e-4, 1.4e-4 and
+    3.7e-4, and more than 1e-6 from it at some step. The
+    bytes the rings posted a rank a step, as encoded, must equal the sum
+    of overlap_wire_plan over the step's calls (the counters add each
+    call's plan), and for the three column / row lanes the figures
+    reckoned from the reference's plan. Gloo moves the wire through host
+    memory, where a send waits for its block: the s/step are gloo's host
+    wire, no NCCL figure, and show no overlap."""
+    cfg = _mp2_config(False)
+    rng = np.random.default_rng(seed + 3)
+    ids = rng.integers(0, cfg.vocab_size, (MP2_BATCH, MP2_SEQ))
+    labels = rng.integers(0, cfg.vocab_size, (MP2_BATCH, MP2_SEQ))
+    ranks = _spawn_world(_mp2_overlap_rank, (one_dir, seed, ids, labels),
+                         tmpdir, "mp2_overlap_gloo_on_card")
+    one = mp2["mp1_losses"]
+    lanes = {}
+    for lane, (sp, overlap, comp) in MP2_OVERLAP_LANES.items():
+        rs = [r[lane] for r in ranks]
+        lanes[lane] = {
+            "sequence_parallel": sp, "mp_overlap": overlap,
+            "mp_activation_compress": comp,
+            "losses": [r["losses"] for r in rs],
+            "step_s": [r["step_s"] for r in rs],
+            "posted_wire_bytes_per_step": [r["posted_wire_bytes_per_step"]
+                                           for r in rs],
+            "plan_wire_bytes_per_step": [r["plan_wire_bytes_per_step"]
+                                         for r in rs],
+            "plan_logical_bytes_per_step": rs[0]["plan_logical_bytes_per_step"],
+            "chunks": rs[0]["chunks"],
+            "params_after_step3": [r["params_after_step3"] for r in rs],
+            "flash_fwd_route_launches": rs[0]["flash_fwd_route_launches"],
+            "peak_device_bytes": [r["peak_device_bytes"] for r in rs]}
+    exact = lanes["overlap"]["losses"][0]
+    rec = {"phase": "mp2_overlap_gloo_on_card", "card": card_line(),
+           "note": "two ranks on one card over gloo: the rings' hops and "
+                   "the collectives go through host memory (a send copies "
+                   "its block there first), so nothing overlaps; the s/step "
+                   "are gloo's host wire, no NCCL figure",
+           "model": "Llama, Llama-2-7B widths, float32, TF32 off",
+           "layers": MP2_LAYERS, "batch": [MP2_BATCH, MP2_SEQ],
+           "lr": MP2_LR, "steps": MP2_STEPS, "chunks": MP2_OVERLAP_CHUNKS,
+           "mp1_losses": one, "mp1_step_s": mp2["mp1_step_s"],
+           "reckoned_wire_bytes_per_step": MP2_OVERLAP_WIRE, "lanes": lanes}
+    emit(rec)
+    for lane, l in lanes.items():
+        comp = l["mp_activation_compress"]
+        for mr, losses in enumerate(l["losses"]):
+            if comp is None:
+                rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+                check(rel <= MP2_TOL, f"mp2_overlap_gloo_on_card {lane}: "
+                                      f"losses {losses} vs mp 1 {one}")
+                check(l["params_after_step3"][mr]["ok"],
+                      f"mp2_overlap_gloo_on_card {lane}: shards after step "
+                      f"{MP2_STEPS}: {l['params_after_step3'][mr]}")
+            else:
+                gaps = [abs(a - b) / abs(b) for a, b in zip(losses, exact)]
+                check(len(gaps) == len(MP2_CODEC_RTOLS)
+                      and all(g <= t for g, t in zip(gaps, MP2_CODEC_RTOLS))
+                      and max(gaps) > MOE_DIST_CODEC_FLOOR,
+                      f"mp2_overlap_gloo_on_card {lane}: losses {losses} "
+                      f"vs the exact ring lane {exact} (gaps {gaps})")
+        check(l["flash_fwd_route_launches"]["cuda_core"]
+              == MP2_LAYERS * MP2_STEPS,
+              f"mp2_overlap_gloo_on_card {lane}: flash launches "
+              f"{l['flash_fwd_route_launches']}")
+        posted, plan = l["posted_wire_bytes_per_step"], \
+            l["plan_wire_bytes_per_step"]
+        check(posted == plan, f"mp2_overlap_gloo_on_card {lane}: posted "
+                              f"{posted} vs the plan {plan}")
+        if l["mp_overlap"]:
+            kinds = {"column_sp", "row_sp", "column"} if l[
+                "sequence_parallel"] else {"column", "row"}
+            check(set(posted[0]) == kinds,
+                  f"mp2_overlap_gloo_on_card {lane}: ring kinds "
+                  f"{sorted(posted[0])}, want {sorted(kinds)}")
+        else:
+            check(posted[0] == {}, f"mp2_overlap_gloo_on_card {lane}: "
+                                   f"rings posted {posted[0]}")
+        if lane in MP2_OVERLAP_WIRE:
+            check(all(sum(p.values()) == MP2_OVERLAP_WIRE[lane]
+                      for p in posted),
+                  f"mp2_overlap_gloo_on_card {lane}: {posted} a step, "
+                  f"reckoned {MP2_OVERLAP_WIRE[lane]}")
     return rec
 
 
@@ -8122,7 +8496,8 @@ def semi_auto_dp2mp2_gloo_on_card_phase(torch, np, seed, tmpdir):
     return rec
 
 
-def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None):
+def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None,
+                profile=False):
     """Phase 16c: the collectives on NCCL at world 1, train_gpt2 and train
     through fleet at one rank (bit for bit against those phases; train
     also pipelined at pp 1, and through the auto-parallel API on a mesh
@@ -8130,19 +8505,36 @@ def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None):
     gloo ranks on the card; then configuration 4: the stage-2
     composition at world 1 on NCCL (bit for bit with one process, and
     with train_moe when it ran), expert parallelism, the ZeRO stages and
-    both together in gloo ranks. Returns the auto-parallel phases'
-    records (their flash launches join the kernels line)."""
+    both together in gloo ranks. Tensor parallelism also runs under
+    matmul_quant at world 1 on NCCL and, in gloo ranks, under sequence
+    parallelism and the collective-matmul rings; with ``profile`` one
+    quantized train step is also profiled. Returns the auto-parallel
+    phases' records (their flash launches join the kernels line) and the
+    quantized train's (its quant_matmul launches join it)."""
     import tempfile
     dist_collectives_nccl_phase(torch, np, seed + 80)
     train_gpt2_dp_phase(torch, np, seed + 30, train_gpt2)
-    train_mp1_nccl_phase(torch, np, seed, train)
+    mp1 = train_mp1_nccl_phase(torch, np, seed, train)
+    quant = train_mp1_quant_nccl_phase(torch, np, seed, mp1)
+    if profile:
+        from paddle_tpu_torch.kernels.quant_matmul import (
+            configure_matmul_quant)
+        try:
+            train_profile_phase(torch, np, seed,
+                                phase="train_mp1_quant_profile",
+                                build=quant_profile_build(torch, np, "int8"))
+        finally:
+            configure_matmul_quant("none")
     train_pp1_nccl_phase(torch, np, seed, train)
     semi = {"nccl": train_semi_auto_nccl_phase(torch, np, seed, train)}
     with tempfile.TemporaryDirectory() as tmp:
         dp2_gloo_on_card_phase(torch, np, seed + 81,
                                tempfile.mkdtemp(dir=tmp))
-        mp2_gloo_on_card_phase(torch, np, seed + 82,
-                               tempfile.mkdtemp(dir=tmp))
+        mp2_dir = tempfile.mkdtemp(dir=tmp)
+        mp2 = mp2_gloo_on_card_phase(torch, np, seed + 82, mp2_dir)
+        mp2_overlap_gloo_on_card_phase(torch, np, seed + 82,
+                                       tempfile.mkdtemp(dir=tmp), mp2_dir,
+                                       mp2)
         pp2_gloo_on_card_phase(torch, np, seed + 83,
                                tempfile.mkdtemp(dir=tmp))
         pp2mp2_gloo_on_card_phase(torch, np, seed + 84,
@@ -8158,7 +8550,7 @@ def dist_phases(torch, np, seed, train, train_gpt2, train_moe=None):
                                      tempfile.mkdtemp(dir=tmp), one)
         ep2sharding2_gloo_on_card_phase(torch, np, seed + 41,
                                         tempfile.mkdtemp(dir=tmp), one)
-    return semi
+    return semi, quant
 
 
 def main():
@@ -8202,7 +8594,8 @@ def main():
                          "phases, then exit")
     ap.add_argument("--profile", action="store_true",
                     help="also profile short full-width serves (plain, "
-                         "quantized, long-context), train steps and the "
+                         "quantized, long-context), train steps (plain "
+                         "and under matmul_quant) and the "
                          "packed-attention passes with torch.profiler "
                          "(device time by kernel)")
     args = ap.parse_args()
@@ -8237,10 +8630,11 @@ def main():
                "rms_norm", "fused_elementwise")
     if args.dist_only:
         _build.build("flash_attention_fwd", "flash_attention_bwd",
-                     "grouped_matmul")
+                     "grouped_matmul", "quant_matmul")
         train = train_phase(torch, np, args.seed)
         train_gpt2 = train_gpt2_phase(torch, np, args.seed + 30)
-        dist_phases(torch, np, args.seed, train, train_gpt2)
+        dist_phases(torch, np, args.seed, train, train_gpt2,
+                    profile=args.profile)
         print(card_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -8588,7 +8982,8 @@ def main():
 
     # data, tensor, pipeline and auto parallelism: NCCL at world 1, gloo
     # ranks on the card
-    semi = dist_phases(torch, np, args.seed, train, train_gpt2, train_moe)
+    semi, quant = dist_phases(torch, np, args.seed, train, train_gpt2,
+                              train_moe, args.profile)
     # the auto-parallel phases' attention: the wgmma pair at world 1 (bf16),
     # the CUDA-core pair on each gloo rank (float32; rank 0's count)
     semi_fwd = {"wgmma": semi["nccl"]["flash_fwd_route_launches"]["wgmma"],
@@ -8643,6 +9038,12 @@ def main():
              "paddle_tpu/kernels/pallas/quant_matmul.py:177",
              qmm_prefill,
              serve_quant["quant_matmul_route_launches"]["wgmma"]),
+            # the mp layers' quantized training products (train_mp1_quant_
+            # nccl, both lanes), checked and timed at the step's gate_up
+            ("quant_matmul_wgmma_train",
+             "paddle_tpu_torch/csrc/quant_matmul.cu",
+             "paddle_tpu/kernels/pallas/quant_matmul.py:177",
+             quant["check"], quant["wgmma_launches"]),
             ("ragged_paged_attention_quant",
              "paddle_tpu_torch/csrc/ragged_paged_attention_quant.cu",
              "paddle_tpu/kernels/pallas/ragged_paged_attention.py:506",

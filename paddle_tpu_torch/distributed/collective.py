@@ -433,28 +433,51 @@ def decode_wire(parts, compress, shape, dtype):
     return parts[0]
 
 
-def _permute(parts, perm, g):
-    """Move each part from src to dst for every (src, dst) group-rank
-    pair of ``perm``; a rank nobody sends to gets zeros, as ppermute."""
+class _PostedPermute:
+    """A permute in flight: ``wait()`` waits for its sends and receives
+    and returns the parts this rank received (zeros where nobody sends to
+    it). A received part may be read only after ``wait()``."""
+
+    def __init__(self, tasks, outs):
+        self._tasks = tasks
+        self._outs = outs
+
+    def wait(self):
+        for task in self._tasks:
+            task.wait()
+        self._tasks = []
+        return self._outs
+
+
+def _post_permute(parts, perm, g, counters=None):
+    """Post the move of each part from src to dst for every (src, dst)
+    group-rank pair of ``perm`` and return without waiting. Every rank
+    posts its sends and receives in the order of ``perm``, so all ranks
+    of a ring post the same pairs in one order. ``counters`` (a dict)
+    gets the bytes this rank sends, as encoded, under "wire_bytes"."""
     me = g.rank
     outs = [torch.zeros_like(p) for p in parts]
     if g._local:
         for s, d in perm:
             if s == d == 0:
                 outs = [p.clone() for p in parts]
-        return outs
+        return _PostedPermute([], outs)
     ops = []
     for s, d in perm:
         if s == me and d != me:
             ops += [(True, p, g.ranks[d], g) for p in parts]
+            _count_wire(counters, *parts)
         if d == me and s != me:
             ops += [(False, o, g.ranks[s], g) for o in outs]
         if s == d == me:
             outs = [p.clone() for p in parts]
-    if ops:
-        for task in _post_p2p(ops):
-            task.wait()
-    return outs
+    return _PostedPermute(_post_p2p(ops) if ops else [], outs)
+
+
+def _permute(parts, perm, g):
+    """Move each part from src to dst for every (src, dst) group-rank
+    pair of ``perm``; a rank nobody sends to gets zeros, as ppermute."""
+    return _post_permute(parts, perm, g).wait()
 
 
 def wire_ppermute(x, axis, perm, compress=None):

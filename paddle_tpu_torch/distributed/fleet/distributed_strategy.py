@@ -3,15 +3,16 @@ paddle_tpu/distributed/fleet/distributed_strategy.py).
 
 The reference's fields and defaults, and its ``validate()``. The knobs of
 slices not ported yet raise NotImplementedError, naming themselves, when
-``validate()`` (fleet.init) finds them set: ``mp_overlap``,
-``mp_activation_compress``, ``matmul_quant``, ``sep_degree`` above 1,
-and these combinations: ``sharding_degree`` above 1 with ``mp_degree`` or
+``validate()`` (fleet.init) finds them set: ``sep_degree`` above 1, and
+these combinations: ``sharding_degree`` above 1 with ``mp_degree`` or
 ``pp_degree`` above 1 or with the gradient sync's knobs, ``ep_degree``
 above 1 with ``mp_degree`` or ``pp_degree`` above 1. Data, tensor,
 pipeline and sharding parallelism (``dp_degree``, ``mp_degree``,
 ``pp_degree`` with ``pp_configs``, ``sharding_degree``), expert
 parallelism (``ep_degree``) with its ``dispatch_compress`` wire codec,
-the gradient sync's ``grad_compress`` and ``grad_bucket_mb``, and
+the gradient sync's ``grad_compress`` and ``grad_bucket_mb``, the
+collective matmul's ``mp_overlap``, ``mp_activation_compress`` and
+``mp_overlap_chunks``, the quantized products' ``matmul_quant``, and
 ``pipeline_save_mode`` (validated as the reference does; the port's
 pipeline keeps one storage whatever its value) are ported.
 """
@@ -28,9 +29,6 @@ class _SubConfig(dict):
         self[k] = v
 
 
-# (field, default) of the knobs a later slice ports
-_LATER_KNOBS = (("mp_overlap", False), ("mp_activation_compress", None),
-                ("matmul_quant", None))
 _LATER_DEGREES = ("sep_degree",)
 
 
@@ -80,9 +78,14 @@ class DistributedStrategy:
         self.grad_bucket_mb = None
         # the expert-parallel dispatch's wire codec: None | "int8" | "bf16"
         self.dispatch_compress = None
-        for knob, default in _LATER_KNOBS:
-            setattr(self, knob, default)
+        # the collective matmul (fleet/meta_parallel/collective_matmul.py):
+        # the permute rings, their wire codec None | "int8" | "bf16" and
+        # the chunks a hop
+        self.mp_overlap = False
+        self.mp_activation_compress = None
         self.mp_overlap_chunks = "auto"
+        # the mp layers' quantized products: None | "int8" | "fp8"
+        self.matmul_quant = None
         # the pipeline's backward-save mode: None (the model's default),
         # "scan", "unroll" or "buffer"
         self.pipeline_save_mode = None
@@ -114,12 +117,6 @@ class DistributedStrategy:
         set, then the reference's ValueError naming every incoherent knob
         combination; returns self."""
         hc = self._hybrid_configs
-        for knob, default in _LATER_KNOBS:
-            v = getattr(self, knob, default)
-            if v != default:
-                raise NotImplementedError(
-                    f"DistributedStrategy.{knob}={v!r} is not ported to the "
-                    f"PyTorch package yet (a later slice of distributed)")
         for deg in _LATER_DEGREES:
             if int(hc.get(deg, 1)) > 1:
                 raise NotImplementedError(
@@ -147,6 +144,16 @@ class DistributedStrategy:
                         f"on the sharding axis are not ported to the "
                         f"PyTorch package yet")
         errors = []
+        codecs = (None, "int8", "bf16")
+        if getattr(self, "mp_overlap", False) and mp <= 1:
+            errors.append(
+                "mp_overlap=True with mp_degree==1: there are no mp "
+                "collectives to decompose into permute rings")
+        if getattr(self, "mp_activation_compress", None) and \
+                not getattr(self, "mp_overlap", False):
+            errors.append(
+                "mp_activation_compress set without mp_overlap: the "
+                "wire codec rides the collective-matmul rings only")
         if getattr(self, "grad_compress", None) and dp * sharding == 1:
             errors.append(
                 "grad_compress set with dp_degree*sharding_degree==1: "
@@ -165,11 +172,15 @@ class DistributedStrategy:
             errors.append(
                 "dispatch_compress set with ep_degree==1: there is no "
                 "expert-parallel all_to_all wire")
-        for knob in ("grad_compress", "dispatch_compress"):
+        for knob in ("grad_compress", "mp_activation_compress",
+                     "dispatch_compress"):
             v = getattr(self, knob, None)
-            if v not in (None, "int8", "bf16"):
-                errors.append(f"{knob}={v!r} not in "
-                              f"{(None, 'int8', 'bf16')}")
+            if v not in codecs:
+                errors.append(f"{knob}={v!r} not in {codecs}")
+        mq = getattr(self, "matmul_quant", None)
+        if mq not in (None, "int8", "fp8"):
+            errors.append(
+                f"matmul_quant={mq!r} not in (None, 'int8', 'fp8')")
         sm = getattr(self, "pipeline_save_mode", None)
         if sm not in (None, "scan", "unroll", "buffer"):
             errors.append(

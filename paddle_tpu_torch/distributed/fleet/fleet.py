@@ -2,14 +2,17 @@
 
 ``init`` joins the world (init_parallel_env), validates the strategy,
 infers a ``-1`` degree from the world size, builds the hybrid
-topology's process groups and sets the MoE dispatch's wire codec from
-``dispatch_compress``; ``distributed_model`` wraps the model in
-PipelineParallel (pp > 1), TensorParallel (mp > 1), ShardingParallel
-(sharding > 1) or DataParallel, in the reference's order of precedence
-(under expert parallelism DataParallel averages over the data world and
-sums the experts' gradients over their replicas); ``distributed_optimizer``
-wraps the optimizer in DygraphShardingOptimizer at sharding > 1 and
-carries the strategy's gradient-sync knobs to TrainStep.
+topology's process groups and sets the process-wide knobs: the
+collective matmul's (``mp_overlap``, ``mp_activation_compress``,
+``mp_overlap_chunks``), the mp layers' ``matmul_quant`` and the MoE
+dispatch's wire codec (``dispatch_compress``); ``distributed_model``
+wraps the model in PipelineParallel (pp > 1), TensorParallel (mp > 1),
+ShardingParallel (sharding > 1) or DataParallel, in the reference's order
+of precedence (under expert parallelism DataParallel averages over the
+data world and sums the experts' gradients over their replicas);
+``distributed_optimizer`` wraps the optimizer in DygraphShardingOptimizer
+at sharding > 1 and carries the strategy's gradient-sync knobs to
+TrainStep.
 """
 from __future__ import annotations
 
@@ -96,12 +99,22 @@ class Fleet:
             dims=[int(degrees[a]) for a in order])
         self._hcg = HybridCommunicateGroup(topo)
         self._user_defined_strategy = s
-        # MoELayers built from now on inherit the dispatch codec; init is
-        # authoritative, so a re-init with the knob off turns it off
+        # the process-wide knobs: the collective matmul's and the
+        # quantized products' (read by the mp layers at each call) and the
+        # dispatch codec (MoELayers built from now on inherit it). init is
+        # authoritative: a re-init with a knob off turns it off
         from ...incubate.distributed.models.moe.moe_layer import (
             configure_moe_dispatch)
+        from ...kernels.quant_matmul import configure_matmul_quant
+        from .meta_parallel.collective_matmul import configure_mp_overlap
+        configure_mp_overlap(
+            enabled=bool(getattr(s, "mp_overlap", False)),
+            compress=getattr(s, "mp_activation_compress", None) or "none",
+            chunks=getattr(s, "mp_overlap_chunks", None) or "auto")
         configure_moe_dispatch(
             compress=getattr(s, "dispatch_compress", None) or "none")
+        configure_matmul_quant(
+            dtype=getattr(s, "matmul_quant", None) or "none")
         self._is_initialized = True
         return self
 

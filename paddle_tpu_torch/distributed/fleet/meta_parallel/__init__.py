@@ -1,11 +1,15 @@
 """fleet.meta_parallel (counterpart of
 paddle_tpu/distributed/fleet/meta_parallel/): the tensor-parallel layers,
-the RNG state tracker, the pipeline's layers and executor, the ZeRO
+the collective matmul, the RNG state tracker, the pipeline's layers and executor, the ZeRO
 sharding stages, and the TensorParallel, ShardingParallel and
 PipelineParallel wrappers."""
 from .mp_layers import (  # noqa: F401
     VocabParallelEmbedding, ColumnParallelLinear, RowParallelLinear,
     ParallelCrossEntropy,
+)
+from .collective_matmul import (  # noqa: F401
+    cm_matmul, overlapped_linear, configure_mp_overlap, mp_overlap_config,
+    mp_overlap_ctx, overlap_wire_plan, DEFAULT_CHUNKS, CM_KINDS,
 )
 from .pp_layers import (  # noqa: F401
     LayerDesc, SharedLayerDesc, SegmentLayers, PipelineLayer,
@@ -25,7 +29,10 @@ from .sharding_optimizer import (  # noqa: F401
 )
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
-           "RowParallelLinear", "ParallelCrossEntropy", "LayerDesc",
+           "RowParallelLinear", "ParallelCrossEntropy", "cm_matmul",
+           "overlapped_linear", "configure_mp_overlap", "mp_overlap_config",
+           "mp_overlap_ctx", "overlap_wire_plan", "DEFAULT_CHUNKS",
+           "CM_KINDS", "LayerDesc",
            "SharedLayerDesc", "SegmentLayers", "PipelineLayer",
            "run_schedule", "spmd_pipeline", "spmd_pipeline_interleaved",
            "RNGStatesTracker", "get_rng_state_tracker",

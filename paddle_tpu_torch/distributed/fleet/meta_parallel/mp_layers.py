@@ -23,9 +23,15 @@ shards of n ranks built from one seed are the slices of the one-rank
 model. A sharded parameter carries ``mp_sharded = True`` (Paddle's
 ``is_distributed``, which names a method of torch's tensors),
 ``split_axis`` and its full shape. At one rank every layer is the plain
-torch op it replaces (no collective, the same kernels), and the mp
-collectives are exact: ``mp_overlap`` and ``matmul_quant`` are a later
-slice (DistributedStrategy.validate raises for them).
+torch op it replaces (no collective, the same kernels).
+
+Column and Row take the reference's order: first the collective-matmul
+rings (``overlapped_linear``: kinds ``column_gather``, ``column`` and
+``row``) when ``mp_overlap`` is on and the call is eligible; else
+``F.quant_linear`` (the quant_matmul kernel on the weight quantized per
+block, full-precision gradients) when ``matmul_quant`` is set, with the
+bias added outside the kernel; else the exact path. With both knobs on,
+the rings win and the product is not quantized, as in the reference.
 """
 from __future__ import annotations
 
@@ -36,8 +42,12 @@ from torch import nn
 from torch.nn import functional as F
 
 from ....framework.device import resolve_device, seed as _seed
+from ....kernels.quant_matmul import (FP8_MAX, get_matmul_quant,
+                                      quantized_linear)
+from ....nn.functional.common import quant_linear
 from ....nn.functional.loss import cross_entropy
 from ...collective import ReduceOp, all_gather, all_reduce
+from .collective_matmul import overlapped_linear
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "shard_of",
@@ -170,6 +180,42 @@ def _parallel(group):
     return group is not None and group.nranks > 1
 
 
+def _fp8_scale(x, split_over):
+    """fp8's per-tensor scale of the whole activation (the reference's
+    amax over the global array) when this rank holds a part of it: its
+    amax MAX-reduced over the groups ``split_over`` (on the device, no
+    host sync); None when the rank holds it whole."""
+    groups = [g for g in split_over if g is not None and g.nranks > 1]
+    if not groups:
+        return None
+    amax = x.detach().float().abs().amax()
+    for g in groups:
+        all_reduce(amax, op=ReduceOp.MAX, group=g)
+    return torch.clamp_min(amax, 1e-12) / FP8_MAX
+
+
+def _dp_group():
+    from ..fleet import live_hcg
+    hcg = live_hcg()
+    return None if hcg is None else hcg.get_data_parallel_group()
+
+
+def _linear(x, weight, bias, split_group=None):
+    """F.linear, or the quantized product under ``matmul_quant`` with
+    the bias added outside the kernel. ``split_group`` is the mp group
+    when x is split over it (fp8 scales x by the amax of all its parts,
+    and of every dp rank's rows)."""
+    mq = get_matmul_quant()
+    if mq is None:
+        return F.linear(x, weight, bias)
+    xs = _fp8_scale(x, (_dp_group(), split_group)) if mq == "fp8" else None
+    if xs is None:
+        out = quant_linear(x, weight, qdtype=mq)
+    else:
+        out = quantized_linear(x, weight, qdtype=mq, x_scale=xs)
+    return out if bias is None else out + bias
+
+
 class VocabParallelEmbedding(nn.Module):
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
                  mp_group=None, name=None, *, device=None, dtype=None,
@@ -228,9 +274,17 @@ class ColumnParallelLinear(nn.Module):
 
     def forward(self, x):
         if not _parallel(self._group):
-            return F.linear(x, self.weight, self.bias)
-        out = F.linear(_CopyToMP.apply(x, self._group), self.weight,
-                       self.bias)
+            return _linear(x, self.weight, self.bias)
+        cm = overlapped_linear(
+            x, self.weight, self._group,
+            "column_gather" if self.gather_output else "column")
+        if cm is not None:
+            if self.bias is None:
+                return cm
+            return cm + (_GatherFromMP.apply(self.bias, self._group)
+                         if self.gather_output else self.bias)
+        out = _linear(_CopyToMP.apply(x, self._group), self.weight,
+                      self.bias)
         if self.gather_output:
             return _GatherFromMP.apply(out, self._group)
         return out
@@ -261,10 +315,13 @@ class RowParallelLinear(nn.Module):
 
     def forward(self, x):
         if not _parallel(self._group):
-            return F.linear(x, self.weight, self.bias)
+            return _linear(x, self.weight, self.bias)
         if not self.input_is_parallel:
             x = _ScatterToMP.apply(x, self._group)
-        out = _ReduceFromMP.apply(F.linear(x, self.weight), self._group)
+        out = overlapped_linear(x, self.weight, self._group, "row")
+        if out is None:
+            out = _ReduceFromMP.apply(
+                _linear(x, self.weight, None, self._group), self._group)
         return out if self.bias is None else out + self.bias
 
 

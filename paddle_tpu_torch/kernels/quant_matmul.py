@@ -32,12 +32,20 @@ pieces, `split3_bf16`, bf16 x as it is) or the CUDA-core tile
 training front door: the forward quantizes the [E, K, N] expert stack and
 runs the quantized kernel, the backward is the straight-through estimator
 (the grouped kernels against the full-precision weight).
+`quantized_linear` is the dense training front door (the JAX package's
+`_qlin_vjp`): the forward quantizes the [N, K] weight per block and runs
+`quant_matmul` (for fp8 it also fake-quantizes x per tensor, by its amax
+taken on the device or by a given ``x_scale``, e.g. a
+`DelayedScaleState`'s), the backward is the straight-through estimator in
+float32 against the original weight and x.
 `configure_matmul_quant` / `get_matmul_quant` hold the process-wide
-quantized-matmul dtype (``PT_MATMUL_QUANT``) that MoELayer's
-``expert_quant="auto"`` reads.
+quantized-matmul dtype (``PT_MATMUL_QUANT``) that the mp layers read at
+each call and MoELayer's ``expert_quant="auto"`` when it is built;
+`active_matmul_dtype` names the dtype the training products run at.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 
@@ -51,8 +59,10 @@ __all__ = ["QK_BLOCK", "INT8_MAX", "FP8_MAX", "quantize_weight_blockwise",
            "dequantize_weight_blockwise", "quant_error_bound",
            "blockwise_weight_bytes", "quant_matmul", "quant_matmul_plain",
            "quant_grouped_matmul", "quant_grouped_matmul_plain",
-           "quantized_grouped_linear", "configure_matmul_quant",
-           "get_matmul_quant", "qmm_route", "QMM_ROUTES", "ROWS_MAX_M",
+           "quantized_grouped_linear", "quantized_linear",
+           "DelayedScaleState", "configure_matmul_quant",
+           "get_matmul_quant", "active_matmul_dtype", "qmm_route",
+           "QMM_ROUTES", "ROWS_MAX_M",
            "WGMMA_BLOCK_K", "GEMV_TC_BLOCK_K", "gq_route", "GQ_ROUTES",
            "GQ_WGMMA_BM", "split3_bf16"]
 
@@ -60,6 +70,7 @@ __all__ = ["QK_BLOCK", "INT8_MAX", "FP8_MAX", "quantize_weight_blockwise",
 QK_BLOCK = 128
 INT8_MAX = 127.0
 FP8_MAX = 448.0                  # float8_e4m3fn's largest finite value
+FP8_OVERFLOW = 464.0             # halfway to the next step: rounds past it
 
 _CODE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 _QMAX = {"int8": INT8_MAX, "fp8": FP8_MAX}
@@ -406,6 +417,75 @@ def quantized_grouped_linear(x, w, b=None, *, group_offsets, group_counts,
         qdtype, block_k, int(bm))
 
 
+class _QuantizedLinear(torch.autograd.Function):
+    """Quantized forward, float32 backward against the original weight
+    (the straight-through estimator of the JAX package's `_qlin_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, x_scale, qdtype, block_k):
+        codes, scales = quantize_weight_blockwise(w, block_k, qdtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        if qdtype == "fp8":
+            xf = x2.float()
+            xs = x_scale if x_scale is not None else torch.clamp_min(
+                xf.abs().amax(), 1e-12) / FP8_MAX
+            v = xf / xs
+            # torch's cast saturates at 448; the reference's gives NaN for
+            # what rounds past it (a stale delayed scale), as kept here
+            xq = torch.where(v.abs() > FP8_OVERFLOW, float("nan"),
+                             v.to(torch.float8_e4m3fn).float())
+            x2 = (xq * xs).to(x.dtype)
+        out = quant_matmul(x2, codes, scales)
+        ctx.save_for_backward(x, w)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        n, k = w.shape
+        dy2 = dy.reshape(-1, n).float()
+        dx = dy2.matmul(w.float()).to(x.dtype).reshape(x.shape)
+        dw = dy2.t().matmul(x.reshape(-1, k).float()).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def quantized_linear(x, w, *, qdtype="int8", block_k=None, x_scale=None):
+    """x [.., K] @ w^T for w [N, K] (torch.nn.Linear's layout), the weight
+    quantized per block of block_k contraction rows at each call and the
+    product run by `quant_matmul`; the gradients are full precision.
+    "int8" quantizes the weight only; "fp8" also fake-quantizes x per
+    tensor: by ``x_scale`` when given (a DelayedScaleState's scale), else
+    by its amax, taken on x's device without a host sync."""
+    if qdtype not in _CODE_DTYPES:
+        raise ValueError(f"qdtype must be 'int8' or 'fp8', got {qdtype!r}")
+    xs = None
+    if x_scale is not None:
+        xs = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+    return _QuantizedLinear.apply(x, w, xs, qdtype,
+                                  None if block_k is None else int(block_k))
+
+
+class DelayedScaleState:
+    """The host-side amax history of fp8 delayed scaling (the
+    transformer-engine recipe): ``observe`` an activation amax outside the
+    step and pass ``scale`` as the next step's x_scale."""
+
+    def __init__(self, history_len=16, qmax=FP8_MAX):
+        self._hist = collections.deque(maxlen=int(history_len))
+        self._qmax = float(qmax)
+
+    def observe(self, amax):
+        self._hist.append(float(amax))
+        return self.scale
+
+    @property
+    def scale(self):
+        if not self._hist:
+            return 1.0
+        m = max(self._hist)
+        return m / self._qmax if m > 0 else 1.0
+
+
 # -- the process-wide quantized-matmul dtype -----------------------------------
 
 def _env_default():
@@ -419,7 +499,8 @@ _UNCHANGED = "__unchanged__"
 
 def configure_matmul_quant(dtype=_UNCHANGED):
     """Set the process-wide quantized-matmul dtype (None, "int8" or
-    "fp8"), which MoELayer(expert_quant="auto") reads when it is built.
+    "fp8"), which the mp layers read at each call and
+    MoELayer(expert_quant="auto") when it is built.
     With no argument, read it without changing it. Returns the setting."""
     if dtype is not _UNCHANGED:
         if dtype in ("none", "", False):
@@ -433,3 +514,9 @@ def configure_matmul_quant(dtype=_UNCHANGED):
 
 def get_matmul_quant():
     return _MATMUL_QUANT["dtype"]
+
+
+def active_matmul_dtype(default="bfloat16"):
+    """The dtype the training products run at: the quantized-matmul dtype
+    when one is set, else ``default``."""
+    return _MATMUL_QUANT["dtype"] or str(default)

@@ -23,21 +23,29 @@ def parallel_linears(cfg, device, dtype, generator=None, has_bias=False):
     cfg.tensor_parallel (Column's output stays mp-sharded, Row takes
     mp-sharded input: the Megatron pairing), dense Linears otherwise
     (paddle's initialisers from ``generator``, or uninitialised when it
-    is None: the model draws them). A factory takes (in, out) and, for a
-    column, ``fused_parts`` (a fused q/k/v projection splits each part)."""
+    is None: the model draws them). With cfg.sequence_parallel the
+    tensor-parallel pair is the sequence-parallel one: Column takes
+    sequence-sharded input, Row gives it. A factory takes (in, out) and,
+    for a column, ``fused_parts`` (a fused q/k/v projection splits each
+    part)."""
     if cfg.tensor_parallel:
         from ..distributed.fleet.meta_parallel.mp_layers import (
             ColumnParallelLinear, RowParallelLinear)
+        column, row_cls = ColumnParallelLinear, RowParallelLinear
+        if getattr(cfg, "sequence_parallel", False):
+            from ..distributed.fleet.utils.sequence_parallel_utils import (
+                ColumnSequenceParallelLinear, RowSequenceParallelLinear)
+            column = ColumnSequenceParallelLinear
+            row_cls = RowSequenceParallelLinear
 
         def col(i, o, fused_parts=1):
-            return ColumnParallelLinear(
+            return column(
                 i, o, has_bias=has_bias, gather_output=False, device=device,
                 dtype=dtype, generator=generator, _fused_parts=fused_parts)
 
         def row(i, o):
-            return RowParallelLinear(i, o, has_bias=has_bias,
-                                     input_is_parallel=True, device=device,
-                                     dtype=dtype, generator=generator)
+            return row_cls(i, o, has_bias=has_bias, input_is_parallel=True,
+                           device=device, dtype=dtype, generator=generator)
         return col, row
 
     def dense(i, o, fused_parts=1):

@@ -25,8 +25,21 @@ embedding on both ends, its gradient summed over the two). TrainStep and
 fleet's PipelineParallel run the 1F1B (or, with ``virtual_pp_degree`` >
 1, interleaved) schedule over send/recv; ``forward`` returns the last
 stage's logits on every rank of the pp group. MoE, context (ring)
-parallelism, sequence parallelism and selective recompute policies are
-not ported; a config that asks for them raises.
+parallelism, sequence parallelism under the pipeline and selective
+recompute policies are not ported; a config that asks for them raises.
+
+``sequence_parallel=True`` with ``tensor_parallel`` is Megatron's
+sequence parallelism over the mp group: between the blocks each rank
+holds S/mp positions, so the norms and residuals run on them; q/k/v and
+gate/up are ColumnSequenceParallelLinear (all-gather of the sequence, or
+the ``column_sp`` ring under mp_overlap), o and down
+RowSequenceParallelLinear (reduce-scatter, or ``row_sp``). The
+embedding's output is scattered over the sequence and the final norm's
+gathered, so the head and the criterion see tensor parallelism's layout.
+The norms' weights are marked sequence-parallel and their gradients
+summed over mp as backward makes them. Without tensor parallelism the
+flag changes nothing (the dense model), as the reference's pin on an
+absent mp axis. The parameter names are tensor parallelism's.
 
 Auto-parallel: after ``distributed.shard_layer`` the parameters are
 DTensors, and the forward lifts every dense operand that meets them (the
@@ -140,7 +153,12 @@ class LlamaConfig:
 
 
 def _check_supported(cfg):
-    for name in ("sequence_parallel", "context_parallel", "num_experts"):
+    if cfg.sequence_parallel and cfg.pipeline_parallel:
+        raise NotImplementedError(
+            "LlamaConfig.sequence_parallel with pipeline_parallel is not "
+            "ported to the PyTorch package yet (sequence parallelism under "
+            "tensor parallelism is)")
+    for name in ("context_parallel", "num_experts"):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"LlamaConfig.{name} is not ported to the PyTorch package "
@@ -201,8 +219,10 @@ class LlamaAttention(nn.Module):
         self.o_proj = row(config.num_attention_heads * hd, h)
 
     def forward(self, x, cos, sin):
-        B, S = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(B, S, self.num_heads, self.head_dim)
+        q = self.q_proj(x)
+        # the whole sequence: under sequence parallelism x holds a part
+        B, S = q.shape[0], q.shape[1]
+        q = q.reshape(B, S, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim)
         q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
@@ -256,6 +276,15 @@ def _no_mask(config, attn_mask):
                          "only (attn_mask must be None)")
     raise NotImplementedError("LlamaForCausalLM(attn_mask=...) is not "
                               "ported to the PyTorch package yet")
+
+
+def _seq_group(config):
+    """The mp group a sequence-parallel model splits its sequence over
+    (None when it does not)."""
+    if not (config.sequence_parallel and config.tensor_parallel):
+        return None
+    g = mp_group(config)
+    return g if g is not None and g.nranks > 1 else None
 
 
 def _embedding(config, device, dtype):
@@ -335,6 +364,11 @@ class LlamaModel(PipelinedLM, nn.Module):
         w = self.embed_tokens.weight
         x = self.embed_tokens(lift(input_ids, w))
         cos, sin = lift(self.rope_cos[:S], w), lift(self.rope_sin[:S], w)
+        sp = _seq_group(self.config)
+        if sp is not None:
+            from ..distributed.fleet.utils.sequence_parallel_utils import (
+                ScatterOp)
+            x = ScatterOp.apply(x, sp)
         # full recompute of each layer in training, as the JAX model's
         # recompute with policy None: the backward reruns the layer's
         # forward instead of keeping its activations
@@ -344,7 +378,12 @@ class LlamaModel(PipelinedLM, nn.Module):
                 x = checkpoint(layer, x, cos, sin, use_reentrant=False)
             else:
                 x = layer(x, cos, sin)
-        return self.norm(x)
+        x = self.norm(x)
+        if sp is not None:
+            from ..distributed.fleet.utils.sequence_parallel_utils import (
+                GatherOp)
+            x = GatherOp.apply(x, sp)
+        return x
 
 
 class LlamaForCausalLM(PipelinedLM, nn.Module):
@@ -365,7 +404,15 @@ class LlamaForCausalLM(PipelinedLM, nn.Module):
         self.llama = LlamaModel(config, dev, dtype)
         first, last = _stage_ends(config)
         self.lm_head = None
-        if not config.tie_word_embeddings and last:
+        if not config.tie_word_embeddings and last and \
+                config.tensor_parallel:
+            # on the gathered final hidden state, sequence-parallel or not
+            from ..distributed.fleet.meta_parallel.mp_layers import (
+                ColumnParallelLinear)
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, device=dev, dtype=dtype)
+        elif not config.tie_word_embeddings and last:
             col, _ = parallel_linears(config, dev, dtype)
             self.lm_head = col(config.hidden_size, config.vocab_size)
         if config.pipeline_parallel:
@@ -376,6 +423,14 @@ class LlamaForCausalLM(PipelinedLM, nn.Module):
         # its state and apply_decay_param_fun by it
         for name, p in self.named_parameters():
             p.param_name = name
+        if _seq_group(config) is not None:
+            from ..distributed.fleet.utils.sequence_parallel_utils import (
+                mark_as_sequence_parallel_parameter,
+                register_sequence_parallel_allreduce_hooks)
+            for name, p in self.named_parameters():
+                if name.endswith("norm.weight"):
+                    mark_as_sequence_parallel_parameter(p)
+            register_sequence_parallel_allreduce_hooks(self)
 
     @property
     def device(self):

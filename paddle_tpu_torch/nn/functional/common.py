@@ -1,5 +1,5 @@
-"""Dropout (counterpart of the dropout in
-paddle_tpu/nn/functional/common.py).
+"""Dropout and the quantized linear (counterpart of the dropout and
+``quant_linear`` in paddle_tpu/nn/functional/common.py).
 
 The JAX package draws each mask with ``jax.random.bernoulli`` from a key
 the framework hands it. torch's ``F.dropout`` takes no generator and
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dropout"]
+__all__ = ["dropout", "quant_linear"]
 
 _MODES = ("upscale_in_train", "downscale_in_infer")
 
@@ -58,3 +58,13 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     kept = x / keep if mode == "upscale_in_train" else x
     return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
+
+
+def quant_linear(x, weight, qdtype="int8", name=None):
+    """y = x @ weight^T with ``weight`` [out, in] (torch.nn.Linear's
+    layout) quantized per block on each call and the product run by the
+    quant_matmul kernel; the gradients are full precision (the
+    straight-through estimator, kernels.quant_matmul.quantized_linear).
+    Bias-free, as the reference's: the mp layers add their bias after."""
+    from ...kernels.quant_matmul import quantized_linear
+    return quantized_linear(x, weight, qdtype=str(qdtype))

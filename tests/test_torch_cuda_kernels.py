@@ -604,6 +604,45 @@ def test_quant_matmul_takes_leading_dims_and_offset_views(cuda_device):
         quant_matmul(x.double(), codes, scales)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quantized_linear_launches_wgmma_and_equals_plain(cuda_device,
+                                                          qdtype):
+    """The mp layers' quantized product (quantized_linear, bf16 x of 3 x 40
+    rows: past the GEMVs) launches the wgmma kernel once and equals the
+    plain version on the same quantized operands; its straight-through
+    gradients are float32 products against the bf16 weight."""
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.standard_normal((96, 256)).astype(np.float32)
+                         * 0.05).to(cuda_device, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((3, 40, 256)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    w.requires_grad_()
+    x.requires_grad_()
+    before = dict(quant_matmul.route_launches)
+    y = qmm_mod.quantized_linear(x, w, qdtype=qdtype)
+    assert {r: c - before[r] for r, c in
+            quant_matmul.route_launches.items()} == \
+        {**dict.fromkeys(before, 0), "wgmma": 1}
+    codes, scales = quantize_weight_blockwise(w.detach(), None, qdtype)
+    xq = x.detach()
+    if qdtype == "fp8":
+        xs = x.detach().float().abs().amax() / qmm_mod.FP8_MAX
+        xq = ((x.detach().float() / xs).to(torch.float8_e4m3fn).float()
+              * xs).to(torch.bfloat16)
+    ref = quant_matmul_plain(xq.reshape(-1, 256), codes, scales)
+    torch.cuda.synchronize()
+    ok, err = _qmm_close(y.reshape(-1, 96), ref)
+    assert ok, f"max abs err {err}"
+    g = torch.ones_like(y)
+    y.backward(g)
+    dx = (g.reshape(-1, 96).float() @ w.detach().float()).to(torch.bfloat16)
+    assert torch.equal(x.grad.reshape(-1, 256), dx)
+    dw = (g.reshape(-1, 96).float().t()
+          @ x.detach().reshape(-1, 256).float()).to(torch.bfloat16)
+    assert torch.equal(w.grad, dw)
+
+
 # -- the tensor-core primitives and the wgmma product ----------------------------
 
 # both entries of csrc/wgmma_selftest.cu: the library is loaded once, with

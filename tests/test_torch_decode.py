@@ -24,6 +24,7 @@ from paddle_tpu_torch.kernels.ragged_paged_attention import (
 from paddle_tpu_torch.models.decode import CachedDecoder
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.paged_decode import PagedDecoder
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # tests/test_paged_decode.py's _tiny config, with hidden raised from 64 to
 # 256 so that the head dim is 64, one the prefill and decode kernels take

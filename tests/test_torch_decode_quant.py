@@ -33,6 +33,7 @@ from paddle_tpu_torch.kernels.ragged_paged_attention import (
 from paddle_tpu_torch.models.decode import CachedDecoder
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.paged_decode import PagedDecoder, QuantizedPool
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TINY = dict(vocab_size=97, hidden_size=256, intermediate_size=128,
             num_hidden_layers=3, num_attention_heads=4,

@@ -28,6 +28,7 @@ from paddle_tpu_torch.models import paged_decode
 from paddle_tpu_torch.models.decode import CachedDecoder
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.paged_decode import PagedDecoder
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BASE = dict(vocab_size=97, intermediate_size=192, num_hidden_layers=2,
             max_position_embeddings=192, use_flash_attention=False,

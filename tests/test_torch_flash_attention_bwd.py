@@ -35,6 +35,7 @@ from paddle_tpu_torch.kernels.flash_attention import (
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            LlamaPretrainingCriterion)
 from paddle_tpu_torch.nn.functional.flash_attention import flash_attention
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ATOL = 5e-5
 

@@ -51,6 +51,7 @@ from paddle_tpu_torch.nn.functional import (flash_attention_with_sparse_mask,
 from test_torch_flash_varlen import (
     KEYLESS_LSE, WG, _bf16, _bwd_ratio, _fwd_ratio,
     _masked_wgmma_bwd_emulation, _masked_wgmma_emulation, _tile_is_full)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 B, S, H, D = 2, 256, 2, 64
 SCALE = float(1.0 / np.sqrt(D))

@@ -63,6 +63,7 @@ from paddle_tpu_torch.kernels.flash_attention import (masked_bwd_route,
                                                       masked_fwd_route)
 from paddle_tpu_torch.nn.functional import (flash_attn_unpadded,
                                             flash_attn_varlen_qkvpacked)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 H, D = 2, 64
 SCALE = float(1.0 / np.sqrt(D))

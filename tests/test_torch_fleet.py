@@ -188,12 +188,33 @@ def test_later_slice_knobs_raise_and_name_themselves(knob, value):
     """The knobs of later slices raise NotImplementedError naming
     themselves; sharding_degree, ep_degree and dispatch_compress are
     ported: they raise only combined with tensor parallelism (or, for
-    dispatch_compress, validate as the reference's rules say)."""
+    dispatch_compress, validate as the reference's rules say); mp_overlap,
+    mp_activation_compress and matmul_quant are ported: they validate at
+    mp 2 and an incoherent setting raises the reference's ValueError."""
     s = fleet.DistributedStrategy()
     if knob.endswith("_degree"):
         s.hybrid_configs = {knob: value}
     else:
         setattr(s, knob, value)
+    if knob in ("mp_overlap", "mp_activation_compress", "matmul_quant"):
+        s.hybrid_configs = {"mp_degree": 2}
+        s.mp_overlap = True
+        assert s.validate() is s
+        # mp_overlap at mp 1; a codec without the rings; a bad dtype
+        bad = {"mp_overlap": ({"mp_degree": 1}, {}),
+               "mp_activation_compress": ({}, {"mp_overlap": False}),
+               "matmul_quant": ({}, {"matmul_quant": "int4"})}[knob]
+        ref = JStrategy()
+        for st in (s, ref):
+            st.hybrid_configs = {"mp_degree": 2, **bad[0]}
+            for k, v in {knob: value, "mp_overlap": True, **bad[1]}.items():
+                setattr(st, k, v)
+        with pytest.raises(ValueError) as je:
+            ref.validate()
+        with pytest.raises(ValueError, match=knob) as te:
+            s.validate()
+        assert str(te.value) == str(je.value)
+        return
     if knob in ("sharding_degree", "ep_degree", "dispatch_compress"):
         s.hybrid_configs = {"ep_degree": 2}
         assert s.validate() is s

@@ -45,6 +45,7 @@ from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt2_124m,
 from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.nn.functional.flash_attention import flash_attention
 from paddle_tpu_torch.observability import model_flops_per_token
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BATCH, SEQ = 2, 64
 LR = 1e-4

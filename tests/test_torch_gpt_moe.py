@@ -33,6 +33,7 @@ from paddle_tpu_torch import AdamW, TrainStep
 from paddle_tpu_torch.convert import moe_params_from_jax
 from paddle_tpu_torch.models.gpt_moe import (MoEGPT, gpt_moe_tiny, moe_loss,
                                              moe_flops_per_token)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 VOCAB = 512
 BATCH, SEQ = 2, 128

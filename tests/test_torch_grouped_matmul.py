@@ -39,6 +39,7 @@ from paddle_tpu_torch.kernels.grouped_matmul import (
     default_block_m, gm_dw_route, gm_route, grouped_bias_grad,
     grouped_matmul, grouped_matmul_dw, grouped_matmul_fwd, grouped_metadata)
 from paddle_tpu_torch.kernels.quant_matmul import split3_bf16
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REL_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7

@@ -30,6 +30,7 @@ from paddle_tpu.models.paged_decode import PagedDecoder as JaxPagedDecoder
 from paddle_tpu_torch.convert import params_from_jax
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.paged_decode import PagedDecoder
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CFG = dict(vocab_size=97, hidden_size=64, intermediate_size=128,
            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

@@ -29,7 +29,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 # functions from these, so they must load neither
 RANK_HELPERS = [ROOT / "tests" / "torch_dist_cases.py",
                 ROOT / "tests" / "torch_zero_cases.py",
-                ROOT / "tests" / "torch_auto_parallel_cases.py"]
+                ROOT / "tests" / "torch_auto_parallel_cases.py",
+                ROOT / "tests" / "torch_cm_cases.py"]
 
 
 def _port_sources():
@@ -189,9 +190,13 @@ def test_unported_model_options_raise(field):
         # policy is not
         kw["recompute_policy"] = "dots"
     if field == "tensor_parallel":
-        # tensor parallelism is ported; its sequence-parallel variant is
-        # not
-        kw["sequence_parallel"] = True
+        # tensor and sequence parallelism are ported; context (ring)
+        # parallelism with them is not
+        kw["context_parallel"] = True
+    if field == "sequence_parallel":
+        # sequence parallelism is ported under tensor parallelism; under
+        # the pipeline it is not
+        kw["pipeline_parallel"] = True
     if field == "pipeline_parallel":
         # pipeline parallelism is ported; its MoE stack is not
         kw["num_experts"] = 4

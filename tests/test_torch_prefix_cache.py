@@ -39,6 +39,7 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.paged_decode import (BlockAllocator,
                                                   PagedDecoder, QuantizedPool)
 from paddle_tpu_torch.serving.cache import RadixPrefixCache, plan_prefix
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CFG = dict(vocab_size=97, hidden_size=64, intermediate_size=128,
            num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,

@@ -44,6 +44,7 @@ from paddle_tpu_torch.kernels.quant_matmul import (
     get_matmul_quant, gq_route, quant_grouped_matmul,
     quant_grouped_matmul_plain, quantize_weight_blockwise,
     quantized_grouped_linear, split3_bf16)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REL_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7

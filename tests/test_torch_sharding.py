@@ -48,6 +48,7 @@ from paddle_tpu.incubate.distributed.models.moe import MoELayer as JMoELayer
 import torch
 import torch_dist_cases as cases
 import torch_zero_cases
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 N = 4
 DIMS = (6, 12, 20, 3, 2)           # in, hidden, width, out, blocks

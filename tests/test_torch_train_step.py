@@ -47,6 +47,7 @@ from paddle_tpu_torch import (AdamW, LlamaConfig, LlamaForCausalLM,
                               LlamaPretrainingCriterion, TrainStep)
 from paddle_tpu_torch.convert import optimizer_state_from_jax, \
     params_from_jax
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU_CFG = dict(vocab_size=1024, hidden_size=128, intermediate_size=256,
                num_hidden_layers=2, num_attention_heads=4,
